@@ -1,0 +1,93 @@
+"""Model weights for the port: random initialisation and conversion from the
+JAX package's parameter layout.
+
+Params are a dict of tensors in the JAX package's layout: per-layer weights
+stacked on a leading ``[L, ...]`` axis and stored ``[in, out]``::
+
+    {"embed": [V, H], "final_norm": [H], ("lm_head": [H, V]),
+     "layers": {"attn_norm": [L, H], "q": [L, H, nh*hd], "k"/"v": [L, H, kvh*hd],
+                "o": [L, nh*hd, H], "mlp_norm": [L, H], "gate"/"up": [L, H, I],
+                "down": [L, I, H]}}
+
+Quantized serving params (``inference.quantized.quantize_params``) replace
+each projection by ``{"q": ints, "s": f32 scales}``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from llm_qat_torch.device import resolve_device
+from llm_qat_torch.models.config import LlamaConfig
+
+Params = Dict[str, Any]
+
+
+def from_numpy(tree, device=None, dtype=None):
+    """A JAX-layout pytree of numpy arrays (latent fp or already quantized)
+    -> the same dict of tensors on ``device``. Integer arrays keep their
+    type, quantization scales (key ``"s"``) stay float32, and other floating
+    arrays become ``dtype`` when one is given (bfloat16 arrays from JAX,
+    which numpy holds as ml_dtypes, go through float32)."""
+    dev = resolve_device(device)
+
+    def conv(x, key):
+        a = np.asarray(x)
+        if a.dtype.kind not in "biuf":   # e.g. ml_dtypes.bfloat16
+            a = a.astype(np.float32)
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if t.is_floating_point():
+            if key == "s":
+                t = t.float()
+            elif dtype is not None:
+                t = t.to(dtype)
+        return t
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return conv(node, key)
+
+    return walk(tree)
+
+
+def init_params(config: LlamaConfig, seed: int = 0, device=None,
+                dtype=torch.float32) -> Params:
+    """Random init, normal(0, 0.02) like the reference's ``_init_weights``,
+    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
+    (torch's numbers, not JAX's: the tests hand both packages numpy weights).
+    Norm gains are ones."""
+    dev = resolve_device(device)
+    c = config
+    hd, nh, kvh, L = c.head_dim, c.num_attention_heads, c.kv_heads, c.num_hidden_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def w(*shape):
+        t = torch.empty(shape, dtype=torch.float32, device=dev)
+        return t.normal_(0.0, 0.02, generator=gen).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    params: Params = {
+        "embed": w(c.vocab_size, c.hidden_size),
+        "layers": {
+            "attn_norm": ones(L, c.hidden_size),
+            "q": w(L, c.hidden_size, nh * hd),
+            "k": w(L, c.hidden_size, kvh * hd),
+            "v": w(L, c.hidden_size, kvh * hd),
+            "o": w(L, nh * hd, c.hidden_size),
+            "mlp_norm": ones(L, c.hidden_size),
+            "gate": w(L, c.hidden_size, c.intermediate_size),
+            "up": w(L, c.hidden_size, c.intermediate_size),
+            "down": w(L, c.intermediate_size, c.hidden_size),
+        },
+        "final_norm": ones(c.hidden_size),
+    }
+    if not c.tie_word_embeddings:
+        params["lm_head"] = w(c.hidden_size, c.vocab_size)
+    return params

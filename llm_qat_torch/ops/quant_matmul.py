@@ -1,0 +1,260 @@
+"""True low-bit quantized matmul: int8 x int8 and W4A8, with the scale fixup.
+
+Math contract (the JAX package's ``ops/pallas/quant_matmul.py``)::
+
+    s_w[j] = qmax / (absmax_k |w[k,j]| + 1e-6)      per output channel
+    s_x[i] = qmax / (absmax_k |x[i,k]| + 1e-6)      per token
+    wq = round(w * s_w);  xq = round(x * s_x)       (round half to even)
+    out[i,j] = (sum_k xq[i,k] * wq[k,j]) * (1 / ((s_x[i]+1e-6) * (s_w[j]+1e-6)))
+
+Two kernels, each beside its plain PyTorch version:
+
+* ``int8_matmul`` (``csrc/int8_matmul.cu``) replaces
+  ``llm_qat_tpu/ops/pallas/quant_matmul.py:_int8_matmul_kernel``.
+* ``int4_matmul`` (``csrc/w4a8_matmul.cu``) replaces
+  ``llm_qat_tpu/ops/pallas/quant_matmul.py:_w4a8_matmul_kernel``.
+
+A wrapper takes the plain version only for tensors on the CPU; on a CUDA
+tensor it launches its kernel or raises. Each wrapper counts its launches in
+its ``launches`` attribute. The plain versions accumulate in float64, which
+holds every int8 x int8 sum of these shapes exactly (|sum| < 2**53), so they
+give the kernels' int32 accumulator bit for bit on either device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from llm_qat_torch.ops import _build
+
+_EPS = 1e-6  # reference epsilon (utils_quant.py:71-72)
+
+# Below this row count quant_linear's W8 path launches the int8 kernel; at or
+# above it, it takes the library int8 GEMM (the JAX package's XLA int8 dot).
+XLA_INT8_MIN_ROWS = 128
+
+
+# ---------------------------------------------------------------------------
+# Quantizers (produce the true-int operands)
+# ---------------------------------------------------------------------------
+
+
+def _scale(qmax: float, absmax: torch.Tensor) -> torch.Tensor:
+    """``qmax / (absmax + 1e-6)`` in f32 as one IEEE division (torch's
+    ``scalar / tensor`` multiplies by the reciprocal, which can differ in
+    the last bit and flip a rounded integer). The numerator is filled on
+    the tensor's device: no host-to-device copy."""
+    den = absmax.float() + _EPS
+    return torch.full((), qmax, dtype=torch.float32, device=den.device) / den
+
+
+def quantize_per_token(
+    x: torch.Tensor, bits: int = 8, amax: torch.Tensor = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., K] -> (int8 values, f32 scales [..., 1]); symmetric absmax with
+    the reference's +1e-6. ``amax`` overrides the local absmax."""
+    qmax = float(2 ** (bits - 1) - 1)
+    if amax is None:
+        amax = x.abs().amax(dim=-1, keepdim=True)
+    s = _scale(qmax, amax)
+    q = torch.round(x.float() * s).to(torch.int8)
+    return q, s
+
+
+def quantize_per_channel(
+    w: torch.Tensor, bits: int = 8
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., K, N] -> (int8 values, f32 scales [..., 1, N]); per output
+    channel (absmax over K)."""
+    qmax = float(2 ** (bits - 1) - 1)
+    s = _scale(qmax, w.abs().amax(dim=-2, keepdim=True))
+    q = torch.round(w.float() * s).to(torch.int8)
+    return q, s
+
+
+def pack_int4(q: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """int8 in [-8, 7] -> uint8 with half the length along ``axis``,
+    split-half packed: element k of the top half rides in the high nibble
+    of element k - n/2. The one owner of the nibble format: weights pack
+    along K (axis -2 of ``[..., K, N]``), KV caches along the head dim."""
+    n = q.shape[axis]
+    assert n % 2 == 0, q.shape
+    lo = q.narrow(axis, 0, n // 2).to(torch.uint8) & 0xF
+    hi = q.narrow(axis, n // 2, n // 2).to(torch.uint8) & 0xF
+    return (hi << 4) | lo
+
+
+def unpack_int4(packed: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """Inverse of pack_int4 -> int8 (sign-extended nibbles), the low
+    nibbles first along ``axis``."""
+    p = packed.to(torch.int32)
+    lo = ((p << 28) >> 28).to(torch.int8)
+    hi = ((p << 24) >> 28).to(torch.int8)
+    return torch.cat([lo, hi], dim=axis)
+
+
+def quantize_weights_w4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., K, N] fp -> (packed uint8 [..., K//2, N], scales [..., 1, N])."""
+    q, s = quantize_per_channel(w, bits=4)
+    return pack_int4(q), s
+
+
+def _pad_rows(x: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, int]:
+    M = x.shape[0]
+    pad = (-M) % multiple
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))], dim=0)
+    return x, M
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _exact_int_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The int8 x int8 product, exact, as float64 (see module docstring)."""
+    return xq.to(torch.float64) @ wq.to(torch.float64)
+
+
+def _int8_matmul_plain(xq, wq, sx, sw, out_dtype=torch.bfloat16):
+    """Plain version of the int8 kernel: the exact int32 accumulator through
+    the kernel's epilogue ``acc * (1/((sx+eps)*(sw+eps)))``."""
+    acc = _exact_int_dot(xq, wq).float()
+    inv = 1.0 / ((sx + _EPS) * (sw + _EPS))
+    return (acc * inv).to(out_dtype)
+
+
+def _int4_matmul_plain(xq, w_packed, sx, sw, out_dtype=torch.bfloat16):
+    """Plain version of the W4A8 kernel: unpack the nibbles, then the int8
+    product and epilogue (integer sums are exact, so the split-half K order
+    cannot change the result)."""
+    return _int8_matmul_plain(xq, unpack_int4(w_packed), sx, sw, out_dtype)
+
+
+def int8_matmul_xla(xq, wq, sx, sw, *, out_dtype=torch.bfloat16):
+    """Same math as ``int8_matmul`` with the epilogue as a division, the
+    JAX package's ``int8_matmul_xla`` (its large-M W8 route). On the GPU the
+    product is the library int8 GEMM ``torch._int_mm`` (the JAX package leaves
+    this product to XLA, outside any Pallas kernel); on the CPU it is the
+    exact float64 product."""
+    if xq.is_cuda:
+        acc = torch._int_mm(xq, wq)
+    else:
+        acc = _exact_int_dot(xq, wq)
+    return (acc.float() / ((sx + _EPS) * (sw + _EPS))).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_operands(xq, w, sx, sw, out_dtype, k_per_row):
+    M, K = xq.shape
+    Kw, N = w.shape
+    if K != k_per_row * Kw:
+        raise ValueError(f"K mismatch: x {tuple(xq.shape)}, w {tuple(w.shape)}")
+    if tuple(sx.shape) != (M, 1) or tuple(sw.shape) != (1, N):
+        raise ValueError(f"scale shapes {tuple(sx.shape)}, {tuple(sw.shape)}")
+    if out_dtype not in _OUT_CODES:
+        raise ValueError(f"out_dtype {out_dtype} not supported")
+    return M, K, N
+
+
+def _launch_gemm(stem, fn, xq, w, sx, sw, out_dtype, M, N, K):
+    for name, t, dt in (("xq", xq, torch.int8), ("sx", sx, torch.float32),
+                        ("sw", sw, torch.float32)):
+        if t.dtype != dt or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError(f"{fn}: {name} must be a contiguous CUDA {dt}")
+    if not w.is_contiguous() or not w.is_cuda:
+        raise ValueError(f"{fn}: weight must be a contiguous CUDA tensor")
+    if N % 64 or K % 128:
+        raise ValueError(f"{fn}: needs N % 64 == 0 and K % 128 == 0, got {N}, {K}")
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    f = _build.bind(stem, fn, 5, 4)
+    err = f(xq.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            out.data_ptr(), M, N, K, _OUT_CODES[out_dtype],
+            torch.cuda.current_stream(xq.device).cuda_stream)
+    _build.check(err, fn)
+    return out
+
+
+def int8_matmul(
+    xq: torch.Tensor,   # [M, K] int8
+    wq: torch.Tensor,   # [K, N] int8
+    sx: torch.Tensor,   # [M, 1] f32 per-token scales
+    sw: torch.Tensor,   # [1, N] f32 per-channel scales
+    *,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """True-int8 matmul with scale fixup: ``(xq @ wq) / (sx * sw)``."""
+    M, K, N = _check_operands(xq, wq, sx, sw, out_dtype, 1)
+    if xq.device.type == "cpu":
+        return _int8_matmul_plain(xq, wq, sx, sw, out_dtype)
+    if wq.dtype != torch.int8:
+        raise ValueError("int8_matmul: wq must be int8")
+    out = _launch_gemm("int8_matmul", "int8_matmul", xq, wq, sx, sw,
+                       out_dtype, M, N, K)
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0
+
+
+def int4_matmul(
+    xq: torch.Tensor,        # [M, K] int8
+    w_packed: torch.Tensor,  # [K//2, N] uint8, split-half packed
+    sx: torch.Tensor,        # [M, 1] f32
+    sw: torch.Tensor,        # [1, N] f32
+    *,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """True-W4 matmul: packed nibbles are the only weight traffic; the kernel
+    unpacks them in registers and feeds int8 tensor-core products for the low
+    and high halves of K."""
+    M, K, N = _check_operands(xq, w_packed, sx, sw, out_dtype, 2)
+    if xq.device.type == "cpu":
+        return _int4_matmul_plain(xq, w_packed, sx, sw, out_dtype)
+    if w_packed.dtype != torch.uint8:
+        raise ValueError("int4_matmul: w_packed must be uint8")
+    out = _launch_gemm("w4a8_matmul", "w4a8_matmul", xq, w_packed, sx, sw,
+                       out_dtype, M, N, K)
+    int4_matmul.launches += 1
+    return out
+
+
+int4_matmul.launches = 0
+
+
+def _quant_act_matmul(kernel, x, w, sw, bits, out_dtype):
+    """Per-token activation quant at ``bits`` levels, rows padded to a
+    multiple of 32, the int product, padding sliced off. At W8 the padded
+    row count picks the route: from ``XLA_INT8_MIN_ROWS`` on, the library
+    int8 GEMM (the JAX package's ``quant_linear`` decides on the padded
+    count; its ``w8a8_matmul`` on the unpadded one, which differs only for
+    97..127 rows and only in the epilogue's last bit)."""
+    xq, sx = quantize_per_token(x, bits)
+    xq, M = _pad_rows(xq, 32)
+    sx, _ = _pad_rows(sx, 32)
+    if kernel is int8_matmul and xq.shape[0] >= XLA_INT8_MIN_ROWS:
+        kernel = int8_matmul_xla
+    return kernel(xq, w, sx, sw, out_dtype=out_dtype)[:M]
+
+
+def w8a8_matmul(x, wq, sw, *, out_dtype=torch.bfloat16, bits: int = 8):
+    """Dynamic per-token activation quant + int8 matmul: the weight-bound
+    int8 kernel at decode row counts, the library int8 GEMM from
+    ``XLA_INT8_MIN_ROWS`` padded rows on."""
+    return _quant_act_matmul(int8_matmul, x, wq, sw, bits, out_dtype)
+
+
+def w4a8_matmul(x, w_packed, sw, *, out_dtype=torch.bfloat16, bits: int = 8):
+    """Dynamic per-token activation quant + fused W4 matmul (every row
+    count)."""
+    return _quant_act_matmul(int4_matmul, x, w_packed, sw, bits, out_dtype)

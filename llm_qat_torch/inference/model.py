@@ -16,9 +16,13 @@ Where the JAX package returns a new cache from a donated buffer
 ``lengths``; each function that does so says it.
 
 Per step: the prefill of fresh slots runs the flash kernel over this call's
-own fake-quant K/V; a decode step runs the fused decode kernel over the
-read-only cache with the current token folded in, then commits one K/V
-column per layer and slot. The layer stack is a Python loop (JAX: scan).
+own fake-quant K/V. A decode step (s = 1) of the default configuration
+(``use_megakernel=True``) goes to ``megakernel.decode_step``, one kernel
+launch for all layers, where ``megakernel.supported``; otherwise, and with
+``use_megakernel=False``, the scan path here runs the fused decode kernel
+per layer over the read-only cache with the current token folded in, then
+commits one K/V column per layer and slot. The scan path's layer stack is a
+Python loop (JAX: scan).
 """
 
 from __future__ import annotations
@@ -246,13 +250,14 @@ def _forward(qparams, config: LlamaConfig, input_ids, seq_lens, active, cache,
     c = config
     b, s = input_ids.shape
     max_len = cache["k_q"].shape[4]
-    if s == 1 and c.use_megakernel:
-        raise NotImplementedError(
-            "use_megakernel=True: the whole-model decode kernel "
-            "(llm_qat_tpu/inference/megakernel.py:_kernel) is not ported "
-            "yet; serve with use_megakernel=False (the scan path)"
-        )
     dev = input_ids.device
+    if s == 1 and c.use_megakernel:
+        from llm_qat_torch.inference import megakernel
+
+        # configs outside supported() serve via the scan path below
+        if megakernel.supported(c, b, max_len):
+            return megakernel.decode_step(qparams, c, input_ids, seq_lens, active,
+                                          cache, dtype, device=dev)
     h = qparams["embed"][input_ids.long()].to(dtype)
     positions = seq_lens[:, None] + torch.arange(s, dtype=torch.int32, device=dev)[None]
     # inactive slots write into the last row (scratch) and never validate it
@@ -284,11 +289,15 @@ def _forward(qparams, config: LlamaConfig, input_ids, seq_lens, active, cache,
                           k_cols, v_cols, k_invs, v_invs, write_pos,
                           cache_is_packed(c))
 
-    h = llama.rms_norm(h, qparams["final_norm"], c.rms_norm_eps)
+    return final_logits(h, qparams, c), dict(cache, lengths=new_len)
+
+
+def final_logits(h: torch.Tensor, qparams, config: LlamaConfig) -> torch.Tensor:
+    """Final RMSNorm and the fp lm_head: operands in the model type, fp32
+    products and output (the JAX package's ``preferred_element_type=f32``)."""
+    h = llama.rms_norm(h, qparams["final_norm"], config.rms_norm_eps)
     head = qparams["lm_head"] if "lm_head" in qparams else qparams["embed"].T
-    # bf16 operands, fp32 products and output (preferred_element_type=f32)
-    logits = torch.matmul(h.float(), head.to(h.dtype).float())
-    return logits, dict(cache, lengths=new_len)
+    return torch.matmul(h.float(), head.to(h.dtype).float())
 
 
 def _as_tensor(x, dtype, device) -> torch.Tensor:

@@ -4,9 +4,7 @@ Field for field the same dataclass as the JAX package's ``models/config.py``
 (so a config converts between the two packages with
 ``dataclasses.asdict``); it is copied rather than imported because the port
 imports nothing of the JAX package. The flags name the serving paths; the
-port honours each one it implements and raises on the rest
-(``use_megakernel=True`` at decode raises until the whole-model decode kernel
-is ported).
+port honours each one it implements and raises on the rest.
 """
 
 from __future__ import annotations
@@ -46,8 +44,11 @@ class LlamaConfig:
     # Nibble-pack the serving KV cache when kv_bits <= 4: two head-dim halves
     # per byte (split-half along head_dim, the int4 weights' scheme).
     kv_cache_pack: bool = True
-    # Whole-model decode kernel. Not ported yet: serving a decode step with
-    # this set raises NotImplementedError; pass use_megakernel=False.
+    # Whole-model decode kernel (inference/megakernel.py): one launch per
+    # decode step for all layers. Configs outside megakernel.supported() and
+    # use_megakernel=False serve via the scan path. megakernel_bk overrides
+    # the KV block of its online softmax; megakernel_nc is the JAX package's
+    # weight-chunk width, read only to reproduce that package's KV block.
     use_megakernel: bool = True
     megakernel_nc: int = 0
     megakernel_bk: int = 0

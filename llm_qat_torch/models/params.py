@@ -54,6 +54,29 @@ def from_numpy(tree, device=None, dtype=None):
     return walk(tree)
 
 
+_CACHE_DTYPES = {"k_q": (torch.int8, torch.uint8), "v_q": (torch.int8, torch.uint8),
+                 "k_s": (torch.float32,), "v_s": (torch.float32,),
+                 "lengths": (torch.int32,)}
+
+
+def cache_from_numpy(cache, device=None) -> Dict[str, torch.Tensor]:
+    """A serving cache of the JAX package as numpy arrays (``k_q``/``v_q``
+    int8 or nibble-packed uint8 ``[L, b, kvh, hd(/2), S]``, ``k_s``/``v_s``
+    f32 ``[L, b, S]``, ``lengths`` int32 ``[b]``) -> the port's cache on
+    ``device``: same layout, so a cache prefilled by one package feeds the
+    other's decode step. The tensors are copies; the port writes them in
+    place."""
+    if set(cache) != set(_CACHE_DTYPES):
+        raise ValueError(f"serving cache keys {sorted(cache)}, expected {sorted(_CACHE_DTYPES)}")
+    out = from_numpy({k: np.array(v) for k, v in cache.items()}, device)
+    for k, t in out.items():
+        if t.dtype not in _CACHE_DTYPES[k]:
+            raise ValueError(f"serving cache {k} is {t.dtype}, expected {_CACHE_DTYPES[k]}")
+    if out["v_q"].shape != out["k_q"].shape or out["k_q"].dtype != out["v_q"].dtype:
+        raise ValueError("serving cache: V must share K's layout and type")
+    return out
+
+
 def init_params(config: LlamaConfig, seed: int = 0, device=None,
                 dtype=torch.float32) -> Params:
     """Random init, normal(0, 0.02) like the reference's ``_init_weights``,

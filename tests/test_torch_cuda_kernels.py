@@ -11,12 +11,20 @@ attention round at the same points against the same softmax maximum as
 their plain versions and differ only in fp32 summation order: held element
 by element, in bf16 to 2 bf16 steps of the expected value plus 1e-2 of the
 median expected magnitude, in f32 to 1e-5 of the value plus 1e-4 of the
-median.
+median. The whole-model decode kernel takes every rounded sum in float64, as
+its plain version does, so the two are expected to agree bit for bit; held
+here to: committed K/V integers and lengths equal, inverse scales at rtol
+1e-6, logits element-wise as above.
 """
 
 import pytest
 import torch
 
+from llm_qat_torch.inference import megakernel as MK
+from llm_qat_torch.inference import model as M
+from llm_qat_torch.inference import quantized as Q
+from llm_qat_torch.models import params as P
+from llm_qat_torch.models.config import LLAMA_7B, TINYLLAMA_1B
 from llm_qat_torch.ops import decode_attention as DA
 from llm_qat_torch.ops import flash_attention as FA
 from llm_qat_torch.ops import quant_matmul as QM
@@ -111,3 +119,91 @@ def test_flash_fwd_kernel(gen, S, causal, soft_bf16):
     o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, causal, soft_bf16)
     assert _close(o, o2)
     assert float((lse - lse2).abs().max()) < 1e-3
+
+
+def _random_cache(cfg, b, S, gen):
+    packed = M.cache_is_packed(cfg)
+    shape = (cfg.num_hidden_layers, b, cfg.kv_heads,
+             cfg.head_dim // 2 if packed else cfg.head_dim, S)
+    lo, hi, qdt = (0, 256, torch.uint8) if packed else (-127, 128, torch.int8)
+    ints = lambda: torch.randint(lo, hi, shape, device="cuda", generator=gen).to(qdt)  # noqa: E731
+    scales = lambda: torch.rand(shape[0], b, S, device="cuda", generator=gen) * 0.02 + 0.005  # noqa: E731
+    return {"k_q": ints(), "k_s": scales(), "v_q": ints(), "v_s": scales()}
+
+
+def _megakernel_against_plain(cfg, lens, active, dtype, gen, S):
+    """One decode step through the kernel and through its plain version
+    from the same random cache and weights."""
+    qp = Q.quantize_params(P.init_params(cfg, seed=0, dtype=dtype), cfg)
+    b = len(lens)
+    cache = _random_cache(cfg, b, S, gen)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    act = torch.tensor(active, device="cuda")
+    ids = torch.randint(0, cfg.vocab_size, (b, 1), device="cuda", generator=gen)
+    n0 = MK.decode_layers.launches
+    c1 = {k: v.clone() for k, v in cache.items()}
+    lg1, c1 = MK.decode_step(qp, cfg, ids, lens_t, act, c1, dtype)
+    assert MK.decode_layers.launches == n0 + 1          # one launch for all layers
+    c2 = {k: v.clone() for k, v in cache.items()}
+    lg2, c2 = MK.decode_step_plain(qp, cfg, ids, lens_t, act, c2, dtype)
+    assert MK.decode_layers.launches == n0 + 1
+    torch.cuda.synchronize()
+    for k in ("k_q", "v_q", "lengths"):
+        assert torch.equal(c1[k], c2[k]), k
+    for k in ("k_s", "v_s"):
+        assert torch.allclose(c1[k], c2[k], rtol=1e-6, atol=0), k
+    assert _close(lg1, lg2)
+    # the step wrote column `length` of active slots and nothing below it
+    for i, (n, a) in enumerate(zip(lens, active)):
+        assert torch.equal(c1["k_q"][:, i, :, :, :n], cache["k_q"][:, i, :, :, :n])
+        assert c1["lengths"][i] == n + int(a)
+    return lg1
+
+
+K9_MODES = {
+    "w8kv8": dict(w_bits=8, a_bits=8, kv_bits=8),
+    "w4kv4_packed": dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True),
+}
+
+
+@pytest.mark.parametrize("mode", list(K9_MODES))
+@pytest.mark.parametrize("rope_mode", ["pre", "post"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 8, 32])
+def test_decode_megakernel_against_plain(gen, mode, rope_mode, dtype, b):
+    """A 2-layer cut at TinyLlama-1.1B width, max_len 2048: slots that are
+    empty, end inside a KV block, on a block edge and some blocks in; one
+    inactive. b = 32 fills the products' second row tile; at W8A8KV8 it
+    takes the KV block of 128 that the JAX picker gives it (512 elsewhere)."""
+    cfg = TINYLLAMA_1B.replace(num_hidden_layers=2, kv_cache_rope=rope_mode, **K9_MODES[mode])
+    assert MK.supported(cfg, b, 2048)
+    assert MK.pick_bk(cfg, b, 2048) == (128 if (b, mode) == (32, "w8kv8") else 512)
+    lens = [48, 0, 282, 511, 512, 513, 1024, 1400]
+    active = [True, True, False, True, True, True, True, True]
+    if b == 1:
+        lens, active = [700], [True]
+    elif b == 32:
+        lens = lens + [(37 * i) % 2000 for i in range(24)]
+        active = active + [i % 5 != 0 for i in range(24)]
+    lg = _megakernel_against_plain(cfg, lens, active, dtype, gen, 2048)
+    assert lg.shape == (b, 1, cfg.vocab_size) and lg.dtype == torch.float32
+
+
+@pytest.mark.parametrize("bk,S", [(128, 1024), (64, 64), (1024, 2048)])
+def test_decode_megakernel_other_kv_blocks(gen, bk, S):
+    """megakernel_bk overrides and a short cache: more blocks per slot (the
+    online rescale runs more often), one block, and the largest block whose
+    scores, K and V bytes fit a block's shared memory."""
+    cfg = TINYLLAMA_1B.replace(num_hidden_layers=2, w_bits=4, a_bits=8, kv_bits=4,
+                               megakernel_bk=bk)
+    assert MK.pick_bk(cfg, 4, S) == bk
+    lens = [min(n, S - 2) for n in (5, 130, 500, 1023)]
+    _megakernel_against_plain(cfg, lens, [True, False, True, True], torch.bfloat16, gen, S)
+
+
+def test_decode_megakernel_refuses_shapes_it_is_not_built_for(gen):
+    cfg = LLAMA_7B.replace(num_hidden_layers=1, vocab_size=256, w_bits=8, a_bits=8, kv_bits=8)
+    qp = Q.quantize_params(P.init_params(cfg, seed=0, dtype=torch.bfloat16), cfg)
+    cache = M.init_serving_cache(cfg, 1, 256)
+    with pytest.raises(NotImplementedError, match="1 query heads per kv head at head dim 128"):
+        MK.decode_step(qp, cfg, [[3]], [0], [True], cache)

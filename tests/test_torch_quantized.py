@@ -185,18 +185,6 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked():
         TM.serving_forward(qp, cfg, np.zeros((1, 1), np.int64), [0], [True], cache)
 
 
-def test_megakernel_flag_raises_at_decode():
-    cfg = tcfg(BASE.replace(use_megakernel=True))
-    qp = TQ.quantize_params(TP.init_params(cfg, device="cpu"), cfg, device="cpu")
-    cache = TM.init_serving_cache(cfg, 1, 16, device="cpu")
-    # prefill (s > 1) is the scan path either way
-    TM.serving_forward(qp, cfg, np.zeros((1, 4), np.int64), [0], [True], cache,
-                       dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="megakernel"):
-        TM.serving_forward(qp, cfg, np.zeros((1, 1), np.int64), [4], [True], cache,
-                           dtype=torch.float32, device="cpu")
-
-
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

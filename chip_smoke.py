@@ -10,7 +10,11 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    path, holds it against its plain PyTorch version on the same inputs and
    times kernel, plain version and, where one exists, the single PyTorch
    call that computes the same function (``library_ms``; the port never
-   calls it);
+   calls it). The paged decode attention is also held against the contiguous
+   decode attention on the same K/V gathered into a contiguous cache, and
+   runs at the LLaMA-7B attention shape too; the stacked kernels are held
+   against their plain versions and against the unstacked kernels on the
+   layer's slice;
 3. for TinyLlama-1.1B at full width and depth with random weights, at
    W8A8KV8 and at W4A8KV4 (nibble-packed KV cache): one decode step of the
    whole-model decode kernel against its plain version (22 layers and a
@@ -20,9 +24,14 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    configuration, whose decode steps are one launch of that kernel. Every
    launch count is set to 0 just before each run and read just after, and
    the two runs' greedy tokens are held against each other (see
-   ``compare_tokens``). Then the same weights, for one short prompt, through
-   the GPU paths with their kernels, the GPU path with the plain versions
-   and the port's CPU path (see ``cpu_check`` for the limits);
+   ``compare_tokens``). Then ``PagedInferenceEngine`` serves the same 8
+   requests from a page pool (pages of 128, 16 a sequence), once with a
+   roomy pool (256 pages) and once with a tight one (``TIGHT_PAGES``), which
+   must preempt (see ``serve_paged``). Then the same weights, for one short
+   prompt, through the GPU paths with their kernels, the GPU path with the
+   plain versions and the port's CPU path, contiguous and paged, and the
+   paged path against the scan path on a prompt of more than one page (see
+   ``cpu_check`` for the limits);
 4. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -56,6 +65,11 @@ K9_INACTIVE = 2                     # this slot sits the step out
 NEAR_TIE_OVER = 4.0                 # see compare_tokens
 MEGA_FULL_DRIFT = 0.5               # megakernel vs scan path, full depth (sanity)
 MEGA_CUT_DRIFT = 0.15               # megakernel vs scan path, 2-layer cut
+PAGE, SEQ_PAGES, ROOMY_PAGES = 128, 16, 256   # paged serving: page size, pages a sequence, pool
+TIGHT_PAGES = 33                    # 32 usable pages: the buckets need 40 (see serve_paged)
+PAGED_VS_K3_ULPS, PAGED_VS_K3_FLOOR = 4.0, 2e-2   # K8 against K3 on the gathered cache
+PAGED_PROMPT = 1000                 # the longest served prompt: 8 pages, so K8 rescales 7 times
+STACK_LAYER = 3                     # the layer K5-K7 read in place
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -258,6 +272,177 @@ def flash_phase(timer, gen, FA, c, S):
                 bound_ms=b_ms, bound_by=b_by, lse_err=lse_err, **agr)
 
 
+def paged_attention_phase(timer, gen, DA, kvh, G, hd, packed):
+    """K8 at the paged decode shape: b = 8 slots, a pool of 256 pages of 128,
+    16 pages a sequence, lengths K9_LENS (an empty slot, one on a page edge),
+    slot K9_INACTIVE inactive, fold on, bf16; block tables shuffled and
+    non-contiguous, their unused entries pointing outside the pool. Held
+    element-wise against the plain version under the K3/K4 limit (both walk
+    the pages in order and round p*vs against the running maximum), and, as
+    a second witness that shares no indirection with it, against the
+    contiguous decode attention on the same K/V gathered into a contiguous
+    cache (the CUDA kernel K3 at the shape it is built for, its plain
+    version otherwise): that one takes p against the final maximum, so the
+    two differ by the rounding of p*vs, held to PAGED_VS_K3_ULPS bf16 steps
+    + PAGED_VS_K3_FLOOR of the median."""
+    b, n_pages, max_pages = len(K9_LENS), ROOMY_PAGES, SEQ_PAGES
+    hdc = hd // 2 if packed else hd
+    lo, hi, qdt = (0, 256, torch.uint8) if packed else (-127, 128, torch.int8)
+
+    def ints():
+        return torch.randint(lo, hi, (n_pages, kvh, hdc, PAGE), device="cuda",
+                             generator=gen).to(qdt)
+
+    def scales():
+        return torch.rand(n_pages, PAGE, device="cuda", generator=gen) * 0.02 + 0.005
+
+    kq, ks, vq, vs = ints(), scales(), ints(), scales()
+    ids = torch.randperm(n_pages - 1, device="cuda", generator=gen).cpu()
+    bt = torch.full((b, max_pages), 10 ** 6, dtype=torch.int32)
+    safe = torch.zeros((b, max_pages), dtype=torch.int64)
+    at = 0
+    for i, n in enumerate(K9_LENS):
+        live = -(-n // PAGE)
+        bt[i, :live] = ids[at:at + live].to(torch.int32)
+        safe[i, :live] = ids[at:at + live]
+        at += live + 1                                  # leave holes: non-contiguous
+    bt, safe = bt.cuda(), safe.cuda()
+    q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(torch.bfloat16)
+    lens = torch.tensor(K9_LENS, dtype=torch.int32, device="cuda")
+    kc, ksn = DA._rope_tables(max_pages * PAGE, hd, 10000.0, "cuda")
+    flo, fhi = (-8, 8) if packed else (-127, 128)
+    kn = torch.randint(flo, fhi, (b, kvh, hd), device="cuda", generator=gen).to(torch.int8)
+    vn = torch.randint(flo, fhi, (b, kvh, hd), device="cuda", generator=gen).to(torch.int8)
+    ki = torch.rand(b, 1, device="cuda", generator=gen) * 0.02 + 0.005
+    vi = torch.rand(b, 1, device="cuda", generator=gen) * 0.02 + 0.005
+    act = torch.tensor([int(i != K9_INACTIVE) for i in range(b)], dtype=torch.int32,
+                       device="cuda")
+    pos = lens.long()
+    fold = (kn, ki, vn, vi, act, kc[:, pos].T.contiguous(), ksn[:, pos].T.contiguous())
+    args = (q, kq, ks, vq, vs, lens, bt, kc, ksn, fold)
+    kw = dict(rope=True, packed=packed)
+    got = DA.quantized_paged_attention(*args, **kw)
+    want = DA._paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    agr = agreement(got, want, ATTN_ULPS, ATTN_FLOOR)
+    if not agr["ok"]:
+        raise AssertionError(f"paged attention G={G} hd={hd} packed={packed}: {agr}")
+    # the same K/V as a contiguous cache [b, kvh, hd(/2), max_pages * P]
+    ck = kq[safe].permute(0, 2, 3, 1, 4).reshape(b, kvh, hdc, -1).contiguous()
+    cv = vq[safe].permute(0, 2, 3, 1, 4).reshape(b, kvh, hdc, -1).contiguous()
+    cks, cvs = ks[safe].reshape(b, -1).contiguous(), vs[safe].reshape(b, -1).contiguous()
+    contiguous = (DA.quantized_decode_attention if (G, hd) == (8, 64)
+                  else DA._decode_attention_plain)
+    flat = contiguous(q, ck, cks, cv, cvs, lens, kc, ksn, fold, **kw)
+    torch.cuda.synchronize()
+    k3 = agreement(got, flat, PAGED_VS_K3_ULPS, PAGED_VS_K3_FLOOR)
+    if not k3["ok"]:
+        raise AssertionError(f"paged attention against the contiguous one on the gathered "
+                             f"cache, G={G} hd={hd} packed={packed}: {k3}")
+    ms = timer(lambda: DA.quantized_paged_attention(*args, **kw))
+    plain_ms = timer(lambda: DA._paged_attention_plain(*args, **kw))
+    live_cols = sum(-(-n // PAGE) * PAGE for n in K9_LENS)      # whole live pages
+    tot = sum(K9_LENS)
+    nbytes = (2 * kvh * hdc * tot + 2 * 4 * tot           # live K/V columns, scales
+              + 2 * 4 * (hd // 2) * max(K9_LENS)          # RoPE table columns
+              + 4 * sum(-(-n // PAGE) for n in K9_LENS) + 4 * b   # live table entries, lengths
+              + 2 * 2 * b * kvh * G * hd                  # q, out (bf16)
+              + 2 * b * kvh * hd + 8 * b + 4 * b + 2 * 4 * b * (hd // 2))   # folded pair
+    ops = 2 * 2 * kvh * G * hd * (tot + b)                # q.k and p.v
+    b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
+    log(f"  paged_attention kvh={kvh} G={G} hd={hd} packed={packed} b={b} pool {n_pages} x "
+        f"{PAGE} lens={list(K9_LENS)}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.5f} "
+        f"{b_by}) max_abs_err {agr['max_abs_err']:.3g}, worst {agr['worst']:.3g} of its "
+        f"limit; against {'K3' if (G, hd) == (8, 64) else 'the plain contiguous version'} on "
+        f"the gathered cache: max_abs_err {k3['max_abs_err']:.3g}, worst {k3['worst']:.3g} of "
+        f"its limit ({PAGED_VS_K3_ULPS} bf16 steps + {PAGED_VS_K3_FLOOR} x median)")
+    return dict(kvh=kvh, G=G, hd=hd, packed=packed, b=b, n_pages=n_pages, page=PAGE,
+                max_pages=max_pages, lengths=list(K9_LENS), live_columns=live_cols, ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                against_contiguous=k3, **agr)
+
+
+def stacked_gemm_phase(timer, gen, QM, qparams, w4):
+    """K5 (W8) or K6 (W4) at layer STACK_LAYER of the served model's stacked
+    weights, the four projections at decode rows (M = 32), read in place:
+    bit-equal to the plain version and to the unstacked kernel (K1/K2) on
+    that layer's slice."""
+    name = "int4_matmul_stacked" if w4 else "int8_matmul_stacked"
+    fn = getattr(QM, name)
+    flat = QM.int4_matmul if w4 else QM.int8_matmul
+    plain = QM._int4_matmul_plain if w4 else QM._int8_matmul_plain
+    M, l = 32, STACK_LAYER
+    shapes = []
+    before = fn.launches
+    for proj in ("qkv", "o", "gateup", "down"):
+        w_all, sw_all = qparams["layers"][proj]["q"], qparams["layers"][proj]["s"]
+        K, N = (2 if w4 else 1) * w_all.shape[1], w_all.shape[2]
+        xq, sx = QM.quantize_per_token(torch.randn(M, K, device="cuda", generator=gen))
+        got = fn(xq, w_all, sx, sw_all, layer=l)
+        want = plain(xq, w_all[l], sx, sw_all[l])
+        same = flat(xq, w_all[l], sx, sw_all[l])
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, same)):
+            raise AssertionError(f"{name} {proj}: not bit-equal to its plain version and "
+                                 "to the unstacked kernel")
+        ms = timer(lambda: fn(xq, w_all, sx, sw_all, layer=l))
+        plain_ms = timer(lambda: plain(xq, w_all[l], sx, sw_all[l]))
+        lib_ms = None
+        if not w4:
+            lib_ms = timer(lambda: (torch._int_mm(xq, w_all[l]).float()
+                                    * (1.0 / ((sx + 1e-6) * (sw_all[l] + 1e-6))))
+                           .to(torch.bfloat16))
+        b_ms, b_by = bound(M * K + w_all[l].numel() + 4 * (M + N) + 2 * M * N,
+                           2.0 * M * K * N, INT8_OPS)
+        shapes.append(dict(proj=proj, M=M, K=K, N=N, layer=l, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0))
+        log(f"  {name} {proj:6s} layer {l} of {w_all.shape[0]} M={M} K={K} N={N}: {ms:.4f} ms "
+            f"(plain {plain_ms:.4f}, library {lib_ms}, bound {b_ms:.4f} {b_by}) bit-equal to "
+            "plain and unstacked")
+    return dict(shapes=shapes, launches=fn.launches - before)
+
+
+def stacked_attention_phase(timer, gen, DA, c):
+    """K7 at the K3 phase's shape on layer STACK_LAYER - 1 of a 3-layer
+    stacked int8 cache: b = 8, S = 2048, the lengths of the K3 phase with
+    slot 1 empty, slot K9_INACTIVE's pair excluded; the pair arrives as bf16
+    fake-quantized values. Held against its plain version as K3 is."""
+    L, l = 3, STACK_LAYER - 1
+    cache = random_cache(c.replace(num_hidden_layers=L, kv_bits=8, kv_cache_pack=False),
+                         8, 2048, gen)
+    b, kvh, G, hd = 8, c.kv_heads, c.num_attention_heads // c.kv_heads, c.head_dim
+    q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(torch.bfloat16)
+    lens_l = [n + NEW_TOKENS // 2 for n in PROMPT_LENS]
+    lens_l[1] = 0
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    inc = torch.tensor([int(i != K9_INACTIVE) for i in range(b)], dtype=torch.int32,
+                       device="cuda")
+    kn = (torch.randn(b, kvh, hd, device="cuda", generator=gen) * 0.5).to(torch.bfloat16)
+    vn = (torch.randn(b, kvh, hd, device="cuda", generator=gen) * 0.5).to(torch.bfloat16)
+    kc, ksn = DA._rope_tables(2048, hd, c.rope_theta, "cuda")
+    args = (q, cache["k_q"], cache["k_s"], cache["v_q"], cache["v_s"], lens, inc, kn, vn,
+            kc, ksn)
+    before = DA.quantized_decode_attention_stacked.launches
+    got = DA.quantized_decode_attention_stacked(*args, layer=l)
+    want = DA._decode_attention_stacked_plain(*args, layer=l)
+    torch.cuda.synchronize()
+    agr = agreement(got, want, ATTN_ULPS, ATTN_FLOOR)
+    if not agr["ok"]:
+        raise AssertionError(f"stacked decode attention: {agr}")
+    ms = timer(lambda: DA.quantized_decode_attention_stacked(*args, layer=l))
+    plain_ms = timer(lambda: DA._decode_attention_stacked_plain(*args, layer=l))
+    tot = sum(lens_l)
+    nbytes = (2 * kvh * hd * tot + 2 * 4 * tot + 2 * 4 * (hd // 2) * max(lens_l)
+              + 2 * 2 * b * kvh * G * hd + 2 * 2 * b * kvh * hd + 8 * b)
+    b_ms, b_by = bound(nbytes, 2 * 2 * kvh * G * hd * (tot + b), BF16_FLOPS)
+    log(f"  decode_attention_stacked layer {l} of {L} b={b} S=2048 lens={lens_l}: {ms:.4f} ms "
+        f"(plain {plain_ms:.4f}, bound {b_ms:.5f} {b_by}) max_abs_err {agr['max_abs_err']:.3g}, "
+        f"worst {agr['worst']:.3g} of its limit")
+    return dict(layer=l, layers=L, b=b, S=2048, lengths=lens_l, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                launches=DA.quantized_decode_attention_stacked.launches - before, **agr)
+
+
 def cut_layers(qparams, n):
     """The first ``n`` layers of stacked serving params (views)."""
     return dict(qparams, layers={k: ({kk: vv[:n] for kk, vv in v.items()}
@@ -414,7 +599,11 @@ def counters():
     from llm_qat_torch.ops import quant_matmul as QM
     return {"int8_matmul": QM.int8_matmul, "int4_matmul": QM.int4_matmul,
             "decode_attention": DA.quantized_decode_attention,
-            "flash_fwd": FA._flash_fwd, "decode_megakernel": MK.decode_layers}
+            "flash_fwd": FA._flash_fwd, "decode_megakernel": MK.decode_layers,
+            "paged_attention": DA.quantized_paged_attention,
+            "int8_matmul_stacked": QM.int8_matmul_stacked,
+            "int4_matmul_stacked": QM.int4_matmul_stacked,
+            "decode_attention_stacked": DA.quantized_decode_attention_stacked}
 
 
 def read_counters():
@@ -500,9 +689,120 @@ def serve(label, cfg, qparams, prompts):
     return m, [by_uid[u] for u in uids], tops
 
 
-def compare_tokens(label, scan, mega, path_diff):
-    """The megakernel run's greedy tokens against the scan run's, request
-    by request. The two decode paths differ by design (SiLU in fp32 against
+def serve_paged(label, cfg, qparams, prompts, n_pages, profile):
+    """Serve the 8 requests through ``PagedInferenceEngine`` at full
+    TinyLlama width and depth: pages of PAGE tokens, SEQ_PAGES a sequence, a
+    pool of ``n_pages`` (one of them scratch). At admission the prompts'
+    buckets (16, 128, 256, 512, 4 x 1024) take 1+1+2+4+8+8+8+8 = 40 pages:
+    ROOMY_PAGES holds them all; TIGHT_PAGES = 33 (32 usable) leaves the
+    eighth request waiting and is dry at the first page a decoding slot
+    crosses into, so the engine must preempt. Preemptions are counted here,
+    by wrapping ``_preempt_victim``, with the tokens each one throws away
+    (the victim's prompt and output so far, prefilled again on
+    re-admission). Returns the run's metrics and each request's tokens."""
+    from llm_qat_torch.inference import paged as PG
+    from llm_qat_torch.inference import paged_engine as PE
+
+    pcfg = PG.PagedConfig(page_size=PAGE, n_pages=n_pages, max_pages_per_seq=SEQ_PAGES)
+
+    def engine():
+        return PE.PagedInferenceEngine(qparams, cfg, pcfg=pcfg, max_batch=8, steps_per_sync=8)
+
+    warm = engine()
+    warm.submit(prompts[0], max_new_tokens=8)
+    warm.run()
+    del warm
+
+    eng = engine()
+    pre = {"s": 0.0, "calls": 0, "rows": 0, "launches": dict.fromkeys(counters(), 0)}
+    real_prefill, real_fwd, real_preempt = eng._prefill, eng._fwd, eng._preempt_victim
+
+    def timed_prefill(qp, ids, *a):
+        before = read_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_prefill(qp, ids, *a)
+        torch.cuda.synchronize()
+        pre["s"] += time.perf_counter() - t
+        pre["calls"] += 1
+        pre["rows"] += ids.shape[0] * ids.shape[1]
+        for k, n in read_counters().items():
+            pre["launches"][k] += n - before[k]
+        return out
+
+    steps = [0]
+
+    def counted_fwd(*a):
+        steps[0] += 1
+        return real_fwd(*a)
+
+    preempted = {"n": 0, "tokens": 0}
+
+    def counted_preempt(skip):
+        hit = real_preempt(skip)
+        if hit:                                    # the victim now heads the queue
+            preempted["n"] += 1
+            preempted["tokens"] += len(eng.queue[0].prompt)
+        return hit
+
+    eng._prefill, eng._fwd, eng._preempt_victim = timed_prefill, counted_fwd, counted_preempt
+    uids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+
+    # a preempted request comes back with its output folded into its prompt:
+    # its tokens are the prompt's tail plus what it generated afterwards
+    by_uid = {r.uid: r for r in done}
+    toks = []
+    for u, p in zip(uids, prompts):
+        r = by_uid.get(u)
+        toks.append(None if r is None else r.prompt[len(p):] + r.output)
+    if len(done) != len(prompts) or any(t is None or len(t) != NEW_TOKENS for t in toks):
+        raise AssertionError(f"{label}: {len(done)} finished, outputs "
+                             f"{[None if t is None else len(t) for t in toks]}")
+    if not torch.isfinite(eng._logits).all():
+        raise AssertionError(f"{label}: non-finite logits")
+    if any(not (0 <= t < cfg.vocab_size) for ts in toks for t in ts):
+        raise AssertionError(f"{label}: token out of range")
+    if eng.alloc.available != n_pages - 1:
+        raise AssertionError(f"{label}: {eng.alloc.available} of {n_pages - 1} pages back "
+                             "in the pool after the run")
+    decode_s = wall - pre["s"]
+    prompt_tokens = sum(PROMPT_LENS) + preempted["tokens"]
+    m = dict(
+        mode=label, requests=len(done), n_pages=n_pages, page_size=PAGE,
+        prompt_tokens=sum(PROMPT_LENS), prefilled_tokens=prompt_tokens,
+        prefill_calls=pre["calls"], prefill_rows=pre["rows"], prefill_s=pre["s"],
+        prefill_tok_per_s=prompt_tokens / pre["s"],
+        decode_steps=steps[0], decode_s=decode_s,
+        decode_ms_per_step=1e3 * decode_s / steps[0],
+        generated_tok_per_s=len(done) * NEW_TOKENS / wall, wall_s=wall,
+        preemptions=preempted["n"], recomputed_tokens=preempted["tokens"],
+        launches=launches, prefill_launches=pre["launches"],
+        decode_launches={k: launches[k] - pre["launches"][k] for k in launches},
+    )
+    if profile:
+        m["profile"] = profile_decode_chunk(eng, prompts)
+        if eng.alloc.available != n_pages - 1:
+            raise AssertionError(f"{label}: pages missing after the profiled run")
+    log(f"  {label}: pool {n_pages} x {PAGE}, prefill {m['prefill_tok_per_s']:.0f} tok/s "
+        f"({prompt_tokens} tokens in {m['prefill_calls']} calls, {m['prefill_s']:.3f} s), "
+        f"decode {m['decode_ms_per_step']:.3f} ms/step over {m['decode_steps']} steps, "
+        f"{m['generated_tok_per_s']:.1f} generated tok/s, {preempted['n']} preemptions, "
+        f"{preempted['tokens']} recomputed tokens; launches in prefill "
+        f"{m['prefill_launches']}, in decode {m['decode_launches']}")
+    return m, toks
+
+
+def compare_tokens(label, scan, mega, path_diff, other="megakernel"):
+    """The megakernel run's (or, with ``other="paged"``, the roomy paged
+    run's) greedy tokens against the scan run's, request by request. The two decode paths differ by design (SiLU in fp32 against
     the model type, attention rounded block by block against per slot), and
     22 layers that re-quantize every projection's input amplify that, so a
     greedy choice may flip where logits nearly tie, and after a flip the
@@ -515,7 +815,7 @@ def compare_tokens(label, scan, mega, path_diff):
     which both runs share) is equal; at a request's first difference that
     lead is at most NEAR_TIE_OVER x ``path_diff`` (2 e, and a factor 2 for
     another prompt and a longer context than e was measured on)."""
-    (_, s_tok, s_logits), (_, m_tok, _) = scan, mega
+    (_, s_tok, s_logits), m_tok = scan, mega[1]
     flips = []
     for r, (a, b) in enumerate(zip(s_tok, m_tok)):
         t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -524,10 +824,10 @@ def compare_tokens(label, scan, mega, path_diff):
         if t == 0:
             raise AssertionError(f"{label}: request {r} differs at the prefill's token")
         row = s_logits[t - 1][r]               # the step that produced token t
-        flips.append(dict(request=r, step=t, scan_token=a[t], megakernel_token=b[t],
+        flips.append(dict(request=r, step=t, scan_token=a[t], other_token=b[t],
                           scan_lead=float(row[a[t]] - row[b[t]]), row_std=float(row.std())))
     limit = NEAR_TIE_OVER * path_diff
-    log(f"  {label}: megakernel run against scan run, {len(s_tok) - len(flips)} of "
+    log(f"  {label}: {other} run against scan run, {len(s_tok) - len(flips)} of "
         f"{len(s_tok)} requests equal over {NEW_TOKENS} tokens; first differences "
         f"(scan path's lead there, limit {limit:.4g}): "
         + ("; ".join(f"request {f['request']} step {f['step']} lead {f['scan_lead']:.4g} "
@@ -572,7 +872,7 @@ def profile_decode_chunk(eng, prompts):
 
 @contextlib.contextmanager
 def plain_on_gpu():
-    """Within the block, the five kernel wrappers are their plain versions,
+    """Within the block, the kernel wrappers are their plain versions,
     so the GPU path runs with no hand-written kernel: the witness that
     separates the kernels' share of a GPU/CPU difference from the rest of
     the GPU path's (cuBLAS bf16 products, CUDA reductions)."""
@@ -585,6 +885,7 @@ def plain_on_gpu():
              (QM, "int8_matmul", QM._int8_matmul_plain),
              (QM, "int4_matmul", QM._int4_matmul_plain),
              (DA, "quantized_decode_attention", DA._decode_attention_plain),
+             (DA, "quantized_paged_attention", DA._paged_attention_plain),
              (FA, "_flash_fwd", FA._flash_fwd_plain)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     try:
@@ -596,22 +897,87 @@ def plain_on_gpu():
             setattr(mod, name, fn)
 
 
-def _greedy_logits(cfg, qp, prompt, dev, toks):
+@contextlib.contextmanager
+def k8_against_k3(found):
+    """Within the block every launch of the paged attention kernel is also
+    held against the contiguous kernel K3 on the same K/V, gathered from the
+    pool through the block tables into a contiguous cache: the two kernels on
+    the model's own data, layer by layer and step by step, with nothing in
+    between to amplify a difference. ``found`` collects each comparison."""
+    from llm_qat_torch.ops import decode_attention as DA
+
+    real = DA.quantized_paged_attention
+
+    def both(q, k_q, k_s, v_q, v_s, lens, bt, kc=None, ksn=None, fold=None, **kw):
+        out = real(q, k_q, k_s, v_q, v_s, lens, bt, kc, ksn, fold, **kw)
+        b, idx = bt.shape[0], bt.long()
+        ck = k_q[idx].permute(0, 2, 3, 1, 4).reshape(b, k_q.shape[1], k_q.shape[2], -1)
+        cv = v_q[idx].permute(0, 2, 3, 1, 4).reshape(b, v_q.shape[1], v_q.shape[2], -1)
+        flat = DA.quantized_decode_attention(
+            q, ck.contiguous(), k_s[idx].reshape(b, -1), cv.contiguous(),
+            v_s[idx].reshape(b, -1), lens, kc, ksn, fold, **kw)
+        found.append(agreement(out, flat, PAGED_VS_K3_ULPS, PAGED_VS_K3_FLOOR))
+        return out
+
+    both.launches = real.launches      # the wrapper counts on its module's name
+    DA.quantized_paged_attention = both
+    try:
+        yield
+    finally:
+        real.launches = both.launches
+        DA.quantized_paged_attention = real
+
+
+def _greedy_logits(cfg, qp, prompt, dev, toks, max_len=64, dtype=torch.bfloat16):
     """Prefill + 4 decode steps; the first run (``toks`` empty) picks the
     greedy tokens and later runs are teacher-forced with them. Returns the
     5 last-position logit vectors on the host."""
     from llm_qat_torch.inference import model as M
 
-    lg, rows = M.prefill_slot(qp, cfg, prompt[None], device=dev)
-    cache = M.init_serving_cache(cfg, 1, 64, device=dev)
+    n = len(prompt)
+    bucket = 16
+    while bucket < n:
+        bucket *= 2
+    ids = np.zeros((1, bucket), np.int64)
+    ids[0, :n] = prompt
+    lg, rows = M.prefill_slot(qp, cfg, ids, dtype=dtype, device=dev)
+    cache = M.init_serving_cache(cfg, 1, max_len, device=dev)
     M.insert_slot(cache, rows, 0)
     cache["lengths"] = torch.full((1,), len(prompt), dtype=torch.int32, device=dev)
-    seq = [lg[0, -1].float().cpu()]
+    seq = [lg[0, n - 1].float().cpu()]
     for i in range(4):
         if len(toks) == i:
             toks.append(int(seq[-1].argmax()))
         lg, cache = M.serving_forward(qp, cfg, [[toks[i]]], cache["lengths"], [True],
-                                      cache, device=dev)
+                                      cache, dtype=dtype, device=dev)
+        seq.append(lg[0, -1].float().cpu())
+    return seq
+
+
+def _greedy_logits_paged(cfg, qp, prompt, dev, toks, dtype=torch.bfloat16):
+    """``_greedy_logits`` through the paged forward: the prompt's bucket
+    prefilled from empty into shuffled pages of a small pool, then 4 decode
+    steps."""
+    from llm_qat_torch.inference import paged as PG
+
+    n = len(prompt)
+    bucket = 16
+    while bucket < n:
+        bucket *= 2
+    pages = -(-(n + 4) // PAGE)
+    pcfg = PG.PagedConfig(page_size=PAGE, n_pages=pages + 3, max_pages_per_seq=pages + 1)
+    cache = PG.init_paged_cache(cfg, pcfg, device=dev)
+    tables = [list(range(pages, 0, -1)) + [0]]          # pages + 1 entries, reversed ids
+    ids = np.zeros((1, bucket), np.int64)
+    ids[0, :n] = prompt
+    lg, cache = PG.paged_forward(qp, cfg, pcfg, ids, [0], [True], tables, cache,
+                                 dtype=dtype, from_empty=True, device=dev)
+    seq = [lg[0, n - 1].float().cpu()]
+    for i in range(4):
+        if len(toks) == i:
+            toks.append(int(seq[-1].argmax()))
+        lg, cache = PG.paged_forward(qp, cfg, pcfg, [[toks[i]]], [n + i], [True], tables,
+                                     cache, dtype=dtype, device=dev)
         seq.append(lg[0, -1].float().cpu())
     return seq
 
@@ -624,12 +990,14 @@ def _compare(a_seq, b_seq):
     return same, drift, max(float((a - b).abs().max()) for a, b in zip(a_seq, b_seq))
 
 
-def gpu_vs_cpu(cfg, qparams, prompt):
+def gpu_vs_cpu(cfg, qparams, prompt, long_prompt):
     """The same weights through four paths: the GPU scan path with its
     kernels, the default path (decode steps in the whole-model kernel), the
     GPU scan path with the plain versions (``plain_on_gpu``) and the CPU
     scan path (plain versions), the last three teacher-forced with the
-    first's greedy tokens."""
+    first's greedy tokens; then the paged path the same three ways (kernels,
+    plain versions, CPU), and the paged path against the scan path on
+    ``long_prompt``."""
     def tree_cpu(t):
         return {k: tree_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
 
@@ -640,10 +1008,33 @@ def gpu_vs_cpu(cfg, qparams, prompt):
     with plain_on_gpu():
         plain = _greedy_logits(scan, qparams, prompt, "cuda", toks)
     cpu = _greedy_logits(scan, tree_cpu(qparams), prompt, "cpu", toks)
-    finite = all(bool(torch.isfinite(x).all()) for x in kern + mega)
+    # the paged path: with its kernels, with the plain versions, on the CPU
+    pkern = _greedy_logits_paged(scan, qparams, prompt, "cuda", toks)
+    with plain_on_gpu():
+        pplain = _greedy_logits_paged(scan, qparams, prompt, "cuda", toks)
+    pcpu = _greedy_logits_paged(scan, tree_cpu(qparams), prompt, "cpu", toks)
+    # paged against scan on a prompt of several pages (its own greedy tokens)
+    ltoks = []
+    lscan = _greedy_logits(scan, qparams, long_prompt, "cuda", ltoks, max_len=2048)
+    k8 = []
+    with k8_against_k3(k8):
+        lpaged = _greedy_logits_paged(scan, qparams, long_prompt, "cuda", ltoks)
+    # and in float32, where K8 and K3 round nothing and differ only in the
+    # order of their fp32 sums
+    ftoks = []
+    fscan = _greedy_logits(scan, qparams, long_prompt, "cuda", ftoks, max_len=2048,
+                           dtype=torch.float32)
+    fpaged = _greedy_logits_paged(scan, qparams, long_prompt, "cuda", ftoks,
+                                  dtype=torch.float32)
+    finite = all(bool(torch.isfinite(x).all()) for x in kern + mega + pkern + lpaged + fpaged)
     return dict(kernels_vs_cpu=_compare(kern, cpu), plain_vs_cpu=_compare(plain, cpu),
                 kernels_vs_plain=_compare(kern, plain), megakernel_vs_scan=_compare(mega, kern),
-                finite=finite)
+                paged_vs_cpu=_compare(pkern, pcpu), paged_plain_vs_cpu=_compare(pplain, pcpu),
+                paged_vs_plain=_compare(pkern, pplain), paged_vs_scan=_compare(lpaged, lscan),
+                paged_vs_scan_f32=_compare(fpaged, fscan), finite=finite,
+                k8_vs_k3=dict(launches=len(k8), ok=all(a["ok"] for a in k8),
+                              worst=max(a["worst"] for a in k8),
+                              max_abs_err=max(a["max_abs_err"] for a in k8)))
 
 
 def cpu_check(label, cfg, qparams, rng):
@@ -668,31 +1059,71 @@ def cpu_check(label, cfg, qparams, rng):
     algorithms, not of the CUDA kernel (held bit for bit against its plain
     version in ``megakernel_phase``): it is reported, held under
     MEGA_FULL_DRIFT (unrelated logits would read 1.4) and its largest
-    absolute value sets ``compare_tokens``' limit."""
+    absolute value sets ``compare_tokens``' limit.
+
+    The paged path is held the same way against its own CPU run and its own
+    plain-versions witness. Paged against scan, both on the GPU, on a prompt
+    of PAGED_PROMPT tokens (8 pages), where the two run the same code but for
+    K8 against K3. The proof that the paged path computes the scan path's
+    function is taken where nothing amplifies a difference: every K8 launch
+    of that run is held against K3 on the same K/V gathered into a
+    contiguous cache (``k8_against_k3``), under the kernel phase's limit. The
+    logits are reported and held loosely. In bf16 K8 rounds p*vs against the
+    running maximum where K3 takes the final one, a bf16 step in some
+    attention outputs, and the int8 quant after it amplifies that as it does
+    for the megakernel path (4-5% at the cut): held to MEGA_CUT_DRIFT at the
+    cut and MEGA_FULL_DRIFT at full depth, tokens reported (they part at
+    near-ties), and the largest absolute difference at full depth sets the
+    limit of ``compare_tokens`` for the paged run. In float32 neither kernel
+    rounds and the paths read 2e-7..5e-7 apart at the cut, unless one of
+    the ~10^5 int8 activations of the four steps rounds the other way, which
+    the next layer grows to percents (one run in two read 2.9%): same limits."""
     prompt = rng.integers(1, cfg.vocab_size, 16)
-    full = gpu_vs_cpu(cfg, qparams, prompt)
+    # from a generator of its own: ``rng``'s draws stay those of the prompts
+    long_prompt = np.random.default_rng(PAGED_PROMPT).integers(1, cfg.vocab_size,
+                                                               PAGED_PROMPT)
+    full = gpu_vs_cpu(cfg, qparams, prompt, long_prompt)
     cut = cfg.replace(num_hidden_layers=CUT_LAYERS)
-    part = gpu_vs_cpu(cut, cut_layers(qparams, CUT_LAYERS), prompt)
+    part = gpu_vs_cpu(cut, cut_layers(qparams, CUT_LAYERS), prompt, long_prompt)
     for depth, r in ((cfg.num_hidden_layers, full), (CUT_LAYERS, part)):
         log(f"  {label} {depth} layers, greedy tokens equal per step and largest logit "
             "drift (largest absolute difference): "
             + "; ".join(f"{k} {r[k][0]} {r[k][1]:.4g} ({r[k][2]:.3g})"
                                   for k in ("kernels_vs_cpu", "plain_vs_cpu",
-                                            "kernels_vs_plain", "megakernel_vs_scan")))
+                                            "kernels_vs_plain", "megakernel_vs_scan",
+                                            "paged_vs_cpu", "paged_plain_vs_cpu",
+                                            "paged_vs_plain", "paged_vs_scan",
+                                            "paged_vs_scan_f32")))
     limit_full = FULL_DRIFT_OVER * full["plain_vs_cpu"][1] + CUT_DRIFT
+    limit_paged = FULL_DRIFT_OVER * full["paged_plain_vs_cpu"][1] + CUT_DRIFT
     log(f"  {label} limits: {CUT_LAYERS} layers {CUT_DRIFT}; full depth "
-        f"{FULL_DRIFT_OVER} x plain GPU path's + {CUT_DRIFT} = {limit_full:.4g}")
+        f"{FULL_DRIFT_OVER} x plain GPU path's + {CUT_DRIFT} = {limit_full:.4g} "
+        f"(paged: {limit_paged:.4g}); paged vs scan: {MEGA_CUT_DRIFT} at {CUT_LAYERS} layers, "
+        f"{MEGA_FULL_DRIFT} at full depth; K8 against K3 inside that run: "
+        + "; ".join(f"{r['k8_vs_k3']['launches']} launches, worst {r['k8_vs_k3']['worst']:.3g} "
+                    f"of its limit, max_abs_err {r['k8_vs_k3']['max_abs_err']:.3g}"
+                    for r in (part, full)))
     ok = (full["finite"] and part["finite"]
           and all(part["kernels_vs_cpu"][0]) and part["kernels_vs_cpu"][1] <= CUT_DRIFT
           and all(full["kernels_vs_plain"][0])
           and full["kernels_vs_cpu"][1] <= limit_full
           and all(part["megakernel_vs_scan"][0])
           and part["megakernel_vs_scan"][1] <= MEGA_CUT_DRIFT
-          and full["megakernel_vs_scan"][1] <= MEGA_FULL_DRIFT)
+          and full["megakernel_vs_scan"][1] <= MEGA_FULL_DRIFT
+          and all(part["paged_vs_cpu"][0]) and part["paged_vs_cpu"][1] <= CUT_DRIFT
+          and all(full["paged_vs_plain"][0])
+          and full["paged_vs_cpu"][1] <= limit_paged
+          and part["paged_vs_scan"][1] <= MEGA_CUT_DRIFT
+          and full["paged_vs_scan"][1] <= MEGA_FULL_DRIFT
+          and part["paged_vs_scan_f32"][1] <= MEGA_CUT_DRIFT
+          and full["paged_vs_scan_f32"][1] <= MEGA_FULL_DRIFT
+          and part["k8_vs_k3"]["ok"] and full["k8_vs_k3"]["ok"]
+          and part["k8_vs_k3"]["launches"] == 4 * CUT_LAYERS
+          and full["k8_vs_k3"]["launches"] == 4 * cfg.num_hidden_layers)
     if not ok:
         raise AssertionError(f"{label}: GPU and CPU paths disagree")
     return dict(mode=label, full_depth=full, cut_layers=CUT_LAYERS, cut=part,
-                full_depth_limit=limit_full)
+                full_depth_limit=limit_full, full_depth_limit_paged=limit_paged)
 
 
 # ---------------------------------------------------------------------------
@@ -728,10 +1159,18 @@ def main() -> int:
     gemm = gemm_phase(timer, gen, QM, cfg)
     dec = [decode_attention_phase(timer, gen, DA, cfg, packed) for packed in (False, True)]
     fl = [flash_phase(timer, gen, FA, cfg, S) for S in (1024, 128)]
+    G = cfg.num_attention_heads // cfg.kv_heads
+    # K8 at TinyLlama-1.1B's attention shape and at LLaMA-7B's (32 MHA heads of 128)
+    pag = [paged_attention_phase(timer, gen, DA, kvh, g, hd, packed)
+           for kvh, g, hd in ((cfg.kv_heads, G, cfg.head_dim), (32, 1, 128))
+           for packed in (False, True)]
+    k7 = stacked_attention_phase(timer, gen, DA, cfg)
 
-    log("[3] TinyLlama-1.1B, 22 layers: the decode megakernel against its plain version, "
-        "then serving 8 requests x 64 new tokens, max_len 2048, on the scan path "
-        "(use_megakernel=False) and on the default path")
+    log("[3] TinyLlama-1.1B, 22 layers: the stacked GEMMs on the served weights, the "
+        "decode megakernel against its plain version, then serving 8 requests x 64 new "
+        "tokens: max_len 2048 on the scan path (use_megakernel=False) and on the default "
+        f"path, then paged (pages of {PAGE}, {SEQ_PAGES} a sequence) from a pool of "
+        f"{ROOMY_PAGES} and of {TIGHT_PAGES} pages")
     from llm_qat_torch.inference import quantized as Q
     from llm_qat_torch.models import params as P
 
@@ -743,22 +1182,35 @@ def main() -> int:
     # kernel phase and both serving runs of a mode first, then the CPU checks
     # (the CPU path's thread pool would share the host with the timed loops)
     mega, runs, served, flips, qps, checks = [], [], {}, {}, {}, []
+    paged_runs, stacked = [], {}
     for label, mcfg in modes.items():
         prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n))) for n in PROMPT_LENS]
         params = P.init_params(mcfg, seed=0, dtype=torch.bfloat16)
         qps[label] = Q.quantize_params(params, mcfg)
         del params
         torch.cuda.empty_cache()
+        stacked[label] = stacked_gemm_phase(timer, gen, QM, qps[label], mcfg.w_bits == 4)
         mega.append(megakernel_phase(timer, label, mcfg, qps[label], gen))
         scan = serve(f"{label} scan", mcfg.replace(use_megakernel=False), qps[label], prompts)
         dflt = serve(f"{label} megakernel", mcfg, qps[label], prompts)
-        served[label] = (scan, dflt)
+        roomy = serve_paged(f"{label} paged roomy", mcfg, qps[label], prompts, ROOMY_PAGES,
+                            profile=True)
+        tight = serve_paged(f"{label} paged tight", mcfg, qps[label], prompts, TIGHT_PAGES,
+                            profile=False)
+        served[label] = (scan, dflt, roomy)
         runs += [scan[0], dflt[0]]
+        paged_runs += [roomy[0], tight[0]]
     del timer
     for label, mcfg in modes.items():
         checks.append(cpu_check(label, mcfg, qps.pop(label), rng))
-        flips[label] = compare_tokens(label, *served.pop(label),
+        scan, dflt, roomy = served.pop(label)
+        flips[label] = compare_tokens(label, scan, dflt,
                                       checks[-1]["full_depth"]["megakernel_vs_scan"][2])
+        # the floor keeps the rule meaningful should the paths agree to the bit
+        flips[label + " paged"] = compare_tokens(
+            label, scan, roomy, max(checks[-1]["full_depth"]["paged_vs_scan"][2],
+                                    checks[-1]["full_depth"]["kernels_vs_plain"][2]),
+            other="paged")
 
     # each path went through its kernels, and only through them
     for m in runs:
@@ -771,8 +1223,20 @@ def main() -> int:
             ok = (dl["decode_megakernel"] == m["decode_steps"] and pl[gemm_k] > 0
                   and pl["flash_fwd"] > 0 and dl["int8_matmul"] == dl["int4_matmul"] == 0
                   and dl["decode_attention"] == 0)
+        if not (ok and m["launches"]["paged_attention"] == 0):
+            raise AssertionError(f"{m['mode']}: launches off the path: prefill {pl}, decode {dl}")
+    L = cfg.num_hidden_layers
+    for m in paged_runs:
+        gemm_k = "int8_matmul" if m["mode"].startswith("W8") else "int4_matmul"
+        dl, pl, al = m["decode_launches"], m["prefill_launches"], m["launches"]
+        ok = (dl["paged_attention"] == L * m["decode_steps"] and pl["paged_attention"] == 0
+              and dl[gemm_k] > 0 and pl["flash_fwd"] > 0
+              and al["decode_attention"] == al["decode_megakernel"] == 0
+              and al["decode_attention_stacked"] == 0)
         if not ok:
             raise AssertionError(f"{m['mode']}: launches off the path: prefill {pl}, decode {dl}")
+        if m["mode"].endswith("tight") and m["preemptions"] < 1:
+            raise AssertionError(f"{m['mode']}: a pool of {m['n_pages']} pages preempted nothing")
 
     def per_layer(shapes, M):
         sel = [s for s in shapes if s["M"] == M]
@@ -783,7 +1247,13 @@ def main() -> int:
                     bound_by=sel[0]["bound_by"],
                     max_abs_err=max(s["max_abs_err"] for s in sel))
 
-    launches = {k: sum(m["launches"][k] for m in runs) for k in counters()}
+    launches = {k: sum(m["launches"][k] for m in runs + paged_runs) for k in counters()}
+    # K5-K7 are on no serving path of either package: their counts are those
+    # of their kernel phases
+    launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
+    launches["int4_matmul_stacked"] = stacked["W4A8KV4"]["launches"]
+    launches["decode_attention_stacked"] = k7["launches"]
+    k8 = pag[0]
     k9 = mega[0]
     rows = [
         dict(name="int8_matmul", source="llm_qat_torch/csrc/int8_matmul.cu",
@@ -811,13 +1281,35 @@ def main() -> int:
              shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed in shapes)",
              **{k: k9[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
              max_abs_err=max(m["max_abs_err"] for m in mega), shapes=mega),
+        dict(name="paged_attention", source="llm_qat_torch/csrc/paged_attention.cu",
+             replaces="llm_qat_tpu/ops/pallas/decode_attention.py:646",
+             shape=f"b=8, pool {ROOMY_PAGES} x {PAGE}, {SEQ_PAGES} pages a sequence, int8 pool, "
+                   "TinyLlama-1.1B heads (packed KV4 and LLaMA-7B heads in shapes)",
+             **{k: k8[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+             max_abs_err=max(d["max_abs_err"] for d in pag), shapes=pag),
+        dict(name="int8_matmul_stacked", source="llm_qat_torch/csrc/int8_matmul.cu",
+             replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:237",
+             shape=f"layer {STACK_LAYER} of the stacked weights: qkv+o+gateup+down at M=32",
+             **per_layer(stacked["W8A8KV8"]["shapes"], 32), shapes=stacked["W8A8KV8"]["shapes"],
+             launches_from="kernel phase (on no serving path)"),
+        dict(name="int4_matmul_stacked", source="llm_qat_torch/csrc/w4a8_matmul.cu",
+             replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:486",
+             shape=f"layer {STACK_LAYER} of the stacked weights: qkv+o+gateup+down at M=32",
+             **per_layer(stacked["W4A8KV4"]["shapes"], 32), shapes=stacked["W4A8KV4"]["shapes"],
+             launches_from="kernel phase (on no serving path)"),
+        dict(name="decode_attention_stacked", source="llm_qat_torch/csrc/decode_attention.cu",
+             replaces="llm_qat_tpu/ops/pallas/decode_attention.py:403",
+             shape="layer 2 of a 3-layer stacked int8 cache, b=8 S=2048",
+             **{k: k7[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "max_abs_err")},
+             shapes=[k7], launches_from="kernel phase (on no serving path)"),
     ]
     for r in rows:
         r.update(route="cuda", launches=launches[r["name"]],
                  tpu_kernel=r["replaces"], max_err=r["max_abs_err"])
     log("[4] results")
-    log(json.dumps({"serving": runs, "token_flips": flips, "cpu_checks": checks,
-                    "card": smi}))
+    log(json.dumps({"serving": runs, "paged_serving": paged_runs, "token_flips": flips,
+                    "cpu_checks": checks, "card": smi}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,11 @@
 // One-token attention over the quantized KV cache, for Hopper (sm_90a).
 //
 // Replaces llm_qat_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel
-// (quantized_decode_attention). For each slot and kv head: dequantize the
+// (quantized_decode_attention, entry point decode_attention) and
+// :_decode_attn_stacked_kernel (quantized_decode_attention_stacked, entry
+// point decode_attention_stacked: the same kernel on layer l of a stacked
+// cache [L, b, kvh, hd, S], read in place through base pointers offset by
+// the layer, with the stacked fold contract below). For each slot and kv head: dequantize the
 // int8 (or nibble-packed int4) cache columns by their per-token inverse
 // scale, rotate K by RoPE at its absolute position from the hoisted
 // [hd/2, S] tables ("pre" cache) or not at all ("post" cache), run an fp32
@@ -14,6 +18,11 @@
 // scales [b, S] f32, lengths [b] int32 (pre-append), tables [hd/2, S] f32,
 // fold: k_new/v_new [b, kvh, hd] int8, k_inv/v_inv [b] f32, active [b]
 // int32, q_cos/q_sin [b, hd/2] f32. Out [b, nh, hd] in q's type.
+// Stacked fold (fold = 2): k_new/v_new [b, kvh, hd] in q's type, already
+// fake-quantized (K rotated); include_new [b] int32 takes active's place;
+// the pair's p rounds to q's type before p.v and, as in the TPU kernel, is
+// not zeroed for an excluded pair (exp(-1e30 - m) is 0 unless the slot is
+// also empty).
 //
 // Bound on this card: the cache bytes. Each cached element is read once
 // and takes about 2 * G multiply-adds per byte (G = 8 query heads per kv
@@ -72,8 +81,8 @@ decode_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kq,
                    const float* __restrict__ ks, const uint8_t* __restrict__ vq,
                    const float* __restrict__ vs, const int* __restrict__ lengths,
                    const float* __restrict__ kcos, const float* __restrict__ ksin,
-                   const int8_t* __restrict__ knew, const float* __restrict__ kinv,
-                   const int8_t* __restrict__ vnew, const float* __restrict__ vinv,
+                   const void* __restrict__ knew_, const float* __restrict__ kinv,
+                   const void* __restrict__ vnew_, const float* __restrict__ vinv,
                    const int* __restrict__ active, const float* __restrict__ qcos,
                    const float* __restrict__ qsin, T* __restrict__ out,
                    int kvh, int S, int packed, int rope, int fold, float scale) {
@@ -204,8 +213,37 @@ decode_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kq,
     l[g] = cs;
   }
 
-  if (fold) {
+  if (fold == 2) {
+    // stacked contract: the pair arrives as floats in q's type
+    const bool inc = active[ib] > 0;
+    const T* kn = (const T*)knew_ + ((size_t)ib * kvh + h) * HD;
+    const T* vn = (const T*)vnew_ + ((size_t)ib * kvh + h) * HD;
+    for (int i = tid; i < HD; i += C) { skf[i] = to_f(kn[i]); svf[i] = to_f(vn[i]); }
+    __syncthreads();
+    for (int g = tid; g < G; g += C) {
+      float sc = 0.f;
+      for (int d = 0; d < HD; ++d) sc += sq[g][d] * skf[d];
+      scur[g] = sc * scale;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < NOUT; ++r) {
+      const int o = tid + r * C;
+      if (o < G * HD) {
+        const int g = o / HD, d = o % HD;
+        const float sc = inc ? scur[g] : NEG_INF;
+        const float m_new = fmaxf(m[g], sc);
+        const float al = expf(m[g] - m_new);
+        const float p = expf(sc - m_new);
+        const float ll = fmaxf(l[g] * al + p, 1e-9f);
+        put(out + ((size_t)ib * nh + h * G + g) * HD + d,
+            (acc[r] * al + rb<BF>(p) * svf[d]) / ll);
+      }
+    }
+  } else if (fold) {
     // the current token's (K, V) pair, one more online-softmax term
+    const int8_t* knew = (const int8_t*)knew_;
+    const int8_t* vnew = (const int8_t*)vnew_;
     const bool inc = active[ib] != 0;
     const float ki = kinv[ib], vi = rb<BF>(vinv[ib]);
     const int8_t* kn = knew + ((size_t)ib * kvh + h) * HD;
@@ -270,7 +308,7 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
   decode_attn_kernel<T, 8, 64><<<grid, C, smem, st>>>(
       (const T*)q, (const uint8_t*)kq, (const float*)ks, (const uint8_t*)vq,
       (const float*)vs, (const int*)lengths, (const float*)kcos, (const float*)ksin,
-      (const int8_t*)knew, (const float*)kinv, (const int8_t*)vnew, (const float*)vinv,
+      knew, (const float*)kinv, vnew, (const float*)vinv,
       (const int*)active, (const float*)qcos, (const float*)qsin, (T*)out,
       kvh, S, packed, rope, fold, scale);
   return (int)cudaGetLastError();
@@ -294,4 +332,29 @@ extern "C" int decode_attention(const void* q, const void* kq, const void* ks, c
                                  fold, scale, st);
   return launch<float>(q, kq, ks, vq, vs, lengths, kcos, ksin, knew, kinv, vnew, vinv,
                        active, qcos, qsin, out, b, kvh, S, packed, rope, fold, scale, st);
+}
+
+// The same kernel on layer `layer` of the stacked int8 cache kq_all/vq_all
+// [L, b, kvh, 64, S] and scales ks_all/vs_all [L, b, S]: only the base
+// pointers move, nothing is copied. k_new/v_new [b, kvh, 64] in q's type,
+// include_new [b] int32 (see the header for the fold contract).
+extern "C" int decode_attention_stacked(const void* q, const void* kq_all, const void* ks_all,
+                                        const void* vq_all, const void* vs_all,
+                                        const void* lengths, const void* kcos,
+                                        const void* ksin, const void* k_new, const void* v_new,
+                                        const void* include_new, void* out, int b, int kvh,
+                                        int S, int layer, int rope, int dtype_code,
+                                        float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t q_off = (size_t)layer * b * kvh * 64 * S, s_off = (size_t)layer * b * S;
+  const uint8_t* kq = (const uint8_t*)kq_all + q_off;
+  const uint8_t* vq = (const uint8_t*)vq_all + q_off;
+  const float* ks = (const float*)ks_all + s_off;
+  const float* vs = (const float*)vs_all + s_off;
+  if (dtype_code == 1)
+    return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lengths, kcos, ksin, k_new, nullptr,
+                                 v_new, nullptr, include_new, nullptr, nullptr, out, b, kvh,
+                                 S, 0, rope, 2, scale, st);
+  return launch<float>(q, kq, ks, vq, vs, lengths, kcos, ksin, k_new, nullptr, v_new, nullptr,
+                       include_new, nullptr, nullptr, out, b, kvh, S, 0, rope, 2, scale, st);
 }

@@ -18,3 +18,15 @@ extern "C" int int8_matmul(const void* x, const void* w, const void* sx, const v
                            void* out, int M, int N, int K, int out_code, void* stream) {
   return gemm_int8::launch<false>(x, w, sx, sw, out, M, N, K, out_code, stream);
 }
+
+// int8_matmul_stacked (replaces llm_qat_tpu/ops/pallas/quant_matmul.py:
+// int8_matmul_stacked): the same kernel on layer `layer` of the stacked
+// weight w_all [L, K, N] int8 and scales sw_all [L, 1, N], read in place:
+// only the base pointers move, nothing is copied.
+extern "C" int int8_matmul_stacked(const void* x, const void* w_all, const void* sx,
+                                   const void* sw_all, void* out, int M, int N, int K,
+                                   int layer, int out_code, void* stream) {
+  const int8_t* w = (const int8_t*)w_all + (size_t)layer * K * N;
+  const float* sw = (const float*)sw_all + (size_t)layer * N;
+  return gemm_int8::launch<false>(x, w, sx, sw, out, M, N, K, out_code, stream);
+}

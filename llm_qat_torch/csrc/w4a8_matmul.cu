@@ -18,3 +18,15 @@ extern "C" int w4a8_matmul(const void* x, const void* w, const void* sx, const v
                            void* out, int M, int N, int K, int out_code, void* stream) {
   return gemm_int8::launch<true>(x, w, sx, sw, out, M, N, K, out_code, stream);
 }
+
+// int4_matmul_stacked (replaces llm_qat_tpu/ops/pallas/quant_matmul.py:
+// int4_matmul_stacked): the same kernel on layer `layer` of the stacked
+// packed weight w_all [L, K/2, N] uint8 and scales sw_all [L, 1, N], read in
+// place: only the base pointers move, nothing is copied.
+extern "C" int w4a8_matmul_stacked(const void* x, const void* w_all, const void* sx,
+                                   const void* sw_all, void* out, int M, int N, int K,
+                                   int layer, int out_code, void* stream) {
+  const uint8_t* w = (const uint8_t*)w_all + (size_t)layer * (K / 2) * N;
+  const float* sw = (const float*)sw_all + (size_t)layer * N;
+  return gemm_int8::launch<true>(x, w, sx, sw, out, M, N, K, out_code, stream);
+}

@@ -77,6 +77,31 @@ def cache_from_numpy(cache, device=None) -> Dict[str, torch.Tensor]:
     return out
 
 
+def paged_cache_from_numpy(cache, device=None) -> Dict[str, torch.Tensor]:
+    """A page pool of the JAX package as numpy arrays (``k_q``/``v_q`` int8
+    or nibble-packed uint8 ``[L, n_pages, kvh, hd(/2), P]``, ``k_s``/``v_s``
+    f32 ``[L, n_pages, P]``) -> the port's pool on ``device``: same layout, so
+    both packages can continue from the same pool. The tensors are copies;
+    the port writes them in place."""
+    keys = ("k_q", "k_s", "v_q", "v_s")
+    if set(cache) != set(keys):
+        raise ValueError(f"page pool keys {sorted(cache)}, expected {sorted(keys)}")
+    out = from_numpy({k: np.array(v) for k, v in cache.items()}, device)
+    for k, t in out.items():
+        if t.dtype not in _CACHE_DTYPES[k]:
+            raise ValueError(f"page pool {k} is {t.dtype}, expected {_CACHE_DTYPES[k]}")
+    if (out["k_q"].dim() != 5 or out["v_q"].shape != out["k_q"].shape
+            or out["k_q"].dtype != out["v_q"].dtype):
+        raise ValueError("page pool: K and V are [L, n_pages, kvh, hd(/2), P] and "
+                         "share layout and type")
+    L, n_pages, _, _, P = out["k_q"].shape
+    for k in ("k_s", "v_s"):
+        if tuple(out[k].shape) != (L, n_pages, P):
+            raise ValueError(f"page pool {k} is {tuple(out[k].shape)}, expected "
+                             f"{(L, n_pages, P)}")
+    return out
+
+
 def init_params(config: LlamaConfig, seed: int = 0, device=None,
                 dtype=torch.float32) -> Params:
     """Random init, normal(0, 0.02) like the reference's ``_init_weights``,

@@ -1,10 +1,24 @@
 """Fused quantized-KV decode attention: one new token per slot against the
 int8 or nibble-packed KV4 cache.
 
-``quantized_decode_attention`` launches ``csrc/decode_attention.cu``, which
-replaces ``llm_qat_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel``.
-Beside it, ``_decode_attention_plain`` computes the same function in plain
-PyTorch; the wrapper takes it only for tensors on the CPU.
+Three kernels, each beside its plain PyTorch version; a wrapper takes the
+plain version only for tensors on the CPU, and on a CUDA tensor it launches
+its kernel or raises. Each wrapper counts its launches in ``launches``.
+
+* ``quantized_decode_attention`` (``csrc/decode_attention.cu``, plain
+  ``_decode_attention_plain``) replaces
+  ``llm_qat_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel``.
+* ``quantized_decode_attention_stacked`` (the same source, entry point
+  ``decode_attention_stacked``; plain ``_decode_attention_stacked_plain``)
+  replaces ``llm_qat_tpu/ops/pallas/decode_attention.py:
+  _decode_attn_stacked_kernel``: the same attention over layer ``layer`` of a
+  stacked cache ``[L, b, kvh, hd, S]`` read in place, with its own fold
+  contract (the current pair arrives as fake-quantized floats, K rotated).
+* ``quantized_paged_attention`` (``csrc/paged_attention.cu``, plain
+  ``_paged_attention_plain``) replaces
+  ``llm_qat_tpu/ops/pallas/decode_attention.py:_paged_attn_kernel`` and
+  ``_paged_attn_kernel_fold``: the same attention over a shared page pool
+  ``[n_pages, kvh, hd(/2), P]`` through per-slot block tables.
 
 Layout (the JAX package's): K AND V are stored transposed, ``[b, kvh, hd, S]``
 int8, or ``[b, kvh, hd/2, S]`` uint8 when packed (low nibble = head-dim rows
@@ -19,7 +33,12 @@ pre-append lengths (may be 0); inactive slots exclude the pair.
 
 Both versions follow the TPU kernel's roundings: with a bf16 ``q`` they
 round ``cos*ks``, ``sin*ks``, the rotated ``k`` and ``p*vs`` to bf16 before
-the products; statistics and sums stay fp32.
+the products; statistics and sums stay fp32. The contiguous versions take p
+against the slot's final maximum (the TPU kernel's 1024-column block never
+rescales at these lengths); the paged versions walk a slot's pages in table
+order with an online softmax, one page a block as the TPU kernel's grid does,
+so ``p*vs`` rounds against the RUNNING maximum and the sums are rescaled at
+every page.
 """
 
 from __future__ import annotations
@@ -57,29 +76,38 @@ def _rope_tables(S: int, hd: int, theta: float, device) -> tuple:
     return torch.cos(freqs), torch.sin(freqs)
 
 
-def _decode_attention_plain(q, k_q, k_s, v_q, v_s, lengths, k_cos=None,
-                            k_sin=None, fold=None, *, theta=10000.0,
-                            rope=True, packed=False):
-    """Plain PyTorch version of the decode kernel (see module docstring)."""
+def _compute_type(q: torch.Tensor) -> torch.dtype:
+    return torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+
+
+def _dequant_rope_k(k_q, ks, cos, sin, ct, rope, packed):
+    """K block ``[b, kvh, hd(/2), n]`` ints, ``ks`` broadcastable inverse
+    scales, tables broadcastable ``[.., hd/2, n]`` -> dequantized (and, with
+    ``rope``, rotated) K ``[b, kvh, hd, n]`` in ``ct``."""
+    k1_i, k2_i = _halves(k_q, packed, 2)
+    if rope:
+        cc = (cos.float() * ks).to(ct)
+        ss = (sin.float() * ks).to(ct)
+        k1, k2 = k1_i.to(ct), k2_i.to(ct)
+        return torch.cat([k1 * cc - k2 * ss, k2 * cc + k1 * ss], dim=2)
+    sk = ks.to(ct)
+    return torch.cat([k1_i.to(ct) * sk, k2_i.to(ct) * sk], dim=2)
+
+
+def _cache_softmax(q, k_q, k_s, v_q, v_s, lengths, k_cos, k_sin, theta, rope,
+                   packed):
+    """The contiguous cache's softmax terms against the final maximum:
+    (m, l [b, kvh, g, 1], acc [b, kvh, g, hd]) in f32."""
     b, nh, hd = q.shape
     kvh, S = k_q.shape[1], k_q.shape[3]
     groups = nh // kvh
-    h2 = hd // 2
-    ct = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    ct = _compute_type(q)
     scale = 1.0 / (hd ** 0.5)
 
     ks = k_s[:, None, None, :]                            # [b, 1, 1, S]
-    k1_i, k2_i = _halves(k_q, packed, 2)                  # [b, kvh, h2, S]
-    if rope:
-        if k_cos is None:
-            k_cos, k_sin = _rope_tables(S, hd, theta, q.device)
-        cc = (k_cos.float() * ks).to(ct)                  # [b, 1, h2, S]
-        ss = (k_sin.float() * ks).to(ct)
-        k1, k2 = k1_i.to(ct), k2_i.to(ct)
-        kr = torch.cat([k1 * cc - k2 * ss, k2 * cc + k1 * ss], dim=2)
-    else:
-        sk = ks.to(ct)
-        kr = torch.cat([k1_i.to(ct) * sk, k2_i.to(ct) * sk], dim=2)
+    if rope and k_cos is None:
+        k_cos, k_sin = _rope_tables(S, hd, theta, q.device)
+    kr = _dequant_rope_k(k_q, ks, k_cos, k_sin, ct, rope, packed)
     v = torch.cat(_halves(v_q, packed, 2), dim=2).to(ct)  # [b, kvh, hd, S]
     vs = v_s.to(ct)[:, None, None, :]                     # [b, 1, 1, S]
 
@@ -92,31 +120,141 @@ def _decode_attention_plain(q, k_q, k_s, v_q, v_s, lengths, k_cos=None,
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhgs,bhds->bhgd", (p * vs).to(ct).float(), v.float())
+    return m, l, acc
 
+
+def _fold_quantized_pair(q, kvh, m, l, acc, fold, rope):
+    """The current token's quantized (K, V) pair as one more online-softmax
+    term (excluded for inactive slots); returns the new (l, acc)."""
+    b, nh, hd = q.shape
+    groups, h2 = nh // kvh, hd // 2
+    ct = _compute_type(q)
+    scale = 1.0 / (hd ** 0.5)
+    k_new, k_inv, v_new, v_inv, active, q_cos, q_sin = fold
+    kinv = k_inv.reshape(b, 1, 1).float()
+    vinv = v_inv.reshape(b, 1, 1).to(ct)
+    kn = k_new.reshape(b, kvh, hd)
+    if rope:
+        cc_i = (q_cos.reshape(b, 1, h2).float() * kinv).to(ct)
+        ss_i = (q_sin.reshape(b, 1, h2).float() * kinv).to(ct)
+        k1, k2 = kn[..., :h2].to(ct), kn[..., h2:].to(ct)
+        k_fold = torch.cat([k1 * cc_i - k2 * ss_i, k2 * cc_i + k1 * ss_i],
+                           dim=-1).float()                # [b, kvh, hd]
+    else:
+        k_fold = (kn.to(ct) * kinv.to(ct)).float()
+    v_fold = (v_new.reshape(b, kvh, hd).to(ct) * vinv).float()
+    s_cur = torch.einsum("bhgd,bhd->bhg", q.reshape(b, kvh, groups, hd)
+                         .float(), k_fold)[..., None] * scale
+    inc = (active.to(q.device) != 0).reshape(b, 1, 1, 1)
+    s_cur = torch.where(inc, s_cur, torch.full_like(s_cur, _NEG_INF))
+    m_new = torch.maximum(m, s_cur)
+    alpha = torch.exp(m - m_new)
+    p_cur = torch.where(inc, torch.exp(s_cur - m_new), torch.zeros_like(s_cur))
+    return l * alpha + p_cur, acc * alpha + p_cur * v_fold[:, :, None, :]
+
+
+def _decode_attention_plain(q, k_q, k_s, v_q, v_s, lengths, k_cos=None,
+                            k_sin=None, fold=None, *, theta=10000.0,
+                            rope=True, packed=False):
+    """Plain PyTorch version of the decode kernel (see module docstring)."""
+    m, l, acc = _cache_softmax(q, k_q, k_s, v_q, v_s, lengths, k_cos, k_sin,
+                               theta, rope, packed)
     if fold is not None:
-        k_new, k_inv, v_new, v_inv, active, q_cos, q_sin = fold
-        kinv = k_inv.reshape(b, 1, 1).float()
-        vinv = v_inv.reshape(b, 1, 1).to(ct)
-        kn = k_new.reshape(b, kvh, hd)
+        l, acc = _fold_quantized_pair(q, k_q.shape[1], m, l, acc, fold, rope)
+    out = acc / torch.clamp(l, min=1e-9)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def _decode_attention_stacked_plain(q, k_q_all, k_s_all, v_q_all, v_s_all,
+                                    lengths, include_new, k_new, v_new,
+                                    k_cos=None, k_sin=None, *, layer,
+                                    theta=10000.0, rope=True):
+    """Plain PyTorch version of the stacked decode kernel: the contiguous
+    version's cache terms on layer ``layer``, then the stacked fold contract:
+    ``k_new``/``v_new`` are floats (fake-quantized, K rotated), rounded to the
+    compute type; ``include_new`` takes the place of ``active``; the pair's p
+    is rounded to the compute type before p.v and, as in the TPU kernel, is
+    not zeroed for an excluded pair (``exp(-1e30 - m)`` is 0 unless the slot
+    is also empty, where the output is then ``v_new``)."""
+    b, nh, hd = q.shape
+    kvh = k_q_all.shape[2]
+    groups = nh // kvh
+    ct = _compute_type(q)
+    scale = 1.0 / (hd ** 0.5)
+    m, l, acc = _cache_softmax(q, k_q_all[layer], k_s_all[layer], v_q_all[layer],
+                               v_s_all[layer], lengths, k_cos, k_sin, theta,
+                               rope, False)
+    qg = q.reshape(b, kvh, groups, hd).to(ct).float()
+    kn = k_new.reshape(b, kvh, hd).to(ct).float()
+    vn = v_new.reshape(b, kvh, hd).to(ct).float()
+    s = torch.einsum("bhgd,bhd->bhg", qg, kn)[..., None] * scale
+    inc = (include_new.to(q.device) > 0).reshape(b, 1, 1, 1)
+    s = torch.where(inc, s, torch.full_like(s, _NEG_INF))
+    m_new = torch.maximum(m, s)
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new)
+    l = l * alpha + p
+    acc = acc * alpha + p.to(ct).float() * vn[:, :, None, :]
+    out = acc / torch.clamp(l, min=1e-9)
+    return out.reshape(b, nh, hd).to(q.dtype)
+
+
+def _paged_attention_plain(q, k_q, k_s, v_q, v_s, lengths, block_tables,
+                           k_cos=None, k_sin=None, fold=None, *,
+                           theta=10000.0, rope=True, packed=False):
+    """Plain PyTorch version of the paged kernel, any page size and any
+    (groups, head dim): an online softmax over each slot's live pages in
+    table order (see module docstring). Page ``pg`` of a slot holds logical
+    positions ``pg*P .. pg*P+P-1``; a slot reads ``ceil(len/P)`` pages and
+    never an entry of its table past them."""
+    b, nh, hd = q.shape
+    kvh, P = k_q.shape[1], k_q.shape[3]
+    max_pages = block_tables.shape[1]
+    groups = nh // kvh
+    ct = _compute_type(q)
+    scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+    lens = lengths.to(dev).long()
+    bt = block_tables.to(dev).long()
+    if rope and k_cos is None:
+        k_cos, k_sin = _rope_tables(max_pages * P, hd, theta, dev)
+    qg = q.reshape(b, kvh, groups, hd).to(ct).float()
+    m = torch.full((b, kvh, groups, 1), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, groups, hd), dtype=torch.float32, device=dev)
+    last = torch.clamp((lens + P - 1) // P, min=1) - 1    # last live page
+    for pg in range(max_pages):
+        live = lens > pg * P                              # [b]
+        if not bool(live.any()):
+            break
+        # slots past their last page stand in with pool page 0 (never a dead
+        # table entry, which may hold anything); their result is discarded
+        lp = torch.clamp(last, max=pg)
+        pid = torch.where(live, bt.gather(1, lp[:, None])[:, 0],
+                          torch.zeros_like(lens))         # [b] pool page ids
+        cols = lp[:, None] * P + torch.arange(P, device=dev)[None, :]  # [b, P]
+        ks = k_s[pid][:, None, None, :]                   # [b, 1, 1, P]
+        cos = sin = None
         if rope:
-            cc_i = (q_cos.reshape(b, 1, h2).float() * kinv).to(ct)
-            ss_i = (q_sin.reshape(b, 1, h2).float() * kinv).to(ct)
-            k1, k2 = kn[..., :h2].to(ct), kn[..., h2:].to(ct)
-            k_fold = torch.cat([k1 * cc_i - k2 * ss_i, k2 * cc_i + k1 * ss_i],
-                               dim=-1).float()            # [b, kvh, hd]
-        else:
-            k_fold = (kn.to(ct) * kinv.to(ct)).float()
-        v_fold = (v_new.reshape(b, kvh, hd).to(ct) * vinv).float()
-        s_cur = torch.einsum("bhgd,bhd->bhg", q.reshape(b, kvh, groups, hd)
-                             .float(), k_fold)[..., None] * scale
-        inc = (active.to(q.device) != 0).reshape(b, 1, 1, 1)
-        s_cur = torch.where(inc, s_cur, torch.full_like(s_cur, _NEG_INF))
-        m_new = torch.maximum(m, s_cur)
+            cos = k_cos[:, cols].permute(1, 0, 2)[:, None]   # [b, 1, hd/2, P]
+            sin = k_sin[:, cols].permute(1, 0, 2)[:, None]
+        kr = _dequant_rope_k(k_q[pid], ks, cos, sin, ct, rope, packed)
+        v = torch.cat(_halves(v_q[pid], packed, 2), dim=2).to(ct)
+        vs = v_s[pid].to(ct)[:, None, None, :]
+        s = torch.einsum("bhgd,bhds->bhgs", qg, kr.float()) * scale
+        valid = (cols < lens[:, None])[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
-        p_cur = torch.where(inc, torch.exp(s_cur - m_new),
-                            torch.zeros_like(s_cur))
-        l = l * alpha + p_cur
-        acc = acc * alpha + p_cur * v_fold[:, :, None, :]
+        p = torch.exp(s - m_new)
+        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc_new = acc * alpha + torch.einsum(
+            "bhgs,bhds->bhgd", (p * vs).to(ct).float(), v.float())
+        lv = live[:, None, None, None]
+        m, l, acc = (torch.where(lv, m_new, m), torch.where(lv, l_new, l),
+                     torch.where(lv, acc_new, acc))
+    if fold is not None:
+        l, acc = _fold_quantized_pair(q, kvh, m, l, acc, fold, rope)
     out = acc / torch.clamp(l, min=1e-9)
     return out.reshape(b, nh, hd).to(q.dtype)
 
@@ -126,6 +264,51 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _contig(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype).contiguous()
+
+
+def _check_sizes(what: str, dev, want) -> None:
+    """``want``: {name: (tensor, elements expected)}; all on ``dev``."""
+    for name, (t, n) in want.items():
+        if t.device != dev or t.numel() != n:
+            raise ValueError(f"{what}: {name} has {t.numel()} elements on "
+                             f"{t.device}, expected {n} on {dev}")
+
+
+def _fold_operands(what, fold, b, kvh, hd, rope, dev, dummy):
+    """The quantized fold pair as the kernels take it: seven contiguous
+    tensors (placeholders without a fold, or for the tables without RoPE)."""
+    if fold is None:
+        zi8 = torch.zeros(1, dtype=torch.int8, device=dev)
+        zi32 = torch.zeros(1, dtype=torch.int32, device=dev)
+        return [zi8, dummy, zi8, dummy, zi32, dummy, dummy]
+    k_new, k_inv, v_new, v_inv, active, q_cos, q_sin = fold
+    fold_t = [
+        _contig(k_new, torch.int8), _contig(k_inv, torch.float32),
+        _contig(v_new, torch.int8), _contig(v_inv, torch.float32),
+        _contig(active, torch.int32),
+        _contig(q_cos, torch.float32) if rope else dummy,
+        _contig(q_sin, torch.float32) if rope else dummy,
+    ]
+    want = dict(k_new=(fold_t[0], b * kvh * hd), k_inv=(fold_t[1], b),
+                v_new=(fold_t[2], b * kvh * hd), v_inv=(fold_t[3], b),
+                active=(fold_t[4], b))
+    if rope:
+        want.update(q_cos=(fold_t[5], b * (hd // 2)), q_sin=(fold_t[6], b * (hd // 2)))
+    _check_sizes(what, dev, want)
+    return fold_t
+
+
+def _check_contiguous_kernel_shape(what, q, groups, hd, S):
+    if (groups, hd) != (8, 64) or q.dtype not in _DTYPE_CODES:
+        raise NotImplementedError(
+            "decode_attention.cu is built for 8 query heads per kv head, "
+            f"head dim 64, f32/bf16 q; got G={groups}, hd={hd}, {q.dtype}"
+        )
+    if S > _MAX_S:
+        raise NotImplementedError(
+            f"decode_attention.cu keeps a slot's scores in shared memory: "
+            f"cache length S <= {_MAX_S}, got {S}"
+        )
 
 
 def quantized_decode_attention(
@@ -157,18 +340,10 @@ def quantized_decode_attention(
             q, k_q, k_s, v_q, v_s, lengths, k_cos, k_sin, fold,
             theta=theta, rope=rope, packed=packed,
         )
+    what = "quantized_decode_attention"
     if not q.is_cuda:
-        raise ValueError(f"quantized_decode_attention: q on {q.device}")
-    if (groups, hd) != (8, 64) or q.dtype not in _DTYPE_CODES:
-        raise NotImplementedError(
-            "decode_attention.cu is built for 8 query heads per kv head, "
-            f"head dim 64, f32/bf16 q; got G={groups}, hd={hd}, {q.dtype}"
-        )
-    if S > _MAX_S:
-        raise NotImplementedError(
-            f"decode_attention.cu keeps a slot's scores in shared memory: "
-            f"cache length S <= {_MAX_S}, got {S}"
-        )
+        raise ValueError(f"{what}: q on {q.device}")
+    _check_contiguous_kernel_shape(what, q, groups, hd, S)
     dev = q.device
     qc = q.contiguous()
     kq = k_q.contiguous().view(torch.uint8)
@@ -180,34 +355,12 @@ def quantized_decode_attention(
     dummy = torch.zeros(1, dtype=torch.float32, device=dev)
     kc = _contig(k_cos, torch.float32) if rope else dummy
     ksn = _contig(k_sin, torch.float32) if rope else dummy
-    if fold is not None:
-        k_new, k_inv, v_new, v_inv, active, q_cos, q_sin = fold
-        fold_t = [
-            _contig(k_new, torch.int8), _contig(k_inv, torch.float32),
-            _contig(v_new, torch.int8), _contig(v_inv, torch.float32),
-            _contig(active, torch.int32),
-            _contig(q_cos, torch.float32) if rope else dummy,
-            _contig(q_sin, torch.float32) if rope else dummy,
-        ]
-    else:
-        zi8 = torch.zeros(1, dtype=torch.int8, device=dev)
-        zi32 = torch.zeros(1, dtype=torch.int32, device=dev)
-        fold_t = [zi8, dummy, zi8, dummy, zi32, dummy, dummy]
-    h2 = hd // 2
     want = {"k_q": (kq, b * kvh * hdc * S), "v_q": (vq, b * kvh * hdc * S),
             "k_s": (ksc, b * S), "v_s": (vsc, b * S), "lengths": (lens, b)}
     if rope:
-        want.update(k_cos=(kc, h2 * S), k_sin=(ksn, h2 * S))
-    if fold is not None:
-        want.update(k_new=(fold_t[0], b * kvh * hd), k_inv=(fold_t[1], b),
-                    v_new=(fold_t[2], b * kvh * hd), v_inv=(fold_t[3], b),
-                    active=(fold_t[4], b))
-        if rope:
-            want.update(q_cos=(fold_t[5], b * h2), q_sin=(fold_t[6], b * h2))
-    for name, (t, n) in want.items():
-        if t.device != dev or t.numel() != n:
-            raise ValueError(f"quantized_decode_attention: {name} has "
-                             f"{t.numel()} elements on {t.device}, expected {n} on {dev}")
+        want.update(k_cos=(kc, (hd // 2) * S), k_sin=(ksn, (hd // 2) * S))
+    _check_sizes(what, dev, want)
+    fold_t = _fold_operands(what, fold, b, kvh, hd, rope, dev, dummy)
     out = torch.empty_like(qc)
     f = _build.bind("decode_attention", "decode_attention", 16, 7, 1)
     ptrs = [qc, kq, ksc, vq, vsc, lens, kc, ksn, *fold_t, out]
@@ -220,6 +373,169 @@ def quantized_decode_attention(
 
 
 quantized_decode_attention.launches = 0
+
+
+def quantized_decode_attention_stacked(
+    q: torch.Tensor,            # [b, nh, hd] post-RoPE query of the new token
+    k_q_all: torch.Tensor,      # [L, b, kvh, hd, S] int8: the WHOLE stacked cache
+    k_s_all: torch.Tensor,      # [L, b, S] f32
+    v_q_all: torch.Tensor,      # [L, b, kvh, hd, S] int8 (K's layout)
+    v_s_all: torch.Tensor,      # [L, b, S] f32
+    lengths: torch.Tensor,      # [b] int32: valid OLD rows (current token excluded)
+    include_new: torch.Tensor,  # [b] int32: fold the current token's pair?
+    k_new: torch.Tensor,        # [b, kvh, hd] current K: fake-quantized, rotated
+    v_new: torch.Tensor,        # [b, kvh, hd] current V: fake-quantized
+    k_cos: torch.Tensor = None,  # [hd/2, S] hoisted RoPE tables ("pre")
+    k_sin: torch.Tensor = None,
+    *,
+    layer: int,
+    theta: float = 10000.0,
+    bk: int = 1024,             # the TPU kernel's KV block; no effect here
+    rope: bool = True,
+) -> torch.Tensor:              # [b, nh, hd]
+    """``quantized_decode_attention`` over layer ``layer`` of the stacked
+    cache, read in place (the kernel gets the layer index and offsets its
+    own base pointers: no slice is copied). The cache is read-only; the
+    current token's K/V enter as one more softmax pair (see
+    ``_decode_attention_stacked_plain`` for the pair's contract)."""
+    b, nh, hd = q.shape
+    L, _, kvh, _, S = k_q_all.shape
+    groups = nh // kvh
+    if (nh != kvh * groups or k_q_all.shape[3] != hd
+            or v_q_all.shape != k_q_all.shape or not 0 <= layer < L):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k_q_all.shape)} "
+                         f"v {tuple(v_q_all.shape)} layer {layer}")
+    if q.device.type == "cpu":
+        return _decode_attention_stacked_plain(
+            q, k_q_all, k_s_all, v_q_all, v_s_all, lengths, include_new, k_new,
+            v_new, k_cos, k_sin, layer=layer, theta=theta, rope=rope,
+        )
+    what = "quantized_decode_attention_stacked"
+    if not q.is_cuda:
+        raise ValueError(f"{what}: q on {q.device}")
+    _check_contiguous_kernel_shape(what, q, groups, hd, S)
+    dev = q.device
+    for name, t, dt in (("k_q_all", k_q_all, torch.int8), ("v_q_all", v_q_all, torch.int8),
+                        ("k_s_all", k_s_all, torch.float32),
+                        ("v_s_all", v_s_all, torch.float32)):
+        # no .contiguous() here: a copy of the stack is what this entry avoids
+        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} tensor on {dev}")
+    qc = q.contiguous()
+    lens = _contig(lengths, torch.int32)
+    inc = _contig(include_new, torch.int32)
+    kn, vn = _contig(k_new, q.dtype), _contig(v_new, q.dtype)
+    if rope and k_cos is None:
+        k_cos, k_sin = _rope_tables(S, hd, theta, dev)
+    dummy = torch.zeros(1, dtype=torch.float32, device=dev)
+    kc = _contig(k_cos, torch.float32) if rope else dummy
+    ksn = _contig(k_sin, torch.float32) if rope else dummy
+    want = {"k_s_all": (k_s_all, L * b * S), "v_s_all": (v_s_all, L * b * S),
+            "lengths": (lens, b), "include_new": (inc, b),
+            "k_new": (kn, b * kvh * hd), "v_new": (vn, b * kvh * hd)}
+    if rope:
+        want.update(k_cos=(kc, (hd // 2) * S), k_sin=(ksn, (hd // 2) * S))
+    _check_sizes(what, dev, want)
+    out = torch.empty_like(qc)
+    f = _build.bind("decode_attention", "decode_attention_stacked", 12, 6, 1)
+    ptrs = [qc, k_q_all, k_s_all, v_q_all, v_s_all, lens, kc, ksn, kn, vn, inc, out]
+    err = f(*[t.data_ptr() for t in ptrs], b, kvh, S, layer, int(rope),
+            _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "decode_attention_stacked")
+    quantized_decode_attention_stacked.launches += 1
+    return out
+
+
+quantized_decode_attention_stacked.launches = 0
+
+# csrc/paged_attention.cu: (query heads per kv head, head dim) it is built
+# for, and its page size
+_PAGED_SHAPES = ((8, 64), (1, 128))
+_PAGED_P = 128
+
+
+def quantized_paged_attention(
+    q: torch.Tensor,             # [b, nh, hd] post-RoPE query
+    k_q: torch.Tensor,           # [n_pages, kvh, hd(/2), P] int8 / packed uint8
+    k_s: torch.Tensor,           # [n_pages, P] f32 per-token inverse scales
+    v_q: torch.Tensor,           # [n_pages, kvh, hd(/2), P] (K's layout)
+    v_s: torch.Tensor,           # [n_pages, P] f32
+    lengths: torch.Tensor,       # [b] int32
+    block_tables: torch.Tensor,  # [b, max_pages] int32: logical page -> pool id
+    k_cos: torch.Tensor = None,  # [hd/2, max_pages*P] f32 hoisted RoPE tables
+    k_sin: torch.Tensor = None,  # at LOGICAL positions; None => built here
+    fold=None,                   # as quantized_decode_attention; with fold,
+                                 # ``lengths`` are PRE-append and the pool is
+                                 # read-only
+    *,
+    theta: float = 10000.0,
+    rope: bool = True,
+    packed: bool = False,        # KV4 nibble-packed pool
+) -> torch.Tensor:               # [b, nh, hd]
+    """Decode attention over the shared page pool: each slot walks
+    ``ceil(len/P)`` pages of its block table in order (logical position of
+    page ``pg`` row ``j`` is ``pg*P + j``) and masks the tail of the last;
+    table entries past a slot's live pages are never read."""
+    b, nh, hd = q.shape
+    n_pages, kvh, _, P = k_q.shape
+    max_pages = block_tables.shape[1]
+    groups = nh // kvh
+    hdc = hd // 2 if packed else hd
+    if nh != kvh * groups or k_q.shape[2] != hdc or v_q.shape != k_q.shape:
+        raise ValueError(
+            f"bad shapes q {tuple(q.shape)} k {tuple(k_q.shape)} v {tuple(v_q.shape)}"
+        )
+    if q.device.type == "cpu":
+        return _paged_attention_plain(
+            q, k_q, k_s, v_q, v_s, lengths, block_tables, k_cos, k_sin, fold,
+            theta=theta, rope=rope, packed=packed,
+        )
+    what = "quantized_paged_attention"
+    if not q.is_cuda:
+        raise ValueError(f"{what}: q on {q.device}")
+    if ((groups, hd) not in _PAGED_SHAPES or P != _PAGED_P
+            or q.dtype not in _DTYPE_CODES):
+        raise NotImplementedError(
+            "paged_attention.cu is built for (query heads per kv head, head "
+            f"dim) in {_PAGED_SHAPES}, page size {_PAGED_P}, f32/bf16 q; got "
+            f"G={groups}, hd={hd}, P={P}, {q.dtype}"
+        )
+    dev = q.device
+    for name, t, dts in (("k_q", k_q, (torch.int8, torch.uint8)),
+                         ("v_q", v_q, (torch.int8, torch.uint8)),
+                         ("k_s", k_s, (torch.float32,)), ("v_s", v_s, (torch.float32,))):
+        # the pool is shared by every slot and layer call: never copied here
+        if t.dtype not in dts or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{what}: {name} must be a contiguous tensor of "
+                             f"{dts} on {dev}")
+    qc = q.contiguous()
+    lens = _contig(lengths, torch.int32)
+    bt = _contig(block_tables, torch.int32)
+    if rope and k_cos is None:
+        k_cos, k_sin = _rope_tables(max_pages * P, hd, theta, dev)
+    dummy = torch.zeros(1, dtype=torch.float32, device=dev)
+    kc = _contig(k_cos, torch.float32) if rope else dummy
+    ksn = _contig(k_sin, torch.float32) if rope else dummy
+    want = {"k_s": (k_s, n_pages * P), "v_s": (v_s, n_pages * P),
+            "lengths": (lens, b), "block_tables": (bt, b * max_pages)}
+    if rope:
+        want.update(k_cos=(kc, (hd // 2) * max_pages * P),
+                    k_sin=(ksn, (hd // 2) * max_pages * P))
+    _check_sizes(what, dev, want)
+    fold_t = _fold_operands(what, fold, b, kvh, hd, rope, dev, dummy)
+    out = torch.empty_like(qc)
+    f = _build.bind("paged_attention", "paged_attention", 17, 9, 1)
+    ptrs = [qc, k_q, k_s, v_q, v_s, lens, bt, kc, ksn, *fold_t, out]
+    err = f(*[t.data_ptr() for t in ptrs], b, kvh, groups, hd, max_pages,
+            int(packed), int(rope), int(fold is not None), _DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "paged_attention")
+    quantized_paged_attention.launches += 1
+    return out
+
+
+quantized_paged_attention.launches = 0
 
 
 def decode_attention_reference(q, k_q, k_s, v_q, v_s, lengths, *,

@@ -7,12 +7,19 @@ Math contract (the JAX package's ``ops/pallas/quant_matmul.py``)::
     wq = round(w * s_w);  xq = round(x * s_x)       (round half to even)
     out[i,j] = (sum_k xq[i,k] * wq[k,j]) * (1 / ((s_x[i]+1e-6) * (s_w[j]+1e-6)))
 
-Two kernels, each beside its plain PyTorch version:
+Four kernel entry points, each beside its plain PyTorch version:
 
 * ``int8_matmul`` (``csrc/int8_matmul.cu``) replaces
   ``llm_qat_tpu/ops/pallas/quant_matmul.py:_int8_matmul_kernel``.
 * ``int4_matmul`` (``csrc/w4a8_matmul.cu``) replaces
   ``llm_qat_tpu/ops/pallas/quant_matmul.py:_w4a8_matmul_kernel``.
+* ``int8_matmul_stacked`` (``csrc/int8_matmul.cu``, entry point
+  ``int8_matmul_stacked``) replaces
+  ``llm_qat_tpu/ops/pallas/quant_matmul.py:int8_matmul_stacked``, and
+  ``int4_matmul_stacked`` (``csrc/w4a8_matmul.cu``, entry point
+  ``w4a8_matmul_stacked``) replaces ``...:int4_matmul_stacked``: the same
+  device code reading layer ``layer`` of a stacked ``[L, K(/2), N]`` weight
+  in place (the kernel offsets its base pointers; no slice is copied).
 
 A wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Each wrapper counts its launches in
@@ -166,7 +173,9 @@ def _check_operands(xq, w, sx, sw, out_dtype, k_per_row):
     return M, K, N
 
 
-def _launch_gemm(stem, fn, xq, w, sx, sw, out_dtype, M, N, K):
+def _launch_gemm(stem, fn, xq, w, sx, sw, out_dtype, M, N, K, layer=None):
+    """``layer`` given: ``w``/``sw`` are the stacked tensors and ``fn`` the
+    stacked entry point, which takes the layer index."""
     for name, t, dt in (("xq", xq, torch.int8), ("sx", sx, torch.float32),
                         ("sw", sw, torch.float32)):
         if t.dtype != dt or not t.is_contiguous() or not t.is_cuda:
@@ -176,9 +185,10 @@ def _launch_gemm(stem, fn, xq, w, sx, sw, out_dtype, M, N, K):
     if N % 64 or K % 128:
         raise ValueError(f"{fn}: needs N % 64 == 0 and K % 128 == 0, got {N}, {K}")
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
-    f = _build.bind(stem, fn, 5, 4)
+    ints = (M, N, K) if layer is None else (M, N, K, layer)
+    f = _build.bind(stem, fn, 5, len(ints) + 1)
     err = f(xq.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-            out.data_ptr(), M, N, K, _OUT_CODES[out_dtype],
+            out.data_ptr(), *ints, _OUT_CODES[out_dtype],
             torch.cuda.current_stream(xq.device).cuda_stream)
     _build.check(err, fn)
     return out
@@ -230,6 +240,65 @@ def int4_matmul(
 
 
 int4_matmul.launches = 0
+
+
+def _check_stacked(xq, w_all, sx, sw_all, layer, out_dtype, k_per_row):
+    if w_all.dim() != 3 or sw_all.dim() != 3 or not 0 <= layer < w_all.shape[0]:
+        raise ValueError(f"stacked weight {tuple(w_all.shape)}, scales "
+                         f"{tuple(sw_all.shape)}, layer {layer}")
+    if sw_all.shape[0] != w_all.shape[0]:
+        raise ValueError(f"stacked scales {tuple(sw_all.shape)} for weight "
+                         f"{tuple(w_all.shape)}")
+    return _check_operands(xq, w_all[layer], sx, sw_all[layer], out_dtype, k_per_row)
+
+
+def int8_matmul_stacked(
+    xq: torch.Tensor,      # [M, K] int8
+    wq_all: torch.Tensor,  # [L, K, N] int8: the WHOLE stacked weight
+    sx: torch.Tensor,      # [M, 1] f32
+    sw_all: torch.Tensor,  # [L, 1, N] f32
+    *,
+    layer: int,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """``int8_matmul`` reading layer ``layer`` of a stacked weight in place."""
+    M, K, N = _check_stacked(xq, wq_all, sx, sw_all, layer, out_dtype, 1)
+    if xq.device.type == "cpu":
+        return _int8_matmul_plain(xq, wq_all[layer], sx, sw_all[layer], out_dtype)
+    if wq_all.dtype != torch.int8:
+        raise ValueError("int8_matmul_stacked: wq_all must be int8")
+    out = _launch_gemm("int8_matmul", "int8_matmul_stacked", xq, wq_all, sx, sw_all,
+                       out_dtype, M, N, K, layer)
+    int8_matmul_stacked.launches += 1
+    return out
+
+
+int8_matmul_stacked.launches = 0
+
+
+def int4_matmul_stacked(
+    xq: torch.Tensor,      # [M, K] int8
+    wp_all: torch.Tensor,  # [L, K//2, N] uint8, split-half packed: WHOLE stack
+    sx: torch.Tensor,      # [M, 1] f32
+    sw_all: torch.Tensor,  # [L, 1, N] f32
+    *,
+    layer: int,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """``int4_matmul`` reading layer ``layer`` of the stacked packed weight
+    in place."""
+    M, K, N = _check_stacked(xq, wp_all, sx, sw_all, layer, out_dtype, 2)
+    if xq.device.type == "cpu":
+        return _int4_matmul_plain(xq, wp_all[layer], sx, sw_all[layer], out_dtype)
+    if wp_all.dtype != torch.uint8:
+        raise ValueError("int4_matmul_stacked: wp_all must be uint8")
+    out = _launch_gemm("w4a8_matmul", "w4a8_matmul_stacked", xq, wp_all, sx, sw_all,
+                       out_dtype, M, N, K, layer)
+    int4_matmul_stacked.launches += 1
+    return out
+
+
+int4_matmul_stacked.launches = 0
 
 
 def _quant_act_matmul(kernel, x, w, sw, bits, out_dtype):

@@ -11,7 +11,11 @@ attention round at the same points against the same softmax maximum as
 their plain versions and differ only in fp32 summation order: held element
 by element, in bf16 to 2 bf16 steps of the expected value plus 1e-2 of the
 median expected magnitude, in f32 to 1e-5 of the value plus 1e-4 of the
-median. The whole-model decode kernel takes every rounded sum in float64, as
+median; the paged decode attention and the stacked decode attention follow
+their plain versions the same way (the paged pair both against the running
+maximum, page by page) and are held alike; the stacked GEMMs are bit-exact
+against their plain versions and against the unstacked kernels. The
+whole-model decode kernel takes every rounded sum in float64, as
 its plain version does, so the two are expected to agree bit for bit; held
 here to: committed K/V integers and lengths equal, inverse scales at rtol
 1e-6, logits element-wise as above.
@@ -103,6 +107,137 @@ def test_decode_attention_kernel(gen, packed, rope, dtype):
     args = (q, kq, ks, vq, vs, lens, kc if rope else None, ksn if rope else None, fold)
     got = DA.quantized_decode_attention(*args, rope=rope, packed=packed)
     want = DA._decode_attention_plain(*args, rope=rope, packed=packed)
+    assert _close(got, want)
+
+
+def _random_pool(n_pages, kvh, hd, packed, gen):
+    hdc = hd // 2 if packed else hd
+    lo, hi, qdt = (0, 256, torch.uint8) if packed else (-127, 128, torch.int8)
+    ints = lambda: torch.randint(lo, hi, (n_pages, kvh, hdc, 128), device="cuda",  # noqa: E731
+                                 generator=gen).to(qdt)
+    scales = lambda: torch.rand(n_pages, 128, device="cuda", generator=gen) * 0.02 + 0.005  # noqa: E731
+    return ints(), scales(), ints(), scales()
+
+
+def _paged_case(b, G, hd, packed, dtype, gen, fold=True, max_pages=8):
+    """Slots that are empty, hold one token, end on a page edge, mid-page
+    and fill their table; shuffled tables whose unused entries point outside
+    the pool; every third slot inactive."""
+    kvh, P = (4, 128) if G == 8 else (8, 128)
+    base = [0, 1, 2 * P, 2 * P + 37, max_pages * P, 5, 3 * P - 1, P]
+    lens_l = [base[i % len(base)] for i in range(b)]
+    n_pages = sum(-(-n // P) for n in lens_l) + 3
+    pool = _random_pool(n_pages, kvh, hd, packed, gen)
+    ids = torch.randperm(n_pages, device="cuda", generator=gen).tolist()
+    bt = torch.full((b, max_pages), 10 ** 6, dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(lens_l):
+        live = -(-n // P)
+        bt[i, :live] = torch.tensor(ids[at:at + live], dtype=torch.int32)
+        at += live
+    q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(dtype)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    kc, ksn = DA._rope_tables(max_pages * P, hd, 10000.0, "cuda")
+    fd = None
+    if fold:
+        flo, fhi = (-8, 8) if packed else (-127, 128)
+        pos = (lens.long() % (max_pages * P))
+        fd = (torch.randint(flo, fhi, (b, kvh, hd), device="cuda", generator=gen).to(torch.int8),
+              torch.rand(b, 1, device="cuda", generator=gen) * 0.02 + 0.005,
+              torch.randint(flo, fhi, (b, kvh, hd), device="cuda", generator=gen).to(torch.int8),
+              torch.rand(b, 1, device="cuda", generator=gen) * 0.02 + 0.005,
+              torch.tensor([int(i % 3 != 2) for i in range(b)], dtype=torch.int32,
+                           device="cuda"),
+              kc[:, pos].T.contiguous(), ksn[:, pos].T.contiguous())
+    return q, pool, lens, bt.cuda(), kc, ksn, fd
+
+
+@pytest.mark.parametrize("G,hd", [(8, 64), (1, 128)])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("b", [1, 32])
+def test_paged_attention_kernel(gen, G, hd, packed, dtype, fold, rope, b):
+    if b == 1:
+        # one slot: mid-page in its third page
+        q, pool, lens, bt, kc, ksn, fd = _paged_case(4, G, hd, packed, dtype, gen, fold)
+        q, lens, bt = q[3:4], lens[3:4], bt[3:4]
+        fd = None if fd is None else tuple(a[3:4] for a in fd)
+    else:
+        q, pool, lens, bt, kc, ksn, fd = _paged_case(b, G, hd, packed, dtype, gen, fold)
+    args = (q, *pool, lens, bt, kc if rope else None, ksn if rope else None, fd)
+    n = DA.quantized_paged_attention.launches
+    got = DA.quantized_paged_attention(*args, rope=rope, packed=packed)
+    assert DA.quantized_paged_attention.launches == n + 1
+    want = DA._paged_attention_plain(*args, rope=rope, packed=packed)
+    torch.cuda.synchronize()
+    assert _close(got, want)
+    if not fold:
+        empty = lens == 0
+        assert not got[empty].any()          # l clamps at 1e-9: 0, not NaN
+
+
+def test_paged_attention_kernel_builds_its_own_tables_and_refuses_other_shapes(gen):
+    q, pool, lens, bt, kc, ksn, fd = _paged_case(8, 8, 64, False, torch.bfloat16, gen)
+    a = DA.quantized_paged_attention(q, *pool, lens, bt, kc, ksn, fd)
+    b = DA.quantized_paged_attention(q, *pool, lens, bt, None, None, fd)
+    assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match=r"\(8, 64\), \(1, 128\)"):
+        DA.quantized_paged_attention(q[:, :16], *pool, lens, bt)        # G = 4
+    small = tuple(t[..., :64].contiguous() for t in pool)
+    with pytest.raises(NotImplementedError, match="page size 128"):
+        DA.quantized_paged_attention(q, *small, lens, bt)
+    with pytest.raises(ValueError, match="contiguous"):
+        DA.quantized_paged_attention(q, pool[0].transpose(0, 1).contiguous().transpose(0, 1),
+                                     *pool[1:], lens, bt)
+
+
+@pytest.mark.parametrize("layer", [0, 3, 21])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_stacked_gemm_kernels_bit_exact(gen, layer, out_dtype):
+    """Layer ``layer`` of a 22-layer stack read in place: equal to the plain
+    version and to the unstacked kernel on that layer's slice."""
+    L, M, K, N = 22, 32, 2048, 256
+    x = torch.randn(M, K, device="cuda", generator=gen)
+    w = torch.randn(L, K, N, device="cuda", generator=gen) * 0.02
+    xq, sx = QM.quantize_per_token(x)
+    wq, sw = QM.quantize_per_channel(w)
+    n = QM.int8_matmul_stacked.launches
+    got = QM.int8_matmul_stacked(xq, wq, sx, sw, layer=layer, out_dtype=out_dtype)
+    assert QM.int8_matmul_stacked.launches == n + 1
+    assert torch.equal(got, QM._int8_matmul_plain(xq, wq[layer], sx, sw[layer], out_dtype))
+    assert torch.equal(got, QM.int8_matmul(xq, wq[layer], sx, sw[layer], out_dtype=out_dtype))
+    wp, sw4 = QM.quantize_weights_w4(w)
+    got4 = QM.int4_matmul_stacked(xq, wp, sx, sw4, layer=layer, out_dtype=out_dtype)
+    assert torch.equal(got4, QM._int4_matmul_plain(xq, wp[layer], sx, sw4[layer], out_dtype))
+    assert torch.equal(got4, QM.int4_matmul(xq, wp[layer], sx, sw4[layer], out_dtype=out_dtype))
+    with pytest.raises(ValueError, match="contiguous"):
+        QM.int8_matmul_stacked(xq, wq.transpose(1, 2).contiguous().transpose(1, 2), sx, sw,
+                               layer=layer)
+
+
+@pytest.mark.parametrize("layer", [0, 2])
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stacked_decode_attention_kernel(gen, layer, rope, dtype):
+    L, b, kvh, G, hd, S = 3, 8, 4, 8, 64, 512
+    kq = torch.randint(-127, 128, (L, b, kvh, hd, S), device="cuda", generator=gen).to(torch.int8)
+    vq = torch.randint(-127, 128, (L, b, kvh, hd, S), device="cuda", generator=gen).to(torch.int8)
+    ks = torch.rand(L, b, S, device="cuda", generator=gen) * 0.02 + 0.005
+    vs = torch.rand(L, b, S, device="cuda", generator=gen) * 0.02 + 0.005
+    q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(dtype)
+    lens = torch.tensor([0, 0, 17, 255, 256, 257, 400, 511], dtype=torch.int32, device="cuda")
+    inc = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.int32, device="cuda")
+    kn = (torch.randn(b, kvh, hd, device="cuda", generator=gen) * 0.5).to(dtype)
+    vn = (torch.randn(b, kvh, hd, device="cuda", generator=gen) * 0.5).to(dtype)
+    kc, ksn = DA._rope_tables(S, hd, 10000.0, "cuda")
+    args = (q, kq, ks, vq, vs, lens, inc, kn, vn, kc if rope else None, ksn if rope else None)
+    n = DA.quantized_decode_attention_stacked.launches
+    got = DA.quantized_decode_attention_stacked(*args, layer=layer, rope=rope)
+    assert DA.quantized_decode_attention_stacked.launches == n + 1
+    want = DA._decode_attention_stacked_plain(*args, layer=layer, rope=rope)
+    torch.cuda.synchronize()
     assert _close(got, want)
 
 

@@ -197,6 +197,9 @@ def _imports(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "llm_qat_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"llm_qat_torch/inference/paged.py", "llm_qat_torch/inference/paged_engine.py",
+            "llm_qat_torch/inference/megakernel.py", "chip_smoke.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -32,7 +32,16 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    plain versions and the port's CPU path, contiguous and paged, and the
    paged path against the scan path on a prompt of more than one page (see
    ``cpu_check`` for the limits);
-4. prints a ``{"kernels": [...]}`` line and, last, the
+4. holds the four training kernels against their plain versions at the train
+   step's shapes (flash backward dQ and dK/dV and the flash forward at
+   B = 16, G = 8, S = 2048; RMSNorm+quant at [8192, 2048]; SiLU*up+quant at
+   [8192, 5632]), then takes KD-QAT train steps of TinyLlama-1.1B W4A8KV4 at
+   full width and depth through ``training.trainer.Trainer`` (bf16 params,
+   4 x 2048 tokens, ``kl_chunk=256``, remat on; see ``train_run``), steps on a
+   4-layer cut with and without ``fused_silu_quant``, and one step on a
+   2-layer cut three ways: the card path with its kernels, with the plain
+   versions swapped in, and the port's CPU path (``train_check``);
+5. prints a ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, and prints no result, when there is no GPU or any phase
@@ -70,6 +79,14 @@ TIGHT_PAGES = 33                    # 32 usable pages: the buckets need 40 (see 
 PAGED_VS_K3_ULPS, PAGED_VS_K3_FLOOR = 4.0, 2e-2   # K8 against K3 on the gathered cache
 PAGED_PROMPT = 1000                 # the longest served prompt: 8 pages, so K8 rescales 7 times
 STACK_LAYER = 3                     # the layer K5-K7 read in place
+F32_FLOPS = 67e12               # fp32 peak outside the tensor cores
+TRAIN_BATCH, TRAIN_SEQ, KL_CHUNK = 4, 2048, 256     # the train step's batch
+TRAIN_WARM, TRAIN_STEPS = 2, 3                       # warm-up and timed steps
+TRAIN_LENS = (2048,) * 10 + (1234, 777, 1, 0, 2048, 1500)   # flash backward phase, B = 16
+SILU_LAYERS, SILU_STEPS, SILU_LOSS_REL = 4, 2, 0.05  # the fused_silu_quant run (see train_phases)
+QUANT_FLIP_SHARE = 0.01     # K12/K13: integers one off where x*s is on a rounding boundary
+QUANT_ROW_SHARE = 1e-3      # K12: rows whose absmax moved one bf16 step (see fused_quant_phase)
+TRAIN_CUT_LOSS_REL, TRAIN_CUT_GRAD_REL = 2e-2, 0.25   # train_check: kernels against plain versions
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -603,7 +620,15 @@ def counters():
             "paged_attention": DA.quantized_paged_attention,
             "int8_matmul_stacked": QM.int8_matmul_stacked,
             "int4_matmul_stacked": QM.int4_matmul_stacked,
-            "decode_attention_stacked": DA.quantized_decode_attention_stacked}
+            "decode_attention_stacked": DA.quantized_decode_attention_stacked,
+            **train_counters()}
+
+
+def train_counters():
+    from llm_qat_torch.ops import flash_attention as FA
+    from llm_qat_torch.ops import fused_quant as FQ
+    return {"flash_bwd_dq": FA._flash_bwd_dq, "flash_bwd_dkv": FA._flash_bwd_dkv,
+            "rmsnorm_quant": FQ.rmsnorm_quant, "silu_mul_quant": FQ.silu_mul_quant}
 
 
 def read_counters():
@@ -1127,6 +1152,444 @@ def cpu_check(label, cfg, qparams, rng):
 
 
 # ---------------------------------------------------------------------------
+# training: kernel phases
+# ---------------------------------------------------------------------------
+
+
+def live_pairs(lens, S, causal=True):
+    """(query row, key column) pairs a flash kernel must visit for one query
+    head of each sequence: columns < max(length, 1), and <= row when causal."""
+    tot = 0
+    for n in lens:
+        n = max(n, 1)
+        tot += (n * (n + 1) // 2 + (S - n) * n) if causal else S * n
+    return tot
+
+
+def flash_train_phase(timer, gen, FA):
+    """K4, K10 and K11 at the train step's attention shape: batch 4 x 4 kv
+    heads = 16, G = 8, S = 2048, D = 64, causal, bf16, lengths TRAIN_LENS
+    (full, ragged, 1 and 0). Each against its plain version under the K3/K4
+    limit (``agreement``): kernel and plain version compute p from the same
+    log-sum-exp and round ds and p to bf16 alike; they differ in their fp32
+    summation orders. The backward pair takes the forward KERNEL's O and
+    log-sum-exp. ``library_ms`` of the backward pair is the backward of one
+    ``scaled_dot_product_attention`` call (dQ, dK and dV together, full
+    lengths; the port never calls it)."""
+    B, G, S, D = len(TRAIN_LENS), 8, TRAIN_SEQ, 64
+    q, do = (torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    lens = torch.tensor(TRAIN_LENS, dtype=torch.int32, device="cuda")
+    o, lse = FA._flash_fwd(q, k, v, lens)
+    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    fwd = agreement(o, o2, ATTN_ULPS, ATTN_FLOOR)
+    lse_err = float((lse - lse2).abs().max())
+    del o2, lse2
+    if not (fwd["ok"] and lse_err <= 1e-3):
+        raise AssertionError(f"flash forward S={S}: {fwd}, lse {lse_err}")
+    delta = FA._delta(o, do)
+    args = (q, k, v, lens, lse, delta, do)
+    dq = FA._flash_bwd_dq(*args)
+    dk, dv = FA._flash_bwd_dkv(*args)
+    dq2 = FA._flash_bwd_dq_plain(*args)
+    dk2, dv2 = FA._flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    agr = {n: agreement(a, w, ATTN_ULPS, ATTN_FLOOR)
+           for n, a, w in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
+    zeros = all(not t[b, max(n, 1):].any() for t in (dk, dv) for b, n in enumerate(TRAIN_LENS))
+    if not (all(a["ok"] for a in agr.values()) and zeros):
+        raise AssertionError(f"flash backward: {agr}, zeros past the lengths {zeros}")
+    del dq, dk, dv, dq2, dk2, dv2
+
+    ms = {"fwd": timer(lambda: FA._flash_fwd(q, k, v, lens)),
+          "dq": timer(lambda: FA._flash_bwd_dq(*args)),
+          "dkv": timer(lambda: FA._flash_bwd_dkv(*args))}
+    plain = {"fwd": timer(lambda: FA._flash_fwd_plain(q, k, v, lens), reps=3),
+             "dq": timer(lambda: FA._flash_bwd_dq_plain(*args), reps=3),
+             "dkv": timer(lambda: FA._flash_bwd_dkv_plain(*args), reps=3)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kh, vh = k[:, None], v[:, None]
+    lib_fwd = timer(lambda: sdpa(q, kh, vh, is_causal=True, enable_gqa=True))
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, kh, vh))
+    out = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+    lib_bwd = timer(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
+    del out
+
+    pairs = G * live_pairs(TRAIN_LENS, S)
+    qb, kvb, rowb = 2 * B * G * S * D, 2 * B * S * D, 4 * B * G * S
+    bounds = {"fwd": bound(2 * qb + 2 * kvb + rowb, 2 * 2 * pairs * D, BF16_FLOPS),
+              "dq": bound(3 * qb + 2 * kvb + 2 * rowb, 3 * 2 * pairs * D, BF16_FLOPS),
+              "dkv": bound(2 * qb + 4 * kvb + 2 * rowb, 4 * 2 * pairs * D, BF16_FLOPS)}
+    log(f"  flash at the train shape B={B} G={G} S={S} D={D} lens={list(TRAIN_LENS)}: forward "
+        f"{ms['fwd']:.3f} ms (plain {plain['fwd']:.2f}, sdpa {lib_fwd:.4f}, bound "
+        f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}) max_abs_err {fwd['max_abs_err']:.3g}, worst "
+        f"{fwd['worst']:.3g} of its limit, lse {lse_err:.3g}; dQ {ms['dq']:.3f} ms (plain "
+        f"{plain['dq']:.2f}, bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}) max_abs_err "
+        f"{agr['dq']['max_abs_err']:.3g}, worst {agr['dq']['worst']:.3g}; dK/dV {ms['dkv']:.3f} ms "
+        f"(plain {plain['dkv']:.2f}, bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}) max_abs_err "
+        f"dk {agr['dk']['max_abs_err']:.3g} dv {agr['dv']['max_abs_err']:.3g}, worst "
+        f"{max(agr['dk']['worst'], agr['dv']['worst']):.3g}; sdpa backward (dQ, dK, dV together, "
+        f"full lengths) {lib_bwd:.4f} ms")
+    shape = dict(B=B, G=G, S=S, D=D, lengths=list(TRAIN_LENS), live_pairs=pairs)
+
+    def row(key, lib, **extra):
+        return dict(shape, ms=ms[key], plain_ms=plain[key], library_ms=lib,
+                    bound_ms=bounds[key][0], bound_by=bounds[key][1], **extra)
+
+    return dict(fwd=row("fwd", lib_fwd, lse_err=lse_err, **fwd),
+                dq=row("dq", lib_bwd, library_is="sdpa backward, dQ+dK+dV together", **agr["dq"]),
+                dkv=row("dkv", lib_bwd, library_is="sdpa backward, dQ+dK+dV together",
+                        max_abs_err=max(agr["dk"]["max_abs_err"], agr["dv"]["max_abs_err"]),
+                        dk=agr["dk"], dv=agr["dv"]))
+
+
+def quant_agreement(q, s, q2, s2):
+    """K12/K13 against their plain versions. Scales within rtol 1e-6, except
+    in rows whose absmax element moved by one bf16 step (its fp32 value sat on
+    a bf16 rounding boundary and the two fp32 sums of squares differ in the
+    last bit): at most QUANT_ROW_SHARE of the rows, their scales within 2**-7.
+    In all other rows the integers are equal or one apart, and at most
+    QUANT_FLIP_SHARE of them differ."""
+    rel = ((s - s2).abs() / s2)[:, 0]
+    moved = rel > 1e-6
+    d = (q.int() - q2.int()).abs()[~moved]
+    res = dict(scale_rel_err=float(rel[~moved].max()) if (~moved).any() else 0.0,
+               moved_rows=float(moved.float().mean()),
+               moved_rows_rel=float(rel.max()),
+               int_max_diff=int(d.max()), int_diff_share=float((d != 0).float().mean()))
+    res["max_abs_err"] = float(res["int_max_diff"])
+    res["ok"] = (res["moved_rows"] <= QUANT_ROW_SHARE and res["moved_rows_rel"] <= 2.0 ** -7
+                 and res["int_max_diff"] <= 1 and res["int_diff_share"] <= QUANT_FLIP_SHARE)
+    return res
+
+
+def fused_quant_phase(timer, gen, FQ, c):
+    """K12 at the train step's rows [4 * 2048, H] with an f32 and a bf16 gain,
+    K13 at [4 * 2048, I], bf16, 8-bit activations. Bound by bytes: input read
+    once (2 bytes an element, two inputs for K13), int8 written once, a scale
+    a row, the gain."""
+    M, H, I = TRAIN_BATCH * TRAIN_SEQ, c.hidden_size, c.intermediate_size
+    out = {"rmsnorm_quant": [], "silu_mul_quant": []}
+    h = (torch.randn(M, H, device="cuda", generator=gen) * 1.3).to(torch.bfloat16)
+    for gdt in (torch.float32, torch.bfloat16):
+        g = (1 + 0.1 * torch.randn(H, device="cuda", generator=gen)).to(gdt)
+        agr = quant_agreement(*FQ.rmsnorm_quant(h, g, c.rms_norm_eps, 8),
+                              *FQ._rmsnorm_quant_plain(h, g, c.rms_norm_eps, 8))
+        torch.cuda.synchronize()
+        if not agr["ok"]:
+            raise AssertionError(f"rmsnorm_quant gain {gdt}: {agr}")
+        ms = timer(lambda: FQ.rmsnorm_quant(h, g, c.rms_norm_eps, 8))
+        plain_ms = timer(lambda: FQ._rmsnorm_quant_plain(h, g, c.rms_norm_eps, 8))
+        b_ms, b_by = bound(3 * M * H + 4 * M + g.element_size() * H, 8.0 * M * H, F32_FLOPS)
+        log(f"  rmsnorm_quant [{M}, {H}] bf16, gain {str(gdt)[6:]}: {ms:.4f} ms (plain "
+            f"{plain_ms:.4f}, bound {b_ms:.4f} {b_by}) scales rel err {agr['scale_rel_err']:.3g}, "
+            f"rows with a moved absmax {agr['moved_rows']:.3g}, integers differ by at most "
+            f"{agr['int_max_diff']} in {agr['int_diff_share']:.3g} of the elements")
+        out["rmsnorm_quant"].append(dict(M=M, K=H, gain=str(gdt)[6:], ms=ms, plain_ms=plain_ms,
+                                         library_ms=None, bound_ms=b_ms, bound_by=b_by, **agr))
+    gate = (torch.randn(M, I, device="cuda", generator=gen) * 2).to(torch.bfloat16)
+    up = torch.randn(M, I, device="cuda", generator=gen).to(torch.bfloat16)
+    agr = quant_agreement(*FQ.silu_mul_quant(gate, up, 8), *FQ._silu_mul_quant_plain(gate, up, 8))
+    torch.cuda.synchronize()
+    if not agr["ok"]:
+        raise AssertionError(f"silu_mul_quant: {agr}")
+    ms = timer(lambda: FQ.silu_mul_quant(gate, up, 8))
+    plain_ms = timer(lambda: FQ._silu_mul_quant_plain(gate, up, 8))
+    b_ms, b_by = bound(5 * M * I + 4 * M, 12.0 * M * I, F32_FLOPS)
+    log(f"  silu_mul_quant [{M}, {I}] bf16: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.4f} "
+        f"{b_by}) scales rel err {agr['scale_rel_err']:.3g}, integers differ by at most "
+        f"{agr['int_max_diff']} in {agr['int_diff_share']:.3g} of the elements")
+    out["silu_mul_quant"].append(dict(M=M, K=I, ms=ms, plain_ms=plain_ms, library_ms=None,
+                                      bound_ms=b_ms, bound_by=b_by, **agr))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training: the train step
+# ---------------------------------------------------------------------------
+
+
+def profile_kernels(fn, label):
+    """``fn()`` under torch.profiler: device time by kernel and the device's
+    busy share of the wall time (kernel events only, as in
+    ``profile_decode_chunk``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ev)
+    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:14]
+    out = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3, device_busy_share=busy / wall_us,
+               top=[(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top])
+    log(f"  profile of {label}: wall {out['wall_ms']:.1f} ms, device busy "
+        f"{out['device_busy_ms']:.1f} ms ({100 * out['device_busy_share']:.1f}%)")
+    for name, ms, n in out["top"]:
+        log(f"    {ms:9.3f} ms  x{n:5d}  {name}")
+    return out
+
+
+def train_cfg_of(cfg, layers=None, **kw):
+    """TinyLlama-1.1B W4A8KV4 with the library's default flags, optionally cut
+    to its first ``layers`` layers."""
+    c = cfg.replace(w_bits=4, a_bits=8, kv_bits=4, **kw)
+    return c if layers is None else c.replace(num_hidden_layers=layers)
+
+
+def train_run(label, cfg, steps, warm, profile, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """KD-QAT train steps through ``Trainer``, the recipe of the JAX package's
+    benchmark: bf16 params and compute, student from seed 0, fp teacher from
+    seed 1, one batch of ``batch`` x ``seq`` tokens from seed 2 (the same at
+    every step), ``TrainConfig(kl_chunk=256)`` (AdamW, lr 2e-5 cosine over 1000
+    steps, clip 1.0, remat on). Every launch count is set to 0 before each step
+    and read after it. Per step: K4 twice a layer (teacher and student: the
+    rematerialized layer reads its saved attention), K10 and K11 once a layer,
+    K12 four times a layer (two norms, forward and recompute) and K13 twice a
+    layer with ``fused_silu_quant`` (forward and recompute), else never; no
+    serving kernel. Fails unless every loss and grad_norm is finite, the last
+    loss is below the first and the teacher's tensors are bit-unchanged."""
+    from llm_qat_torch.models import params as P
+    from llm_qat_torch.training import trainer as T
+
+    L = cfg.num_hidden_layers
+    tc = T.TrainConfig(kl_chunk=KL_CHUNK)
+    student = P.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    teacher = P.init_params(cfg.replace(w_bits=32, a_bits=32, kv_bits=32), seed=1,
+                            dtype=torch.bfloat16)
+    teacher_sums = [t.double().sum().item() for t in T.tree_leaves(teacher)]
+    teacher_copy = T.tree_map(torch.clone, teacher)
+    tr = T.Trainer(cfg, tc, student, teacher)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda", generator=g)
+    data = {"input_ids": ids, "labels": ids}
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "rmsnorm_quant": 4 * L,
+            "silu_mul_quant": 2 * L if cfg.fused_silu_quant else 0}
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times, launches = [], [], [], dict.fromkeys(counters(), 0)
+    for i in range(warm + steps):
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(data)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = read_counters()
+        if any(got[k] != n for k, n in want.items()) or any(
+                n for k, n in got.items() if k not in want):
+            raise AssertionError(f"{label} step {i}: launches {got}, expected {want} and no other")
+        if not (np.isfinite(loss) and np.isfinite(norm)):
+            raise AssertionError(f"{label} step {i}: loss {loss}, grad_norm {norm}")
+        losses.append(loss)
+        norms.append(norm)
+        if i >= warm:
+            times.append(dt)
+            for k, n in got.items():
+                launches[k] += n
+    peak = torch.cuda.max_memory_allocated()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    same = all(torch.equal(a, b) for a, b in zip(T.tree_leaves(teacher),
+                                                 T.tree_leaves(teacher_copy)))
+    if not same or teacher_sums != [t.double().sum().item() for t in T.tree_leaves(teacher)]:
+        raise AssertionError(f"{label}: the teacher's tensors changed")
+    del teacher_copy
+    step_ms = 1e3 * statistics.median(times)
+    res = dict(mode=label, layers=L, batch=batch, seq=seq, kl_chunk=KL_CHUNK,
+               learning_rate=tc.learning_rate, warmup=warm, steps=steps, losses=losses,
+               grad_norms=norms, step_ms=step_ms, step_ms_all=[1e3 * t for t in times],
+               tokens_per_s=batch * seq / (step_ms / 1e3), peak_memory_bytes=peak,
+               launches_per_step=want, launches=launches, teacher_unchanged=True)
+    log(f"  {label}: {L} layers, {batch} x {seq} tokens, lr {tc.learning_rate}: losses "
+        + " ".join(f"{x:.3f}" for x in losses) + "; grad norms "
+        + " ".join(f"{x:.3f}" for x in norms) + f"; step {step_ms:.1f} ms "
+        f"({', '.join(f'{1e3 * t:.1f}' for t in times)}), {res['tokens_per_s']:.0f} tokens/s, "
+        f"peak memory {peak / 2 ** 30:.2f} GiB; launches a step {want}; teacher unchanged")
+    if profile:
+        res["profile"] = profile_kernels(lambda: tr.train_step(data), f"one train step ({label})")
+    del tr, student, teacher
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def plain_train_on_gpu():
+    """Within the block the training kernels' wrappers are their plain
+    versions (the witness of ``train_check``, as ``plain_on_gpu`` is for
+    serving)."""
+    from llm_qat_torch.ops import flash_attention as FA
+    from llm_qat_torch.ops import fused_quant as FQ
+
+    swaps = [(FA, "_flash_fwd", FA._flash_fwd_plain),
+             (FA, "_flash_bwd_dq", FA._flash_bwd_dq_plain),
+             (FA, "_flash_bwd_dkv", FA._flash_bwd_dkv_plain),
+             (FQ, "rmsnorm_quant", FQ._rmsnorm_quant_plain),
+             (FQ, "silu_mul_quant", FQ._silu_mul_quant_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    try:
+        for mod, name, plain in swaps:
+            setattr(mod, name, plain)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+class _KeepGrads:
+    """An optimizer that keeps the gradients it is handed and updates
+    nothing: ``make_train_step`` with it is one forward and backward."""
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return None, state
+
+
+def _step_grads(cfg, student, teacher, ids, dtype):
+    """(loss, grad_norm, gradients) of one KD-QAT step, no update."""
+    from llm_qat_torch.training import trainer as T
+
+    keep = _KeepGrads()
+    tcfg = cfg.replace(w_bits=32, a_bits=32, kv_bits=32)
+    step = T.make_train_step(cfg, tcfg, T.TrainConfig(kl_chunk=KL_CHUNK, compute_dtype=dtype),
+                             keep)
+    _, m = step(T.TrainState(student, None, 0), teacher, {"input_ids": ids, "labels": ids})
+    return float(m["loss"]), float(m["grad_norm"]), keep.grads
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _grad_drift(a, b):
+    """(largest per-leaf relative L2 difference of two gradient trees, its
+    leaf)."""
+    worst = (0.0, "")
+    for (name, x), (_, y) in zip(_named_leaves(a), _named_leaves(b)):
+        x, y = x.double().cpu(), y.double().cpu()
+        worst = max(worst, (float((x - y).norm() / y.norm().clamp_min(1e-30)), name))
+    return worst
+
+
+def train_check(cfg):
+    """One KD-QAT step (no update) at full width on a CUT_LAYERS cut, batch 1:
+    the card path with its kernels, the card path with the plain versions
+    swapped in (``plain_train_on_gpu``: the witness) and the port's CPU path,
+    on the same bf16 weights and ids, at 128 tokens; and the first two at
+    2048 tokens. Loss, grad_norm and the largest per-leaf relative L2
+    difference of the gradients.
+
+    Kernels against plain versions (the kernels' own share): the two differ
+    in fp32 summation orders inside K4, K10, K11 and K12, a bf16 step in some
+    attention outputs and gradients, and every projection re-quantizes its
+    input to int8, which turns some of those into whole quantization steps.
+    Held to TRAIN_CUT_LOSS_REL on the loss and grad_norm and to
+    TRAIN_CUT_GRAD_REL on every leaf's gradient, and to no more than
+    FULL_DRIFT_OVER x the witness's own drift from the CPU path + these
+    limits (the witness shows what the card's library products and reductions
+    alone move)."""
+    from llm_qat_torch.models import params as P
+    from llm_qat_torch.training import trainer as T
+
+    cut = train_cfg_of(cfg, CUT_LAYERS)
+    student = P.init_params(cut, seed=0, dtype=torch.bfloat16)
+    teacher = P.init_params(cut.replace(w_bits=32, a_bits=32, kv_bits=32), seed=1,
+                            dtype=torch.bfloat16)
+    out = {}
+    for seq in (128, TRAIN_SEQ):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(3)
+        ids = torch.randint(0, cut.vocab_size, (1, seq), device="cuda", generator=g)
+        for fn in counters().values():
+            fn.launches = 0
+        kern = _step_grads(cut, student, teacher, ids, torch.bfloat16)
+        used = read_counters()
+        with plain_train_on_gpu():
+            plain = _step_grads(cut, student, teacher, ids, torch.bfloat16)
+        if read_counters() != used:
+            raise AssertionError("train_check: the plain run launched a kernel")
+        res = dict(seq=seq, loss=kern[0], grad_norm=kern[1], launches=used,
+                   loss_rel_vs_plain=abs(kern[0] - plain[0]) / abs(plain[0]),
+                   norm_rel_vs_plain=abs(kern[1] - plain[1]) / abs(plain[1]),
+                   grad_vs_plain=_grad_drift(kern[2], plain[2]))
+        if seq == 128:
+            to_cpu = lambda t: t.detach().cpu()  # noqa: E731
+            cpu = _step_grads(cut, T.tree_map(to_cpu, student), T.tree_map(to_cpu, teacher),
+                              ids.cpu(), torch.bfloat16)
+            for name, run in (("kernels", kern), ("plain", plain)):
+                res[f"{name}_loss_rel_vs_cpu"] = abs(run[0] - cpu[0]) / abs(cpu[0])
+                res[f"{name}_grad_vs_cpu"] = _grad_drift(run[2], cpu[2])
+            witness_loss, witness_grad = res["plain_loss_rel_vs_cpu"], res["plain_grad_vs_cpu"][0]
+        log(f"  train step on a {CUT_LAYERS}-layer cut, 1 x {seq} tokens: loss {kern[0]:.4f}, "
+            f"grad_norm {kern[1]:.4f}; kernels against plain versions on the card: loss "
+            f"{res['loss_rel_vs_plain']:.3g}, grad_norm {res['norm_rel_vs_plain']:.3g}, gradients "
+            f"{res['grad_vs_plain'][0]:.3g} ({res['grad_vs_plain'][1]})"
+            + (f"; against the CPU path: kernels loss {res['kernels_loss_rel_vs_cpu']:.3g}, "
+               f"gradients {res['kernels_grad_vs_cpu'][0]:.3g} ({res['kernels_grad_vs_cpu'][1]}); "
+               f"plain versions on the card (witness) loss {res['plain_loss_rel_vs_cpu']:.3g}, "
+               f"gradients {res['plain_grad_vs_cpu'][0]:.3g} ({res['plain_grad_vs_cpu'][1]})"
+               if seq == 128 else "")
+            + f" (limits: loss and grad_norm {TRAIN_CUT_LOSS_REL}, gradients "
+            f"{TRAIN_CUT_GRAD_REL})")
+        L = CUT_LAYERS
+        ok = (used["flash_fwd"] == 2 * L and used["flash_bwd_dq"] == L == used["flash_bwd_dkv"]
+              and used["rmsnorm_quant"] == 4 * L
+              and res["loss_rel_vs_plain"] <= TRAIN_CUT_LOSS_REL
+              and res["norm_rel_vs_plain"] <= TRAIN_CUT_LOSS_REL
+              and res["grad_vs_plain"][0] <= TRAIN_CUT_GRAD_REL)
+        if seq == 128:
+            ok = (ok and res["kernels_loss_rel_vs_cpu"]
+                  <= FULL_DRIFT_OVER * witness_loss + TRAIN_CUT_LOSS_REL
+                  and res["kernels_grad_vs_cpu"][0]
+                  <= FULL_DRIFT_OVER * witness_grad + TRAIN_CUT_GRAD_REL)
+        if not ok:
+            raise AssertionError(f"train_check: {res}")
+        out[f"seq{seq}"] = res
+    del student, teacher
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phases(cfg):
+    """The train runs: TinyLlama-1.1B at full depth with the default flags
+    (the main path of the training slice: K4, K10, K11, K12), then a
+    SILU_LAYERS-layer cut with ``fused_silu_quant`` (K13 twice a layer a step:
+    the student's forward and its recompute) beside the same cut with the
+    default flags. The two cuts start from the same weights and differ in the
+    MLP activation alone (sigmoid in fp32 rounded once, against the model
+    type's SiLU, and the kernel's quantization against the fused matmul's):
+    their first losses are held within SILU_LOSS_REL of each other."""
+    full = train_run("W4A8KV4 train", train_cfg_of(cfg), TRAIN_STEPS, TRAIN_WARM, profile=True)
+    base = train_run(f"W4A8KV4 train, {SILU_LAYERS}-layer cut", train_cfg_of(cfg, SILU_LAYERS),
+                     SILU_STEPS, 0, profile=False)
+    silu = train_run(f"W4A8KV4 train, {SILU_LAYERS}-layer cut, fused_silu_quant",
+                     train_cfg_of(cfg, SILU_LAYERS, fused_silu_quant=True), SILU_STEPS, 0,
+                     profile=False)
+    rel = abs(silu["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
+    log(f"  fused_silu_quant against the default route on the {SILU_LAYERS}-layer cut: first "
+        f"losses {silu['losses'][0]:.4f} and {base['losses'][0]:.4f}, {rel:.3g} apart (limit "
+        f"{SILU_LOSS_REL})")
+    if rel > SILU_LOSS_REL:
+        raise AssertionError(f"fused_silu_quant: first loss {rel} from the default route's")
+    silu["first_loss_rel_vs_default"] = rel
+    return [full, base, silu]
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1138,6 +1601,7 @@ def main() -> int:
     from llm_qat_torch.ops import _build
     from llm_qat_torch.ops import decode_attention as DA
     from llm_qat_torch.ops import flash_attention as FA
+    from llm_qat_torch.ops import fused_quant as FQ
     from llm_qat_torch.ops import quant_matmul as QM
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1165,6 +1629,8 @@ def main() -> int:
            for kvh, g, hd in ((cfg.kv_heads, G, cfg.head_dim), (32, 1, 128))
            for packed in (False, True)]
     k7 = stacked_attention_phase(timer, gen, DA, cfg)
+    ftr = flash_train_phase(timer, gen, FA)
+    fq = fused_quant_phase(timer, gen, FQ, cfg)
 
     log("[3] TinyLlama-1.1B, 22 layers: the stacked GEMMs on the served weights, the "
         "decode megakernel against its plain version, then serving 8 requests x 64 new "
@@ -1212,6 +1678,14 @@ def main() -> int:
                                     checks[-1]["full_depth"]["kernels_vs_plain"][2]),
             other="paged")
 
+    log(f"[4] KD-QAT training, TinyLlama-1.1B W4A8KV4, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, kl_chunk {KL_CHUNK}: {TRAIN_WARM} + {TRAIN_STEPS} steps at full depth, "
+        f"{SILU_STEPS} steps on a {SILU_LAYERS}-layer cut with and without fused_silu_quant, "
+        f"one step on a {CUT_LAYERS}-layer cut against the plain versions and the CPU path")
+    torch.cuda.empty_cache()
+    trains = train_phases(cfg)
+    tcheck = train_check(cfg)
+
     # each path went through its kernels, and only through them
     for m in runs:
         gemm_k = "int8_matmul" if m["mode"].startswith("W8") else "int4_matmul"
@@ -1247,7 +1721,7 @@ def main() -> int:
                     bound_by=sel[0]["bound_by"],
                     max_abs_err=max(s["max_abs_err"] for s in sel))
 
-    launches = {k: sum(m["launches"][k] for m in runs + paged_runs) for k in counters()}
+    launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) for k in counters()}
     # K5-K7 are on no serving path of either package: their counts are those
     # of their kernel phases
     launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
@@ -1255,6 +1729,7 @@ def main() -> int:
     launches["decode_attention_stacked"] = k7["launches"]
     k8 = pag[0]
     k9 = mega[0]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
     rows = [
         dict(name="int8_matmul", source="llm_qat_torch/csrc/int8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:77",
@@ -1272,10 +1747,11 @@ def main() -> int:
              max_abs_err=max(d["max_abs_err"] for d in dec), shapes=dec),
         dict(name="flash_fwd", source="llm_qat_torch/csrc/flash_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:94",
-             shape="B=4 G=8 S=1024 D=64 causal (S=128 in shapes)",
+             shape="B=4 G=8 S=1024 D=64 causal (S=128 and the train shape B=16 S=2048 in shapes)",
              **{k: fl[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by")},
-             max_abs_err=max(f["max_abs_err"] for f in fl), shapes=fl),
+             max_abs_err=max(f["max_abs_err"] for f in fl + [ftr["fwd"]]),
+             shapes=fl + [ftr["fwd"]]),
         dict(name="decode_megakernel", source="llm_qat_torch/csrc/megakernel.cu",
              replaces="llm_qat_tpu/inference/megakernel.py:259",
              shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed in shapes)",
@@ -1303,13 +1779,32 @@ def main() -> int:
              **{k: k7[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                    "max_abs_err")},
              shapes=[k7], launches_from="kernel phase (on no serving path)"),
+        dict(name="flash_bwd_dq", source="llm_qat_torch/csrc/flash_attention_bwd.cu",
+             replaces="llm_qat_tpu/ops/pallas/flash_attention.py:236",
+             shape="B=16 G=8 S=2048 D=64 causal bf16, lengths full, ragged, 1 and 0",
+             **{k: ftr["dq"][k] for k in keys}, shapes=[ftr["dq"]]),
+        dict(name="flash_bwd_dkv", source="llm_qat_torch/csrc/flash_attention_bwd.cu",
+             replaces="llm_qat_tpu/ops/pallas/flash_attention.py:297",
+             shape="B=16 G=8 S=2048 D=64 causal bf16, lengths full, ragged, 1 and 0",
+             **{k: ftr["dkv"][k] for k in keys}, shapes=[ftr["dkv"]]),
+        dict(name="rmsnorm_quant", source="llm_qat_torch/csrc/fused_quant.cu",
+             replaces="llm_qat_tpu/ops/pallas/fused_quant.py:77",
+             shape="[8192, 2048] bf16 with an f32 gain (bf16 gain in shapes); max_abs_err in "
+                   "integer steps",
+             **{k: fq["rmsnorm_quant"][0][k] for k in keys}, shapes=fq["rmsnorm_quant"]),
+        dict(name="silu_mul_quant", source="llm_qat_torch/csrc/fused_quant.cu",
+             replaces="llm_qat_tpu/ops/pallas/fused_quant.py:129",
+             shape="[8192, 5632] bf16; max_abs_err in integer steps",
+             **{k: fq["silu_mul_quant"][0][k] for k in keys}, shapes=fq["silu_mul_quant"],
+             launches_from="the fused_silu_quant train run (off by default)"),
     ]
     for r in rows:
         r.update(route="cuda", launches=launches[r["name"]],
                  tpu_kernel=r["replaces"], max_err=r["max_abs_err"])
-    log("[4] results")
+    log("[5] results")
     log(json.dumps({"serving": runs, "paged_serving": paged_runs, "token_flips": flips,
-                    "cpu_checks": checks, "card": smi}))
+                    "cpu_checks": checks, "training": trains, "train_check": tcheck,
+                    "card": smi}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Model weights for the port: random initialisation and conversion from the
-JAX package's parameter layout.
+"""Model weights for the port: random initialisation and conversion from and
+to the JAX package's parameter layout (params and optimizer state).
 
 Params are a dict of tensors in the JAX package's layout: per-layer weights
 stacked on a leading ``[L, ...]`` axis and stored ``[in, out]``::
@@ -52,6 +52,33 @@ def from_numpy(tree, device=None, dtype=None):
         return conv(node, key)
 
     return walk(tree)
+
+
+def to_numpy(tree):
+    """A dict of tensors (params, gradients, Adam moments) -> the same dict
+    of numpy arrays on the host, in the JAX package's layout (the port keeps
+    that layout, so nothing moves); bfloat16 goes through float32."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def opt_state_from_numpy(count, mu, nu, device=None, dtype=None):
+    """The JAX package's ``FusedClipAdamWState`` fields as numpy (``count``
+    int32 scalar, ``mu`` / ``nu`` param-shaped trees) -> the port's optimizer
+    state ``{"count": int, "mu": ..., "nu": ...}`` on ``device``."""
+    return {"count": int(np.asarray(count)), "mu": from_numpy(mu, device, dtype),
+            "nu": from_numpy(nu, device, dtype)}
+
+
+def opt_state_to_numpy(state):
+    """The port's optimizer state -> ``(count, mu, nu)`` as numpy, the fields
+    of the JAX package's ``FusedClipAdamWState``."""
+    return (np.asarray(state["count"], np.int32), to_numpy(state["mu"]),
+            to_numpy(state["nu"]))
 
 
 _CACHE_DTYPES = {"k_q": (torch.int8, torch.uint8), "v_q": (torch.int8, torch.uint8),

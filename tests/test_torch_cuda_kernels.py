@@ -18,7 +18,12 @@ against their plain versions and against the unstacked kernels. The
 whole-model decode kernel takes every rounded sum in float64, as
 its plain version does, so the two are expected to agree bit for bit; held
 here to: committed K/V integers and lengths equal, inverse scales at rtol
-1e-6, logits element-wise as above.
+1e-6, logits element-wise as above. The flash backward kernels recompute p
+from the saved log-sum-exp and round ds and p where their plain versions do:
+held as the forward is. The RMSNorm+quant and SiLU*up+quant kernels give the
+plain versions' scales to rtol 1e-6; an integer may differ by 1 where x*s
+sits on a rounding boundary (the kernels' fp32 sum of squares runs in another
+order): at most 1 apart everywhere and equal in all but 1% of the elements.
 """
 
 import pytest
@@ -31,6 +36,7 @@ from llm_qat_torch.models import params as P
 from llm_qat_torch.models.config import LLAMA_7B, TINYLLAMA_1B
 from llm_qat_torch.ops import decode_attention as DA
 from llm_qat_torch.ops import flash_attention as FA
+from llm_qat_torch.ops import fused_quant as FQ
 from llm_qat_torch.ops import quant_matmul as QM
 
 pytestmark = pytest.mark.cuda
@@ -342,3 +348,117 @@ def test_decode_megakernel_refuses_shapes_it_is_not_built_for(gen):
     cache = M.init_serving_cache(cfg, 1, 256)
     with pytest.raises(NotImplementedError, match="1 query heads per kv head at head dim 128"):
         MK.decode_step(qp, cfg, [[3]], [0], [True], cache)
+
+
+@pytest.mark.parametrize("S", [16, 100, 256, 1100])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,G", [(torch.bfloat16, 8), (torch.float32, 4), (torch.bfloat16, 1)])
+def test_flash_bwd_kernels(gen, S, causal, dtype, G):
+    """dQ and dK/dV against their plain versions from the forward kernel's
+    own O and log-sum-exp; full, empty, half and one-short lengths. Columns
+    past the length get exact-zero dK and dV."""
+    B, D = 4, 64
+    q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(B, S, D, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, S, D, device="cuda", generator=gen).to(dtype)
+    do = torch.randn(B, G, S, D, device="cuda", generator=gen).to(dtype)
+    lens = torch.tensor([S, 0, S // 2, S - 1], dtype=torch.int32, device="cuda")
+    o, lse = FA._flash_fwd(q, k, v, lens, causal=causal)
+    n = (FA._flash_bwd_dq.launches, FA._flash_bwd_dkv.launches)
+    dq, dk, dv = FA._flash_bwd(q, k, v, lens, o, lse, do, causal)
+    assert (FA._flash_bwd_dq.launches, FA._flash_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    dq2, dk2, dv2 = FA._flash_bwd_plain(q, k, v, lens, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert _close(dq, dq2) and _close(dk, dk2) and _close(dv, dv2)
+    assert not dk[1, 1:].any() and not dv[1, 1:].any()
+    assert not dk[2, S // 2:].any() and not dv[2, S // 2:].any()
+
+
+def test_flash_attention_gqa_gradient_runs_the_kernels(gen):
+    B, G, S, D = 2, 8, 128, 64
+    q, k, v = (torch.randn(*sh, device="cuda", generator=gen).to(torch.bfloat16)
+               .requires_grad_(True) for sh in ((B, G, S, D), (B, S, D), (B, S, D)))
+    lens = torch.tensor([S, 70], dtype=torch.int32, device="cuda")
+    saved = FA.AttnSaved()
+    n4, n10 = FA._flash_fwd.launches, FA._flash_bwd_dq.launches
+    o = FA.flash_attention_gqa(q, k, v, lens, False, saved)
+    o_again = FA.flash_attention_gqa(q, k, v, lens, False, saved)    # reads the holder
+    assert FA._flash_fwd.launches == n4 + 1 and o_again.data_ptr() == saved.o.data_ptr()
+    g = torch.randn_like(o)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+    assert FA._flash_bwd_dq.launches == n10 + 1
+    want = FA._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lens, o.detach(),
+                               saved.lse, g)
+    assert all(_close(a, b) for a, b in zip((dq, dk, dv), want))
+    with pytest.raises(NotImplementedError, match="head dim 64"):
+        FA._flash_bwd(q[..., :32].detach(), k[..., :32].detach(), v[..., :32].detach(), lens,
+                      o[..., :32].detach(), saved.lse, g[..., :32])
+
+
+def _ints_agree(got, want):
+    d = (got.int() - want.int()).abs()
+    return int(d.max()) <= 1 and float((d != 0).float().mean()) <= 0.01
+
+
+@pytest.mark.parametrize("M,K", [(64, 2048), (8, 128), (40, 5632)])
+@pytest.mark.parametrize("h_dtype,g_dtype", [(torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.float32)])
+@pytest.mark.parametrize("a_bits", [8, 4])
+def test_rmsnorm_quant_kernel(gen, M, K, h_dtype, g_dtype, a_bits):
+    h = (torch.randn(M, K, device="cuda", generator=gen) * 1.5).to(h_dtype)
+    g = (1 + 0.1 * torch.randn(K, device="cuda", generator=gen)).to(g_dtype)
+    n = FQ.rmsnorm_quant.launches
+    xq, sx = FQ.rmsnorm_quant(h, g, 1e-6, a_bits)
+    assert FQ.rmsnorm_quant.launches == n + 1
+    xq2, sx2 = FQ._rmsnorm_quant_plain(h, g, 1e-6, a_bits)
+    torch.cuda.synchronize()
+    assert xq.dtype == torch.int8 and sx.shape == (M, 1)
+    assert torch.allclose(sx, sx2, rtol=1e-6, atol=0)
+    assert _ints_agree(xq, xq2)
+
+
+@pytest.mark.parametrize("M,K", [(64, 5632), (8, 128), (24, 17920)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_silu_mul_quant_kernel(gen, M, K, dtype):
+    gate = (torch.randn(M, K, device="cuda", generator=gen) * 2).to(dtype)
+    up = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
+    n = FQ.silu_mul_quant.launches
+    yq, sy = FQ.silu_mul_quant(gate, up, 8)
+    assert FQ.silu_mul_quant.launches == n + 1
+    yq2, sy2 = FQ._silu_mul_quant_plain(gate, up, 8)
+    torch.cuda.synchronize()
+    assert torch.allclose(sy, sy2, rtol=1e-6, atol=0)
+    assert _ints_agree(yq, yq2)
+    if dtype == torch.bfloat16:
+        # nothing is summed here: the kernel's roundings are the plain version's
+        assert torch.equal(yq, yq2) and torch.equal(sy, sy2)
+
+
+@pytest.mark.parametrize("remat_policy,k4", [("save_attn", 2), ("none", 3)])
+def test_train_step_launch_counts(gen, remat_policy, k4, monkeypatch):
+    """One KD-QAT step on a 2-layer cut at TinyLlama-1.1B width: the forward
+    kernel runs once a layer for the teacher and once for the student (the
+    rematerialized layer reads its saved attention output), twice for the
+    student when nothing is saved; dQ and dK/dV once a layer."""
+    from llm_qat_torch.models import llama
+    from llm_qat_torch.training import trainer as T
+
+    L = 2
+    cfg = TINYLLAMA_1B.replace(num_hidden_layers=L, w_bits=4, a_bits=8, kv_bits=4)
+    student = P.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    teacher = P.init_params(cfg, seed=1, dtype=torch.bfloat16)
+    if remat_policy == "none":
+        real = llama.backbone
+        monkeypatch.setattr(llama, "backbone",
+                            lambda *a, **k: real(*a, **dict(k, remat_policy="none")))
+    tr = T.Trainer(cfg, T.TrainConfig(kl_chunk=64), student, teacher)
+    ids = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda", generator=gen)
+    fns = (FA._flash_fwd, FA._flash_bwd_dq, FA._flash_bwd_dkv, FQ.rmsnorm_quant,
+           FQ.silu_mul_quant)
+    before = [f.launches for f in fns]
+    m = tr.train_step({"input_ids": ids, "labels": ids})
+    torch.cuda.synchronize()
+    got = [f.launches - b for f, b in zip(fns, before)]
+    assert got == [k4 * L, L, L, 4 * L, 0]
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])

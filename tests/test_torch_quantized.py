@@ -183,6 +183,13 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked():
     cache = TM.init_serving_cache(cfg, 1, 16, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TM.serving_forward(qp, cfg, np.zeros((1, 1), np.int64), [0], [True], cache)
+    from llm_qat_torch.training import trainer as TT
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TT.Trainer(cfg, TT.TrainConfig(), p, p)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TP.opt_state_from_numpy(0, {"w": np.zeros(2, np.float32)}, {"w": np.zeros(2, np.float32)})
+    tr = TT.Trainer(cfg, TT.TrainConfig(compute_dtype=torch.float32), p, device="cpu")
+    assert tr.device.type == "cpu"
 
 
 def _imports(path):
@@ -199,7 +206,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(files) > 10
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"llm_qat_torch/inference/paged.py", "llm_qat_torch/inference/paged_engine.py",
-            "llm_qat_torch/inference/megakernel.py", "chip_smoke.py"} <= names
+            "llm_qat_torch/inference/megakernel.py", "chip_smoke.py",
+            "llm_qat_torch/ops/quantize.py", "llm_qat_torch/ops/qat_matmul.py",
+            "llm_qat_torch/ops/linear.py", "llm_qat_torch/ops/fused_quant.py",
+            "llm_qat_torch/ops/fused_layer.py", "llm_qat_torch/ops/flash_attention.py",
+            "llm_qat_torch/models/llama.py", "llm_qat_torch/models/params.py",
+            "llm_qat_torch/training/trainer.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -12,7 +12,8 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    call that computes the same function (``library_ms``; the port never
    calls it). The paged decode attention is also held against the contiguous
    decode attention on the same K/V gathered into a contiguous cache, and
-   runs at the LLaMA-7B attention shape too; the stacked kernels are held
+   runs at the LLaMA-7B attention shape too, as does the flash forward (full
+   and ragged lengths); the stacked kernels are held
    against their plain versions and against the unstacked kernels on the
    layer's slice;
 3. for TinyLlama-1.1B at full width and depth with random weights, at
@@ -34,15 +35,18 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    ``cpu_check`` for the limits);
 4. holds the four training kernels against their plain versions at the train
    step's shapes (flash backward dQ and dK/dV and the flash forward at
-   B = 16, G = 8, S = 2048; RMSNorm+quant at [8192, 2048]; SiLU*up+quant at
+   B = 16, G = 8, S = 2048, full and ragged lengths, dK/dV also against its
+   own second launch, bit for bit; RMSNorm+quant at [8192, 2048]; SiLU*up+quant at
    [8192, 5632]), then takes KD-QAT train steps of TinyLlama-1.1B W4A8KV4 at
    full width and depth through ``training.trainer.Trainer`` (bf16 params,
    4 x 2048 tokens, ``kl_chunk=256``, remat on; see ``train_run``), steps on a
    4-layer cut with and without ``fused_silu_quant``, and one step on a
    2-layer cut three ways: the card path with its kernels, with the plain
    versions swapped in, and the port's CPU path (``train_check``);
-5. prints a ``{"kernels": [...]}`` line and, last, the
-   ``{"ok": true, "device": ...}`` line.
+5. prints what the compiler gave the tensor-core flash kernels (registers,
+   shared memory, spills, blocks an SM holds; it fails on a spill), a
+   ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
+   line.
 
 Exits non-zero, and prints no result, when there is no GPU or any phase
 fails. Imports nothing of JAX.
@@ -83,6 +87,7 @@ F32_FLOPS = 67e12               # fp32 peak outside the tensor cores
 TRAIN_BATCH, TRAIN_SEQ, KL_CHUNK = 4, 2048, 256     # the train step's batch
 TRAIN_WARM, TRAIN_STEPS = 2, 3                       # warm-up and timed steps
 TRAIN_LENS = (2048,) * 10 + (1234, 777, 1, 0, 2048, 1500)   # flash backward phase, B = 16
+LLAMA7B_LENS = tuple(1024 - 33 * i for i in range(31)) + (0,)   # K4 at LLaMA-7B heads, B = 32
 SILU_LAYERS, SILU_STEPS, SILU_LOSS_REL = 4, 2, 0.05  # the fused_silu_quant run (see train_phases)
 QUANT_FLIP_SHARE = 0.01     # K12/K13: integers one off where x*s is on a rounding boundary
 QUANT_ROW_SHARE = 1e-3      # K12: rows whose absmax moved one bf16 step (see fused_quant_phase)
@@ -257,36 +262,43 @@ def decode_attention_phase(timer, gen, DA, c, packed):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, **agr)
 
 
-def flash_phase(timer, gen, FA, c, S):
-    """K4 at a prefill shape: one prompt bucketed to S rows, B = kvh, G = 8,
-    D = 64, causal, bf16. Kernel and plain version take p against the same
-    row maximum and round it to bf16 alike; they differ in their fp32
-    summation orders: held element-wise as K3 is, and the LSE to 1e-3."""
-    B, G, D = c.kv_heads, c.num_attention_heads // c.kv_heads, c.head_dim
+def flash_phase(timer, gen, FA, B, G, S, D, lens_l=None):
+    """K4 at a prefill shape: B = prompts x kv heads, G query heads a kv
+    head, causal, bf16, full lengths unless ``lens_l``. Kernel and plain
+    version take p against the same row maximum, from the same tensor-core
+    q.k, and round it to bf16 alike; they differ in their fp32 summation
+    orders: held element-wise as K3 is, and the LSE to 1e-3. SDPA is the
+    yardstick at full lengths only (it takes no lengths)."""
     q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
     k = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
     v = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
-    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    full = lens_l is None
+    lens_l = [S] * B if full else list(lens_l)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
     o, lse = FA._flash_fwd(q, k, v, lens)
     o2, lse2 = FA._flash_fwd_plain(q, k, v, lens)
     torch.cuda.synchronize()
     agr = agreement(o, o2, ATTN_ULPS, ATTN_FLOOR)
     lse_err = float((lse - lse2).abs().max())
     if not (agr["ok"] and lse_err <= 1e-3):
-        raise AssertionError(f"flash S={S}: {agr}, lse {lse_err}")
+        raise AssertionError(f"flash B={B} G={G} S={S} D={D} lens={lens_l}: {agr}, lse {lse_err}")
     ms = timer(lambda: FA._flash_fwd(q, k, v, lens))
     plain_ms = timer(lambda: FA._flash_fwd_plain(q, k, v, lens))
-    qh, kh, vh = q.reshape(1, B * G, S, D), k[None], v[None]
-    lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, enable_gqa=True))
+    lib_ms = None
+    if full:
+        qh, kh, vh = q.reshape(1, B * G, S, D), k[None], v[None]
+        lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True))
     nbytes = 2 * (2 * B * G * S * D + 2 * B * S * D) + 4 * B * G * S
-    ops = 2 * 2 * B * G * D * (S * (S + 1) // 2)
+    ops = 2 * 2 * G * D * live_pairs(lens_l, S)
     b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
-    log(f"  flash_fwd B={B} G={G} S={S} D={D}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-        f"sdpa {lib_ms:.4f}, bound {b_ms:.5f} {b_by}) max_abs_err {agr['max_abs_err']:.3g}, "
-        f"worst {agr['worst']:.3g} of its limit, rel L2 {agr['rel_l2']:.3g}, lse {lse_err:.3g}")
-    return dict(B=B, G=G, S=S, D=D, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by, lse_err=lse_err, **agr)
+    log(f"  flash_fwd B={B} G={G} S={S} D={D} {'full' if full else 'ragged'} lengths: {ms:.4f} ms "
+        f"(plain {plain_ms:.4f}, sdpa {lib_ms}, bound {b_ms:.5f} {b_by}) max_abs_err "
+        f"{agr['max_abs_err']:.3g}, worst {agr['worst']:.3g} of its limit, rel L2 {agr['rel_l2']:.3g}, "
+        f"lse {lse_err:.3g}")
+    return dict(B=B, G=G, S=S, D=D, lengths="full" if full else lens_l, blocks=-(-S // 64) * G * B,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                lse_err=lse_err, **agr)
 
 
 def paged_attention_phase(timer, gen, DA, kvh, G, hd, packed):
@@ -1168,12 +1180,15 @@ def live_pairs(lens, S, causal=True):
 
 def flash_train_phase(timer, gen, FA):
     """K4, K10 and K11 at the train step's attention shape: batch 4 x 4 kv
-    heads = 16, G = 8, S = 2048, D = 64, causal, bf16, lengths TRAIN_LENS
-    (full, ragged, 1 and 0). Each against its plain version under the K3/K4
-    limit (``agreement``): kernel and plain version compute p from the same
-    log-sum-exp and round ds and p to bf16 alike; they differ in their fp32
-    summation orders. The backward pair takes the forward KERNEL's O and
-    log-sum-exp. ``library_ms`` of the backward pair is the backward of one
+    heads = 16, G = 8, S = 2048, D = 64, causal, bf16, twice: at full lengths
+    (what the train step runs, and what SDPA, the yardstick, computes) and at
+    TRAIN_LENS (full, ragged, 1 and 0). Each against its plain version under
+    the K3/K4 limit (``agreement``): kernel and plain version compute p from
+    the same log-sum-exp and round ds and p to bf16 alike; they differ in
+    their fp32 summation orders. K11 is also launched twice on the same
+    inputs and must give the same bits (no atomics), and exact zeros past each
+    length. The backward pair takes the forward KERNEL's O and log-sum-exp.
+    ``library_ms`` of the backward pair is the backward of one
     ``scaled_dot_product_attention`` call (dQ, dK and dV together, full
     lengths; the port never calls it)."""
     B, G, S, D = len(TRAIN_LENS), 8, TRAIN_SEQ, 64
@@ -1181,69 +1196,80 @@ def flash_train_phase(timer, gen, FA):
              for _ in range(2))
     k, v = (torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
             for _ in range(2))
-    lens = torch.tensor(TRAIN_LENS, dtype=torch.int32, device="cuda")
-    o, lse = FA._flash_fwd(q, k, v, lens)
-    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens)
-    torch.cuda.synchronize()
-    fwd = agreement(o, o2, ATTN_ULPS, ATTN_FLOOR)
-    lse_err = float((lse - lse2).abs().max())
-    del o2, lse2
-    if not (fwd["ok"] and lse_err <= 1e-3):
-        raise AssertionError(f"flash forward S={S}: {fwd}, lse {lse_err}")
-    delta = FA._delta(o, do)
-    args = (q, k, v, lens, lse, delta, do)
-    dq = FA._flash_bwd_dq(*args)
-    dk, dv = FA._flash_bwd_dkv(*args)
-    dq2 = FA._flash_bwd_dq_plain(*args)
-    dk2, dv2 = FA._flash_bwd_dkv_plain(*args)
-    torch.cuda.synchronize()
-    agr = {n: agreement(a, w, ATTN_ULPS, ATTN_FLOOR)
-           for n, a, w in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
-    zeros = all(not t[b, max(n, 1):].any() for t in (dk, dv) for b, n in enumerate(TRAIN_LENS))
-    if not (all(a["ok"] for a in agr.values()) and zeros):
-        raise AssertionError(f"flash backward: {agr}, zeros past the lengths {zeros}")
-    del dq, dk, dv, dq2, dk2, dv2
-
-    ms = {"fwd": timer(lambda: FA._flash_fwd(q, k, v, lens)),
-          "dq": timer(lambda: FA._flash_bwd_dq(*args)),
-          "dkv": timer(lambda: FA._flash_bwd_dkv(*args))}
-    plain = {"fwd": timer(lambda: FA._flash_fwd_plain(q, k, v, lens), reps=3),
-             "dq": timer(lambda: FA._flash_bwd_dq_plain(*args), reps=3),
-             "dkv": timer(lambda: FA._flash_bwd_dkv_plain(*args), reps=3)}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kh, vh = k[:, None], v[:, None]
     lib_fwd = timer(lambda: sdpa(q, kh, vh, is_causal=True, enable_gqa=True))
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, kh, vh))
     out = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
     lib_bwd = timer(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
-    del out
+    del out, ql, kl, vl
 
-    pairs = G * live_pairs(TRAIN_LENS, S)
-    qb, kvb, rowb = 2 * B * G * S * D, 2 * B * S * D, 4 * B * G * S
-    bounds = {"fwd": bound(2 * qb + 2 * kvb + rowb, 2 * 2 * pairs * D, BF16_FLOPS),
-              "dq": bound(3 * qb + 2 * kvb + 2 * rowb, 3 * 2 * pairs * D, BF16_FLOPS),
-              "dkv": bound(2 * qb + 4 * kvb + 2 * rowb, 4 * 2 * pairs * D, BF16_FLOPS)}
-    log(f"  flash at the train shape B={B} G={G} S={S} D={D} lens={list(TRAIN_LENS)}: forward "
-        f"{ms['fwd']:.3f} ms (plain {plain['fwd']:.2f}, sdpa {lib_fwd:.4f}, bound "
-        f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}) max_abs_err {fwd['max_abs_err']:.3g}, worst "
-        f"{fwd['worst']:.3g} of its limit, lse {lse_err:.3g}; dQ {ms['dq']:.3f} ms (plain "
-        f"{plain['dq']:.2f}, bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}) max_abs_err "
-        f"{agr['dq']['max_abs_err']:.3g}, worst {agr['dq']['worst']:.3g}; dK/dV {ms['dkv']:.3f} ms "
-        f"(plain {plain['dkv']:.2f}, bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}) max_abs_err "
-        f"dk {agr['dk']['max_abs_err']:.3g} dv {agr['dv']['max_abs_err']:.3g}, worst "
-        f"{max(agr['dk']['worst'], agr['dv']['worst']):.3g}; sdpa backward (dQ, dK, dV together, "
-        f"full lengths) {lib_bwd:.4f} ms")
-    shape = dict(B=B, G=G, S=S, D=D, lengths=list(TRAIN_LENS), live_pairs=pairs)
+    rows = {}
+    for label, lens_l in (("full", (S,) * B), ("ragged", TRAIN_LENS)):
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        o, lse = FA._flash_fwd(q, k, v, lens)
+        o2, lse2 = FA._flash_fwd_plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        fwd = agreement(o, o2, ATTN_ULPS, ATTN_FLOOR)
+        lse_err = float((lse - lse2).abs().max())
+        del o2, lse2
+        if not (fwd["ok"] and lse_err <= 1e-3):
+            raise AssertionError(f"flash forward S={S} {label} lengths: {fwd}, lse {lse_err}")
+        delta = FA._delta(o, do)
+        args = (q, k, v, lens, lse, delta, do)
+        dq = FA._flash_bwd_dq(*args)
+        dk, dv = FA._flash_bwd_dkv(*args)
+        dk_again, dv_again = FA._flash_bwd_dkv(*args)
+        dq2 = FA._flash_bwd_dq_plain(*args)
+        dk2, dv2 = FA._flash_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        agr = {n: agreement(a, w, ATTN_ULPS, ATTN_FLOOR)
+               for n, a, w in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
+        zeros = all(not t[b, max(n, 1):].any() for t in (dk, dv) for b, n in enumerate(lens_l))
+        same = torch.equal(dk, dk_again) and torch.equal(dv, dv_again)
+        if not (all(a["ok"] for a in agr.values()) and zeros and same):
+            raise AssertionError(f"flash backward, {label} lengths: {agr}, zeros past the lengths "
+                                 f"{zeros}, K11 the same bits twice {same}")
+        del dq, dk, dv, dk_again, dv_again, dq2, dk2, dv2
 
-    def row(key, lib, **extra):
-        return dict(shape, ms=ms[key], plain_ms=plain[key], library_ms=lib,
-                    bound_ms=bounds[key][0], bound_by=bounds[key][1], **extra)
+        ms = {"fwd": timer(lambda: FA._flash_fwd(q, k, v, lens)),
+              "dq": timer(lambda: FA._flash_bwd_dq(*args)),
+              "dkv": timer(lambda: FA._flash_bwd_dkv(*args))}
+        plain = {"fwd": timer(lambda: FA._flash_fwd_plain(q, k, v, lens), reps=3),
+                 "dq": timer(lambda: FA._flash_bwd_dq_plain(*args), reps=3),
+                 "dkv": timer(lambda: FA._flash_bwd_dkv_plain(*args), reps=3)}
+        pairs = G * live_pairs(lens_l, S)
+        qb, kvb, rowb = 2 * B * G * S * D, 2 * B * S * D, 4 * B * G * S
+        bounds = {"fwd": bound(2 * qb + 2 * kvb + rowb, 2 * 2 * pairs * D, BF16_FLOPS),
+                  "dq": bound(3 * qb + 2 * kvb + 2 * rowb, 3 * 2 * pairs * D, BF16_FLOPS),
+                  "dkv": bound(2 * qb + 4 * kvb + 2 * rowb, 4 * 2 * pairs * D, BF16_FLOPS)}
+        lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd} if label == "full" else {}
+        log(f"  flash at the train shape B={B} G={G} S={S} D={D}, {label} lengths {list(lens_l)}: "
+            f"forward {ms['fwd']:.4f} ms (plain {plain['fwd']:.2f}, sdpa {lib.get('fwd')}, bound "
+            f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}) max_abs_err {fwd['max_abs_err']:.3g}, "
+            f"worst {fwd['worst']:.3g} of its limit, lse {lse_err:.3g}; dQ {ms['dq']:.4f} ms (plain "
+            f"{plain['dq']:.2f}, bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}) max_abs_err "
+            f"{agr['dq']['max_abs_err']:.3g}, worst {agr['dq']['worst']:.3g}; dK/dV {ms['dkv']:.4f} "
+            f"ms (plain {plain['dkv']:.2f}, bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}) "
+            f"max_abs_err dk {agr['dk']['max_abs_err']:.3g} dv {agr['dv']['max_abs_err']:.3g}, worst "
+            f"{max(agr['dk']['worst'], agr['dv']['worst']):.3g}, the same bits twice; sdpa backward "
+            f"(dQ, dK, dV together, full lengths) {lib.get('dq')} ms")
+        shape = dict(B=B, G=G, S=S, D=D, lengths="full" if label == "full" else list(lens_l),
+                     live_pairs=pairs)
 
-    return dict(fwd=row("fwd", lib_fwd, lse_err=lse_err, **fwd),
-                dq=row("dq", lib_bwd, library_is="sdpa backward, dQ+dK+dV together", **agr["dq"]),
-                dkv=row("dkv", lib_bwd, library_is="sdpa backward, dQ+dK+dV together",
-                        max_abs_err=max(agr["dk"]["max_abs_err"], agr["dv"]["max_abs_err"]),
-                        dk=agr["dk"], dv=agr["dv"]))
+        def row(key, **extra):
+            return dict(shape, ms=ms[key], plain_ms=plain[key], library_ms=lib.get(key),
+                        bound_ms=bounds[key][0], bound_by=bounds[key][1], **extra)
+
+        lib_is = "sdpa backward, dQ+dK+dV together" if label == "full" else "none: sdpa takes no lengths"
+        rows[label] = dict(
+            fwd=row("fwd", blocks=-(-S // 64) * G * B, lse_err=lse_err, **fwd),
+            dq=row("dq", library_is=lib_is, **agr["dq"]),
+            dkv=row("dkv", library_is=lib_is, blocks=(-(-S // 64) + 1) // 2 * B,
+                    bit_identical_twice=same,
+                    max_abs_err=max(agr["dk"]["max_abs_err"], agr["dv"]["max_abs_err"]),
+                    dk=agr["dk"], dv=agr["dv"]))
+    return rows
 
 
 def quant_agreement(q, s, q2, s2):
@@ -1622,14 +1648,24 @@ def main() -> int:
     log("[2] kernels against their plain versions (TinyLlama-1.1B shapes, bf16)")
     gemm = gemm_phase(timer, gen, QM, cfg)
     dec = [decode_attention_phase(timer, gen, DA, cfg, packed) for packed in (False, True)]
-    fl = [flash_phase(timer, gen, FA, cfg, S) for S in (1024, 128)]
     G = cfg.num_attention_heads // cfg.kv_heads
+    fl = [flash_phase(timer, gen, FA, cfg.kv_heads, G, S, cfg.head_dim) for S in (1024, 128)]
+    # K4 at LLaMA-7B's attention shape (32 MHA heads of 128), full and ragged lengths
+    fl7 = [flash_phase(timer, gen, FA, 32, 1, 1024, 128, lens) for lens in (None, LLAMA7B_LENS)]
     # K8 at TinyLlama-1.1B's attention shape and at LLaMA-7B's (32 MHA heads of 128)
     pag = [paged_attention_phase(timer, gen, DA, kvh, g, hd, packed)
            for kvh, g, hd in ((cfg.kv_heads, G, cfg.head_dim), (32, 1, 128))
            for packed in (False, True)]
     k7 = stacked_attention_phase(timer, gen, DA, cfg)
     ftr = flash_train_phase(timer, gen, FA)
+    # what the compiler gave the tensor-core kernels, and the grids they ran
+    attrs = FA.kernel_attributes()
+    attrs["flash_fwd"]["blocks"] = {"B=4 G=8 S=1024": fl[0]["blocks"],
+                                    "B=16 G=8 S=2048": ftr["full"]["fwd"]["blocks"]}
+    attrs["flash_fwd_d128"]["blocks"] = {"B=32 G=1 S=1024": fl7[0]["blocks"]}
+    attrs["flash_bwd_dkv"]["blocks"] = {"B=16 G=8 S=2048": ftr["full"]["dkv"]["blocks"]}
+    if any(a["spill_bytes"] for a in attrs.values()):
+        raise AssertionError(f"a tensor-core kernel spills registers: {attrs}")
     fq = fused_quant_phase(timer, gen, FQ, cfg)
 
     log("[3] TinyLlama-1.1B, 22 layers: the stacked GEMMs on the served weights, the "
@@ -1730,6 +1766,9 @@ def main() -> int:
     k8 = pag[0]
     k9 = mega[0]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    fwd_shapes = fl + [ftr["full"]["fwd"], ftr["ragged"]["fwd"]] + fl7
+    train_shape = ("B=16 G=8 S=2048 D=64 causal bf16, full lengths (lengths full, ragged, 1 "
+                   "and 0 in shapes)")
     rows = [
         dict(name="int8_matmul", source="llm_qat_torch/csrc/int8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:77",
@@ -1747,11 +1786,12 @@ def main() -> int:
              max_abs_err=max(d["max_abs_err"] for d in dec), shapes=dec),
         dict(name="flash_fwd", source="llm_qat_torch/csrc/flash_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:94",
-             shape="B=4 G=8 S=1024 D=64 causal (S=128 and the train shape B=16 S=2048 in shapes)",
+             shape="B=4 G=8 S=1024 D=64 causal (S=128, the train shape B=16 S=2048 at full and "
+                   "ragged lengths, LLaMA-7B's B=32 G=1 S=1024 D=128 at full and ragged lengths "
+                   "in shapes)",
              **{k: fl[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by")},
-             max_abs_err=max(f["max_abs_err"] for f in fl + [ftr["fwd"]]),
-             shapes=fl + [ftr["fwd"]]),
+             max_abs_err=max(f["max_abs_err"] for f in fwd_shapes), shapes=fwd_shapes),
         dict(name="decode_megakernel", source="llm_qat_torch/csrc/megakernel.cu",
              replaces="llm_qat_tpu/inference/megakernel.py:259",
              shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed in shapes)",
@@ -1781,12 +1821,12 @@ def main() -> int:
              shapes=[k7], launches_from="kernel phase (on no serving path)"),
         dict(name="flash_bwd_dq", source="llm_qat_torch/csrc/flash_attention_bwd.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:236",
-             shape="B=16 G=8 S=2048 D=64 causal bf16, lengths full, ragged, 1 and 0",
-             **{k: ftr["dq"][k] for k in keys}, shapes=[ftr["dq"]]),
+             shape=train_shape, **{k: ftr["full"]["dq"][k] for k in keys},
+             shapes=[ftr["full"]["dq"], ftr["ragged"]["dq"]]),
         dict(name="flash_bwd_dkv", source="llm_qat_torch/csrc/flash_attention_bwd.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:297",
-             shape="B=16 G=8 S=2048 D=64 causal bf16, lengths full, ragged, 1 and 0",
-             **{k: ftr["dkv"][k] for k in keys}, shapes=[ftr["dkv"]]),
+             shape=train_shape, **{k: ftr["full"]["dkv"][k] for k in keys},
+             shapes=[ftr["full"]["dkv"], ftr["ragged"]["dkv"]]),
         dict(name="rmsnorm_quant", source="llm_qat_torch/csrc/fused_quant.cu",
              replaces="llm_qat_tpu/ops/pallas/fused_quant.py:77",
              shape="[8192, 2048] bf16 with an f32 gain (bf16 gain in shapes); max_abs_err in "
@@ -1805,6 +1845,7 @@ def main() -> int:
     log(json.dumps({"serving": runs, "paged_serving": paged_runs, "token_flips": flips,
                     "cpu_checks": checks, "training": trains, "train_check": tcheck,
                     "card": smi}))
+    log(json.dumps({"kernel_attributes": attrs}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

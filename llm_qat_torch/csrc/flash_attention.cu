@@ -7,23 +7,43 @@
 // softmax in fp32 (log2(e) folded into the score scale) against each row's
 // final maximum, as the TPU kernel computes it for S <= 1024; with soft_bf16
 // the exp2 runs on bf16 operands and p is bf16. p is rounded to V's type
-// before the p.V product, as the TPU kernel does. Returns O [B, G, S, D] in
-// q's type and the per-row log-sum-exp in nats, [B, G, S] f32.
+// before the p.V product, as the TPU kernel does; l sums the unrounded p.
+// Returns O [B, G, S, D] in q's type and the per-row log-sum-exp in nats,
+// [B, G, S] f32.
 //
-// Bound on this card: at the prefill shapes (S <= 1024, D = 64) the work is
-// ~2 * 2 * S * S / 2 * D operations per (B, G) row set against ~4 * S * D
-// bytes, so the tensor-core rate bounds it. This first kernel does not reach
-// the tensor cores: it runs the products on the fp32 units (SIMT), one
-// block of 256 threads per 64 query rows of one (B, G), streaming 32-key K/V
-// tiles through shared memory and skipping tiles that are causally dead or
-// past the length, twice: once for the row maxima, once for p and p.V (the
-// q.k product runs twice, so p never needs rescaling and rounds as the TPU
-// kernel's does). Scores and statistics never leave the block. Moving the
-// two products to mma.sync / wgmma bf16 is the next step.
+// Bound on this card: 2 * 2 * D operations per live (row, column) pair
+// against ~4 * S * D bytes per (B, G): at the prefill and train shapes the
+// bf16 tensor-core rate (989 TFLOP/s) bounds it, by 10-50x over the bytes.
+//
+// bf16 (D = 64 and 128): the products run on the tensor cores,
+// mma.sync m16n8k16 bf16 x bf16 -> fp32, which is exactly the contract's
+// "bf16 operands, fp32 sums". One block of 4 warps per (B, g, 64 query
+// rows), each warp 16 rows. The Q tile arrives once by cp.async into a
+// swizzled shared layout (16-byte chunk index XOR row % 8, so that ldmatrix
+// is free of bank conflicts) and stays in registers as A fragments. 64-key
+// K and V tiles stream through a 2-stage cp.async ring, so the next tile's
+// copy overlaps this tile's products; rows past S are zero-filled by the
+// copy's src-size operand. Two passes over the live tiles so that p rounds
+// against the row's final maximum (the TPU kernel's 1024-key block holds a
+// whole prefill row and never rescales): pass 0 takes only q.k and the row
+// maxima (K tiles only, no exp), pass 1 recomputes q.k, takes p, l and
+// P.V. Scores, maxima and sums stay in registers (quad shuffles); p turns
+// from the fp32 accumulator fragment into the bf16 A fragment of P.V in
+// registers (the FlashAttention-2 layout); V fragments come by
+// ldmatrix.trans. Only the diagonal and the length-edge tiles mask element
+// by element; causally dead tiles and tiles past the length are never
+// loaded; the heaviest query blocks launch first so the causal tail is short.
+//
+// f32 (D = 64): a SIMT kernel (flash_fwd_kernel below): products on
+// the fp32 units through fp32 shared-memory tiles. Tensor cores would need
+// TF32 operands (about three decimal digits), which the f32 contract (1e-5)
+// does not allow.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_bf16.cuh"
 
 namespace {
 
@@ -32,9 +52,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -169,23 +187,219 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using namespace tc_bf16;
+constexpr int TC_BQ = 64, TC_BK = 64, TC_THREADS = 128;   // 4 warps x 16 rows
+
+template <int D>
+constexpr int fwd_tc_smem() {
+  return TC_BQ * D * 2 + 2 * 2 * TC_BK * D * 2;   // Q, then 2 stages of K and V
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ lengths,
+                    bf16* __restrict__ o, float* __restrict__ lse, int G, int S,
+                    float scale_log2, int causal, int soft_bf16) {
+  constexpr int KC = D / 16;          // 16-deep chunks of the q.k product
+  constexpr int NT = TC_BK / 8;       // 8-key column tiles of the scores
+  constexpr int DT = D / 8;           // 8-wide column tiles of O
+  constexpr int TILE = TC_BK * D * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sq = smem_u32(smem);
+  const uint32_t sk = sq + TC_BQ * D * 2;      // stage s at sk + s * TILE
+  const uint32_t sv = sk + 2 * TILE;
+
+  // heaviest query blocks first: blockIdx.x runs over (b, g) fastest, then
+  // over the query blocks from the last one down
+  const int nq = (S + TC_BQ - 1) / TC_BQ;
+  const int BG = gridDim.x / nq;
+  const int iq = nq - 1 - (int)blockIdx.x / BG, bg = (int)blockIdx.x % BG, b = bg / G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = iq * TC_BQ, wr = q0 + warp * 16;   // the warp's first row
+  const int lenc = min(max(lengths[b], 1), S);
+  const size_t qoff = (size_t)bg * S * D;
+  const bf16* kbase = k + (size_t)b * S * D;
+  const bf16* vbase = v + (size_t)b * S * D;
+  int last = lenc - 1;
+  if (causal) last = min(last, min(q0 + TC_BQ, S) - 1);
+  const int nkt = last / TC_BK + 1;
+
+  load_tile<D, TC_BQ, TC_THREADS>(sq, q + qoff, q0, S);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[KC][4];
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) ldsm_x4(a_addr<D>(sq, warp * 16, kc, lane), qa[kc]);
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // pass 0: the row maxima (K tiles only); pass 1: p against them, l, P.V
+  for (int pass = 0; pass < 2; ++pass) {
+    load_tile<D, TC_BK, TC_THREADS>(sk, kbase, 0, S);
+    if (pass) load_tile<D, TC_BK, TC_THREADS>(sv, vbase, 0, S);
+    cp_async_commit();
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int k0 = kt * TC_BK;
+      const uint32_t skt = sk + (kt & 1) * TILE, svt = sv + (kt & 1) * TILE;
+      if (kt + 1 < nkt) {            // the next tile's copy overlaps this tile's products
+        const uint32_t nxt = ((kt + 1) & 1) * TILE;
+        load_tile<D, TC_BK, TC_THREADS>(sk + nxt, kbase, k0 + TC_BK, S);
+        if (pass) load_tile<D, TC_BK, TC_THREADS>(sv + nxt, vbase, k0 + TC_BK, S);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t kf[4];
+          ldsm_x4(b_addr<D>(skt, np * 16, kc, lane), kf);
+          mma(s[2 * np], qa[kc], kf[0], kf[1]);
+          mma(s[2 * np + 1], qa[kc], kf[2], kf[3]);
+        }
+      // element masks only on the length-edge tile and the diagonal tile
+      const bool edge = k0 + TC_BK > lenc || (causal && k0 + TC_BK - 1 > q0);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // _rn: the product and the difference below round on their own,
+          // as in the plain version; a contracted fma would move p
+          float x = __fmul_rn(s[j][e], scale_log2);
+          if (edge) {
+            const int row = wr + g + (e >> 1) * 8, col = k0 + j * 8 + 2 * t + (e & 1);
+            if (!(col < lenc && (!causal || col <= row))) x = NEG_INF;
+          }
+          s[j][e] = x;
+        }
+
+      if (pass == 0) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = __fsub_rn(s[j][e], m[e >> 1]);
+            // jnp.exp2 is exp(ln2 * x) in x's type (bf16 steps with soft_bf16)
+            const float p = soft_bf16 ? round_bf16(expf(round_bf16(0.69140625f * round_bf16(x))))
+                                      : expf(__fmul_rn(x, LN2));
+            l[e >> 1] += p;
+            s[j][e] = p;
+          }
+        // P, rounded to bf16, . V: key columns [16c, 16c + 16) of the scores
+        // are the A fragment of that 16-deep chunk
+#pragma unroll
+        for (int c = 0; c < TC_BK / 16; ++c) {
+          uint32_t pa[4];
+          acc_to_a(s[2 * c], s[2 * c + 1], pa);
+#pragma unroll
+          for (int np = 0; np < DT / 2; ++np) {
+            uint32_t vf[4];
+            ldsm_x4_t(t_addr<D>(svt, c, np, lane), vf);
+            mma(acc[2 * np], pa, vf[0], vf[1]);
+            mma(acc[2 * np + 1], pa, vf[2], vf[3]);
+          }
+        }
+      }
+      __syncthreads();               // this stage is free for the tile after next
+    }
+    if (pass == 0) {
+      // the 4 threads of a quad hold one row's columns
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+        m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wr + g + 8 * h;
+    if (row >= S) continue;
+    bf16* orow = o + qoff + (size_t)row * D;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
+          pack(acc[j][2 * h] / l[h], acc[j][2 * h + 1] / l[h]);
+    if (t == 0) lse[(size_t)bg * S + row] = __fadd_rn(__fmul_rn(m[h], LN2), logf(l[h]));
+  }
+}
+
+template <int D>
+int launch_fwd_tc(const void* q, const void* k, const void* v, const void* lengths, void* o,
+                  void* lse, int B, int G, int S, int causal, int soft_bf16, float scale_log2,
+                  cudaStream_t st) {
+  constexpr int smem = fwd_tc_smem<D>();
+  if (int e = (int)cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return e;
+  const int nq = (S + TC_BQ - 1) / TC_BQ;
+  flash_fwd_tc_kernel<D><<<nq * G * B, TC_THREADS, smem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths, (bf16*)o,
+      (float*)lse, G, S, scale_log2, causal, soft_bf16);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// D = 64 only (TinyLlama-1.1B); the wrapper raises on other head dims.
-// dtype_code: 0 = f32 q/k/v/o, 1 = bf16.
+// D = 64. dtype_code: 0 = f32 q/k/v/o (SIMT kernel), 1 = bf16 (tensor cores).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* lengths,
                          void* o, void* lse, int B, int G, int S, int causal, int soft_bf16,
                          int dtype_code, float scale_log2, void* stream) {
-  dim3 grid((S + BQ - 1) / BQ, G, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype_code == 1)
-    flash_fwd_kernel<__nv_bfloat16, 64><<<grid, THREADS, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const int*)lengths, (__nv_bfloat16*)o, (float*)lse, G, S, scale_log2, causal,
-        soft_bf16);
-  else
-    flash_fwd_kernel<float, 64><<<grid, THREADS, 0, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const int*)lengths, (float*)o,
-        (float*)lse, G, S, scale_log2, causal, soft_bf16);
+    return launch_fwd_tc<64>(q, k, v, lengths, o, lse, B, G, S, causal, soft_bf16, scale_log2,
+                             st);
+  dim3 grid((S + BQ - 1) / BQ, G, B);
+  flash_fwd_kernel<float, 64><<<grid, THREADS, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)lengths, (float*)o,
+      (float*)lse, G, S, scale_log2, causal, soft_bf16);
   return (int)cudaGetLastError();
+}
+
+// D = 128 (the LLaMA-7B family's heads), bf16 only; the same arguments.
+extern "C" int flash_fwd_d128(const void* q, const void* k, const void* v, const void* lengths,
+                              void* o, void* lse, int B, int G, int S, int causal, int soft_bf16,
+                              int dtype_code, float scale_log2, void* stream) {
+  if (dtype_code != 1) return (int)cudaErrorInvalidValue;
+  return launch_fwd_tc<128>(q, k, v, lengths, o, lse, B, G, S, causal, soft_bf16, scale_log2,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 kernel's registers, shared memory, spills and occupancy at head
+// dim 64 or 128 (tc_bf16::attributes; launches nothing).
+extern "C" int flash_fwd_attributes(int* out, int head_dim) {
+  if (head_dim == 128)
+    return tc_bf16::attributes(flash_fwd_tc_kernel<128>, TC_THREADS, fwd_tc_smem<128>(), out);
+  return tc_bf16::attributes(flash_fwd_tc_kernel<64>, TC_THREADS, fwd_tc_smem<64>(), out);
 }

@@ -18,22 +18,40 @@
 //   dK_j = scale * sum_i ds_ij Q_i,     ds rounded to Q's type
 // with fp32 accumulation and one final cast.
 //
-// dQ: one block per (B, g, 64 query rows), a loop over the live 32-key tiles
-// (causal and length), dQ in registers, one write. dK/dV: one block per
-// (B, 64 keys), loops over the G query heads of the kv head and the live
-// 32-row query tiles (from the diagonal on when causal), dK and dV in
-// registers, one write: the sum over G stays inside the block, so there are
-// no atomics and the result is the same from run to run. A block whose keys
-// all lie past the length writes exact zeros.
-//
 // Bound on this card: operations (about 2.5x the forward's products against
-// a few bytes an element). These first kernels, like the forward, run their
-// products on the fp32 units (SIMT) through shared-memory tiles; moving them
-// to mma.sync / wgmma is the next step.
+// a few bytes an element), at the bf16 tensor-core rate.
+//
+// dK/dV in bf16 (D = 64): tensor cores, mma.sync m16n8k16 bf16 x bf16 ->
+// fp32 (exactly the contract's bf16 operands and fp32 sums). A block of 4
+// warps owns 64 keys, each warp 16; the K and V tiles arrive once by
+// cp.async (swizzled, see tc_bf16.cuh) and stay in registers as A
+// fragments. The block loops over the G query heads and the live 64-row
+// query tiles (from the diagonal on when causal); Q, dO, lse and delta
+// stream through a 2-stage cp.async ring. Per tile S^T = K.Q^T and
+// dP^T = V.dO^T (fp32 fragments), the mask (element by element only on the
+// diagonal, length-edge and row-edge tiles), p and ds in fp32, both rounded
+// to bf16 straight into A fragments, then dV += P^T.dO and dK += dS^T.Q
+// with B fragments by ldmatrix.trans. dK and dV stay in registers: the sum
+// over G never leaves the block, so there are no atomics and the same bits
+// come out every run; keys past the length get exact zeros. Balance: key
+// block kb shares a thread block with key block nkb - 1 - kb, one after the
+// other, so every block walks S/64 + 1 query tiles a head when causal (the
+// middle key block runs alone when nkb is odd); each key block still has one
+// owner.
+//
+// dK/dV in f32, and dQ (both types): SIMT kernels, products on the fp32
+// units through fp32 shared-memory tiles.
+// dQ: one block per (B, g, 64 query rows), a loop over the live 32-key tiles
+// (causal and length), dQ in registers, one write. f32 dK/dV: one block per
+// (B, 64 keys), the same loops as the bf16 kernel over 32-row tiles. Tensor
+// cores would need TF32 operands in f32 (about three decimal digits), which
+// the f32 contract (1e-5) does not allow.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_bf16.cuh"
 
 namespace {
 
@@ -295,6 +313,173 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ---------------------------------------------------------------------------
+// dK, dV in bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using namespace tc_bf16;
+constexpr int TC_BK = 64, TC_BQ = 64, TC_THREADS = 128;   // 4 warps x 16 keys
+
+template <int D>
+__host__ __device__ constexpr int dkv_tc_stage() {
+  return 2 * TC_BQ * D * 2 + 2 * TC_BQ * 4;   // Q, dO, then lse and delta
+}
+template <int D>
+__host__ __device__ constexpr int dkv_tc_smem() {
+  return 2 * TC_BK * D * 2 + 2 * dkv_tc_stage<D>();   // K, V, 2 stages
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int* __restrict__ lengths, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int G, int S, float scale_log2, float scale,
+                        int causal) {
+  constexpr int KC = D / 16;          // 16-deep chunks of the products over d
+  constexpr int NT = TC_BQ / 8;       // 8-row column tiles of S^T and dP^T
+  constexpr int DT = D / 8;           // 8-wide column tiles of dK and dV
+  constexpr int TILE = TC_BQ * D * 2, STAGE = dkv_tc_stage<D>();
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t sk = smem_u32(tc_smem), sv = sk + TC_BK * D * 2;
+  const uint32_t ring = sv + TC_BK * D * 2;    // stage s: Q, dO, lse, delta at ring + s * STAGE
+  const float* fring = reinterpret_cast<const float*>(tc_smem + 2 * TC_BK * D * 2);
+
+  const int b = blockIdx.y, nkb = (S + TC_BK - 1) / TC_BK, nqt = (S + TC_BQ - 1) / TC_BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int lenc = max(lengths[b], 1);
+  const size_t kvoff = (size_t)b * S * D;
+
+  for (int half = 0; half < 2; ++half) {
+    // key blocks kb and nkb - 1 - kb share this block: the same causal work in every block
+    const int kb = half ? nkb - 1 - (int)blockIdx.x : (int)blockIdx.x;
+    if (half && kb == (int)blockIdx.x) break;   // odd nkb: the middle key block runs alone
+    const int k0 = kb * TC_BK, kw = k0 + warp * 16;   // the warp's first key
+    float dka[DT][4], dva[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+    if (k0 < lenc) {                     // else every column is masked: p = 0
+      const int first = causal ? k0 / TC_BQ : 0, nlive = nqt - first, ntile = G * nlive;
+      // copies of tile `it` (query head it / nlive, its (it % nlive)-th live
+      // query tile) into stage it % 2
+      auto issue = [&](int it) {
+        const int q0 = (first + it % nlive) * TC_BQ;
+        const size_t r0 = ((size_t)b * G + it / nlive) * S;
+        const uint32_t st = ring + (it & 1) * STAGE;
+        tc_bf16::load_tile<D, TC_BQ, TC_THREADS>(st, q + r0 * D, q0, S);
+        tc_bf16::load_tile<D, TC_BQ, TC_THREADS>(st + TILE, dout + r0 * D, q0, S);
+        const int i = threadIdx.x % TC_BQ, which = threadIdx.x / TC_BQ;   // lse, then delta
+        const bool in = q0 + i < S;
+        cp_async4(st + 2 * TILE + (which * TC_BQ + i) * 4,
+                  (which ? delta : lse) + r0 + (in ? q0 + i : 0), in);
+      };
+      __syncthreads();                   // the last key block's tiles are read no more
+      tc_bf16::load_tile<D, TC_BK, TC_THREADS>(sk, k + kvoff, k0, S);
+      tc_bf16::load_tile<D, TC_BK, TC_THREADS>(sv, v + kvoff, k0, S);
+      cp_async_commit();
+      issue(0);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      uint32_t ka[KC][4], va[KC][4];
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        ldsm_x4(a_addr<D>(sk, warp * 16, kc, lane), ka[kc]);
+        ldsm_x4(a_addr<D>(sv, warp * 16, kc, lane), va[kc]);
+      }
+
+      for (int it = 0; it < ntile; ++it) {
+        const int q0 = (first + it % nlive) * TC_BQ;
+        const uint32_t sq = ring + (it & 1) * STAGE, sdo = sq + TILE;
+        const float* slse = fring + ((it & 1) * STAGE + 2 * TILE) / 4;
+        const float* sdl = slse + TC_BQ;
+        if (it + 1 < ntile) {            // the next tile's copy overlaps this tile's products
+          issue(it + 1);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+
+        float s[NT][4], dp[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t qf[4], of[4];
+            ldsm_x4(b_addr<D>(sq, np * 16, kc, lane), qf);
+            ldsm_x4(b_addr<D>(sdo, np * 16, kc, lane), of);
+            mma(s[2 * np], ka[kc], qf[0], qf[1]);
+            mma(s[2 * np + 1], ka[kc], qf[2], qf[3]);
+            mma(dp[2 * np], va[kc], of[0], of[1]);
+            mma(dp[2 * np + 1], va[kc], of[2], of[3]);
+          }
+        // element masks only on the length-edge, row-edge and diagonal tiles
+        const bool edge = k0 + TC_BK > lenc || q0 + TC_BQ > S || (causal && q0 < k0 + TC_BK);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int lr = j * 8 + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(slse + lr);
+          const float2 d2 = *reinterpret_cast<const float2*>(sdl + lr);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kw + g + (e >> 1) * 8, row = q0 + lr + (e & 1);
+            const bool ok = !edge || (key < lenc && row < S && (!causal || key <= row));
+            // _rn: each product and difference rounds on its own, as in the
+            // plain version; a contracted fma would round p across a bf16 step
+            const float s2 = ok ? __fmul_rn(s[j][e], scale_log2) : NEG_INF;
+            const float lse2 = __fmul_rn((e & 1) ? l2.y : l2.x, LOG2E);
+            const float p = expf(__fmul_rn(__fsub_rn(s2, lse2), LN2));
+            s[j][e] = p;
+            dp[j][e] = __fmul_rn(p, __fsub_rn(dp[j][e], (e & 1) ? d2.y : d2.x));
+          }
+        }
+        // dV += P^T . dO and dK += dS^T . Q, P and dS rounded to bf16: query
+        // rows [16c, 16c + 16) of the fragments are the A fragment of that chunk
+#pragma unroll
+        for (int c = 0; c < TC_BQ / 16; ++c) {
+          uint32_t pa[4], da[4];
+          acc_to_a(s[2 * c], s[2 * c + 1], pa);
+          acc_to_a(dp[2 * c], dp[2 * c + 1], da);
+#pragma unroll
+          for (int np = 0; np < DT / 2; ++np) {
+            uint32_t of[4], qf[4];
+            ldsm_x4_t(t_addr<D>(sdo, c, np, lane), of);
+            ldsm_x4_t(t_addr<D>(sq, c, np, lane), qf);
+            mma(dva[2 * np], pa, of[0], of[1]);
+            mma(dva[2 * np + 1], pa, of[2], of[3]);
+            mma(dka[2 * np], da, qf[0], qf[1]);
+            mma(dka[2 * np + 1], da, qf[2], qf[3]);
+          }
+        }
+        __syncthreads();                 // this stage is free for the tile after next
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = kw + g + 8 * h;
+      if (key >= S) continue;
+      bf16* dkr = dk + kvoff + (size_t)key * D;
+      bf16* dvr = dv + kvoff + (size_t)key * D;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        *reinterpret_cast<uint32_t*>(dkr + j * 8 + 2 * t) =
+            pack(scale * dka[j][2 * h], scale * dka[j][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dvr + j * 8 + 2 * t) = pack(dva[j][2 * h], dva[j][2 * h + 1]);
+      }
+    }
+  }
+}
+
 template <typename Kern>
 int allow_smem(Kern kern, size_t bytes) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -334,22 +519,29 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              void* dv, int B, int G, int S, int causal, int dtype_code,
                              float scale_log2, float scale, void* stream) {
   constexpr int D = 64;
-  dim3 grid((S + KV_BKV - 1) / KV_BKV, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = dkv_smem_bytes<D>();
   if (dtype_code == 1) {
-    if (int e = allow_smem(flash_bwd_dkv_kernel<__nv_bfloat16, D>, smem)) return e;
-    flash_bwd_dkv_kernel<__nv_bfloat16, D><<<grid, THREADS, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const __nv_bfloat16*)dout, (const float*)lse, (const float*)delta,
-        (const int*)lengths, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, G, S, scale_log2, scale,
-        causal);
+    constexpr int smem = dkv_tc_smem<D>();
+    if (int e = allow_smem(flash_bwd_dkv_tc_kernel<D>, smem)) return e;
+    const int nkb = (S + TC_BK - 1) / TC_BK;
+    flash_bwd_dkv_tc_kernel<D><<<dim3((nkb + 1) / 2, B), TC_THREADS, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
+        (const float*)delta, (const int*)lengths, (bf16*)dk, (bf16*)dv, G, S, scale_log2,
+        scale, causal);
   } else {
+    const size_t smem = dkv_smem_bytes<D>();
     if (int e = allow_smem(flash_bwd_dkv_kernel<float, D>, smem)) return e;
-    flash_bwd_dkv_kernel<float, D><<<grid, THREADS, smem, st>>>(
+    flash_bwd_dkv_kernel<float, D><<<dim3((S + KV_BKV - 1) / KV_BKV, B), THREADS, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
         (const float*)lse, (const float*)delta, (const int*)lengths, (float*)dk, (float*)dv,
         G, S, scale_log2, scale, causal);
   }
   return (int)cudaGetLastError();
+}
+
+// The bf16 dK/dV kernel's registers, shared memory, spills and occupancy
+// (tc_bf16::attributes; launches nothing). Head dim 64 only.
+extern "C" int flash_bwd_dkv_attributes(int* out, int head_dim) {
+  if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  return tc_bf16::attributes(flash_bwd_dkv_tc_kernel<64>, TC_THREADS, dkv_tc_smem<64>(), out);
 }

@@ -115,6 +115,17 @@ def bind(stem: str, fn: str, n_ptr: int, n_int: int, n_float: int = 0):
     return f
 
 
+def query(stem: str, fn: str, n_out: int, *ints: int) -> list:
+    """Call ``fn(int *out, int...)`` of ``csrc/<stem>.cu``, a host-side query
+    that launches nothing, and return its ``n_out`` results."""
+    f = getattr(library(stem), fn)
+    f.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * len(ints)
+    f.restype = ctypes.c_int
+    out = (ctypes.c_int * n_out)()
+    check(f(ctypes.addressof(out), *ints), fn)
+    return list(out)
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -17,6 +17,12 @@ p is rounded to V's type before the p.V product; ``soft_bf16`` evaluates
 exp2 on bf16 operands (``config.flash_softmax_bf16``; the forward only).
 Returns O and the per-row log-sum-exp in nats, ``[B, G, 1, S]``.
 
+On the card the forward takes head dim 64 (f32, bf16) and 128 (bf16), the
+backward pair head dim 64. In bf16 the forward and the dK/dV kernel run
+their products on the tensor cores, and their plain versions take q.k and
+dO.v the same way (``_scores``); the dQ kernel and its plain version keep
+fp32 products.
+
 Block structure: the TPU forward walks 1024-key blocks with an online
 softmax, so beyond 1024 keys it rounds a block's p against the running
 maximum and rescales. The port's kernel and plain version take p against the
@@ -45,6 +51,22 @@ def _exp2(x: torch.Tensor) -> torch.Tensor:
     return torch.exp(x * torch.full((), _LN2, dtype=x.dtype, device=x.device))
 
 
+def _scores(a, b, tensor_cores: bool = True):
+    """``a . b^T`` per (B, g) with fp32 sums: a ``[B, G, S, D]``, b ``[B, S, D]``,
+    out ``[B, G, S, S]``. For bf16 operands on the GPU, with ``tensor_cores``,
+    the library's bf16 product with an fp32 result: the arithmetic of the
+    tensor-core kernels (K4, K11), whose fp32 accumulation differs from a
+    chain of fp32 multiply-adds by enough to move p or ds across a bf16
+    rounding step, and a sum that cancels then misses the kernels' limit
+    (``flash_numerics.py`` measures it). Otherwise fp32 products of the widened
+    operands (the CPU, f32 operands, and K10, which runs on the fp32 units)."""
+    if tensor_cores and a.is_cuda and a.dtype == torch.bfloat16:
+        B, G, S, D = a.shape
+        return torch.bmm(a.reshape(B, G * S, D), b.transpose(1, 2),
+                         out_dtype=torch.float32).reshape(B, G, S, -1)
+    return torch.einsum("bgqd,bkd->bgqk", a.float(), b.float())
+
+
 def _flash_fwd_plain(q, k, v, lengths, causal: bool = True,
                      soft_bf16: bool = False):
     """Plain PyTorch version of the flash forward kernel: the whole masked
@@ -53,7 +75,7 @@ def _flash_fwd_plain(q, k, v, lengths, causal: bool = True,
     arithmetic step for step; beyond, see the module docstring."""
     B, G, S, D = q.shape
     scale = 1.0 / (D ** 0.5)
-    s = (scale * _LOG2E) * torch.einsum("bgqd,bkd->bgqk", q.float(), k.float())
+    s = (scale * _LOG2E) * _scores(q, k)
     col = torch.arange(S, device=q.device)
     ok = (col[None, :] < torch.clamp(lengths.to(q.device), min=1)[:, None])
     ok = ok[:, None, None, :]                                  # [B, 1, 1, S]
@@ -81,7 +103,8 @@ def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False):
     """q: [B, G, S, D]; k/v: [B, S, D]; lengths [B] (causal within each S).
     Returns ([B, G, S, D], lse [B, G, 1, S]). The JAX version's block sizes
     (and its ``_fit_block``) have no counterpart: the CUDA kernel tiles by
-    fixed blocks and masks the ragged edge."""
+    fixed blocks and masks the ragged edge. On the card: head dim 64 in f32
+    or bf16, 128 in bf16."""
     B, G, S, D = q.shape
     if k.shape != (B, S, D) or v.shape != (B, S, D):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}")
@@ -89,10 +112,12 @@ def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False):
         return _flash_fwd_plain(q, k, v, lengths, causal, soft_bf16)
     if not q.is_cuda:
         raise ValueError(f"_flash_fwd: q on {q.device}")
-    if D != 64 or q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if (q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype
+            or D not in (64, 128) or (D == 128 and q.dtype != torch.bfloat16)):
         raise NotImplementedError(
-            f"flash_attention.cu is built for head dim 64 in f32/bf16; got "
-            f"D={D}, {q.dtype}/{k.dtype}/{v.dtype}"
+            f"flash_attention.cu is built for head dim 64 in f32/bf16 and 128 in bf16 "
+            f"(the f32 kernel takes head dim 64 only); got D={D}, "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
@@ -100,7 +125,7 @@ def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False):
         raise ValueError(f"_flash_fwd: {lens.numel()} lengths for B={B}")
     o = torch.empty_like(qc)
     lse = torch.empty((B, G, 1, S), dtype=torch.float32, device=q.device)
-    f = _build.bind("flash_attention", "flash_fwd", 6, 6, 1)
+    f = _build.bind("flash_attention", "flash_fwd" if D == 64 else "flash_fwd_d128", 6, 6, 1)
     err = f(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(),
             o.data_ptr(), lse.data_ptr(), B, G, S, int(causal), int(soft_bf16),
             _DTYPE_CODES[q.dtype], float(_LOG2E / math.sqrt(D)),
@@ -118,13 +143,13 @@ _flash_fwd.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal):
+def _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal, tensor_cores):
     """p recomputed from the saved log-sum-exp in base 2 and
     ``p * (dO.V - delta)``, both fp32 ``[B, G, S, S]``: what the two backward
-    kernels share."""
+    kernels share (``tensor_cores``: see ``_scores``)."""
     B, G, S, D = q.shape
     scale = 1.0 / (D ** 0.5)
-    s2 = (scale * _LOG2E) * torch.einsum("bgqd,bkd->bgqk", q.float(), k.float())
+    s2 = (scale * _LOG2E) * _scores(q, k, tensor_cores)
     col = torch.arange(S, device=q.device)
     ok = (col[None, :] < torch.clamp(lengths.to(q.device), min=1)[:, None])
     ok = ok[:, None, None, :]
@@ -133,14 +158,14 @@ def _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal):
     s2 = torch.where(ok, s2, torch.full_like(s2, _NEG_INF))
     lse2 = lse.reshape(B, G, S, 1) * _LOG2E
     p = _exp2(s2 - lse2)
-    dp = torch.einsum("bgqd,bkd->bgqk", do.float(), v.float())
+    dp = _scores(do, v, tensor_cores)
     return p, p * (dp - delta.reshape(B, G, S, 1))
 
 
 def _flash_bwd_dq_plain(q, k, v, lengths, lse, delta, do, causal: bool = True):
     """Plain PyTorch version of the dQ kernel: ``ds`` rounds to K's type
     before the product, fp32 accumulation, ``scale *`` at the end."""
-    _, ds = _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal)
+    _, ds = _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal, tensor_cores=False)
     scale = 1.0 / (q.shape[-1] ** 0.5)
     dq = torch.einsum("bgqk,bkd->bgqd", ds.to(k.dtype).float(), k.float())
     return (scale * dq).to(q.dtype)
@@ -149,7 +174,7 @@ def _flash_bwd_dq_plain(q, k, v, lengths, lse, delta, do, causal: bool = True):
 def _flash_bwd_dkv_plain(q, k, v, lengths, lse, delta, do, causal: bool = True):
     """Plain PyTorch version of the dK/dV kernel: p rounds to dO's type and
     ``ds`` to Q's before the products, summed over the G query heads."""
-    p, ds = _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal)
+    p, ds = _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal, tensor_cores=True)
     scale = 1.0 / (q.shape[-1] ** 0.5)
     dv = torch.einsum("bgqk,bgqd->bkd", p.to(do.dtype).float(), do.float())
     dk = torch.einsum("bgqk,bgqd->bkd", ds.to(q.dtype).float(), q.float())
@@ -235,6 +260,21 @@ def _flash_bwd(q, k, v, lengths, o, lse, do, causal: bool = True):
     dq = _flash_bwd_dq(q, k, v, lengths, lse, delta, do, causal)
     dk, dv = _flash_bwd_dkv(q, k, v, lengths, lse, delta, do, causal)
     return dq, dk, dv
+
+
+_ATTRIBUTE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "spill_bytes",
+                   "threads", "blocks_per_sm")
+
+
+def kernel_attributes() -> dict:
+    """What the compiler gave the bf16 tensor-core kernels, by name:
+    registers a thread, shared bytes (static, dynamic), local (spill) bytes
+    a thread, threads a block and blocks an SM can hold. Launches nothing."""
+    queries = (("flash_fwd", "flash_attention", "flash_fwd_attributes", 64),
+               ("flash_fwd_d128", "flash_attention", "flash_fwd_attributes", 128),
+               ("flash_bwd_dkv", "flash_attention_bwd", "flash_bwd_dkv_attributes", 64))
+    return {name: dict(zip(_ATTRIBUTE_KEYS, _build.query(stem, fn, len(_ATTRIBUTE_KEYS), d)))
+            for name, stem, fn, d in queries}
 
 
 class AttnSaved:

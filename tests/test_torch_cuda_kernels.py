@@ -20,7 +20,10 @@ its plain version does, so the two are expected to agree bit for bit; held
 here to: committed K/V integers and lengths equal, inverse scales at rtol
 1e-6, logits element-wise as above. The flash backward kernels recompute p
 from the saved log-sum-exp and round ds and p where their plain versions do:
-held as the forward is. The RMSNorm+quant and SiLU*up+quant kernels give the
+held as the forward is. The bf16 flash forward and dK/dV kernels take q.k
+and dO.v on the tensor cores, and so do their plain versions (the library's
+bf16 product with an fp32 result): with fp32 products instead, p and ds
+cross bf16 rounding steps that the limit does not allow (``flash_numerics.py``). The RMSNorm+quant and SiLU*up+quant kernels give the
 plain versions' scales to rtol 1e-6; an integer may differ by 1 where x*s
 sits on a rounding boundary (the kernels' fp32 sum of squares runs in another
 order): at most 1 apart everywhere and equal in all but 1% of the elements.
@@ -247,7 +250,7 @@ def test_stacked_decode_attention_kernel(gen, layer, rope, dtype):
     assert _close(got, want)
 
 
-@pytest.mark.parametrize("S", [16, 100, 1024])
+@pytest.mark.parametrize("S", [16, 100, 1024, 2048])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("soft_bf16", [False, True])
 def test_flash_fwd_kernel(gen, S, causal, soft_bf16):
@@ -260,6 +263,63 @@ def test_flash_fwd_kernel(gen, S, causal, soft_bf16):
     o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, causal, soft_bf16)
     assert _close(o, o2)
     assert float((lse - lse2).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("soft_bf16", [False, True])
+def test_flash_fwd_kernel_full_lengths(gen, soft_bf16):
+    """The train step's sequence length, causal, every sequence full (the
+    ragged lengths at S = 2048 are ``test_flash_fwd_kernel``'s)."""
+    B, G, S, D = 4, 8, 2048, 64
+    q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+    lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    o, lse = FA._flash_fwd(q, k, v, lens, soft_bf16=soft_bf16)
+    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, True, soft_bf16)
+    assert _close(o, o2)
+    assert float((lse - lse2).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("S", [100, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_kernel_head_dim_128(gen, S, causal):
+    """LLaMA-7B's heads: MHA (G = 1) at head dim 128, bf16."""
+    B, G, D = 4, 1, 128
+    q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+    lens = torch.tensor([S, 0, S // 2, S - 1], dtype=torch.int32, device="cuda")
+    n = FA._flash_fwd.launches
+    o, lse = FA._flash_fwd(q, k, v, lens, causal=causal)
+    assert FA._flash_fwd.launches == n + 1
+    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, causal)
+    assert _close(o, o2)
+    assert float((lse - lse2).abs().max()) < 1e-3
+
+
+def test_flash_fwd_kernel_refuses_shapes_it_is_not_built_for(gen):
+    q = torch.randn(1, 1, 64, 128, device="cuda", generator=gen)
+    k = torch.randn(1, 64, 128, device="cuda", generator=gen)
+    lens = torch.tensor([64], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="f32 kernel takes head dim 64 only"):
+        FA._flash_fwd(q, k, k, lens)
+    with pytest.raises(NotImplementedError, match="head dim 64 in f32/bf16 and 128 in bf16"):
+        FA._flash_fwd(*(t[..., :96].to(torch.bfloat16) for t in (q, k, k)), lens)
+
+
+@pytest.mark.parametrize("S", [100, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_kernel_f32(gen, S, causal):
+    """The f32 instantiation (the fp32-unit kernel) to 1e-5."""
+    B, G, D = 4, 8, 64
+    q = torch.randn(B, G, S, D, device="cuda", generator=gen)
+    k = torch.randn(B, S, D, device="cuda", generator=gen)
+    v = torch.randn(B, S, D, device="cuda", generator=gen)
+    lens = torch.tensor([S, 0, S // 2, S - 1], dtype=torch.int32, device="cuda")
+    o, lse = FA._flash_fwd(q, k, v, lens, causal=causal)
+    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, causal)
+    assert _close(o, o2)
+    assert float((lse - lse2).abs().max()) < 1e-5
 
 
 def _random_cache(cfg, b, S, gen):
@@ -372,6 +432,44 @@ def test_flash_bwd_kernels(gen, S, causal, dtype, G):
     assert _close(dq, dq2) and _close(dk, dk2) and _close(dv, dv2)
     assert not dk[1, 1:].any() and not dv[1, 1:].any()
     assert not dk[2, S // 2:].any() and not dv[2, S // 2:].any()
+
+
+@pytest.mark.parametrize("S,G", [(2048, 1), (2048, 8), (1050, 1), (1050, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_dkv_kernel_pairs_key_blocks(gen, S, G, causal):
+    """The bf16 dK/dV kernel runs key blocks kb and nkb - 1 - kb in one
+    thread block; S = 1050 has 17 key blocks of 64, so the middle one runs
+    alone. Against the plain version, exact zeros past each length, and a
+    second launch on the same inputs gives the same bits (no atomics). One
+    sequence of length 1 and one cut mid-tile: more empty sequences would
+    make most of dK exact zeros, and the limit's median floor zero."""
+    B, D = 4, 64
+    q, do = (torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    lens_l = [S, S // 2 + 3, 1, S - 5]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    o, lse = FA._flash_fwd(q, k, v, lens, causal=causal)
+    args = (q, k, v, lens, lse, FA._delta(o, do), do, causal)
+    dk, dv = FA._flash_bwd_dkv(*args)
+    dk_again, dv_again = FA._flash_bwd_dkv(*args)
+    dk2, dv2 = FA._flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert _close(dk, dk2) and _close(dv, dv2)
+    assert torch.equal(dk, dk_again) and torch.equal(dv, dv_again)
+    for b, n in enumerate(lens_l):
+        assert not dk[b, max(n, 1):].any() and not dv[b, max(n, 1):].any()
+
+
+def test_flash_kernel_attributes(gen):
+    """The tensor-core kernels compile to at most 255 registers a thread,
+    spill nothing, and fit at least one block of 128 threads on an SM."""
+    attrs = FA.kernel_attributes()
+    assert set(attrs) == {"flash_fwd", "flash_fwd_d128", "flash_bwd_dkv"}
+    for a in attrs.values():
+        assert a["spill_bytes"] == 0 and a["registers"] <= 255
+        assert a["threads"] == 128 and a["blocks_per_sm"] >= 1
 
 
 def test_flash_attention_gqa_gradient_runs_the_kernels(gen):

@@ -60,6 +60,38 @@ def test_flash_fwd_bf16_matches_jax():
                                atol=1e-2 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("soft_bf16", [False, True])
+@pytest.mark.parametrize("B,S", [(2, 64), (3, 128)])
+def test_flash_fwd_head_dim_128_matches_jax(causal, soft_bf16, B, S):
+    """LLaMA-7B's attention shape: MHA (G = 1) at head dim 128, which the
+    prefill path routes to the forward kernel."""
+    q, k, v = _qkv(B, 1, S, 128, seed=3)
+    lengths = np.asarray([S, S // 2 + 5, 1][:B], np.int32)
+    jo, jl = JFA._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(lengths), 512, 1024, causal=causal,
+                            soft_bf16=soft_bf16)
+    to, tl = TFA._flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), torch.from_numpy(lengths),
+                            causal=causal, soft_bf16=soft_bf16)
+    tol = dict(rtol=1e-2, atol=1e-2) if soft_bf16 else TOL
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **tol)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
+
+
+def test_flash_fwd_bf16_head_dim_128_matches_jax():
+    """bf16 at head dim 128, G = 1: as the bf16 case above."""
+    q, k, v = _qkv(2, 1, 128, 128, seed=4)
+    lengths = np.asarray([128, 77], np.int32)
+    jo, _ = JFA._flash_fwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                           jnp.asarray(lengths), 512, 1024)
+    to, _ = TFA._flash_fwd(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                           torch.from_numpy(lengths))
+    want = np.asarray(jo.astype(jnp.float32))
+    np.testing.assert_allclose(to.float().numpy(), want, rtol=1e-2,
+                               atol=1e-2 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("b,s,nh,kvh,d", [(2, 32, 4, 2, 16), (1, 16, 4, 4, 16)])
 def test_flash_attention_model_layout_matches_jax(b, s, nh, kvh, d):
     rng = np.random.default_rng(2)

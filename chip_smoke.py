@@ -12,8 +12,9 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    call that computes the same function (``library_ms``; the port never
    calls it). The paged decode attention is also held against the contiguous
    decode attention on the same K/V gathered into a contiguous cache, and
-   runs at the LLaMA-7B attention shape too, as does the flash forward (full
-   and ragged lengths); the stacked kernels are held
+   runs at the LLaMA-7B attention shape too (32 MHA heads of 128), as do the
+   contiguous decode attention and the flash forward (full and ragged
+   lengths); the stacked kernels are held
    against their plain versions and against the unstacked kernels on the
    layer's slice;
 3. for TinyLlama-1.1B at full width and depth with random weights, at
@@ -34,15 +35,19 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    paged path against the scan path on a prompt of more than one page (see
    ``cpu_check`` for the limits);
 4. holds the four training kernels against their plain versions at the train
-   step's shapes (flash backward dQ and dK/dV and the flash forward at
-   B = 16, G = 8, S = 2048, full and ragged lengths, dK/dV also against its
-   own second launch, bit for bit; RMSNorm+quant at [8192, 2048]; SiLU*up+quant at
-   [8192, 5632]), then takes KD-QAT train steps of TinyLlama-1.1B W4A8KV4 at
-   full width and depth through ``training.trainer.Trainer`` (bf16 params,
-   4 x 2048 tokens, ``kl_chunk=256``, remat on; see ``train_run``), steps on a
-   4-layer cut with and without ``fused_silu_quant``, and one step on a
-   2-layer cut three ways: the card path with its kernels, with the plain
-   versions swapped in, and the port's CPU path (``train_check``);
+   steps' shapes (flash backward dQ and dK/dV and the flash forward at
+   B = 16, G = 8, S = 2048, D = 64 and at LLaMA-7B's B = 32, G = 1, S = 2048,
+   D = 128, full and ragged lengths, dQ and dK/dV also against their own
+   second launches, bit for bit; RMSNorm+quant at [8192, 2048] and
+   [4096, 4096]; SiLU*up+quant at [8192, 5632]), then takes KD-QAT train
+   steps of TinyLlama-1.1B W4A8KV4 at full width and depth through
+   ``training.trainer.Trainer`` (bf16 params, 4 x 2048 tokens,
+   ``kl_chunk=256``, remat on; see ``train_run``), the same at LLaMA-7B's
+   widths on a 4-layer cut at 2 x 2048 tokens, steps on a 4-layer
+   TinyLlama cut with and without ``fused_silu_quant``, and one step on a
+   2-layer cut of each width: the card path with its kernels against the
+   card path with the plain versions swapped in, and at TinyLlama's width
+   also against the port's CPU path (``train_check``);
 5. prints what the compiler gave the tensor-core flash kernels (registers,
    shared memory, spills, blocks an SM holds; it fails on a spill), a
    ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
@@ -88,6 +93,9 @@ TRAIN_BATCH, TRAIN_SEQ, KL_CHUNK = 4, 2048, 256     # the train step's batch
 TRAIN_WARM, TRAIN_STEPS = 2, 3                       # warm-up and timed steps
 TRAIN_LENS = (2048,) * 10 + (1234, 777, 1, 0, 2048, 1500)   # flash backward phase, B = 16
 LLAMA7B_LENS = tuple(1024 - 33 * i for i in range(31)) + (0,)   # K4 at LLaMA-7B heads, B = 32
+# flash train phase at LLaMA-7B heads (B = 32 kv heads, G = 1, D = 128)
+LLAMA7B_TRAIN_LENS = (2048,) * 16 + tuple(2048 - 97 * i for i in range(1, 15)) + (1, 0)
+LLAMA7B_TRAIN_LAYERS, LLAMA7B_TRAIN_BATCH = 4, 2    # the LLaMA-7B-width train run
 SILU_LAYERS, SILU_STEPS, SILU_LOSS_REL = 4, 2, 0.05  # the fused_silu_quant run (see train_phases)
 QUANT_FLIP_SHARE = 0.01     # K12/K13: integers one off where x*s is on a rounding boundary
 QUANT_ROW_SHARE = 1e-3      # K12: rows whose absmax moved one bf16 step (see fused_quant_phase)
@@ -208,15 +216,16 @@ def gemm_phase(timer, gen, QM, c):
     return out
 
 
-def decode_attention_phase(timer, gen, DA, c, packed):
-    """K3 at the decode shape: b=8 slots, kvh=4, G=8, hd=64, S=2048, slot
+def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed):
+    """K3 at the decode shape: b=8 slots, S=2048, TinyLlama-1.1B's heads
+    (kvh=4, G=8, hd=64) or LLaMA-7B's (kvh=32, G=1, hd=128), slot
     lengths those of the served prompts after half the new tokens; the
     folded pair in the cache's range (-8..7 at KV4), as the main path
     quantizes it. Kernel and plain version round to bf16 at the same points
     against the same softmax maximum and differ only in their fp32
     summation orders: held element-wise to ATTN_ULPS bf16 steps plus
     ATTN_FLOOR of the median output (``agreement``)."""
-    b, kvh, G, hd, S = 8, c.kv_heads, c.num_attention_heads // c.kv_heads, c.head_dim, 2048
+    b, S = 8, 2048
     hdc = hd // 2 if packed else hd
     if packed:
         kq = torch.randint(0, 256, (b, kvh, hdc, S), device="cuda", generator=gen).to(torch.uint8)
@@ -229,7 +238,7 @@ def decode_attention_phase(timer, gen, DA, c, packed):
     q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(torch.bfloat16)
     lens_l = [n + NEW_TOKENS // 2 for n in PROMPT_LENS]
     lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-    kc, ksn = DA._rope_tables(S, hd, c.rope_theta, "cuda")
+    kc, ksn = DA._rope_tables(S, hd, 10000.0, "cuda")
     lo, hi = (-8, 8) if packed else (-127, 128)
     kn = torch.randint(lo, hi, (b, kvh, hd), device="cuda", generator=gen).to(torch.int8)
     vn = torch.randint(lo, hi, (b, kvh, hd), device="cuda", generator=gen).to(torch.int8)
@@ -244,7 +253,7 @@ def decode_attention_phase(timer, gen, DA, c, packed):
     torch.cuda.synchronize()
     agr = agreement(got, want, ATTN_ULPS, ATTN_FLOOR)
     if not agr["ok"]:
-        raise AssertionError(f"decode attention packed={packed}: {agr}")
+        raise AssertionError(f"decode attention kvh={kvh} G={G} hd={hd} packed={packed}: {agr}")
     ms = timer(lambda: DA.quantized_decode_attention(*args, **kw))
     plain_ms = timer(lambda: DA._decode_attention_plain(*args, **kw))
     tot = sum(lens_l)
@@ -254,11 +263,13 @@ def decode_attention_phase(timer, gen, DA, c, packed):
               + 2 * b * kvh * hd + 8 * b)                # folded pair
     ops = 2 * 2 * kvh * G * hd * (tot + b)               # q.k and p.v
     b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
-    log(f"  decode_attention packed={packed} b={b} S={S} lens={lens_l}: {ms:.4f} ms "
+    log(f"  decode_attention kvh={kvh} G={G} hd={hd} packed={packed} b={b} S={S} lens={lens_l}: "
+        f"{ms:.4f} ms "
         f"(plain {plain_ms:.4f}, bound {b_ms:.5f} {b_by}) max_abs_err "
         f"{agr['max_abs_err']:.3g}, worst {agr['worst']:.3g} of its limit, "
         f"rel L2 {agr['rel_l2']:.3g}")
-    return dict(packed=packed, b=b, S=S, lengths=lens_l, ms=ms, plain_ms=plain_ms,
+    return dict(kvh=kvh, G=G, hd=hd, packed=packed, b=b, S=S, lengths=lens_l, ms=ms,
+                plain_ms=plain_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, **agr)
 
 
@@ -1178,20 +1189,22 @@ def live_pairs(lens, S, causal=True):
     return tot
 
 
-def flash_train_phase(timer, gen, FA):
-    """K4, K10 and K11 at the train step's attention shape: batch 4 x 4 kv
-    heads = 16, G = 8, S = 2048, D = 64, causal, bf16, twice: at full lengths
-    (what the train step runs, and what SDPA, the yardstick, computes) and at
-    TRAIN_LENS (full, ragged, 1 and 0). Each against its plain version under
-    the K3/K4 limit (``agreement``): kernel and plain version compute p from
-    the same log-sum-exp and round ds and p to bf16 alike; they differ in
-    their fp32 summation orders. K11 is also launched twice on the same
-    inputs and must give the same bits (no atomics), and exact zeros past each
-    length. The backward pair takes the forward KERNEL's O and log-sum-exp.
-    ``library_ms`` of the backward pair is the backward of one
-    ``scaled_dot_product_attention`` call (dQ, dK and dV together, full
+def flash_train_phase(timer, gen, FA, G, D, ragged):
+    """K4, K10 and K11 at a train step's attention shape: B = len(ragged)
+    sequences of one kv head (batch x kv heads), G query heads a kv head,
+    S = TRAIN_SEQ, head dim D, causal, bf16, twice: at full lengths (what the
+    train step runs, and what SDPA, the yardstick, computes) and at the
+    ``ragged`` lengths (full, ragged, 1 and 0). Each against its plain
+    version under the K3/K4 limit (``agreement``): kernel and plain version
+    take q.k and dO.v as the same bf16 products with fp32 sums, compute p
+    from the same log-sum-exp and round ds and p to bf16 alike; they differ
+    in their fp32 summation orders. K10 and K11 are also launched twice on
+    the same inputs and must give the same bits (no atomics), and K11 exact
+    zeros past each length. The backward pair takes the forward KERNEL's O
+    and log-sum-exp. ``library_ms`` of the backward pair is the backward of
+    one ``scaled_dot_product_attention`` call (dQ, dK and dV together, full
     lengths; the port never calls it)."""
-    B, G, S, D = len(TRAIN_LENS), 8, TRAIN_SEQ, 64
+    B, S = len(ragged), TRAIN_SEQ
     q, do = (torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
              for _ in range(2))
     k, v = (torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
@@ -1205,7 +1218,7 @@ def flash_train_phase(timer, gen, FA):
     del out, ql, kl, vl
 
     rows = {}
-    for label, lens_l in (("full", (S,) * B), ("ragged", TRAIN_LENS)):
+    for label, lens_l in (("full", (S,) * B), ("ragged", ragged)):
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
         o, lse = FA._flash_fwd(q, k, v, lens)
         o2, lse2 = FA._flash_fwd_plain(q, k, v, lens)
@@ -1219,6 +1232,7 @@ def flash_train_phase(timer, gen, FA):
         args = (q, k, v, lens, lse, delta, do)
         dq = FA._flash_bwd_dq(*args)
         dk, dv = FA._flash_bwd_dkv(*args)
+        dq_again = FA._flash_bwd_dq(*args)
         dk_again, dv_again = FA._flash_bwd_dkv(*args)
         dq2 = FA._flash_bwd_dq_plain(*args)
         dk2, dv2 = FA._flash_bwd_dkv_plain(*args)
@@ -1226,11 +1240,13 @@ def flash_train_phase(timer, gen, FA):
         agr = {n: agreement(a, w, ATTN_ULPS, ATTN_FLOOR)
                for n, a, w in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
         zeros = all(not t[b, max(n, 1):].any() for t in (dk, dv) for b, n in enumerate(lens_l))
+        same_dq = torch.equal(dq, dq_again)
         same = torch.equal(dk, dk_again) and torch.equal(dv, dv_again)
-        if not (all(a["ok"] for a in agr.values()) and zeros and same):
-            raise AssertionError(f"flash backward, {label} lengths: {agr}, zeros past the lengths "
-                                 f"{zeros}, K11 the same bits twice {same}")
-        del dq, dk, dv, dk_again, dv_again, dq2, dk2, dv2
+        if not (all(a["ok"] for a in agr.values()) and zeros and same and same_dq):
+            raise AssertionError(f"flash backward G={G} D={D}, {label} lengths: {agr}, zeros past "
+                                 f"the lengths {zeros}, the same bits twice: K10 {same_dq}, "
+                                 f"K11 {same}")
+        del dq, dk, dv, dq_again, dk_again, dv_again, dq2, dk2, dv2
 
         ms = {"fwd": timer(lambda: FA._flash_fwd(q, k, v, lens)),
               "dq": timer(lambda: FA._flash_bwd_dq(*args)),
@@ -1249,7 +1265,8 @@ def flash_train_phase(timer, gen, FA):
             f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}) max_abs_err {fwd['max_abs_err']:.3g}, "
             f"worst {fwd['worst']:.3g} of its limit, lse {lse_err:.3g}; dQ {ms['dq']:.4f} ms (plain "
             f"{plain['dq']:.2f}, bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}) max_abs_err "
-            f"{agr['dq']['max_abs_err']:.3g}, worst {agr['dq']['worst']:.3g}; dK/dV {ms['dkv']:.4f} "
+            f"{agr['dq']['max_abs_err']:.3g}, worst {agr['dq']['worst']:.3g}, the same bits twice; "
+            f"dK/dV {ms['dkv']:.4f} "
             f"ms (plain {plain['dkv']:.2f}, bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}) "
             f"max_abs_err dk {agr['dk']['max_abs_err']:.3g} dv {agr['dv']['max_abs_err']:.3g}, worst "
             f"{max(agr['dk']['worst'], agr['dv']['worst']):.3g}, the same bits twice; sdpa backward "
@@ -1264,7 +1281,8 @@ def flash_train_phase(timer, gen, FA):
         lib_is = "sdpa backward, dQ+dK+dV together" if label == "full" else "none: sdpa takes no lengths"
         rows[label] = dict(
             fwd=row("fwd", blocks=-(-S // 64) * G * B, lse_err=lse_err, **fwd),
-            dq=row("dq", library_is=lib_is, **agr["dq"]),
+            dq=row("dq", library_is=lib_is, blocks=-(-S // 64) * G * B,
+                   bit_identical_twice=same_dq, **agr["dq"]),
             dkv=row("dkv", library_is=lib_is, blocks=(-(-S // 64) + 1) // 2 * B,
                     bit_identical_twice=same,
                     max_abs_err=max(agr["dk"]["max_abs_err"], agr["dv"]["max_abs_err"]),
@@ -1293,14 +1311,16 @@ def quant_agreement(q, s, q2, s2):
 
 
 def fused_quant_phase(timer, gen, FQ, c):
-    """K12 at the train step's rows [4 * 2048, H] with an f32 and a bf16 gain,
-    K13 at [4 * 2048, I], bf16, 8-bit activations. Bound by bytes: input read
-    once (2 bytes an element, two inputs for K13), int8 written once, a scale
-    a row, the gain."""
-    M, H, I = TRAIN_BATCH * TRAIN_SEQ, c.hidden_size, c.intermediate_size
+    """K12 at the train step's rows [4 * 2048, H] with an f32 and a bf16 gain
+    and at the LLaMA-7B-width run's [2 * 2048, 4096] with a bf16 gain, K13 at
+    [4 * 2048, I], bf16, 8-bit activations. Bound by bytes: input read once
+    (2 bytes an element, two inputs for K13), int8 written once, a scale a
+    row, the gain."""
+    M, I = TRAIN_BATCH * TRAIN_SEQ, c.intermediate_size
     out = {"rmsnorm_quant": [], "silu_mul_quant": []}
-    h = (torch.randn(M, H, device="cuda", generator=gen) * 1.3).to(torch.bfloat16)
-    for gdt in (torch.float32, torch.bfloat16):
+    for M_, H, gdt in ((M, c.hidden_size, torch.float32), (M, c.hidden_size, torch.bfloat16),
+                       (LLAMA7B_TRAIN_BATCH * TRAIN_SEQ, 4096, torch.bfloat16)):
+        h = (torch.randn(M_, H, device="cuda", generator=gen) * 1.3).to(torch.bfloat16)
         g = (1 + 0.1 * torch.randn(H, device="cuda", generator=gen)).to(gdt)
         agr = quant_agreement(*FQ.rmsnorm_quant(h, g, c.rms_norm_eps, 8),
                               *FQ._rmsnorm_quant_plain(h, g, c.rms_norm_eps, 8))
@@ -1309,12 +1329,12 @@ def fused_quant_phase(timer, gen, FQ, c):
             raise AssertionError(f"rmsnorm_quant gain {gdt}: {agr}")
         ms = timer(lambda: FQ.rmsnorm_quant(h, g, c.rms_norm_eps, 8))
         plain_ms = timer(lambda: FQ._rmsnorm_quant_plain(h, g, c.rms_norm_eps, 8))
-        b_ms, b_by = bound(3 * M * H + 4 * M + g.element_size() * H, 8.0 * M * H, F32_FLOPS)
-        log(f"  rmsnorm_quant [{M}, {H}] bf16, gain {str(gdt)[6:]}: {ms:.4f} ms (plain "
+        b_ms, b_by = bound(3 * M_ * H + 4 * M_ + g.element_size() * H, 8.0 * M_ * H, F32_FLOPS)
+        log(f"  rmsnorm_quant [{M_}, {H}] bf16, gain {str(gdt)[6:]}: {ms:.4f} ms (plain "
             f"{plain_ms:.4f}, bound {b_ms:.4f} {b_by}) scales rel err {agr['scale_rel_err']:.3g}, "
             f"rows with a moved absmax {agr['moved_rows']:.3g}, integers differ by at most "
             f"{agr['int_max_diff']} in {agr['int_diff_share']:.3g} of the elements")
-        out["rmsnorm_quant"].append(dict(M=M, K=H, gain=str(gdt)[6:], ms=ms, plain_ms=plain_ms,
+        out["rmsnorm_quant"].append(dict(M=M_, K=H, gain=str(gdt)[6:], ms=ms, plain_ms=plain_ms,
                                          library_ms=None, bound_ms=b_ms, bound_by=b_by, **agr))
     gate = (torch.randn(M, I, device="cuda", generator=gen) * 2).to(torch.bfloat16)
     up = torch.randn(M, I, device="cuda", generator=gen).to(torch.bfloat16)
@@ -1365,8 +1385,8 @@ def profile_kernels(fn, label):
 
 
 def train_cfg_of(cfg, layers=None, **kw):
-    """TinyLlama-1.1B W4A8KV4 with the library's default flags, optionally cut
-    to its first ``layers`` layers."""
+    """``cfg`` (TinyLlama-1.1B or LLaMA-7B) at W4A8KV4 with the library's
+    default flags, optionally cut to its first ``layers`` layers."""
     c = cfg.replace(w_bits=4, a_bits=8, kv_bits=4, **kw)
     return c if layers is None else c.replace(num_hidden_layers=layers)
 
@@ -1432,7 +1452,8 @@ def train_run(label, cfg, steps, warm, profile, batch=TRAIN_BATCH, seq=TRAIN_SEQ
         raise AssertionError(f"{label}: the teacher's tensors changed")
     del teacher_copy
     step_ms = 1e3 * statistics.median(times)
-    res = dict(mode=label, layers=L, batch=batch, seq=seq, kl_chunk=KL_CHUNK,
+    res = dict(mode=label, layers=L, hidden_size=cfg.hidden_size, head_dim=cfg.head_dim,
+               batch=batch, seq=seq, kl_chunk=KL_CHUNK,
                learning_rate=tc.learning_rate, warmup=warm, steps=steps, losses=losses,
                grad_norms=norms, step_ms=step_ms, step_ms_all=[1e3 * t for t in times],
                tokens_per_s=batch * seq / (step_ms / 1e3), peak_memory_bytes=peak,
@@ -1511,13 +1532,13 @@ def _grad_drift(a, b):
     return worst
 
 
-def train_check(cfg):
-    """One KD-QAT step (no update) at full width on a CUT_LAYERS cut, batch 1:
-    the card path with its kernels, the card path with the plain versions
-    swapped in (``plain_train_on_gpu``: the witness) and the port's CPU path,
-    on the same bf16 weights and ids, at 128 tokens; and the first two at
-    2048 tokens. Loss, grad_norm and the largest per-leaf relative L2
-    difference of the gradients.
+def train_check(cfg, with_cpu=True):
+    """One KD-QAT step (no update) at ``cfg``'s full width on a CUT_LAYERS
+    cut, batch 1: the card path with its kernels, the card path with the
+    plain versions swapped in (``plain_train_on_gpu``: the witness) and, with
+    ``with_cpu``, the port's CPU path, on the same bf16 weights and ids, at 128
+    tokens; and the first two at 2048 tokens. Loss, grad_norm and the largest
+    per-leaf relative L2 difference of the gradients.
 
     Kernels against plain versions (the kernels' own share): the two differ
     in fp32 summation orders inside K4, K10, K11 and K12, a bf16 step in some
@@ -1552,7 +1573,8 @@ def train_check(cfg):
                    loss_rel_vs_plain=abs(kern[0] - plain[0]) / abs(plain[0]),
                    norm_rel_vs_plain=abs(kern[1] - plain[1]) / abs(plain[1]),
                    grad_vs_plain=_grad_drift(kern[2], plain[2]))
-        if seq == 128:
+        vs_cpu = with_cpu and seq == 128
+        if vs_cpu:
             to_cpu = lambda t: t.detach().cpu()  # noqa: E731
             cpu = _step_grads(cut, T.tree_map(to_cpu, student), T.tree_map(to_cpu, teacher),
                               ids.cpu(), torch.bfloat16)
@@ -1560,7 +1582,8 @@ def train_check(cfg):
                 res[f"{name}_loss_rel_vs_cpu"] = abs(run[0] - cpu[0]) / abs(cpu[0])
                 res[f"{name}_grad_vs_cpu"] = _grad_drift(run[2], cpu[2])
             witness_loss, witness_grad = res["plain_loss_rel_vs_cpu"], res["plain_grad_vs_cpu"][0]
-        log(f"  train step on a {CUT_LAYERS}-layer cut, 1 x {seq} tokens: loss {kern[0]:.4f}, "
+        log(f"  train step on a {CUT_LAYERS}-layer cut of H={cut.hidden_size}, head dim "
+            f"{cut.head_dim}, 1 x {seq} tokens: loss {kern[0]:.4f}, "
             f"grad_norm {kern[1]:.4f}; kernels against plain versions on the card: loss "
             f"{res['loss_rel_vs_plain']:.3g}, grad_norm {res['norm_rel_vs_plain']:.3g}, gradients "
             f"{res['grad_vs_plain'][0]:.3g} ({res['grad_vs_plain'][1]})"
@@ -1568,7 +1591,7 @@ def train_check(cfg):
                f"gradients {res['kernels_grad_vs_cpu'][0]:.3g} ({res['kernels_grad_vs_cpu'][1]}); "
                f"plain versions on the card (witness) loss {res['plain_loss_rel_vs_cpu']:.3g}, "
                f"gradients {res['plain_grad_vs_cpu'][0]:.3g} ({res['plain_grad_vs_cpu'][1]})"
-               if seq == 128 else "")
+               if vs_cpu else "")
             + f" (limits: loss and grad_norm {TRAIN_CUT_LOSS_REL}, gradients "
             f"{TRAIN_CUT_GRAD_REL})")
         L = CUT_LAYERS
@@ -1577,7 +1600,7 @@ def train_check(cfg):
               and res["loss_rel_vs_plain"] <= TRAIN_CUT_LOSS_REL
               and res["norm_rel_vs_plain"] <= TRAIN_CUT_LOSS_REL
               and res["grad_vs_plain"][0] <= TRAIN_CUT_GRAD_REL)
-        if seq == 128:
+        if vs_cpu:
             ok = (ok and res["kernels_loss_rel_vs_cpu"]
                   <= FULL_DRIFT_OVER * witness_loss + TRAIN_CUT_LOSS_REL
                   and res["kernels_grad_vs_cpu"][0]
@@ -1590,9 +1613,12 @@ def train_check(cfg):
     return out
 
 
-def train_phases(cfg):
+def train_phases(cfg, cfg7):
     """The train runs: TinyLlama-1.1B at full depth with the default flags
-    (the main path of the training slice: K4, K10, K11, K12), then a
+    (the main path of the training slice: K4, K10, K11, K12), then LLaMA-7B's
+    widths (``cfg7``: H=4096, 32 MHA heads of 128, I=11008) cut to
+    LLAMA7B_TRAIN_LAYERS layers at LLAMA7B_TRAIN_BATCH x TRAIN_SEQ tokens (K4,
+    K10 and K11 at head dim 128, K12 at H=4096), then a
     SILU_LAYERS-layer cut with ``fused_silu_quant`` (K13 twice a layer a step:
     the student's forward and its recompute) beside the same cut with the
     default flags. The two cuts start from the same weights and differ in the
@@ -1600,6 +1626,9 @@ def train_phases(cfg):
     type's SiLU, and the kernel's quantization against the fused matmul's):
     their first losses are held within SILU_LOSS_REL of each other."""
     full = train_run("W4A8KV4 train", train_cfg_of(cfg), TRAIN_STEPS, TRAIN_WARM, profile=True)
+    l7 = train_run(f"LLaMA-7B width W4A8KV4 train, {LLAMA7B_TRAIN_LAYERS}-layer cut",
+                   train_cfg_of(cfg7, LLAMA7B_TRAIN_LAYERS), TRAIN_STEPS, TRAIN_WARM,
+                   profile=True, batch=LLAMA7B_TRAIN_BATCH)
     base = train_run(f"W4A8KV4 train, {SILU_LAYERS}-layer cut", train_cfg_of(cfg, SILU_LAYERS),
                      SILU_STEPS, 0, profile=False)
     silu = train_run(f"W4A8KV4 train, {SILU_LAYERS}-layer cut, fused_silu_quant",
@@ -1612,7 +1641,7 @@ def train_phases(cfg):
     if rel > SILU_LOSS_REL:
         raise AssertionError(f"fused_silu_quant: first loss {rel} from the default route's")
     silu["first_loss_rel_vs_default"] = rel
-    return [full, base, silu]
+    return [full, l7, base, silu]
 
 
 # ---------------------------------------------------------------------------
@@ -1623,7 +1652,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from llm_qat_torch.models.config import TINYLLAMA_1B
+    from llm_qat_torch.models.config import LLAMA_7B, TINYLLAMA_1B
     from llm_qat_torch.ops import _build
     from llm_qat_torch.ops import decode_attention as DA
     from llm_qat_torch.ops import flash_attention as FA
@@ -1647,8 +1676,11 @@ def main() -> int:
     timer = Timer()
     log("[2] kernels against their plain versions (TinyLlama-1.1B shapes, bf16)")
     gemm = gemm_phase(timer, gen, QM, cfg)
-    dec = [decode_attention_phase(timer, gen, DA, cfg, packed) for packed in (False, True)]
     G = cfg.num_attention_heads // cfg.kv_heads
+    # K3 at TinyLlama-1.1B's heads and at LLaMA-7B's (32 MHA heads of 128)
+    dec = [decode_attention_phase(timer, gen, DA, kvh, g, hd, packed)
+           for kvh, g, hd in ((cfg.kv_heads, G, cfg.head_dim), (32, 1, 128))
+           for packed in (False, True)]
     fl = [flash_phase(timer, gen, FA, cfg.kv_heads, G, S, cfg.head_dim) for S in (1024, 128)]
     # K4 at LLaMA-7B's attention shape (32 MHA heads of 128), full and ragged lengths
     fl7 = [flash_phase(timer, gen, FA, 32, 1, 1024, 128, lens) for lens in (None, LLAMA7B_LENS)]
@@ -1657,13 +1689,21 @@ def main() -> int:
            for kvh, g, hd in ((cfg.kv_heads, G, cfg.head_dim), (32, 1, 128))
            for packed in (False, True)]
     k7 = stacked_attention_phase(timer, gen, DA, cfg)
-    ftr = flash_train_phase(timer, gen, FA)
+    ftr = flash_train_phase(timer, gen, FA, G, cfg.head_dim, TRAIN_LENS)
+    # and at LLaMA-7B's attention (32 MHA heads of 128), one sequence of 2048
+    ftr7 = flash_train_phase(timer, gen, FA, 1, 128, LLAMA7B_TRAIN_LENS)
     # what the compiler gave the tensor-core kernels, and the grids they ran
     attrs = FA.kernel_attributes()
     attrs["flash_fwd"]["blocks"] = {"B=4 G=8 S=1024": fl[0]["blocks"],
                                     "B=16 G=8 S=2048": ftr["full"]["fwd"]["blocks"]}
-    attrs["flash_fwd_d128"]["blocks"] = {"B=32 G=1 S=1024": fl7[0]["blocks"]}
-    attrs["flash_bwd_dkv"]["blocks"] = {"B=16 G=8 S=2048": ftr["full"]["dkv"]["blocks"]}
+    attrs["flash_fwd_d128"]["blocks"] = {"B=32 G=1 S=1024": fl7[0]["blocks"],
+                                         "B=32 G=1 S=2048": ftr7["full"]["fwd"]["blocks"]}
+    for name, shapes in (("flash_bwd_dq", ftr), ("flash_bwd_dq_d128", ftr7)):
+        attrs[name]["blocks"] = {f"B={shapes['full']['dq']['B']} G={shapes['full']['dq']['G']} "
+                                 "S=2048": shapes["full"]["dq"]["blocks"]}
+    for name, shapes in (("flash_bwd_dkv", ftr), ("flash_bwd_dkv_d128", ftr7)):
+        attrs[name]["blocks"] = {f"B={shapes['full']['dkv']['B']} G={shapes['full']['dkv']['G']} "
+                                 "S=2048": shapes["full"]["dkv"]["blocks"]}
     if any(a["spill_bytes"] for a in attrs.values()):
         raise AssertionError(f"a tensor-core kernel spills registers: {attrs}")
     fq = fused_quant_phase(timer, gen, FQ, cfg)
@@ -1716,11 +1756,15 @@ def main() -> int:
 
     log(f"[4] KD-QAT training, TinyLlama-1.1B W4A8KV4, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} "
         f"tokens, kl_chunk {KL_CHUNK}: {TRAIN_WARM} + {TRAIN_STEPS} steps at full depth, "
+        f"the same at LLaMA-7B widths on a {LLAMA7B_TRAIN_LAYERS}-layer cut at "
+        f"{LLAMA7B_TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
         f"{SILU_STEPS} steps on a {SILU_LAYERS}-layer cut with and without fused_silu_quant, "
-        f"one step on a {CUT_LAYERS}-layer cut against the plain versions and the CPU path")
+        f"one step on a {CUT_LAYERS}-layer cut against the plain versions (and, for "
+        "TinyLlama-1.1B, the CPU path)")
     torch.cuda.empty_cache()
-    trains = train_phases(cfg)
-    tcheck = train_check(cfg)
+    trains = train_phases(cfg, LLAMA_7B)
+    tcheck = {"TinyLlama-1.1B": train_check(cfg),
+              "LLaMA-7B width": train_check(LLAMA_7B, with_cpu=False)}
 
     # each path went through its kernels, and only through them
     for m in runs:
@@ -1766,9 +1810,10 @@ def main() -> int:
     k8 = pag[0]
     k9 = mega[0]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
-    fwd_shapes = fl + [ftr["full"]["fwd"], ftr["ragged"]["fwd"]] + fl7
+    fwd_shapes = fl + [ftr["full"]["fwd"], ftr["ragged"]["fwd"]] + fl7 + [
+        ftr7["full"]["fwd"], ftr7["ragged"]["fwd"]]
     train_shape = ("B=16 G=8 S=2048 D=64 causal bf16, full lengths (lengths full, ragged, 1 "
-                   "and 0 in shapes)")
+                   "and 0, and LLaMA-7B heads B=32 G=1 S=2048 D=128 full and ragged, in shapes)")
     rows = [
         dict(name="int8_matmul", source="llm_qat_torch/csrc/int8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:77",
@@ -1780,15 +1825,16 @@ def main() -> int:
              **per_layer(gemm["int4_matmul"], 32), shapes=gemm["int4_matmul"]),
         dict(name="decode_attention", source="llm_qat_torch/csrc/decode_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:55",
-             shape="b=8 S=2048 int8 cache (packed KV4 in shapes)",
+             shape="b=8 S=2048 int8 cache, TinyLlama-1.1B heads (packed KV4, and LLaMA-7B "
+                   "heads kvh=32 G=1 hd=128, in shapes)",
              **{k: dec[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")},
              max_abs_err=max(d["max_abs_err"] for d in dec), shapes=dec),
         dict(name="flash_fwd", source="llm_qat_torch/csrc/flash_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:94",
              shape="B=4 G=8 S=1024 D=64 causal (S=128, the train shape B=16 S=2048 at full and "
-                   "ragged lengths, LLaMA-7B's B=32 G=1 S=1024 D=128 at full and ragged lengths "
-                   "in shapes)",
+                   "ragged lengths, LLaMA-7B's B=32 G=1 S=1024 and S=2048 D=128 at full and "
+                   "ragged lengths in shapes)",
              **{k: fl[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by")},
              max_abs_err=max(f["max_abs_err"] for f in fwd_shapes), shapes=fwd_shapes),
@@ -1822,15 +1868,17 @@ def main() -> int:
         dict(name="flash_bwd_dq", source="llm_qat_torch/csrc/flash_attention_bwd.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:236",
              shape=train_shape, **{k: ftr["full"]["dq"][k] for k in keys},
-             shapes=[ftr["full"]["dq"], ftr["ragged"]["dq"]]),
+             shapes=[ftr["full"]["dq"], ftr["ragged"]["dq"], ftr7["full"]["dq"],
+                     ftr7["ragged"]["dq"]]),
         dict(name="flash_bwd_dkv", source="llm_qat_torch/csrc/flash_attention_bwd.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:297",
              shape=train_shape, **{k: ftr["full"]["dkv"][k] for k in keys},
-             shapes=[ftr["full"]["dkv"], ftr["ragged"]["dkv"]]),
+             shapes=[ftr["full"]["dkv"], ftr["ragged"]["dkv"], ftr7["full"]["dkv"],
+                     ftr7["ragged"]["dkv"]]),
         dict(name="rmsnorm_quant", source="llm_qat_torch/csrc/fused_quant.cu",
              replaces="llm_qat_tpu/ops/pallas/fused_quant.py:77",
-             shape="[8192, 2048] bf16 with an f32 gain (bf16 gain in shapes); max_abs_err in "
-                   "integer steps",
+             shape="[8192, 2048] bf16 with an f32 gain (bf16 gain, and [4096, 4096] at the "
+                   "LLaMA-7B width, in shapes); max_abs_err in integer steps",
              **{k: fq["rmsnorm_quant"][0][k] for k in keys}, shapes=fq["rmsnorm_quant"]),
         dict(name="silu_mul_quant", source="llm_qat_torch/csrc/fused_quant.cu",
              replaces="llm_qat_tpu/ops/pallas/fused_quant.py:129",

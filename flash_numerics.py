@@ -4,16 +4,16 @@ score products, measured on one NVIDIA GPU.
     python3 flash_numerics.py
 
 1. Builds a one-tile product kernel from ``llm_qat_torch/csrc/tc_bf16.cuh``
-   (the ``mma.sync`` m16n8k16 path of K4 and K11) into ``build/`` and counts
+   (the ``mma.sync`` m16n8k16 path of K4, K10 and K11) into ``build/`` and counts
    the scores where it differs from the library's bf16 product with an fp32
    result (both operand orders) and from fp32 products of the widened
    operands.
 2. Over several seeds and the shapes of ``tests/test_torch_cuda_kernels.py``,
    the worst ratio to the K3/K4 limit (2 bf16 steps of |expected| + 1e-2 x
-   median|expected|, element by element) of: K4 and K11 against their plain
-   versions (tensor-core products, as shipped); the same kernels against
-   plain versions with fp32 products; and the two plain versions against
-   each other, with no kernel involved.
+   median|expected|, element by element) of: K4, K10 and K11 against their
+   plain versions (tensor-core products, as shipped); the same kernels
+   against plain versions with fp32 products; and the two plain versions
+   against each other, with no kernel involved.
 
 Prints one JSON line. Imports nothing of JAX. Exits 1 without a GPU.
 """
@@ -124,6 +124,7 @@ def main() -> int:
             FA._scores = real
 
     w = {k: 0.0 for k in ("K4 vs plain", "K4 vs fp32-product plain", "plain vs fp32-product plain (forward)",
+                          "K10 vs plain", "K10 vs fp32-product plain", "plain vs fp32-product plain (dQ)",
                           "K11 vs plain", "K11 vs fp32-product plain", "plain vs fp32-product plain (dK/dV)")}
     cases = 0
     for seed in range(6):
@@ -143,18 +144,19 @@ def main() -> int:
                                      ("plain vs fp32-product plain (forward)", worst(tc, f32))):
                         w[key] = max(w[key], val)
                     cases += 1
-                if D != 64:
-                    continue
                 o, lse = FA._flash_fwd(q, k, v, lens, causal)
                 args = (q, k, v, lens, lse, FA._delta(o, do), do, causal)
-                got = FA._flash_bwd_dkv(*args)
-                tc = FA._flash_bwd_dkv_plain(*args)
-                f32 = with_fp32_products(FA._flash_bwd_dkv_plain, *args)
-                for key, (x, y) in (("K11 vs plain", (got, tc)),
-                                    ("K11 vs fp32-product plain", (got, f32)),
-                                    ("plain vs fp32-product plain (dK/dV)", (tc, f32))):
-                    w[key] = max(w[key], max(worst(a, b) for a, b in zip(x, y)))
-                cases += 1
+                for name, part, kern, plain in (
+                        ("K10", "dQ", lambda *a: (FA._flash_bwd_dq(*a),),
+                         lambda *a: (FA._flash_bwd_dq_plain(*a),)),
+                        ("K11", "dK/dV", FA._flash_bwd_dkv, FA._flash_bwd_dkv_plain)):
+                    got, tc = kern(*args), plain(*args)
+                    f32 = with_fp32_products(plain, *args)
+                    for key, (x, y) in ((f"{name} vs plain", (got, tc)),
+                                        (f"{name} vs fp32-product plain", (got, f32)),
+                                        (f"plain vs fp32-product plain ({part})", (tc, f32))):
+                        w[key] = max(w[key], max(worst(a, b) for a, b in zip(x, y)))
+                    cases += 1
     result.update(cases=cases, seeds=6, worst_of_limit=w)
     print(json.dumps(result), flush=True)
     return 0

@@ -39,8 +39,11 @@
 // The softmax statistics and sums are fp32; with a bf16 q the kernel rounds
 // cos*ks, sin*ks, the rotated k and p*vs to bf16 where the TPU kernel does
 // (its dots take bf16 operands), so it follows the same numerics.
-// Not yet done: splitting S across blocks (b * kvh blocks fill a quarter of
-// the card at b = 8, kvh = 4).
+// Built for (G, hd) = (8, 64) (TinyLlama-1.1B; entry decode_attention) and
+// (1, 128) (the MHA heads of the LLaMA-7B family; entry
+// decode_attention_g1_d128, contiguous cache only): the scores take G * S
+// floats of shared memory, so S <= 32768 / G. Not yet done: splitting S
+// across blocks (b * kvh blocks fill a quarter of the card at b = 8, kvh = 4).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -294,24 +297,40 @@ decode_attn_kernel(const T* __restrict__ q, const uint8_t* __restrict__ kq,
   }
 }
 
-template <typename T>
+template <typename T, int G, int HD>
 int launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
            const void* lengths, const void* kcos, const void* ksin, const void* knew,
            const void* kinv, const void* vnew, const void* vinv, const void* active,
            const void* qcos, const void* qsin, void* out, int b, int kvh, int S,
            int packed, int rope, int fold, float scale, cudaStream_t st) {
   dim3 grid(kvh, b);
-  const size_t smem = (size_t)8 * S * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(decode_attn_kernel<T, 8, 64>,
+  const size_t smem = (size_t)G * S * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(decode_attn_kernel<T, G, HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  decode_attn_kernel<T, 8, 64><<<grid, C, smem, st>>>(
+  decode_attn_kernel<T, G, HD><<<grid, C, smem, st>>>(
       (const T*)q, (const uint8_t*)kq, (const float*)ks, (const uint8_t*)vq,
       (const float*)vs, (const int*)lengths, (const float*)kcos, (const float*)ksin,
       knew, (const float*)kinv, vnew, (const float*)vinv,
       (const int*)active, (const float*)qcos, (const float*)qsin, (T*)out,
       kvh, S, packed, rope, fold, scale);
   return (int)cudaGetLastError();
+}
+
+template <int G, int HD>
+int launch_contiguous(const void* q, const void* kq, const void* ks, const void* vq,
+                      const void* vs, const void* lengths, const void* kcos, const void* ksin,
+                      const void* knew, const void* kinv, const void* vnew, const void* vinv,
+                      const void* active, const void* qcos, const void* qsin, void* out, int b,
+                      int kvh, int S, int packed, int rope, int fold, int dtype_code,
+                      float scale, cudaStream_t st) {
+  if (dtype_code == 1)
+    return launch<__nv_bfloat16, G, HD>(q, kq, ks, vq, vs, lengths, kcos, ksin, knew, kinv,
+                                        vnew, vinv, active, qcos, qsin, out, b, kvh, S,
+                                        packed, rope, fold, scale, st);
+  return launch<float, G, HD>(q, kq, ks, vq, vs, lengths, kcos, ksin, knew, kinv, vnew, vinv,
+                              active, qcos, qsin, out, b, kvh, S, packed, rope, fold, scale,
+                              st);
 }
 
 }  // namespace
@@ -325,13 +344,23 @@ extern "C" int decode_attention(const void* q, const void* kq, const void* ks, c
                                 const void* qcos, const void* qsin, void* out, int b, int kvh,
                                 int S, int packed, int rope, int fold, int dtype_code,
                                 float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 1)
-    return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lengths, kcos, ksin, knew, kinv, vnew,
-                                 vinv, active, qcos, qsin, out, b, kvh, S, packed, rope,
-                                 fold, scale, st);
-  return launch<float>(q, kq, ks, vq, vs, lengths, kcos, ksin, knew, kinv, vnew, vinv,
-                       active, qcos, qsin, out, b, kvh, S, packed, rope, fold, scale, st);
+  return launch_contiguous<8, 64>(q, kq, ks, vq, vs, lengths, kcos, ksin, knew, kinv, vnew,
+                                  vinv, active, qcos, qsin, out, b, kvh, S, packed, rope, fold,
+                                  dtype_code, scale, static_cast<cudaStream_t>(stream));
+}
+
+// One query head per kv head at head dim 128 (LLaMA-7B/13B/30B); the same
+// arguments.
+extern "C" int decode_attention_g1_d128(const void* q, const void* kq, const void* ks,
+                                        const void* vq, const void* vs, const void* lengths,
+                                        const void* kcos, const void* ksin, const void* knew,
+                                        const void* kinv, const void* vnew, const void* vinv,
+                                        const void* active, const void* qcos, const void* qsin,
+                                        void* out, int b, int kvh, int S, int packed, int rope,
+                                        int fold, int dtype_code, float scale, void* stream) {
+  return launch_contiguous<1, 128>(q, kq, ks, vq, vs, lengths, kcos, ksin, knew, kinv, vnew,
+                                   vinv, active, qcos, qsin, out, b, kvh, S, packed, rope, fold,
+                                   dtype_code, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The same kernel on layer `layer` of the stacked int8 cache kq_all/vq_all
@@ -351,10 +380,7 @@ extern "C" int decode_attention_stacked(const void* q, const void* kq_all, const
   const uint8_t* vq = (const uint8_t*)vq_all + q_off;
   const float* ks = (const float*)ks_all + s_off;
   const float* vs = (const float*)vs_all + s_off;
-  if (dtype_code == 1)
-    return launch<__nv_bfloat16>(q, kq, ks, vq, vs, lengths, kcos, ksin, k_new, nullptr,
-                                 v_new, nullptr, include_new, nullptr, nullptr, out, b, kvh,
-                                 S, 0, rope, 2, scale, st);
-  return launch<float>(q, kq, ks, vq, vs, lengths, kcos, ksin, k_new, nullptr, v_new, nullptr,
-                       include_new, nullptr, nullptr, out, b, kvh, S, 0, rope, 2, scale, st);
+  return launch_contiguous<8, 64>(q, kq, ks, vq, vs, lengths, kcos, ksin, k_new, nullptr,
+                                  v_new, nullptr, include_new, nullptr, nullptr, out, b, kvh, S,
+                                  0, rope, 2, dtype_code, scale, st);
 }

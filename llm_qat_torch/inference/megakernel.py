@@ -404,6 +404,14 @@ def _card_shape_error(c: LlamaConfig, b: int, S: int, bk: int, dtype):
     return None
 
 
+def card_takes(config: LlamaConfig, b: int, max_len: int, dtype) -> bool:
+    """Whether the CUDA kernel takes this configuration: ``supported`` and
+    the shapes the kernel is built for, decided before any launch.
+    ``model._forward`` sends a step on the card to ``decode_step`` only
+    then, and to the scan path otherwise."""
+    return _card_shape_error(config, b, max_len, pick_bk(config, b, max_len), dtype) is None
+
+
 STAGES = ("norm+quant", "qkv", "attention", "o", "norm+quant", "gateup", "silu",
           "down")    # what runs before each of a layer's barriers
 

@@ -18,7 +18,9 @@ Where the JAX package returns a new cache from a donated buffer
 Per step: the prefill of fresh slots runs the flash kernel over this call's
 own fake-quant K/V. A decode step (s = 1) of the default configuration
 (``use_megakernel=True``) goes to ``megakernel.decode_step``, one kernel
-launch for all layers, where ``megakernel.supported``; otherwise, and with
+launch for all layers, where ``megakernel.supported`` (on the card, also
+where ``megakernel.card_takes``: the kernel is built for (8, 64) heads, so a
+LLaMA-7B-shaped config decodes on the scan path there); otherwise, and with
 ``use_megakernel=False``, the scan path here runs the fused decode kernel
 per layer over the read-only cache with the current token folded in, then
 commits one K/V column per layer and slot. The scan path's layer stack is a
@@ -254,8 +256,10 @@ def _forward(qparams, config: LlamaConfig, input_ids, seq_lens, active, cache,
     if s == 1 and c.use_megakernel:
         from llm_qat_torch.inference import megakernel
 
-        # configs outside supported() serve via the scan path below
-        if megakernel.supported(c, b, max_len):
+        # configs outside supported() serve via the scan path below, and so,
+        # on the card, do those the CUDA kernel is not built for
+        if megakernel.supported(c, b, max_len) and (
+                dev.type != "cuda" or megakernel.card_takes(c, b, max_len, dtype)):
             return megakernel.decode_step(qparams, c, input_ids, seq_lens, active,
                                           cache, dtype, device=dev)
     h = qparams["embed"][input_ids.long()].to(dtype)

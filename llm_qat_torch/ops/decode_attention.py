@@ -7,7 +7,8 @@ its kernel or raises. Each wrapper counts its launches in ``launches``.
 
 * ``quantized_decode_attention`` (``csrc/decode_attention.cu``, plain
   ``_decode_attention_plain``) replaces
-  ``llm_qat_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel``.
+  ``llm_qat_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel``; on the
+  card at (query heads per kv head, head dim) (8, 64) and (1, 128).
 * ``quantized_decode_attention_stacked`` (the same source, entry point
   ``decode_attention_stacked``; plain ``_decode_attention_stacked_plain``)
   replaces ``llm_qat_tpu/ops/pallas/decode_attention.py:
@@ -51,7 +52,10 @@ from llm_qat_torch.ops import _build
 from llm_qat_torch.ops import quant_matmul as QM
 
 _NEG_INF = -1e30
-_MAX_S = 4096   # the kernel's G * S f32 scores in shared memory (128 KiB)
+_SCORE_FLOATS = 32768   # the kernel's G * S f32 scores in shared memory (128 KiB)
+# csrc/decode_attention.cu's contiguous entries by (query heads per kv head,
+# head dim); the stacked entry takes (8, 64) only
+_CONTIGUOUS_ENTRIES = {(8, 64): "decode_attention", (1, 128): "decode_attention_g1_d128"}
 
 
 def _halves(cq: torch.Tensor, packed: bool, dim: int):
@@ -298,16 +302,19 @@ def _fold_operands(what, fold, b, kvh, hd, rope, dev, dummy):
     return fold_t
 
 
-def _check_contiguous_kernel_shape(what, q, groups, hd, S):
-    if (groups, hd) != (8, 64) or q.dtype not in _DTYPE_CODES:
+def _check_contiguous_kernel_shape(what, q, groups, hd, S, shapes):
+    """Raise unless ``(groups, hd)`` is one of ``shapes``, the (query heads
+    per kv head, head dim) pairs the entry is built for, with an f32/bf16 q
+    and a cache short enough for the kernel's shared memory."""
+    if (groups, hd) not in shapes or q.dtype not in _DTYPE_CODES:
         raise NotImplementedError(
-            "decode_attention.cu is built for 8 query heads per kv head, "
-            f"head dim 64, f32/bf16 q; got G={groups}, hd={hd}, {q.dtype}"
+            f"{what}: decode_attention.cu is built for (query heads per kv head, "
+            f"head dim) in {list(shapes)}, f32/bf16 q; got G={groups}, hd={hd}, {q.dtype}"
         )
-    if S > _MAX_S:
+    if S > _SCORE_FLOATS // groups:
         raise NotImplementedError(
-            f"decode_attention.cu keeps a slot's scores in shared memory: "
-            f"cache length S <= {_MAX_S}, got {S}"
+            f"{what}: decode_attention.cu keeps a slot's scores in shared memory: "
+            f"cache length S <= {_SCORE_FLOATS // groups} at G={groups}, got {S}"
         )
 
 
@@ -343,7 +350,7 @@ def quantized_decode_attention(
     what = "quantized_decode_attention"
     if not q.is_cuda:
         raise ValueError(f"{what}: q on {q.device}")
-    _check_contiguous_kernel_shape(what, q, groups, hd, S)
+    _check_contiguous_kernel_shape(what, q, groups, hd, S, _CONTIGUOUS_ENTRIES)
     dev = q.device
     qc = q.contiguous()
     kq = k_q.contiguous().view(torch.uint8)
@@ -362,7 +369,7 @@ def quantized_decode_attention(
     _check_sizes(what, dev, want)
     fold_t = _fold_operands(what, fold, b, kvh, hd, rope, dev, dummy)
     out = torch.empty_like(qc)
-    f = _build.bind("decode_attention", "decode_attention", 16, 7, 1)
+    f = _build.bind("decode_attention", _CONTIGUOUS_ENTRIES[groups, hd], 16, 7, 1)
     ptrs = [qc, kq, ksc, vq, vsc, lens, kc, ksn, *fold_t, out]
     err = f(*[t.data_ptr() for t in ptrs], b, kvh, S, int(packed), int(rope),
             int(fold is not None), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
@@ -413,7 +420,7 @@ def quantized_decode_attention_stacked(
     what = "quantized_decode_attention_stacked"
     if not q.is_cuda:
         raise ValueError(f"{what}: q on {q.device}")
-    _check_contiguous_kernel_shape(what, q, groups, hd, S)
+    _check_contiguous_kernel_shape(what, q, groups, hd, S, [(8, 64)])
     dev = q.device
     for name, t, dt in (("k_q_all", k_q_all, torch.int8), ("v_q_all", v_q_all, torch.int8),
                         ("k_s_all", k_s_all, torch.float32),

@@ -17,11 +17,10 @@ p is rounded to V's type before the p.V product; ``soft_bf16`` evaluates
 exp2 on bf16 operands (``config.flash_softmax_bf16``; the forward only).
 Returns O and the per-row log-sum-exp in nats, ``[B, G, 1, S]``.
 
-On the card the forward takes head dim 64 (f32, bf16) and 128 (bf16), the
-backward pair head dim 64. In bf16 the forward and the dK/dV kernel run
-their products on the tensor cores, and their plain versions take q.k and
-dO.v the same way (``_scores``); the dQ kernel and its plain version keep
-fp32 products.
+On the card the forward and the backward pair take head dim 64 (f32, bf16)
+and 128 (bf16). In bf16 all three kernels run their products on the tensor
+cores, and their plain versions take q.k and dO.v the same way
+(``_scores``); in f32 they run on the fp32 units with fp32 products.
 
 Block structure: the TPU forward walks 1024-key blocks with an online
 softmax, so beyond 1024 keys it rounds a block's p against the running
@@ -55,11 +54,11 @@ def _scores(a, b, tensor_cores: bool = True):
     """``a . b^T`` per (B, g) with fp32 sums: a ``[B, G, S, D]``, b ``[B, S, D]``,
     out ``[B, G, S, S]``. For bf16 operands on the GPU, with ``tensor_cores``,
     the library's bf16 product with an fp32 result: the arithmetic of the
-    tensor-core kernels (K4, K11), whose fp32 accumulation differs from a
+    tensor-core kernels (K4, K10, K11), whose fp32 accumulation differs from a
     chain of fp32 multiply-adds by enough to move p or ds across a bf16
     rounding step, and a sum that cancels then misses the kernels' limit
     (``flash_numerics.py`` measures it). Otherwise fp32 products of the widened
-    operands (the CPU, f32 operands, and K10, which runs on the fp32 units)."""
+    operands (the CPU and f32 operands)."""
     if tensor_cores and a.is_cuda and a.dtype == torch.bfloat16:
         B, G, S, D = a.shape
         return torch.bmm(a.reshape(B, G * S, D), b.transpose(1, 2),
@@ -143,13 +142,13 @@ _flash_fwd.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal, tensor_cores):
+def _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal):
     """p recomputed from the saved log-sum-exp in base 2 and
     ``p * (dO.V - delta)``, both fp32 ``[B, G, S, S]``: what the two backward
-    kernels share (``tensor_cores``: see ``_scores``)."""
+    kernels share (q.k and dO.v by ``_scores``)."""
     B, G, S, D = q.shape
     scale = 1.0 / (D ** 0.5)
-    s2 = (scale * _LOG2E) * _scores(q, k, tensor_cores)
+    s2 = (scale * _LOG2E) * _scores(q, k)
     col = torch.arange(S, device=q.device)
     ok = (col[None, :] < torch.clamp(lengths.to(q.device), min=1)[:, None])
     ok = ok[:, None, None, :]
@@ -158,14 +157,14 @@ def _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal, tensor_cores):
     s2 = torch.where(ok, s2, torch.full_like(s2, _NEG_INF))
     lse2 = lse.reshape(B, G, S, 1) * _LOG2E
     p = _exp2(s2 - lse2)
-    dp = _scores(do, v, tensor_cores)
+    dp = _scores(do, v)
     return p, p * (dp - delta.reshape(B, G, S, 1))
 
 
 def _flash_bwd_dq_plain(q, k, v, lengths, lse, delta, do, causal: bool = True):
     """Plain PyTorch version of the dQ kernel: ``ds`` rounds to K's type
     before the product, fp32 accumulation, ``scale *`` at the end."""
-    _, ds = _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal, tensor_cores=False)
+    _, ds = _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal)
     scale = 1.0 / (q.shape[-1] ** 0.5)
     dq = torch.einsum("bgqk,bkd->bgqd", ds.to(k.dtype).float(), k.float())
     return (scale * dq).to(q.dtype)
@@ -174,7 +173,7 @@ def _flash_bwd_dq_plain(q, k, v, lengths, lse, delta, do, causal: bool = True):
 def _flash_bwd_dkv_plain(q, k, v, lengths, lse, delta, do, causal: bool = True):
     """Plain PyTorch version of the dK/dV kernel: p rounds to dO's type and
     ``ds`` to Q's before the products, summed over the G query heads."""
-    p, ds = _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal, tensor_cores=True)
+    p, ds = _bwd_p_ds(q, k, v, lengths, lse, delta, do, causal)
     scale = 1.0 / (q.shape[-1] ** 0.5)
     dv = torch.einsum("bgqk,bgqd->bkd", p.to(do.dtype).float(), do.float())
     dk = torch.einsum("bgqk,bgqd->bkd", ds.to(q.dtype).float(), q.float())
@@ -203,16 +202,22 @@ def _bwd_operands(name, q, k, v, lengths, lse, delta, do):
                          f"lse {tuple(lse.shape)} delta {tuple(delta.shape)}")
     if not q.is_cuda:
         raise ValueError(f"{name}: q on {q.device}")
-    if (D != 64 or q.dtype not in _DTYPE_CODES
-            or any(t.dtype != q.dtype for t in (k, v, do))):
+    if (q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, do))
+            or D not in (64, 128) or (D == 128 and q.dtype != torch.bfloat16)):
         raise NotImplementedError(
-            f"flash_attention_bwd.cu is built for head dim 64 in f32/bf16; got "
-            f"D={D}, {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
+            f"flash_attention_bwd.cu is built for head dim 64 in f32/bf16 and 128 in bf16; "
+            f"got D={D}, {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.numel() != B:
         raise ValueError(f"{name}: {lens.numel()} lengths for B={B}")
     return (q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
             lse.float().contiguous(), delta.float().contiguous(), lens)
+
+
+def _bwd_scales(D):
+    """(scale * log2 e, scale) as the plain versions compute them."""
+    scale = 1.0 / (D ** 0.5)
+    return float(scale * _LOG2E), float(scale)
 
 
 def _flash_bwd_dq(q, k, v, lengths, lse, delta, do, causal: bool = True):
@@ -223,9 +228,10 @@ def _flash_bwd_dq(q, k, v, lengths, lse, delta, do, causal: bool = True):
     ops = _bwd_operands("_flash_bwd_dq", q, k, v, lengths, lse, delta, do)
     B, G, S, D = q.shape
     dq = torch.empty_like(ops[0])
-    f = _build.bind("flash_attention_bwd", "flash_bwd_dq", 8, 5, 2)
+    f = _build.bind("flash_attention_bwd", "flash_bwd_dq" if D == 64 else "flash_bwd_dq_d128",
+                    8, 5, 2)
     err = f(*(t.data_ptr() for t in ops), dq.data_ptr(), B, G, S, int(causal),
-            _DTYPE_CODES[q.dtype], float(_LOG2E / math.sqrt(D)), float(1.0 / math.sqrt(D)),
+            _DTYPE_CODES[q.dtype], *_bwd_scales(D),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd_dq")
     _flash_bwd_dq.launches += 1
@@ -242,10 +248,11 @@ def _flash_bwd_dkv(q, k, v, lengths, lse, delta, do, causal: bool = True):
     ops = _bwd_operands("_flash_bwd_dkv", q, k, v, lengths, lse, delta, do)
     B, G, S, D = q.shape
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
-    f = _build.bind("flash_attention_bwd", "flash_bwd_dkv", 9, 5, 2)
+    f = _build.bind("flash_attention_bwd", "flash_bwd_dkv" if D == 64 else "flash_bwd_dkv_d128",
+                    9, 5, 2)
     err = f(*(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(), B, G, S,
-            int(causal), _DTYPE_CODES[q.dtype], float(_LOG2E / math.sqrt(D)),
-            float(1.0 / math.sqrt(D)), torch.cuda.current_stream(q.device).cuda_stream)
+            int(causal), _DTYPE_CODES[q.dtype], *_bwd_scales(D),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd_dkv")
     _flash_bwd_dkv.launches += 1
     return dk, dv
@@ -272,7 +279,10 @@ def kernel_attributes() -> dict:
     a thread, threads a block and blocks an SM can hold. Launches nothing."""
     queries = (("flash_fwd", "flash_attention", "flash_fwd_attributes", 64),
                ("flash_fwd_d128", "flash_attention", "flash_fwd_attributes", 128),
-               ("flash_bwd_dkv", "flash_attention_bwd", "flash_bwd_dkv_attributes", 64))
+               ("flash_bwd_dq", "flash_attention_bwd", "flash_bwd_dq_attributes", 64),
+               ("flash_bwd_dq_d128", "flash_attention_bwd", "flash_bwd_dq_attributes", 128),
+               ("flash_bwd_dkv", "flash_attention_bwd", "flash_bwd_dkv_attributes", 64),
+               ("flash_bwd_dkv_d128", "flash_attention_bwd", "flash_bwd_dkv_attributes", 128))
     return {name: dict(zip(_ATTRIBUTE_KEYS, _build.query(stem, fn, len(_ATTRIBUTE_KEYS), d)))
             for name, stem, fn, d in queries}
 

@@ -20,7 +20,8 @@ its plain version does, so the two are expected to agree bit for bit; held
 here to: committed K/V integers and lengths equal, inverse scales at rtol
 1e-6, logits element-wise as above. The flash backward kernels recompute p
 from the saved log-sum-exp and round ds and p where their plain versions do:
-held as the forward is. The bf16 flash forward and dK/dV kernels take q.k
+held as the forward is; the bf16 ones give the same bits on a second
+launch (no atomics). The bf16 flash kernels (forward, dQ, dK/dV) take q.k
 and dO.v on the tensor cores, and so do their plain versions (the library's
 bf16 product with an fp32 result): with fp32 products instead, p and ds
 cross bf16 rounding steps that the limit does not allow (``flash_numerics.py``). The RMSNorm+quant and SiLU*up+quant kernels give the
@@ -32,6 +33,7 @@ order): at most 1 apart everywhere and equal in all but 1% of the elements.
 import pytest
 import torch
 
+from llm_qat_torch.inference import engine as E
 from llm_qat_torch.inference import megakernel as MK
 from llm_qat_torch.inference import model as M
 from llm_qat_torch.inference import quantized as Q
@@ -117,6 +119,51 @@ def test_decode_attention_kernel(gen, packed, rope, dtype):
     got = DA.quantized_decode_attention(*args, rope=rope, packed=packed)
     want = DA._decode_attention_plain(*args, rope=rope, packed=packed)
     assert _close(got, want)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_kernel_mha_head_dim_128(gen, packed, rope, dtype):
+    """The (1, 128) instantiation (LLaMA-7B-shaped heads): b = 8, 32 kv
+    heads, S = 2048 (the scores take S floats of shared memory a block)."""
+    b, kvh, hd, S = 8, 32, 128, 2048
+    hdc = hd // 2 if packed else hd
+    lo, hi, qdt = (0, 256, torch.uint8) if packed else (-127, 128, torch.int8)
+    kq = torch.randint(lo, hi, (b, kvh, hdc, S), device="cuda", generator=gen).to(qdt)
+    vq = torch.randint(lo, hi, (b, kvh, hdc, S), device="cuda", generator=gen).to(qdt)
+    ks = torch.rand(b, S, device="cuda", generator=gen) * 0.02 + 0.005
+    vs = torch.rand(b, S, device="cuda", generator=gen) * 0.02 + 0.005
+    q = torch.randn(b, kvh, hd, device="cuda", generator=gen).to(dtype)
+    lens = torch.tensor([0, 1, 17, 255, 256, 1000, 2000, 2047], dtype=torch.int32,
+                        device="cuda")
+    kc, ksn = DA._rope_tables(S, hd, 10000.0, "cuda")
+    flo, fhi = (-8, 8) if packed else (-127, 128)
+    fold = (torch.randint(flo, fhi, (b, kvh, hd), device="cuda", generator=gen).to(torch.int8),
+            torch.rand(b, 1, device="cuda", generator=gen) * 0.02 + 0.005,
+            torch.randint(flo, fhi, (b, kvh, hd), device="cuda", generator=gen).to(torch.int8),
+            torch.rand(b, 1, device="cuda", generator=gen) * 0.02 + 0.005,
+            torch.tensor([1, 0, 1, 1, 1, 1, 1, 0], dtype=torch.int32, device="cuda"),
+            kc[:, :b].T.contiguous(), ksn[:, :b].T.contiguous())
+    args = (q, kq, ks, vq, vs, lens, kc if rope else None, ksn if rope else None, fold)
+    n = DA.quantized_decode_attention.launches
+    got = DA.quantized_decode_attention(*args, rope=rope, packed=packed)
+    assert DA.quantized_decode_attention.launches == n + 1
+    want = DA._decode_attention_plain(*args, rope=rope, packed=packed)
+    assert _close(got, want)
+
+
+def test_decode_attention_kernel_refuses_shapes_it_is_not_built_for(gen):
+    q = torch.zeros(1, 4, 128, device="cuda")
+    kq = torch.zeros(1, 2, 128, 64, dtype=torch.int8, device="cuda")
+    ks = torch.ones(1, 64, device="cuda")
+    lens = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match=r"\(8, 64\), \(1, 128\)"):
+        DA.quantized_decode_attention(q, kq, ks, kq, ks, lens, rope=False)   # G = 2
+    kq = torch.zeros(1, 4, 128, 32768 + 64, dtype=torch.int8, device="cuda")
+    ks = torch.ones(1, 32768 + 64, device="cuda")
+    with pytest.raises(NotImplementedError, match="S <= 32768"):
+        DA.quantized_decode_attention(q, kq, ks, kq, ks, lens, rope=False)
 
 
 def _random_pool(n_pages, kvh, hd, packed, gen):
@@ -462,11 +509,55 @@ def test_flash_bwd_dkv_kernel_pairs_key_blocks(gen, S, G, causal):
         assert not dk[b, max(n, 1):].any() and not dv[b, max(n, 1):].any()
 
 
+@pytest.mark.parametrize("short", [0, 1])
+@pytest.mark.parametrize("S", [100, 1100])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_tensor_core_kernels(gen, D, G, causal, S, short):
+    """The bf16 dQ and dK/dV kernels at head dim 64 and 128 against their
+    plain versions, from the forward kernel's O and log-sum-exp; lengths S,
+    one near-empty sequence (0 or 1: more would make most of dK exact zeros
+    and the limit's median floor zero), one cut mid-tile (a non-multiple of
+    64) and one a few short. Exact zeros past each length in dK and dV, and
+    the same bits from a second launch of each kernel."""
+    B = 4
+    q, do = (torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    lens_l = [S, short, S // 2 + 3, S - 5]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    o, lse = FA._flash_fwd(q, k, v, lens, causal=causal)
+    args = (q, k, v, lens, lse, FA._delta(o, do), do, causal)
+    n = (FA._flash_bwd_dq.launches, FA._flash_bwd_dkv.launches)
+    dq, (dk, dv) = FA._flash_bwd_dq(*args), FA._flash_bwd_dkv(*args)
+    assert (FA._flash_bwd_dq.launches, FA._flash_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    dq_again, (dk_again, dv_again) = FA._flash_bwd_dq(*args), FA._flash_bwd_dkv(*args)
+    dq2, (dk2, dv2) = FA._flash_bwd_dq_plain(*args), FA._flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert _close(dq, dq2) and _close(dk, dk2) and _close(dv, dv2)
+    assert torch.equal(dq, dq_again) and torch.equal(dk, dk_again) and torch.equal(dv, dv_again)
+    for b, n_live in enumerate(lens_l):
+        assert not dk[b, max(n_live, 1):].any() and not dv[b, max(n_live, 1):].any()
+
+
+def test_flash_bwd_kernels_refuse_f32_at_head_dim_128(gen):
+    q = torch.randn(1, 1, 64, 128, device="cuda", generator=gen)
+    k = torch.randn(1, 64, 128, device="cuda", generator=gen)
+    lens = torch.full((1,), 64, dtype=torch.int32, device="cuda")
+    lse = torch.zeros(1, 1, 1, 64, device="cuda")
+    for fn in (FA._flash_bwd_dq, FA._flash_bwd_dkv):
+        with pytest.raises(NotImplementedError, match="128 in bf16"):
+            fn(q, k, k, lens, lse, lse, q)
+
+
 def test_flash_kernel_attributes(gen):
     """The tensor-core kernels compile to at most 255 registers a thread,
     spill nothing, and fit at least one block of 128 threads on an SM."""
     attrs = FA.kernel_attributes()
-    assert set(attrs) == {"flash_fwd", "flash_fwd_d128", "flash_bwd_dkv"}
+    assert set(attrs) == {"flash_fwd", "flash_fwd_d128", "flash_bwd_dq", "flash_bwd_dq_d128",
+                          "flash_bwd_dkv", "flash_bwd_dkv_d128"}
     for a in attrs.values():
         assert a["spill_bytes"] == 0 and a["registers"] <= 255
         assert a["threads"] == 128 and a["blocks_per_sm"] >= 1
@@ -488,7 +579,7 @@ def test_flash_attention_gqa_gradient_runs_the_kernels(gen):
     want = FA._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lens, o.detach(),
                                saved.lse, g)
     assert all(_close(a, b) for a, b in zip((dq, dk, dv), want))
-    with pytest.raises(NotImplementedError, match="head dim 64"):
+    with pytest.raises(NotImplementedError, match="head dim 64 in f32/bf16 and 128 in bf16"):
         FA._flash_bwd(q[..., :32].detach(), k[..., :32].detach(), v[..., :32].detach(), lens,
                       o[..., :32].detach(), saved.lse, g[..., :32])
 
@@ -560,3 +651,31 @@ def test_train_step_launch_counts(gen, remat_policy, k4, monkeypatch):
     got = [f.launches - b for f, b in zip(fns, before)]
     assert got == [k4 * L, L, L, 4 * L, 0]
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+
+
+def test_engine_serves_mha_head_dim_128_on_the_scan_path(gen):
+    """The default configuration (``use_megakernel=True``) with one query
+    head per kv head at head dim 128, which the decode megakernel is not
+    built for: ``InferenceEngine`` on the card decodes on the scan path (K3
+    at (1, 128)) without raising and never launches the megakernel; its
+    greedy tokens equal those of the CPU engine on the scan path (the plain
+    versions) on the same weights."""
+    cfg = LLAMA_7B.replace(num_hidden_layers=2, hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=2, vocab_size=256,
+                           w_bits=8, a_bits=8, kv_bits=8)
+    assert cfg.use_megakernel and not MK.card_takes(cfg, 2, 128, torch.bfloat16)
+    params = P.init_params(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
+    prompts = [[3, 5, 7, 11, 13], list(range(1, 40))]
+    tokens = {}
+    for dev in ("cuda", "cpu"):
+        c = cfg if dev == "cuda" else cfg.replace(use_megakernel=False)
+        eng = E.InferenceEngine(Q.quantize_params(params, cfg, device=dev), c, max_batch=2,
+                                max_len=128, device=dev)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        n3, n9 = DA.quantized_decode_attention.launches, MK.decode_layers.launches
+        tokens[dev] = {r.uid: r.output for r in eng.run()}
+        if dev == "cuda":
+            assert DA.quantized_decode_attention.launches > n3
+            assert MK.decode_layers.launches == n9
+    assert tokens["cuda"] == tokens["cpu"] and all(len(t) == 8 for t in tokens["cpu"].values())

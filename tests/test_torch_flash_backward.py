@@ -67,6 +67,7 @@ CASES = [  # B, G, S, D, lengths
     (3, 4, 128, 64, [128, 70, 0]),
     (2, 1, 256, 64, [256, 1]),
     (2, 4, 64, 32, [33, 64]),
+    (2, 1, 256, 128, [256, 77]),  # the MHA heads of the LLaMA-7B family
 ]
 
 
@@ -171,3 +172,22 @@ def test_flash_fwd_two_key_blocks_matches_jax(dt):
                               torch.from_numpy(lengths))
     _assert_close(to, jo, dt, "o")
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **TOL)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_dq_plain_on_cpu_keeps_fp32_score_products(dt, causal, monkeypatch):
+    """The dQ plain version asks ``_scores`` for tensor-core products, which
+    it takes (the library's bf16 product) for CUDA tensors only: on the CPU
+    its output is bit for bit the one with fp32 products of the widened
+    operands forced."""
+    B, G, S, D = 2, 2, 96, 128
+    q, k, v, do = (torch.from_numpy(a).to(TDT[dt]) for a in _inputs(B, G, S, D, seed=5))
+    lens = torch.tensor([S, 40], dtype=torch.int32)
+    o, lse = TFA._flash_fwd(q, k, v, lens, causal)
+    args = (q, k, v, lens, lse, TFA._delta(o, do), do, causal)
+    got = TFA._flash_bwd_dq_plain(*args)
+    real = TFA._scores
+    monkeypatch.setattr(TFA, "_scores", lambda a, b, tensor_cores=True: real(a, b, False))
+    want = TFA._flash_bwd_dq_plain(*args)
+    assert got.dtype == q.dtype and torch.equal(got, want)

@@ -8,8 +8,8 @@ single-pass clip+AdamW and the optax chain) on random gradients over three
 steps at 1e-6.
 
 Whole train steps (2 layers, b*s = 32 rows, so that no int8 activation
-rounds differently between XLA and torch): loss and grad_norm at 1e-4
-relative; the first moment after step 1 is 0.1 x the clipped gradient, so it
+rounds differently between XLA and torch; one case with two heads of 128):
+loss and grad_norm at 1e-4 relative; the first moment after step 1 is 0.1 x the clipped gradient, so it
 is the gradient's witness and is held at a relative L2 of 1e-3 per leaf.
 Updated params: at step 1 Adam moves a weight by lr * g / (|g| + 1e-8), so
 where a gradient is within ~1e-8 of zero its update is anywhere in +-lr
@@ -36,6 +36,9 @@ WIDE = JConfig(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidde
                num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128,
                w_bits=4, a_bits=8, kv_bits=4)
 NARROW = WIDE.replace(hidden_size=64, intermediate_size=128)
+# multi-head attention at head dim 128, the attention of the LLaMA-7B family
+MHA128 = WIDE.replace(hidden_size=256, intermediate_size=512, num_attention_heads=2,
+                      num_key_value_heads=2)
 LR = 1e-3
 
 
@@ -212,6 +215,7 @@ STEP_CASES = {
     "mse": (WIDE, dict(kd_loss_type="mse")),
     "tied_weight_decay": (WIDE.replace(tie_word_embeddings=True),
                           dict(kl_chunk=8, weight_decay=0.05, lr_schedule="linear")),
+    "mha_head_dim_128": (MHA128, dict(kl_chunk=8)),
 }
 
 

@@ -33,7 +33,12 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    prompt, through the GPU paths with their kernels, the GPU path with the
    plain versions and the port's CPU path, contiguous and paged, and the
    paged path against the scan path on a prompt of more than one page (see
-   ``cpu_check`` for the limits);
+   ``cpu_check`` for the limits). Then LLaMA-7B at full width and depth
+   (32 layers of 32 MHA heads of 128, random weights made on the card from
+   a seed): the decode megakernel against its plain version at W8A8KV8 and
+   W4A8KV4, and ``InferenceEngine`` with default flags (every decode step
+   one launch of the megakernel, no decode-attention launch) against the
+   scan path on the same 8 requests (see ``llama7b_phase``);
 4. holds the four training kernels against their plain versions at the train
    steps' shapes (flash backward dQ and dK/dV and the flash forward at
    B = 16, G = 8, S = 2048, D = 64 and at LLaMA-7B's B = 32, G = 1, S = 2048,
@@ -48,8 +53,9 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    2-layer cut of each width: the card path with its kernels against the
    card path with the plain versions swapped in, and at TinyLlama's width
    also against the port's CPU path (``train_check``);
-5. prints what the compiler gave the tensor-core flash kernels (registers,
-   shared memory, spills, blocks an SM holds; it fails on a spill), a
+5. prints what the compiler gave the tensor-core flash kernels and the
+   decode megakernel (registers, shared memory, spills, blocks an SM holds;
+   it fails on a spill), a
    ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
    line.
 
@@ -96,6 +102,8 @@ LLAMA7B_LENS = tuple(1024 - 33 * i for i in range(31)) + (0,)   # K4 at LLaMA-7B
 # flash train phase at LLaMA-7B heads (B = 32 kv heads, G = 1, D = 128)
 LLAMA7B_TRAIN_LENS = (2048,) * 16 + tuple(2048 - 97 * i for i in range(1, 15)) + (1, 0)
 LLAMA7B_TRAIN_LAYERS, LLAMA7B_TRAIN_BATCH = 4, 2    # the LLaMA-7B-width train run
+LLAMA7B_SERVE = ("W8A8KV8",)        # modes served at LLaMA-7B width and depth (K9 phase: both)
+LLAMA7B_DRIFT_PROMPT = 40           # teacher-forced megakernel-vs-scan prompt at LLaMA-7B
 SILU_LAYERS, SILU_STEPS, SILU_LOSS_REL = 4, 2, 0.05  # the fused_silu_quant run (see train_phases)
 QUANT_FLIP_SHARE = 0.01     # K12/K13: integers one off where x*s is on a rounding boundary
 QUANT_ROW_SHARE = 1e-3      # K12: rows whose absmax moved one bf16 step (see fused_quant_phase)
@@ -541,12 +549,13 @@ def megakernel_step_check(cfg, qparams, lens, active, gen, dtype=torch.bfloat16,
 
 
 def megakernel_phase(timer, label, cfg, qparams, gen):
-    """K9 at TinyLlama-1.1B full width: b = 8, max_len 2048, lengths
-    K9_LENS (an empty active slot, one on a block edge, one inactive), at 22
-    layers and at a CUT_LAYERS cut, kernel against plain version; then the
-    kernel's and the plain version's time for the 22 layers, the time
-    between the kernel's grid barriers by stage, and the cost of its
-    barriers alone."""
+    """K9 at the full width and depth of ``cfg`` (TinyLlama-1.1B, 22 layers;
+    LLaMA-7B, 32): b = 8, max_len 2048, lengths K9_LENS (an empty active
+    slot, one on a block edge, one inactive), at full depth and at a
+    CUT_LAYERS cut, kernel against plain version, and the kernel against its
+    own second launch (the same bits); then the kernel's and the plain
+    version's time at full depth, the time between the kernel's grid
+    barriers by stage, and the cost of its barriers alone."""
     from llm_qat_torch.inference import megakernel as MK
     from llm_qat_torch.models import llama
 
@@ -574,14 +583,25 @@ def megakernel_phase(timer, label, cfg, qparams, gen):
     bk = MK.pick_bk(cfg, b, S)
     args = (x, qcos, qsin, kcos, ksin, qparams["layers"], cache, lens_t, act, cfg, bk,
             torch.bfloat16)
-    ms = timer(lambda: MK.decode_layers(*args))
+    card = MK.card_weights(qparams)
+    once, twice = (MK.decode_layers(*args, card=card) for _ in range(2))
+    same_twice = all(torch.equal(a, w) for a, w in zip(once, twice))
+    ms = timer(lambda: MK.decode_layers(*args, card=card))
     plain_ms = timer(lambda: MK.decode_layers_plain(*args), reps=5)
-    ns = len(MK.STAGES)                # barriers a layer
-    stamps = torch.zeros(1 + ns * L, dtype=torch.int64, device="cuda")
-    MK.decode_layers(*args, stamps=stamps)
+    ns = len(MK.STAGES)                # barriers a layer (and one before the first)
+    stamps = torch.zeros(MK.n_stamps(L), dtype=torch.int64, device="cuda")
+    arrive = torch.zeros((MK.n_stamps(L) - 1, MK.grid_size()), dtype=torch.int64, device="cuda")
+    MK.decode_layers(*args, stamps=stamps, card=card, arrive=arrive)
     torch.cuda.synchronize()
-    gaps = (stamps[1:] - stamps[:-1]).reshape(L, ns).double().sum(0) / 1e6     # ms by stage
-    stages = {f"{i}:{n}": float(g) for i, (n, g) in enumerate(zip(MK.STAGES, gaps))}
+    gaps = (stamps[2:] - stamps[1:-1]).reshape(L, ns).double().sum(0) / 1e6     # ms by stage
+    stages = {"resid0": float(stamps[1] - stamps[0]) / 1e6}
+    stages.update({f"{i}:{n}": float(g) for i, (n, g) in enumerate(zip(MK.STAGES, gaps))})
+    # each block's work in a stage: from the barrier before it (block 0's clock
+    # leaving it) to the block's arrival at the next one
+    work = (arrive[1:] - stamps[1:-1, None]).double().reshape(L, ns, -1) / 1e6
+    busy = {f"{i}:{n}": dict(median=float(work[:, i].median(dim=1).values.sum()),
+                             max=float(work[:, i].max(dim=1).values.sum()))
+            for i, n in enumerate(MK.STAGES)}
 
     def barriers(n):
         a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -617,14 +637,65 @@ def megakernel_phase(timer, label, cfg, qparams, gen):
     grid = torch.cuda.get_device_properties(0).multi_processor_count   # a block per SM
     log(f"  decode_megakernel {label} b={b} S={S} BK={bk} lens={list(K9_LENS)} grid "
         f"{grid} blocks: {ms:.4f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} {b_by}, "
-        f"{nbytes / 1e9:.4f} GB); {ns * L} barriers x {barrier_us:.3f} us = "
-        f"{ns * L * barrier_us / 1e3:.4f} ms; ms between barriers by stage: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+        f"{nbytes / 1e9:.4f} GB); {ns * L + 1} barriers x {barrier_us:.3f} us = "
+        f"{(ns * L + 1) * barrier_us / 1e3:.4f} ms; ms between barriers by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; the same bits twice {same_twice}; blocks busy by stage (median / slowest): "
+        + ", ".join(f"{k} {v['median']:.3f} / {v['max']:.3f}" for k, v in busy.items()))
+    if not same_twice:
+        raise AssertionError(f"decode_megakernel {label}: two launches differ")
     return dict(mode=label, b=b, S=S, BK=bk, lengths=list(K9_LENS), grid=grid, ms=ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, barrier_us=barrier_us, barriers=ns * L, stage_ms=stages,
+                bytes=nbytes, barrier_us=barrier_us, barriers=ns * L + 1, stage_ms=stages,
+                stage_busy_ms=busy,
                 max_abs_err=max(cut["max_abs_err"], full["max_abs_err"]),
-                bit_equal=cut["bit_equal"] and full["bit_equal"], cut=cut, full=full)
+                bit_equal=cut["bit_equal"] and full["bit_equal"], same_bits_twice=same_twice,
+                layers=L, cut=cut, full=full)
+
+
+def llama7b_phase(timer, gen, cfg7, prompts):
+    """LLaMA-7B at full width and depth (32 layers, random weights from a
+    seed, made on the card and freed once quantized), (G, hd) = (1, 128):
+    the K9 phase at W8A8KV8 and W4A8KV4; for the modes in LLAMA7B_SERVE,
+    ``InferenceEngine`` with default flags (decode through K9) and on the
+    scan path (``use_megakernel=False``, the witness) serving the 8 prompts,
+    and one prompt teacher-forced through both paths: greedy tokens and
+    logit drift (held to MEGA_FULL_DRIFT; the paths differ by design), which
+    also sets the near-tie limit of ``compare_tokens`` for the served
+    tokens."""
+    from llm_qat_torch.inference import quantized as Q
+    from llm_qat_torch.models import params as P
+
+    out = dict(kernel=[], runs=[], flips={}, teacher_forced={})
+    modes = {"W8A8KV8": dict(w_bits=8, a_bits=8, kv_bits=8),
+             "W4A8KV4": dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)}
+    for label, mode in modes.items():
+        cfg = cfg7.replace(**mode)
+        params = P.init_params(cfg, seed=0, dtype=torch.bfloat16)
+        qp = Q.quantize_params(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        out["kernel"].append(megakernel_phase(timer, f"{label} LLaMA-7B", cfg, qp, gen))
+        if label in LLAMA7B_SERVE:
+            name = f"{label} LLaMA-7B"
+            dflt = serve(f"{name} megakernel", cfg, qp, prompts)
+            scan = serve(f"{name} scan", cfg.replace(use_megakernel=False), qp, prompts)
+            toks = []
+            prompt = prompts[-1][:LLAMA7B_DRIFT_PROMPT]
+            mega = _greedy_logits(cfg, qp, prompt, "cuda", toks)
+            wit = _greedy_logits(cfg.replace(use_megakernel=False), qp, prompt, "cuda", toks)
+            same, drift, diff = _compare(mega, wit)
+            log(f"  {name}: megakernel against scan path teacher-forced on a "
+                f"{len(prompt)}-token prompt: tokens equal {same}, drift {drift:.4g} "
+                f"(limit {MEGA_FULL_DRIFT}), largest logit difference {diff:.4g}")
+            if drift > MEGA_FULL_DRIFT:
+                raise AssertionError(f"{name}: megakernel drifts {drift} from the scan path")
+            out["teacher_forced"][label] = dict(tokens_equal=same, drift=drift, max_abs=diff)
+            out["flips"][label] = compare_tokens(name, scan, dflt, diff)
+            out["runs"] += [dflt[0], scan[0]]
+        del qp
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1704,6 +1775,8 @@ def main() -> int:
     for name, shapes in (("flash_bwd_dkv", ftr), ("flash_bwd_dkv_d128", ftr7)):
         attrs[name]["blocks"] = {f"B={shapes['full']['dkv']['B']} G={shapes['full']['dkv']['G']} "
                                  "S=2048": shapes["full"]["dkv"]["blocks"]}
+    from llm_qat_torch.inference import megakernel as MK
+    attrs.update({f"decode_megakernel_{k}": v for k, v in MK.kernel_attributes().items()})
     if any(a["spill_bytes"] for a in attrs.values()):
         raise AssertionError(f"a tensor-core kernel spills registers: {attrs}")
     fq = fused_quant_phase(timer, gen, FQ, cfg)
@@ -1742,6 +1815,13 @@ def main() -> int:
         served[label] = (scan, dflt, roomy)
         runs += [scan[0], dflt[0]]
         paged_runs += [roomy[0], tight[0]]
+    log("[3b] LLaMA-7B, 32 layers, 32 MHA heads of 128: the decode megakernel against its "
+        "plain version at W8A8KV8 and W4A8KV4, then serving the same 8 requests at "
+        f"{', '.join(LLAMA7B_SERVE)} on the default path and on the scan path")
+    l7 = llama7b_phase(timer, gen, LLAMA_7B, prompts)
+    mega += l7["kernel"]
+    runs += l7["runs"]
+    flips.update({f"{k} LLaMA-7B": v for k, v in l7["flips"].items()})
     del timer
     for label, mcfg in modes.items():
         checks.append(cpu_check(label, mcfg, qps.pop(label), rng))
@@ -1840,7 +1920,8 @@ def main() -> int:
              max_abs_err=max(f["max_abs_err"] for f in fwd_shapes), shapes=fwd_shapes),
         dict(name="decode_megakernel", source="llm_qat_torch/csrc/megakernel.cu",
              replaces="llm_qat_tpu/inference/megakernel.py:259",
-             shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed in shapes)",
+             shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed, and "
+                   "LLaMA-7B's 32 layers of (1, 128) heads at both, in shapes)",
              **{k: k9[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
              max_abs_err=max(m["max_abs_err"] for m in mega), shapes=mega),
         dict(name="paged_attention", source="llm_qat_torch/csrc/paged_attention.cu",
@@ -1891,6 +1972,7 @@ def main() -> int:
                  tpu_kernel=r["replaces"], max_err=r["max_abs_err"])
     log("[5] results")
     log(json.dumps({"serving": runs, "paged_serving": paged_runs, "token_flips": flips,
+                    "llama7b_teacher_forced": l7["teacher_forced"],
                     "cpu_checks": checks, "training": trains, "train_check": tcheck,
                     "card": smi}))
     log(json.dumps({"kernel_attributes": attrs}))

@@ -104,6 +104,12 @@ class InferenceEngine:
         self.top_k = top_k
         self.dtype = dtype
         self.qparams = qparams
+        if self.device.type == "cuda" and config.use_megakernel:
+            from llm_qat_torch.inference import megakernel
+
+            if megakernel.card_takes(config, max_batch, max_len, dtype):
+                # the decode kernel's K-contiguous weights, made once, up front
+                megakernel.card_weights(qparams)
         self.cache = M.init_serving_cache(config, max_batch, max_len, device=self.device)
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.queue: deque[Request] = deque()

@@ -40,21 +40,27 @@ re-quantizing layers have no last-bit difference to amplify.
 
 Shape rules. ``supported()`` (decided from the configuration, before any
 launch): ``w_bits`` in {4, 8}, ``2 < a_bits <= 8``, ``b <= 32``,
-``max_len % BK == 0``, and the kernel's shared memory at that ``BK`` (16
-bytes of scores and 2 x 64 of K and V a cache column, 2 x 32 when packed;
-the row buffer and, behind it, the GEMM tiles) within one block's 227 KiB. The CUDA kernel
-is built for 8 query heads per kv head at head dim 64 (TinyLlama-1.1B), ``H``
-and ``I`` multiples of 256, projection widths multiples of 64, ``BK`` and
-``S`` multiples of 16, bf16 or f32; for another shape on the GPU
-``decode_layers`` raises ``NotImplementedError`` (``use_megakernel=False``
-selects the scan path).
+``max_len % BK == 0``. The CUDA kernel is built for (query heads per kv
+head, head dim) = (8, 64) (TinyLlama-1.1B) and (1, 128) (the LLaMA-7B/13B
+family), ``H`` and ``I`` multiples of 256, projection widths multiples of
+128, ``BK`` and ``S`` multiples of 16, bf16 or f32 (``card_takes``); its
+shared memory does not depend on ``BK`` or ``b``. For another shape on the
+GPU ``decode_layers`` raises ``NotImplementedError`` and ``model._forward``
+sends the step to the scan path (decided from the configuration).
+
+The kernel reads a K-contiguous copy of the projections' integers
+(``card_weights``: ``[L, N, K]`` int8, or ``[L, N, K/2]`` split-half
+nibbles at W4, cut into the kernel's contiguous 128 x 256 tiles), made
+once and kept beside the JAX-layout ``q`` that the scan path and the plain
+version read: as many bytes again as the weights (6.5 GB at LLaMA-7B W8).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Any, Dict
+import weakref
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -67,7 +73,6 @@ from llm_qat_torch.ops import quant_matmul as QM
 
 _EPS = QM._EPS
 _NEG_INF = -1e30
-SMEM_PER_BLOCK = 232448     # bytes of shared memory one block can use (H100)
 
 
 # ---------------------------------------------------------------------------
@@ -174,30 +179,8 @@ def pick_bk(c: LlamaConfig, b: int, max_len: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# what the CUDA kernel needs
+# the configurations the kernel takes
 # ---------------------------------------------------------------------------
-
-_HEADS_PER_BLOCK = 2     # query heads an attention block takes
-# x tile + transposed weight tile + a ring of three 256 x 64 byte tiles
-_GEMM_SMEM = (32 + 64) * (256 // 4 + 4) * 4 + 3 * 256 * 64
-
-
-def _row_bytes(c: LlamaConfig) -> int:
-    """The norm stage's row buffer and reduction cells, rounded to 128 bytes
-    (the GEMM stages' shared memory lies behind it)."""
-    return -(-(c.hidden_size * 4 + 128) // 128) * 128
-
-
-def smem_bytes(c: LlamaConfig, bk: int) -> int:
-    """Dynamic shared memory of one block of the kernel: the largest of its
-    three stage layouts (the stages share the memory)."""
-    hd = c.head_dim
-    hdc = hd // 2 if M.cache_is_packed(c) else hd
-    attn = (_HEADS_PER_BLOCK * hd * 8           # rotated query, float64
-            + bk * _HEADS_PER_BLOCK * 8         # scores, then p * vs as float64
-            + 2 * hdc * bk                      # the block's K and V bytes
-            + 4096)                             # folded pair, m/l/alpha, reductions
-    return max(attn, _row_bytes(c) + _GEMM_SMEM)
 
 
 def supported(config: LlamaConfig, b: int, max_len: int) -> bool:
@@ -208,10 +191,7 @@ def supported(config: LlamaConfig, b: int, max_len: int) -> bool:
         return False
     if b > 32:
         return False
-    bk = pick_bk(c, b, max_len)
-    if max_len % bk:
-        return False
-    return smem_bytes(c, bk) <= SMEM_PER_BLOCK
+    return max_len % pick_bk(c, b, max_len) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -246,25 +226,99 @@ def _linear(x, qw, l: int, w4: bool, a_bits: int, dtype) -> torch.Tensor:
     return (acc / ((sx + _EPS) * (qw["s"][l] + _EPS))).to(dtype)
 
 
+def _attend_plain(q4, k_int, v_int, k_inv, v_inv, layer_cache, kcos, ksin, qcos, qsin,
+                  lens, active, config: LlamaConfig, bk: int, dtype):
+    """One layer's attention in the plain version: the rotated queries
+    ``q4`` [b, kvh, G, hd] (compute type, as f32) against the layer's
+    read-only cache ``(k_q, k_s, v_q, v_s)`` as an online softmax over
+    ``bk``-column blocks, then the current token (``k_int``/``v_int``
+    [b, kv_dim], inverse scales [b, 1]) folded in. Returns [b, nh * hd] in
+    ``dtype``."""
+    c = config
+    b = q4.shape[0]
+    hd, kvh, nh = c.head_dim, c.kv_heads, c.num_attention_heads
+    h2, groups = hd // 2, nh // kvh
+    rope = c.kv_cache_rope != "post"
+    packed = M.cache_is_packed(c)
+    ct = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    scale = 1.0 / (hd ** 0.5)
+    k_q, k_s, v_q, v_s = layer_cache
+    dev = q4.device
+    lens = lens.to(torch.int32)
+    act = active.to(torch.bool).reshape(b, 1, 1, 1)
+    n_blocks = -(-int(lens.max()) // bk) if b else 0
+    # online softmax over the cache, block by block
+    m = torch.full((b, kvh, groups, 1), _NEG_INF, dtype=torch.float32, device=dev)
+    lsum = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, groups, hd), dtype=torch.float32, device=dev)
+    for kb in range(n_blocks):
+        st = kb * bk
+        kq, vq = k_q[..., st:st + bk], v_q[..., st:st + bk]
+        if packed:
+            kq, vq = QM.unpack_int4(kq, 2), QM.unpack_int4(vq, 2)
+        k1, k2 = kq[:, :, :h2].to(ct), kq[:, :, h2:].to(ct)       # [b, kvh, h2, bk]
+        ksl = k_s[:, None, None, st:st + bk]                      # [b, 1, 1, bk]
+        vsl = v_s[:, None, None, st:st + bk]
+        if rope:
+            cc = (kcos[:, st:st + bk] * ksl).to(ct)               # [b, 1, h2, bk]
+            ss = (ksin[:, st:st + bk] * ksl).to(ct)
+            kr = torch.cat(_rope_halves(k1, k2, cc, ss), dim=2)
+        else:
+            sl = ksl.to(ct)
+            kr = torch.cat([k1 * sl, k2 * sl], dim=2)
+        s = _dot64("bhgd,bhdk->bhgk", q4.to(ct), kr) * scale
+        col = st + torch.arange(bk, dtype=torch.int32, device=dev)
+        valid = (col[None, :] < lens[:, None])[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l_new = lsum * alpha + p.double().sum(dim=-1, keepdim=True).float()
+        pv = (p * vsl).to(ct)
+        acc_new = acc * alpha + _dot64("bhgk,bhdk->bhgd", pv, vq.to(ct))
+        # a block past a slot's length contributes nothing
+        live = (lens > st).reshape(b, 1, 1, 1)
+        m = torch.where(live, m_new, m)
+        lsum = torch.where(live, l_new, lsum)
+        acc = torch.where(live, acc_new, acc)
+
+    # fold the current token in (active slots only)
+    kinv, vinv = k_inv.reshape(b, 1, 1), v_inv.reshape(b, 1, 1).to(ct)
+    ki = k_int.reshape(b, kvh, hd).to(ct)
+    if rope:
+        cc_i = (qcos[:, None, :] * kinv).to(ct)
+        ss_i = (qsin[:, None, :] * kinv).to(ct)
+        k_fold = torch.cat(_rope_halves(ki[..., :h2], ki[..., h2:], cc_i, ss_i), -1)
+    else:
+        k_fold = ki * kinv.to(ct)
+    v_fold = (v_int.reshape(b, kvh, hd).to(ct) * vinv).float()
+    s_cur = _dot64("bhgd,bhd->bhg", q4, k_fold.float())[..., None] * scale
+    s_cur = torch.where(act, s_cur, torch.full_like(s_cur, _NEG_INF))
+    m_new = torch.maximum(m, s_cur)
+    alpha = torch.exp(m - m_new)
+    p = torch.where(act, torch.exp(s_cur - m_new), torch.zeros_like(s_cur))
+    l_new = torch.clamp(lsum * alpha + p, min=1e-9)
+    acc = acc * alpha + p * v_fold[:, :, None, :]
+    attn = (acc / l_new).to(dtype).reshape(b, nh * hd)
+
+    return attn
+
+
 def decode_layers_plain(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
-                        config: LlamaConfig, bk: int, dtype):
+                        config: LlamaConfig, bk: int, dtype, card=None):
     """Plain PyTorch version of the kernel: ``x`` [b, H] through all L layers
     against the read-only cache. Returns (y [b, H], K ints [L, b, kv_dim]
-    int8, V ints, K inverse scales [L, b, 1] f32, V inverse scales)."""
+    int8, V ints, K inverse scales [L, b, 1] f32, V inverse scales).
+    ``card`` is not read: the plain version takes the JAX-layout ``q``."""
     c = config
     b, H = x.shape
     hd, kvh, nh = c.head_dim, c.kv_heads, c.num_attention_heads
     h2, groups, kv_dim, q_dim = hd // 2, nh // kvh, kvh * hd, nh * hd
-    S = cache["k_q"].shape[-1]
     rope = c.kv_cache_rope != "post"
-    packed = M.cache_is_packed(c)
     w4 = c.w_bits == 4
     kv_bits = min(c.kv_bits, 8)
     ct = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
-    scale = 1.0 / (hd ** 0.5)
     lens = lens.to(torch.int32)
-    act = active.to(torch.bool).reshape(b, 1, 1, 1)
-    n_blocks = -(-int(lens.max()) // bk) if b else 0
     qc, qs = qcos.to(dtype)[:, None, :], qsin.to(dtype)[:, None, :]   # [b, 1, h2]
 
     h = x.to(dtype)
@@ -289,60 +343,9 @@ def decode_layers_plain(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
         q = torch.cat(_rope_halves(q[..., :h2], q[..., h2:], qc, qs), -1)
         q4 = q.to(ct).float().reshape(b, kvh, groups, hd)
 
-        # online softmax over the cache, block by block
-        m = torch.full((b, kvh, groups, 1), _NEG_INF, dtype=torch.float32, device=x.device)
-        lsum = torch.zeros_like(m)
-        acc = torch.zeros((b, kvh, groups, hd), dtype=torch.float32, device=x.device)
-        k_s, v_s = cache["k_s"][l], cache["v_s"][l]
-        for kb in range(n_blocks):
-            st = kb * bk
-            kq, vq = cache["k_q"][l][..., st:st + bk], cache["v_q"][l][..., st:st + bk]
-            if packed:
-                kq, vq = QM.unpack_int4(kq, 2), QM.unpack_int4(vq, 2)
-            k1, k2 = kq[:, :, :h2].to(ct), kq[:, :, h2:].to(ct)       # [b, kvh, h2, bk]
-            ksl = k_s[:, None, None, st:st + bk]                      # [b, 1, 1, bk]
-            vsl = v_s[:, None, None, st:st + bk]
-            if rope:
-                cc = (kcos[:, st:st + bk] * ksl).to(ct)               # [b, 1, h2, bk]
-                ss = (ksin[:, st:st + bk] * ksl).to(ct)
-                kr = torch.cat(_rope_halves(k1, k2, cc, ss), dim=2)
-            else:
-                sl = ksl.to(ct)
-                kr = torch.cat([k1 * sl, k2 * sl], dim=2)
-            s = _dot64("bhgd,bhdk->bhgk", q4.to(ct), kr) * scale
-            col = st + torch.arange(bk, dtype=torch.int32, device=x.device)
-            valid = (col[None, :] < lens[:, None])[:, None, None, :]
-            s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new)
-            l_new = lsum * alpha + p.double().sum(dim=-1, keepdim=True).float()
-            pv = (p * vsl).to(ct)
-            acc_new = acc * alpha + _dot64("bhgk,bhdk->bhgd", pv, vq.to(ct))
-            # a block past a slot's length contributes nothing
-            live = (lens > st).reshape(b, 1, 1, 1)
-            m = torch.where(live, m_new, m)
-            lsum = torch.where(live, l_new, lsum)
-            acc = torch.where(live, acc_new, acc)
-
-        # fold the current token in (active slots only)
-        kinv, vinv = k_inv.reshape(b, 1, 1), v_inv.reshape(b, 1, 1).to(ct)
-        ki = k_int.reshape(b, kvh, hd).to(ct)
-        if rope:
-            cc_i = (qcos[:, None, :] * kinv).to(ct)
-            ss_i = (qsin[:, None, :] * kinv).to(ct)
-            k_fold = torch.cat(_rope_halves(ki[..., :h2], ki[..., h2:], cc_i, ss_i), -1)
-        else:
-            k_fold = ki * kinv.to(ct)
-        v_fold = (v_int.reshape(b, kvh, hd).to(ct) * vinv).float()
-        s_cur = _dot64("bhgd,bhd->bhg", q4, k_fold.float())[..., None] * scale
-        s_cur = torch.where(act, s_cur, torch.full_like(s_cur, _NEG_INF))
-        m_new = torch.maximum(m, s_cur)
-        alpha = torch.exp(m - m_new)
-        p = torch.where(act, torch.exp(s_cur - m_new), torch.zeros_like(s_cur))
-        l_new = torch.clamp(lsum * alpha + p, min=1e-9)
-        acc = acc * alpha + p * v_fold[:, :, None, :]
-        attn = (acc / l_new).to(dtype).reshape(b, nh * hd)
+        attn = _attend_plain(q4, k_int, v_int, k_inv, v_inv,
+                             tuple(cache[k][l] for k in ("k_q", "k_s", "v_q", "v_s")),
+                             kcos, ksin, qcos, qsin, lens, active, c, bk, dtype)
 
         h = h + _linear(attn, lay["o"], l, w4, c.a_bits, dtype)
         xn = _rms_norm(h, lay["mlp_norm"][l], c.rms_norm_eps)
@@ -360,11 +363,11 @@ def decode_layers_plain(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
 
 _PTRS = ("x", "qcos", "qsin", "kcos", "ksin", "qkv_s", "o_s", "gu_s", "dn_s",
          "anorm", "mnorm", "qkv_w", "o_w", "gu_w", "dn_w", "kq", "ks", "vq", "vs",
-         "lens", "active", "y", "kint", "vint", "kinv", "vinv",
-         "xq", "sx", "attn", "act", "acc_qkv", "acc_o", "acc_gu", "acc_dn",
-         "amax_o", "amax_dn", "stamps")
-_INTS = ("L", "b", "H", "I", "kvh", "S", "BK", "w4", "packed", "rope",
-         "norm_round", "smem", "gemm_off")
+         "lens", "active", "y", "kint", "vint", "kinv", "vinv", "xn", "attn", "act",
+         "acc_qkv", "acc_o", "acc_gu", "acc_dn", "amax", "kvmax", "ss", "tcnt",
+         "scores", "cmax", "ppart", "pvpart", "stamps", "arrive")
+_INTS = ("L", "b", "H", "I", "kvh", "S", "BK", "CH", "w4", "packed", "rope",
+         "norm_round", "smem", "shape")
 _FLOATS = ("eps", "a_qmax", "kv_qmax", "scale")
 
 
@@ -376,6 +379,12 @@ class _Params(ctypes.Structure):
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# (query heads per kv head, head dim) -> the kernel's instantiation
+SHAPES = {(8, 64): 0, (1, 128): 1}
+_TILE = 128            # the products' column tile (and the sum-of-squares partials)
+_TK = 256              # the products' K tile
+_CHUNK = 128           # cache columns of an attention item (at most)
+_MAX_CHUNKS = 256      # attention chunks a slot may have
 
 
 def _fn(name: str, argtypes):
@@ -390,13 +399,16 @@ def _card_shape_error(c: LlamaConfig, b: int, S: int, bk: int, dtype):
     groups = c.num_attention_heads // c.kv_heads
     kv_dim = c.kv_heads * c.head_dim
     widths = (c.hidden_size + 2 * kv_dim, c.hidden_size, 2 * c.intermediate_size)
-    if (groups, c.head_dim) != (8, 64):
-        return f"{groups} query heads per kv head at head dim {c.head_dim} (built for 8 at 64)"
-    if c.hidden_size % 256 or c.intermediate_size % 256 or any(n % 64 for n in widths):
-        return (f"H={c.hidden_size}, I={c.intermediate_size} (multiples of 256), "
-                f"projection widths {widths} (multiples of 64)")
-    if bk % 16 or S % 16:
-        return f"KV block {bk} and cache length {S} (multiples of 16)"
+    if (groups, c.head_dim) not in SHAPES:
+        return (f"{groups} query heads per kv head at head dim {c.head_dim} "
+                f"(built for {' and '.join(f'{g} at {d}' for g, d in SHAPES)})")
+    if (c.hidden_size % 256 or c.intermediate_size % 256 or any(n % _TILE for n in widths)
+            or c.num_attention_heads * c.head_dim != c.hidden_size):
+        return (f"H={c.hidden_size}, I={c.intermediate_size} (multiples of 256, H = heads x "
+                f"head dim), projection widths {widths} (multiples of {_TILE})")
+    if bk % 16 or S % 16 or S // math.gcd(_CHUNK, bk) > _MAX_CHUNKS:
+        return (f"KV block {bk} and cache length {S} (multiples of 16, at most "
+                f"{_MAX_CHUNKS} attention chunks of gcd({_CHUNK}, BK) columns)")
     if dtype not in _DTYPE_CODES:
         return f"{dtype} (bf16 or f32)"
     if not supported(c, b, S):
@@ -412,18 +424,73 @@ def card_takes(config: LlamaConfig, b: int, max_len: int, dtype) -> bool:
     return _card_shape_error(config, b, max_len, pick_bk(config, b, max_len), dtype) is None
 
 
-STAGES = ("norm+quant", "qkv", "attention", "o", "norm+quant", "gateup", "silu",
-          "down")    # what runs before each of a layer's barriers
+_PROJ = ("qkv", "o", "gateup", "down")
+
+
+def _k_contiguous(q: torch.Tensor) -> torch.Tensor:
+    """``[L, K(/2), N]`` -> ``[L, N / 128, K / 256, 128, 256 (/2)]``: the
+    kernel's tiles (128 output columns x 256 K values, as int8, or packed
+    nibble pairs at W4), each tile's rows K-contiguous and each tile
+    contiguous, in the order a block streams them."""
+    L, kp, n = q.shape
+    rb = _TK // 2 if q.dtype == torch.uint8 else _TK
+    if n % _TILE or kp % rb:
+        raise ValueError(f"weights [L, {kp}, {n}] are off the kernel's tile grid "
+                         f"({_TILE} output columns x {_TK} K values)")
+    t = q.transpose(1, 2).reshape(L, n // _TILE, _TILE, kp // rb, rb)
+    return t.permute(0, 1, 3, 2, 4).contiguous()
+
+
+def untile(t: torch.Tensor) -> torch.Tensor:
+    """A ``card_weights`` tensor back to ``[L, N, K(/2)]``."""
+    L, nt, kt, tn, rb = t.shape
+    return t.permute(0, 1, 3, 2, 4).reshape(L, nt * tn, kt * rb)
+
+
+_CARDS: Dict[int, Tuple[tuple, Dict[str, torch.Tensor]]] = {}
+
+
+def card_weights(qparams: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The K-contiguous copy of every projection's integers that the CUDA
+    kernel reads, by projection name, in its tiles (``_k_contiguous``).
+    Made once and kept beside the params while their ``qkv`` integers live
+    (a cache keyed on that tensor, dropped with it), next to the JAX-layout
+    ``q`` that the scan path and the plain version read; made again for
+    other layer tensors. ``InferenceEngine`` calls it when it takes the card
+    path, so the memory (as much as the weights) is taken up front."""
+    lay = qparams["layers"]
+    anchor = lay["qkv"]["q"]
+    key = tuple((n, lay[n]["q"].data_ptr(), tuple(lay[n]["q"].shape)) for n in _PROJ)
+    held = _CARDS.get(id(anchor))
+    if held is None or held[0] != key:
+        held = (key, {n: _k_contiguous(lay[n]["q"]) for n in _PROJ})
+        if id(anchor) not in _CARDS:
+            weakref.finalize(anchor, _CARDS.pop, id(anchor), None)
+        _CARDS[id(anchor)] = held
+    return held[1]
+
+
+STAGES = ("norm", "qkv", "scores", "softmax.v", "finish", "o+resid", "norm", "gateup",
+          "silu", "down+resid")    # what runs before each of a layer's barriers
+
+
+def n_stamps(L: int) -> int:
+    """Entries of ``decode_layers``' ``stamps``: the start, the first
+    residual stage, then ``STAGES`` for each layer."""
+    return 2 + len(STAGES) * L
 
 
 def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
-                  config: LlamaConfig, bk: int, dtype, stamps=None):
+                  config: LlamaConfig, bk: int, dtype, stamps=None, card=None, arrive=None):
     """All L layers of one decode step: the CUDA kernel for tensors on a
     GPU (one launch), the plain version for tensors on the CPU. Arguments
-    and results as ``decode_layers_plain``. ``stamps``: an int64 CUDA tensor
-    of ``1 + len(STAGES) * L`` entries to receive the device clock (ns) at
-    the start and after every grid barrier, stage by stage as ``STAGES``
-    names them."""
+    and results as ``decode_layers_plain``; ``card``: ``card_weights`` of the
+    params (made here from ``lay`` when not given). ``stamps``: an int64
+    CUDA tensor of ``n_stamps(L)`` entries to receive the device clock (ns)
+    at the start and after every grid barrier, stage by stage as
+    ``STAGES`` names them; ``arrive``: one of ``n_stamps(L) - 1`` rows of
+    ``grid_size()`` entries, each block's clock as it arrives at each grid
+    barrier."""
     if x.device.type == "cpu":
         return decode_layers_plain(x, qcos, qsin, kcos, ksin, lay, cache, lens,
                                    active, config, bk, dtype)
@@ -435,13 +502,17 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
         raise NotImplementedError(
             f"megakernel.cu does not take {why}; serve this configuration "
             "with use_megakernel=False (the scan path)")
+    if card is None:
+        card = {n: _k_contiguous(lay[n]["q"]) for n in _PROJ}
     dev = x.device
     I, kvh, hd = c.intermediate_size, c.kv_heads, c.head_dim
-    kv_dim = kvh * hd
+    nh, kv_dim = c.num_attention_heads, kvh * hd
     dq = H + 2 * kv_dim
     packed, w4 = M.cache_is_packed(c), c.w_bits == 4
     wdt = torch.uint8 if w4 else torch.int8
-    f32, i32 = torch.float32, torch.int32
+    f32, i32, f64 = torch.float32, torch.int32, torch.float64
+    ch = math.gcd(_CHUNK, bk)
+    nc = S // ch
 
     def want(name, t, dt, shape):
         if (t.device != dev or t.dtype != dt or tuple(t.shape) != tuple(shape)
@@ -455,6 +526,7 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
     gains = (lay["attn_norm"], lay["mlp_norm"])
     norm_round = dtype == torch.bfloat16 and all(g.dtype == torch.bfloat16 for g in gains)
     kdiv = 2 if w4 else 1
+    rb = _TK // kdiv
     hdc = hd // 2 if packed else hd
     cdt = torch.uint8 if packed else torch.int8
     t = dict(
@@ -467,41 +539,49 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
         dn_s=want("down scales", lay["down"]["s"], f32, (L, 1, H)),
         anorm=want("attn_norm", gains[0].float(), f32, (L, H)),
         mnorm=want("mlp_norm", gains[1].float(), f32, (L, H)),
-        qkv_w=want("qkv weights", lay["qkv"]["q"], wdt, (L, H // kdiv, dq)),
-        o_w=want("o weights", lay["o"]["q"], wdt, (L, H // kdiv, H)),
-        gu_w=want("gateup weights", lay["gateup"]["q"], wdt, (L, H // kdiv, 2 * I)),
-        dn_w=want("down weights", lay["down"]["q"], wdt, (L, I // kdiv, H)),
+        qkv_w=want("qkv weights", card["qkv"], wdt, (L, dq // _TILE, H // _TK, _TILE, rb)),
+        o_w=want("o weights", card["o"], wdt, (L, H // _TILE, H // _TK, _TILE, rb)),
+        gu_w=want("gateup weights", card["gateup"], wdt, (L, 2 * I // _TILE, H // _TK, _TILE, rb)),
+        dn_w=want("down weights", card["down"], wdt, (L, H // _TILE, I // _TK, _TILE, rb)),
         kq=want("k_q", cache["k_q"], cdt, (L, b, kvh, hdc, S)),
         ks=want("k_s", cache["k_s"], f32, (L, b, S)),
         vq=want("v_q", cache["v_q"], cdt, (L, b, kvh, hdc, S)),
         vs=want("v_s", cache["v_s"], f32, (L, b, S)),
         lens=want("lens", lens.to(i32), i32, (b,)),
         active=want("active", active.to(i32), i32, (b,)),
-        # outputs, then scratch (the kernel clears its own accumulators)
+        # outputs, then scratch (the kernel clears what it accumulates into)
         y=torch.empty((b, H), dtype=dtype, device=dev),
         kint=torch.empty((L, b, kv_dim), dtype=torch.int8, device=dev),
         vint=torch.empty((L, b, kv_dim), dtype=torch.int8, device=dev),
         kinv=torch.empty((L, b, 1), dtype=f32, device=dev),
         vinv=torch.empty((L, b, 1), dtype=f32, device=dev),
-        xq=torch.empty((b, H), dtype=torch.int8, device=dev),
-        sx=torch.empty((b,), dtype=f32, device=dev),
+        xn=torch.empty((b, H), dtype=f32, device=dev),
         attn=torch.empty((b, H), dtype=dtype, device=dev),
         act=torch.empty((b, I), dtype=dtype, device=dev),
         acc_qkv=torch.empty((b, dq), dtype=i32, device=dev),
         acc_o=torch.empty((b, H), dtype=i32, device=dev),
         acc_gu=torch.empty((b, 2 * I), dtype=i32, device=dev),
         acc_dn=torch.empty((b, H), dtype=i32, device=dev),
-        amax_o=torch.empty((b,), dtype=i32, device=dev),
-        amax_dn=torch.empty((b,), dtype=i32, device=dev),
+        amax=torch.empty((4, b), dtype=i32, device=dev),
+        kvmax=torch.empty((2, b), dtype=i32, device=dev),
+        ss=torch.empty((b, H // _TILE), dtype=f64, device=dev),
+        tcnt=torch.empty((H // _TILE,), dtype=i32, device=dev),
+        scores=torch.empty((b, nh, S), dtype=f32, device=dev),
+        cmax=torch.empty((b, nh, nc), dtype=f32, device=dev),
+        ppart=torch.empty((b, nh, nc), dtype=f64, device=dev),
+        pvpart=torch.empty((b, nh, nc, hd), dtype=f64, device=dev),
     )
     ptrs = {n: t[n].data_ptr() for n in t}
     ptrs["stamps"] = (None if stamps is None else
-                      want("stamps", stamps, torch.int64, (1 + len(STAGES) * L,)).data_ptr())
+                      want("stamps", stamps, torch.int64, (n_stamps(L),)).data_ptr())
+    ptrs["arrive"] = (None if arrive is None else
+                      want("arrive", arrive, torch.int64,
+                           (n_stamps(L) - 1, grid_size(dev))).data_ptr())
     p = _Params(
         **ptrs,
-        L=L, b=b, H=H, I=I, kvh=kvh, S=S, BK=bk, w4=int(w4), packed=int(packed),
-        rope=int(c.kv_cache_rope != "post"), norm_round=int(norm_round),
-        smem=smem_bytes(c, bk), gemm_off=_row_bytes(c), eps=c.rms_norm_eps,
+        L=L, b=b, H=H, I=I, kvh=kvh, S=S, BK=bk, CH=ch, w4=int(w4), packed=int(packed),
+        rope=int(c.kv_cache_rope != "post"), norm_round=int(norm_round), smem=0,
+        shape=SHAPES[(nh // kvh, hd)], eps=c.rms_norm_eps,
         a_qmax=float(2 ** (c.a_bits - 1) - 1),
         kv_qmax=float(2 ** (min(c.kv_bits, 8) - 1) - 1), scale=1.0 / (hd ** 0.5),
     )
@@ -513,6 +593,24 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
 
 
 decode_layers.launches = 0
+
+_ATTRIBUTE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "spill_bytes",
+                   "threads", "blocks_per_sm")
+
+
+def kernel_attributes() -> dict:
+    """What the compiler gave each variant of the kernel, by name
+    (``{dtype}_g{G}_d{hd}``): registers a thread, shared bytes (static,
+    dynamic), local (spill) bytes a thread, threads a block and blocks an
+    SM can hold. Launches nothing."""
+    return {f"{dn}_g{g}_d{d}": dict(zip(_ATTRIBUTE_KEYS, _build.query(
+                "megakernel", "megakernel_attributes", len(_ATTRIBUTE_KEYS), code, shape)))
+            for dn, code in (("f32", 0), ("bf16", 1)) for (g, d), shape in SHAPES.items()}
+
+
+def grid_size(device=None) -> int:
+    """Blocks of the kernel's cooperative grid: one per SM."""
+    return torch.cuda.get_device_properties(resolve_device(device)).multi_processor_count
 
 
 def grid_barriers(n: int, device=None) -> None:
@@ -560,9 +658,11 @@ def _step(qparams, config: LlamaConfig, input_ids, seq_lens, active, cache,
     qsin = qsin[:, 0, :hd // 2].contiguous()
     kcos, ksin = _cache_rope_tables(S, hd, c.rope_theta, dev)
 
+    card = (card_weights(qparams)
+            if dev.type == "cuda" and layers_fn is not decode_layers_plain else None)
     y, k_ints, v_ints, k_invs, v_invs = layers_fn(
         x, qcos, qsin, kcos, ksin, qparams["layers"], cache, seq_lens, active,
-        c, bk, dtype)
+        c, bk, dtype, card=card)
 
     # commit every layer's new column, IN PLACE; inactive slots write the
     # scratch position S - 1 (never validated)

@@ -19,8 +19,9 @@ Per step: the prefill of fresh slots runs the flash kernel over this call's
 own fake-quant K/V. A decode step (s = 1) of the default configuration
 (``use_megakernel=True``) goes to ``megakernel.decode_step``, one kernel
 launch for all layers, where ``megakernel.supported`` (on the card, also
-where ``megakernel.card_takes``: the kernel is built for (8, 64) heads, so a
-LLaMA-7B-shaped config decodes on the scan path there); otherwise, and with
+where ``megakernel.card_takes``: the kernel is built for (8, 64) and
+(1, 128) heads, TinyLlama-1.1B's and the LLaMA-7B/13B family's; another
+shape decodes on the scan path there); otherwise, and with
 ``use_megakernel=False``, the scan path here runs the fused decode kernel
 per layer over the read-only cache with the current token folded in, then
 commits one K/V column per layer and slot. The scan path's layer stack is a
@@ -38,6 +39,7 @@ from llm_qat_torch.inference import quantized as Q
 from llm_qat_torch.models import llama
 from llm_qat_torch.models.config import LlamaConfig
 from llm_qat_torch.ops import decode_attention as DA
+from llm_qat_torch.ops import qat_matmul
 from llm_qat_torch.ops import quant_matmul as QM
 from llm_qat_torch.ops.flash_attention import flash_attention
 
@@ -301,7 +303,8 @@ def final_logits(h: torch.Tensor, qparams, config: LlamaConfig) -> torch.Tensor:
     products and output (the JAX package's ``preferred_element_type=f32``)."""
     h = llama.rms_norm(h, qparams["final_norm"], config.rms_norm_eps)
     head = qparams["lm_head"] if "lm_head" in qparams else qparams["embed"].T
-    return torch.matmul(h.float(), head.to(h.dtype).float())
+    logits = qat_matmul.mm_f32(h.reshape(-1, h.shape[-1]), head.to(h.dtype))
+    return logits.reshape(*h.shape[:-1], logits.shape[-1])
 
 
 def _as_tensor(x, dtype, device) -> torch.Tensor:

@@ -449,11 +449,48 @@ def test_decode_megakernel_other_kv_blocks(gen, bk, S):
     _megakernel_against_plain(cfg, lens, [True, False, True, True], torch.bfloat16, gen, S)
 
 
+@pytest.mark.parametrize("mode", list(K9_MODES))
+@pytest.mark.parametrize("rope_mode", ["pre", "post"])
+@pytest.mark.parametrize("bk", [0, 128])
+@pytest.mark.parametrize("b", [1, 8, 32])
+def test_decode_megakernel_mha_head_dim_128_against_plain(gen, mode, rope_mode, bk, b):
+    """The (1, 128) instantiation on a 2-layer cut at LLaMA-7B width, max_len
+    2048: the JAX picker's KV block (bk = 0) and a block of 128 (two
+    attention chunks a block); lengths as the TinyLlama case."""
+    cfg = LLAMA_7B.replace(num_hidden_layers=2, kv_cache_rope=rope_mode, megakernel_bk=bk,
+                           **K9_MODES[mode])
+    assert MK.card_takes(cfg, b, 2048, torch.bfloat16)
+    if bk:
+        assert MK.pick_bk(cfg, b, 2048) == bk
+    lens = [48, 0, 282, 511, 512, 513, 1024, 1400]
+    active = [True, True, False, True, True, True, True, True]
+    if b == 1:
+        lens, active = [700], [True]
+    elif b == 32:
+        lens = lens + [(37 * i) % 2000 for i in range(24)]
+        active = active + [i % 5 != 0 for i in range(24)]
+    lg = _megakernel_against_plain(cfg, lens, active, torch.bfloat16, gen, 2048)
+    assert lg.shape == (b, 1, cfg.vocab_size) and lg.dtype == torch.float32
+
+
+def test_decode_megakernel_kernel_attributes(gen):
+    """Every variant of the kernel (bf16 and f32, (8, 64) and (1, 128)) keeps
+    its registers (no spill) and fits one block an SM: the cooperative grid
+    is one block per SM."""
+    attrs = MK.kernel_attributes()
+    assert len(attrs) == 4
+    for name, a in attrs.items():
+        assert a["spill_bytes"] == 0, (name, a)
+        assert a["blocks_per_sm"] >= 1 and a["threads"] == 256, (name, a)
+
+
 def test_decode_megakernel_refuses_shapes_it_is_not_built_for(gen):
-    cfg = LLAMA_7B.replace(num_hidden_layers=1, vocab_size=256, w_bits=8, a_bits=8, kv_bits=8)
+    cfg = LLAMA_7B.replace(num_hidden_layers=1, vocab_size=256, num_key_value_heads=16,
+                           w_bits=8, a_bits=8, kv_bits=8)
     qp = Q.quantize_params(P.init_params(cfg, seed=0, dtype=torch.bfloat16), cfg)
     cache = M.init_serving_cache(cfg, 1, 256)
-    with pytest.raises(NotImplementedError, match="1 query heads per kv head at head dim 128"):
+    assert not MK.card_takes(cfg, 1, 256, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="2 query heads per kv head at head dim 128"):
         MK.decode_step(qp, cfg, [[3]], [0], [True], cache)
 
 
@@ -653,23 +690,22 @@ def test_train_step_launch_counts(gen, remat_policy, k4, monkeypatch):
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
 
 
+MHA_SMALL = LLAMA_7B.replace(num_hidden_layers=2, hidden_size=256, intermediate_size=512,
+                             num_attention_heads=2, num_key_value_heads=2, vocab_size=256,
+                             w_bits=8, a_bits=8, kv_bits=8)
+
+
 def test_engine_serves_mha_head_dim_128_on_the_scan_path(gen):
-    """The default configuration (``use_megakernel=True``) with one query
-    head per kv head at head dim 128, which the decode megakernel is not
-    built for: ``InferenceEngine`` on the card decodes on the scan path (K3
-    at (1, 128)) without raising and never launches the megakernel; its
-    greedy tokens equal those of the CPU engine on the scan path (the plain
-    versions) on the same weights."""
-    cfg = LLAMA_7B.replace(num_hidden_layers=2, hidden_size=256, intermediate_size=512,
-                           num_attention_heads=2, num_key_value_heads=2, vocab_size=256,
-                           w_bits=8, a_bits=8, kv_bits=8)
-    assert cfg.use_megakernel and not MK.card_takes(cfg, 2, 128, torch.bfloat16)
+    """One query head per kv head at head dim 128 with ``use_megakernel=False``:
+    ``InferenceEngine`` on the card decodes on the scan path (K3 at (1, 128))
+    and never launches the megakernel; its greedy tokens equal those of the
+    CPU engine on the scan path (the plain versions) on the same weights."""
+    cfg = MHA_SMALL.replace(use_megakernel=False)
     params = P.init_params(cfg, seed=0, device="cpu", dtype=torch.bfloat16)
     prompts = [[3, 5, 7, 11, 13], list(range(1, 40))]
     tokens = {}
     for dev in ("cuda", "cpu"):
-        c = cfg if dev == "cuda" else cfg.replace(use_megakernel=False)
-        eng = E.InferenceEngine(Q.quantize_params(params, cfg, device=dev), c, max_batch=2,
+        eng = E.InferenceEngine(Q.quantize_params(params, cfg, device=dev), cfg, max_batch=2,
                                 max_len=128, device=dev)
         for p in prompts:
             eng.submit(p, max_new_tokens=8)
@@ -679,3 +715,43 @@ def test_engine_serves_mha_head_dim_128_on_the_scan_path(gen):
             assert DA.quantized_decode_attention.launches > n3
             assert MK.decode_layers.launches == n9
     assert tokens["cuda"] == tokens["cpu"] and all(len(t) == 8 for t in tokens["cpu"].values())
+
+
+def test_engine_serves_mha_head_dim_128_through_the_megakernel(gen, monkeypatch):
+    """The default configuration (``use_megakernel=True``) with (1, 128)
+    heads: ``InferenceEngine`` on the card decodes every step in one launch
+    of the megakernel and never launches K3 while decoding. Against the scan
+    path (which takes SiLU in the model type: the paths differ by design) one
+    decode step's logits stay within 0.15 relative L2, the 2-layer limit of
+    ``chip_smoke.py``."""
+    cfg = MHA_SMALL
+    assert cfg.use_megakernel and MK.card_takes(cfg, 2, 128, torch.bfloat16)
+    qp = Q.quantize_params(P.init_params(cfg, seed=0, device="cpu", dtype=torch.bfloat16),
+                           cfg, device="cuda")
+    eng = E.InferenceEngine(qp, cfg, max_batch=2, max_len=128)
+    steps = {"n": 0}
+    real = eng._fwd
+
+    def counted(*a, **k):
+        steps["n"] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(eng, "_fwd", counted)
+    for p in ([3, 5, 7, 11, 13], list(range(1, 40))):
+        eng.submit(p, max_new_tokens=8)
+    n3, n9 = DA.quantized_decode_attention.launches, MK.decode_layers.launches
+    out = eng.run()
+    assert MK.decode_layers.launches - n9 == steps["n"] >= 7
+    assert DA.quantized_decode_attention.launches == n3
+    assert all(len(r.output) == 8 and all(0 <= t < cfg.vocab_size for t in r.output) for r in out)
+    # one step of both paths from the same cache
+    cache = M.init_serving_cache(cfg, 2, 128)
+    ids = torch.tensor([[3, 5, 7, 11, 13, 17, 19, 23]] * 2, device="cuda")
+    _, cache = M.serving_forward(qp, cfg.replace(use_megakernel=False), ids, [0, 0],
+                                 [True, True], cache)
+    lg = []
+    for flag in (True, False):
+        c = {k: v.clone() for k, v in cache.items()}
+        lg.append(M.serving_forward(qp, cfg.replace(use_megakernel=flag), [[29], [31]],
+                                    c["lengths"], [True, True], c)[0])
+    assert float((lg[0] - lg[1]).norm() / lg[1].norm()) <= 0.15

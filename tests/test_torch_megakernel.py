@@ -17,6 +17,7 @@ equal, as the JAX tests hold their two paths (the paths differ by design:
 SiLU in fp32, the attention's block-wise roundings).
 """
 
+import math
 import warnings
 
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from llm_qat_torch.inference import engine as TE
 from llm_qat_torch.inference import megakernel as TMK
 from llm_qat_torch.inference import model as TM
 from llm_qat_torch.models import params as TP
+from llm_qat_torch.ops import quant_matmul as QM
 
 from tests.test_torch_serving import _tree, both_qparams, tcfg
 
@@ -270,9 +272,10 @@ def test_supported_rules_and_fallback_to_scan():
     assert not TMK.supported(c.replace(w_bits=16), 3, 32)    # fp weights
     assert not TMK.supported(c.replace(a_bits=16), 3, 32)    # fp activations
     assert not TMK.supported(c.replace(a_bits=2), 3, 32)
-    # a KV block whose scores, K and V bytes outgrow one block's shared memory
+    # the kernel's shared memory no longer grows with the KV block: a block
+    # of 2048 columns is taken
     big = tcfg(PICK_GRID["tinyllama_w8"]).replace(megakernel_bk=2048)
-    assert TMK.smem_bytes(big, 2048) > TMK.SMEM_PER_BLOCK and not TMK.supported(big, 8, 2048)
+    assert TMK.supported(big, 8, 2048) and TMK.pick_bk(big, 8, 2048) == 2048
     # outside supported(): the default flag serves through the scan path
     cfg = BASE.replace(w_bits=16)
     _, tq = both_qparams(cfg)
@@ -302,3 +305,201 @@ def test_decode_step_needs_a_gpu_unless_asked_for_the_cpu():
     for fn in (TMK.decode_step, TMK.decode_step_plain):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(tq, c, np.zeros((1, 1), np.int64), [0], [True], cache)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's design, held on the CPU: the attention split over cache
+# chunks, the K-contiguous weight copy, the shapes the kernel takes
+# ---------------------------------------------------------------------------
+
+
+def split_attention(q4, k_int, v_int, k_inv, v_inv, layer_cache, kcos, ksin, qcos, qsin,
+                    lens, active, c, bk, dtype, chunk=128):
+    """The attention as the CUDA kernel splits it (test-only reference):
+    every column's score at once; each ``chunk``-column chunk's maximum; the
+    BK blocks' prefix maxima m_j from the chunk maxima; per chunk float64
+    partial sums of p = exp(s - m_j) and of p.V, combined per block and
+    rounded once; then the fp32 recurrence over the blocks in order and the
+    current token folded in, as ``_attend_plain`` folds it."""
+    b = q4.shape[0]
+    hd, kvh = c.head_dim, c.kv_heads
+    h2 = hd // 2
+    k_q, k_s, v_q, v_s = layer_cache
+    S = k_q.shape[-1]
+    ch = math.gcd(chunk, bk)
+    ct = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    scale = 1.0 / (hd ** 0.5)
+    if TM.cache_is_packed(c):
+        k_q, v_q = QM.unpack_int4(k_q, 2), QM.unpack_int4(v_q, 2)
+    k1, k2 = k_q[:, :, :h2].to(ct), k_q[:, :, h2:].to(ct)           # [b, kvh, h2, S]
+    ksl = k_s[:, None, None, :]
+    if c.kv_cache_rope != "post":
+        cc, ss = (kcos * ksl).to(ct), (ksin * ksl).to(ct)
+        kr = torch.cat(TMK._rope_halves(k1, k2, cc, ss), dim=2)
+    else:
+        kr = torch.cat([k1 * ksl.to(ct), k2 * ksl.to(ct)], dim=2)
+    s_all = TMK._dot64("bhgd,bhdk->bhgk", q4.to(ct), kr) * scale    # [b, kvh, G, S]
+    groups = q4.shape[2]
+    out_m = torch.full((b, kvh, groups, 1), TMK._NEG_INF)
+    out_l = torch.zeros_like(out_m)
+    out_acc = torch.zeros((b, kvh, groups, hd))
+    for i in range(b):
+        n = int(lens[i])
+        nch = -(-n // ch)
+        cmax = [s_all[i, :, :, k * ch:min(n, (k + 1) * ch)].amax(-1) for k in range(nch)]
+        m = torch.full((kvh, groups), TMK._NEG_INF)
+        lsum = torch.zeros((kvh, groups))
+        acc = torch.zeros((kvh, groups, hd))
+        for j in range(-(-n // bk)):
+            cs, ce = j * bk // ch, min(nch, (j + 1) * bk // ch)
+            mb = m
+            for k in range(cs, ce):
+                mb = torch.maximum(mb, cmax[k])
+            P = torch.zeros((kvh, groups), dtype=torch.float64)
+            PV = torch.zeros((kvh, groups, hd), dtype=torch.float64)
+            for k in range(cs, ce):
+                lo, hi = k * ch, min(n, (k + 1) * ch)
+                p = torch.exp(s_all[i, :, :, lo:hi] - mb[..., None])
+                P += p.double().sum(-1)
+                pv = (p * v_s[i, None, None, lo:hi]).to(ct)
+                PV += torch.einsum("hgk,hdk->hgd", pv.double(), v_q[i, :, :, lo:hi].double())
+            alpha = torch.exp(m - mb)
+            lsum = lsum * alpha + P.float()
+            acc = acc * alpha[..., None] + PV.float()
+            m = mb
+        out_m[i, ..., 0], out_l[i, ..., 0], out_acc[i] = m, lsum, acc
+    # the current token, as the plain version folds it
+    act = active.to(torch.bool).reshape(b, 1, 1, 1)
+    kinv, vinv = k_inv.reshape(b, 1, 1), v_inv.reshape(b, 1, 1).to(ct)
+    ki = k_int.reshape(b, kvh, hd).to(ct)
+    if c.kv_cache_rope != "post":
+        k_fold = torch.cat(TMK._rope_halves(ki[..., :h2], ki[..., h2:], (qcos[:, None, :] * kinv).to(ct),
+                                            (qsin[:, None, :] * kinv).to(ct)), -1)
+    else:
+        k_fold = ki * kinv.to(ct)
+    v_fold = (v_int.reshape(b, kvh, hd).to(ct) * vinv).float()
+    s_cur = TMK._dot64("bhgd,bhd->bhg", q4, k_fold.float())[..., None] * scale
+    s_cur = torch.where(act, s_cur, torch.full_like(s_cur, TMK._NEG_INF))
+    m_new = torch.maximum(out_m, s_cur)
+    alpha = torch.exp(out_m - m_new)
+    p = torch.where(act, torch.exp(s_cur - m_new), torch.zeros_like(s_cur))
+    l_new = torch.clamp(out_l * alpha + p, min=1e-9)
+    acc = out_acc * alpha + p * v_fold[:, :, None, :]
+    return (acc / l_new).to(dtype).reshape(b, -1)
+
+
+# (G, hd) at narrow widths: the kernel's two shapes
+SPLIT_SHAPES = {"g8_d64": dict(num_attention_heads=16, num_key_value_heads=2, head_dim=64),
+                "g1_d128": dict(num_attention_heads=2, num_key_value_heads=2, head_dim=128)}
+
+
+def _split_case(shape, rope_mode, packed, bk, dtype, lens, active, seed=0):
+    kw = SPLIT_SHAPES[shape]
+    c = tcfg(BASE).replace(hidden_size=kw["num_attention_heads"] * kw["head_dim"],
+                           num_attention_heads=kw["num_attention_heads"],
+                           num_key_value_heads=kw["num_key_value_heads"],
+                           kv_cache_rope=rope_mode, kv_bits=4 if packed else 8,
+                           kv_cache_pack=packed)
+    assert c.head_dim == kw["head_dim"]
+    rng = np.random.default_rng(seed)
+    b, S, hd, kvh = len(lens), 4 * bk, c.head_dim, c.kv_heads
+    G = c.num_attention_heads // kvh
+    hdc = hd // 2 if packed else hd
+    ct = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    if packed:
+        ints = lambda: torch.from_numpy(rng.integers(0, 256, (b, kvh, hdc, S)).astype(np.uint8))  # noqa: E731
+    else:
+        ints = lambda: torch.from_numpy(rng.integers(-127, 128, (b, kvh, hdc, S)).astype(np.int8))  # noqa: E731
+    scales = lambda: torch.from_numpy((rng.random((b, S)) * 0.02 + 0.005).astype(np.float32))  # noqa: E731
+    layer = (ints(), scales(), ints(), scales())
+    q4 = torch.from_numpy(rng.normal(0, 2.0, (b, kvh, G, hd)).astype(np.float32)).to(ct).float()
+    k_int = torch.from_numpy(rng.integers(-127, 128, (b, kvh * hd)).astype(np.int8))
+    v_int = torch.from_numpy(rng.integers(-127, 128, (b, kvh * hd)).astype(np.int8))
+    k_inv = torch.from_numpy((rng.random((b, 1)) * 0.05 + 0.01).astype(np.float32))
+    v_inv = torch.from_numpy((rng.random((b, 1)) * 0.05 + 0.01).astype(np.float32))
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    qcos, qsin = llama_rope(lens_t, hd, c.rope_theta)
+    kcos, ksin = TMK._cache_rope_tables(S, hd, c.rope_theta, "cpu")
+    args = (q4, k_int, v_int, k_inv, v_inv, layer, kcos, ksin, qcos, qsin, lens_t,
+            torch.tensor(active), c, bk, dtype)
+    return TMK._attend_plain(*args), split_attention(*args)
+
+
+def llama_rope(lens, hd, theta):
+    from llm_qat_torch.models import llama
+    cos, sin = llama.rope_cos_sin(lens[:, None], hd, theta)
+    return cos[:, 0, :hd // 2].contiguous(), sin[:, 0, :hd // 2].contiguous()
+
+
+@pytest.mark.parametrize("shape", list(SPLIT_SHAPES))
+@pytest.mark.parametrize("rope_mode,packed", [("pre", False), ("post", False), ("pre", True),
+                                               ("post", True)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_attention_equals_the_sequential_walk(shape, rope_mode, packed, dtype):
+    """Lengths 0, 1, BK - 1, BK, BK + 1 and S at BK = 256 (two chunks a
+    block), one inactive slot and one empty inactive slot: the split gives
+    the online softmax's bits."""
+    bk = 256
+    lens = [0, 1, bk - 1, bk, bk + 1, 4 * bk, 300, 0]
+    active = [True, True, True, False, True, True, True, False]
+    want, got = _split_case(shape, rope_mode, packed, bk, dtype, lens, active)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bk", [16, 128, 512])
+def test_split_attention_block_and_chunk_edges(bk):
+    """A block narrower than a chunk (the chunk shrinks to the block), one
+    chunk a block, four chunks a block."""
+    lens = [bk - 1, bk, 2 * bk + 5, 4 * bk, 1]
+    want, got = _split_case("g1_d128", "pre", False, bk, torch.bfloat16, lens, [True] * 5, seed=4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("w_bits", [8, 4])
+def test_card_weights_are_the_k_contiguous_integers(w_bits):
+    """The kernel's copy, its tiles put back in place, is the transposition
+    of the JAX-layout integers (W8); at W4 its bytes unpack, along K, to
+    QM.unpack_int4 of the JAX layout. It is made once, made again for other
+    layer tensors, and refused off the kernel's tile grid."""
+    cfg = BASE.replace(w_bits=w_bits, hidden_size=256, intermediate_size=512,
+                       num_attention_heads=2, num_key_value_heads=2, num_hidden_layers=2)
+    _, tq = both_qparams(cfg)
+    card = TMK.card_weights(tq)
+    assert TMK.card_weights(tq) is card
+    for name in ("qkv", "o", "gateup", "down"):
+        q = tq["layers"][name]["q"]
+        assert card[name].is_contiguous() and card[name].shape[-2] == 128
+        got = TMK.untile(card[name])
+        assert got.shape == (q.shape[0], q.shape[2], q.shape[1])
+        if w_bits == 8:
+            assert torch.equal(got, q.transpose(1, 2))
+        else:
+            assert torch.equal(QM.unpack_int4(got, -1), QM.unpack_int4(q, -2).transpose(1, 2))
+    cut = dict(tq, layers={k: ({kk: vv[:1] for kk, vv in v.items()} if isinstance(v, dict)
+                               else v[:1]) for k, v in tq["layers"].items()})
+    assert TMK.card_weights(cut)["qkv"].shape[0] == 1
+    _, small = both_qparams(BASE.replace(w_bits=w_bits))
+    with pytest.raises(ValueError, match="tile"):
+        TMK.card_weights(small)
+
+
+CARD_GRID = {
+    "tinyllama": (JC.TINYLLAMA_1B, True),
+    "llama7b": (JC.LLAMA_7B, True),
+    "llama13b": (JC.LLAMA_13B, True),
+    "g4_d64": (JC.TINYLLAMA_1B.replace(num_key_value_heads=8), False),
+    "g2_d128": (JC.LLAMA_7B.replace(num_key_value_heads=16), False),
+    "off_grid": (JC.LLAMA_7B.replace(intermediate_size=11000), False),
+}
+
+
+@pytest.mark.parametrize("name", list(CARD_GRID))
+@pytest.mark.parametrize("w_bits,kv_bits", [(8, 8), (4, 4)])
+def test_card_takes_the_shapes_it_is_built_for(name, w_bits, kv_bits):
+    """(8, 64) at TinyLlama-1.1B's widths, (1, 128) at LLaMA-7B's and 13B's;
+    not (4, 64), (2, 128), or an intermediate size off the 256 grid."""
+    base, takes = CARD_GRID[name]
+    cfg = tcfg(base.replace(w_bits=w_bits, a_bits=8, kv_bits=kv_bits,
+                            kv_cache_pack=kv_bits == 4))
+    assert TMK.card_takes(cfg, 8, 2048, torch.bfloat16) == takes
+    assert TMK.supported(cfg, 8, 2048)

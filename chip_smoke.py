@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
 
 1. prints the card's name and power limit and the build time;
 2. runs each kernel's wrapper at the TinyLlama-1.1B shapes of the serving
-   path, holds it against its plain PyTorch version on the same inputs and
+   path (K1/K2 also at LLaMA-7B's projections, at decode and prefill rows),
+   holds it against its plain PyTorch version on the same inputs and
    times kernel, plain version and, where one exists, the single PyTorch
    call that computes the same function (``library_ms``; the port never
    calls it). The paged decode attention is also held against the contiguous
@@ -53,9 +54,9 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    2-layer cut of each width: the card path with its kernels against the
    card path with the plain versions swapped in, and at TinyLlama's width
    also against the port's CPU path (``train_check``);
-5. prints what the compiler gave the tensor-core flash kernels and the
-   decode megakernel (registers, shared memory, spills, blocks an SM holds;
-   it fails on a spill), a
+5. prints what the compiler gave the tensor-core flash kernels, the
+   decode megakernel and every K1/K2 variant (registers, shared memory,
+   spills, blocks an SM holds; it fails on a spill), the whole run's time, a
    ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
    line.
 
@@ -108,6 +109,7 @@ SILU_LAYERS, SILU_STEPS, SILU_LOSS_REL = 4, 2, 0.05  # the fused_silu_quant run 
 QUANT_FLIP_SHARE = 0.01     # K12/K13: integers one off where x*s is on a rounding boundary
 QUANT_ROW_SHARE = 1e-3      # K12: rows whose absmax moved one bf16 step (see fused_quant_phase)
 TRAIN_CUT_LOSS_REL, TRAIN_CUT_GRAD_REL = 2e-2, 0.25   # train_check: kernels against plain versions
+SPIN_CYCLES = 2_000_000            # Timer: ~1 ms of device clock between flush and timed call
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -144,7 +146,9 @@ def agreement(got: torch.Tensor, want: torch.Tensor, ulps: float, floor: float) 
 class Timer:
     """Median of per-run CUDA-event times after warm-up; the 50 MB L2 is
     flushed before each run (the serving step finds weights and cache
-    cold)."""
+    cold), then the device spins for about a millisecond, so that the
+    host's enqueue of the timed call is never on the clock (a call of a few
+    microseconds read 3-10x long when the host lagged the flush)."""
 
     def __init__(self, reps: int = 25, warmup: int = 3):
         self.reps, self.warmup = reps, warmup
@@ -156,6 +160,7 @@ class Timer:
         times = []
         for _ in range(reps or self.reps):
             self.flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -171,57 +176,91 @@ class Timer:
 # ---------------------------------------------------------------------------
 
 
-def gemm_phase(timer, gen, QM, c):
-    """K1 (W8) and K2 (W4) at the four projections of one TinyLlama layer:
-    decode (8 slots, padded to 32 rows) for both, and prefill rows (one
-    1000-token prompt's bucket, 1024 rows) for W4, which takes K2 at every
-    row count. Kernel and plain version are the exact int32 sum through the
-    same f32 epilogue: held to 1 bf16 ulp."""
-    H, I, hd = c.hidden_size, c.intermediate_size, c.head_dim
-    qkv_n = (c.num_attention_heads + 2 * c.kv_heads) * hd
-    projs = {"qkv": (H, qkv_n), "o": (H, H), "gateup": (H, 2 * I), "down": (I, H)}
-    rows = {"int8_matmul": [32], "int4_matmul": [32, 1024]}
+def gemm_phase(timer, gen, QM, c, c7):
+    """K1 (W8) and K2 (W4) at the four projections of one layer of
+    TinyLlama-1.1B (``c``) and of LLaMA-7B (``c7``): decode rows (8 slots,
+    padded to 32) for both, and for W4, which takes K2 at every row count,
+    prefill rows: one 1000-token prompt's bucket (1024 rows, both models) and
+    the engine's largest group (4 x 1024 = 4096 rows, TinyLlama). Kernel and
+    plain version are the exact int32 sum through the same f32 epilogue:
+    held bit for bit (``torch.equal``), and a second launch (split-K
+    partials meet in a cluster's shared memory) gives the same bits. ``library_ms`` of K1
+    is ``torch._int_mm`` on a K-contiguous copy of the weight (the layout
+    that library kernel wants; made outside the timing) with the epilogue,
+    and ``library_rowmajor_ms`` the same call on the row-major ``[K, N]``
+    weight as K1 reads it. K2 has no library call of its function; at
+    prefill rows ``int8_library_unpacked_ms`` times ``torch._int_mm`` on the
+    unpacked K-contiguous int8 weight (not the same function, but the
+    tensor-core rate within reach) and ``library_rowmajor_ms`` the same on
+    the row-major unpacked weight, the call W8 prefill makes from 128 rows
+    on."""
+    one = torch.zeros(1, device="cuda")
+    floor_ms = timer(lambda: one.add_(1))
+    log(f"  timer floor: one launch of a 1-element kernel {floor_ms:.4f} ms between the events")
+    rows = {"int8_matmul": {"TinyLlama-1.1B": [32], "LLaMA-7B": [32]},
+            "int4_matmul": {"TinyLlama-1.1B": [32, 1024, 4096], "LLaMA-7B": [32, 1024]}}
     out = {}
     for name, fn, plain in (("int8_matmul", QM.int8_matmul, QM._int8_matmul_plain),
                             ("int4_matmul", QM.int4_matmul, QM._int4_matmul_plain)):
         shapes = []
-        for M in rows[name]:
-            for proj, (K, N) in projs.items():
-                x = torch.randn(M, K, device="cuda", generator=gen)
-                w = torch.randn(K, N, device="cuda", generator=gen) * 0.02
-                xq, sx = QM.quantize_per_token(x)
-                if name == "int8_matmul":
-                    wq, sw = QM.quantize_per_channel(w)
-                    wbytes = K * N
-                else:
-                    wq, sw = QM.quantize_weights_w4(w)
-                    wbytes = K * N // 2
-                got = fn(xq, wq, sx, sw)
-                want = plain(xq, wq, sx, sw)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs()
-                ulp = want.float().abs() * 2.0 ** -7 + 1e-30
-                if not bool((err <= ulp).all()):
-                    raise AssertionError(f"{name} {proj} M={M}: beyond 1 bf16 ulp")
-                ms = timer(lambda: fn(xq, wq, sx, sw))
-                plain_ms = timer(lambda: plain(xq, wq, sx, sw))
-                lib_ms = None
-                if name == "int8_matmul":
-                    # one library call of the same function: cuBLASLt int8 GEMM
-                    # plus the epilogue as one expression
-                    lib_ms = timer(lambda: (torch._int_mm(xq, wq).float()
-                                            * (1.0 / ((sx + 1e-6) * (sw + 1e-6))))
-                                   .to(torch.bfloat16))
-                b_ms, b_by = bound(M * K + wbytes + 4 * (M + N) + 2 * M * N,
-                                   2.0 * M * K * N, INT8_OPS)
-                shapes.append(dict(proj=proj, M=M, K=K, N=N, ms=ms, plain_ms=plain_ms,
-                                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                                   max_abs_err=float(err.max())))
-                log(f"  {name} {proj:6s} M={M:4d} K={K} N={N}: {ms:.4f} ms "
-                    f"(plain {plain_ms:.4f}, library {lib_ms}, bound {b_ms:.4f} {b_by}) "
-                    f"max_abs_err {float(err.max()):.3g}")
+        for model, cm in (("TinyLlama-1.1B", c), ("LLaMA-7B", c7)):
+            H, I, hd = cm.hidden_size, cm.intermediate_size, cm.head_dim
+            qkv_n = (cm.num_attention_heads + 2 * cm.kv_heads) * hd
+            projs = {"qkv": (H, qkv_n), "o": (H, H), "gateup": (H, 2 * I), "down": (I, H)}
+            for M in rows[name][model]:
+                for proj, (K, N) in projs.items():
+                    shapes.append(gemm_shape(timer, gen, QM, name, fn, plain, model, proj, M,
+                                             K, N))
+                torch.cuda.empty_cache()
         out[name] = shapes
+    out["timer_floor_ms"] = floor_ms
     return out
+
+
+def gemm_shape(timer, gen, QM, name, fn, plain, model, proj, M, K, N):
+    """One K1/K2 shape of ``gemm_phase``: held, timed, its bound."""
+    x = torch.randn(M, K, device="cuda", generator=gen)
+    w = torch.randn(K, N, device="cuda", generator=gen) * 0.02
+    xq, sx = QM.quantize_per_token(x)
+    if name == "int8_matmul":
+        wq, sw = QM.quantize_per_channel(w)
+        wbytes, wi = K * N, wq
+    else:
+        wq, sw = QM.quantize_weights_w4(w)
+        wbytes, wi = K * N // 2, QM.unpack_int4(wq)
+    del x, w
+    got = fn(xq, wq, sx, sw)
+    again = fn(xq, wq, sx, sw)
+    want = plain(xq, wq, sx, sw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(again, got)):
+        raise AssertionError(f"{name} {model} {proj} M={M}: not bit-equal to its plain "
+                             "version, or a second launch differs")
+    ms = timer(lambda: fn(xq, wq, sx, sw))
+    plain_ms = timer(lambda: plain(xq, wq, sx, sw))
+    wt = wi.t().contiguous().t()   # K-contiguous [K, N]
+    lib_ms = lib_row_ms = unpacked_ms = None
+
+    def epi(acc):
+        return (acc.float() * (1.0 / ((sx + 1e-6) * (sw + 1e-6)))).to(torch.bfloat16)
+
+    if name == "int8_matmul":
+        lib_ms = timer(lambda: epi(torch._int_mm(xq, wt)))
+        lib_row_ms = timer(lambda: epi(torch._int_mm(xq, wq)))
+    elif M >= QM.XLA_INT8_MIN_ROWS:   # and on the row-major weight, as W8 prefill calls it
+        unpacked_ms = timer(lambda: epi(torch._int_mm(xq, wt)))
+        lib_row_ms = timer(lambda: epi(torch._int_mm(xq, wi)))
+    plan = QM.gemm_plan(M, N, K, name == "int4_matmul",
+                        torch.cuda.get_device_properties(0).multi_processor_count)
+    b_ms, b_by = bound(M * K + wbytes + 4 * (M + N) + 2 * M * N, 2.0 * M * K * N, INT8_OPS)
+    log(f"  {name} {model} {proj:6s} M={M:4d} K={K} N={N} ({plan['variant']}, "
+        f"{plan['splits']} split): {ms:.4f} ms (plain {plain_ms:.4f}, library {lib_ms} "
+        f"K-contiguous / {lib_row_ms} row-major, int8 library on the unpacked K-contiguous "
+        f"weight {unpacked_ms}, bound {b_ms:.4f} {b_by}) bit-equal, twice")
+    return dict(model=model, proj=proj, M=M, K=K, N=N, variant=plan["variant"],
+                splits=plan["splits"], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_rowmajor_ms=lib_row_ms, int8_library_unpacked_ms=unpacked_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
 
 
 def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed):
@@ -435,18 +474,23 @@ def stacked_gemm_phase(timer, gen, QM, qparams, w4):
                                  "to the unstacked kernel")
         ms = timer(lambda: fn(xq, w_all, sx, sw_all, layer=l))
         plain_ms = timer(lambda: plain(xq, w_all[l], sx, sw_all[l]))
-        lib_ms = None
-        if not w4:
-            lib_ms = timer(lambda: (torch._int_mm(xq, w_all[l]).float()
-                                    * (1.0 / ((sx + 1e-6) * (sw_all[l] + 1e-6))))
-                           .to(torch.bfloat16))
+        lib_ms = lib_row_ms = None
+        if not w4:   # as gemm_phase: K-contiguous copy, and the weight as K5 reads it
+            def epi(acc):
+                return (acc.float() * (1.0 / ((sx + 1e-6) * (sw_all[l] + 1e-6)))
+                        ).to(torch.bfloat16)
+
+            wt = w_all[l].t().contiguous().t()
+            lib_ms = timer(lambda: epi(torch._int_mm(xq, wt)))
+            lib_row_ms = timer(lambda: epi(torch._int_mm(xq, w_all[l])))
         b_ms, b_by = bound(M * K + w_all[l].numel() + 4 * (M + N) + 2 * M * N,
                            2.0 * M * K * N, INT8_OPS)
         shapes.append(dict(proj=proj, M=M, K=K, N=N, layer=l, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0))
+                           library_ms=lib_ms, library_rowmajor_ms=lib_row_ms, bound_ms=b_ms,
+                           bound_by=b_by, max_abs_err=0.0))
         log(f"  {name} {proj:6s} layer {l} of {w_all.shape[0]} M={M} K={K} N={N}: {ms:.4f} ms "
-            f"(plain {plain_ms:.4f}, library {lib_ms}, bound {b_ms:.4f} {b_by}) bit-equal to "
-            "plain and unstacked")
+            f"(plain {plain_ms:.4f}, library {lib_ms} K-contiguous / {lib_row_ms} row-major, "
+            f"bound {b_ms:.4f} {b_by}) bit-equal to plain and unstacked")
     return dict(shapes=shapes, launches=fn.launches - before)
 
 
@@ -801,7 +845,7 @@ def serve(label, cfg, qparams, prompts):
     )
     m["profile"] = profile_decode_chunk(eng, prompts)
     log(f"  {label}: prefill {m['prefill_tok_per_s']:.0f} tok/s "
-        f"({pre['tokens']} prompt tokens in {pre['s']:.3f} s), decode "
+        f"({pre['tokens']} prompt tokens in {m['prefill_s']:.3f} s), decode "
         f"{m['decode_ms_per_step']:.3f} ms/step over {steps} steps of 8 slots, "
         f"{m['generated_tok_per_s']:.1f} generated tok/s; launches in prefill "
         f"{m['prefill_launches']}, in decode {m['decode_launches']}")
@@ -1718,6 +1762,9 @@ def train_phases(cfg, cfg7):
 # ---------------------------------------------------------------------------
 
 
+T_START = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1746,7 +1793,7 @@ def main() -> int:
     gen.manual_seed(0)
     timer = Timer()
     log("[2] kernels against their plain versions (TinyLlama-1.1B shapes, bf16)")
-    gemm = gemm_phase(timer, gen, QM, cfg)
+    gemm = gemm_phase(timer, gen, QM, cfg, LLAMA_7B)
     G = cfg.num_attention_heads // cfg.kv_heads
     # K3 at TinyLlama-1.1B's heads and at LLaMA-7B's (32 MHA heads of 128)
     dec = [decode_attention_phase(timer, gen, DA, kvh, g, hd, packed)
@@ -1777,8 +1824,10 @@ def main() -> int:
                                  "S=2048": shapes["full"]["dkv"]["blocks"]}
     from llm_qat_torch.inference import megakernel as MK
     attrs.update({f"decode_megakernel_{k}": v for k, v in MK.kernel_attributes().items()})
+    attrs.update({f"gemm_{k}": v for k, v in QM.kernel_attributes().items()})
     if any(a["spill_bytes"] for a in attrs.values()):
-        raise AssertionError(f"a tensor-core kernel spills registers: {attrs}")
+        raise AssertionError(f"a tensor-core kernel, K9 or a K1/K2 variant spills registers: "
+                             f"{attrs}")
     fq = fused_quant_phase(timer, gen, FQ, cfg)
 
     log("[3] TinyLlama-1.1B, 22 layers: the stacked GEMMs on the served weights, the "
@@ -1872,8 +1921,8 @@ def main() -> int:
         if m["mode"].endswith("tight") and m["preemptions"] < 1:
             raise AssertionError(f"{m['mode']}: a pool of {m['n_pages']} pages preempted nothing")
 
-    def per_layer(shapes, M):
-        sel = [s for s in shapes if s["M"] == M]
+    def per_layer(shapes, M, model="TinyLlama-1.1B"):
+        sel = [s for s in shapes if s["M"] == M and s.get("model", model) == model]
         tot = lambda key: sum(s[key] for s in sel)  # noqa: E731
         lib = [s["library_ms"] for s in sel]
         return dict(ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
@@ -1897,11 +1946,14 @@ def main() -> int:
     rows = [
         dict(name="int8_matmul", source="llm_qat_torch/csrc/int8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:77",
-             shape="one decode layer: qkv+o+gateup+down at M=32",
+             shape="one TinyLlama-1.1B decode layer: qkv+o+gateup+down at M=32 (LLaMA-7B's "
+                   "in shapes); library_ms: torch._int_mm on the K-contiguous weight "
+                   "(row-major: library_rowmajor_ms in shapes)",
              **per_layer(gemm["int8_matmul"], 32), shapes=gemm["int8_matmul"]),
         dict(name="int4_matmul", source="llm_qat_torch/csrc/w4a8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:394",
-             shape="one decode layer: qkv+o+gateup+down at M=32",
+             shape="one TinyLlama-1.1B decode layer: qkv+o+gateup+down at M=32 (prefill rows "
+                   "1024 and 4096, and LLaMA-7B's at 32 and 1024, in shapes)",
              **per_layer(gemm["int4_matmul"], 32), shapes=gemm["int4_matmul"]),
         dict(name="decode_attention", source="llm_qat_torch/csrc/decode_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:55",
@@ -1971,7 +2023,9 @@ def main() -> int:
         r.update(route="cuda", launches=launches[r["name"]],
                  tpu_kernel=r["replaces"], max_err=r["max_abs_err"])
     log("[5] results")
+    log(f"    chip_smoke.py ran {time.perf_counter() - T_START:.1f} s (kernel builds included)")
     log(json.dumps({"serving": runs, "paged_serving": paged_runs, "token_flips": flips,
+                    "timer_floor_ms": gemm["timer_floor_ms"],
                     "llama7b_teacher_forced": l7["teacher_forced"],
                     "cpu_checks": checks, "training": trains, "train_check": tcheck,
                     "card": smi}))

@@ -594,17 +594,13 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
 
 decode_layers.launches = 0
 
-_ATTRIBUTE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "spill_bytes",
-                   "threads", "blocks_per_sm")
-
-
 def kernel_attributes() -> dict:
     """What the compiler gave each variant of the kernel, by name
     (``{dtype}_g{G}_d{hd}``): registers a thread, shared bytes (static,
     dynamic), local (spill) bytes a thread, threads a block and blocks an
     SM can hold. Launches nothing."""
-    return {f"{dn}_g{g}_d{d}": dict(zip(_ATTRIBUTE_KEYS, _build.query(
-                "megakernel", "megakernel_attributes", len(_ATTRIBUTE_KEYS), code, shape)))
+    return {f"{dn}_g{g}_d{d}": _build.attributes("megakernel", "megakernel_attributes", code,
+                                                 shape)
             for dn, code in (("f32", 0), ("bf16", 1)) for (g, d), shape in SHAPES.items()}
 
 

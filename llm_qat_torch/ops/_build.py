@@ -126,6 +126,18 @@ def query(stem: str, fn: str, n_out: int, *ints: int) -> list:
     return list(out)
 
 
+# what csrc/tc_bf16.cuh attributes() reports, in its order
+ATTRIBUTE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "spill_bytes",
+                  "threads", "blocks_per_sm")
+
+
+def attributes(stem: str, fn: str, *ints: int) -> dict:
+    """A kernel's registers a thread, shared bytes (static, dynamic), local
+    (spill) bytes a thread, threads a block and blocks an SM can hold, from
+    the host-side query ``fn(int *out, int...)`` of ``csrc/<stem>.cu``."""
+    return dict(zip(ATTRIBUTE_KEYS, query(stem, fn, len(ATTRIBUTE_KEYS), *ints)))
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -269,10 +269,6 @@ def _flash_bwd(q, k, v, lengths, o, lse, do, causal: bool = True):
     return dq, dk, dv
 
 
-_ATTRIBUTE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "spill_bytes",
-                   "threads", "blocks_per_sm")
-
-
 def kernel_attributes() -> dict:
     """What the compiler gave the bf16 tensor-core kernels, by name:
     registers a thread, shared bytes (static, dynamic), local (spill) bytes
@@ -283,8 +279,7 @@ def kernel_attributes() -> dict:
                ("flash_bwd_dq_d128", "flash_attention_bwd", "flash_bwd_dq_attributes", 128),
                ("flash_bwd_dkv", "flash_attention_bwd", "flash_bwd_dkv_attributes", 64),
                ("flash_bwd_dkv_d128", "flash_attention_bwd", "flash_bwd_dkv_attributes", 128))
-    return {name: dict(zip(_ATTRIBUTE_KEYS, _build.query(stem, fn, len(_ATTRIBUTE_KEYS), d)))
-            for name, stem, fn, d in queries}
+    return {name: _build.attributes(stem, fn, d) for name, stem, fn, d in queries}
 
 
 class AttnSaved:

@@ -21,6 +21,14 @@ Four kernel entry points, each beside its plain PyTorch version:
   device code reading layer ``layer`` of a stacked ``[L, K(/2), N]`` weight
   in place (the kernel offsets its base pointers; no slice is copied).
 
+Each entry point has two variants (``csrc/gemm_int8.cuh``), which
+``gemm_plan`` picks from the (padded) row count: ``decode`` (M <= 64, bound
+by the weight bytes: K split over every SM, a cp.async ring of weight
+tiles) and ``prefill`` (M > 64, bound by the tensor cores: 128 x 128 wgmma
+tiles). The blocks that split one tile along K form a cluster and sum
+their int32 partials in distributed shared memory: no workspace, and
+integer sums are exact, so every plan gives the same bits.
+
 A wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. Each wrapper counts its launches in
 its ``launches`` attribute. The plain versions accumulate in float64, which
@@ -30,6 +38,7 @@ give the kernels' int32 accumulator bit for bit on either device.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -160,6 +169,45 @@ def int8_matmul_xla(xq, wq, sx, sw, *, out_dtype=torch.bfloat16):
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# Variant picking (csrc/gemm_int8.cuh). GEMM_BK: weight rows a stage (packed
+# rows at W4; half as many in the W4 prefill variant). Decode: 64-column
+# blocks over all M <= 64 rows, K split until the grid holds
+# DECODE_BLOCKS_PER_SM blocks an SM or more. Prefill: 128 x 128 tiles, K
+# split until the tiles cover the SMs, and no split shorter than
+# PREFILL_MIN_STEPS stages. A tile's splits form one cluster that sums
+# their partials in distributed shared memory: MAX_SPLITS at most.
+
+DECODE_MAX_ROWS = 64
+GEMM_BK = 128
+DECODE_BN, PREFILL_BM, PREFILL_BN = 64, 128, 128
+DECODE_BLOCKS_PER_SM = 1
+MAX_SPLITS = 8          # csrc/gemm_int8.cuh MAX_SPLITS: a portable cluster
+PREFILL_MIN_STEPS = 4
+H100_SMS = 132
+_VARIANTS = {"decode": 0, "prefill": 1}
+
+
+def gemm_plan(M: int, N: int, K: int, w4: bool, sms: int = H100_SMS) -> dict:
+    """How the kernels run an ``[M, K] x [K, N]`` product (``w4``: packed
+    ``[K/2, N]`` weight) on a card of ``sms`` SMs: the variant, its tile
+    (``bm`` x ``bn``), the output tiles, the steps of ``bk`` stored weight
+    rows, and the split of those steps over the blocks of a tile's cluster.
+    Pure: the CPU tests call it."""
+    kw = K // 2 if w4 else K
+    if M <= DECODE_MAX_ROWS:
+        variant, bm, bn, bk = "decode", (32 if M <= 32 else 64), DECODE_BN, GEMM_BK
+        tiles = -(-N // bn)
+        steps = -(-kw // bk)
+        splits = -(-DECODE_BLOCKS_PER_SM * sms // tiles)
+    else:
+        variant, bm, bn = "prefill", PREFILL_BM, PREFILL_BN
+        bk = GEMM_BK // 2 if w4 else GEMM_BK
+        tiles = -(-M // bm) * -(-N // bn)
+        steps = -(-kw // bk)
+        splits = min(-(-sms // tiles), steps // PREFILL_MIN_STEPS)
+    return dict(variant=variant, bm=bm, bn=bn, bk=bk, tiles=tiles, steps=steps,
+                splits=max(1, min(splits, steps, MAX_SPLITS)))
+
 
 def _check_operands(xq, w, sx, sw, out_dtype, k_per_row):
     M, K = xq.shape
@@ -173,9 +221,19 @@ def _check_operands(xq, w, sx, sw, out_dtype, k_per_row):
     return M, K, N
 
 
-def _launch_gemm(stem, fn, xq, w, sx, sw, out_dtype, M, N, K, layer=None):
+@functools.lru_cache(maxsize=4096)
+def _plan(M: int, N: int, K: int, w4: bool, device_index: int) -> dict:
+    """``gemm_plan`` for the card of ``device_index``, cached: the serving
+    path calls the same few shapes thousands of times a run."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return gemm_plan(M, N, K, w4, sms)
+
+
+def _launch_gemm(stem, fn, xq, w, sx, sw, out_dtype, M, N, K, layer=None, plan=None):
     """``layer`` given: ``w``/``sw`` are the stacked tensors and ``fn`` the
-    stacked entry point, which takes the layer index."""
+    stacked entry point, which takes the layer index. ``plan``: a
+    ``gemm_plan`` to run instead of the wrapper's own (the card tests force
+    every split count with it)."""
     for name, t, dt in (("xq", xq, torch.int8), ("sx", sx, torch.float32),
                         ("sw", sw, torch.float32)):
         if t.dtype != dt or not t.is_contiguous() or not t.is_cuda:
@@ -185,13 +243,29 @@ def _launch_gemm(stem, fn, xq, w, sx, sw, out_dtype, M, N, K, layer=None):
     if N % 64 or K % 128:
         raise ValueError(f"{fn}: needs N % 64 == 0 and K % 128 == 0, got {N}, {K}")
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    if M == 0:
+        return out
+    if plan is None:
+        plan = _plan(M, N, K, stem == "w4a8_matmul", xq.device.index)
     ints = (M, N, K) if layer is None else (M, N, K, layer)
+    ints += (_VARIANTS[plan["variant"]], plan["splits"])
     f = _build.bind(stem, fn, 5, len(ints) + 1)
-    err = f(xq.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-            out.data_ptr(), *ints, _OUT_CODES[out_dtype],
-            torch.cuda.current_stream(xq.device).cuda_stream)
+    err = f(xq.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(),
+            *ints, _OUT_CODES[out_dtype], torch.cuda.current_stream(xq.device).cuda_stream)
     _build.check(err, fn)
     return out
+
+
+def kernel_attributes() -> dict:
+    """What the compiler gave every variant of K1/K2 (and so K5/K6), by name
+    ``{int8|w4a8}_{variant}_m{rows}_{bf16|f32}``: registers a thread, shared
+    bytes (static, dynamic), local (spill) bytes a thread, threads a block
+    and blocks an SM can hold. Launches nothing."""
+    return {f"{tag}_{variant}_m{bm}_{od}": _build.attributes(
+                stem, f"{stem}_attributes", _VARIANTS[variant], bm, code)
+            for tag, stem in (("int8", "int8_matmul"), ("w4a8", "w4a8_matmul"))
+            for variant, bm in (("decode", 32), ("decode", 64), ("prefill", PREFILL_BM))
+            for od, code in (("bf16", 1), ("f32", 0))}
 
 
 def int8_matmul(

@@ -6,7 +6,8 @@ and run on the GPU host with
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py --noconftest -q
 
 They import no JAX. Tolerances: the int8 and W4A8 GEMMs are bit-exact (the
-exact int32 sum through the same f32 epilogue). Decode attention and flash
+exact int32 sum through the same f32 epilogue), in both variants and at
+every split-K count. Decode attention and flash
 attention round at the same points against the same softmax maximum as
 their plain versions and differ only in fp32 summation order: held element
 by element, in bf16 to 2 bf16 steps of the expected value plus 1e-2 of the
@@ -67,20 +68,66 @@ def _close(got, want):
     return bool(torch.isfinite(g).all()) and bool(((g - w).abs() <= lim).all())
 
 
-@pytest.mark.parametrize("M,K,N", [(32, 2048, 2560), (40, 5632, 2048), (256, 512, 192)])
-@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_gemm_kernels_bit_exact(gen, M, K, N, out_dtype):
+# (K, N) of the served projections: TinyLlama-1.1B's qkv, o, gate-up, down,
+# then LLaMA-7B's down and o
+GEMM_PROJ = [(2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048), (11008, 4096),
+             (4096, 4096)]
+# every variant boundary (decode up to 64 rows, 32 rows a tile up to 32) and
+# the engine's row counts (32 a decode step, prefill buckets up to 4096)
+GEMM_ROWS = [1, 8, 32, 33, 64, 65, 127, 128, 129, 1024, 4096]
+GEMM_SHAPES = ([(M, K, N) for M in GEMM_ROWS for K, N in GEMM_PROJ]
+               + [(40, 5632, 2048), (256, 512, 192)])
+
+
+def _gemm_operands(gen, M, K, N):
     x = torch.randn(M, K, device="cuda", generator=gen)
     w = torch.randn(K, N, device="cuda", generator=gen) * 0.02
     xq, sx = QM.quantize_per_token(x)
     wq, sw = QM.quantize_per_channel(w)
-    n8 = QM.int8_matmul.launches
+    wp, sw4 = QM.quantize_weights_w4(w)
+    return xq, sx, wq, sw, wp, sw4
+
+
+@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_kernels_bit_exact(gen, M, K, N, out_dtype):
+    xq, sx, wq, sw, wp, sw4 = _gemm_operands(gen, M, K, N)
+    n8, n4 = QM.int8_matmul.launches, QM.int4_matmul.launches
     got = QM.int8_matmul(xq, wq, sx, sw, out_dtype=out_dtype)
     assert QM.int8_matmul.launches == n8 + 1
     assert torch.equal(got, QM._int8_matmul_plain(xq, wq, sx, sw, out_dtype))
-    wp, sw4 = QM.quantize_weights_w4(w)
     got4 = QM.int4_matmul(xq, wp, sx, sw4, out_dtype=out_dtype)
+    assert QM.int4_matmul.launches == n4 + 1
     assert torch.equal(got4, QM._int4_matmul_plain(xq, wp, sx, sw4, out_dtype))
+
+
+@pytest.mark.parametrize("M", [32, 128, 1024])
+@pytest.mark.parametrize("K,N", GEMM_PROJ)
+def test_gemm_kernels_same_bits_twice_and_at_every_split(gen, M, K, N):
+    """The split-K partials meet in a cluster's distributed shared memory: a
+    second launch gives the same bits, and so does every split count (1, 2,
+    the wrapper's, and the most, a cluster of 8)."""
+    xq, sx, wq, sw, wp, sw4 = _gemm_operands(gen, M, K, N)
+    for stem, fn, w, s in (("int8_matmul", QM.int8_matmul, wq, sw),
+                           ("w4a8_matmul", QM.int4_matmul, wp, sw4)):
+        first = fn(xq, w, sx, s)
+        assert torch.equal(first, fn(xq, w, sx, s))
+        plan = QM.gemm_plan(M, N, K, stem == "w4a8_matmul")
+        for splits in sorted({1, 2, plan["splits"], min(plan["steps"], QM.MAX_SPLITS)}):
+            got = QM._launch_gemm(stem, stem, xq, w, sx, s, torch.bfloat16, M, N, K,
+                                  plan=dict(plan, splits=splits))
+            assert torch.equal(got, first), (stem, splits)
+
+
+def test_gemm_kernel_attributes(gen):
+    """Every K1/K2 variant (decode at 32 and 64 rows, prefill; bf16 and f32
+    out) compiles without a spill and fits an SM at its shared memory."""
+    attrs = QM.kernel_attributes()
+    assert len(attrs) == 12
+    for name, a in attrs.items():
+        assert a["spill_bytes"] == 0 and a["registers"] <= 255, (name, a)
+        assert a["blocks_per_sm"] >= 1, (name, a)
+        assert a["threads"] == (256 if "prefill" in name else 128), (name, a)
 
 
 def test_gemm_kernel_rejects_unsupported_shapes(gen):

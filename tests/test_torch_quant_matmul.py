@@ -133,3 +133,68 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
     meta = [a.to("meta") for a in t]
     with pytest.raises(ValueError, match="CUDA"):
         TQM.int8_matmul(*meta)
+
+
+# ---------------------------------------------------------------------------
+# Variant picking and split-K sizing (pure; the kernels run on the card
+# only)
+# ---------------------------------------------------------------------------
+
+# (K, N) of the served projections: TinyLlama-1.1B's qkv, o, gate-up, down,
+# then LLaMA-7B's
+PROJ = [(2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048),
+        (4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)]
+ROWS = [1, 8, 32, 33, 64, 65, 127, 128, 129, 1024, 4096]
+
+
+@pytest.mark.parametrize("M", ROWS)
+@pytest.mark.parametrize("w4", [False, True])
+def test_gemm_plan_picks_the_variant_from_the_rows(M, w4):
+    """Decode up to 64 rows (tiles of 32 or 64 rows over 64 columns),
+    prefill above (128 x 128 tiles); stages of 128 stored weight rows, 64
+    packed rows in the W4 prefill variant."""
+    for K, N in PROJ:
+        p = TQM.gemm_plan(M, N, K, w4)
+        decode = M <= TQM.DECODE_MAX_ROWS
+        assert p["variant"] == ("decode" if decode else "prefill")
+        assert p["bm"] == (32 if M <= 32 else 64 if decode else 128)
+        assert p["bn"] == (64 if decode else 128)
+        assert p["bk"] == (64 if (w4 and not decode) else 128)
+        assert p["steps"] == -(-(K // 2 if w4 else K) // p["bk"])
+        assert p["tiles"] == (-(-M // p["bm"]) if not decode else 1) * -(-N // p["bn"])
+
+
+@pytest.mark.parametrize("K,N", PROJ)
+@pytest.mark.parametrize("w4", [False, True])
+def test_gemm_plan_decode_splits_cover_the_card(K, N, w4):
+    """At decode rows every projection's blocks cover the 132 SMs (split K
+    while the column tiles are fewer), with at most one cluster of
+    MAX_SPLITS blocks a tile, each split at least one stage deep."""
+    p = TQM.gemm_plan(32, N, K, w4)
+    assert 1 <= p["splits"] <= min(p["steps"], TQM.MAX_SPLITS)
+    assert p["tiles"] * p["splits"] >= min(132, p["tiles"] * TQM.MAX_SPLITS)
+    assert p["tiles"] * (p["splits"] - 1) < 132   # no split more than the card needs
+
+
+@pytest.mark.parametrize("M", [128, 1024, 4096])
+@pytest.mark.parametrize("K,N", PROJ)
+def test_gemm_plan_prefill_splits_only_an_idle_card(M, K, N):
+    """Prefill splits K only until the output tiles cover the 132 SMs, and no
+    split is shorter than PREFILL_MIN_STEPS stages (LLaMA-7B's down at W4:
+    5504 packed rows, 86 stages of 64)."""
+    for w4 in (False, True):
+        p = TQM.gemm_plan(M, N, K, w4)
+        assert 1 <= p["splits"] <= TQM.MAX_SPLITS
+        assert p["tiles"] * (p["splits"] - 1) < 132
+        assert p["splits"] == 1 or p["steps"] // p["splits"] >= TQM.PREFILL_MIN_STEPS
+        if p["tiles"] >= 132:
+            assert p["splits"] == 1
+    assert TQM.gemm_plan(128, 4096, 11008, True)["steps"] == 86
+
+
+def test_gemm_plan_follows_the_card_size():
+    """The split count is chosen for the card the wrapper runs on."""
+    small = TQM.gemm_plan(32, 2048, 2048, False, sms=66)
+    big = TQM.gemm_plan(32, 2048, 2048, False, sms=132)
+    assert small["splits"] < big["splits"]
+    assert TQM.gemm_plan(32, 2048, 2048, False) == big

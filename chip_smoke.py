@@ -94,6 +94,7 @@ PAGE, SEQ_PAGES, ROOMY_PAGES = 128, 16, 256   # paged serving: page size, pages 
 TIGHT_PAGES = 33                    # 32 usable pages: the buckets need 40 (see serve_paged)
 PAGED_VS_K3_ULPS, PAGED_VS_K3_FLOOR = 4.0, 2e-2   # K8 against K3 on the gathered cache
 PAGED_PROMPT = 1000                 # the longest served prompt: 8 pages, so K8 rescales 7 times
+LONG_LENS = (8192, 7200, 6100, 5000, 3900, 2800, 1700, 600)   # K3 at S = 8192
 STACK_LAYER = 3                     # the layer K5-K7 read in place
 F32_FLOPS = 67e12               # fp32 peak outside the tensor cores
 TRAIN_BATCH, TRAIN_SEQ, KL_CHUNK = 4, 2048, 256     # the train step's batch
@@ -263,16 +264,18 @@ def gemm_shape(timer, gen, QM, name, fn, plain, model, proj, M, K, N):
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
 
 
-def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed):
+def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed, S=2048, lens_l=None):
     """K3 at the decode shape: b=8 slots, S=2048, TinyLlama-1.1B's heads
     (kvh=4, G=8, hd=64) or LLaMA-7B's (kvh=32, G=1, hd=128), slot
-    lengths those of the served prompts after half the new tokens; the
-    folded pair in the cache's range (-8..7 at KV4), as the main path
-    quantizes it. Kernel and plain version round to bf16 at the same points
-    against the same softmax maximum and differ only in their fp32
-    summation orders: held element-wise to ATTN_ULPS bf16 steps plus
-    ATTN_FLOOR of the median output (``agreement``)."""
-    b, S = 8, 2048
+    lengths those of the served prompts after half the new tokens (or
+    ``lens_l``, with a longer ``S``); the folded pair in the cache's range
+    (-8..7 at KV4), as the main path quantizes it. Kernel and plain version
+    walk the JAX picker's bk-column blocks (1024 at TinyLlama's heads, 256 at
+    LLaMA-7B's: the lengths 48..1032 cross it), round to bf16 at the same
+    points against the same running maximum, and take their sums in
+    float64: held element-wise to ATTN_ULPS bf16 steps plus ATTN_FLOOR of
+    the median output (``agreement``); the same bits on a second launch."""
+    b = 8
     hdc = hd // 2 if packed else hd
     if packed:
         kq = torch.randint(0, 256, (b, kvh, hdc, S), device="cuda", generator=gen).to(torch.uint8)
@@ -283,7 +286,7 @@ def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed):
     ks = torch.rand(b, S, device="cuda", generator=gen) * 0.02 + 0.005
     vs = torch.rand(b, S, device="cuda", generator=gen) * 0.02 + 0.005
     q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(torch.bfloat16)
-    lens_l = [n + NEW_TOKENS // 2 for n in PROMPT_LENS]
+    lens_l = list(lens_l or [n + NEW_TOKENS // 2 for n in PROMPT_LENS])
     lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
     kc, ksn = DA._rope_tables(S, hd, 10000.0, "cuda")
     lo, hi = (-8, 8) if packed else (-127, 128)
@@ -296,11 +299,15 @@ def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed):
     args = (q, kq, ks, vq, vs, lens, kc, ksn, fold)
     kw = dict(rope=True, packed=packed)
     got = DA.quantized_decode_attention(*args, **kw)
+    again = DA.quantized_decode_attention(*args, **kw)
     want = DA._decode_attention_plain(*args, **kw)
     torch.cuda.synchronize()
     agr = agreement(got, want, ATTN_ULPS, ATTN_FLOOR)
-    if not agr["ok"]:
-        raise AssertionError(f"decode attention kvh={kvh} G={G} hd={hd} packed={packed}: {agr}")
+    if not (agr["ok"] and torch.equal(got, again)):
+        raise AssertionError(f"decode attention kvh={kvh} G={G} hd={hd} packed={packed} S={S}: "
+                             f"{agr}, same bits twice: {torch.equal(got, again)}")
+    bk, ch = DA._kernel_chunk(S, kvh, hd, 1024)
+    items, grid = attn_grid(DA, G, hd, kvh, lens_l, ch, S // ch)
     ms = timer(lambda: DA.quantized_decode_attention(*args, **kw))
     plain_ms = timer(lambda: DA._decode_attention_plain(*args, **kw))
     tot = sum(lens_l)
@@ -312,12 +319,24 @@ def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed):
     b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
     log(f"  decode_attention kvh={kvh} G={G} hd={hd} packed={packed} b={b} S={S} lens={lens_l}: "
         f"{ms:.4f} ms "
-        f"(plain {plain_ms:.4f}, bound {b_ms:.5f} {b_by}) max_abs_err "
+        f"(plain {plain_ms:.4f}, bound {b_ms:.5f} {b_by}) bk {bk}, {items} items of {ch} "
+        f"columns on {grid} resident blocks; max_abs_err "
         f"{agr['max_abs_err']:.3g}, worst {agr['worst']:.3g} of its limit, "
         f"rel L2 {agr['rel_l2']:.3g}")
-    return dict(kvh=kvh, G=G, hd=hd, packed=packed, b=b, S=S, lengths=lens_l, ms=ms,
-                plain_ms=plain_ms,
+    return dict(kvh=kvh, G=G, hd=hd, packed=packed, b=b, S=S, lengths=lens_l, bk=bk,
+                items=items, grid=grid, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, **agr)
+
+
+def attn_grid(DA, G, hd, kvh, lens_l, ch, n_chunks):
+    """(items, blocks) of a decode attention launch (csrc/decode_attn.cuh):
+    the live chunks of ``ch`` columns times the kv heads, and the resident
+    blocks of the cooperative launch, at most one an item the cache could
+    give."""
+    items = sum(-(-min(n, n_chunks * ch) // ch) for n in lens_l) * kvh
+    per_sm = DA.kernel_attributes()[f"decode_attention_g{G}_d{hd}_bf16"]["blocks_per_sm"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return items, min(sms * per_sm, max(len(lens_l) * kvh * n_chunks, 1))
 
 
 def flash_phase(timer, gen, FA, B, G, S, D, lens_l=None):
@@ -365,13 +384,13 @@ def paged_attention_phase(timer, gen, DA, kvh, G, hd, packed):
     slot K9_INACTIVE inactive, fold on, bf16; block tables shuffled and
     non-contiguous, their unused entries pointing outside the pool. Held
     element-wise against the plain version under the K3/K4 limit (both walk
-    the pages in order and round p*vs against the running maximum), and, as
-    a second witness that shares no indirection with it, against the
-    contiguous decode attention on the same K/V gathered into a contiguous
-    cache (the CUDA kernel K3 at the shape it is built for, its plain
-    version otherwise): that one takes p against the final maximum, so the
-    two differ by the rounding of p*vs, held to PAGED_VS_K3_ULPS bf16 steps
-    + PAGED_VS_K3_FLOOR of the median."""
+    the pages in order and round p*vs against the running maximum; the same
+    bits on a second launch), and, as a second witness that shares no
+    indirection with it, against the contiguous decode attention K3 on the
+    same K/V gathered into a contiguous cache: that one walks the JAX
+    picker's blocks (1024 columns at TinyLlama's heads, 256 at LLaMA-7B's)
+    where K8 walks pages of 128, so the two differ by where p*vs is rounded,
+    held to PAGED_VS_K3_ULPS bf16 steps + PAGED_VS_K3_FLOOR of the median."""
     b, n_pages, max_pages = len(K9_LENS), ROOMY_PAGES, SEQ_PAGES
     hdc = hd // 2 if packed else hd
     lo, hi, qdt = (0, 256, torch.uint8) if packed else (-127, 128, torch.int8)
@@ -409,18 +428,19 @@ def paged_attention_phase(timer, gen, DA, kvh, G, hd, packed):
     args = (q, kq, ks, vq, vs, lens, bt, kc, ksn, fold)
     kw = dict(rope=True, packed=packed)
     got = DA.quantized_paged_attention(*args, **kw)
+    again = DA.quantized_paged_attention(*args, **kw)
     want = DA._paged_attention_plain(*args, **kw)
     torch.cuda.synchronize()
     agr = agreement(got, want, ATTN_ULPS, ATTN_FLOOR)
-    if not agr["ok"]:
-        raise AssertionError(f"paged attention G={G} hd={hd} packed={packed}: {agr}")
+    if not (agr["ok"] and torch.equal(got, again)):
+        raise AssertionError(f"paged attention G={G} hd={hd} packed={packed}: {agr}, same bits "
+                             f"twice: {torch.equal(got, again)}")
+    items, grid = attn_grid(DA, G, hd, kvh, K9_LENS, PAGE, max_pages)
     # the same K/V as a contiguous cache [b, kvh, hd(/2), max_pages * P]
     ck = kq[safe].permute(0, 2, 3, 1, 4).reshape(b, kvh, hdc, -1).contiguous()
     cv = vq[safe].permute(0, 2, 3, 1, 4).reshape(b, kvh, hdc, -1).contiguous()
     cks, cvs = ks[safe].reshape(b, -1).contiguous(), vs[safe].reshape(b, -1).contiguous()
-    contiguous = (DA.quantized_decode_attention if (G, hd) == (8, 64)
-                  else DA._decode_attention_plain)
-    flat = contiguous(q, ck, cks, cv, cvs, lens, kc, ksn, fold, **kw)
+    flat = DA.quantized_decode_attention(q, ck, cks, cv, cvs, lens, kc, ksn, fold, **kw)
     torch.cuda.synchronize()
     k3 = agreement(got, flat, PAGED_VS_K3_ULPS, PAGED_VS_K3_FLOOR)
     if not k3["ok"]:
@@ -439,12 +459,13 @@ def paged_attention_phase(timer, gen, DA, kvh, G, hd, packed):
     b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
     log(f"  paged_attention kvh={kvh} G={G} hd={hd} packed={packed} b={b} pool {n_pages} x "
         f"{PAGE} lens={list(K9_LENS)}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.5f} "
-        f"{b_by}) max_abs_err {agr['max_abs_err']:.3g}, worst {agr['worst']:.3g} of its "
-        f"limit; against {'K3' if (G, hd) == (8, 64) else 'the plain contiguous version'} on "
+        f"{b_by}) {items} items on {grid} resident blocks; max_abs_err {agr['max_abs_err']:.3g}, "
+        f"worst {agr['worst']:.3g} of its limit; against K3 on "
         f"the gathered cache: max_abs_err {k3['max_abs_err']:.3g}, worst {k3['worst']:.3g} of "
         f"its limit ({PAGED_VS_K3_ULPS} bf16 steps + {PAGED_VS_K3_FLOOR} x median)")
     return dict(kvh=kvh, G=G, hd=hd, packed=packed, b=b, n_pages=n_pages, page=PAGE,
-                max_pages=max_pages, lengths=list(K9_LENS), live_columns=live_cols, ms=ms,
+                max_pages=max_pages, lengths=list(K9_LENS), live_columns=live_cols,
+                items=items, grid=grid, ms=ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 against_contiguous=k3, **agr)
 
@@ -1232,8 +1253,8 @@ def cpu_check(label, cfg, qparams, rng):
     of that run is held against K3 on the same K/V gathered into a
     contiguous cache (``k8_against_k3``), under the kernel phase's limit. The
     logits are reported and held loosely. In bf16 K8 rounds p*vs against the
-    running maximum where K3 takes the final one, a bf16 step in some
-    attention outputs, and the int8 quant after it amplifies that as it does
+    running maximum of its pages where K3 walks the JAX picker's 1024-column
+    blocks, a bf16 step in some attention outputs, and the int8 quant after it amplifies that as it does
     for the megakernel path (4-5% at the cut): held to MEGA_CUT_DRIFT at the
     cut and MEGA_FULL_DRIFT at full depth, tokens reported (they part at
     near-ties), and the largest absolute difference at full depth sets the
@@ -1799,6 +1820,9 @@ def main() -> int:
     dec = [decode_attention_phase(timer, gen, DA, kvh, g, hd, packed)
            for kvh, g, hd in ((cfg.kv_heads, G, cfg.head_dim), (32, 1, 128))
            for packed in (False, True)]
+    # and at S = 8192, over the cache-length limit of K3's first version (32768 / G)
+    dec.append(decode_attention_phase(timer, gen, DA, cfg.kv_heads, G, cfg.head_dim, False,
+                                      S=8192, lens_l=LONG_LENS))
     fl = [flash_phase(timer, gen, FA, cfg.kv_heads, G, S, cfg.head_dim) for S in (1024, 128)]
     # K4 at LLaMA-7B's attention shape (32 MHA heads of 128), full and ragged lengths
     fl7 = [flash_phase(timer, gen, FA, 32, 1, 1024, 128, lens) for lens in (None, LLAMA7B_LENS)]
@@ -1825,9 +1849,10 @@ def main() -> int:
     from llm_qat_torch.inference import megakernel as MK
     attrs.update({f"decode_megakernel_{k}": v for k, v in MK.kernel_attributes().items()})
     attrs.update({f"gemm_{k}": v for k, v in QM.kernel_attributes().items()})
+    attrs.update(DA.kernel_attributes())
     if any(a["spill_bytes"] for a in attrs.values()):
-        raise AssertionError(f"a tensor-core kernel, K9 or a K1/K2 variant spills registers: "
-                             f"{attrs}")
+        raise AssertionError(f"a tensor-core kernel, K9, a K1/K2 or a K3/K7/K8 variant spills "
+                             f"registers: {attrs}")
     fq = fused_quant_phase(timer, gen, FQ, cfg)
 
     log("[3] TinyLlama-1.1B, 22 layers: the stacked GEMMs on the served weights, the "
@@ -1957,8 +1982,8 @@ def main() -> int:
              **per_layer(gemm["int4_matmul"], 32), shapes=gemm["int4_matmul"]),
         dict(name="decode_attention", source="llm_qat_torch/csrc/decode_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:55",
-             shape="b=8 S=2048 int8 cache, TinyLlama-1.1B heads (packed KV4, and LLaMA-7B "
-                   "heads kvh=32 G=1 hd=128, in shapes)",
+             shape="b=8 S=2048 int8 cache, TinyLlama-1.1B heads (packed KV4, LLaMA-7B "
+                   "heads kvh=32 G=1 hd=128, and S=8192, in shapes)",
              **{k: dec[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")},
              max_abs_err=max(d["max_abs_err"] for d in dec), shapes=dec),

@@ -1,14 +1,18 @@
 """Fused quantized-KV decode attention: one new token per slot against the
 int8 or nibble-packed KV4 cache.
 
-Three kernels, each beside its plain PyTorch version; a wrapper takes the
-plain version only for tensors on the CPU, and on a CUDA tensor it launches
-its kernel or raises. Each wrapper counts its launches in ``launches``.
+Three entry points of one device design (``csrc/decode_attn.cuh``: one
+cooperative launch over every SM, items of (slot, chunk of columns, kv
+head)), each beside its plain PyTorch version; a wrapper takes the plain
+version only for tensors on the CPU, and on a CUDA tensor it launches its
+kernel or raises. Each wrapper counts its launches in ``launches``. On the
+card all three take (query heads per kv head, head dim) (8, 64) and
+(1, 128), f32 or bf16 q, and at most 256 slots.
 
 * ``quantized_decode_attention`` (``csrc/decode_attention.cu``, plain
   ``_decode_attention_plain``) replaces
-  ``llm_qat_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel``; on the
-  card at (query heads per kv head, head dim) (8, 64) and (1, 128).
+  ``llm_qat_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel``; any
+  cache length that is a multiple of 8.
 * ``quantized_decode_attention_stacked`` (the same source, entry point
   ``decode_attention_stacked``; plain ``_decode_attention_stacked_plain``)
   replaces ``llm_qat_tpu/ops/pallas/decode_attention.py:
@@ -19,7 +23,8 @@ its kernel or raises. Each wrapper counts its launches in ``launches``.
   ``_paged_attention_plain``) replaces
   ``llm_qat_tpu/ops/pallas/decode_attention.py:_paged_attn_kernel`` and
   ``_paged_attn_kernel_fold``: the same attention over a shared page pool
-  ``[n_pages, kvh, hd(/2), P]`` through per-slot block tables.
+  ``[n_pages, kvh, hd(/2), P]`` through per-slot block tables (P = 128 on
+  the card).
 
 Layout (the JAX package's): K AND V are stored transposed, ``[b, kvh, hd, S]``
 int8, or ``[b, kvh, hd/2, S]`` uint8 when packed (low nibble = head-dim rows
@@ -34,12 +39,16 @@ pre-append lengths (may be 0); inactive slots exclude the pair.
 
 Both versions follow the TPU kernel's roundings: with a bf16 ``q`` they
 round ``cos*ks``, ``sin*ks``, the rotated ``k`` and ``p*vs`` to bf16 before
-the products; statistics and sums stay fp32. The contiguous versions take p
-against the slot's final maximum (the TPU kernel's 1024-column block never
-rescales at these lengths); the paged versions walk a slot's pages in table
-order with an online softmax, one page a block as the TPU kernel's grid does,
-so ``p*vs`` rounds against the RUNNING maximum and the sums are rescaled at
-every page.
+the products; statistics and sums stay fp32. Both walk the TPU kernel's KV
+blocks with an online softmax (``_walk_blocks``): the contiguous versions
+``bk``-column blocks, ``bk`` as the JAX function picks it (``_pick_bk``:
+1024 at TinyLlama's heads and S = 2048, 256 at LLaMA-7B's), the paged
+version one page a block in table order. So ``p*vs`` rounds against the
+RUNNING maximum ``m_j = max(m_{j-1}, rowmax(s_j))`` and ``l``, ``acc`` are
+rescaled at every block, as in the TPU kernel; a slot skips the blocks at
+or past its length. The plain versions take q.k, the sums of p and the p.V
+products in float64 and round each once to fp32, as the kernels do, so the
+two agree bit for bit but for float64 rounding noise.
 """
 
 from __future__ import annotations
@@ -52,10 +61,6 @@ from llm_qat_torch.ops import _build
 from llm_qat_torch.ops import quant_matmul as QM
 
 _NEG_INF = -1e30
-_SCORE_FLOATS = 32768   # the kernel's G * S f32 scores in shared memory (128 KiB)
-# csrc/decode_attention.cu's contiguous entries by (query heads per kv head,
-# head dim); the stacked entry takes (8, 64) only
-_CONTIGUOUS_ENTRIES = {(8, 64): "decode_attention", (1, 128): "decode_attention_g1_d128"}
 
 
 def _halves(cq: torch.Tensor, packed: bool, dim: int):
@@ -98,33 +103,79 @@ def _dequant_rope_k(k_q, ks, cos, sin, ct, rope, packed):
     return torch.cat([k1_i.to(ct) * sk, k2_i.to(ct) * sk], dim=2)
 
 
-def _cache_softmax(q, k_q, k_s, v_q, v_s, lengths, k_cos, k_sin, theta, rope,
-                   packed):
-    """The contiguous cache's softmax terms against the final maximum:
-    (m, l [b, kvh, g, 1], acc [b, kvh, g, hd]) in f32."""
+def _pick_bk(S: int, kvh: int, hd: int, bk: int) -> int:
+    """The JAX kernel's KV block for a cache of ``S`` columns (its
+    ``_pick_bk``): ``bk`` capped so the block's f32 working set stays near
+    4 MB, then lowered in steps of 8 to a divisor of ``S`` (8 at the least)."""
+    cap = max(2 ** 20 // (kvh * hd), 8)
+    bk = min(bk, cap, S)
+    while S % bk or bk % 8:
+        bk -= 8
+        if bk <= 8:
+            return 8
+    return bk
+
+
+def _walk_blocks(q, kvh, lens, n_blocks, width, block):
+    """The TPU kernel's online softmax over KV blocks of ``width`` columns:
+    block ``j`` holds logical positions ``j*width ..`` and a slot takes it
+    while ``j*width < len``. ``block(j)`` gives the block's rotated K and V
+    ``[b, kvh, hd, n]`` and V scales ``[b, 1, 1, n]`` in the compute type,
+    and its logical positions ``[b or 1, n]``. Returns (m, l [b, kvh, g, 1],
+    acc [b, kvh, g, hd]) in f32."""
     b, nh, hd = q.shape
-    kvh, S = k_q.shape[1], k_q.shape[3]
     groups = nh // kvh
     ct = _compute_type(q)
     scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+    qg = q.reshape(b, kvh, groups, hd).to(ct).double()
+    m = torch.full((b, kvh, groups, 1), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, groups, hd), dtype=torch.float32, device=dev)
+    for j in range(n_blocks):
+        live = lens > j * width                               # [b]
+        if not bool(live.any()):
+            break
+        kr, v, vs, cols = block(j)
+        s = torch.einsum("bhgd,bhds->bhgs", qg, kr.double()).float() * scale
+        valid = (cols < lens[:, None])[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), torch.zeros_like(s))
+        l_new = l * alpha + p.double().sum(dim=-1, keepdim=True).float()
+        acc_new = acc * alpha + torch.einsum(
+            "bhgs,bhds->bhgd", (p * vs).to(ct).double(), v.double()).float()
+        lv = live[:, None, None, None]
+        m, l, acc = (torch.where(lv, m_new, m), torch.where(lv, l_new, l),
+                     torch.where(lv, acc_new, acc))
+    return m, l, acc
 
-    ks = k_s[:, None, None, :]                            # [b, 1, 1, S]
+
+def _cache_softmax(q, k_q, k_s, v_q, v_s, lengths, k_cos, k_sin, theta, rope,
+                   packed, bk):
+    """The contiguous cache's softmax terms, ``bk``-column blocks as the JAX
+    function picks them: (m, l [b, kvh, g, 1], acc [b, kvh, g, hd]) in f32.
+    Its grid has ``S // bk`` blocks."""
+    hd = q.shape[2]
+    kvh, S = k_q.shape[1], k_q.shape[3]
+    bk = _pick_bk(S, kvh, hd, bk)
+    ct = _compute_type(q)
     if rope and k_cos is None:
         k_cos, k_sin = _rope_tables(S, hd, theta, q.device)
-    kr = _dequant_rope_k(k_q, ks, k_cos, k_sin, ct, rope, packed)
-    v = torch.cat(_halves(v_q, packed, 2), dim=2).to(ct)  # [b, kvh, hd, S]
-    vs = v_s.to(ct)[:, None, None, :]                     # [b, 1, 1, S]
 
-    qg = q.reshape(b, kvh, groups, hd).to(ct)
-    s = torch.einsum("bhgd,bhds->bhgs", qg.float(), kr.float()) * scale
-    valid = (torch.arange(S, device=q.device)[None, :]
-             < lengths.to(q.device)[:, None])[:, None, None, :]
-    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)                      # [b, kvh, g, 1]
-    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhgs,bhds->bhgd", (p * vs).to(ct).float(), v.float())
-    return m, l, acc
+    def block(j):
+        cs = slice(j * bk, (j + 1) * bk)
+        cos = sin = None
+        if rope:
+            cos, sin = k_cos[:, cs], k_sin[:, cs]
+        kr = _dequant_rope_k(k_q[..., cs], k_s[:, None, None, cs], cos, sin, ct,
+                             rope, packed)
+        v = torch.cat(_halves(v_q[..., cs], packed, 2), dim=2).to(ct)
+        vs = v_s[:, cs].to(ct)[:, None, None, :]
+        return kr, v, vs, torch.arange(j * bk, (j + 1) * bk, device=q.device)[None, :]
+
+    return _walk_blocks(q, kvh, lengths.to(q.device).long(), S // bk, bk, block)
 
 
 def _fold_quantized_pair(q, kvh, m, l, acc, fold, rope):
@@ -148,7 +199,7 @@ def _fold_quantized_pair(q, kvh, m, l, acc, fold, rope):
         k_fold = (kn.to(ct) * kinv.to(ct)).float()
     v_fold = (v_new.reshape(b, kvh, hd).to(ct) * vinv).float()
     s_cur = torch.einsum("bhgd,bhd->bhg", q.reshape(b, kvh, groups, hd)
-                         .float(), k_fold)[..., None] * scale
+                         .double(), k_fold.double()).float()[..., None] * scale
     inc = (active.to(q.device) != 0).reshape(b, 1, 1, 1)
     s_cur = torch.where(inc, s_cur, torch.full_like(s_cur, _NEG_INF))
     m_new = torch.maximum(m, s_cur)
@@ -158,11 +209,11 @@ def _fold_quantized_pair(q, kvh, m, l, acc, fold, rope):
 
 
 def _decode_attention_plain(q, k_q, k_s, v_q, v_s, lengths, k_cos=None,
-                            k_sin=None, fold=None, *, theta=10000.0,
+                            k_sin=None, fold=None, *, theta=10000.0, bk=1024,
                             rope=True, packed=False):
     """Plain PyTorch version of the decode kernel (see module docstring)."""
     m, l, acc = _cache_softmax(q, k_q, k_s, v_q, v_s, lengths, k_cos, k_sin,
-                               theta, rope, packed)
+                               theta, rope, packed, bk)
     if fold is not None:
         l, acc = _fold_quantized_pair(q, k_q.shape[1], m, l, acc, fold, rope)
     out = acc / torch.clamp(l, min=1e-9)
@@ -172,7 +223,7 @@ def _decode_attention_plain(q, k_q, k_s, v_q, v_s, lengths, k_cos=None,
 def _decode_attention_stacked_plain(q, k_q_all, k_s_all, v_q_all, v_s_all,
                                     lengths, include_new, k_new, v_new,
                                     k_cos=None, k_sin=None, *, layer,
-                                    theta=10000.0, rope=True):
+                                    theta=10000.0, bk=1024, rope=True):
     """Plain PyTorch version of the stacked decode kernel: the contiguous
     version's cache terms on layer ``layer``, then the stacked fold contract:
     ``k_new``/``v_new`` are floats (fake-quantized, K rotated), rounded to the
@@ -187,11 +238,11 @@ def _decode_attention_stacked_plain(q, k_q_all, k_s_all, v_q_all, v_s_all,
     scale = 1.0 / (hd ** 0.5)
     m, l, acc = _cache_softmax(q, k_q_all[layer], k_s_all[layer], v_q_all[layer],
                                v_s_all[layer], lengths, k_cos, k_sin, theta,
-                               rope, False)
-    qg = q.reshape(b, kvh, groups, hd).to(ct).float()
-    kn = k_new.reshape(b, kvh, hd).to(ct).float()
+                               rope, False, bk)
+    qg = q.reshape(b, kvh, groups, hd).to(ct).double()
+    kn = k_new.reshape(b, kvh, hd).to(ct).double()
     vn = v_new.reshape(b, kvh, hd).to(ct).float()
-    s = torch.einsum("bhgd,bhd->bhg", qg, kn)[..., None] * scale
+    s = torch.einsum("bhgd,bhd->bhg", qg, kn).float()[..., None] * scale
     inc = (include_new.to(q.device) > 0).reshape(b, 1, 1, 1)
     s = torch.where(inc, s, torch.full_like(s, _NEG_INF))
     m_new = torch.maximum(m, s)
@@ -207,56 +258,38 @@ def _paged_attention_plain(q, k_q, k_s, v_q, v_s, lengths, block_tables,
                            k_cos=None, k_sin=None, fold=None, *,
                            theta=10000.0, rope=True, packed=False):
     """Plain PyTorch version of the paged kernel, any page size and any
-    (groups, head dim): an online softmax over each slot's live pages in
-    table order (see module docstring). Page ``pg`` of a slot holds logical
-    positions ``pg*P .. pg*P+P-1``; a slot reads ``ceil(len/P)`` pages and
-    never an entry of its table past them."""
+    (groups, head dim): the online softmax one page a block, each slot's
+    live pages in table order (see module docstring). Page ``pg`` of a slot
+    holds logical positions ``pg*P .. pg*P+P-1``; a slot reads
+    ``ceil(len/P)`` pages and never an entry of its table past them."""
     b, nh, hd = q.shape
     kvh, P = k_q.shape[1], k_q.shape[3]
     max_pages = block_tables.shape[1]
-    groups = nh // kvh
     ct = _compute_type(q)
-    scale = 1.0 / (hd ** 0.5)
     dev = q.device
     lens = lengths.to(dev).long()
     bt = block_tables.to(dev).long()
     if rope and k_cos is None:
         k_cos, k_sin = _rope_tables(max_pages * P, hd, theta, dev)
-    qg = q.reshape(b, kvh, groups, hd).to(ct).float()
-    m = torch.full((b, kvh, groups, 1), _NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((b, kvh, groups, hd), dtype=torch.float32, device=dev)
     last = torch.clamp((lens + P - 1) // P, min=1) - 1    # last live page
-    for pg in range(max_pages):
-        live = lens > pg * P                              # [b]
-        if not bool(live.any()):
-            break
+
+    def block(pg):
         # slots past their last page stand in with pool page 0 (never a dead
         # table entry, which may hold anything); their result is discarded
         lp = torch.clamp(last, max=pg)
-        pid = torch.where(live, bt.gather(1, lp[:, None])[:, 0],
+        pid = torch.where(lens > pg * P, bt.gather(1, lp[:, None])[:, 0],
                           torch.zeros_like(lens))         # [b] pool page ids
         cols = lp[:, None] * P + torch.arange(P, device=dev)[None, :]  # [b, P]
-        ks = k_s[pid][:, None, None, :]                   # [b, 1, 1, P]
         cos = sin = None
         if rope:
             cos = k_cos[:, cols].permute(1, 0, 2)[:, None]   # [b, 1, hd/2, P]
             sin = k_sin[:, cols].permute(1, 0, 2)[:, None]
-        kr = _dequant_rope_k(k_q[pid], ks, cos, sin, ct, rope, packed)
+        kr = _dequant_rope_k(k_q[pid], k_s[pid][:, None, None, :], cos, sin, ct,
+                             rope, packed)
         v = torch.cat(_halves(v_q[pid], packed, 2), dim=2).to(ct)
-        vs = v_s[pid].to(ct)[:, None, None, :]
-        s = torch.einsum("bhgd,bhds->bhgs", qg, kr.float()) * scale
-        valid = (cols < lens[:, None])[:, None, None, :]
-        s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
-        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc_new = acc * alpha + torch.einsum(
-            "bhgs,bhds->bhgd", (p * vs).to(ct).float(), v.float())
-        lv = live[:, None, None, None]
-        m, l, acc = (torch.where(lv, m_new, m), torch.where(lv, l_new, l),
-                     torch.where(lv, acc_new, acc))
+        return kr, v, v_s[pid].to(ct)[:, None, None, :], cols
+
+    m, l, acc = _walk_blocks(q, kvh, lens, max_pages, P, block)
     if fold is not None:
         l, acc = _fold_quantized_pair(q, kvh, m, l, acc, fold, rope)
     out = acc / torch.clamp(l, min=1e-9)
@@ -264,10 +297,35 @@ def _paged_attention_plain(q, k_q, k_s, v_q, v_s, lengths, block_tables,
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/decode_attn.cuh: the (query heads per kv head, head dim) it is built
+# for, its widest chunk, its most slots, and the page size of the paged entry
+_SHAPES = ((8, 64), (1, 128))
+_CHUNK = 128
+_MAX_SLOTS = 256
+_PAGED_P = 128
+
+
+def _kernel_chunk(S: int, kvh: int, hd: int, bk: int) -> tuple:
+    """(KV block, chunk width) of the card's contiguous kernel for a cache of
+    ``S`` columns: the JAX picker's block and ``gcd(128, block)``, so a chunk
+    never straddles a block."""
+    bk = _pick_bk(S, kvh, hd, bk)
+    return bk, math.gcd(_CHUNK, bk)
+
+
+def _scratch(b: int, nh: int, n_chunks: int, ch: int, hd: int, dev) -> torch.Tensor:
+    """The kernel's scratch (``decode_attn.cuh: carve``): per slot, query
+    head and chunk, the float64 partial sums of p and of p.V over the head
+    dim, the chunk's scores, maximum and its block's rescale factor."""
+    return torch.empty(b * nh * n_chunks * (8 * (1 + hd) + 4 * (ch + 2)), dtype=torch.uint8,
+                       device=dev)
 
 
 def _contig(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return t.to(dtype).contiguous()
+    """``t`` as a contiguous ``dtype`` tensor whose data starts on a 16-byte
+    boundary (the kernels read it in 16-byte pieces)."""
+    t = t.to(dtype).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_sizes(what: str, dev, want) -> None:
@@ -278,20 +336,18 @@ def _check_sizes(what: str, dev, want) -> None:
                              f"{t.device}, expected {n} on {dev}")
 
 
-def _fold_operands(what, fold, b, kvh, hd, rope, dev, dummy):
+def _fold_operands(what, fold, b, kvh, hd, rope, dev):
     """The quantized fold pair as the kernels take it: seven contiguous
-    tensors (placeholders without a fold, or for the tables without RoPE)."""
+    tensors (None without a fold, and for the tables without RoPE)."""
     if fold is None:
-        zi8 = torch.zeros(1, dtype=torch.int8, device=dev)
-        zi32 = torch.zeros(1, dtype=torch.int32, device=dev)
-        return [zi8, dummy, zi8, dummy, zi32, dummy, dummy]
+        return [None] * 7
     k_new, k_inv, v_new, v_inv, active, q_cos, q_sin = fold
     fold_t = [
         _contig(k_new, torch.int8), _contig(k_inv, torch.float32),
         _contig(v_new, torch.int8), _contig(v_inv, torch.float32),
         _contig(active, torch.int32),
-        _contig(q_cos, torch.float32) if rope else dummy,
-        _contig(q_sin, torch.float32) if rope else dummy,
+        _contig(q_cos, torch.float32) if rope else None,
+        _contig(q_sin, torch.float32) if rope else None,
     ]
     want = dict(k_new=(fold_t[0], b * kvh * hd), k_inv=(fold_t[1], b),
                 v_new=(fold_t[2], b * kvh * hd), v_inv=(fold_t[3], b),
@@ -302,20 +358,42 @@ def _fold_operands(what, fold, b, kvh, hd, rope, dev, dummy):
     return fold_t
 
 
-def _check_contiguous_kernel_shape(what, q, groups, hd, S, shapes):
-    """Raise unless ``(groups, hd)`` is one of ``shapes``, the (query heads
-    per kv head, head dim) pairs the entry is built for, with an f32/bf16 q
-    and a cache short enough for the kernel's shared memory."""
-    if (groups, hd) not in shapes or q.dtype not in _DTYPE_CODES:
+def _check_kernel_shape(what, q, groups, hd, b):
+    """Raise unless ``(groups, hd)`` is one the kernels are built for, with
+    an f32/bf16 q and at most 256 slots."""
+    if (groups, hd) not in _SHAPES or q.dtype not in _DTYPE_CODES or b > _MAX_SLOTS:
         raise NotImplementedError(
-            f"{what}: decode_attention.cu is built for (query heads per kv head, "
-            f"head dim) in {list(shapes)}, f32/bf16 q; got G={groups}, hd={hd}, {q.dtype}"
-        )
-    if S > _SCORE_FLOATS // groups:
-        raise NotImplementedError(
-            f"{what}: decode_attention.cu keeps a slot's scores in shared memory: "
-            f"cache length S <= {_SCORE_FLOATS // groups} at G={groups}, got {S}"
-        )
+            f"{what}: decode_attn.cuh is built for (query heads per kv head, head dim) in "
+            f"{list(_SHAPES)}, f32/bf16 q, at most {_MAX_SLOTS} slots; got G={groups}, "
+            f"hd={hd}, {q.dtype}, b={b}")
+
+
+def _check_contiguous_kernel_shape(what, q, groups, hd, S, b=1):
+    """``_check_kernel_shape`` for the contiguous cache: any length ``S``
+    that is a multiple of 8 (the JAX picker's blocks then tile it)."""
+    _check_kernel_shape(what, q, groups, hd, b)
+    if S % 8:
+        raise NotImplementedError(f"{what}: cache length S = {S} is not a multiple of 8")
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch(stem, fn, what, ptrs, ints, scale, dev):
+    f = _build.bind(stem, fn, len(ptrs), len(ints), 1)
+    err = f(*[_ptr(t) for t in ptrs], *ints, scale, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, what)
+
+
+def kernel_attributes() -> dict:
+    """What the compiler gave every variant of ``csrc/decode_attn.cuh`` (K3,
+    K7, K8), by name ``decode_attention_g{G}_d{hd}_{bf16|f32}``: registers a
+    thread, shared bytes (static, dynamic), local (spill) bytes a thread,
+    threads a block and blocks an SM can hold. Launches nothing."""
+    return {f"decode_attention_g{g}_d{hd}_{name}": _build.attributes(
+                "decode_attention", "decode_attention_attributes", code, g, hd)
+            for g, hd in _SHAPES for name, code in (("bf16", 1), ("f32", 0))}
 
 
 def quantized_decode_attention(
@@ -331,6 +409,7 @@ def quantized_decode_attention(
                             #  active [b], q_cos [b,hd/2], q_sin [b,hd/2])
     *,
     theta: float = 10000.0,
+    bk: int = 1024,         # the TPU kernel's KV block, through _pick_bk
     rope: bool = True,      # False => cache holds rotated K ("post")
     packed: bool = False,   # KV4 nibble-packed cache
 ) -> torch.Tensor:          # [b, nh, hd]
@@ -345,36 +424,35 @@ def quantized_decode_attention(
     if q.device.type == "cpu":
         return _decode_attention_plain(
             q, k_q, k_s, v_q, v_s, lengths, k_cos, k_sin, fold,
-            theta=theta, rope=rope, packed=packed,
+            theta=theta, bk=bk, rope=rope, packed=packed,
         )
     what = "quantized_decode_attention"
     if not q.is_cuda:
         raise ValueError(f"{what}: q on {q.device}")
-    _check_contiguous_kernel_shape(what, q, groups, hd, S, _CONTIGUOUS_ENTRIES)
+    _check_contiguous_kernel_shape(what, q, groups, hd, S, b)
     dev = q.device
-    qc = q.contiguous()
-    kq = k_q.contiguous().view(torch.uint8)
-    vq = v_q.contiguous().view(torch.uint8)
+    blk, ch = _kernel_chunk(S, kvh, hd, bk)
+    qc = _contig(q, q.dtype)
+    kq = _contig(k_q.view(torch.uint8), torch.uint8)
+    vq = _contig(v_q.view(torch.uint8), torch.uint8)
     ksc, vsc = _contig(k_s, torch.float32), _contig(v_s, torch.float32)
     lens = _contig(lengths, torch.int32)
     if rope and k_cos is None:
         k_cos, k_sin = _rope_tables(S, hd, theta, dev)
-    dummy = torch.zeros(1, dtype=torch.float32, device=dev)
-    kc = _contig(k_cos, torch.float32) if rope else dummy
-    ksn = _contig(k_sin, torch.float32) if rope else dummy
+    kc = _contig(k_cos, torch.float32) if rope else None
+    ksn = _contig(k_sin, torch.float32) if rope else None
     want = {"k_q": (kq, b * kvh * hdc * S), "v_q": (vq, b * kvh * hdc * S),
             "k_s": (ksc, b * S), "v_s": (vsc, b * S), "lengths": (lens, b)}
     if rope:
         want.update(k_cos=(kc, (hd // 2) * S), k_sin=(ksn, (hd // 2) * S))
     _check_sizes(what, dev, want)
-    fold_t = _fold_operands(what, fold, b, kvh, hd, rope, dev, dummy)
+    fold_t = _fold_operands(what, fold, b, kvh, hd, rope, dev)
     out = torch.empty_like(qc)
-    f = _build.bind("decode_attention", _CONTIGUOUS_ENTRIES[groups, hd], 16, 7, 1)
-    ptrs = [qc, kq, ksc, vq, vsc, lens, kc, ksn, *fold_t, out]
-    err = f(*[t.data_ptr() for t in ptrs], b, kvh, S, int(packed), int(rope),
-            int(fold is not None), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "decode_attention")
+    ptrs = [qc, kq, ksc, vq, vsc, lens, None, kc, ksn, *fold_t, out,
+            _scratch(b, nh, S // ch, ch, hd, dev)]
+    _launch("decode_attention", "decode_attention", what, ptrs,
+            [b, kvh, groups, hd, S, ch, blk, S // ch, S, int(packed), int(rope),
+             int(fold is not None), _DTYPE_CODES[q.dtype]], 1.0 / math.sqrt(hd), dev)
     quantized_decode_attention.launches += 1
     return out
 
@@ -397,7 +475,7 @@ def quantized_decode_attention_stacked(
     *,
     layer: int,
     theta: float = 10000.0,
-    bk: int = 1024,             # the TPU kernel's KV block; no effect here
+    bk: int = 1024,             # the TPU kernel's KV block, through _pick_bk
     rope: bool = True,
 ) -> torch.Tensor:              # [b, nh, hd]
     """``quantized_decode_attention`` over layer ``layer`` of the stacked
@@ -415,28 +493,30 @@ def quantized_decode_attention_stacked(
     if q.device.type == "cpu":
         return _decode_attention_stacked_plain(
             q, k_q_all, k_s_all, v_q_all, v_s_all, lengths, include_new, k_new,
-            v_new, k_cos, k_sin, layer=layer, theta=theta, rope=rope,
+            v_new, k_cos, k_sin, layer=layer, theta=theta, bk=bk, rope=rope,
         )
     what = "quantized_decode_attention_stacked"
     if not q.is_cuda:
         raise ValueError(f"{what}: q on {q.device}")
-    _check_contiguous_kernel_shape(what, q, groups, hd, S, [(8, 64)])
+    _check_contiguous_kernel_shape(what, q, groups, hd, S, b)
     dev = q.device
     for name, t, dt in (("k_q_all", k_q_all, torch.int8), ("v_q_all", v_q_all, torch.int8),
                         ("k_s_all", k_s_all, torch.float32),
                         ("v_s_all", v_s_all, torch.float32)):
-        # no .contiguous() here: a copy of the stack is what this entry avoids
-        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"{what}: {name} must be a contiguous {dt} tensor on {dev}")
-    qc = q.contiguous()
+        # no copy here: a copy of the stack is what this entry avoids
+        if (t.dtype != dt or not t.is_contiguous() or t.device != dev
+                or t.data_ptr() % 16):
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} tensor on {dev}, "
+                             "16-byte aligned")
+    blk, ch = _kernel_chunk(S, kvh, hd, bk)
+    qc = _contig(q, q.dtype)
     lens = _contig(lengths, torch.int32)
     inc = _contig(include_new, torch.int32)
     kn, vn = _contig(k_new, q.dtype), _contig(v_new, q.dtype)
     if rope and k_cos is None:
         k_cos, k_sin = _rope_tables(S, hd, theta, dev)
-    dummy = torch.zeros(1, dtype=torch.float32, device=dev)
-    kc = _contig(k_cos, torch.float32) if rope else dummy
-    ksn = _contig(k_sin, torch.float32) if rope else dummy
+    kc = _contig(k_cos, torch.float32) if rope else None
+    ksn = _contig(k_sin, torch.float32) if rope else None
     want = {"k_s_all": (k_s_all, L * b * S), "v_s_all": (v_s_all, L * b * S),
             "lengths": (lens, b), "include_new": (inc, b),
             "k_new": (kn, b * kvh * hd), "v_new": (vn, b * kvh * hd)}
@@ -444,22 +524,16 @@ def quantized_decode_attention_stacked(
         want.update(k_cos=(kc, (hd // 2) * S), k_sin=(ksn, (hd // 2) * S))
     _check_sizes(what, dev, want)
     out = torch.empty_like(qc)
-    f = _build.bind("decode_attention", "decode_attention_stacked", 12, 6, 1)
-    ptrs = [qc, k_q_all, k_s_all, v_q_all, v_s_all, lens, kc, ksn, kn, vn, inc, out]
-    err = f(*[t.data_ptr() for t in ptrs], b, kvh, S, layer, int(rope),
-            _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "decode_attention_stacked")
+    ptrs = [qc, k_q_all, k_s_all, v_q_all, v_s_all, lens, kc, ksn, kn, vn, inc, out,
+            _scratch(b, nh, S // ch, ch, hd, dev)]
+    _launch("decode_attention", "decode_attention_stacked", what, ptrs,
+            [b, kvh, groups, hd, S, ch, blk, layer, int(rope), _DTYPE_CODES[q.dtype]],
+            1.0 / math.sqrt(hd), dev)
     quantized_decode_attention_stacked.launches += 1
     return out
 
 
 quantized_decode_attention_stacked.launches = 0
-
-# csrc/paged_attention.cu: (query heads per kv head, head dim) it is built
-# for, and its page size
-_PAGED_SHAPES = ((8, 64), (1, 128))
-_PAGED_P = 128
 
 
 def quantized_paged_attention(
@@ -501,43 +575,38 @@ def quantized_paged_attention(
     what = "quantized_paged_attention"
     if not q.is_cuda:
         raise ValueError(f"{what}: q on {q.device}")
-    if ((groups, hd) not in _PAGED_SHAPES or P != _PAGED_P
-            or q.dtype not in _DTYPE_CODES):
-        raise NotImplementedError(
-            "paged_attention.cu is built for (query heads per kv head, head "
-            f"dim) in {_PAGED_SHAPES}, page size {_PAGED_P}, f32/bf16 q; got "
-            f"G={groups}, hd={hd}, P={P}, {q.dtype}"
-        )
+    _check_kernel_shape(what, q, groups, hd, b)
+    if P != _PAGED_P:
+        raise NotImplementedError(f"{what}: paged_attention.cu is built for page size "
+                                  f"{_PAGED_P}; got P={P}")
     dev = q.device
     for name, t, dts in (("k_q", k_q, (torch.int8, torch.uint8)),
                          ("v_q", v_q, (torch.int8, torch.uint8)),
                          ("k_s", k_s, (torch.float32,)), ("v_s", v_s, (torch.float32,))):
         # the pool is shared by every slot and layer call: never copied here
-        if t.dtype not in dts or not t.is_contiguous() or t.device != dev:
+        if t.dtype not in dts or not t.is_contiguous() or t.device != dev or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be a contiguous tensor of "
-                             f"{dts} on {dev}")
-    qc = q.contiguous()
+                             f"{dts} on {dev}, 16-byte aligned")
+    qc = _contig(q, q.dtype)
     lens = _contig(lengths, torch.int32)
     bt = _contig(block_tables, torch.int32)
     if rope and k_cos is None:
         k_cos, k_sin = _rope_tables(max_pages * P, hd, theta, dev)
-    dummy = torch.zeros(1, dtype=torch.float32, device=dev)
-    kc = _contig(k_cos, torch.float32) if rope else dummy
-    ksn = _contig(k_sin, torch.float32) if rope else dummy
+    kc = _contig(k_cos, torch.float32) if rope else None
+    ksn = _contig(k_sin, torch.float32) if rope else None
     want = {"k_s": (k_s, n_pages * P), "v_s": (v_s, n_pages * P),
             "lengths": (lens, b), "block_tables": (bt, b * max_pages)}
     if rope:
         want.update(k_cos=(kc, (hd // 2) * max_pages * P),
                     k_sin=(ksn, (hd // 2) * max_pages * P))
     _check_sizes(what, dev, want)
-    fold_t = _fold_operands(what, fold, b, kvh, hd, rope, dev, dummy)
+    fold_t = _fold_operands(what, fold, b, kvh, hd, rope, dev)
     out = torch.empty_like(qc)
-    f = _build.bind("paged_attention", "paged_attention", 17, 9, 1)
-    ptrs = [qc, k_q, k_s, v_q, v_s, lens, bt, kc, ksn, *fold_t, out]
-    err = f(*[t.data_ptr() for t in ptrs], b, kvh, groups, hd, max_pages,
-            int(packed), int(rope), int(fold is not None), _DTYPE_CODES[q.dtype],
-            1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "paged_attention")
+    ptrs = [qc, k_q, k_s, v_q, v_s, lens, bt, kc, ksn, *fold_t, out,
+            _scratch(b, nh, max_pages, P, hd, dev)]
+    _launch("paged_attention", "paged_attention", what, ptrs,
+            [b, kvh, groups, hd, P, P, P, max_pages, max_pages * P, int(packed), int(rope),
+             int(fold is not None), _DTYPE_CODES[q.dtype]], 1.0 / math.sqrt(hd), dev)
     quantized_paged_attention.launches += 1
     return out
 

@@ -5,12 +5,14 @@
 Runs ``chip_smoke.serve`` (each checkout's own: its kernels, its engine) on
 TinyLlama-1.1B at full width and depth with random weights from seed 0, at
 W4A8KV4 and W8A8KV8, on the scan path (``use_megakernel=False``) and the
-default path, for the same 8 prompts of ``chip_smoke.PROMPT_LENS``: first
-this checkout, then OTHER_CHECKOUT, then OTHER_CHECKOUT, then this one
-(each in a process of its own, building its kernels into its own
-``build/``). Prints one line a run: prefill seconds (device-synchronised
-around the engine's prefill calls), decode ms a step, and the device busy
-time of one profiled 8-step decode chunk; then, a mode, the device time of
+default path, and ``chip_smoke.serve_paged`` with the roomy pool, for the
+same 8 prompts of ``chip_smoke.PROMPT_LENS``: first this checkout, then
+OTHER_CHECKOUT, then OTHER_CHECKOUT, then this one (each in a process of its
+own, building its kernels into its own ``build/``). Prints one line a run:
+prefill seconds (device-synchronised around the engine's prefill calls),
+decode ms a step, and the device busy time of one profiled 8-step decode
+chunk with the part of it in the decode attention kernels K3 and K8 (the
+kernels whose names hold ``attn_kernel``); then, a mode, the device time of
 the 8 prompts' prefill alone (one new token each, under the profiler) and
 the part of it in the int8 / W4A8 GEMM kernels. Imports nothing of JAX.
 """
@@ -47,7 +49,16 @@ for label, mcfg in modes.items():
         out.append(dict(run=f"{label} {path}", prefill_s=m["prefill_s"],
                         decode_ms_per_step=m["decode_ms_per_step"],
                         chunk_busy_ms=m["profile"]["device_busy_ms"],
-                        chunk_wall_ms=m["profile"]["wall_ms"]))
+                        chunk_wall_ms=m["profile"]["wall_ms"],
+                        attn_ms=sum(ms for name, ms, n in m["profile"]["top"]
+                                    if "attn_kernel" in name)))
+    m = S.serve_paged(f"{label} paged", mcfg, qp, prompts, S.ROOMY_PAGES, profile=True)[0]
+    out.append(dict(run=f"{label} paged", prefill_s=m["prefill_s"],
+                    decode_ms_per_step=m["decode_ms_per_step"],
+                    chunk_busy_ms=m["profile"]["device_busy_ms"],
+                    chunk_wall_ms=m["profile"]["wall_ms"],
+                    attn_ms=sum(ms for name, ms, n in m["profile"]["top"]
+                                if "attn_kernel" in name)))
     # prefill alone (one new token a request) under the profiler: device time
     eng = E.InferenceEngine(qp, mcfg.replace(use_megakernel=False), max_batch=8, max_len=2048)
     for rep in range(2):   # the first run warms up
@@ -91,7 +102,8 @@ def main() -> int:
                 continue
             print(f"{who} {r['run']:16s} prefill {r['prefill_s']:.4f} s, decode "
                   f"{r['decode_ms_per_step']:.3f} ms/step, decode chunk busy "
-                  f"{r['chunk_busy_ms']:.2f} of {r['chunk_wall_ms']:.2f} ms", flush=True)
+                  f"{r['chunk_busy_ms']:.2f} of {r['chunk_wall_ms']:.2f} ms, of it the decode "
+                  f"attention kernel {r['attn_ms']:.2f} ms", flush=True)
     return 0
 
 

@@ -13,8 +13,11 @@ their plain versions and differ only in fp32 summation order: held element
 by element, in bf16 to 2 bf16 steps of the expected value plus 1e-2 of the
 median expected magnitude, in f32 to 1e-5 of the value plus 1e-4 of the
 median; the paged decode attention and the stacked decode attention follow
-their plain versions the same way (the paged pair both against the running
-maximum, page by page) and are held alike; the stacked GEMMs are bit-exact
+their plain versions the same way (both walk the TPU kernel's blocks with a
+running maximum: bk columns, or a page) and are held alike. The three
+decode attention kernels take their sums in float64 as their plain
+versions do (bit-equal but for float64 noise) and give the same bits on a
+second launch (``-k "decode_attention or paged_attention"``); the stacked GEMMs are bit-exact
 against their plain versions and against the unstacked kernels. The
 whole-model decode kernel takes every rounded sum in float64, as
 its plain version does, so the two are expected to agree bit for bit; held
@@ -164,6 +167,7 @@ def test_decode_attention_kernel(gen, packed, rope, dtype):
             kc[:, :b].T.contiguous(), ksn[:, :b].T.contiguous())
     args = (q, kq, ks, vq, vs, lens, kc if rope else None, ksn if rope else None, fold)
     got = DA.quantized_decode_attention(*args, rope=rope, packed=packed)
+    assert torch.equal(got, DA.quantized_decode_attention(*args, rope=rope, packed=packed))
     want = DA._decode_attention_plain(*args, rope=rope, packed=packed)
     assert _close(got, want)
 
@@ -207,10 +211,114 @@ def test_decode_attention_kernel_refuses_shapes_it_is_not_built_for(gen):
     lens = torch.ones(1, dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match=r"\(8, 64\), \(1, 128\)"):
         DA.quantized_decode_attention(q, kq, ks, kq, ks, lens, rope=False)   # G = 2
-    kq = torch.zeros(1, 4, 128, 32768 + 64, dtype=torch.int8, device="cuda")
+    # no length limit any more: a cache past the old 32768 / G runs; a
+    # length that is no multiple of 8 is refused
+    kq = torch.zeros(1, 1, 128, 32768 + 64, dtype=torch.int8, device="cuda")
     ks = torch.ones(1, 32768 + 64, device="cuda")
-    with pytest.raises(NotImplementedError, match="S <= 32768"):
-        DA.quantized_decode_attention(q, kq, ks, kq, ks, lens, rope=False)
+    out = DA.quantized_decode_attention(q[:, :1], kq, ks, kq, ks, lens, rope=False)
+    assert torch.equal(out, torch.zeros_like(out))                       # V is 0
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        DA.quantized_decode_attention(q[:, :1], kq[..., :100], ks[:, :100], kq[..., :100],
+                                      ks[:, :100], lens, rope=False)
+
+
+def _cache(gen, b, kvh, hd, S, packed):
+    hdc = hd // 2 if packed else hd
+    lo, hi, qdt = (0, 256, torch.uint8) if packed else (-127, 128, torch.int8)
+    kq = torch.randint(lo, hi, (b, kvh, hdc, S), device="cuda", generator=gen).to(qdt)
+    vq = torch.randint(lo, hi, (b, kvh, hdc, S), device="cuda", generator=gen).to(qdt)
+    ks = torch.rand(b, S, device="cuda", generator=gen) * 0.02 + 0.005
+    vs = torch.rand(b, S, device="cuda", generator=gen) * 0.02 + 0.005
+    return kq, ks, vq, vs
+
+
+def _quant_fold(gen, b, kvh, hd, packed, active, kc, ksn, pos):
+    flo, fhi = (-8, 8) if packed else (-127, 128)
+    return (torch.randint(flo, fhi, (b, kvh, hd), device="cuda", generator=gen).to(torch.int8),
+            torch.rand(b, 1, device="cuda", generator=gen) * 0.02 + 0.005,
+            torch.randint(flo, fhi, (b, kvh, hd), device="cuda", generator=gen).to(torch.int8),
+            torch.rand(b, 1, device="cuda", generator=gen) * 0.02 + 0.005,
+            torch.tensor(active, dtype=torch.int32, device="cuda"),
+            kc[:, pos].T.contiguous(), ksn[:, pos].T.contiguous())
+
+
+@pytest.mark.parametrize("G,hd", [(8, 64), (1, 128)])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_kernel_block_edges(gen, G, hd, packed, rope, fold, dtype):
+    """S = 2048 at the JAX picker's block (1024 at (8, 64) with 4 kv heads,
+    256 at (1, 128) with 32): lengths 0, 1, 127, 128, 129, bk - 1, bk,
+    bk + 1 and S, slot 2 inactive; the same bits on a second launch."""
+    kvh, S = (4, 2048) if G == 8 else (32, 2048)
+    bk = DA._pick_bk(S, kvh, hd, 1024)
+    lens_l = [0, 1, 127, 128, 129, bk - 1, bk, bk + 1, S]
+    b = len(lens_l)
+    kq, ks, vq, vs = _cache(gen, b, kvh, hd, S, packed)
+    q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(dtype)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    kc, ksn = DA._rope_tables(S, hd, 10000.0, "cuda")
+    fd = None
+    if fold:
+        fd = _quant_fold(gen, b, kvh, hd, packed, [int(i != 2) for i in range(b)], kc, ksn,
+                         torch.clamp(lens.long(), max=S - 1))
+    args = (q, kq, ks, vq, vs, lens, kc if rope else None, ksn if rope else None, fd)
+    n = DA.quantized_decode_attention.launches
+    got = DA.quantized_decode_attention(*args, rope=rope, packed=packed)
+    again = DA.quantized_decode_attention(*args, rope=rope, packed=packed)
+    assert DA.quantized_decode_attention.launches == n + 2
+    want = DA._decode_attention_plain(*args, rope=rope, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _close(got, want)
+    if not fold:
+        assert not got[0].any()              # l clamps at 1e-9: 0, not NaN
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("bk", [1024, 256, 200])
+def test_decode_attention_kernel_long_cache(gen, packed, bk):
+    """S = 8192 at G = 8 (over the old limit of 32768 / G), bf16, fold on;
+    the block the picker gives for ``bk`` (200 -> 128, chunks of 128)."""
+    b, kvh, G, hd, S = 4, 4, 8, 64, 8192
+    kq, ks, vq, vs = _cache(gen, b, kvh, hd, S, packed)
+    q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(torch.bfloat16)
+    lens = torch.tensor([S, 5000, 1, 0], dtype=torch.int32, device="cuda")
+    kc, ksn = DA._rope_tables(S, hd, 10000.0, "cuda")
+    fd = _quant_fold(gen, b, kvh, hd, packed, [1, 1, 0, 1], kc, ksn,
+                     torch.clamp(lens.long(), max=S - 1))
+    args = (q, kq, ks, vq, vs, lens, kc, ksn, fd)
+    got = DA.quantized_decode_attention(*args, bk=bk, packed=packed)
+    assert torch.equal(got, DA.quantized_decode_attention(*args, bk=bk, packed=packed))
+    want = DA._decode_attention_plain(*args, bk=bk, packed=packed)
+    torch.cuda.synchronize()
+    assert _close(got, want)
+
+
+def test_decode_attention_kernel_small_chunks(gen):
+    """S = 2040: the picker's block is 680, so chunks of gcd(128, 680) = 8
+    columns read in 8-byte pieces."""
+    b, kvh, G, hd, S = 3, 4, 8, 64, 2040
+    assert DA._kernel_chunk(S, kvh, hd, 1024) == (680, 8)
+    kq, ks, vq, vs = _cache(gen, b, kvh, hd, S, False)
+    q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(torch.bfloat16)
+    lens = torch.tensor([2040, 681, 9], dtype=torch.int32, device="cuda")
+    kc, ksn = DA._rope_tables(S, hd, 10000.0, "cuda")
+    args = (q, kq, ks, vq, vs, lens, kc, ksn)
+    got = DA.quantized_decode_attention(*args)
+    want = DA._decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert _close(got, want)
+
+
+def test_decode_attention_kernel_attributes(gen):
+    """Every variant of decode_attn.cuh (K3, K7, K8): no spill, one block an
+    SM at least (the cooperative launch needs them resident)."""
+    attrs = DA.kernel_attributes()
+    assert len(attrs) == 4
+    for name, a in attrs.items():
+        assert a["spill_bytes"] == 0 and a["blocks_per_sm"] >= 1, (name, a)
 
 
 def _random_pool(n_pages, kvh, hd, packed, gen):
@@ -227,9 +335,9 @@ def _paged_case(b, G, hd, packed, dtype, gen, fold=True, max_pages=8):
     and fill their table; shuffled tables whose unused entries point outside
     the pool; every third slot inactive."""
     kvh, P = (4, 128) if G == 8 else (8, 128)
-    base = [0, 1, 2 * P, 2 * P + 37, max_pages * P, 5, 3 * P - 1, P]
+    base = [0, 1, P - 1, P, P + 1, 2 * P + 37, max_pages * P, 3 * P - 1]
     lens_l = [base[i % len(base)] for i in range(b)]
-    n_pages = sum(-(-n // P) for n in lens_l) + 3
+    n_pages = sum(-(-n // P) for n in lens_l) + b + 3
     pool = _random_pool(n_pages, kvh, hd, packed, gen)
     ids = torch.randperm(n_pages, device="cuda", generator=gen).tolist()
     bt = torch.full((b, max_pages), 10 ** 6, dtype=torch.int32)
@@ -237,7 +345,7 @@ def _paged_case(b, G, hd, packed, dtype, gen, fold=True, max_pages=8):
     for i, n in enumerate(lens_l):
         live = -(-n // P)
         bt[i, :live] = torch.tensor(ids[at:at + live], dtype=torch.int32)
-        at += live
+        at += live + 1                      # a hole: slots' pages never adjacent
     q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(dtype)
     lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
     kc, ksn = DA._rope_tables(max_pages * P, hd, 10000.0, "cuda")
@@ -264,15 +372,16 @@ def _paged_case(b, G, hd, packed, dtype, gen, fold=True, max_pages=8):
 def test_paged_attention_kernel(gen, G, hd, packed, dtype, fold, rope, b):
     if b == 1:
         # one slot: mid-page in its third page
-        q, pool, lens, bt, kc, ksn, fd = _paged_case(4, G, hd, packed, dtype, gen, fold)
-        q, lens, bt = q[3:4], lens[3:4], bt[3:4]
-        fd = None if fd is None else tuple(a[3:4] for a in fd)
+        q, pool, lens, bt, kc, ksn, fd = _paged_case(6, G, hd, packed, dtype, gen, fold)
+        q, lens, bt = q[5:6], lens[5:6], bt[5:6]
+        fd = None if fd is None else tuple(a[5:6] for a in fd)
     else:
         q, pool, lens, bt, kc, ksn, fd = _paged_case(b, G, hd, packed, dtype, gen, fold)
     args = (q, *pool, lens, bt, kc if rope else None, ksn if rope else None, fd)
     n = DA.quantized_paged_attention.launches
     got = DA.quantized_paged_attention(*args, rope=rope, packed=packed)
     assert DA.quantized_paged_attention.launches == n + 1
+    assert torch.equal(got, DA.quantized_paged_attention(*args, rope=rope, packed=packed))
     want = DA._paged_attention_plain(*args, rope=rope, packed=packed)
     torch.cuda.synchronize()
     assert _close(got, want)
@@ -323,8 +432,9 @@ def test_stacked_gemm_kernels_bit_exact(gen, layer, out_dtype):
 @pytest.mark.parametrize("layer", [0, 2])
 @pytest.mark.parametrize("rope", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_stacked_decode_attention_kernel(gen, layer, rope, dtype):
-    L, b, kvh, G, hd, S = 3, 8, 4, 8, 64, 512
+@pytest.mark.parametrize("kvh,G,hd", [(4, 8, 64), (32, 1, 128)])
+def test_stacked_decode_attention_kernel(gen, layer, rope, dtype, kvh, G, hd):
+    L, b, S = 3, 8, 512
     kq = torch.randint(-127, 128, (L, b, kvh, hd, S), device="cuda", generator=gen).to(torch.int8)
     vq = torch.randint(-127, 128, (L, b, kvh, hd, S), device="cuda", generator=gen).to(torch.int8)
     ks = torch.rand(L, b, S, device="cuda", generator=gen) * 0.02 + 0.005
@@ -339,6 +449,7 @@ def test_stacked_decode_attention_kernel(gen, layer, rope, dtype):
     n = DA.quantized_decode_attention_stacked.launches
     got = DA.quantized_decode_attention_stacked(*args, layer=layer, rope=rope)
     assert DA.quantized_decode_attention_stacked.launches == n + 1
+    assert torch.equal(got, DA.quantized_decode_attention_stacked(*args, layer=layer, rope=rope))
     want = DA._decode_attention_stacked_plain(*args, layer=layer, rope=rope)
     torch.cuda.synchronize()
     assert _close(got, want)

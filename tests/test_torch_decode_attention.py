@@ -7,8 +7,17 @@ the port computes the softmax over the whole row where the TPU kernel goes
 block by block, which changes only the f32 rounding. With a bf16 query both
 sides round cos*ks, sin*ks, k and p*vs to bf16 at the same points, so they
 agree to one bf16 rounding of the output (2**-8 relative, held at 1e-2).
+
+Both sides walk the TPU kernel's ``bk``-column blocks with a running
+maximum, so with a bf16 query ``p*vs`` rounds against the same maximum. The
+block-crossing cases compile the JAX side without XLA's excess precision
+(which on the CPU skips bf16 roundings the TPU makes) and hold the port to
+JAX's bits: at most 1% of the outputs may differ (each within the bf16
+tolerance above), where p taken against the final maximum makes 10-26% of
+them differ.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -153,3 +162,71 @@ def test_cpu_counts_no_launch_and_meta_raises():
     assert TDA.quantized_decode_attention.launches == n
     with pytest.raises(ValueError):
         TDA.quantized_decode_attention(*(a.to("meta") for a in ops), lens.to("meta"))
+
+
+def _jax_strict(fn, *args, **kw):
+    """``fn(*args, **kw)`` compiled without XLA's excess precision, so each
+    bf16 rounding of the TPU kernel happens on the CPU too."""
+    f = jax.jit(lambda *a: fn(*a, **kw))
+    return f.lower(*args).compile(compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
+def _same_bits(got, want, share=0.01):
+    """At most ``share`` of the outputs differ from JAX's bits, and those
+    within the bf16 tolerance of this module."""
+    np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2 * np.abs(want).max())
+    differ = float(np.mean(got != want))
+    assert differ <= share, f"{differ:.2%} of the outputs differ from JAX's"
+
+
+def _strict_case(b, kvh, groups, S, hd, packed, lengths, fold, bk, seed):
+    q, k_q, k_s, v_q, v_s = _make(b, kvh, groups, S, hd, packed, seed=seed)
+    kc, ks = _tables(S, hd)
+    lengths = np.asarray(lengths, np.int32)
+    fd = _fold(b, kvh, hd, [1] * b) if fold else None
+    kw = dict(rope=True, packed=packed) if bk is None else dict(rope=True, packed=packed, bk=bk)
+    ops = [q, k_q, k_s, v_q, v_s, lengths, kc, ks] + ([] if fd is None else list(fd))
+    jops = [jnp.asarray(q, jnp.bfloat16)] + [jnp.asarray(a) for a in ops[1:]]
+    want = _jax_strict(lambda *a, **k: JDA.quantized_decode_attention(
+        *a[:8], fold=a[8:] or None, **k), *jops, **kw)
+    tops = [torch.from_numpy(np.array(a)) for a in ops]
+    got = TDA.quantized_decode_attention(
+        tops[0].to(torch.bfloat16), *tops[1:8], fold=tuple(tops[8:]) or None, **kw)
+    return np.asarray(want.astype(jnp.float32)), got.float().numpy()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("fold", [False, True])
+def test_decode_attention_bf16_walks_jax_blocks(packed, fold):
+    """bk = 16 at S = 64: the lengths 0 / 17 / 40 / 63 cross one to four
+    blocks, so ``p*vs`` rounds against each block's running maximum."""
+    want, got = _strict_case(4, 2, 4, 64, 32, packed, [0, 17, 40, 63], fold, 16, seed=5)
+    _same_bits(got, want)
+
+
+def test_decode_attention_bf16_at_the_pickers_block_for_llama7b_heads():
+    """kvh 32, hd 128: the JAX picker takes bk = 256 (not 1024) at S = 512, so
+    a length of 500 crosses a block edge with the default ``bk``."""
+    want, got = _strict_case(2, 32, 1, 512, 128, False, [500, 300], True, None, seed=7)
+    _same_bits(got, want)
+    assert TDA._pick_bk(512, 32, 128, 1024) == 256
+
+
+@pytest.mark.parametrize("S,kvh,hd,bk,want", [
+    (2048, 4, 64, 1024, 1024), (2048, 32, 128, 1024, 256), (8192, 4, 64, 1024, 1024),
+    (64, 2, 32, 16, 16), (2040, 4, 64, 1024, 680), (100, 1, 8, 1024, 8)])
+def test_pick_bk_is_the_jax_pickers(S, kvh, hd, bk, want):
+    from llm_qat_tpu.ops.pallas.decode_attention import _pick_bk
+    assert TDA._pick_bk(S, kvh, hd, bk) == _pick_bk(S, kvh, hd, bk) == want
+
+
+def test_kernel_shape_check_takes_long_caches():
+    """The card's K3 has no cache-length limit: S = 8192 at G = 8 (over the
+    old 32768 / G) and S = 65536 pass the wrapper's shape check, and the
+    kernel's chunks never straddle a ``bk`` block."""
+    q = torch.empty(8, 32, 64, dtype=torch.bfloat16, device="meta")
+    for S in (8192, 65536):
+        TDA._check_contiguous_kernel_shape("t", q, 8, 64, S)
+    assert TDA._kernel_chunk(8192, 4, 64, 1024) == (1024, 128)
+    assert TDA._kernel_chunk(2048, 32, 128, 1024) == (256, 128)
+    assert TDA._kernel_chunk(2040, 4, 64, 1024) == (680, 8)

@@ -146,8 +146,8 @@ def test_paged_attention_bf16_mirrors_jax_roundings(groups, hd, packed):
 def test_paged_matches_contiguous_on_gathered_pages(packed, fold):
     """The port's paged plain version against its contiguous plain version on
     the same K/V gathered into a contiguous cache: same function, other
-    layout. The two differ in where they rescale (every page against the
-    final maximum once): f32 rounding only, held at 1e-5."""
+    layout. The two differ in where they rescale (every page against every
+    bk-column block): f32 rounding only, held at 1e-5."""
     q, pool, lengths, bt, kc, ks, fd, kw = _case(4, 64, packed, fold, True, True, seed=7)
     k_q, k_s, v_q, v_s = pool
     b, max_pages = bt.shape

@@ -148,3 +148,29 @@ def test_stacked_decode_attention_cache_terms_are_the_unstacked_ports(layer):
             t(q), t(k_q), t(k_s), t(v_q), t(v_s), t(lengths),
             torch.zeros(3, dtype=torch.int32), t(k_new), t(v_new), layer=L)
     assert TDA.quantized_decode_attention_stacked.launches == n
+
+
+def test_stacked_decode_attention_bf16_walks_jax_blocks():
+    """bk = 16 at S = 64, compiled without XLA's excess precision (see
+    tests/test_torch_decode_attention.py): lengths cross one to four blocks,
+    one slot empty with its pair, one pair excluded; at most 1% of the
+    outputs differ from JAX's bits."""
+    import jax
+
+    q, k_q, k_s, v_q, v_s, k_new, v_new, kc, ks = _attn_operands(33, b=4)
+    lengths = np.asarray([0, 17, 40, 63], np.int32)
+    inc = np.asarray([1, 1, 0, 1], np.int32)
+    kw = dict(layer=2, rope=True, bk=16)
+    jops = [jnp.asarray(q, jnp.bfloat16)] + [jnp.asarray(a) for a in (k_q, k_s, v_q, v_s)] + [
+        jnp.asarray(lengths), jnp.asarray(inc), jnp.asarray(k_new, jnp.bfloat16),
+        jnp.asarray(v_new, jnp.bfloat16), jnp.asarray(kc), jnp.asarray(ks)]
+    f = jax.jit(lambda *a: JDA.quantized_decode_attention_stacked(*a, **kw))
+    want = f.lower(*jops).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*jops)
+    want = np.asarray(want.astype(jnp.float32))
+    got = TDA.quantized_decode_attention_stacked(
+        t(q).to(torch.bfloat16), *(t(a) for a in (k_q, k_s, v_q, v_s)), t(lengths), t(inc),
+        t(k_new).to(torch.bfloat16), t(v_new).to(torch.bfloat16), t(kc), t(ks), **kw).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2 * np.abs(want).max())
+    differ = float(np.mean(got != want))
+    assert differ <= 0.01, f"{differ:.2%} of the outputs differ from JAX's"

@@ -15,6 +15,7 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    decode attention on the same K/V gathered into a contiguous cache, and
    runs at the LLaMA-7B attention shape too (32 MHA heads of 128), as do the
    contiguous decode attention and the flash forward (full and ragged
+   lengths: SDPA's yardstick then runs under a boolean mask of the
    lengths); the stacked kernels are held
    against their plain versions and against the unstacked kernels on the
    layer's slice;
@@ -44,8 +45,10 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    steps' shapes (flash backward dQ and dK/dV and the flash forward at
    B = 16, G = 8, S = 2048, D = 64 and at LLaMA-7B's B = 32, G = 1, S = 2048,
    D = 128, full and ragged lengths, dQ and dK/dV also against their own
-   second launches, bit for bit; RMSNorm+quant at [8192, 2048] and
-   [4096, 4096]; SiLU*up+quant at [8192, 5632]), then takes KD-QAT train
+   second launches, bit for bit; RMSNorm+quant at [8192, 2048], [4096, 4096]
+   and [4096, 5120] and SiLU*up+quant at [8192, 5632] and [4096, 11008],
+   equal to their second launches bit for bit, SiLU*up+quant also to its
+   plain version), then takes KD-QAT train
    steps of TinyLlama-1.1B W4A8KV4 at full width and depth through
    ``training.trainer.Trainer`` (bf16 params, 4 x 2048 tokens,
    ``kl_chunk=256``, remat on; see ``train_run``), the same at LLaMA-7B's
@@ -55,8 +58,9 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    card path with the plain versions swapped in, and at TinyLlama's width
    also against the port's CPU path (``train_check``);
 5. prints what the compiler gave the tensor-core flash kernels, the
-   decode megakernel and every K1/K2 variant (registers, shared memory,
-   spills, blocks an SM holds; it fails on a spill), the whole run's time, a
+   decode megakernel and every K1/K2, K3/K7/K8 and K12/K13 variant
+   (registers, shared memory, spills, blocks an SM holds; it fails on a
+   spill), the whole run's time, a
    ``{"kernels": [...]}`` line and, last, the ``{"ok": true, "device": ...}``
    line.
 
@@ -107,9 +111,10 @@ LLAMA7B_TRAIN_LAYERS, LLAMA7B_TRAIN_BATCH = 4, 2    # the LLaMA-7B-width train r
 LLAMA7B_SERVE = ("W8A8KV8",)        # modes served at LLaMA-7B width and depth (K9 phase: both)
 LLAMA7B_DRIFT_PROMPT = 40           # teacher-forced megakernel-vs-scan prompt at LLaMA-7B
 SILU_LAYERS, SILU_STEPS, SILU_LOSS_REL = 4, 2, 0.05  # the fused_silu_quant run (see train_phases)
-QUANT_FLIP_SHARE = 0.01     # K12/K13: integers one off where x*s is on a rounding boundary
-QUANT_ROW_SHARE = 1e-3      # K12: rows whose absmax moved one bf16 step (see fused_quant_phase)
 TRAIN_CUT_LOSS_REL, TRAIN_CUT_GRAD_REL = 2e-2, 0.25   # train_check: kernels against plain versions
+PROFILE_WATCH = ("rmsnorm_quant", "silu_mul_quant")    # K12, K13: their time in each train profile
+QUANT_FLIP_SHARE = 0.01     # K12: integers one off where x*s is on a rounding boundary
+QUANT_ROW_SHARE = 1e-3      # K12: rows whose absmax moved one bf16 step (see quant_agreement)
 SPIN_CYCLES = 2_000_000            # Timer: ~1 ms of device clock between flush and timed call
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -339,13 +344,29 @@ def attn_grid(DA, G, hd, kvh, lens_l, ch, n_chunks):
     return items, min(sms * per_sm, max(len(lens_l) * kvh * n_chunks, 1))
 
 
+def ragged_sdpa_inputs(k, v, lens_l, G):
+    """K and V ``[B, S, D]`` expanded to the G query heads, and the boolean
+    mask ``[B, 1, S, S]`` under which ``scaled_dot_product_attention``
+    computes what a flash kernel computes at the lengths ``lens_l``: query row
+    i of sequence b sees key j when j <= i and j < max(length, 1)
+    (``live_pairs``). SDPA takes no lengths; its memory-efficient backend
+    takes the mask, and K/V of every query head."""
+    B, S, D = k.shape
+    j = torch.arange(S, device="cuda")
+    lens = torch.tensor([max(n, 1) for n in lens_l], device="cuda")
+    mask = (j[None, :] <= j[:, None])[None, None] & (j < lens[:, None, None, None])
+    kx, vx = (t[:, None].expand(B, G, S, D).contiguous() for t in (k, v))
+    return kx, vx, mask
+
+
 def flash_phase(timer, gen, FA, B, G, S, D, lens_l=None):
     """K4 at a prefill shape: B = prompts x kv heads, G query heads a kv
     head, causal, bf16, full lengths unless ``lens_l``. Kernel and plain
     version take p against the same row maximum, from the same tensor-core
     q.k, and round it to bf16 alike; they differ in their fp32 summation
     orders: held element-wise as K3 is, and the LSE to 1e-3. SDPA is the
-    yardstick at full lengths only (it takes no lengths)."""
+    yardstick: causal at full lengths, under the lengths' boolean mask
+    otherwise (``ragged_sdpa_inputs``)."""
     q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
     k = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
     v = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
@@ -361,11 +382,14 @@ def flash_phase(timer, gen, FA, B, G, S, D, lens_l=None):
         raise AssertionError(f"flash B={B} G={G} S={S} D={D} lens={lens_l}: {agr}, lse {lse_err}")
     ms = timer(lambda: FA._flash_fwd(q, k, v, lens))
     plain_ms = timer(lambda: FA._flash_fwd_plain(q, k, v, lens))
-    lib_ms = None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     if full:
         qh, kh, vh = q.reshape(1, B * G, S, D), k[None], v[None]
-        lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, enable_gqa=True))
+        lib_ms = timer(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True))
+    else:
+        kx, vx, mask = ragged_sdpa_inputs(k, v, lens_l, G)
+        lib_ms = timer(lambda: sdpa(q, kx, vx, attn_mask=mask))
+        del kx, vx, mask
     nbytes = 2 * (2 * B * G * S * D + 2 * B * S * D) + 4 * B * G * S
     ops = 2 * 2 * G * D * live_pairs(lens_l, S)
     b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
@@ -1338,8 +1362,10 @@ def flash_train_phase(timer, gen, FA, G, D, ragged):
     the same inputs and must give the same bits (no atomics), and K11 exact
     zeros past each length. The backward pair takes the forward KERNEL's O
     and log-sum-exp. ``library_ms`` of the backward pair is the backward of
-    one ``scaled_dot_product_attention`` call (dQ, dK and dV together, full
-    lengths; the port never calls it)."""
+    one ``scaled_dot_product_attention`` call (dQ, dK and dV together; the
+    port never calls it): causal at full lengths, under the lengths' boolean
+    mask at the ragged ones (``ragged_sdpa_inputs``), where
+    ``library_fwd_bwd_ms`` is its forward and backward together."""
     B, S = len(ragged), TRAIN_SEQ
     q, do = (torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
              for _ in range(2))
@@ -1395,7 +1421,18 @@ def flash_train_phase(timer, gen, FA, G, D, ragged):
         bounds = {"fwd": bound(2 * qb + 2 * kvb + rowb, 2 * 2 * pairs * D, BF16_FLOPS),
                   "dq": bound(3 * qb + 2 * kvb + 2 * rowb, 3 * 2 * pairs * D, BF16_FLOPS),
                   "dkv": bound(2 * qb + 4 * kvb + 2 * rowb, 4 * 2 * pairs * D, BF16_FLOPS)}
-        lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd} if label == "full" else {}
+        if label == "full":
+            lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+        else:
+            kx, vx, mask = ragged_sdpa_inputs(k, v, lens_l, G)
+            lib = {"fwd": timer(lambda: sdpa(q, kx, vx, attn_mask=mask))}
+            ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, kx, vx))
+            out = sdpa(ql, kl, vl, attn_mask=mask)
+            lib["dq"] = lib["dkv"] = timer(
+                lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
+            lib["fwd_bwd"] = timer(
+                lambda: torch.autograd.grad(sdpa(ql, kl, vl, attn_mask=mask), (ql, kl, vl), do))
+            del out, ql, kl, vl, kx, vx, mask
         log(f"  flash at the train shape B={B} G={G} S={S} D={D}, {label} lengths {list(lens_l)}: "
             f"forward {ms['fwd']:.4f} ms (plain {plain['fwd']:.2f}, sdpa {lib.get('fwd')}, bound "
             f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}) max_abs_err {fwd['max_abs_err']:.3g}, "
@@ -1406,7 +1443,8 @@ def flash_train_phase(timer, gen, FA, G, D, ragged):
             f"ms (plain {plain['dkv']:.2f}, bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}) "
             f"max_abs_err dk {agr['dk']['max_abs_err']:.3g} dv {agr['dv']['max_abs_err']:.3g}, worst "
             f"{max(agr['dk']['worst'], agr['dv']['worst']):.3g}, the same bits twice; sdpa backward "
-            f"(dQ, dK, dV together, full lengths) {lib.get('dq')} ms")
+            f"(dQ, dK, dV together) {lib['dq']:.4f} ms"
+            + (f", forward and backward {lib['fwd_bwd']:.4f} ms" if "fwd_bwd" in lib else ""))
         shape = dict(B=B, G=G, S=S, D=D, lengths="full" if label == "full" else list(lens_l),
                      live_pairs=pairs)
 
@@ -1414,7 +1452,11 @@ def flash_train_phase(timer, gen, FA, G, D, ragged):
             return dict(shape, ms=ms[key], plain_ms=plain[key], library_ms=lib.get(key),
                         bound_ms=bounds[key][0], bound_by=bounds[key][1], **extra)
 
-        lib_is = "sdpa backward, dQ+dK+dV together" if label == "full" else "none: sdpa takes no lengths"
+        lib_is = "sdpa backward, dQ+dK+dV together" + (
+            "" if label == "full" else " under the lengths' boolean mask, K/V expanded to the G "
+            "query heads")
+        if "fwd_bwd" in lib:
+            shape["library_fwd_bwd_ms"] = lib["fwd_bwd"]
         rows[label] = dict(
             fwd=row("fwd", blocks=-(-S // 64) * G * B, lse_err=lse_err, **fwd),
             dq=row("dq", library_is=lib_is, blocks=-(-S // 64) * G * B,
@@ -1426,66 +1468,108 @@ def flash_train_phase(timer, gen, FA, G, D, ragged):
     return rows
 
 
-def quant_agreement(q, s, q2, s2):
-    """K12/K13 against their plain versions. Scales within rtol 1e-6, except
-    in rows whose absmax element moved by one bf16 step (its fp32 value sat on
-    a bf16 rounding boundary and the two fp32 sums of squares differ in the
-    last bit): at most QUANT_ROW_SHARE of the rows, their scales within 2**-7.
-    In all other rows the integers are equal or one apart, and at most
-    QUANT_FLIP_SHARE of them differ."""
+def quant_agreement(got, again, want, exact):
+    """K12/K13 against their plain versions, and a second launch's bits equal
+    to the first's. ``exact`` (K13, which sums nothing): integers and scales
+    equal to the bit. Else (K12, whose fp32 sum of squares runs in another
+    order): scales within rtol 1e-6, except in rows whose absmax element
+    moved by one bf16 step (its fp32 value sat on a bf16 rounding boundary):
+    at most QUANT_ROW_SHARE of the rows, their scales within 2**-7; in all
+    other rows the integers are equal or one apart, and at most
+    QUANT_FLIP_SHARE of them differ. ``max_abs_err`` is the largest integer
+    difference (in steps) in the rows held."""
+    (q, s), (q2, s2), (q3, s3) = got, want, again
     rel = ((s - s2).abs() / s2)[:, 0]
-    moved = rel > 1e-6
+    moved = rel > (0 if exact else 1e-6)
     d = (q.int() - q2.int()).abs()[~moved]
-    res = dict(scale_rel_err=float(rel[~moved].max()) if (~moved).any() else 0.0,
-               moved_rows=float(moved.float().mean()),
-               moved_rows_rel=float(rel.max()),
-               int_max_diff=int(d.max()), int_diff_share=float((d != 0).float().mean()))
-    res["max_abs_err"] = float(res["int_max_diff"])
-    res["ok"] = (res["moved_rows"] <= QUANT_ROW_SHARE and res["moved_rows_rel"] <= 2.0 ** -7
-                 and res["int_max_diff"] <= 1 and res["int_diff_share"] <= QUANT_FLIP_SHARE)
+    res = dict(scale_max_rel_err=float(rel.max()), moved_rows=float(moved.float().mean()),
+               int_diff_share=float((d != 0).float().mean()),
+               same_bits_twice=bool(torch.equal(q, q3) and torch.equal(s, s3)))
+    res["max_abs_err"] = float(d.max()) if d.numel() else 0.0
+    if exact:
+        res["ok"] = res["moved_rows"] == 0 and res["int_diff_share"] == 0
+    else:
+        res["ok"] = (res["moved_rows"] <= QUANT_ROW_SHARE and res["scale_max_rel_err"] <= 2.0 ** -7
+                     and res["max_abs_err"] <= 1 and res["int_diff_share"] <= QUANT_FLIP_SHARE)
+    res["ok"] = res["ok"] and res["same_bits_twice"]
     return res
 
 
+def stream_floor_ms(timer, a, b=None):
+    """Time of ``csrc/stream_floor.cu`` on a K12 / K13 row set: it moves
+    the same bytes (bf16 ``a``, and ``b`` for K13's second input, read in
+    16-byte pieces; a byte an element written in 8-byte pieces) and computes
+    nothing, so it reads the rate such a pass attains under this Timer."""
+    from llm_qat_torch.ops import _build
+
+    f = _build.bind("stream_floor", "stream_floor", 3, 1)
+    out = torch.empty(a.shape, dtype=torch.int8, device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+    run = lambda: _build.check(f(a.data_ptr(), None if b is None else b.data_ptr(),  # noqa: E731
+                                 out.data_ptr(), a.numel() // 8, st), "stream_floor")
+    run()
+    return timer(run)
+
+
 def fused_quant_phase(timer, gen, FQ, c):
-    """K12 at the train step's rows [4 * 2048, H] with an f32 and a bf16 gain
-    and at the LLaMA-7B-width run's [2 * 2048, 4096] with a bf16 gain, K13 at
-    [4 * 2048, I], bf16, 8-bit activations. Bound by bytes: input read once
-    (2 bytes an element, two inputs for K13), int8 written once, a scale a
-    row, the gain."""
-    M, I = TRAIN_BATCH * TRAIN_SEQ, c.intermediate_size
+    """K12 at the train step's rows [4 * 2048, H] with an f32 and a bf16 gain,
+    at the LLaMA-7B-width run's [2 * 2048, 4096] and at LLaMA-13B's hidden
+    width [2 * 2048, 5120] (1/K inexact in fp32) with a bf16 gain; K13 at
+    [4 * 2048, I] and at the LLaMA-7B width's [2 * 2048, 11008]; bf16,
+    8-bit activations. Each against its plain version (``quant_agreement``:
+    K13 to the bit, K12 within the previous gates). Bound by bytes: input read once (2 bytes an element, two
+    inputs for K13), int8 written once, a scale a row, the gain. Each row
+    prints the kernel's plan (``FQ.plan``: chunks a thread, warps a row, row
+    groups a block), its share of the bound and ``floor_ms``, the time of a
+    pass that moves the same bytes and computes nothing (``stream_floor_ms``)."""
+    M, M7, I = TRAIN_BATCH * TRAIN_SEQ, LLAMA7B_TRAIN_BATCH * TRAIN_SEQ, c.intermediate_size
     out = {"rmsnorm_quant": [], "silu_mul_quant": []}
     for M_, H, gdt in ((M, c.hidden_size, torch.float32), (M, c.hidden_size, torch.bfloat16),
-                       (LLAMA7B_TRAIN_BATCH * TRAIN_SEQ, 4096, torch.bfloat16)):
+                       (M7, 4096, torch.bfloat16), (M7, 5120, torch.bfloat16)):
         h = (torch.randn(M_, H, device="cuda", generator=gen) * 1.3).to(torch.bfloat16)
         g = (1 + 0.1 * torch.randn(H, device="cuda", generator=gen)).to(gdt)
-        agr = quant_agreement(*FQ.rmsnorm_quant(h, g, c.rms_norm_eps, 8),
-                              *FQ._rmsnorm_quant_plain(h, g, c.rms_norm_eps, 8))
+        run = lambda: FQ.rmsnorm_quant(h, g, c.rms_norm_eps, 8)  # noqa: E731
+        agr = quant_agreement(run(), run(), FQ._rmsnorm_quant_plain(h, g, c.rms_norm_eps, 8),
+                              exact=False)
         torch.cuda.synchronize()
         if not agr["ok"]:
-            raise AssertionError(f"rmsnorm_quant gain {gdt}: {agr}")
-        ms = timer(lambda: FQ.rmsnorm_quant(h, g, c.rms_norm_eps, 8))
+            raise AssertionError(f"rmsnorm_quant [{M_}, {H}] gain {gdt}: {agr}")
+        ms = timer(run)
         plain_ms = timer(lambda: FQ._rmsnorm_quant_plain(h, g, c.rms_norm_eps, 8))
+        floor_ms = stream_floor_ms(timer, h)
         b_ms, b_by = bound(3 * M_ * H + 4 * M_ + g.element_size() * H, 8.0 * M_ * H, F32_FLOPS)
-        log(f"  rmsnorm_quant [{M_}, {H}] bf16, gain {str(gdt)[6:]}: {ms:.4f} ms (plain "
-            f"{plain_ms:.4f}, bound {b_ms:.4f} {b_by}) scales rel err {agr['scale_rel_err']:.3g}, "
-            f"rows with a moved absmax {agr['moved_rows']:.3g}, integers differ by at most "
-            f"{agr['int_max_diff']} in {agr['int_diff_share']:.3g} of the elements")
-        out["rmsnorm_quant"].append(dict(M=M_, K=H, gain=str(gdt)[6:], ms=ms, plain_ms=plain_ms,
-                                         library_ms=None, bound_ms=b_ms, bound_by=b_by, **agr))
-    gate = (torch.randn(M, I, device="cuda", generator=gen) * 2).to(torch.bfloat16)
-    up = torch.randn(M, I, device="cuda", generator=gen).to(torch.bfloat16)
-    agr = quant_agreement(*FQ.silu_mul_quant(gate, up, 8), *FQ._silu_mul_quant_plain(gate, up, 8))
-    torch.cuda.synchronize()
-    if not agr["ok"]:
-        raise AssertionError(f"silu_mul_quant: {agr}")
-    ms = timer(lambda: FQ.silu_mul_quant(gate, up, 8))
-    plain_ms = timer(lambda: FQ._silu_mul_quant_plain(gate, up, 8))
-    b_ms, b_by = bound(5 * M * I + 4 * M, 12.0 * M * I, F32_FLOPS)
-    log(f"  silu_mul_quant [{M}, {I}] bf16: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.4f} "
-        f"{b_by}) scales rel err {agr['scale_rel_err']:.3g}, integers differ by at most "
-        f"{agr['int_max_diff']} in {agr['int_diff_share']:.3g} of the elements")
-    out["silu_mul_quant"].append(dict(M=M, K=I, ms=ms, plain_ms=plain_ms, library_ms=None,
-                                      bound_ms=b_ms, bound_by=b_by, **agr))
+        p = FQ.plan(H, 2, 1, f32_products=gdt != torch.bfloat16)
+        log(f"  rmsnorm_quant [{M_}, {H}] bf16, gain {str(gdt)[6:]}, plan {p}: {ms:.4f} ms (plain "
+            f"{plain_ms:.4f}, bound {b_ms:.4f} {b_by}, {100 * b_ms / ms:.1f}% of it; streaming "
+            f"floor {floor_ms:.4f}, {100 * floor_ms / ms:.1f}% of it); rows with a "
+            f"moved absmax {agr['moved_rows']:.3g}, scales rel err {agr['scale_max_rel_err']:.3g}, "
+            f"integers differ by at most {agr['max_abs_err']:.0f} in {agr['int_diff_share']:.3g} "
+            f"of the elements, the same bits twice {agr['same_bits_twice']}")
+        out["rmsnorm_quant"].append(dict(M=M_, K=H, gain=str(gdt)[6:], plan=p, ms=ms,
+                                         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                                         bound_by=b_by, bound_share=b_ms / ms,
+                                         floor_ms=floor_ms, **agr))
+    for M_, I_ in ((M, I), (M7, 11008)):
+        gate = (torch.randn(M_, I_, device="cuda", generator=gen) * 2).to(torch.bfloat16)
+        up = torch.randn(M_, I_, device="cuda", generator=gen).to(torch.bfloat16)
+        run = lambda: FQ.silu_mul_quant(gate, up, 8)  # noqa: E731
+        agr = quant_agreement(run(), run(), FQ._silu_mul_quant_plain(gate, up, 8), exact=True)
+        torch.cuda.synchronize()
+        if not agr["ok"]:
+            raise AssertionError(f"silu_mul_quant [{M_}, {I_}]: {agr}")
+        ms = timer(run)
+        plain_ms = timer(lambda: FQ._silu_mul_quant_plain(gate, up, 8))
+        floor_ms = stream_floor_ms(timer, gate, up)
+        b_ms, b_by = bound(5 * M_ * I_ + 4 * M_, 12.0 * M_ * I_, F32_FLOPS)
+        p = FQ.plan(I_, 2, 2)
+        log(f"  silu_mul_quant [{M_}, {I_}] bf16, plan {p}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"bound {b_ms:.4f} {b_by}, {100 * b_ms / ms:.1f}% of it; streaming floor "
+            f"{floor_ms:.4f}, {100 * floor_ms / ms:.1f}% of it); integers differ in "
+            f"{agr['int_diff_share']:.3g} of the elements, scales rel err "
+            f"{agr['scale_max_rel_err']:.3g}, the same bits twice {agr['same_bits_twice']}")
+        out["silu_mul_quant"].append(dict(M=M_, K=I_, plan=p, ms=ms, plain_ms=plain_ms,
+                                          library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                                          bound_share=b_ms / ms, floor_ms=floor_ms, **agr))
     return out
 
 
@@ -1497,7 +1581,8 @@ def fused_quant_phase(timer, gen, FQ, c):
 def profile_kernels(fn, label):
     """``fn()`` under torch.profiler: device time by kernel and the device's
     busy share of the wall time (kernel events only, as in
-    ``profile_decode_chunk``)."""
+    ``profile_decode_chunk``), and the device time and launches of the
+    kernels whose names hold each string of ``PROFILE_WATCH``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1511,10 +1596,14 @@ def profile_kernels(fn, label):
           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in ev)
     top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:14]
+    watched = {w: (sum(e.self_device_time_total for e in ev if w in e.key) / 1e3,
+                   sum(e.count for e in ev if w in e.key)) for w in PROFILE_WATCH}
     out = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3, device_busy_share=busy / wall_us,
-               top=[(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top])
+               top=[(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top],
+               watched=watched)
     log(f"  profile of {label}: wall {out['wall_ms']:.1f} ms, device busy "
-        f"{out['device_busy_ms']:.1f} ms ({100 * out['device_busy_share']:.1f}%)")
+        f"{out['device_busy_ms']:.1f} ms ({100 * out['device_busy_share']:.1f}%); "
+        + ", ".join(f"{w} {ms:.3f} ms in {n} launches" for w, (ms, n) in watched.items()))
     for name, ms, n in out["top"]:
         log(f"    {ms:9.3f} ms  x{n:5d}  {name}")
     return out
@@ -1757,8 +1846,8 @@ def train_phases(cfg, cfg7):
     K10 and K11 at head dim 128, K12 at H=4096), then a
     SILU_LAYERS-layer cut with ``fused_silu_quant`` (K13 twice a layer a step:
     the student's forward and its recompute) beside the same cut with the
-    default flags. The two cuts start from the same weights and differ in the
-    MLP activation alone (sigmoid in fp32 rounded once, against the model
+    default flags (the former profiled: K13's device time). The two cuts start
+    from the same weights and differ in the MLP activation alone (sigmoid in fp32 rounded once, against the model
     type's SiLU, and the kernel's quantization against the fused matmul's):
     their first losses are held within SILU_LOSS_REL of each other."""
     full = train_run("W4A8KV4 train", train_cfg_of(cfg), TRAIN_STEPS, TRAIN_WARM, profile=True)
@@ -1769,7 +1858,7 @@ def train_phases(cfg, cfg7):
                      SILU_STEPS, 0, profile=False)
     silu = train_run(f"W4A8KV4 train, {SILU_LAYERS}-layer cut, fused_silu_quant",
                      train_cfg_of(cfg, SILU_LAYERS, fused_silu_quant=True), SILU_STEPS, 0,
-                     profile=False)
+                     profile=True)
     rel = abs(silu["losses"][0] - base["losses"][0]) / abs(base["losses"][0])
     log(f"  fused_silu_quant against the default route on the {SILU_LAYERS}-layer cut: first "
         f"losses {silu['losses'][0]:.4f} and {base['losses'][0]:.4f}, {rel:.3g} apart (limit "
@@ -1850,9 +1939,10 @@ def main() -> int:
     attrs.update({f"decode_megakernel_{k}": v for k, v in MK.kernel_attributes().items()})
     attrs.update({f"gemm_{k}": v for k, v in QM.kernel_attributes().items()})
     attrs.update(DA.kernel_attributes())
+    attrs.update(FQ.kernel_attributes())
     if any(a["spill_bytes"] for a in attrs.values()):
-        raise AssertionError(f"a tensor-core kernel, K9, a K1/K2 or a K3/K7/K8 variant spills "
-                             f"registers: {attrs}")
+        raise AssertionError(f"a tensor-core kernel, K9, a K1/K2, a K3/K7/K8 or a K12/K13 variant "
+                             f"spills registers: {attrs}")
     fq = fused_quant_phase(timer, gen, FQ, cfg)
 
     log("[3] TinyLlama-1.1B, 22 layers: the stacked GEMMs on the served weights, the "
@@ -2035,12 +2125,12 @@ def main() -> int:
                      ftr7["ragged"]["dkv"]]),
         dict(name="rmsnorm_quant", source="llm_qat_torch/csrc/fused_quant.cu",
              replaces="llm_qat_tpu/ops/pallas/fused_quant.py:77",
-             shape="[8192, 2048] bf16 with an f32 gain (bf16 gain, and [4096, 4096] at the "
-                   "LLaMA-7B width, in shapes); max_abs_err in integer steps",
+             shape="[8192, 2048] bf16 with an f32 gain (bf16 gain, and [4096, 4096] and "
+                   "[4096, 5120] with a bf16 gain, in shapes); max_abs_err in integer steps",
              **{k: fq["rmsnorm_quant"][0][k] for k in keys}, shapes=fq["rmsnorm_quant"]),
         dict(name="silu_mul_quant", source="llm_qat_torch/csrc/fused_quant.cu",
              replaces="llm_qat_tpu/ops/pallas/fused_quant.py:129",
-             shape="[8192, 5632] bf16; max_abs_err in integer steps",
+             shape="[8192, 5632] bf16 ([4096, 11008] in shapes); max_abs_err in integer steps",
              **{k: fq["silu_mul_quant"][0][k] for k in keys}, shapes=fq["silu_mul_quant"],
              launches_from="the fused_silu_quant train run (off by default)"),
     ]

@@ -9,13 +9,18 @@ produces the activation, so the bf16 tensor never reaches device memory.
   replaces ``...:_silu_mul_quant_kernel``: SiLU(gate) * up + per-token quant.
 
 Beside each its plain PyTorch version; a wrapper takes it only for tensors on
-the CPU. Numerics contract: the normed / gated value is rounded to the
+the CPU. ``plan`` picks the kernel's layout from the row width (a row held in
+registers by a group of warps, or, for rows too wide or misaligned, staged in
+shared memory). Numerics contract: the normed / gated value is rounded to the
 activation type first (what the unfused path materializes), then quantized
 from that value with ``s = qmax/(absmax+1e-6)`` and ``round(x*s)``. RMSNorm
-accumulates in fp32 and takes the mean as ``sum * (1/K)``; SiLU's sigmoid is
-evaluated in fp32. Against another fp32 summation order the scales agree to
-the last bits and an integer may differ by exactly 1 where ``x*s`` sits on a
-rounding boundary.
+sums the fp32 squares in fp32 and takes the mean as ``sum * (1/K)``; SiLU's
+sigmoid is evaluated in fp32. SiLU*up+quant sums nothing, and its kernel
+agrees with its plain version to the bit. The RMSNorm kernel sums in another
+order than the plain version (and JAX): the scales agree to the last bits,
+and an integer may differ by exactly 1 where ``x*s`` sits on a rounding
+boundary. A float64 sum would make kernel and plain version bit-equal, but
+it moves the port's CPU path off JAX's fp32 mean (PERF.md §6).
 """
 
 from __future__ import annotations
@@ -28,7 +33,15 @@ from llm_qat_torch.ops import _build
 from llm_qat_torch.ops.quant_matmul import _scale
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_ROW = 56 * 1024     # fp32 values of one row a block holds in shared memory
+# csrc/fused_quant.cu's limits, by hand (its fused_quant_limits reports them,
+# and a -m cuda test holds these to it)
+_IN_WORDS = 32           # IN_WORDS: 32-bit words a thread holds for its chunks at most
+_MAX_ROW = 56 * 1024     # STAGED_ROW: fp32 values of one row a staged kernel holds
+_MAX_GROUPS = 8          # MAX_GROUPS: row groups a block
+_MAX_WARPS = 32          # MAX_THREADS / 32
+# plan()'s own choices
+_WORDS = 16              # the words a thread plan() prefers
+_STAGE_SMEM = 220 * 1024  # bytes of shared memory a block's two stages may take
 
 
 def supported(x: torch.Tensor) -> bool:
@@ -39,6 +52,70 @@ def supported(x: torch.Tensor) -> bool:
         return False
     m, k = x.shape
     return m % 8 == 0 and k % 128 == 0 and k >= 128
+
+
+def plan(k: int, itemsize: int, n_inputs: int, aligned: bool = True,
+         f32_products: bool = False) -> Tuple[int, int, int]:
+    """``(v, wpr, rows)`` for ``csrc/fused_quant.cu`` at row width ``k``,
+    ``itemsize`` bytes an input element, ``n_inputs`` inputs (1: RMSNorm,
+    2: SiLU*up). A row is ``k / 8`` chunks of 8 elements: 4 words an input in
+    bf16, 8 in f32, and 8 more where RMSNorm keeps its products with an f32
+    gain (``f32_products``). The register kernel gives each thread ``v``
+    chunks of a row and a row ``wpr`` warps: the fewest warps that hold the
+    row at ``_WORDS`` words a thread (at least two chunks where the kernel
+    takes two; else at the most it takes, ``_IN_WORDS``), then the fewest
+    chunks a thread, a power of two, that cover it; ``rows`` row groups a
+    block (8 of one warp, 4 of two, 2 of three or four, else one). RMSNorm's
+    row groups walk the rows through a ring of two shared-memory stages,
+    which must fit ``_STAGE_SMEM`` a block; SiLU*up's take a row each. Rows
+    no register plan fits, rows whose width is not a multiple of 8 and
+    tensors that are not 16-byte aligned take the staged kernel (``v = -1``),
+    an element a thread at a time; ``wpr`` is then its block's warps."""
+    staged = -1, min(_MAX_WARPS, -(-k // 32)), 1
+    if k % 8 or not aligned:
+        return staged
+    chunks = k // 8
+    cw = 2 * itemsize * n_inputs                 # input words of a chunk
+    rw = cw + (8 if f32_products else 0)         # words a thread holds for it
+    for budget in (max(_WORDS, 2 * rw), _IN_WORDS):
+        vmax = 1 << ((budget // rw).bit_length() - 1) if budget >= rw else 0
+        if not vmax or chunks > 32 * _MAX_WARPS * vmax:
+            continue
+        wpr = -(-chunks // (32 * vmax))
+        v = 1 << (-(-chunks // (32 * wpr)) - 1).bit_length()   # a power of two
+        rows = max(1, _MAX_GROUPS // wpr)
+        if n_inputs == 2:
+            return v, wpr, rows
+        group_bytes = 2 * 4 * cw * v * 32 * wpr  # a row group's two stages
+        if group_bytes <= _STAGE_SMEM:
+            return v, wpr, max(1, min(rows, _STAGE_SMEM // group_bytes))
+        break                                    # more words a thread need no fewer bytes
+    return staged
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def kernel_attributes() -> dict:
+    """What the compiler gave every kernel of ``csrc/fused_quant.cu``, by name
+    ``{rmsnorm_quant|silu_mul_quant}_{input}[_{gain}]_{v<n>|staged}``:
+    registers a thread, shared bytes (static, dynamic), local (spill) bytes a
+    thread, threads a block and blocks an SM can hold (the register kernels
+    at 256 threads, RMSNorm's with two stages, the staged ones at 1024 and a
+    row of ``_MAX_ROW`` values). Launches nothing."""
+    # kernel, name, h's code, the gain's, words of a chunk a thread holds
+    variants = [(0, "rmsnorm_quant_bf16_bf16", 1, 1, 4), (0, "rmsnorm_quant_bf16_f32", 1, 0, 12),
+                (0, "rmsnorm_quant_f32", 0, 0, 16), (1, "silu_mul_quant_bf16", 1, 0, 8),
+                (1, "silu_mul_quant_f32", 0, 0, 16)]
+    out = {}
+    for kernel, name, code, gain_code, rw in variants:
+        vmax = 1 << ((_IN_WORDS // rw).bit_length() - 1)
+        for v in [*(1 << j for j in range(vmax.bit_length())), -1]:
+            tag = f"v{v}" if v > 0 else "staged"
+            out[f"{name}_{tag}"] = _build.attributes("fused_quant", "fused_quant_attributes",
+                                                     kernel, code, gain_code, v)
+    return out
 
 
 def _quant_rows(x32: torch.Tensor, a_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -89,14 +166,17 @@ def rmsnorm_quant(h: torch.Tensor, g: torch.Tensor, eps: float,
         return _rmsnorm_quant_plain(h, g, eps, a_bits)
     _check("rmsnorm_quant", h)
     m, k = h.shape
-    out_dt = torch.promote_types(h.dtype, g.dtype)
-    hc, gf = h.contiguous(), g.float().contiguous()
+    hc = h.contiguous()
+    # a bf16 gain stays bf16 beside a bf16 h (the product is bf16); else f32
+    same = h.dtype == g.dtype == torch.bfloat16
+    gc = g.contiguous() if same else g.float().contiguous()
     xq = torch.empty((m, k), dtype=torch.int8, device=h.device)
     sx = torch.empty((m, 1), dtype=torch.float32, device=h.device)
-    f = _build.bind("fused_quant", "rmsnorm_quant", 4, 4, 3)
-    err = f(hc.data_ptr(), gf.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k,
-            _DTYPE_CODES[h.dtype], int(out_dt == torch.bfloat16), float(eps),
-            float(2 ** (a_bits - 1) - 1), 1.0 / k,
+    f = _build.bind("fused_quant", "rmsnorm_quant", 4, 7, 3)
+    err = f(hc.data_ptr(), gc.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k,
+            _DTYPE_CODES[h.dtype], _DTYPE_CODES[gc.dtype],
+            *plan(k, h.element_size(), 1, _aligned(hc, gc), f32_products=not same),
+            float(eps), float(2 ** (a_bits - 1) - 1), 1.0 / k,
             torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "rmsnorm_quant")
     rmsnorm_quant.launches += 1
@@ -117,10 +197,10 @@ def silu_mul_quant(gate: torch.Tensor, up: torch.Tensor,
     gc, uc = gate.contiguous(), up.contiguous()
     yq = torch.empty((m, k), dtype=torch.int8, device=gate.device)
     sy = torch.empty((m, 1), dtype=torch.float32, device=gate.device)
-    f = _build.bind("fused_quant", "silu_mul_quant", 4, 3, 1)
+    f = _build.bind("fused_quant", "silu_mul_quant", 4, 6, 1)
     err = f(gc.data_ptr(), uc.data_ptr(), yq.data_ptr(), sy.data_ptr(), m, k,
-            _DTYPE_CODES[gate.dtype], float(2 ** (a_bits - 1) - 1),
-            torch.cuda.current_stream(gate.device).cuda_stream)
+            _DTYPE_CODES[gate.dtype], *plan(k, gate.element_size(), 2, _aligned(gc, uc)),
+            float(2 ** (a_bits - 1) - 1), torch.cuda.current_stream(gate.device).cuda_stream)
     _build.check(err, "silu_mul_quant")
     silu_mul_quant.launches += 1
     return yq, sy

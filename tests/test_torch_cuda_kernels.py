@@ -28,10 +28,14 @@ held as the forward is; the bf16 ones give the same bits on a second
 launch (no atomics). The bf16 flash kernels (forward, dQ, dK/dV) take q.k
 and dO.v on the tensor cores, and so do their plain versions (the library's
 bf16 product with an fp32 result): with fp32 products instead, p and ds
-cross bf16 rounding steps that the limit does not allow (``flash_numerics.py``). The RMSNorm+quant and SiLU*up+quant kernels give the
-plain versions' scales to rtol 1e-6; an integer may differ by 1 where x*s
-sits on a rounding boundary (the kernels' fp32 sum of squares runs in another
-order): at most 1 apart everywhere and equal in all but 1% of the elements.
+cross bf16 rounding steps that the limit does not allow (``flash_numerics.py``). The RMSNorm+quant and SiLU*up+quant kernels are held
+at every width of the models' rows, with a row of zeros and a row with one
+outlier in each case (``-k "rmsnorm or silu"``), and give the same bits on a
+second launch. SiLU*up+quant sums nothing and gives its plain version's
+integers and scales to the bit. RMSNorm+quant sums its fp32 squares in
+another order than its plain version: scales to rtol 1e-6, and an integer
+may differ by 1 where x*s sits on a rounding boundary (at most 1 apart
+everywhere, equal in all but 1% of the elements).
 """
 
 import pytest
@@ -779,44 +783,142 @@ def test_flash_attention_gqa_gradient_runs_the_kernels(gen):
                       o[..., :32].detach(), saved.lse, g[..., :32])
 
 
-def _ints_agree(got, want):
-    d = (got.int() - want.int()).abs()
-    return int(d.max()) <= 1 and float((d != 0).float().mean()) <= 0.01
+# row widths of the models' hidden and MLP rows (TinyLlama, LLaMA-7B/13B/30B)
+QUANT_WIDTHS = [128, 2048, 4096, 5120, 5632, 6656, 11008, 13824, 17920]
 
 
-@pytest.mark.parametrize("M,K", [(64, 2048), (8, 128), (40, 5632)])
+def _quant_input(gen, M, K, dtype, scale):
+    """Random rows with row 0 all zeros (s = qmax / 1e-6) and one outlier in
+    row 1 (it alone sets the row's scale)."""
+    x = torch.randn(M, K, device="cuda", generator=gen) * scale
+    x[0] = 0
+    x[1, K // 3] = 40 * scale
+    return x.to(dtype)
+
+
+def _same_bits(got, again, want):
+    """Integers and scales equal to the plain version's, and a second
+    launch's equal to the first's."""
+    return all(torch.equal(a, b) for a, b in zip(got, want)) and all(
+        torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _quant_close(got, again, want):
+    """RMSNorm+quant against its plain version: scales to rtol 1e-6, integers
+    at most 1 apart and equal in all but 1% of the elements; a second
+    launch's bits equal to the first's."""
+    (q, s), (q2, s2) = got, want
+    d = (q.int() - q2.int()).abs()
+    return (torch.allclose(s, s2, rtol=1e-6, atol=0) and int(d.max()) <= 1
+            and float((d != 0).float().mean()) <= 0.01
+            and all(torch.equal(a, b) for a, b in zip(got, again)))
+
+
+# 8192 + 5 rows are several times what the SMs hold at once at these widths,
+# so each of RMSNorm's row groups walks rows through its ring of two stages
+@pytest.mark.parametrize("M,K", [(M, K) for M in (8, 13) for K in QUANT_WIDTHS]
+                         + [(8192 + 5, K) for K in (2048, 4096, 5120)])
 @pytest.mark.parametrize("h_dtype,g_dtype", [(torch.bfloat16, torch.bfloat16),
                                              (torch.bfloat16, torch.float32),
-                                             (torch.float32, torch.float32)])
+                                             (torch.float32, torch.float32),
+                                             (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("a_bits", [8, 4])
 def test_rmsnorm_quant_kernel(gen, M, K, h_dtype, g_dtype, a_bits):
-    h = (torch.randn(M, K, device="cuda", generator=gen) * 1.5).to(h_dtype)
+    """13 and 8197 rows are multiples of no block's row count (8, 4 or 2 row
+    groups); at 8197 the grid (what the SMs hold at once) is smaller than
+    the row groups the rows need."""
+    h = _quant_input(gen, M, K, h_dtype, 1.5)
     g = (1 + 0.1 * torch.randn(K, device="cuda", generator=gen)).to(g_dtype)
     n = FQ.rmsnorm_quant.launches
-    xq, sx = FQ.rmsnorm_quant(h, g, 1e-6, a_bits)
+    got = FQ.rmsnorm_quant(h, g, 1e-5, a_bits)
     assert FQ.rmsnorm_quant.launches == n + 1
-    xq2, sx2 = FQ._rmsnorm_quant_plain(h, g, 1e-6, a_bits)
+    again = FQ.rmsnorm_quant(h, g, 1e-5, a_bits)
+    want = FQ._rmsnorm_quant_plain(h, g, 1e-5, a_bits)
     torch.cuda.synchronize()
-    assert xq.dtype == torch.int8 and sx.shape == (M, 1)
-    assert torch.allclose(sx, sx2, rtol=1e-6, atol=0)
-    assert _ints_agree(xq, xq2)
+    assert got[0].dtype == torch.int8 and got[1].shape == (M, 1)
+    assert _quant_close(got, again, want)
+    assert not got[0][0].any() and float(got[1][0]) == float(want[1][0])
+    if M > 8192:   # an SM holds at most 2048 threads: fewer row groups than rows
+        v, wpr, _ = FQ.plan(K, h.element_size(), 1, f32_products=g_dtype != torch.bfloat16
+                            or h_dtype != torch.bfloat16)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert v > 0 and sms * (2048 // (32 * wpr)) < M
 
 
-@pytest.mark.parametrize("M,K", [(64, 5632), (8, 128), (24, 17920)])
+@pytest.mark.parametrize("K", QUANT_WIDTHS)
+@pytest.mark.parametrize("M", [8, 13])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_silu_mul_quant_kernel(gen, M, K, dtype):
-    gate = (torch.randn(M, K, device="cuda", generator=gen) * 2).to(dtype)
+@pytest.mark.parametrize("a_bits", [8, 4])
+def test_silu_mul_quant_kernel(gen, M, K, dtype, a_bits):
+    gate = _quant_input(gen, M, K, dtype, 2.0)
     up = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
     n = FQ.silu_mul_quant.launches
-    yq, sy = FQ.silu_mul_quant(gate, up, 8)
+    got = FQ.silu_mul_quant(gate, up, a_bits)
     assert FQ.silu_mul_quant.launches == n + 1
-    yq2, sy2 = FQ._silu_mul_quant_plain(gate, up, 8)
+    again = FQ.silu_mul_quant(gate, up, a_bits)
+    want = FQ._silu_mul_quant_plain(gate, up, a_bits)
     torch.cuda.synchronize()
-    assert torch.allclose(sy, sy2, rtol=1e-6, atol=0)
-    assert _ints_agree(yq, yq2)
-    if dtype == torch.bfloat16:
-        # nothing is summed here: the kernel's roundings are the plain version's
-        assert torch.equal(yq, yq2) and torch.equal(sy, sy2)
+    assert _same_bits(got, again, want)
+    assert not got[0][0].any()
+
+
+@pytest.mark.parametrize("case", ["rows too wide for the registers", "width not a multiple of 8",
+                                  "misaligned tensors", "the widest row"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_quant_staged_kernels(gen, case, dtype):
+    """The staged kernels (one row a block in shared memory, an element a
+    thread at a time): rows the register kernels do not hold, a width that
+    is not a multiple of 8, tensors that are not 16-byte aligned, and the
+    widest row (56K values). Held as above."""
+    K = {"rows too wide for the registers": 40960, "width not a multiple of 8": 1004,
+         "misaligned tensors": 2048, "the widest row": FQ._MAX_ROW}[case]
+    M = 5
+
+    def rows(scale):
+        x = _quant_input(gen, M, K, dtype, scale)
+        if case != "misaligned tensors":
+            return x
+        buf = torch.empty(M * K + 1, dtype=dtype, device="cuda")
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(M, K)         # contiguous, 2 or 4 bytes past 16-byte alignment
+
+    h, gate, up = rows(1.5), rows(2.0), rows(1.0)
+    g = (1 + 0.1 * torch.randn(K, device="cuda", generator=gen)).to(dtype)
+    itemsize = h.element_size()
+    assert FQ.plan(K, itemsize, 2, FQ._aligned(gate, up))[0] == -1
+    assert FQ.plan(K, itemsize, 1, FQ._aligned(h, g), f32_products=True)[0] == -1
+    got = FQ.rmsnorm_quant(h, g, 1e-5, 8)
+    assert _quant_close(got, FQ.rmsnorm_quant(h, g, 1e-5, 8), FQ._rmsnorm_quant_plain(h, g, 1e-5, 8))
+    got = FQ.silu_mul_quant(gate, up, 8)
+    assert _same_bits(got, FQ.silu_mul_quant(gate, up, 8), FQ._silu_mul_quant_plain(gate, up, 8))
+    torch.cuda.synchronize()
+
+
+def test_fused_quant_rejects_rows_over_the_staged_limit(gen):
+    h = torch.zeros(8, FQ._MAX_ROW + 128, device="cuda")
+    with pytest.raises(NotImplementedError, match="rows of at most"):
+        FQ.rmsnorm_quant(h, torch.ones(h.shape[1], device="cuda"), 1e-5, 8)
+    with pytest.raises(NotImplementedError, match="rows of at most"):
+        FQ.silu_mul_quant(h, h, 8)
+
+
+def test_fused_quant_kernel_attributes(gen):
+    """Every register and staged kernel of fused_quant.cu compiles without a
+    spill; the register kernels hold 1024 threads a block."""
+    attrs = FQ.kernel_attributes()
+    assert len(attrs) == (4 + 2 + 2 + 3 + 2) + 5     # V = 1, 2 (, 4, 8); staged
+    for name, a in attrs.items():
+        assert a["spill_bytes"] == 0 and a["blocks_per_sm"] >= 1, (name, a)
+        assert a["registers"] <= 64, (name, a)
+
+
+def test_fused_quant_plan_limits_are_the_kernels(gen):
+    """``ops/fused_quant.py`` mirrors csrc/fused_quant.cu's limits by hand;
+    they must be the ones the source was built with."""
+    from llm_qat_torch.ops import _build
+
+    limits = _build.query("fused_quant", "fused_quant_limits", 4)
+    assert limits == [FQ._IN_WORDS, FQ._MAX_ROW, FQ._MAX_GROUPS, 32 * FQ._MAX_WARPS]
 
 
 @pytest.mark.parametrize("remat_policy,k4", [("save_attn", 2), ("none", 3)])

@@ -56,7 +56,13 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    TinyLlama cut with and without ``fused_silu_quant``, and one step on a
    2-layer cut of each width: the card path with its kernels against the
    card path with the plain versions swapped in, and at TinyLlama's width
-   also against the port's CPU path (``train_check``);
+   also against the port's CPU path (``train_check``). Each train run prints
+   the memory allocated at its entry (after ``gc.collect``) beside its peak;
+4b. runs the reference's pipeline through the port's entry points at
+   TinyLlama-1.1B's full width and depth: the teacher as an HF checkpoint
+   written and read back, synthesis on the card, ``cli.train.run`` (3 steps
+   of 2048 tokens, the HF export, eval) and a resume on a 2-layer cut, bit
+   for bit (see ``pipeline_phase``);
 5. prints what the compiler gave the tensor-core flash kernels, the
    decode megakernel and every K1/K2, K3/K7/K8 and K12/K13 variant
    (registers, shared memory, spills, blocks an SM holds; it fails on a
@@ -71,11 +77,14 @@ fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -115,6 +124,8 @@ TRAIN_CUT_LOSS_REL, TRAIN_CUT_GRAD_REL = 2e-2, 0.25   # train_check: kernels aga
 PROFILE_WATCH = ("rmsnorm_quant", "silu_mul_quant")    # K12, K13: their time in each train profile
 QUANT_FLIP_SHARE = 0.01     # K12: integers one off where x*s is on a rounding boundary
 QUANT_ROW_SHARE = 1e-3      # K12: rows whose absmax moved one bf16 step (see quant_agreement)
+PIPE_SEED, PIPE_VOCAB, PIPE_LEN = 5, 8, 256   # pipeline: weights' seed, start ids, doc tokens
+PIPE_STEPS, PIPE_RESUME_LAYERS, PIPE_RESUME_STEPS = 3, 2, 2   # pipeline train and resume
 SPIN_CYCLES = 2_000_000            # Timer: ~1 ms of device clock between flush and timed call
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -362,9 +373,11 @@ def ragged_sdpa_inputs(k, v, lens_l, G):
 def flash_phase(timer, gen, FA, B, G, S, D, lens_l=None):
     """K4 at a prefill shape: B = prompts x kv heads, G query heads a kv
     head, causal, bf16, full lengths unless ``lens_l``. Kernel and plain
-    version take p against the same row maximum, from the same tensor-core
-    q.k, and round it to bf16 alike; they differ in their fp32 summation
-    orders: held element-wise as K3 is, and the LSE to 1e-3. SDPA is the
+    version walk the TPU kernel's key blocks (``_fit_block(1024, S)``: one
+    block up to 1024, two of 768 at S = 1536, fifteen of 120 at S = 1800),
+    take p against the same running maxima, from the same tensor-core q.k,
+    and round it to bf16 alike; they differ in their fp32 summation orders:
+    held element-wise as K3 is, and the LSE to 1e-3. SDPA is the
     yardstick: causal at full lengths, under the lengths' boolean mask
     otherwise (``ragged_sdpa_inputs``)."""
     q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
@@ -1632,6 +1645,10 @@ def train_run(label, cfg, steps, warm, profile, batch=TRAIN_BATCH, seq=TRAIN_SEQ
     from llm_qat_torch.training import trainer as T
 
     L = cfg.num_hidden_layers
+    before_gc = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry = torch.cuda.memory_allocated()
     tc = T.TrainConfig(kl_chunk=KL_CHUNK)
     student = P.init_params(cfg, seed=0, dtype=torch.bfloat16)
     teacher = P.init_params(cfg.replace(w_bits=32, a_bits=32, kv_bits=32), seed=1,
@@ -1645,6 +1662,7 @@ def train_run(label, cfg, steps, warm, profile, batch=TRAIN_BATCH, seq=TRAIN_SEQ
     data = {"input_ids": ids, "labels": ids}
     want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "rmsnorm_quant": 4 * L,
             "silu_mul_quant": 2 * L if cfg.fused_silu_quant else 0}
+    state_bytes = torch.cuda.memory_allocated() - entry   # student, teacher, moments, batch
     torch.cuda.reset_peak_memory_stats()
     losses, norms, times, launches = [], [], [], dict.fromkeys(counters(), 0)
     for i in range(warm + steps):
@@ -1682,12 +1700,18 @@ def train_run(label, cfg, steps, warm, profile, batch=TRAIN_BATCH, seq=TRAIN_SEQ
                learning_rate=tc.learning_rate, warmup=warm, steps=steps, losses=losses,
                grad_norms=norms, step_ms=step_ms, step_ms_all=[1e3 * t for t in times],
                tokens_per_s=batch * seq / (step_ms / 1e3), peak_memory_bytes=peak,
+               entry_allocated_bytes=entry, entry_before_gc_bytes=before_gc,
+               state_bytes=state_bytes,
+               step_peak_over_entry_bytes=peak - entry,
                launches_per_step=want, launches=launches, teacher_unchanged=True)
     log(f"  {label}: {L} layers, {batch} x {seq} tokens, lr {tc.learning_rate}: losses "
         + " ".join(f"{x:.3f}" for x in losses) + "; grad norms "
         + " ".join(f"{x:.3f}" for x in norms) + f"; step {step_ms:.1f} ms "
         f"({', '.join(f'{1e3 * t:.1f}' for t in times)}), {res['tokens_per_s']:.0f} tokens/s, "
-        f"peak memory {peak / 2 ** 30:.2f} GiB; launches a step {want}; teacher unchanged")
+        f"peak memory {peak / 2 ** 30:.2f} GiB (allocated at entry {before_gc / 2 ** 30:.2f} GiB, "
+        f"after gc {entry / 2 ** 30:.2f} GiB; student + teacher + moments + batch "
+        f"{state_bytes / 2 ** 30:.2f} GiB; the steps' own peak {(peak - entry) / 2 ** 30:.2f} "
+        f"GiB); launches a step {want}; teacher unchanged")
     if profile:
         res["profile"] = profile_kernels(lambda: tr.train_step(data), f"one train step ({label})")
     del tr, student, teacher
@@ -1870,6 +1894,277 @@ def train_phases(cfg, cfg7):
 
 
 # ---------------------------------------------------------------------------
+# the reference's pipeline through the port's entry points
+# ---------------------------------------------------------------------------
+
+
+def id_codec():
+    """(detokenize, tokenize): token ids written as decimal text and read
+    back. The byte tokenizer cannot spell ids >= 256 of a 32000-token vocab,
+    and the card's host has no tokenizer files."""
+    return (lambda ids: " ".join(str(int(i)) for i in ids),
+            lambda text: [int(t) for t in text.split()])
+
+
+class _Clock:
+    """Accumulates the wall time and the number of calls of functions it
+    wraps (``wrap(module, name)``), waiting for the card around each call;
+    ``undo()`` puts the originals back."""
+
+    def __init__(self):
+        self.s, self.calls, self._saved = {}, {}, []
+
+    def wrap(self, mod, name, key):
+        real = getattr(mod, name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            self.s[key] = self.s.get(key, 0.0) + time.perf_counter() - t0
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return out
+
+        self._saved.append((mod, name, real))
+        setattr(mod, name, timed)
+
+    def undo(self):
+        for mod, name, real in reversed(self._saved):
+            setattr(mod, name, real)
+        self._saved.clear()
+
+
+def _same_tree(a, b) -> bool:
+    from llm_qat_torch.training import trainer as T
+    la, lb = T.tree_leaves(a), T.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def resume_check(cfg, layers, steps=PIPE_RESUME_STEPS):
+    """Resume at full width on a ``layers``-layer cut: 2 steps, a step
+    checkpoint through ``CheckpointManager``, a fresh ``Trainer`` restored
+    from it and 2 more steps, against 4 straight steps on the same batches.
+    Params and both Adam moments must be bit-equal."""
+    from llm_qat_torch.models import params as P
+    from llm_qat_torch.training import trainer as T
+    from llm_qat_torch.utils.checkpoint import CheckpointManager
+
+    c = train_cfg_of(cfg, layers)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(PIPE_SEED + 7)
+    batches = [torch.randint(0, c.vocab_size, (1, TRAIN_SEQ), device="cuda", generator=g)
+               for _ in range(2 * steps)]
+    teacher = P.init_params(c.replace(w_bits=32, a_bits=32, kv_bits=32), seed=PIPE_SEED,
+                            dtype=torch.bfloat16)
+
+    def trainer():
+        return T.Trainer(c, T.TrainConfig(kl_chunk=KL_CHUNK, total_steps=2 * steps),
+                         P.init_params(c, seed=PIPE_SEED, dtype=torch.bfloat16), teacher)
+
+    straight = trainer()
+    for ids in batches:
+        straight.train_step({"input_ids": ids, "labels": ids})
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        first = trainer()
+        for ids in batches[:steps]:
+            first.train_step({"input_ids": ids, "labels": ids})
+        mngr = CheckpointManager(root)
+        t0 = time.perf_counter()
+        mngr.save(steps, first.state)
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(root)
+        del first
+        resumed = trainer()
+        t0 = time.perf_counter()
+        resumed.state = mngr.restore(resumed.state)
+        restore_s = time.perf_counter() - t0
+        for ids in batches[steps:]:
+            resumed.train_step({"input_ids": ids, "labels": ids})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a, b = straight.state, resumed.state
+    same = (a.step == b.step == 2 * steps and a.opt_state["count"] == b.opt_state["count"]
+            and _same_tree(a.params, b.params) and _same_tree(a.opt_state["mu"], b.opt_state["mu"])
+            and _same_tree(a.opt_state["nu"], b.opt_state["nu"]))
+    if not same:
+        raise AssertionError(f"resume on the {layers}-layer cut: {steps} + {steps} steps are not "
+                             f"bit-equal to {2 * steps} straight steps")
+    log(f"  resume, {layers}-layer cut at full width: {steps} steps, save ({nbytes / 1e9:.3f} GB "
+        f"in {save_s:.2f} s), restore into a fresh trainer ({restore_s:.2f} s), {steps} more: "
+        f"params and moments bit-equal to {2 * steps} straight steps")
+    return dict(layers=layers, steps=f"{steps} + {steps}", bit_equal=True, checkpoint_bytes=nbytes,
+                save_s=save_s, restore_s=restore_s)
+
+
+def pipeline_phase(cfg):
+    """The reference's workflow (generate_data.py -> merge_gen_data.py ->
+    train.py with an HF export) through the port's entry points at
+    TinyLlama-1.1B's full width and depth, random N(0, 0.02) weights from
+    PIPE_SEED:
+
+    1. the teacher written as an HF directory in bf16
+       (``convert.save_hf_checkpoint``) and read back
+       (``load_hf_checkpoint``): bit-equal;
+    2. ``synthesis.synthesize_shard`` on the card (PIPE_VOCAB start ids x 3
+       greedy lengths, batches of PIPE_VOCAB, PIPE_LEN tokens, no EOS cut)
+       through the id codec, then ``merge_shards``; no kernel launches (the
+       fp teacher's cached path, as in the JAX package);
+    3. ``cli.train.run`` on the merged jsonl (also the eval file): W4A8KV4,
+       qat + KD, bf16, blocks of 2048, PIPE_STEPS steps, eval; every launch
+       count is set to 0 before it and read after: K4, K10, K11 and K12 at
+       the counts the steps and the eval forwards give, nothing else; every
+       logged loss and the perplexity finite; the HF export equal bit for
+       bit to the final step checkpoint's params;
+    4. ``resume_check`` on a PIPE_RESUME_LAYERS-layer cut.
+
+    Prints the time of each part, the bytes written, the memory allocated
+    at entry and the full-depth TrainState's size from its dtypes."""
+    from llm_qat_torch.cli import train as CLI
+    from llm_qat_torch.data import synthesis as S
+    from llm_qat_torch.models import convert
+    from llm_qat_torch.models import params as P
+    from llm_qat_torch.training import trainer as T
+    from llm_qat_torch.utils import args as A
+    from llm_qat_torch.utils import checkpoint as CK
+
+    before_gc = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry = torch.cuda.memory_allocated()
+    log(f"  allocated at the pipeline's entry {before_gc / 2 ** 30:.2f} GiB, after gc "
+        f"{entry / 2 ** 30:.2f} GiB")
+    detok, tok = id_codec()
+    L = cfg.num_hidden_layers
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    t, nbytes = {}, {}
+    try:
+        teacher_cfg = cfg.replace(w_bits=32, a_bits=32, kv_bits=32)
+        teacher = P.init_params(teacher_cfg, seed=PIPE_SEED, dtype=torch.bfloat16)
+        tdir = os.path.join(root, "teacher")
+        t0 = time.perf_counter()
+        nbytes["teacher"] = convert.save_hf_checkpoint(teacher, teacher_cfg, tdir,
+                                                       dtype=torch.bfloat16)
+        t["write_teacher_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cfg2, back = convert.load_hf_checkpoint(tdir, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t["read_teacher_s"] = time.perf_counter() - t0
+        if not (_same_tree(teacher, back) and cfg2.hidden_size == cfg.hidden_size
+                and cfg2.num_hidden_layers == L and cfg2.vocab_size == cfg.vocab_size
+                and cfg2.kv_heads == cfg.kv_heads):
+            raise AssertionError("pipeline: the teacher read back is not the teacher written")
+        del teacher
+
+        for fn in counters().values():
+            fn.launches = 0
+        gen_dir = os.path.join(root, "gen")
+        t0 = time.perf_counter()
+        shard = S.synthesize_shard(back, cfg2, 0, gen_dir, detokenize=detok,
+                                   n_vocab_per_shard=PIPE_VOCAB, batch_size=PIPE_VOCAB,
+                                   total_len=PIPE_LEN, eos_id=None, seed=PIPE_SEED)
+        torch.cuda.synchronize()
+        t["synthesize_s"] = time.perf_counter() - t0
+        merged = S.merge_shards(gen_dir)
+        synth_launches = read_counters()
+        docs = [json.loads(line)["text"] for line in open(merged)]
+        n_docs = len(docs)
+        if (n_docs != 3 * PIPE_VOCAB or open(shard).read() != open(merged).read()
+                or any(len(tok(d)) != PIPE_LEN for d in docs)
+                or any(tok(d)[0] != i % PIPE_VOCAB for i, d in enumerate(docs))
+                or any(min(tok(d)) < 0 or max(tok(d)) >= cfg.vocab_size for d in docs)
+                or any(synth_launches.values())):
+            raise AssertionError(f"pipeline synthesis: {n_docs} documents, launches "
+                                 f"{synth_launches}")
+        del back
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        margs = A.ModelArguments(input_model_filename=tdir, output_model_filename="student",
+                                 local_dir=os.path.join(root, "local"), w_bits=4, a_bits=8,
+                                 kv_bits=4)
+        dargs = A.DataArguments(train_data_local_path=merged, eval_data_local_path=merged)
+        targs = A.TrainingArguments(output_dir=os.path.join(root, "out"),
+                                    model_max_length=TRAIN_SEQ, qat=True, use_kd=True,
+                                    bf16=True, max_steps=PIPE_STEPS, do_eval=True)
+        clock = _Clock()
+        clock.wrap(T.Trainer, "train_step", "train_steps")
+        clock.wrap(T.Trainer, "evaluate", "eval")
+        clock.wrap(CK.CheckpointManager, "_write", "checkpoint_writes")
+        clock.wrap(convert, "save_hf_checkpoint", "export")
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            res = CLI.run(margs, dargs, targs, tokenize=tok)
+        finally:
+            clock.undo()
+        t["train_run_s"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = read_counters()
+        n_eval = (n_docs * PIPE_LEN) // min(TRAIN_SEQ, 1024)
+        want = {"flash_fwd": PIPE_STEPS * 2 * L + n_eval * L, "flash_bwd_dq": PIPE_STEPS * L,
+                "flash_bwd_dkv": PIPE_STEPS * L,
+                "rmsnorm_quant": PIPE_STEPS * 4 * L + n_eval * 2 * L}
+        losses = [json.loads(line)["loss"]
+                  for line in open(os.path.join(root, "out", "logs", "metrics.jsonl"))]
+        if (res["train_steps"] != PIPE_STEPS or len(losses) != PIPE_STEPS
+                or not all(np.isfinite(losses)) or not np.isfinite(res["perplexity"])
+                or clock.calls.get("eval") != 1):
+            raise AssertionError(f"pipeline train: {res}, losses {losses}")
+        if any(got[k] != want.get(k, 0) for k in got):
+            raise AssertionError(f"pipeline train: launches {got}, expected {want} and no other")
+        ckpt = os.path.join(root, "out", "checkpoints", str(PIPE_STEPS), "state.pt")
+        final = torch.load(ckpt, map_location="cpu", weights_only=True)["params"]
+        _, exported = convert.load_hf_checkpoint(res["model_path"], dtype=torch.bfloat16,
+                                                 device="cpu")
+        if not _same_tree(final, exported):
+            raise AssertionError("pipeline: the HF export is not the trainer's final params")
+        nbytes["export"] = _dir_bytes(res["model_path"])
+        nbytes["checkpoint"] = os.path.getsize(ckpt)
+        t.update({k: v for k, v in clock.s.items()})
+        del final, exported
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume = resume_check(cfg, PIPE_RESUME_LAYERS)
+    per_layer = (cfg.hidden_size * (cfg.num_attention_heads + 2 * cfg.kv_heads) * cfg.head_dim
+                 + cfg.num_attention_heads * cfg.head_dim * cfg.hidden_size
+                 + 3 * cfg.hidden_size * cfg.intermediate_size + 2 * cfg.hidden_size)
+    n_params = (L * per_layer + cfg.vocab_size * cfg.hidden_size * (1 if cfg.tie_word_embeddings
+                                                                    else 2) + cfg.hidden_size)
+    state_gb = 3 * 2 * n_params / 1e9       # bf16 params, bf16 first and second moments
+    out = dict(layers=L, hidden_size=cfg.hidden_size, vocab=cfg.vocab_size,
+               documents=n_docs, doc_tokens=PIPE_LEN, train_steps=PIPE_STEPS, block=TRAIN_SEQ,
+               eval_forwards=n_eval, losses=losses, perplexity=res["perplexity"],
+               eval_loss=res["eval_loss"], jsonl_reader=res["jsonl_reader"],
+               step_time_s=res.get("step_time_s"), times_s=t, bytes=nbytes,
+               launches=got, launches_expected=want, synthesis_launches=synth_launches,
+               entry_allocated_bytes=entry, entry_before_gc_bytes=before_gc,
+               peak_memory_bytes=peak,
+               trainstate_bytes_reckoned=state_gb * 1e9, params=n_params, resume=resume)
+    log(f"  pipeline at TinyLlama-1.1B, {L} layers: teacher written {nbytes['teacher'] / 1e9:.3f} "
+        f"GB bf16 in {t['write_teacher_s']:.2f} s, read back bit-equal in "
+        f"{t['read_teacher_s']:.2f} s; {n_docs} documents of {PIPE_LEN} tokens synthesized in "
+        f"{t['synthesize_s']:.2f} s (no kernel launch); cli.train.run {t['train_run_s']:.2f} s: "
+        f"{PIPE_STEPS} steps {t['train_steps']:.2f} s, losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f", checkpoint writes {t['checkpoint_writes']:.2f} s ({clock.calls['checkpoint_writes']}"
+        f" x {nbytes['checkpoint'] / 1e9:.3f} GB), export {t['export']:.2f} s "
+        f"({nbytes['export'] / 1e9:.3f} GB f32), eval {t['eval']:.2f} s over {n_eval} forwards, "
+        f"perplexity {res['perplexity']:.1f}; launches {got}; peak memory {peak / 2 ** 30:.2f} "
+        f"GiB; full-depth TrainState from its dtypes {state_gb:.2f} GB ({n_params} params); "
+        f"{res['jsonl_reader']} jsonl reader")
+    return out
 
 
 T_START = time.perf_counter()
@@ -1912,7 +2207,9 @@ def main() -> int:
     # and at S = 8192, over the cache-length limit of K3's first version (32768 / G)
     dec.append(decode_attention_phase(timer, gen, DA, cfg.kv_heads, G, cfg.head_dim, False,
                                       S=8192, lens_l=LONG_LENS))
-    fl = [flash_phase(timer, gen, FA, cfg.kv_heads, G, S, cfg.head_dim) for S in (1024, 128)]
+    # S = 1536 and 1800 cross the TPU kernel's key blocks (2 x 768, 15 x 120)
+    fl = [flash_phase(timer, gen, FA, cfg.kv_heads, G, S, cfg.head_dim)
+          for S in (1024, 128, 1536, 1800)]
     # K4 at LLaMA-7B's attention shape (32 MHA heads of 128), full and ragged lengths
     fl7 = [flash_phase(timer, gen, FA, 32, 1, 1024, 128, lens) for lens in (None, LLAMA7B_LENS)]
     # K8 at TinyLlama-1.1B's attention shape and at LLaMA-7B's (32 MHA heads of 128)
@@ -2009,6 +2306,11 @@ def main() -> int:
     trains = train_phases(cfg, LLAMA_7B)
     tcheck = {"TinyLlama-1.1B": train_check(cfg),
               "LLaMA-7B width": train_check(LLAMA_7B, with_cpu=False)}
+    log(f"[4b] the reference's pipeline at TinyLlama-1.1B's full width and depth through the "
+        f"port's entry points: HF teacher checkpoint, synthesis ({3 * PIPE_VOCAB} documents of "
+        f"{PIPE_LEN} tokens), cli.train.run ({PIPE_STEPS} steps of {TRAIN_SEQ} tokens, export, "
+        f"eval), resume on a {PIPE_RESUME_LAYERS}-layer cut ({smi})")
+    pipe = pipeline_phase(cfg)
 
     # each path went through its kernels, and only through them
     for m in runs:
@@ -2045,7 +2347,8 @@ def main() -> int:
                     bound_by=sel[0]["bound_by"],
                     max_abs_err=max(s["max_abs_err"] for s in sel))
 
-    launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) for k in counters()}
+    launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) + pipe["launches"][k]
+                for k in counters()}
     # K5-K7 are on no serving path of either package: their counts are those
     # of their kernel phases
     launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
@@ -2136,6 +2439,7 @@ def main() -> int:
     ]
     for r in rows:
         r.update(route="cuda", launches=launches[r["name"]],
+                 launches_pipeline=pipe["launches"][r["name"]],
                  tpu_kernel=r["replaces"], max_err=r["max_abs_err"])
     log("[5] results")
     log(f"    chip_smoke.py ran {time.perf_counter() - T_START:.1f} s (kernel builds included)")
@@ -2143,7 +2447,7 @@ def main() -> int:
                     "timer_floor_ms": gemm["timer_floor_ms"],
                     "llama7b_teacher_forced": l7["teacher_forced"],
                     "cpu_checks": checks, "training": trains, "train_check": tcheck,
-                    "card": smi}))
+                    "pipeline": pipe, "card": smi}))
     log(json.dumps({"kernel_attributes": attrs}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """PyTorch / CUDA port of llm_qat_tpu for NVIDIA Hopper.
 
-Ported so far are true-int serving and KD-QAT training. Serving
+Ported so far are true-int serving, KD-QAT training and the paper's
+pipeline around it. Serving
 (``inference``): quantized params (``quantized``), the serving forward with its contiguous quantized KV cache
 (``model``, decode steps in the whole-model kernel of ``megakernel`` by
 default), the continuous-batching engine (``engine.InferenceEngine``), and
@@ -14,6 +15,13 @@ teacher, fake-quant student forward and backward under rematerialization,
 KL loss, clip + AdamW) over ``models.llama``'s training forward, the
 fake-quant primitives (``ops.quantize``, ``ops.linear``, ``ops.qat_matmul``)
 and the producer-fused blocks (``ops.fused_layer``).
+
+Pipeline: HF checkpoint I/O with a hand-written safetensors reader and
+writer (``models.convert``), the jsonl -> block data pipeline
+(``data.dataset``, with the C++ reader of ``native``), data-free synthesis
+from the teacher on the cached decode path (``data.synthesis``,
+``models.llama.forward_with_cache``), step checkpoints (``utils.checkpoint``)
+and the entry points ``cli.train`` and ``cli.generate_data``.
 
 Thirteen hand-written CUDA kernels (``csrc/``, wrappers in ``ops/`` and
 ``inference/megakernel.py``), by the function of

@@ -1,6 +1,7 @@
-"""Quantized LLaMA decoder: the building blocks the serving path shares and
-the training / scoring forward (the JAX package's ``models/llama.py`` without
-``classify`` and the cached decode path).
+"""Quantized LLaMA decoder: the building blocks the serving path shares, the
+training / scoring forward and the fixed-size-cache decode path of
+generation (``init_cache`` / ``forward_with_cache``): the JAX package's
+``models/llama.py`` without ``classify``.
 
 Params are a plain dict with the per-layer weights stacked on a leading layer
 axis, stored ``[in, out]``; the decoder is a Python loop over the layers, and
@@ -154,13 +155,16 @@ def decoder_layer(
     flash_lengths: Optional[torch.Tensor] = None,
     attn_saved=None,
 ):
-    """One decoder block, the no-cache path. ``attn_saved``: an
-    ``ops.flash_attention.AttnSaved`` holder through which a rematerialized
-    layer keeps its attention output (see ``backbone``). Returns
-    ``(h, None)``."""
-    if cache_kv is not None:
-        raise NotImplementedError(
-            "decoder_layer: the cached path (forward_with_cache) is not ported yet")
+    """One decoder block. ``attn_saved``: an ``ops.flash_attention.AttnSaved``
+    holder through which a rematerialized layer keeps its attention output
+    (see ``backbone``).
+
+    With ``cache_kv=(k_cache, v_cache)`` of shape ``[b, max_len, kvh, hd]``
+    the new (fake-quantized, RoPE'd) K and (fake-quantized) V are written at
+    ``cache_index`` (in place; a start past ``max_len - s`` is clamped, as
+    ``dynamic_update_slice`` clamps it) and attention runs over the whole
+    cache under ``mask``; returns ``(h, (k_cache, v_cache))``. Without, the
+    training path; returns ``(h, None)``."""
     c = config
     b, s, _ = h.shape
     hd, nh, kvh = c.head_dim, c.num_attention_heads, c.kv_heads
@@ -184,7 +188,7 @@ def decoder_layer(
     # --- attention ---
     # flash-layout path: the q/k/v projections emit the flash kernel's
     # head-major layout and the o projection consumes it
-    if use_fused_norm and use_flash:
+    if use_fused_norm and use_flash and cache_kv is None:
         from llm_qat_torch.ops.flash_attention import flash_attention_gqa
 
         q5, k4, v4 = fused_layer.fused_norm_qkv_flash(
@@ -236,7 +240,16 @@ def decoder_layer(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if use_flash:
+    new_cache = None
+    if cache_kv is not None:
+        k_cache, v_cache = cache_kv
+        at = max(0, min(int(cache_index), k_cache.shape[1] - s))
+        k_cache[:, at:at + s] = k.to(k_cache.dtype)
+        v_cache[:, at:at + s] = v.to(v_cache.dtype)
+        k, v = k_cache, v_cache
+        new_cache = (k_cache, v_cache)
+
+    if use_flash and cache_kv is None:
         from llm_qat_torch.ops.flash_attention import flash_attention
 
         attn = flash_attention(q, k, v, lengths=flash_lengths,
@@ -258,7 +271,7 @@ def decoder_layer(
         x = fused_layer.fused_silu_mul_dense(gate, up, lp["down"], **fq)
     else:
         x = quant_dense(silu(gate) * up, lp["down"], **qd)
-    return h + x, None
+    return h + x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -422,3 +435,63 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     ``-log p(labels[1:] | logits[:-1])``."""
     nll, count = causal_lm_loss_sum(logits, labels, ignore_index)
     return nll / count.clamp(min=1)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode path (generation)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(config: LlamaConfig, batch: int, max_len: int, dtype=torch.float32,
+               device=None) -> Dict[str, Any]:
+    """Fixed-size stacked KV cache ``[L, batch, max_len, kvh, hd]`` on
+    ``device`` (``cuda`` unless ``"cpu"`` is passed). Holds the
+    *fake-quantized*, RoPE'd K and quantized V exactly as the reference
+    caches them (modeling_llama_quant.py:345-350). ``index`` (an int) is the
+    write position."""
+    from llm_qat_torch.device import resolve_device
+
+    c = config
+    shape = (c.num_hidden_layers, batch, max_len, c.kv_heads, c.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev), "index": 0}
+
+
+def forward_with_cache(
+    params: Params,
+    config: LlamaConfig,
+    input_ids: torch.Tensor,  # [b, s]: a prompt chunk or one decode token
+    cache: Dict[str, Any],
+    *,
+    dtype=None,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run ``s`` new tokens against the cache (prefill when ``index == 0``,
+    decode when ``s == 1``). Returns fp32 logits ``[b, s, vocab]`` and the
+    cache with ``index + s``; the K/V tensors are written in place, so the
+    cache passed in must not be used again."""
+    c = config
+    b, s = input_ids.shape
+    max_len = cache["k"].shape[2]
+    index = int(cache["index"])
+    with torch.no_grad():
+        h = params["embed"][input_ids]
+        if dtype is not None:
+            h = h.to(dtype)
+        positions = index + torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
+        cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta)
+        # additive mask over the fixed-size cache: key j is visible to query
+        # i iff j <= index + i (causal over absolute positions)
+        kv_pos = torch.arange(max_len, dtype=torch.int32, device=h.device)
+        visible = kv_pos[None, None, None, :] <= positions[:, None, :, None]
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        mask = torch.where(visible, zero, torch.full_like(zero, _NEG_INF))
+        layers = {k: params["layers"][k].unbind(0) for k in _LAYER_KEYS}
+        for l in range(c.num_hidden_layers):
+            lp = {k: layers[k][l] for k in _LAYER_KEYS}
+            out, _ = decoder_layer(h, lp, c, mask, cos, sin,
+                                   cache_kv=(cache["k"][l], cache["v"][l]), cache_index=index)
+            # keep the carry at the activation type (f32 params + bf16 compute)
+            h = out.to(h.dtype)
+        logits = _logits(params, c, h)
+    return logits, {"k": cache["k"], "v": cache["v"], "index": index + s}

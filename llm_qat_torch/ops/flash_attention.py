@@ -22,13 +22,19 @@ and 128 (bf16). In bf16 all three kernels run their products on the tensor
 cores, and their plain versions take q.k and dO.v the same way
 (``_scores``); in f32 they run on the fp32 units with fp32 products.
 
-Block structure: the TPU forward walks 1024-key blocks with an online
-softmax, so beyond 1024 keys it rounds a block's p against the running
-maximum and rescales. The port's kernel and plain version take p against the
-row's final maximum at every length. The two agree to the order of fp32 sums
-in float32 and within a bf16 step of O in bf16; the log-sum-exp, which the
-backward consumes, agrees to 1e-5 (``tests/test_torch_flash_backward.py``
-holds S = 2048 against the JAX kernel).
+Block structure: the TPU forward walks key blocks of
+``_fit_block(1024, S)`` (the ``bk`` every caller of the JAX package passes)
+with an online softmax: each block's p
+is taken against the running maximum ``m_new`` over the blocks so far and
+rounded to V's type, and ``alpha = exp2(m - m_new)`` rescales ``l`` and the
+p.V sum at each block edge. The plain version walks the same blocks the same
+way, and so does the kernel (its second pass takes each column's p against
+the running maximum at the end of that column's block). Within a block the
+fp32 sums run in another order, so O agrees with the TPU kernel's bits but
+for a few last-bit differences before the bf16 rounding
+(``tests/test_torch_flash_backward.py`` holds S = 2048, 1536 and a ragged
+length against the JAX kernel), and the log-sum-exp, which the backward
+consumes, to 1e-5.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 from llm_qat_torch.ops import _build
 
 _NEG_INF = -1e30
+_KEY_BLOCK = 1024  # the TPU forward's key block before _fit_block
 _LOG2E = 1.4426950408889634  # log2(e)
 _LN2 = 0.6931471805599453    # ln(2)
 
@@ -66,13 +73,27 @@ def _scores(a, b, tensor_cores: bool = True):
     return torch.einsum("bgqd,bkd->bgqk", a.float(), b.float())
 
 
-def _flash_fwd_plain(q, k, v, lengths, causal: bool = True,
-                     soft_bf16: bool = False):
-    """Plain PyTorch version of the flash forward kernel: the whole masked
-    score matrix at once, p against each row's final maximum. Up to 1024 keys
-    the TPU kernel's default block holds the whole row and this is its
-    arithmetic step for step; beyond, see the module docstring."""
+def _fit_block(target: int, s: int) -> int:
+    """Largest block <= target that divides ``s`` (lane-aligned when s is):
+    the JAX package's ``_fit_block``, which sizes the TPU kernel's key
+    blocks."""
+    t = min(target, s)
+    while s % t:
+        t = t - t % 128 - 128 if t > 128 else t - 1
+    if t < 1:
+        raise ValueError(f"cannot block seq len {s}")
+    return t
+
+
+def _flash_fwd_plain(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False):
+    """Plain PyTorch version of the flash forward kernel: the masked score
+    matrix at once, then the TPU kernel's walk over key blocks of
+    ``_fit_block(1024, S)``: per block, p against the running maximum, rounded
+    to V's type for p.V, and ``l`` and the p.V sum rescaled by
+    ``alpha = exp2(m - m_new)``. A block with no live column in a row leaves
+    that row as it was (``alpha = 1``, ``p = 0``), as a skipped block does."""
     B, G, S, D = q.shape
+    bk = _fit_block(_KEY_BLOCK, S)
     scale = 1.0 / (D ** 0.5)
     s = (scale * _LOG2E) * _scores(q, k)
     col = torch.arange(S, device=q.device)
@@ -81,15 +102,23 @@ def _flash_fwd_plain(q, k, v, lengths, causal: bool = True,
     if causal:
         ok = ok & (col[None, :] <= col[:, None])[None, None]
     s = torch.where(ok, s, torch.full_like(s, _NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    if soft_bf16:
-        p16 = _exp2((s - m).to(torch.bfloat16))
-        p, pv = p16.float(), p16.to(v.dtype)
-    else:
-        p = _exp2(s - m)
-        pv = p.to(v.dtype)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bgqk,bkd->bgqd", pv.float(), v.float())
+    m = torch.full((B, G, S, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, G, S, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, S, bk):
+        sb = s[..., k0:k0 + bk]
+        m_new = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+        alpha = _exp2(m - m_new)
+        if soft_bf16:
+            p16 = _exp2((sb - m_new).to(torch.bfloat16))
+            p, pv = p16.float(), p16.to(v.dtype)
+        else:
+            p = _exp2(sb - m_new)
+            pv = p.to(v.dtype)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bgqk,bkd->bgqd", pv.float(),
+                                         v[:, k0:k0 + bk].float())
+        m = m_new
     o = (acc / l).to(q.dtype)
     lse = (m * _LN2 + torch.log(l))[..., 0][:, :, None, :]
     return o, lse
@@ -100,10 +129,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False):
     """q: [B, G, S, D]; k/v: [B, S, D]; lengths [B] (causal within each S).
-    Returns ([B, G, S, D], lse [B, G, 1, S]). The JAX version's block sizes
-    (and its ``_fit_block``) have no counterpart: the CUDA kernel tiles by
-    fixed blocks and masks the ragged edge. On the card: head dim 64 in f32
-    or bf16, 128 in bf16."""
+    Returns ([B, G, S, D], lse [B, G, 1, S]). p is rounded in the TPU
+    kernel's key blocks (``_fit_block(1024, S)``); the CUDA kernel's own
+    tiles are fixed and mask the ragged edge. On the card: head dim 64 in
+    f32 or bf16, 128 in bf16."""
     B, G, S, D = q.shape
     if k.shape != (B, S, D) or v.shape != (B, S, D):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}")
@@ -124,9 +153,10 @@ def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False):
         raise ValueError(f"_flash_fwd: {lens.numel()} lengths for B={B}")
     o = torch.empty_like(qc)
     lse = torch.empty((B, G, 1, S), dtype=torch.float32, device=q.device)
-    f = _build.bind("flash_attention", "flash_fwd" if D == 64 else "flash_fwd_d128", 6, 6, 1)
+    f = _build.bind("flash_attention", "flash_fwd" if D == 64 else "flash_fwd_d128", 6, 7, 1)
     err = f(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), B, G, S, int(causal), int(soft_bf16),
+            o.data_ptr(), lse.data_ptr(), B, G, S, _fit_block(_KEY_BLOCK, S), int(causal),
+            int(soft_bf16),
             _DTYPE_CODES[q.dtype], float(_LOG2E / math.sqrt(D)),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_fwd")

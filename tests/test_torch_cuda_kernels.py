@@ -459,10 +459,12 @@ def test_stacked_decode_attention_kernel(gen, layer, rope, dtype, kvh, G, hd):
     assert _close(got, want)
 
 
-@pytest.mark.parametrize("S", [16, 100, 1024, 2048])
+@pytest.mark.parametrize("S", [16, 100, 1024, 1536, 1800, 2048])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("soft_bf16", [False, True])
 def test_flash_fwd_kernel(gen, S, causal, soft_bf16):
+    """1536 and 2048 cross the TPU kernel's key blocks (768, 1024 keys); at
+    1800 its 120-key blocks straddle the kernel's 64-key tiles."""
     B, G, D = 4, 8, 64
     q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
     k = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
@@ -489,7 +491,7 @@ def test_flash_fwd_kernel_full_lengths(gen, soft_bf16):
     assert float((lse - lse2).abs().max()) < 1e-3
 
 
-@pytest.mark.parametrize("S", [100, 1024])
+@pytest.mark.parametrize("S", [100, 1024, 1536, 2048])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_fwd_kernel_head_dim_128(gen, S, causal):
     """LLaMA-7B's heads: MHA (G = 1) at head dim 128, bf16."""
@@ -516,7 +518,7 @@ def test_flash_fwd_kernel_refuses_shapes_it_is_not_built_for(gen):
         FA._flash_fwd(*(t[..., :96].to(torch.bfloat16) for t in (q, k, k)), lens)
 
 
-@pytest.mark.parametrize("S", [100, 1024])
+@pytest.mark.parametrize("S", [100, 1024, 1536, 1800])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_fwd_kernel_f32(gen, S, causal):
     """The f32 instantiation (the fp32-unit kernel) to 1e-5."""

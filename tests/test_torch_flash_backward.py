@@ -12,10 +12,11 @@ before that rounding moves a value by one bf16 step). The bf16 cases compile
 the JAX side with XLA's excess precision off, so that its bf16 roundings
 happen where its source puts them.
 
-S = 2048 forward: the TPU kernel rounds block 0's p against block 0's maximum
-and rescales, the port takes p against the row's final maximum. In float32
-the two agree to summation order (O and log-sum-exp at 1e-5); in bf16 O is
-held at the element-wise limit above and the log-sum-exp, which the backward
+Forward past one key block (S = 2048, 1536, 1800): both walk the TPU
+kernel's key blocks, rounding each block's p against the running maximum. In
+float32 the two agree to summation order (O and log-sum-exp at 1e-5); in
+bf16 at most 1% of O may differ from the JAX kernel's bits, the rest is held
+at the element-wise limit above, and the log-sum-exp, which the backward
 consumes, at 1e-5.
 """
 
@@ -160,18 +161,49 @@ def test_saved_attention_is_read_back_not_recomputed(monkeypatch):
     assert saved.o is None and saved.lse is None
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_flash_fwd_two_key_blocks_matches_jax(dt):
-    """S = 2048 with the TPU kernel's blocks of 512 queries and 1024 keys."""
-    B, G, S, D = 2, 2, 2048, 64
-    q, k, v, _ = _inputs(B, G, S, D, seed=2048)
-    lengths = np.asarray([S, 1500], np.int32)
-    jo, jlse = _strict(lambda *a: JFA._flash_fwd(*a, 512, 1024),
+def _fwd_walks_jax_blocks(S, dt, causal=True):
+    """The forward at S against the JAX kernel (blocks of 512 queries and
+    ``_fit_block(1024, S)`` keys). float32: O and log-sum-exp at 1e-5.
+    bfloat16: at most 1% of O off the JAX kernel's bits (p rounds against the
+    same running maxima on both sides; only a last-bit fp32 difference in a
+    sum moves an element, by one bf16 step: 0.04-0.05% measured at these
+    lengths, where p against the row's final maximum put 6-30% off), the rest
+    at the element-wise limit, and the log-sum-exp at 1e-5."""
+    B, G, D = 2, 2, 64
+    q, k, v, _ = _inputs(B, G, S, D, seed=S)
+    lengths = np.asarray([S, S * 3 // 4], np.int32)
+    jo, jlse = _strict(lambda *a: JFA._flash_fwd(*a, 512, 1024, causal=causal),
                        *(jnp.asarray(a, JDT[dt]) for a in (q, k, v)), jnp.asarray(lengths))
     to, tlse = TFA._flash_fwd(*(torch.from_numpy(a).to(TDT[dt]) for a in (q, k, v)),
-                              torch.from_numpy(lengths))
+                              torch.from_numpy(lengths), causal)
     _assert_close(to, jo, dt, "o")
+    if dt == "bf16":
+        off = float((to.float().numpy() != _np(jo)).mean())
+        assert off <= 0.01, off
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **TOL)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_fwd_two_key_blocks_matches_jax(dt):
+    """S = 2048: two 1024-key blocks, so p rounds against block 0's maximum
+    and then the running maximum, with a rescale between."""
+    _fwd_walks_jax_blocks(2048, dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("S,causal", [(1536, True), (1800, True), (1536, False)])
+def test_flash_fwd_walks_jax_key_blocks(S, causal, dt):
+    """S = 1536: two blocks of 768 keys, causal and not (the ring's
+    full-visibility steps). S = 1800: ``_fit_block`` gives 15 blocks of 120
+    keys, which no kernel tile lines up with."""
+    assert TFA._fit_block(1024, S) == {1536: 768, 1800: 120}[S]
+    _fwd_walks_jax_blocks(S, dt, causal)
+
+
+def test_fit_block_is_the_jax_packages():
+    for S in (16, 100, 128, 1000, 1024, 1031, 1536, 1800, 2048, 4096, 6144):
+        assert TFA._fit_block(1024, S) == JFA._fit_block(1024, S)
+        assert TFA._fit_block(512, S) == JFA._fit_block(512, S)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

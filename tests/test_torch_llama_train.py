@@ -13,6 +13,18 @@ an activation that XLA's and torch's f32 sums round to different integers,
 which moves a loss by 1e-3. Logits are held at 1e-4 (rtol and atol); the
 gradient of a scalar loss at a relative L2 of 1e-3 per leaf (f32 matmuls in
 another order, through two layers of STE masks).
+
+Rounding flips (a named class): even at 32 rows, whether an activation lands
+on the other side of a rounding edge depends on the host's f32 sums. Where
+it does, the forward checks (``_hold_outputs``) record every quantizer's
+integer codes in both packages, in order, and name the first tensor whose
+codes part: it must differ in one element by one level, and every code
+before it must be equal. The output rows that cannot see that element (other
+sequences, and the flipped sequence's earlier tokens) stay at 1e-4; the rows
+at and after it are held at a relative L2 of ``FLIP_REL_L2``. Met on an AMD
+EPYC host: ``asym_layerwise`` (seed 0) flips layer 2's down-projection input
+at sequence 1, token 6; ``test_final_hidden_positions_and_compute_dtype``
+(seed 5) flips layer 1's attention-output quant at sequence 0, token 13.
 """
 
 import jax
@@ -21,6 +33,14 @@ import numpy as np
 import pytest
 import torch
 
+import llm_qat_tpu.ops.fused_layer as JFL
+import llm_qat_tpu.ops.pallas.fused_quant as JFQ
+import llm_qat_tpu.ops.pallas.qat_matmul as JQM
+import llm_qat_tpu.ops.quantize as JQ
+import llm_qat_torch.ops.fused_layer as TFL
+import llm_qat_torch.ops.fused_quant as TFQ
+import llm_qat_torch.ops.qat_matmul as TQM
+import llm_qat_torch.ops.quantize as TQ
 from llm_qat_tpu.models import llama as JL
 from llm_qat_tpu.models.config import LlamaConfig as JConfig
 from llm_qat_torch.models import llama as TL
@@ -29,6 +49,7 @@ from llm_qat_torch.models import params as TP
 from tests.test_torch_serving import np_params, tcfg
 
 LOGITS = dict(rtol=1e-4, atol=1e-4)
+FLIP_REL_L2 = 0.05   # rows that see a flipped code: measured 2.7e-4 (logits), 7.0e-3 (hidden)
 WIDE = JConfig(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
                num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128,
                w_bits=4, a_bits=8, kv_bits=4)
@@ -62,6 +83,118 @@ def _setup(cfg, b=2, s=16, seed=0):
     return p, ids
 
 
+def _record_quantizers(monkeypatch):
+    """Wrap every quantizer of both packages' forward paths so that each call
+    appends ``(kind, bits, axis, input, outputs)`` to a list per package (the
+    JAX side through an ordered callback, as the calls sit inside a scan)."""
+    rec = {"jax": [], "torch": []}
+
+    def flat(out):
+        return list(out) if isinstance(out, tuple) else [out]
+
+    def wrap_jax(kind, f):
+        def g(x, bits, axis=-1, *a, **kw):
+            out = f(x, bits, axis, *a, **kw)
+            jax.debug.callback(lambda x_, *o: rec["jax"].append(
+                (kind, bits, axis, np.asarray(x_, np.float32), [np.asarray(t) for t in o])),
+                x, *flat(out), ordered=True)
+            return out
+        return g
+
+    def wrap_torch(kind, f):
+        def g(x, bits, axis=-1, *a, **kw):
+            out = f(x, bits, axis, *a, **kw)
+            rec["torch"].append((kind, bits, axis, x.detach().float().numpy(),
+                                 [t.detach().numpy() for t in flat(out)]))
+            return out
+        return g
+
+    def rms_jax(f):
+        def g(h, gain, eps, bits):
+            return wrap_jax("int", lambda x, b, a: f(x, gain, eps, b))(h, bits)
+        return g
+
+    def rms_torch(f):
+        def g(h, gain, eps, bits):
+            return wrap_torch("int", lambda x, b, a: f(x, gain, eps, b))(h, bits)
+        return g
+
+    for name, kind in (("sym_fake_quant", "sym"), ("asym_fake_quant", "asym")):
+        monkeypatch.setattr(JQ, name, wrap_jax(kind, getattr(JQ, name)))
+        monkeypatch.setattr(TQ, name, wrap_torch(kind, getattr(TQ, name)))
+    monkeypatch.setattr(TL, "sym_fake_quant", TQ.sym_fake_quant)
+    monkeypatch.setattr(JQM, "_quant_int", wrap_jax("int", JQM._quant_int))
+    monkeypatch.setattr(JFL, "_quant_int", JQM._quant_int)
+    monkeypatch.setattr(TQM, "_quant_int", wrap_torch("int", TQM._quant_int))
+    monkeypatch.setattr(TFL, "_quant_int", TQM._quant_int)
+    heads_j, heads_t = JFL._quant_per_token_heads, TFL._quant_per_token_heads
+    monkeypatch.setattr(JFL, "_quant_per_token_heads",
+                        wrap_jax("int", lambda x, b, a: heads_j(x, b)))
+    monkeypatch.setattr(TFL, "_quant_per_token_heads",
+                        wrap_torch("int", lambda x, b, a: heads_t(x, b)))
+    monkeypatch.setattr(JFQ, "rmsnorm_quant", rms_jax(JFQ.rmsnorm_quant))
+    monkeypatch.setattr(TFQ, "rmsnorm_quant", rms_torch(TFQ.rmsnorm_quant))
+    return rec
+
+
+def _codes(kind, bits, axis, x_ref, out):
+    """Integer codes of a quantizer's output: its integer output as is; a
+    fake-quant output mapped back onto its levels with the torch side's
+    statistics (``x_ref``), so both packages' outputs land on one grid."""
+    if kind == "int":
+        return out[0].astype(np.int64)
+    ax = TQ._canon_axis(axis)
+    x = torch.from_numpy(x_ref)
+    o = torch.from_numpy(np.asarray(out[0], np.float32))
+    if kind == "sym":
+        s = (2 ** (bits - 1) - 1) / (TQ._reduce(x.abs(), ax, "amax") + TQ._SYM_EPS)
+        return torch.round(o * (s + TQ._SYM_EPS)).numpy().astype(np.int64)
+    lo = TQ._reduce(x, ax, "amin")
+    alpha = TQ._reduce(x, ax, "amax") - lo
+    return torch.round((o - lo) / (alpha + TQ._ASYM_EPS) * (2 ** bits - 1)).numpy().astype(np.int64)
+
+
+def _token_of(index, shape, b, s):
+    """(sequence, token) of an element of an activation of ``b`` sequences of
+    ``s`` tokens: flat rows ``[b*s, ...]``, ``[b, s, ...]``, or the flash
+    layouts ``[b, kvh, s, d]`` and ``[b, kvh, g, s, d]``."""
+    if shape[0] == b * s:
+        return divmod(int(index[0]), s)
+    return int(index[0]), int(index[{2: 1, 3: 1, 4: 2, 5: 3}[len(shape)]])
+
+
+def _first_flip(rec, b, s):
+    """None when every code agrees; else the (sequence, token) of the one
+    element of the first parting tensor, after checking that it is one
+    element one level apart."""
+    assert [r[0] for r in rec["jax"]] == [r[0] for r in rec["torch"]]
+    for rj, rt in zip(rec["jax"], rec["torch"]):
+        cj = _codes(*rj[:3], rt[3], rj[4])
+        ct = _codes(*rt[:3], rt[3], rt[4])
+        assert cj.shape == ct.shape
+        diff = np.argwhere(cj != ct)
+        if len(diff):
+            assert len(diff) == 1 and abs(int(cj[tuple(diff[0])]) - int(ct[tuple(diff[0])])) == 1, (
+                "codes part by more than one flip", rj[0], len(diff))
+            return _token_of(diff[0], cj.shape, b, s)
+    return None
+
+
+def _hold_outputs(got, want, flip):
+    """``got``/``want`` ``[b, s, ...]``: all at 1e-4 with no flip; with one at
+    (sequence i, token t), every row but sequence i's tokens >= t at 1e-4 and
+    those at a relative L2 of ``FLIP_REL_L2``."""
+    if flip is None:
+        np.testing.assert_allclose(got, want, **LOGITS)
+        return
+    i, t = flip
+    keep = np.ones(got.shape[:2], bool)
+    keep[i, t:] = False
+    np.testing.assert_allclose(got[keep], want[keep], **LOGITS)
+    d = got[i, t:] - want[i, t:]
+    assert np.linalg.norm(d) <= FLIP_REL_L2 * np.linalg.norm(want[i, t:]), np.linalg.norm(d)
+
+
 def _jax_loss_and_grads(cfg, p, ids, loss_of_logits, **kw):
     def loss(params):
         return loss_of_logits(JL.forward(params, cfg, jnp.asarray(ids), **kw))
@@ -89,13 +222,16 @@ def _assert_grads_close(tg, jg, prefix=""):
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
-def test_forward_and_gradients_match_jax(route):
+def test_forward_and_gradients_match_jax(route, monkeypatch):
     cfg = ROUTES[route]
     p, ids = _setup(cfg)
-    jlogits = JL.forward(_tree(jnp.asarray, p), cfg, jnp.asarray(ids))
-    tlogits = TL.forward(TP.from_numpy(p, "cpu"), tcfg(cfg), torch.from_numpy(ids))
+    with monkeypatch.context() as mp:
+        rec = _record_quantizers(mp)
+        jlogits = JL.forward(_tree(jnp.asarray, p), cfg, jnp.asarray(ids))
+        jax.effects_barrier()
+        tlogits = TL.forward(TP.from_numpy(p, "cpu"), tcfg(cfg), torch.from_numpy(ids))
     assert tlogits.dtype == torch.float32 and tuple(tlogits.shape) == jlogits.shape
-    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), **LOGITS)
+    _hold_outputs(tlogits.numpy(), np.asarray(jlogits), _first_flip(rec, *ids.shape))
 
     labels = np.where(np.arange(ids.shape[1])[None] < 3, -100, ids).astype(np.int32)
     jl, jg = _jax_loss_and_grads(cfg, p, ids,
@@ -201,14 +337,18 @@ def test_remat_changes_nothing(route, policy):
         assert len(calls) == cfg.num_hidden_layers * (1 if policy == "save_attn" else 2)
 
 
-def test_final_hidden_positions_and_compute_dtype():
+def test_final_hidden_positions_and_compute_dtype(monkeypatch):
     cfg = ROUTES["fused_flash_gqa"]
     p, ids = _setup(cfg, seed=5)
     pos = (np.arange(16)[None] + np.asarray([[0], [7]])).astype(np.int32)
-    jh = JL.final_hidden(_tree(jnp.asarray, p), cfg, jnp.asarray(ids), positions=jnp.asarray(pos))
-    th = TL.final_hidden(TP.from_numpy(p, "cpu"), tcfg(cfg), torch.from_numpy(ids),
-                         positions=torch.from_numpy(pos))
-    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **LOGITS)
+    with monkeypatch.context() as mp:
+        rec = _record_quantizers(mp)
+        jh = JL.final_hidden(_tree(jnp.asarray, p), cfg, jnp.asarray(ids),
+                             positions=jnp.asarray(pos))
+        jax.effects_barrier()
+        th = TL.final_hidden(TP.from_numpy(p, "cpu"), tcfg(cfg), torch.from_numpy(ids),
+                             positions=torch.from_numpy(pos))
+    _hold_outputs(th.numpy(), np.asarray(jh), _first_flip(rec, *ids.shape))
     # f32 master params under a bf16 compute type: the residual stream stays
     # bf16, the logits come out f32
     tb = TL.final_hidden(TP.from_numpy(p, "cpu"), tcfg(cfg), torch.from_numpy(ids),
@@ -251,13 +391,3 @@ def test_losses_and_small_pieces_match_jax():
     p, _ = _setup(cfg)
     head = TL.head_matrix(TP.from_numpy(p, "cpu"), tcfg(cfg))
     np.testing.assert_array_equal(head.numpy(), np.asarray(JL.head_matrix(_tree(jnp.asarray, p), cfg)))
-
-
-def test_cached_path_is_not_ported_yet():
-    cfg = tcfg(ROUTES["fp"])
-    p = TP.init_params(cfg, device="cpu")
-    lp = {k: v[0] for k, v in p["layers"].items()}
-    h = torch.zeros(1, 16, 128)
-    cos, sin = TL.rope_cos_sin(torch.arange(16)[None], cfg.head_dim, cfg.rope_theta)
-    with pytest.raises(NotImplementedError, match="cached path"):
-        TL.decoder_layer(h, lp, cfg, None, cos, sin, cache_kv=(h, h), cache_index=0)

@@ -202,9 +202,18 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    files = sorted((REPO / "llm_qat_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "llm_qat_torch").rglob("*.py")) + [
+        REPO / name for name in ("chip_smoke.py", "train_torch.py", "generate_data_torch.py",
+                                 "merge_gen_data_torch.py")]
     assert len(files) > 10
     names = {str(f.relative_to(REPO)) for f in files}
+    assert {"llm_qat_torch/models/convert.py", "llm_qat_torch/utils/args.py",
+            "llm_qat_torch/utils/tb_writer.py", "llm_qat_torch/utils/logging_utils.py",
+            "llm_qat_torch/utils/profiling.py", "llm_qat_torch/utils/checkpoint.py",
+            "llm_qat_torch/native/__init__.py", "llm_qat_torch/data/dataset.py",
+            "llm_qat_torch/data/synthesis.py", "llm_qat_torch/cli/train.py",
+            "llm_qat_torch/cli/generate_data.py", "train_torch.py", "generate_data_torch.py",
+            "merge_gen_data_torch.py"} <= names
     assert {"llm_qat_torch/inference/paged.py", "llm_qat_torch/inference/paged_engine.py",
             "llm_qat_torch/inference/megakernel.py", "chip_smoke.py",
             "llm_qat_torch/ops/quantize.py", "llm_qat_torch/ops/qat_matmul.py",

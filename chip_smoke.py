@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
 
 1. prints the card's name and power limit and the build time;
 2. runs each kernel's wrapper at the TinyLlama-1.1B shapes of the serving
-   path (K1/K2 also at LLaMA-7B's projections, at decode and prefill rows),
+   path (K1/K2 also at LLaMA-7B's projections, at decode and prefill rows;
+   K4 also at the zero-shot scorer's buckets and caps, S = 32 to 200),
    holds it against its plain PyTorch version on the same inputs and
    times kernel, plain version and, where one exists, the single PyTorch
    call that computes the same function (``library_ms``; the port never
@@ -63,6 +64,14 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    written and read back, synthesis on the card, ``cli.train.run`` (3 steps
    of 2048 tokens, the HF export, eval) and a resume on a 2-layer cut, bit
    for bit (see ``pipeline_phase``);
+4c. scores that pipeline's exported student at the same size through the
+   port's entry points: ``cli.eval.main`` on eight seeded task files and a
+   perplexity file, and with a ``--max_len`` cap of 100 (K4 and K12 launch
+   counts checked per forward; the scorer against the plain versions and, on
+   a 2-layer cut, the CPU path), beam search at W8A8KV8 and W4A8KV4 on the
+   scan path (88 K1/K2 and 22 K3 launches a step; against the plain
+   versions; one beam against the engine's greedy tokens) and ``classify``
+   on a right-padded batch (see ``eval_phase``);
 5. prints what the compiler gave the tensor-core flash kernels, the
    decode megakernel and every K1/K2, K3/K7/K8 and K12/K13 variant
    (registers, shared memory, spills, blocks an SM holds; it fails on a
@@ -126,6 +135,17 @@ QUANT_FLIP_SHARE = 0.01     # K12: integers one off where x*s is on a rounding b
 QUANT_ROW_SHARE = 1e-3      # K12: rows whose absmax moved one bf16 step (see quant_agreement)
 PIPE_SEED, PIPE_VOCAB, PIPE_LEN = 5, 8, 256   # pipeline: weights' seed, start ids, doc tokens
 PIPE_STEPS, PIPE_RESUME_LAYERS, PIPE_RESUME_STEPS = 3, 2, 2   # pipeline train and resume
+EVAL_SEED, EVAL_DOCS, EVAL_CHECK_DOCS = 11, 32, 4   # eval: seed; docs a task in the CLI run, in the check
+EVAL_CAP, EVAL_CAP_TASKS = 100, ("boolq", "hellaswag")   # the capped run: --max_len (no multiple of 64)
+EVAL_PPL_BLOCKS, EVAL_PPL_BLOCK = 8, 1024            # the perplexity file
+EVAL_CUT_LAYERS = 2                                  # eval, beam and classify checks: the cut
+EVAL_FULL_LOGP, EVAL_CUT_LOGP = 0.25, 0.1           # scorer, kernels vs plain (and CPU): log-prob a token
+EVAL_CPU_ROWS, EVAL_CPU_LEN = 16, 128                # scorer: the CPU path's rows and cap (2-layer cut)
+SCORER_S = (32, 64, 100, 200)                        # K4 at the scorer's buckets and caps
+BEAM_NUM, BEAM_NEW, BEAM_PROMPTS = 4, 32, (40, 300)  # beam search: beams, new tokens, prompt lengths
+BEAM_SCORE_REL, BEAM_CUT_REL = 0.03, 1e-3           # beam: kernels vs plain, normalized score
+CLS_ROWS, CLS_LABELS = 8, 4                          # classify: right-padded rows, labels
+CLS_FULL_REL, CLS_CUT_REL = 0.15, 3e-2               # classify: pooled logits, kernels vs plain
 SPIN_CYCLES = 2_000_000            # Timer: ~1 ms of device clock between flush and timed call
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -2130,6 +2150,9 @@ def pipeline_phase(cfg):
             raise AssertionError("pipeline: the HF export is not the trainer's final params")
         nbytes["export"] = _dir_bytes(res["model_path"])
         nbytes["checkpoint"] = os.path.getsize(ckpt)
+        # the exported student outlives the phase: eval_phase scores it
+        student_dir = tempfile.mkdtemp(prefix="chip_smoke_student_")
+        shutil.move(res["model_path"], os.path.join(student_dir, "model"))
         t.update({k: v for k, v in clock.s.items()})
         del final, exported
     finally:
@@ -2151,7 +2174,8 @@ def pipeline_phase(cfg):
                launches=got, launches_expected=want, synthesis_launches=synth_launches,
                entry_allocated_bytes=entry, entry_before_gc_bytes=before_gc,
                peak_memory_bytes=peak,
-               trainstate_bytes_reckoned=state_gb * 1e9, params=n_params, resume=resume)
+               trainstate_bytes_reckoned=state_gb * 1e9, params=n_params, resume=resume,
+               student_dir=student_dir)
     log(f"  pipeline at TinyLlama-1.1B, {L} layers: teacher written {nbytes['teacher'] / 1e9:.3f} "
         f"GB bf16 in {t['write_teacher_s']:.2f} s, read back bit-equal in "
         f"{t['read_teacher_s']:.2f} s; {n_docs} documents of {PIPE_LEN} tokens synthesized in "
@@ -2164,6 +2188,510 @@ def pipeline_phase(cfg):
         f"perplexity {res['perplexity']:.1f}; launches {got}; peak memory {peak / 2 ** 30:.2f} "
         f"GiB; full-depth TrainState from its dtypes {state_gb:.2f} GB ({n_params} params); "
         f"{res['jsonl_reader']} jsonl reader")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# evaluation: zero-shot and perplexity through the eval CLI, beam search,
+# the classification head
+# ---------------------------------------------------------------------------
+
+
+def scorer_lens(S, rows=16, kvh=4):
+    """Per-(row, kv head) lengths of one zero-shot scorer batch at bucket
+    ``S``: ``rows`` right-padded rows, one full and the rest shorter down to
+    1, and a padded tail of three empty rows, each repeated for TinyLlama's
+    ``kvh`` kv heads (``tests/test_torch_cuda_kernels.py`` holds K4 there too)."""
+    lens = [max(1, S - (S // 13 + 1) * i) for i in range(rows - 3)] + [0, 0, 0]
+    return [n for n in lens for _ in range(kvh)]
+
+
+def flash_gate(s: int) -> bool:
+    """``llama.backbone``'s flash gate: the forward of ``s`` columns takes K4."""
+    return s >= 16 and s % min(128, s) == 0
+
+
+@contextlib.contextmanager
+def plain_everywhere():
+    """``plain_on_gpu`` and ``plain_train_on_gpu`` together: the serving and
+    the training forward with no hand-written kernel."""
+    with plain_on_gpu(), plain_train_on_gpu():
+        yield
+
+
+def write_eval_files(root):
+    """One jsonl a task (``zero_shot.random_docs``, EVAL_DOCS each, from
+    EVAL_SEED) and a perplexity file of at least EVAL_PPL_BLOCKS blocks of
+    EVAL_PPL_BLOCK byte-tokenizer tokens; returns (task dir, perplexity
+    file)."""
+    from llm_qat_torch.eval import zero_shot as Z
+
+    tdir = os.path.join(root, "tasks")
+    os.makedirs(tdir)
+    for task in Z.TASK_ADAPTERS:
+        with open(os.path.join(tdir, f"{task}.jsonl"), "w") as f:
+            for d in Z.random_docs(task, EVAL_DOCS, seed=EVAL_SEED):
+                f.write(json.dumps(d) + "\n")
+    rng = np.random.default_rng(EVAL_SEED)
+    n_docs = 16
+    per_doc = -(-EVAL_PPL_BLOCKS * EVAL_PPL_BLOCK // n_docs)          # tokens, BOS included
+    ppl = os.path.join(root, "ppl.jsonl")
+    with open(ppl, "w") as f:
+        for _ in range(n_docs):
+            text = "".join(chr(c) for c in rng.choice(list(range(97, 123)) + [32], per_doc - 1))
+            f.write(json.dumps({"text": text}) + "\n")
+    return tdir, ppl
+
+
+def eval_cli_run(label, argv, L):
+    """``cli.eval.main(argv)`` on the card with every launch count set to 0
+    before and read after; times each task and the perplexity, records every
+    forward's shape. K4 must have launched L times for each forward whose
+    columns pass the flash gate, K12 2L times for each forward (the two norms
+    of a layer), and nothing else."""
+    from llm_qat_torch.cli import eval as CLI
+    from llm_qat_torch.eval import zero_shot as Z
+    from llm_qat_torch.models import llama
+
+    shapes, tasks = [], {}
+    real_fwd, real_task, real_ppl = llama.forward, Z.evaluate_task, CLI.evaluate_perplexity
+
+    def fwd(params, config, ids, **kw):
+        shapes.append(tuple(ids.shape))
+        return real_fwd(params, config, ids, **kw)
+
+    def task(params, config, name, docs, tokenize, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_task(params, config, name, docs, tokenize, **kw)
+        torch.cuda.synchronize()
+        rows = sum(len(Z.TASK_ADAPTERS[name](d, tokenize).choices) for d in docs)
+        tasks[name] = dict(s=time.perf_counter() - t0, rows=rows)
+        return out
+
+    ppl_s = {}
+
+    def ppl(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_ppl(*a, **kw)
+        torch.cuda.synchronize()
+        ppl_s["s"] = time.perf_counter() - t0
+        return out
+
+    llama.forward, Z.evaluate_task, CLI.evaluate_perplexity = fwd, task, ppl
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = CLI.main(argv)
+    finally:
+        llama.forward, Z.evaluate_task, CLI.evaluate_perplexity = real_fwd, real_task, real_ppl
+    wall = time.perf_counter() - t0
+    got = read_counters()
+    n_flash = sum(flash_gate(s) for _, s in shapes)
+    want = {"flash_fwd": L * n_flash, "rmsnorm_quant": 2 * L * len(shapes)}
+    if any(got[k] != want.get(k, 0) for k in got) or not got["flash_fwd"]:
+        raise AssertionError(f"{label}: launches {got}, expected {want} and no other")
+    for name, m in tasks.items():
+        r = res[name]
+        if r["n"] != EVAL_DOCS or not (0.0 <= r["acc"] <= 1.0 and 0.0 <= r["acc_norm"] <= 1.0):
+            raise AssertionError(f"{label} {name}: {r}")
+        m.update(acc=r["acc"], acc_norm=r["acc_norm"], rows_per_s=m["rows"] / m["s"])
+    out = dict(wall_s=wall, results=res, tasks=tasks, launches=got, launches_expected=want,
+               forwards=len(shapes), flash_forwards=n_flash,
+               buckets=sorted({s for _, s in shapes}))
+    if "perplexity" in res:
+        p = res["perplexity"]
+        if not (np.isfinite(p["eval_loss"]) and np.isfinite(p["perplexity"])):
+            raise AssertionError(f"{label}: perplexity {p}")
+        out.update(perplexity=p, perplexity_s=ppl_s["s"])
+    log(f"  {label}: {wall:.2f} s, {len(shapes)} forwards ({n_flash} through K4, buckets "
+        f"{out['buckets']}); launches {got}"
+        + (f"; perplexity {p['perplexity']:.2f} over {EVAL_PPL_BLOCKS} x {EVAL_PPL_BLOCK} "
+           f"tokens in {ppl_s['s']:.2f} s" if "perplexity" in res else ""))
+    for name, m in tasks.items():
+        log(f"    {name:13s} {m['s']:.3f} s, {m['rows']} rows, {m['rows_per_s']:.1f} rows/s, "
+            f"acc {m['acc']:.4f} acc_norm {m['acc_norm']:.4f}")
+    return out
+
+
+def score_drift(got, want, n_tok, limit):
+    """Summed log-probs ``[examples, choices]`` of two paths: (the largest
+    difference a target token, the examples whose argmax parts, ok): ok when
+    that difference is within ``limit`` and every parted example's two best
+    scores (``want``) lie within ``limit`` times its tokens of each other."""
+    fin = np.isfinite(want)
+    if not (np.isfinite(got) == fin).all():
+        return float("inf"), [], False
+    drift = float((np.abs(got[fin] - want[fin]) / np.maximum(n_tok[fin], 1)).max())
+    parted = [int(e) for e in np.nonzero(got.argmax(-1) != want.argmax(-1))[0]]
+    ties = all(np.diff(np.sort(want[e][fin[e]])[-2:])[0] <= limit * n_tok[e].max()
+               for e in parted)
+    return drift, parted, drift <= limit and ties
+
+
+def eval_scores(params, cfg, examples, max_len, plain=False, batch_rows=16):
+    from llm_qat_torch.eval import zero_shot as Z
+    with plain_everywhere() if plain else contextlib.nullcontext():
+        return Z.score_examples(params, cfg, examples, max_len=max_len, batch_rows=batch_rows,
+                                return_scores=True)["scores"]
+
+
+def eval_scorer_check(cfg, params, tokenize):
+    """The scorer's summed log-probs with the kernels against the card path
+    with the plain versions swapped in: EVAL_CHECK_DOCS docs of every task,
+    uncapped and at the EVAL_CAP cap, at full depth (EVAL_FULL_LOGP a target
+    token) and on a EVAL_CUT_LAYERS-layer cut (EVAL_CUT_LOGP); then the cut
+    against the port's CPU path on the shortest examples (EVAL_CPU_ROWS rows
+    at most, capped at EVAL_CPU_LEN tokens; EVAL_CUT_LOGP). An argmax may
+    part only where the two best choices lie within the limit times their
+    tokens of each other.
+
+    K4 and K12 are held launch by launch in their kernel phases; neither is
+    bit-equal to its plain version (fp32 sums in another order; K12's
+    integers 1 apart in up to 1%), and the fake-quant forward re-quantizes
+    every projection's input, so a code one level off grows layer over
+    layer. Probe runs of this check on two sets of weights read 0.0007-0.021
+    a token on the cut and 0.021-0.061 at 22 layers (one argmax parted on a
+    near tie); the limits are about 4-5x the largest. They are sanity
+    bounds on the path as a whole: a random model's log-probs depend little
+    on their context, and causal rows never see the columns past their
+    length, so what guards K4 at these shapes is the flash phase, launch by
+    launch, at the scorer's buckets and ragged lengths."""
+    from llm_qat_torch.eval import zero_shot as Z
+
+    exs = [Z.TASK_ADAPTERS[t](d, tokenize) for t in Z.TASK_ADAPTERS
+           for d in Z.random_docs(t, EVAL_CHECK_DOCS, seed=EVAL_SEED + 1)]
+
+    def n_tok(examples, cap):
+        """Target tokens of every (example, choice) as the scorer counts them."""
+        n = np.zeros((len(examples), max(len(e.choices) for e in examples)))
+        for i, e in enumerate(examples):
+            for c, ch in enumerate(e.choices):
+                full = len(ch) if e.ctx_lens is not None else len(e.context) + len(ch)
+                ctx = e.ctx_lens[c] if e.ctx_lens is not None else len(e.context)
+                L = min(full, cap) if cap else full
+                n[i, c] = max(0, L - min(ctx, L))
+        return n
+
+    cut_cfg = cfg.replace(num_hidden_layers=EVAL_CUT_LAYERS)
+    cut = dict(params, layers={k: v[:EVAL_CUT_LAYERS] for k, v in params["layers"].items()})
+    out = {}
+    for cap in (None, EVAL_CAP):
+        nt = n_tok(exs, cap)
+        out["uncapped" if cap is None else f"cap_{cap}"] = r = dict(
+            full_vs_plain=score_drift(eval_scores(params, cfg, exs, cap),
+                                      eval_scores(params, cfg, exs, cap, plain=True), nt,
+                                      EVAL_FULL_LOGP),
+            cut_vs_plain=score_drift(eval_scores(cut, cut_cfg, exs, cap),
+                                     eval_scores(cut, cut_cfg, exs, cap, plain=True), nt,
+                                     EVAL_CUT_LOGP))
+    short, rows = [], 0
+    for e in sorted(exs, key=lambda e: max(len(e.context) + len(c) for c in e.choices)):
+        if rows + len(e.choices) > EVAL_CPU_ROWS:
+            break
+        short.append(e)
+        rows += len(e.choices)
+    cut_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+               for k, v in cut.items()}
+    t0 = time.perf_counter()
+    on_cpu = eval_scores(cut_cpu, cut_cfg, short, EVAL_CPU_LEN, batch_rows=EVAL_CPU_ROWS)
+    cpu_s = time.perf_counter() - t0
+    out["cpu"] = dict(cut_vs_cpu=score_drift(
+        eval_scores(cut, cut_cfg, short, EVAL_CPU_LEN, batch_rows=EVAL_CPU_ROWS), on_cpu,
+        n_tok(short, EVAL_CPU_LEN), EVAL_CUT_LOGP))
+    for name, r in out.items():
+        log(f"  scorer, {len(short) if name == 'cpu' else len(exs)} examples ({name}): largest "
+            "log-prob difference a target token (examples whose argmax parts): "
+            + "; ".join(f"{k} {d:.3g} ({len(pt)})" for k, (d, pt, _) in r.items())
+            + (f" (CPU path {cpu_s:.1f} s)" if name == "cpu" else ""))
+    log(f"  scorer limits: {EVAL_FULL_LOGP} at {cfg.num_hidden_layers} layers, {EVAL_CUT_LOGP} "
+        f"at {EVAL_CUT_LAYERS}")
+    if not all(ok for r in out.values() for _, _, ok in r.values()):
+        raise AssertionError(f"eval scorer: kernels, plain versions and the CPU disagree: {out}")
+    return out
+
+
+def beam_search_run(label, cfg, qparams, prompt, eos_id, plain=False):
+    """``beam_generate`` on the card (BEAM_NUM beams, BEAM_NEW tokens): the
+    prefill's launches apart from the decode steps', and the decode steps'
+    ms each. Each decode step is one ``serving_forward`` of BEAM_NUM rows:
+    4 K1/K2 and one K3 a layer; the prefill K4 once a layer."""
+    from llm_qat_torch.inference import beam as B
+    from llm_qat_torch.inference import model as M
+
+    fns = counters()          # the wrappers themselves: plain_on_gpu swaps the names
+
+    def count():
+        return {k: fn.launches for k, fn in fns.items()}
+
+    pre = {}
+    real = M.prefill_slot
+
+    def prefill(*a, **kw):
+        before = count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        pre["s"] = time.perf_counter() - t0
+        pre["launches"] = {k: n - before[k] for k, n in count().items()}
+        return out
+
+    M.prefill_slot = prefill
+    for fn in fns.values():
+        fn.launches = 0
+    try:
+        with plain_on_gpu() if plain else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, score = B.beam_generate(qparams, cfg, prompt, num_beams=BEAM_NUM,
+                                          max_new_tokens=BEAM_NEW, eos_id=eos_id)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        M.prefill_slot = real
+    got = count()
+    steps = BEAM_NEW - 1
+    dec = {k: n - pre["launches"][k] for k, n in got.items()}
+    out = dict(mode=label, prompt=len(prompt), eos_id=eos_id, tokens=[int(t) for t in toks],
+               score=score, wall_s=wall, prefill_s=pre["s"], decode_steps=steps,
+               ms_per_step=1e3 * (wall - pre["s"]) / steps, prefill_launches=pre["launches"],
+               decode_launches=dec, launches=got)
+    if not plain:
+        L = cfg.num_hidden_layers
+        gemm_k = "int8_matmul" if cfg.w_bits == 8 else "int4_matmul"
+        want = {gemm_k: 4 * L * steps, "decode_attention": L * steps}
+        if (any(dec[k] != want.get(k, 0) for k in dec) or pre["launches"]["flash_fwd"] != L
+                or any(v for k, v in pre["launches"].items()
+                       if k not in ("flash_fwd", gemm_k))):
+            raise AssertionError(f"beam {label}: prefill launches {pre['launches']}, decode "
+                                 f"{dec}, expected {want} in decode and K4 {L} in prefill")
+    if not (0 < len(toks) <= BEAM_NEW and np.isfinite(score)
+            and all(0 <= t < cfg.vocab_size for t in toks)):
+        raise AssertionError(f"beam {label}: tokens {list(toks)}, score {score}")
+    return out
+
+
+def beam_hold(label, r, p, limit):
+    """A beam run with the kernels (``r``) against the same search with the
+    plain versions (``p``): the tokens' first difference and the normalized
+    scores' relative difference, which must be within ``limit`` whether the
+    tokens part or not (where they part, near-equal hypotheses swapped)."""
+    first = next((i for i, (a, b) in enumerate(zip(r["tokens"], p["tokens"])) if a != b),
+                 None)
+    if first is None and len(r["tokens"]) != len(p["tokens"]):
+        first = min(len(r["tokens"]), len(p["tokens"]))
+    rel = abs(r["score"] - p["score"]) / abs(p["score"])
+    log(f"  beam {label}: {r['ms_per_step']:.2f} ms a step over {r['decode_steps']} steps of "
+        f"{BEAM_NUM} beams (plain versions {p['ms_per_step']:.2f}), prefill "
+        f"{1e3 * r['prefill_s']:.1f} ms; {len(r['tokens'])} tokens, score {r['score']:.5f}; "
+        f"against the plain versions: tokens {'equal' if first is None else f'part at {first}'}, "
+        f"score {rel:.3g} apart (limit {limit}); launches in decode "
+        + str({k: v for k, v in r["decode_launches"].items() if v}))
+    return dict(mode=label, first_difference=first, score_rel=rel, limit=limit,
+                ok=rel <= limit, plain_ms_per_step=p["ms_per_step"])
+
+
+def beam_phase(cfg):
+    """Beam search at TinyLlama-1.1B's full width and depth on the scan path
+    (``use_megakernel=False``: every decode step through K1/K2 and K3), at
+    W8A8KV8 and W4A8KV4 (packed cache), prompts of BEAM_PROMPTS tokens, with
+    no EOS and with an EOS the free search meets (its best hypothesis's
+    third token).
+
+    Held against the same search with the plain versions swapped in
+    (``beam_hold``): on a EVAL_CUT_LAYERS-layer cut, where the serving path's
+    kernels and plain versions agree to ~1e-6 (``cpu_check``), to
+    BEAM_CUT_REL; at full depth, where 22 layers of random weights grow any
+    last-bit difference (K4's fp32 sums in the prefill) into percents of the
+    logits and the searches part at near ties from the first step, to
+    BEAM_SCORE_REL (a probe run of this phase read 5.6e-5 to 0.0117, the
+    largest where the tokens parted at step 0). The cut runs come first
+    (they warm the path up); the plain hold at full depth takes one search
+    a mode: W8 the short prompt without EOS, W4 the long one with it.
+    ``num_beams=1`` must give ``InferenceEngine``'s greedy tokens on
+    the same path, bit for bit (the same kernels on the same shapes)."""
+    from llm_qat_torch.inference import beam as B
+    from llm_qat_torch.inference import engine as E
+    from llm_qat_torch.inference import quantized as Q
+    from llm_qat_torch.models import params as P
+
+    rng = np.random.default_rng(EVAL_SEED + 2)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n))) for n in BEAM_PROMPTS]
+    runs, holds, greedy = [], [], {}
+    for label, mcfg in (("W8A8KV8", cfg.replace(w_bits=8, a_bits=8, kv_bits=8)),
+                        ("W4A8KV4", cfg.replace(w_bits=4, a_bits=8, kv_bits=4,
+                                                kv_cache_pack=True))):
+        mcfg = mcfg.replace(use_megakernel=False)
+        qp = Q.quantize_params(P.init_params(mcfg, seed=EVAL_SEED, dtype=torch.bfloat16), mcfg)
+        torch.cuda.empty_cache()
+        ccfg = mcfg.replace(num_hidden_layers=EVAL_CUT_LAYERS)
+        qcut = cut_layers(qp, EVAL_CUT_LAYERS)
+        eos_id = None
+        for name in ("", " eos"):
+            r = beam_search_run(f"{label} {EVAL_CUT_LAYERS}-layer cut prompt {len(prompts[0])}"
+                                + name, ccfg, qcut, prompts[0], eos_id)
+            p = beam_search_run(r["mode"] + " plain", ccfg, qcut, prompts[0], eos_id,
+                                plain=True)
+            holds.append(beam_hold(r["mode"], r, p, BEAM_CUT_REL))
+            eos_id = r["tokens"][2]          # the second search ends where the first went
+        # the full-depth hold: W8 the short prompt without EOS, W4 the long one with it
+        held = (prompts[0], None) if label == "W8A8KV8" else (prompts[1], "eos")
+        for prompt in prompts:
+            free = beam_search_run(f"{label} prompt {len(prompt)}", mcfg, qp, prompt, None)
+            eos = beam_search_run(f"{label} prompt {len(prompt)} eos", mcfg, qp, prompt,
+                                  free["tokens"][2])
+            runs += [free, eos]
+            for r, kind in ((free, None), (eos, "eos")):
+                if (prompt, kind) == held:
+                    p = beam_search_run(r["mode"] + " plain", mcfg, qp, prompt, r["eos_id"],
+                                        plain=True)
+                    holds.append(beam_hold(r["mode"], r, p, BEAM_SCORE_REL))
+                else:
+                    log(f"  beam {r['mode']}: {r['ms_per_step']:.2f} ms a step, prefill "
+                        f"{1e3 * r['prefill_s']:.1f} ms; {len(r['tokens'])} tokens, score "
+                        f"{r['score']:.5f}")
+        # one beam is greedy: the engine's tokens on the same path and cache length
+        toks, _ = B.beam_generate(qp, mcfg, prompts[0], num_beams=1, max_new_tokens=BEAM_NEW)
+        max_len = 64
+        while max_len < len(prompts[0]) + BEAM_NEW + 1:
+            max_len *= 2
+        eng = E.InferenceEngine(qp, mcfg, max_batch=1, max_len=max_len)
+        eng.submit(prompts[0], max_new_tokens=BEAM_NEW)
+        want = eng.run()[0].output
+        greedy[label] = list(toks) == list(want)
+        log(f"  beam {label} num_beams=1 against the engine's greedy tokens: "
+            f"{'equal' if greedy[label] else 'DIFFER'} over {BEAM_NEW} tokens")
+        del qp, qcut, eng
+        torch.cuda.empty_cache()
+    if not all(h["ok"] for h in holds) or not all(greedy.values()):
+        raise AssertionError(f"beam search: kernels against plain versions {holds}, "
+                             f"num_beams=1 against greedy {greedy}")
+    return dict(runs=runs, holds=holds, greedy_equal=greedy)
+
+
+def classify_check(cfg):
+    """``classify`` on a right-padded batch (CLS_ROWS rows of 128 tokens, pad
+    id 0, lengths down to 9) at W4A8KV4, bf16, from seeded classifier
+    params: the kernels (K4, K12) against the plain versions, at full depth
+    (relative L2 of the pooled logits <= CLS_FULL_REL) and on a
+    EVAL_CUT_LAYERS-layer cut (CLS_CUT_REL): K4 and K12 are not bit-equal to
+    their plain versions, and the fake-quant forward grows a code one level
+    off (``eval_scorer_check``); a probe run read 0.039 and 0.0073, the
+    limits are about 3-4x those."""
+    from llm_qat_torch.models import llama
+
+    c = cfg.replace(w_bits=4, a_bits=8, kv_bits=4)
+    params = llama.init_classifier_params(c, CLS_LABELS, seed=EVAL_SEED, dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(EVAL_SEED)
+    ids = torch.randint(1, c.vocab_size, (CLS_ROWS, 128), device="cuda", generator=g)
+    lens = torch.tensor([128 - 17 * i for i in range(CLS_ROWS)], device="cuda")
+    mask = torch.arange(128, device="cuda")[None] < lens[:, None]
+    ids = torch.where(mask, ids, torch.zeros_like(ids))
+    out = {}
+    for depth in (c.num_hidden_layers, EVAL_CUT_LAYERS):
+        cc = c.replace(num_hidden_layers=depth)
+        pp = dict(params, layers={k: v[:depth] for k, v in params["layers"].items()})
+        for fn in counters().values():
+            fn.launches = 0
+        with torch.no_grad():
+            got = llama.classify(pp, cc, ids, pad_token_id=0, attention_mask=mask.int(),
+                                 dtype=torch.bfloat16)
+            launches = read_counters()
+            with plain_everywhere():
+                want = llama.classify(pp, cc, ids, pad_token_id=0, attention_mask=mask.int(),
+                                      dtype=torch.bfloat16)
+        rel = float((got - want).norm() / want.norm())
+        lim = CLS_FULL_REL if depth == c.num_hidden_layers else CLS_CUT_REL
+        ok = (bool(torch.isfinite(got).all()) and tuple(got.shape) == (CLS_ROWS, CLS_LABELS)
+              and rel <= lim and launches["flash_fwd"] == depth
+              and launches["rmsnorm_quant"] == 2 * depth)
+        out[depth] = dict(rel_l2=rel, limit=lim, launches={k: v for k, v in launches.items() if v})
+        log(f"  classify {depth} layers, {CLS_ROWS} right-padded rows: pooled logits "
+            f"{tuple(got.shape)}, kernels against plain versions rel L2 {rel:.3g} (limit {lim}); "
+            f"launches {out[depth]['launches']}")
+        if not ok:
+            raise AssertionError(f"classify at {depth} layers: {out[depth]}")
+    return out
+
+
+def eval_phase(cfg, model_dir=None):
+    """The paper's deliverable, scoring, through the port's entry points at
+    TinyLlama-1.1B's full width and depth (22 layers, H 2048, 32/4 heads):
+
+    (a) ``cli.eval.main`` on the card at W4A8KV4 in bf16 with the byte
+        tokenizer, on the HF checkpoint in ``model_dir`` (``pipeline_phase``'s
+        exported student) or, without one, seeded random weights written as
+        one: all eight tasks (EVAL_DOCS seeded docs each in the task's field
+        layout) and a perplexity file of EVAL_PPL_BLOCKS blocks of
+        EVAL_PPL_BLOCK; then EVAL_CAP_TASKS capped at EVAL_CAP tokens (no
+        multiple of 64: K4's tiles straddle the edge). Launch counts checked
+        per forward (``eval_cli_run``); the scorer held against the plain
+        versions and the CPU path (``eval_scorer_check``);
+    (b) ``beam_phase``; (c) ``classify_check``."""
+    from llm_qat_torch.data.dataset import load_tokenizer
+    from llm_qat_torch.eval import zero_shot as Z
+    from llm_qat_torch.models import convert
+    from llm_qat_torch.models import params as P
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    L = cfg.num_hidden_layers
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        t0 = time.perf_counter()
+        if model_dir is None:
+            model_dir = os.path.join(root, "model")
+            c = cfg.replace(w_bits=4, a_bits=8, kv_bits=4)
+            convert.save_hf_checkpoint(P.init_params(c, seed=EVAL_SEED, dtype=torch.bfloat16),
+                                       c, model_dir, dtype=torch.bfloat16)
+            source = "seeded random weights"
+        else:
+            source = "the pipeline's exported student"
+        times = {"write_model_s": time.perf_counter() - t0}
+        tdir, ppl = write_eval_files(root)
+        bits = ["--w_bits", "4", "--a_bits", "8", "--kv_bits", "4"]
+        common = ["--model", model_dir, "--tokenizer", "byte", *bits, "--task_dir", tdir,
+                  "--bf16", "true"]
+        t0 = time.perf_counter()
+        full = eval_cli_run("eval CLI, 8 tasks + perplexity", common + [
+            "--tasks", ",".join(Z.TASK_ADAPTERS), "--perplexity_data", ppl,
+            "--block_size", str(EVAL_PPL_BLOCK), "--output_json", os.path.join(root, "out.json")],
+            L)
+        capped = eval_cli_run(f"eval CLI capped at {EVAL_CAP}", common + [
+            "--tasks", ",".join(EVAL_CAP_TASKS), "--max_len", str(EVAL_CAP)], L)
+        if EVAL_CAP not in capped["buckets"]:
+            raise AssertionError(f"capped run: buckets {capped['buckets']}")
+        if json.load(open(os.path.join(root, "out.json"))) != full["results"]:
+            raise AssertionError("eval CLI: output_json differs from the results returned")
+        c, params = convert.load_hf_checkpoint(model_dir, dtype=torch.bfloat16, w_bits=4,
+                                               a_bits=8, kv_bits=4)
+        times["cli_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scorer = eval_scorer_check(c, params, load_tokenizer("byte")[1])
+        times["scorer_check_s"] = time.perf_counter() - t0
+        del params
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    beams = beam_phase(cfg)
+    times["beam_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cls = classify_check(cfg)
+    times["classify_s"] = time.perf_counter() - t0
+    launches = {k: full["launches"][k] + capped["launches"][k]
+                + sum(r["launches"][k] for r in beams["runs"]) for k in counters()}
+    out = dict(model=source, zero_shot=full, capped=capped, scorer=scorer, beam=beams,
+               classify=cls, launches=launches, times_s=times,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"  eval phase {out['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + f"); launches {launches}")
     return out
 
 
@@ -2210,6 +2738,12 @@ def main() -> int:
     # S = 1536 and 1800 cross the TPU kernel's key blocks (2 x 768, 15 x 120)
     fl = [flash_phase(timer, gen, FA, cfg.kv_heads, G, S, cfg.head_dim)
           for S in (1024, 128, 1536, 1800)]
+    # K4 at the zero-shot scorer's buckets (32, 64) and caps (100, 200): 16 rows, ragged;
+    # from a generator of its own, so the other phases keep their inputs
+    gen_scorer = torch.Generator(device="cuda")
+    gen_scorer.manual_seed(EVAL_SEED)
+    fls = [flash_phase(timer, gen_scorer, FA, len(scorer_lens(S)), G, S, cfg.head_dim,
+                       scorer_lens(S)) for S in SCORER_S]
     # K4 at LLaMA-7B's attention shape (32 MHA heads of 128), full and ragged lengths
     fl7 = [flash_phase(timer, gen, FA, 32, 1, 1024, 128, lens) for lens in (None, LLAMA7B_LENS)]
     # K8 at TinyLlama-1.1B's attention shape and at LLaMA-7B's (32 MHA heads of 128)
@@ -2311,6 +2845,16 @@ def main() -> int:
         f"{PIPE_LEN} tokens), cli.train.run ({PIPE_STEPS} steps of {TRAIN_SEQ} tokens, export, "
         f"eval), resume on a {PIPE_RESUME_LAYERS}-layer cut ({smi})")
     pipe = pipeline_phase(cfg)
+    student_dir = pipe.pop("student_dir")
+    log(f"[4c] evaluation at TinyLlama-1.1B's full width and depth through the port's entry "
+        f"points: cli.eval.main on the pipeline's student (8 tasks x {EVAL_DOCS} docs, "
+        f"perplexity over {EVAL_PPL_BLOCKS} x {EVAL_PPL_BLOCK} tokens, a --max_len {EVAL_CAP} "
+        f"run), beam search ({BEAM_NUM} beams x {BEAM_NEW} tokens, prompts {BEAM_PROMPTS}, "
+        f"W8A8KV8 and W4A8KV4), classify ({smi})")
+    try:
+        ev = eval_phase(cfg, os.path.join(student_dir, "model"))
+    finally:
+        shutil.rmtree(student_dir, ignore_errors=True)
 
     # each path went through its kernels, and only through them
     for m in runs:
@@ -2348,7 +2892,7 @@ def main() -> int:
                     max_abs_err=max(s["max_abs_err"] for s in sel))
 
     launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) + pipe["launches"][k]
-                for k in counters()}
+                + ev["launches"][k] for k in counters()}
     # K5-K7 are on no serving path of either package: their counts are those
     # of their kernel phases
     launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
@@ -2357,7 +2901,7 @@ def main() -> int:
     k8 = pag[0]
     k9 = mega[0]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
-    fwd_shapes = fl + [ftr["full"]["fwd"], ftr["ragged"]["fwd"]] + fl7 + [
+    fwd_shapes = fl + fls + [ftr["full"]["fwd"], ftr["ragged"]["fwd"]] + fl7 + [
         ftr7["full"]["fwd"], ftr7["ragged"]["fwd"]]
     train_shape = ("B=16 G=8 S=2048 D=64 causal bf16, full lengths (lengths full, ragged, 1 "
                    "and 0, and LLaMA-7B heads B=32 G=1 S=2048 D=128 full and ragged, in shapes)")
@@ -2382,7 +2926,8 @@ def main() -> int:
              max_abs_err=max(d["max_abs_err"] for d in dec), shapes=dec),
         dict(name="flash_fwd", source="llm_qat_torch/csrc/flash_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:94",
-             shape="B=4 G=8 S=1024 D=64 causal (S=128, the train shape B=16 S=2048 at full and "
+             shape="B=4 G=8 S=1024 D=64 causal (S=128, the scorer's B=64 at S=32, 64, 100 and "
+                   "200 at ragged lengths, the train shape B=16 S=2048 at full and "
                    "ragged lengths, LLaMA-7B's B=32 G=1 S=1024 and S=2048 D=128 at full and "
                    "ragged lengths in shapes)",
              **{k: fl[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2440,6 +2985,7 @@ def main() -> int:
     for r in rows:
         r.update(route="cuda", launches=launches[r["name"]],
                  launches_pipeline=pipe["launches"][r["name"]],
+                 launches_eval=ev["launches"][r["name"]],
                  tpu_kernel=r["replaces"], max_err=r["max_abs_err"])
     log("[5] results")
     log(f"    chip_smoke.py ran {time.perf_counter() - T_START:.1f} s (kernel builds included)")
@@ -2447,7 +2993,7 @@ def main() -> int:
                     "timer_floor_ms": gemm["timer_floor_ms"],
                     "llama7b_teacher_forced": l7["teacher_forced"],
                     "cpu_checks": checks, "training": trains, "train_check": tcheck,
-                    "pipeline": pipe, "card": smi}))
+                    "pipeline": pipe, "eval": ev, "card": smi}))
     log(json.dumps({"kernel_attributes": attrs}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,1 @@
-"""Command-line entry points: training and data synthesis."""
+"""Command-line entry points: training, data synthesis and evaluation."""

@@ -1,7 +1,8 @@
 """Quantized LLaMA decoder: the building blocks the serving path shares, the
-training / scoring forward and the fixed-size-cache decode path of
-generation (``init_cache`` / ``forward_with_cache``): the JAX package's
-``models/llama.py`` without ``classify``.
+training / scoring forward, the fixed-size-cache decode path of generation
+(``init_cache`` / ``forward_with_cache``) and the sequence-classification
+head (``init_classifier_params`` / ``classify`` / ``classification_loss``):
+the JAX package's ``models/llama.py``.
 
 Params are a plain dict with the per-layer weights stacked on a leading layer
 axis, stored ``[in, out]``; the decoder is a Python loop over the layers, and
@@ -414,6 +415,60 @@ def forward(params: Params, config: LlamaConfig, input_ids: torch.Tensor,
     ``[b, s, vocab]``."""
     h = backbone(params, config, input_ids, **kw)
     return _logits(params, config, h)
+
+
+# ---------------------------------------------------------------------------
+# Sequence classification head (LlamaForSequenceClassification,
+# modeling_llama_quant.py:970-1050)
+# ---------------------------------------------------------------------------
+
+
+def init_classifier_params(config: LlamaConfig, num_labels: int, seed: int = 0,
+                           device=None, dtype=torch.float32) -> Params:
+    """Backbone params (``params.init_params`` from ``seed``, tied
+    embeddings: no lm_head, which the reference ignores on load) and a
+    bias-free ``score`` head ``[H, num_labels]``, normal(0, 0.02) from a
+    generator seeded with ``seed * 65536 + num_labels`` (the JAX package
+    folds ``num_labels`` into its key)."""
+    from llm_qat_torch.models.params import init_params
+
+    params = init_params(config.replace(tie_word_embeddings=True), seed, device, dtype)
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed * 65536 + num_labels)
+    score = torch.empty((config.hidden_size, num_labels), dtype=torch.float32, device=dev)
+    params["score"] = score.normal_(0.0, 0.02, generator=gen).to(dtype)
+    return params
+
+
+def classify(params: Params, config: LlamaConfig, input_ids: torch.Tensor, *,
+             pad_token_id: Optional[int] = None,
+             attention_mask: Optional[torch.Tensor] = None, remat: bool = False,
+             dtype=None) -> torch.Tensor:
+    """Pooled classification logits ``[b, num_labels]`` (fp32): score every
+    position, pool at the last non-pad token, or at the last position when
+    ``pad_token_id`` is None (reference modeling_llama_quant.py:1035-1050).
+    A row of pad tokens only pools at its last position, as index -1 does
+    in the JAX package."""
+    h = backbone(params, config, input_ids, attention_mask=attention_mask, remat=remat,
+                 dtype=dtype)
+    h = rms_norm(h, params["final_norm"], config.rms_norm_eps)
+    logits = head_logits(h, params["score"])            # [b, s, num_labels]
+    b, s = input_ids.shape
+    if pad_token_id is None:
+        last = torch.full((b,), s - 1, dtype=torch.long, device=logits.device)
+    else:
+        last = (input_ids != pad_token_id).sum(dim=-1) - 1
+    return logits[torch.arange(b, device=logits.device), last]
+
+
+def classification_loss(pooled_logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """CE for more than one label, MSE for one (regression): the reference's
+    problem-type dispatch (modeling_llama_quant.py:1052+)."""
+    if pooled_logits.shape[-1] == 1:
+        return ((pooled_logits[..., 0] - labels) ** 2).mean()
+    lp = torch.log_softmax(pooled_logits.float(), dim=-1)
+    return -torch.gather(lp, -1, labels.long()[:, None]).mean()
 
 
 def causal_lm_loss_sum(logits: torch.Tensor, labels: torch.Tensor,

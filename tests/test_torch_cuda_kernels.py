@@ -41,6 +41,7 @@ everywhere, equal in all but 1% of the elements).
 import pytest
 import torch
 
+import chip_smoke
 from llm_qat_torch.inference import engine as E
 from llm_qat_torch.inference import megakernel as MK
 from llm_qat_torch.inference import model as M
@@ -472,6 +473,26 @@ def test_flash_fwd_kernel(gen, S, causal, soft_bf16):
     lens = torch.tensor([S, 0, S // 2, S - 1], dtype=torch.int32, device="cuda")
     o, lse = FA._flash_fwd(q, k, v, lens, causal=causal, soft_bf16=soft_bf16)
     o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, causal, soft_bf16)
+    assert _close(o, o2)
+    assert float((lse - lse2).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("S", [32, 64, 100, 200])
+def test_flash_fwd_kernel_scorer_shapes(gen, S):
+    """The zero-shot scorer's buckets: powers of two from 32 and caps of 100
+    and 200 keys (the kernel's 64-key tiles are wider than S = 32 and
+    straddle the edge at 100 and 200), 16 rows x 4 kv heads, G = 8, ragged
+    lengths and a padded tail of empty rows, as ``chip_smoke.py`` runs it."""
+    lens_l = chip_smoke.scorer_lens(S)
+    B, G, D = len(lens_l), 8, 64
+    q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    n = FA._flash_fwd.launches
+    o, lse = FA._flash_fwd(q, k, v, lens)
+    assert FA._flash_fwd.launches == n + 1
+    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens)
     assert _close(o, o2)
     assert float((lse - lse2).abs().max()) < 1e-3
 

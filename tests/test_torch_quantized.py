@@ -204,7 +204,7 @@ def _imports(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "llm_qat_torch").rglob("*.py")) + [
         REPO / name for name in ("chip_smoke.py", "train_torch.py", "generate_data_torch.py",
-                                 "merge_gen_data_torch.py")]
+                                 "merge_gen_data_torch.py", "eval_torch.py")]
     assert len(files) > 10
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"llm_qat_torch/models/convert.py", "llm_qat_torch/utils/args.py",
@@ -213,7 +213,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "llm_qat_torch/native/__init__.py", "llm_qat_torch/data/dataset.py",
             "llm_qat_torch/data/synthesis.py", "llm_qat_torch/cli/train.py",
             "llm_qat_torch/cli/generate_data.py", "train_torch.py", "generate_data_torch.py",
-            "merge_gen_data_torch.py"} <= names
+            "merge_gen_data_torch.py", "eval_torch.py", "llm_qat_torch/cli/eval.py",
+            "llm_qat_torch/eval/perplexity.py", "llm_qat_torch/eval/zero_shot.py",
+            "llm_qat_torch/inference/beam.py"} <= names
     assert {"llm_qat_torch/inference/paged.py", "llm_qat_torch/inference/paged_engine.py",
             "llm_qat_torch/inference/megakernel.py", "chip_smoke.py",
             "llm_qat_torch/ops/quantize.py", "llm_qat_torch/ops/qat_matmul.py",

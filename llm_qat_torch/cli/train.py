@@ -1,5 +1,12 @@
-"""QAT training entry point (the JAX package's ``cli/train.py``) on one
-device: ``cuda`` unless ``--device cpu`` (or ``run(..., device="cpu")``).
+"""QAT training entry point (the JAX package's ``cli/train.py``): ``cuda``
+unless ``--device cpu`` (or ``run(..., device="cpu")``), on one device or,
+under ``torchrun --nproc_per_node N train_torch.py --mesh_fsdp N ...``, on a
+mesh of N ranks (``--mesh_data`` / ``--mesh_fsdp`` / ``--mesh_cp``; the
+process group comes from torchrun's environment, ``maybe_init_distributed``).
+Every rank reads the same data and walks the same global batches
+(``per_device_train_batch_size`` rows for each of the data x fsdp ranks);
+the trainer hands each rank its part. Checkpoints hold the whole state, so a
+run resumes at any world size; rank 0 writes them and the HF export.
 
 Reference flow (train.py:42-149): build the quantized student from an HF
 checkpoint with the bit-widths injected into the config; attach a frozen fp
@@ -15,17 +22,35 @@ import os
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from llm_qat_torch.data import dataset as D
 from llm_qat_torch.device import resolve_device
 from llm_qat_torch.models import convert
+from llm_qat_torch.parallel import mesh as pmesh
 from llm_qat_torch.training import trainer as T
 from llm_qat_torch.utils import args as A
 from llm_qat_torch.utils.checkpoint import CheckpointManager
-from llm_qat_torch.utils.logging_utils import (
-    MetricsLogger, get_logger, process_count, process_index,
-)
+from llm_qat_torch.utils.logging_utils import MetricsLogger, get_logger, process_index
 from llm_qat_torch.utils.profiling import StepTimer
+
+
+def maybe_init_distributed(device=None) -> bool:
+    """``init_process_group`` from torchrun's ``RANK`` / ``WORLD_SIZE`` /
+    ``LOCAL_RANK`` (and its rendezvous address) when ``WORLD_SIZE > 1``: NCCL
+    for ``cuda``, each rank on card ``LOCAL_RANK``; gloo for ``cpu``. A
+    single-process run skips it (the reference's
+    ``dist.init_process_group("nccl")``, train.py:43). True when it made the
+    group."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return False
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://",
+                            rank=int(os.environ["RANK"]), world_size=world)
+    return True
 
 
 def run(
@@ -45,7 +70,9 @@ def run(
     package's signature; training does not decode."""
     log = get_logger()
     log.info("model args %s", model_args)
-    A.check_single_device(training_args)
+    if training_args.mesh_pp > 1 and training_args.mesh_cp > 1:
+        raise ValueError("choose one of --mesh_pp / --mesh_cp (not both)")
+    A.check_mesh_axes(training_args)
     dev = resolve_device(device if device is not None else training_args.device)
     anomaly = torch.is_anomaly_enabled()
     if training_args.debug_nans:
@@ -96,7 +123,6 @@ def _run(model_args, data_args, training_args, tokenize, dev, log) -> dict:
         eval_path=data_args.eval_data_local_path,
     )
     reader = D.last_reader
-    train_ds = train_ds.shard(process_index(), process_count())
     log.info("train blocks %d, val blocks %d (%s jsonl reader)", len(train_ds), len(val_ds),
              reader)
     if training_args.do_train and len(train_ds) == 0:
@@ -106,8 +132,19 @@ def _run(model_args, data_args, training_args, tokenize, dev, log) -> dict:
             "small corpora are swallowed entirely", D.DEFAULT_VAL_LINES,
         )
 
-    # --- trainer (one device: every mesh axis is 1) ---
-    global_batch = training_args.per_device_train_batch_size
+    # --- mesh + trainer: the ranks of the process group, if there is one ---
+    ta = training_args
+    axes = dict(data=ta.mesh_data, fsdp=ta.mesh_fsdp, tp=ta.mesh_tp, pp=ta.mesh_pp,
+                cp=ta.mesh_cp)
+    mesh = None
+    if dist.is_initialized():
+        mesh = pmesh.make_mesh(**axes, device_type=dev.type)
+    elif any(n not in (1, -1) for n in axes.values()):
+        raise ValueError(f"mesh {axes} on one process: launch the ranks with torchrun "
+                         f"(--nproc_per_node) or parallel.launch.spawn")
+    parallel = "cp" if ta.mesh_cp > 1 else "fsdp"
+    n_batch_shards = 1 if mesh is None else pmesh.batch_shards(mesh)[0]
+    global_batch = training_args.per_device_train_batch_size * n_batch_shards
     steps_per_epoch = max(len(train_ds) // max(global_batch, 1), 1)
     total_steps = (
         training_args.max_steps
@@ -130,12 +167,15 @@ def _run(model_args, data_args, training_args, tokenize, dev, log) -> dict:
         # logits never fully materialize at 2048 x 32k
         kl_chunk=256 if training_args.model_max_length >= 1024 else 0,
     )
-    tr = T.Trainer(config, tcfg, params, teacher_params, teacher_cfg=teacher_cfg, device=dev)
+    tr = T.Trainer(config, tcfg, params, teacher_params, teacher_cfg=teacher_cfg, mesh=mesh,
+                   parallel=parallel, device=dev)
+    del params, teacher_params   # the trainer keeps this rank's part
 
     mngr = CheckpointManager(
         os.path.join(training_args.output_dir, "checkpoints"),
         max_to_keep=training_args.save_total_limit,
         save_interval_steps=training_args.save_steps,
+        mesh=mesh, specs=tr.param_specs,
     )
     metrics_log = MetricsLogger(
         training_args.logging_dir or os.path.join(training_args.output_dir, "logs"))
@@ -176,15 +216,22 @@ def _run(model_args, data_args, training_args, tokenize, dev, log) -> dict:
         log.info("throughput %s", timer.summary())
 
         # final HF-format latent-fp export, teacher-free by construction
-        # (utils/utils.py:39-49)
-        if process_index() == 0 and model_args.output_model_filename:
+        # (utils/utils.py:39-49); the ranks gather the whole params, rank 0 writes
+        if model_args.output_model_filename:
+            whole = (tr.state.params if mesh is None
+                     else pmesh.gather_params(tr.state.params, mesh, tr.param_specs))
             out = os.path.join(model_args.local_dir, "models", model_args.output_model_filename)
-            convert.save_hf_checkpoint(tr.state.params, config, out)
+            if process_index() == 0:
+                convert.save_hf_checkpoint(whole, config, out)
+            del whole
+            if mesh is not None:
+                dist.barrier()
             result["model_path"] = out
 
     # --- eval -> perplexity (train.py:131-143) ---
     if training_args.do_eval and len(val_ds):
-        m = tr.evaluate(list(val_ds.batches(training_args.per_device_eval_batch_size)))
+        m = tr.evaluate(list(val_ds.batches(
+            training_args.per_device_eval_batch_size * n_batch_shards)))
         log.info("eval %s", m)
         result.update(m)
 
@@ -194,7 +241,13 @@ def _run(model_args, data_args, training_args, tokenize, dev, log) -> dict:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    return run(*A.process_args(argv))
+    margs, dargs, targs = A.process_args(argv)
+    made = maybe_init_distributed(targs.device)
+    try:
+        return run(margs, dargs, targs)
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

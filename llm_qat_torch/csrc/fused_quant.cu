@@ -46,9 +46,10 @@
 //    thread at a time.
 //
 // Numerics: the plain PyTorch versions' (ops/fused_quant.py). Each square
-// rounds to fp32 and the squares are summed in fp32, in this kernel's order
-// (the one rounding the plain version takes elsewhere: scales agree to the
-// last bits, an integer may be 1 apart); the mean is __fmul_rn(ss, 1/K), then
+// rounds to fp32 and the squares are summed in fp32 in this kernel's order:
+// a thread's elements in sequence, each warp's xor butterfly, then the warps
+// in order (on the card the plain version sums in the same order,
+// _sum_sq_kernel_order, so the two agree to the bit); the mean is __fmul_rn(ss, 1/K), then
 // __fadd_rn(., eps), then rsqrtf (what torch's CUDA rsqrt calls). The
 // sigmoid is 1 / (1 + expf(-g)) as ATen's: the correctly rounded reciprocal
 // (__frcp_rn) is the correctly rounded quotient, so silu_mul_quant is

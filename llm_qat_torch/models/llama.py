@@ -293,10 +293,21 @@ def causal_mask(b: int, s: int, attention_mask: Optional[torch.Tensor],
     return torch.where(m, zero, torch.full_like(zero, _NEG_INF))
 
 
-def head_matrix(params: Params, config: LlamaConfig) -> torch.Tensor:
+def head_matrix(params: Params, config: LlamaConfig, mesh=None) -> torch.Tensor:
     """The (unquantized) lm_head weight ``[H, V]``; tied embeddings
-    transpose."""
-    return params["embed"].t() if config.tie_word_embeddings else params["lm_head"]
+    transpose. Under a mesh, gathered whole from this rank's shard."""
+    if config.tie_word_embeddings:
+        return _whole(params, "embed", mesh).t()
+    return _whole(params, "lm_head", mesh)
+
+
+def _whole(params: Params, name: str, mesh) -> torch.Tensor:
+    """``params[name]``, gathered whole under a mesh (``parallel.zero``)."""
+    if mesh is None:
+        return params[name]
+    from llm_qat_torch.parallel import mesh as pmesh, zero
+
+    return zero.gather(params[name], pmesh.param_specs("lm_head" not in params)[name], mesh)
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -325,9 +336,9 @@ def head_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return out.reshape(*h.shape[:-1], head.shape[-1])
 
 
-def _logits(params: Params, config: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
+def _logits(params: Params, config: LlamaConfig, h: torch.Tensor, mesh=None) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], config.rms_norm_eps)
-    return head_logits(h, head_matrix(params, config))
+    return head_logits(h, head_matrix(params, config, mesh))
 
 
 _LAYER_KEYS = ("attn_norm", "q", "k", "v", "o", "mlp_norm", "gate", "up", "down")
@@ -343,10 +354,16 @@ def backbone(
     remat: bool = False,
     remat_policy: str = "save_attn",
     dtype=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Decoder sweep returning the final hidden states ``[b, s, H]`` (before
     the final norm): a loop over the stacked layers, the residual stream kept
     at the activation type.
+
+    ``mesh``: ``params`` hold this rank's shards (``parallel.mesh.
+    shard_params``) and ``input_ids`` its rows; each layer gathers its
+    weights whole inside the function a rematerialized layer re-runs, so
+    they live only while the layer runs (``parallel.zero``).
 
     ``remat=True`` re-runs each layer in its backward instead of saving its
     graph. ``remat_policy="save_attn"`` keeps each layer's attention output
@@ -361,7 +378,7 @@ def backbone(
     """
     c = config
     b, s = input_ids.shape
-    h = params["embed"][input_ids]
+    h = _whole(params, "embed", mesh)[input_ids]
     if dtype is not None:
         h = h.to(dtype)
     if positions is None:
@@ -382,6 +399,7 @@ def backbone(
     )
     layers = {k: params["layers"][k].unbind(0) for k in _LAYER_KEYS}
     rematerialize = remat and torch.is_grad_enabled()
+    whole = (lambda lp: lp) if mesh is None else _layer_gather(mesh)
     for l in range(c.num_hidden_layers):
         leaves = [layers[k][l] for k in _LAYER_KEYS]
         saved = None
@@ -392,12 +410,21 @@ def backbone(
 
         def body(h, *leaves, saved=saved):
             out, _ = decoder_layer(
-                h, dict(zip(_LAYER_KEYS, leaves)), c, mask, cos, sin,
+                h, whole(dict(zip(_LAYER_KEYS, leaves))), c, mask, cos, sin,
                 use_flash=use_flash, flash_lengths=flash_lengths, attn_saved=saved)
             return out.to(h.dtype)
 
         h = _Remat.apply(body, h, *leaves) if rematerialize else body(h, *leaves)
     return h
+
+
+def _layer_gather(mesh):
+    """One layer's shards -> its whole weights (the stacked specs without
+    the layer dim)."""
+    from llm_qat_torch.parallel import mesh as pmesh, zero
+
+    specs = {k: v[1:] for k, v in pmesh.param_specs()["layers"].items()}
+    return lambda lp: {k: zero.gather(t, specs[k], mesh) for k, t in lp.items()}
 
 
 def final_hidden(params: Params, config: LlamaConfig, input_ids: torch.Tensor,
@@ -414,7 +441,7 @@ def forward(params: Params, config: LlamaConfig, input_ids: torch.Tensor,
     """Causal-LM forward: backbone + final norm + fp lm_head -> fp32 logits
     ``[b, s, vocab]``."""
     h = backbone(params, config, input_ids, **kw)
-    return _logits(params, config, h)
+    return _logits(params, config, h, kw.get("mesh"))
 
 
 # ---------------------------------------------------------------------------
@@ -475,8 +502,14 @@ def causal_lm_loss_sum(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_index: int = -100) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(nll_sum, valid_token_count)`` of the shifted next-token
     cross-entropy, so callers can aggregate a token-weighted mean."""
-    logits = logits[:, :-1, :]
-    labels = labels[:, 1:].long()
+    return token_nll_sum(logits[:, :-1, :], labels[:, 1:], ignore_index)
+
+
+def token_nll_sum(logits: torch.Tensor, targets: torch.Tensor,
+                  ignore_index: int = -100) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(nll_sum, valid_token_count)`` of ``logits[:, t]`` against
+    ``targets[:, t]`` (no shift)."""
+    labels = targets.long()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)

@@ -85,15 +85,16 @@ def _fit_block(target: int, s: int) -> int:
     return t
 
 
-def _flash_fwd_plain(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False):
+def _flash_fwd_plain(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False,
+                     bk: int = _KEY_BLOCK):
     """Plain PyTorch version of the flash forward kernel: the masked score
     matrix at once, then the TPU kernel's walk over key blocks of
-    ``_fit_block(1024, S)``: per block, p against the running maximum, rounded
+    ``_fit_block(bk, S)``: per block, p against the running maximum, rounded
     to V's type for p.V, and ``l`` and the p.V sum rescaled by
     ``alpha = exp2(m - m_new)``. A block with no live column in a row leaves
     that row as it was (``alpha = 1``, ``p = 0``), as a skipped block does."""
     B, G, S, D = q.shape
-    bk = _fit_block(_KEY_BLOCK, S)
+    bk = _fit_block(bk, S)
     scale = 1.0 / (D ** 0.5)
     s = (scale * _LOG2E) * _scores(q, k)
     col = torch.arange(S, device=q.device)
@@ -127,17 +128,19 @@ def _flash_fwd_plain(q, k, v, lengths, causal: bool = True, soft_bf16: bool = Fa
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False):
-    """q: [B, G, S, D]; k/v: [B, S, D]; lengths [B] (causal within each S).
-    Returns ([B, G, S, D], lse [B, G, 1, S]). p is rounded in the TPU
-    kernel's key blocks (``_fit_block(1024, S)``); the CUDA kernel's own
-    tiles are fixed and mask the ragged edge. On the card: head dim 64 in
+def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False,
+               bk: int = _KEY_BLOCK):
+    """q: [B, G, S, D]; k/v: [B, S, D]; lengths [B] (causal within each S;
+    ``causal=False``: every column below the length). Returns
+    ([B, G, S, D], lse [B, G, 1, S]). p is rounded in the TPU kernel's key
+    blocks (``_fit_block(bk, S)``: every caller of the JAX kernel passes
+    1024); the CUDA kernel's own tiles are fixed and mask the ragged edge. On the card: head dim 64 in
     f32 or bf16, 128 in bf16."""
     B, G, S, D = q.shape
     if k.shape != (B, S, D) or v.shape != (B, S, D):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     if q.device.type == "cpu":
-        return _flash_fwd_plain(q, k, v, lengths, causal, soft_bf16)
+        return _flash_fwd_plain(q, k, v, lengths, causal, soft_bf16, bk)
     if not q.is_cuda:
         raise ValueError(f"_flash_fwd: q on {q.device}")
     if (q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype
@@ -155,7 +158,7 @@ def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False):
     lse = torch.empty((B, G, 1, S), dtype=torch.float32, device=q.device)
     f = _build.bind("flash_attention", "flash_fwd" if D == 64 else "flash_fwd_d128", 6, 7, 1)
     err = f(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), B, G, S, _fit_block(_KEY_BLOCK, S), int(causal),
+            o.data_ptr(), lse.data_ptr(), B, G, S, _fit_block(bk, S), int(causal),
             int(soft_bf16),
             _DTYPE_CODES[q.dtype], float(_LOG2E / math.sqrt(D)),
             torch.cuda.current_stream(q.device).cuda_stream)

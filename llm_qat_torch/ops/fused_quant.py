@@ -16,11 +16,13 @@ activation type first (what the unfused path materializes), then quantized
 from that value with ``s = qmax/(absmax+1e-6)`` and ``round(x*s)``. RMSNorm
 sums the fp32 squares in fp32 and takes the mean as ``sum * (1/K)``; SiLU's
 sigmoid is evaluated in fp32. SiLU*up+quant sums nothing, and its kernel
-agrees with its plain version to the bit. The RMSNorm kernel sums in another
-order than the plain version (and JAX): the scales agree to the last bits,
-and an integer may differ by exactly 1 where ``x*s`` sits on a rounding
-boundary. A float64 sum would make kernel and plain version bit-equal, but
-it moves the port's CPU path off JAX's fp32 mean (PERF.md §6).
+agrees with its plain version to the bit. The RMSNorm kernel sums the squares
+in its own order: each thread's strided partial sum, then a fixed pairwise
+tree over the threads of a row (``_sum_sq_kernel_order``). On the card the
+plain version sums in that order too, so kernel and plain version agree to
+the bit; on the CPU it keeps the fp32 ``sum(dim=1)`` that JAX's mean matches
+(one sum order cannot serve both: the two can put ``rsqrt`` an ulp apart, and
+two bf16 roundings then carry an integer two levels).
 """
 
 from __future__ import annotations
@@ -124,11 +126,56 @@ def _quant_rows(x32: torch.Tensor, a_bits: int) -> Tuple[torch.Tensor, torch.Ten
     return torch.round(x32 * s).to(torch.int8), s
 
 
-def _rmsnorm_quant_plain(h, g, eps: float, a_bits: int):
-    """Plain PyTorch version of the RMSNorm+quant kernel."""
+def _launch_operands(h, g):
+    """(h, gain, plan) as ``rmsnorm_quant`` hands them to the kernel: a bf16
+    gain stays bf16 beside a bf16 h (the product is bf16), else f32."""
+    hc = h.contiguous()
+    same = h.dtype == g.dtype == torch.bfloat16
+    gc = g.contiguous() if same else g.float().contiguous()
+    return hc, gc, plan(h.shape[1], h.element_size(), 1, _aligned(hc, gc), f32_products=not same)
+
+
+def _sum_sq_kernel_order(xf: torch.Tensor, v: int, wpr: int) -> torch.Tensor:
+    """Per-row fp32 sum of squares ``[M, 1]`` in ``csrc/fused_quant.cu``'s
+    order for the plan ``(v, wpr)``: a row's ``T = 32 wpr`` threads each sum
+    their elements sequentially (the register kernel: chunks of 8, chunk
+    ``c = t + i T``, i then the 8 elements; the staged kernel, ``v = -1``:
+    elements ``t + j T``), every square rounded to fp32; then each warp's
+    xor-shuffle butterfly (the upper 16 lanes onto the lower, then 8, 4, 2,
+    1), then the warps' sums in warp order. Elements past the row add +0,
+    which changes no sum."""
+    m, k = xf.shape
+    tpr = 32 * wpr
+    if v > 0:
+        x = torch.nn.functional.pad(xf, (0, 8 * v * tpr - k))
+        x = x.reshape(m, v, tpr, 8).permute(0, 1, 3, 2).reshape(m, 8 * v, tpr)
+    else:
+        x = torch.nn.functional.pad(xf, (0, -(-k // tpr) * tpr - k)).reshape(m, -1, tpr)
+    sq = x * x
+    ss = sq[:, 0]
+    for i in range(1, sq.shape[1]):
+        ss = ss + sq[:, i]
+    ss = ss.reshape(m, wpr, 32)
+    for off in (16, 8, 4, 2, 1):
+        ss = ss[..., :off] + ss[..., off:2 * off]
+    total = ss[:, 0]
+    for w in range(1, wpr):
+        total = total + ss[:, w]
+    return total
+
+
+def _rmsnorm_quant_plain(h, g, eps: float, a_bits: int, kernel_order=None):
+    """Plain PyTorch version of the RMSNorm+quant kernel. ``kernel_order``
+    (default: h on the card) sums the squares as the kernel does
+    (``_sum_sq_kernel_order``); else as one ``sum(dim=1)``."""
     out_dt = torch.promote_types(h.dtype, g.dtype)
     xf = h.float()
-    var = (xf * xf).sum(dim=1, keepdim=True) * (1.0 / h.shape[1])
+    if h.is_cuda if kernel_order is None else kernel_order:
+        _, _, (v, wpr, _) = _launch_operands(h, g)
+        ss = _sum_sq_kernel_order(xf, v, wpr)
+    else:
+        ss = (xf * xf).sum(dim=1, keepdim=True)
+    var = ss * (1.0 / h.shape[1])
     xn = (xf * torch.rsqrt(var + eps)).to(h.dtype).float()
     xnf = (xn * g.float()).to(out_dt).float()
     return _quant_rows(xnf, a_bits)
@@ -166,16 +213,13 @@ def rmsnorm_quant(h: torch.Tensor, g: torch.Tensor, eps: float,
         return _rmsnorm_quant_plain(h, g, eps, a_bits)
     _check("rmsnorm_quant", h)
     m, k = h.shape
-    hc = h.contiguous()
-    # a bf16 gain stays bf16 beside a bf16 h (the product is bf16); else f32
-    same = h.dtype == g.dtype == torch.bfloat16
-    gc = g.contiguous() if same else g.float().contiguous()
+    hc, gc, layout = _launch_operands(h, g)
     xq = torch.empty((m, k), dtype=torch.int8, device=h.device)
     sx = torch.empty((m, 1), dtype=torch.float32, device=h.device)
     f = _build.bind("fused_quant", "rmsnorm_quant", 4, 7, 3)
     err = f(hc.data_ptr(), gc.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k,
             _DTYPE_CODES[h.dtype], _DTYPE_CODES[gc.dtype],
-            *plan(k, h.element_size(), 1, _aligned(hc, gc), f32_products=not same),
+            *layout,
             float(eps), float(2 ** (a_bits - 1) - 1), 1.0 / k,
             torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "rmsnorm_quant")

@@ -1,0 +1,182 @@
+"""Device mesh and sharding rules (the JAX package's ``parallel/mesh.py``).
+
+The whole topology is one ``torch.distributed.device_mesh.DeviceMesh`` over
+the ranks of the default process group, with the JAX package's named axes
+
+    ('data', 'fsdp', 'tp')   (+ 'pp' and 'cp' when those are > 1)
+
+and the same per-parameter layout (``param_specs``): stacked layer weights
+``[L, in, out]`` split ``in`` over fsdp for the column-parallel projections
+(q/k/v/gate/up) and ``out`` for the row-parallel ones (o/down); embed
+``[V, H]`` and lm_head ``[H, V]`` split the hidden dim; norm scales are
+replicated. A spec is a tuple with one entry a dim: an axis name, a tuple of
+them, or None. Where GSPMD inserts the all-gathers and reduce-scatters in
+the JAX package, the port issues them itself (``parallel.zero``), so a rank
+holds only its shard of every split leaf (and of its AdamW moments). The
+batch splits over ('data', 'fsdp'), data-major. This slice splits nothing
+over 'tp' or 'pp': a mesh with either above 1 is refused.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from llm_qat_torch.parallel import comm
+
+MESH_AXES = ("data", "fsdp", "tp")
+NEXT_SLICE = ("tensor and pipeline parallelism are slice 14 of the port "
+              "(ROADMAP.md section 1, item 8)")
+
+
+def make_mesh(data: int = 1, fsdp: int = -1, tp: int = 1, pp: int = 1, cp: int = 1,
+              device_type: Optional[str] = None):
+    """The global mesh over every rank of the initialized default process
+    group. ``fsdp=-1`` absorbs the ranks the other axes leave; ``cp > 1``
+    appends the ring's context axis. ``device_type``: where the ranks' tensors
+    live (``cuda`` when the backend is NCCL, else ``cpu``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs torch.distributed initialized (torchrun with "
+                           "cli.train.maybe_init_distributed, or parallel.launch.spawn)")
+    n = dist.get_world_size()
+    if fsdp == -1:
+        fsdp = n // (data * tp * pp * cp)
+    if data * fsdp * tp * pp * cp != n:
+        raise ValueError(f"mesh {data}x{fsdp}x{tp}x{pp}x{cp} != {n} devices")
+    if tp > 1 or pp > 1:
+        raise NotImplementedError(f"mesh tp={tp} pp={pp}: {NEXT_SLICE}")
+    axes, shape = list(MESH_AXES), [data, fsdp, tp]
+    if cp > 1:
+        axes.append("cp")
+        shape.append(cp)
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=tuple(axes))
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """``{axis: size}``, as a JAX mesh's ``shape``."""
+    return {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of ``axis`` (1 for an axis the mesh lacks)."""
+    return mesh_shape(mesh).get(axis, 1)
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis``."""
+    return mesh.get_local_rank(axis)
+
+
+def axis_group(mesh, axis: str):
+    """The process group of this rank's line along ``axis``."""
+    return mesh.get_group(axis)
+
+
+def batch_shards(mesh):
+    """(shard count, this rank's shard) of a batch split over ('data',
+    'fsdp'), data-major."""
+    f = axis_size(mesh, "fsdp")
+    return axis_size(mesh, "data") * f, axis_index(mesh, "data") * f + axis_index(mesh, "fsdp")
+
+
+def param_specs(tie_word_embeddings: bool = False) -> Dict[str, Any]:
+    """Spec tree matching ``models.params.init_params``'s structure."""
+    specs = {
+        "embed": ("tp", "fsdp"),
+        "layers": {
+            "attn_norm": (None, None),
+            "q": (None, "fsdp", "tp"),
+            "k": (None, "fsdp", "tp"),
+            "v": (None, "fsdp", "tp"),
+            "o": (None, "tp", "fsdp"),
+            "mlp_norm": (None, None),
+            "gate": (None, "fsdp", "tp"),
+            "up": (None, "fsdp", "tp"),
+            "down": (None, "tp", "fsdp"),
+        },
+        "final_norm": (None,),
+    }
+    if not tie_word_embeddings:
+        specs["lm_head"] = ("fsdp", "tp")
+    return specs
+
+
+def replicated_specs(tree) -> Any:
+    """A spec tree that splits nothing, for ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: replicated_specs(v) for k, v in tree.items()}
+    return (None,) * tree.dim()
+
+
+def batch_spec():
+    """Token batches split over the combined data-parallel axes."""
+    return (("data", "fsdp"), None)
+
+
+def split_dim(spec) -> Optional[int]:
+    """The dim ``spec`` splits over 'fsdp', or None."""
+    for d, e in enumerate(spec):
+        if e == "fsdp" or (isinstance(e, tuple) and "fsdp" in e):
+            return d
+    return None
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of tensors and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def shard_params(params, mesh, specs=None):
+    """This rank's shard of every leaf of a full param tree: a dim a spec
+    splits over 'fsdp' keeps the rank's 1/fsdp (a copy, so the full tensor
+    can be freed); replicated leaves stay whole. The split dim must divide
+    evenly, as a JAX ``NamedSharding`` requires."""
+    if specs is None:
+        specs = param_specs("lm_head" not in params)
+    n, i = axis_size(mesh, "fsdp"), axis_index(mesh, "fsdp")
+
+    def shard(t, spec):
+        d = split_dim(spec)
+        if d is None:
+            return t
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split over fsdp={n}")
+        c = t.shape[d] // n
+        return t.narrow(d, i * c, c).clone()
+
+    return map_specs(shard, params, specs)
+
+
+def gather_params(shards, mesh, specs=None):
+    """The full tree from every rank's shards (a collective: every rank of
+    the mesh calls it). No gradient flows through it."""
+    if specs is None:
+        specs = param_specs("lm_head" not in shards)
+    group = axis_group(mesh, "fsdp")
+
+    def gather(t, spec):
+        d = split_dim(spec)
+        return t if d is None else comm.all_gather(t.detach(), d, group)
+
+    with torch.no_grad():
+        return map_specs(gather, shards, specs)
+
+
+def shard_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's rows of a global batch split over ('data', 'fsdp')."""
+    n, i = batch_shards(mesh)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch of {v.shape[0]} rows does not split over {n} ranks")
+        c = v.shape[0] // n
+        out[k] = v[i * c:(i + 1) * c]
+    return out

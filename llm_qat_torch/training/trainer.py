@@ -1,4 +1,4 @@
-"""KD-QAT trainer (the JAX package's ``training/trainer.py``, single device).
+"""KD-QAT trainer (the JAX package's ``training/trainer.py``).
 
 One train step is: frozen teacher forward under ``no_grad``, fake-quant
 student forward and backward (rematerialized layer by layer), clip by global
@@ -17,6 +17,23 @@ norm, AdamW:
 Where the JAX package returns new arrays the port updates the student's
 params in place (``Trainer`` takes ownership of the ``params`` it is given);
 moments are replaced leaf by leaf. Eval is label CE -> perplexity.
+
+Over a device mesh (``parallel.mesh.make_mesh``; one process a rank):
+
+* ``parallel="fsdp"``: ZeRO-3. Student and teacher are split with
+  ``param_specs`` (a rank holds 1/fsdp of every split leaf, and of its AdamW
+  moments), each layer gathers its weights whole while it runs
+  (``parallel.zero``), and the global batch's rows split over
+  ('data', 'fsdp'). Only this mode chunks the KL.
+* ``parallel="cp"``: ring context parallelism (``models.llama_cp``): the
+  sequence splits over 'cp', student and teacher stay whole on every rank,
+  and the gradients are summed over the ring.
+
+Either way each rank differentiates the loss of its own tokens with the
+GLOBAL normalizer (the KL's batch, the MSE's element count, the CE's token
+count), so the summed gradients are the global loss's; the reported loss is
+the sum over ranks, and the gradient norm counts every split leaf's shards
+and every replicated leaf once.
 """
 
 from __future__ import annotations
@@ -31,6 +48,8 @@ import torch
 from llm_qat_torch.device import resolve_device
 from llm_qat_torch.models import llama
 from llm_qat_torch.models.config import LlamaConfig
+from llm_qat_torch.parallel import comm
+from llm_qat_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +75,10 @@ class TrainConfig:
     kl_chunk: int = 0                  # >0: chunk the seq dim of the KL to bound
                                        # the fp32 [b, s, V] logits memory
     num_microbatches: int = 0          # pipeline microbatches (multi-device)
+    # parallel="cp": the ring's KV transport (None: as computed; 8: int8 plus
+    # a per-token scale). The JAX package's trainer leaves its cp_forward at
+    # the default, None.
+    ring_transport_bits: Optional[int] = None
     # Kept for parity with the JAX package's configuration: there it selects
     # a single-pass clip+AdamW over the optax chain; here one implementation
     # gives both their numbers.
@@ -103,17 +126,18 @@ def _kl_sum(s_logits: torch.Tensor, t_logits: torch.Tensor) -> torch.Tensor:
 
 
 def kd_kl_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
-               chunk: int = 0) -> torch.Tensor:
+               chunk: int = 0, batch: Optional[int] = None) -> torch.Tensor:
     """``F.kl_div(log_softmax(S), softmax(T), reduction="batchmean")``: sum
     over (seq, vocab) of ``p_T (log p_T - log p_S)``, divided by the *batch
-    size only*. ``chunk > 0`` evaluates the reduction in sequence chunks."""
+    size only* (``batch``, default the logits' own). ``chunk > 0`` evaluates
+    the reduction in sequence chunks."""
     b, s = student_logits.shape[:2]
     if chunk and s % chunk == 0:
         total = sum(_kl_sum(student_logits[:, i:i + chunk], teacher_logits[:, i:i + chunk])
                     for i in range(0, s, chunk))
     else:
         total = _kl_sum(student_logits, teacher_logits)
-    return total / b
+    return total / (batch or b)
 
 
 def chunked_kd_kl(
@@ -122,13 +146,14 @@ def chunked_kd_kl(
     student_head: torch.Tensor,  # [H, V]
     teacher_head: torch.Tensor,  # [H, V]
     chunk: int,
+    batch: Optional[int] = None,
 ) -> torch.Tensor:
     """``kd_kl_loss`` with the lm_head fused into the sequence chunks: each
     step projects one ``[b, chunk, H]`` slice through the head and reduces the
     KL sum in fp32; the chunk is rematerialized, so the backward recomputes
     its logits instead of saving n copies. Peak loss memory is one chunk's
     logits (student + teacher). Same numbers as ``kd_kl_loss`` (same matmul
-    type, same fp32 reduction order over chunks)."""
+    type, same fp32 reduction order over chunks); ``batch`` as there."""
     b, s, _ = student_h.shape
     if not (chunk and s % chunk == 0):
         chunk = s
@@ -140,7 +165,7 @@ def chunked_kd_kl(
     for i in range(0, s, chunk):
         total = total + llama.remat(body, student_h[:, i:i + chunk], teacher_h[:, i:i + chunk],
                                     student_head, teacher_head)
-    return total / b
+    return total / (batch or b)
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +212,7 @@ class ClipAdamW:
                  max_norm: float):
         self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
         self.weight_decay, self.max_norm = weight_decay, max_norm
+        self.norm = global_norm   # the clip's norm; a sharded trainer counts its shards
 
     def init(self, params):
         return {"count": 0, "mu": tree_map(torch.zeros_like, params),
@@ -195,7 +221,7 @@ class ClipAdamW:
     def update(self, grads, state, params):
         """(updates, new state); ``params + updates`` is the step."""
         b1, b2 = self.b1, self.b2
-        g_norm = global_norm(grads).float()
+        g_norm = self.norm(grads).float()
         # scale only when the norm exceeds the limit
         clip = torch.where(g_norm < self.max_norm, torch.ones_like(g_norm),
                            torch.full_like(g_norm, self.max_norm) / g_norm)
@@ -265,13 +291,65 @@ def make_optimizer(cfg: TrainConfig):
 # ---------------------------------------------------------------------------
 
 
-def _single_device(mesh, parallel: str) -> None:
+def _check_parallel(mesh, parallel: str) -> None:
     if parallel not in ("fsdp", "pp", "cp"):
         raise ValueError(f"unknown parallel mode {parallel!r}")
-    if mesh is not None or parallel != "fsdp":
-        raise NotImplementedError(
-            "llm_qat_torch trains on a single device so far: mesh= and "
-            "parallel='pp'/'cp' belong to the multi-device slice")
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh: a DeviceMesh from parallel.mesh.make_mesh, got {type(mesh)}")
+    if parallel in ("pp", "cp") and (mesh is None or parallel not in pmesh.mesh_shape(mesh)):
+        raise ValueError(f"parallel={parallel!r} needs a mesh with that axis")
+
+
+class _Ranks:
+    """What a step needs of the mesh: the specs of the student's leaves, the
+    axes its tokens split over, and the sums over them."""
+
+    def __init__(self, mesh, parallel: str, params):
+        self.mesh, self.parallel = mesh, parallel
+        if parallel == "fsdp":
+            self.specs = pmesh.param_specs("lm_head" not in params)
+            self.axes = ("data", "fsdp")
+        else:
+            self.specs = pmesh.replicated_specs(params)
+            self.axes = ("cp",)
+        self.shards = math.prod(pmesh.axis_size(mesh, a) for a in self.axes)
+
+    def sum_(self, x: torch.Tensor, axes=None) -> torch.Tensor:
+        """``x`` summed over the ranks that hold other tokens (in place)."""
+        for a in self.axes if axes is None else axes:
+            comm.all_reduce_(x, pmesh.axis_group(self.mesh, a))
+        return x
+
+    def pairs(self, tree):
+        out = []
+        pmesh.map_specs(lambda t, spec: out.append((t, pmesh.split_dim(spec) is not None)),
+                        tree, self.specs)
+        return out
+
+    def reduce_grads(self, grads) -> None:
+        """Sum the replicated leaves' gradients over the ranks (the split
+        leaves' were reduce-scattered by their gathers)."""
+        for g, split in self.pairs(grads):
+            if not split:
+                self.sum_(g)
+
+    def norm(self, tree) -> torch.Tensor:
+        """The global norm: the split leaves' shards' squares summed over
+        'fsdp', every replicated leaf counted once."""
+        split = [torch.sum(g * g).float() for g, sp in self.pairs(tree) if sp]
+        whole = [torch.sum(g * g).float() for g, sp in self.pairs(tree) if not sp]
+        zero = torch.zeros((), dtype=torch.float32, device=(split + whole)[0].device)
+        sq = sum(split, zero)
+        if self.parallel == "fsdp":
+            self.sum_(sq, ("fsdp",))
+        return torch.sqrt(sum(whole, sq))
+
+
+def _inner(tx):
+    return tx.inner if isinstance(tx, MultiSteps) else tx
 
 
 def make_train_step(model_cfg: LlamaConfig, teacher_cfg: LlamaConfig,
@@ -281,39 +359,82 @@ def make_train_step(model_cfg: LlamaConfig, teacher_cfg: LlamaConfig,
     the student's rematerialization, so it is never recomputed.
     ``step(state, teacher_params, batch) -> (state, metrics)`` with metrics
     ``loss`` and the pre-clip ``grad_norm`` (0-dim tensors); the state's
-    params are updated in place."""
-    _single_device(mesh, parallel)
+    params are updated in place. Under a mesh the state and teacher hold
+    what ``Trainer`` gives this rank and ``batch`` is this rank's part
+    (``Trainer.place_batch``); the optimizer's clip then takes the mesh's
+    norm."""
+    _check_parallel(mesh, parallel)
     tc = train_cfg
+    cp = parallel == "cp"
+    ranks = None
+
+    def student_forward(params, ids, fwd):
+        if cp:
+            from llm_qat_torch.models import llama_cp
+
+            return llama_cp.cp_forward(params, model_cfg, ids, mesh, remat=tc.remat,
+                                       dtype=tc.compute_dtype,
+                                       ring_transport_bits=tc.ring_transport_bits)
+        return llama.forward(params, model_cfg, ids, remat=tc.remat, **fwd)
+
+    def teacher_forward(teacher_params, ids, fwd):
+        if cp:
+            from llm_qat_torch.models import llama_cp
+
+            return llama_cp.cp_forward(teacher_params, teacher_cfg, ids, mesh,
+                                       dtype=tc.compute_dtype,
+                                       ring_transport_bits=tc.ring_transport_bits)
+        return llama.forward(teacher_params, teacher_cfg, ids, **fwd)
 
     def step(state: TrainState, teacher_params, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        nonlocal ranks
+        if mesh is not None and ranks is None:
+            ranks = _Ranks(mesh, parallel, state.params)
+            _inner(tx).norm = ranks.norm
         ids = batch["input_ids"]
         mask = batch.get("attention_mask")
-        chunked_kl = tc.use_kd and tc.kd_loss_type != "mse" and bool(tc.kl_chunk)
+        if cp and mask is not None:
+            raise ValueError("cp training expects packed blocks (no attention_mask)")
+        chunked_kl = (tc.use_kd and tc.kd_loss_type != "mse" and bool(tc.kl_chunk)
+                      and parallel == "fsdp")
         fwd = dict(attention_mask=mask, dtype=tc.compute_dtype)
+        if mesh is not None and not cp:
+            fwd["mesh"] = mesh
+        # the global normalizers: the batch (rows split over the ranks under
+        # fsdp, columns under cp) and the element count
+        n_rows = ids.shape[0] * (ranks.shards if ranks is not None and not cp else 1)
 
         with torch.no_grad():
             if chunked_kl:
                 # head fused into the chunked loss: full logits never exist
                 teacher_ref = llama.final_hidden(teacher_params, teacher_cfg, ids, **fwd)
-                teacher_head = llama.head_matrix(teacher_params, teacher_cfg)
+                teacher_head = llama.head_matrix(teacher_params, teacher_cfg, fwd.get("mesh"))
             elif tc.use_kd:
-                teacher_ref = llama.forward(teacher_params, teacher_cfg, ids, **fwd)
+                teacher_ref = teacher_forward(teacher_params, ids, fwd)
             else:
                 teacher_ref = None   # label-CE training: teacher_params may be None
 
         def loss_fn(params):
             if chunked_kl:
                 student_h = llama.final_hidden(params, model_cfg, ids, remat=tc.remat, **fwd)
-                kd = chunked_kd_kl(student_h, teacher_ref, llama.head_matrix(params, model_cfg),
-                                   teacher_head, tc.kl_chunk)
+                kd = chunked_kd_kl(student_h, teacher_ref,
+                                   llama.head_matrix(params, model_cfg, fwd.get("mesh")),
+                                   teacher_head, tc.kl_chunk, batch=n_rows)
                 return tc.kd_loss_scale * kd
-            student_logits = llama.forward(params, model_cfg, ids, remat=tc.remat, **fwd)
+            student_logits = student_forward(params, ids, fwd)
             if not tc.use_kd:
-                return llama.causal_lm_loss(student_logits, batch["labels"])
+                if ranks is None:
+                    return llama.causal_lm_loss(student_logits, batch["labels"])
+                # cp ranks hold their chunk's next-token targets (place_batch)
+                nll, count = (llama.token_nll_sum(student_logits, batch["labels"]) if cp
+                              else llama.causal_lm_loss_sum(student_logits, batch["labels"]))
+                return nll / ranks.sum_(count).clamp(min=1)
             if tc.kd_loss_type == "mse":
-                kd = torch.mean((student_logits.float() - teacher_ref.float()) ** 2)
+                err = (student_logits.float() - teacher_ref.float()) ** 2
+                kd = (torch.mean(err) if ranks is None
+                      else torch.sum(err) / (err.numel() * ranks.shards))
             else:
-                kd = kd_kl_loss(student_logits, teacher_ref, 0)
+                kd = kd_kl_loss(student_logits, teacher_ref, 0, batch=n_rows)
             return tc.kd_loss_scale * kd
 
         leaves = tree_leaves(state.params)
@@ -324,13 +445,17 @@ def make_train_step(model_cfg: LlamaConfig, teacher_cfg: LlamaConfig,
         loss = loss.detach()
         it = iter(flat)
         grads = tree_map(lambda p: _or_zeros(next(it), p), state.params)
+        if ranks is not None:
+            ranks.reduce_grads(grads)
+            ranks.sum_(loss)
         if tc.grad_accum_steps > 1:
             loss = loss / tc.grad_accum_steps
         with torch.no_grad():
             updates, new_opt = tx.update(grads, state.opt_state, state.params)
             if updates is not None:
                 tree_map(lambda p, u: p.add_(u.to(p.dtype)), state.params, updates)
-            metrics = {"loss": loss, "grad_norm": global_norm(grads)}
+            norm = global_norm if ranks is None else ranks.norm
+            metrics = {"loss": loss, "grad_norm": norm(grads)}
         return TrainState(state.params, new_opt, state.step + 1), metrics
 
     return step
@@ -340,32 +465,39 @@ def _or_zeros(g, p):
     return torch.zeros_like(p) if g is None else g
 
 
-def make_eval_step(model_cfg: LlamaConfig, compute_dtype=torch.bfloat16) -> Callable:
+def make_eval_step(model_cfg: LlamaConfig, compute_dtype=torch.bfloat16, mesh=None) -> Callable:
     """Eval = label CE (not the KD loss); perplexity = exp(mean loss).
-    ``step(params, batch) -> (nll_sum, valid_token_count)``."""
+    ``step(params, batch) -> (nll_sum, valid_token_count)``; ``mesh``: params
+    are this rank's shards and batch its rows (the sums are this rank's)."""
 
     def step(params, batch):
         with torch.no_grad():
             logits = llama.forward(params, model_cfg, batch["input_ids"],
                                    attention_mask=batch.get("attention_mask"),
-                                   dtype=compute_dtype)
+                                   dtype=compute_dtype, mesh=mesh)
             return llama.causal_lm_loss_sum(logits, batch["labels"])
 
     return step
 
 
 def init_train_state(params, tx, mesh=None, specs=None) -> TrainState:
-    """Optimizer state for ``params`` and step 0."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError("init_train_state: sharded state belongs to the "
-                                  "multi-device slice")
+    """Optimizer state for ``params`` and step 0. Under a mesh ``params`` are
+    this rank's shards (``parallel.mesh.shard_params``), and the moments,
+    made like them, are split as they are; ``mesh`` and ``specs`` are taken
+    for the JAX package's signature."""
     return TrainState(params, tx.init(params), 0)
 
 
 class Trainer:
     """Minimal orchestration wrapper: holds state, steps batches, evaluates
     perplexity. Runs on ``cuda`` unless ``device="cpu"`` is passed; params,
-    teacher and batches must lie on (batches are moved to) that device."""
+    teacher and batches must lie on (batches are moved to) that device.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) and ``parallel`` ("fsdp" or "cp";
+    "pp" is the next slice's): every rank builds the Trainer from the same
+    full params and teacher and steps the same global batches; the Trainer
+    keeps this rank's part of each (``state.params`` holds its shards under
+    "fsdp")."""
 
     def __init__(
         self,
@@ -378,7 +510,7 @@ class Trainer:
         parallel: str = "fsdp",
         device=None,
     ):
-        _single_device(mesh, parallel)
+        _check_parallel(mesh, parallel)
         self.device = resolve_device(device)
         for name, tree in (("params", params), ("teacher_params", teacher_params or {})):
             for t in tree_leaves(tree):
@@ -395,29 +527,69 @@ class Trainer:
             shared = {t.untyped_storage().data_ptr() for t in tree_leaves(teacher_params)}
             params = tree_map(
                 lambda x: x.clone() if x.untyped_storage().data_ptr() in shared else x, params)
+        self.param_specs = None
+        if mesh is not None:
+            if parallel == "fsdp":
+                self.param_specs = pmesh.param_specs("lm_head" not in params)
+                params = pmesh.shard_params(params, mesh, self.param_specs)
+                if teacher_params is not None:
+                    teacher_params = pmesh.shard_params(teacher_params, mesh)
+            else:
+                self.param_specs = pmesh.replicated_specs(params)
         self.teacher_params = teacher_params
         self.teacher_cfg = teacher_cfg or model_cfg.replace(w_bits=32, a_bits=32, kv_bits=32)
         self.tx = make_optimizer(train_cfg)
-        self.state = init_train_state(params, self.tx)
-        self._step = make_train_step(model_cfg, self.teacher_cfg, train_cfg, self.tx)
-        self._eval = make_eval_step(model_cfg, train_cfg.compute_dtype)
+        self.state = init_train_state(params, self.tx, mesh, self.param_specs)
+        self._step = make_train_step(model_cfg, self.teacher_cfg, train_cfg, self.tx,
+                                     mesh=mesh, parallel=parallel)
+        self._eval = make_eval_step(model_cfg, train_cfg.compute_dtype,
+                                    mesh if parallel == "fsdp" else None)
 
-    def _place_batch(self, batch):
-        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-                .to(self.device) for k, v in batch.items()}
+    def place_batch(self, batch, evaluation: bool = False):
+        """A global batch on this rank's device, cut to this rank's part:
+        its rows under "fsdp"; under "cp" (training) its chunk of the
+        sequence, ``labels`` becoming the chunk's next-token targets (-100
+        past the end), while evaluation takes the whole batch on every
+        rank."""
+        out = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+               .to(self.device) for k, v in batch.items()}
+        if self.mesh is None:
+            return out
+        if self.parallel == "fsdp":
+            return pmesh.shard_batch(out, self.mesh)
+        if evaluation:
+            return out
+        n, i = pmesh.axis_size(self.mesh, "cp"), pmesh.axis_index(self.mesh, "cp")
+        s = out["input_ids"].shape[1]
+        if s % n:
+            raise ValueError(f"seq {s} not divisible by cp={n}")
+        sl = s // n
+        cut = {k: v[:, i * sl:(i + 1) * sl] for k, v in out.items() if k != "labels"}
+        if "labels" in out:
+            nxt = out["labels"][:, i * sl + 1:(i + 1) * sl + 1]
+            pad = torch.full((nxt.shape[0], sl - nxt.shape[1]), -100, dtype=nxt.dtype,
+                             device=nxt.device)
+            cut["labels"] = torch.cat([nxt, pad], dim=1)
+        return cut
 
     def train_step(self, batch) -> Dict[str, Any]:
         self.state, metrics = self._step(self.state, self.teacher_params,
-                                         self._place_batch(batch))
+                                         self.place_batch(batch))
         return metrics
 
     def evaluate(self, batches) -> Dict[str, float]:
         """Token-weighted mean label CE over ``batches`` and its perplexity
-        (``inf``, not an exception, for a divergent model)."""
+        (``inf``, not an exception, for a divergent model); under "fsdp" the
+        sums are over every rank's rows."""
         total_nll = 0.0
         total_tokens = 0.0
         for batch in batches:
-            nll_sum, count = self._eval(self.state.params, self._place_batch(batch))
+            nll_sum, count = self._eval(self.state.params, self.place_batch(batch, True))
+            if self.mesh is not None and self.parallel == "fsdp":
+                sums = torch.stack([nll_sum.float(), count.float()])
+                for a in ("data", "fsdp"):
+                    comm.all_reduce_(sums, pmesh.axis_group(self.mesh, a))
+                nll_sum, count = sums[0], sums[1]
             total_nll += float(nll_sum)
             total_tokens += float(count)
         mean = total_nll / max(total_tokens, 1.0)

@@ -4,9 +4,9 @@ Reference: utils/process_args.py, an ``HfArgumentParser`` over
 ModelArguments / DataArguments / TrainingArguments with the bit-widths on
 ModelArguments and the QAT/KD switches on TrainingArguments. The same three
 dataclasses, flag for flag, parsed with a small argparse parser, plus a
-``device`` field (``cuda`` unless ``cpu`` is asked for). The mesh fields stay
-for the command line's sake; the port trains on one device, so
-``check_single_device`` refuses any mesh axis of another size.
+``device`` field (``cuda`` unless ``cpu`` is asked for). The mesh fields size
+the ranks' mesh (``parallel.mesh.make_mesh``); ``check_mesh_axes`` refuses
+the axes this slice does not split (tp, pp).
 """
 
 from __future__ import annotations
@@ -77,8 +77,7 @@ class TrainingArguments:
     no_fused_norm_quant: bool = False   # producer-fused norm+quant / flash-
                                         # layout projections
     device: str = "cuda"                # "cpu": the kernels' plain versions
-    # mesh layout (the JAX package's flags; one device here, see
-    # check_single_device)
+    # mesh layout (the JAX package's flags; see check_mesh_axes)
     mesh_data: int = 1
     mesh_fsdp: int = -1
     mesh_tp: int = 1
@@ -122,15 +121,11 @@ def process_args(
     return build(ModelArguments), build(DataArguments), build(TrainingArguments)
 
 
-MESH_FIELDS = ("mesh_data", "mesh_fsdp", "mesh_tp", "mesh_pp", "mesh_cp")
+def check_mesh_axes(training_args: TrainingArguments) -> None:
+    """Refuse the mesh axes this slice does not split: ``--mesh_tp`` and
+    ``--mesh_pp`` above 1."""
+    from llm_qat_torch.parallel.mesh import NEXT_SLICE
 
-
-def check_single_device(training_args: TrainingArguments) -> None:
-    """Refuse a mesh: every axis must be 1 (``-1``, "all devices", resolves
-    to 1 on one device)."""
-    sizes = {f: getattr(training_args, f) for f in MESH_FIELDS}
-    bad = {f: n for f, n in sizes.items() if n not in (1, -1)}
-    if bad:
+    if training_args.mesh_tp > 1 or training_args.mesh_pp > 1:
         raise NotImplementedError(
-            f"llm_qat_torch trains on a single device so far: mesh axes {bad} belong "
-            "to the multi-device slice (ROADMAP.md section 1, item 8)")
+            f"--mesh_tp {training_args.mesh_tp} --mesh_pp {training_args.mesh_pp}: {NEXT_SLICE}")

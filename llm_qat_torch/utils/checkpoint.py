@@ -11,6 +11,14 @@ the student's params, the optimizer state and the step. The teacher is not
 part of ``TrainState``, so it is never written. Each step is written into a
 temporary directory and renamed into place, so a killed run leaves either
 the whole step or none of it.
+
+Over a mesh (``mesh=``, ``specs=`` the trainer's ``param_specs``) a step
+still holds the whole state: every rank gathers the params and each
+params-shaped subtree of the optimizer state (the AdamW moments, the
+accumulated gradients), rank 0 writes, and the ranks meet at a barrier;
+a restore reads the whole state on every rank and keeps its shards. The
+format does not change, so a run resumes at any world size. The ranks share
+the directory (one host, or a shared file system).
 """
 
 from __future__ import annotations
@@ -20,7 +28,9 @@ import shutil
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
 
+from llm_qat_torch.parallel import mesh as pmesh
 from llm_qat_torch.training.trainer import TrainState
 
 _FILE = "state.pt"
@@ -47,14 +57,34 @@ def _like(template, loaded, path="state"):
     return loaded
 
 
-class CheckpointManager:
-    """Save / restore ``TrainState`` step checkpoints under ``directory``."""
+def _param_trees(fn, tree, keys):
+    """``fn`` on every subtree of ``tree`` whose keys are the params' (the
+    moments and gradient buffers in an optimizer state)."""
+    if isinstance(tree, dict):
+        if set(tree) == keys:
+            return fn(tree)
+        return {k: _param_trees(fn, v, keys) for k, v in tree.items()}
+    return tree
 
-    def __init__(self, directory: str, max_to_keep: int = 1, save_interval_steps: int = 2000):
+
+class CheckpointManager:
+    """Save / restore ``TrainState`` step checkpoints under ``directory``
+    (``mesh``, ``specs``: see the module's docstring)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 1, save_interval_steps: int = 2000,
+                 mesh=None, specs=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
+        self.mesh, self.specs = mesh, specs
         os.makedirs(self.directory, exist_ok=True)
+
+    def _whole(self, state: TrainState):
+        """(params, opt_state) whole on the CPU (a collective under a mesh)."""
+        if self.mesh is None:
+            return _to_cpu(state.params), _to_cpu(state.opt_state)
+        whole = lambda t: _to_cpu(pmesh.gather_params(t, self.mesh, self.specs))  # noqa: E731
+        return whole(state.params), _param_trees(whole, state.opt_state, set(state.params))
 
     def all_steps(self) -> List[int]:
         return sorted(int(d) for d in os.listdir(self.directory)
@@ -73,16 +103,20 @@ class CheckpointManager:
         return self._write(step, state)
 
     def _write(self, step: int, state: TrainState) -> bool:
-        final = os.path.join(self.directory, str(step))
-        tmp = os.path.join(self.directory, f".{step}.tmp-{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save({"params": _to_cpu(state.params), "opt_state": _to_cpu(state.opt_state),
-                    "step": int(state.step)}, os.path.join(tmp, _FILE))
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
-        for old in self.all_steps()[:-self.max_to_keep] if self.max_to_keep else []:
-            shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        params, opt_state = self._whole(state)
+        if self.mesh is None or dist.get_rank() == 0:
+            final = os.path.join(self.directory, str(step))
+            tmp = os.path.join(self.directory, f".{step}.tmp-{os.getpid()}")
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save({"params": params, "opt_state": opt_state, "step": int(state.step)},
+                       os.path.join(tmp, _FILE))
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            for old in self.all_steps()[:-self.max_to_keep] if self.max_to_keep else []:
+                shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        if self.mesh is not None:
+            dist.barrier()   # no rank lists the directory before the write lands
         return True
 
     def latest_step(self) -> Optional[int]:
@@ -97,8 +131,12 @@ class CheckpointManager:
             raise FileNotFoundError("no checkpoint found")
         d = torch.load(os.path.join(self.directory, str(step), _FILE), map_location="cpu",
                        weights_only=True)
-        return TrainState(_like(state_template.params, d["params"], "params"),
-                          _like(state_template.opt_state, d["opt_state"], "opt_state"),
+        params, opt_state = d["params"], d["opt_state"]
+        if self.mesh is not None:
+            mine = lambda t: pmesh.shard_params(t, self.mesh, self.specs)  # noqa: E731
+            params, opt_state = mine(params), _param_trees(mine, opt_state, set(params))
+        return TrainState(_like(state_template.params, params, "params"),
+                          _like(state_template.opt_state, opt_state, "opt_state"),
                           d["step"])
 
     def wait(self):

@@ -225,11 +225,21 @@ def test_resume_is_bit_equal_to_straight_steps(workdir, runs, monkeypatch):
 
 @pytest.mark.parametrize("axis", ["mesh_fsdp", "mesh_tp", "mesh_data", "mesh_pp", "mesh_cp"])
 def test_mesh_larger_than_one_raises(workdir, axis):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 8"):
-        TCLI.run(*_args(TA, workdir, "mesh", **{axis: 2}), tokenize=fake_tokenize,
-                 device="cpu")
+    """tp and pp belong to the next slice; the axes this slice splits need
+    the ranks of a process group, which a single process does not have."""
+    if axis in ("mesh_tp", "mesh_pp"):
+        with pytest.raises(NotImplementedError, match="slice 14"):
+            TCLI.run(*_args(TA, workdir, "mesh", **{axis: 2}), tokenize=fake_tokenize,
+                     device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 8"):
+            TA.check_mesh_axes(TA.TrainingArguments(**{axis: 2}))
+    else:
+        with pytest.raises(ValueError, match="torchrun"):
+            TCLI.run(*_args(TA, workdir, "mesh", **{axis: 2}), tokenize=fake_tokenize,
+                     device="cpu")
+        TA.check_mesh_axes(TA.TrainingArguments(**{axis: 2}))
     # -1 ("all devices") is one device here
-    TA.check_single_device(TA.TrainingArguments(mesh_fsdp=-1))
+    TA.check_mesh_axes(TA.TrainingArguments(mesh_fsdp=-1))
 
 
 def test_run_needs_a_gpu_unless_cpu_is_asked(workdir, monkeypatch):

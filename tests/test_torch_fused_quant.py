@@ -181,3 +181,82 @@ def test_cpu_counts_no_launch_and_other_devices_raise():
         TFQ.silu_mul_quant(h.to("meta"), h.to("meta"), 8)
     with pytest.raises(ValueError, match="gain"):
         TFQ.rmsnorm_quant(h, torch.ones(64), 1e-6, 8)
+
+
+def _kernel_order_loop(x: np.ndarray, v: int, wpr: int) -> np.ndarray:
+    """The RMSNorm kernel's documented sum order, one float32 operation at a
+    time: each of a row's 32 wpr threads sums its squares in sequence (the
+    register kernel: chunk t + i*32wpr of 8 elements, i then the 8; the
+    staged kernel, v = -1: elements t, t + 32wpr, ...), each warp's xor
+    butterfly folds lanes 16..31 onto 0..15, then 8, 4, 2, 1, and the warps'
+    sums add in warp order."""
+    m, k = x.shape
+    T = 32 * wpr
+    out = np.zeros((m, 1), np.float32)
+    for r in range(m):
+        parts = []
+        for t in range(T):
+            acc = np.float32(0.0)
+            idx = ([8 * (t + i * T) + e for i in range(v) if t + i * T < k // 8 for e in range(8)]
+                   if v > 0 else range(t, k, T))
+            for j in idx:
+                acc = np.float32(acc + np.float32(x[r, j] * x[r, j]))
+            parts.append(acc)
+        warps = []
+        for w in range(wpr):
+            lanes = parts[32 * w:32 * w + 32]
+            for off in (16, 8, 4, 2, 1):
+                lanes = [np.float32(lanes[i] + lanes[i + off]) for i in range(off)]
+            warps.append(lanes[0])
+        total = warps[0]
+        for s in warps[1:]:
+            total = np.float32(total + s)
+        out[r, 0] = total
+    return out
+
+
+@pytest.mark.parametrize("K,h_dt,g_dt", [(2048, "bf16", "f32"), (2048, "bf16", "bf16"),
+                                         (5120, "bf16", "bf16"), (4096, "f32", "f32"),
+                                         (1004, "f32", "f32"), (128, "bf16", "bf16")])
+def test_rmsnorm_kernel_order_route_is_the_kernels_sum(K, h_dt, g_dt):
+    """The plain version's card route, run on the CPU: its sum of squares
+    has the bits of a loop in the kernel's documented order, for the plan
+    the kernel takes (register rows of 1 to 5 warps, and a width that is
+    no multiple of 8, which takes the staged kernel); its integers and
+    scales are those of that sum carried through the rest of the plain
+    version."""
+    rng = np.random.default_rng(K)
+    h = _t((rng.normal(size=(3, K)) * 1.5).astype(np.float32), h_dt)
+    g = _t((1.0 + 0.1 * rng.normal(size=(K,))).astype(np.float32), g_dt)
+    _, _, (v, wpr, _) = TFQ._launch_operands(h, g)
+    assert (v == -1) == (K % 8 != 0)
+    xf = h.float()
+    got = TFQ._sum_sq_kernel_order(xf, v, wpr)
+    want = _kernel_order_loop(xf.numpy(), v, wpr)
+    assert np.array_equal(got.numpy(), want)
+    q, s = TFQ._rmsnorm_quant_plain(h, g, 1e-5, 8, kernel_order=True)
+    r = torch.rsqrt(torch.from_numpy(want) * (1.0 / K) + 1e-5)
+    xn = (xf * r).to(h.dtype).float()
+    wq, ws = TFQ._quant_rows((xn * g.float()).to(torch.promote_types(h.dtype, g.dtype)).float(), 8)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+
+
+@pytest.mark.parametrize("h_dt,g_dt", [("bf16", "f32"), ("bf16", "bf16"), ("f32", "f32")])
+def test_rmsnorm_cpu_route_keeps_jax_mean(h_dt, g_dt):
+    """On the CPU the plain version (what ``rmsnorm_quant`` takes there) sums
+    the squares as one fp32 ``sum(dim=1)``, which JAX's fp32 mean matches:
+    held against the JAX kernel at TinyLlama's width as the cases above.
+    The card route sums in the kernel's order: a different fp32 sum, held
+    to JAX's scales at the same rtol."""
+    rng = np.random.default_rng(11)
+    h = (rng.normal(size=(16, 2048)) * 1.5).astype(np.float32)
+    g = (1.0 + 0.1 * rng.normal(size=(2048,))).astype(np.float32)
+    jq, js = _strict(lambda a, b: JFQ.rmsnorm_quant(a, b, 1e-5, 8),
+                     jnp.asarray(h, JDT[h_dt]), jnp.asarray(g, JDT[g_dt]))
+    th, tg = _t(h, h_dt), _t(g, g_dt)
+    cpu = TFQ._rmsnorm_quant_plain(th, tg, 1e-5, 8)
+    assert all(torch.equal(a, b) for a, b in
+               zip(cpu, TFQ._rmsnorm_quant_plain(th, tg, 1e-5, 8, kernel_order=False)))
+    assert all(torch.equal(a, b) for a, b in zip(cpu, TFQ.rmsnorm_quant(th, tg, 1e-5, 8)))
+    _check(*cpu, jq, js)
+    _check(*TFQ._rmsnorm_quant_plain(th, tg, 1e-5, 8, kernel_order=True), jq, js)

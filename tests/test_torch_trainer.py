@@ -329,16 +329,19 @@ def test_teacher_is_untouched_and_shared_leaves_are_copied():
 
 
 def test_multi_device_arguments_raise():
+    """The JAX package's checks: "pp" and "cp" need a mesh with that axis
+    (``tests/test_trainer_ppcp.py``); a mesh is a ``DeviceMesh``. The
+    multi-device paths themselves: ``tests/test_torch_trainer_parallel.py``."""
     cfg = tcfg(WIDE)
     p = TP.init_params(cfg, device="cpu")
-    for kw in (dict(mesh=object()), dict(parallel="pp"), dict(parallel="cp")):
-        with pytest.raises(NotImplementedError, match="single device"):
+    for kw in (dict(parallel="pp"), dict(parallel="cp")):
+        with pytest.raises(ValueError, match="needs a mesh with that axis"):
             TT.Trainer(cfg, TT.TrainConfig(), p, device="cpu", **kw)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        TT.Trainer(cfg, TT.TrainConfig(), p, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="unknown parallel mode"):
         TT.Trainer(cfg, TT.TrainConfig(), p, device="cpu", parallel="zero")
-    with pytest.raises(NotImplementedError):
-        TT.init_train_state(p, TT.make_optimizer(TT.TrainConfig()), mesh=object())
-    with pytest.raises(NotImplementedError, match="single device"):
+    with pytest.raises(ValueError, match="needs a mesh with that axis"):
         TT.make_train_step(cfg, cfg, TT.TrainConfig(), None, parallel="pp")
 
 

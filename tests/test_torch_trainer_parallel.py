@@ -1,0 +1,315 @@
+"""Port parity: KD-QAT training over a mesh of gloo ranks spawned on the CPU
+(``Trainer(mesh=, parallel=)``, the train CLI under a world of 2, a world-2
+checkpoint resumed at world 1) against the JAX package's ``Trainer`` and CLI
+under the same mesh on the suite's fake CPU devices, in float32 from the same
+numpy weights and batches (``tests/test_trainer_ppcp.py`` holds the JAX side
+against one device).
+
+Limits are ``tests/test_torch_trainer.py``'s for whole steps, at its sizes
+(2 layers, b*s = 32 rows a step): loss and grad_norm at 1e-4 relative over 3
+steps; after step 1 the first moment (0.1 x the clipped gradient, the
+gradient's witness) at a relative L2 of 1e-3 a leaf and the second at 2e-3;
+the updated params within 2.1 x step x lr everywhere and within
+1e-3 lr + 1e-6 |p| for 99.9% of each leaf (Adam moves a weight whose
+gradient is within ~1e-8 of zero anywhere in +-lr, and the ranks' sums
+round such gradients their own way). Every split leaf and both its moments
+are held at 1/fsdp of the leaf on each rank. The CLI's limits are
+``tests/test_torch_cli_train.py``'s.
+
+Rounding flips (the named class, ROADMAP.md section 3): the weights are
+``tests/test_torch_trainer.py``'s, student seed 0 and teacher 100 at width
+128 and ``SEED_NARROW`` (1, 101) at width 64. Other seeds part from JAX
+after the first update on ONE device already, the port's against JAX's: a
+4-bit weight on a rounding boundary, the class that file names. Met here:
+width 128 at seeds (1, 101) (loss 1.6e-5 off at step 2, 5e-4 at step 3),
+width 64 at (0, 100) on this file's 4 x 8 batch (3.2% of the down
+projection past the tight limit at step 3); the mesh adds nothing to
+either.
+
+The ranks import this module, so JAX is imported inside the reference
+functions only.
+"""
+
+import functools
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from llm_qat_torch.parallel import launch
+
+LR = 1e-3
+STEPS = 3
+SEED_NARROW = 1       # tests/test_torch_trainer.py's seed for the width-64 case
+WIDTHS = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, tree[k]
+
+
+def fake_tokenize(text):
+    return [ord(c) % 251 for c in text]
+
+
+def _trainer_rank(rank, world, cfg, params, teacher, batch, axes, parallel, kw):
+    """Per step the metrics; after steps 1 and 3 the whole params and
+    moments; the shapes this rank holds."""
+    from llm_qat_torch.models import params as TP
+    from llm_qat_torch.parallel import mesh as pmesh
+    from llm_qat_torch.training import trainer as TT
+
+    mesh = pmesh.make_mesh(**axes)
+    tc = TT.TrainConfig(learning_rate=LR, total_steps=20, compute_dtype=torch.float32, **kw)
+    tr = TT.Trainer(cfg, tc, TP.from_numpy(params, "cpu"),
+                    TP.from_numpy(teacher, "cpu") if teacher is not None else None,
+                    mesh=mesh, parallel=parallel, device="cpu")
+    st = tr.state
+    out = {"metrics": [], "whole": {},
+           "shapes": {t: {n: tuple(x.shape) for n, x in _leaves(tree)}
+                      for t, tree in (("params", st.params), ("mu", st.opt_state["mu"]),
+                                      ("nu", st.opt_state["nu"]))}}
+    # copies: the replicated leaves are the trainer's own, updated in place
+    whole = lambda t: {n: np.array(a) for n, a in  # noqa: E731
+                       _leaves(TP.to_numpy(pmesh.gather_params(t, mesh, tr.param_specs)))}
+    for step in range(1, STEPS + 1):
+        m = tr.train_step(batch)
+        out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+        if step in (1, STEPS):
+            o = tr.state.opt_state
+            out["whole"][step] = (whole(tr.state.params), whole(o["mu"]), whole(o["nu"]),
+                                  o["count"])
+    return out
+
+
+def _jax_trainer(jcfg, params, teacher, batch, axes, parallel, kw):
+    import jax
+    import jax.numpy as jnp
+
+    from llm_qat_tpu.parallel import mesh as JM
+    from llm_qat_tpu.training import trainer as JT
+
+    n = int(np.prod(list(axes.values())))
+    mesh = JM.make_mesh(tp=1, devices=jax.devices()[:n], **{"fsdp": 1, **axes})
+    jt = JT.TrainConfig(learning_rate=LR, total_steps=20, compute_dtype=jnp.float32, **kw)
+    tree = lambda p: jax.tree.map(jnp.asarray, p)  # noqa: E731
+    tr = JT.Trainer(jcfg, jt, tree(params), tree(teacher) if teacher is not None else None,
+                    mesh=mesh, parallel=parallel)
+    out = {"metrics": [], "whole": {}}
+    for step in range(1, STEPS + 1):
+        m = tr.train_step({k: jnp.asarray(v) for k, v in batch.items()})
+        out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+        if step in (1, STEPS):
+            o = tr.state.opt_state
+            # copies: the next step donates (and overwrites) these buffers
+            np_ = lambda t: jax.tree.map(np.array, t)  # noqa: E731
+            out["whole"][step] = (np_(tr.state.params), np_(o.mu), np_(o.nu), int(o.count))
+    return out
+
+
+def _pairs(got, want):
+    got, want = dict(_leaves(got)), dict(_leaves(want))
+    assert got.keys() == want.keys()
+    return [(n, np.asarray(got[n]), np.asarray(want[n])) for n in want]
+
+
+def _hold_params(got, want, lr, what):
+    for name, a, b in _pairs(got, want):
+        d = np.abs(a - b)
+        assert d.max() <= 2.1 * lr, (what, name, d.max())
+        tight = d <= 1e-3 * lr + 1e-6 * np.abs(b)
+        assert tight.mean() >= 0.999, (what, name, tight.mean())
+
+
+def _hold_rel_l2(got, want, limit, what):
+    for name, a, b in _pairs(got, want):
+        rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+        assert rel <= limit, (what, name, rel)
+
+
+STEP_CASES = {
+    "fsdp2_chunked_kl": (dict(fsdp=2), "fsdp", dict(), (2, 16), dict(kl_chunk=8)),
+    "data2_fsdp2": (dict(data=2, fsdp=2), "fsdp", dict(hidden_size=64, intermediate_size=128),
+                    (4, 8), dict(kl_chunk=4)),
+    "cp2_kd": (dict(fsdp=1, cp=2), "cp", dict(), (2, 16), dict()),
+    "cp2_label_ce": (dict(fsdp=1, cp=2), "cp", dict(), (2, 16), dict(use_kd=False)),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_train_steps_match_jax_under_the_mesh(case):
+    from llm_qat_tpu.models.config import LlamaConfig as JConfig
+    from tests.test_torch_serving import np_params, tcfg
+
+    axes, parallel, widths, (b, s), kw = STEP_CASES[case]
+    jcfg = JConfig(**{**WIDTHS, **widths}, w_bits=4, a_bits=8, kv_bits=4)
+    seed = SEED_NARROW if jcfg.hidden_size == 64 else 0
+    params = np_params(jcfg, seed=seed)
+    teacher = np_params(jcfg, seed=seed + 100) if kw.get("use_kd", True) else None
+    ids = np.random.default_rng(9).integers(0, jcfg.vocab_size, (b, s)).astype(np.int32)
+    batch = {"input_ids": ids, "labels": ids}
+    world = int(np.prod(list(axes.values())))
+    ranks = launch.spawn(_trainer_rank, world, args=(tcfg(jcfg), params, teacher, batch, axes,
+                                                     parallel, kw), timeout=180)
+    want = _jax_trainer(jcfg, params, teacher, batch, axes, parallel, kw)
+    fsdp = axes.get("fsdp", 1) if parallel == "fsdp" else 1
+    for r in ranks:
+        np.testing.assert_allclose(r["metrics"], want["metrics"], rtol=1e-4)
+        # every split leaf and its moments: 1/fsdp of the leaf on each rank
+        full = {n: a.shape for n, a in _leaves(params)}
+        split = {"embed": 1, "lm_head": 0, "layers/q": 1, "layers/k": 1, "layers/v": 1,
+                 "layers/o": 2, "layers/gate": 1, "layers/up": 1, "layers/down": 2}
+        for tree in ("params", "mu", "nu"):
+            for n, shape in r["shapes"][tree].items():
+                exp = list(full[n])
+                if n in split:
+                    exp[split[n]] //= fsdp
+                assert shape == tuple(exp), (tree, n, shape)
+    got = ranks[0]["whole"]
+    for step in (1, STEPS):
+        gp, gmu, gnu, count = got[step]
+        jp, jmu, jnu, jcount = want["whole"][step]
+        assert count == jcount == step
+        _hold_params(gp, jp, step * LR, f"{case} step {step}")
+        if step == 1:
+            _hold_rel_l2(gmu, jmu, 1e-3, f"{case} mu")
+            _hold_rel_l2(gnu, jnu, 2e-3, f"{case} nu")
+    assert want["metrics"][-1][0] < want["metrics"][0][0]
+
+
+# --- the CLI under a world of 2, and its checkpoint at world 1 and 2 ----------
+
+CLI_STEPS = 4
+
+
+def _cli_args(d, name, **kw):
+    from llm_qat_torch.utils import args as TA
+
+    margs = TA.ModelArguments(input_model_filename=os.path.join(d, "teacher"),
+                              output_model_filename="student",
+                              local_dir=os.path.join(d, name, "local"),
+                              w_bits=4, a_bits=8, kv_bits=4)
+    dargs = TA.DataArguments(train_data_local_path=os.path.join(d, "train.jsonl"),
+                             eval_data_local_path=os.path.join(d, "train.jsonl"))
+    targs = dict(output_dir=os.path.join(d, name, "out"), model_max_length=16, qat=True,
+                 use_kd=True, per_device_train_batch_size=1, per_device_eval_batch_size=1,
+                 learning_rate=LR, max_steps=CLI_STEPS, save_steps=2, bf16=False,
+                 mesh_data=1, mesh_fsdp=2, mesh_tp=1)
+    targs.update(kw)
+    return margs, dargs, TA.TrainingArguments(**targs)
+
+
+def _cli_rank(rank, world, d, name, kw):
+    from llm_qat_torch.cli import train as TCLI
+
+    return TCLI.run(*_cli_args(d, name, **kw), tokenize=fake_tokenize, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory):
+    """The JAX CLI at fsdp = 2 on two fake devices and the port's on two
+    gloo ranks, from one teacher checkpoint and jsonl."""
+    import jax
+    import jax.numpy as jnp
+
+    from llm_qat_tpu.cli import train as JCLI
+    from llm_qat_tpu.models import convert as JC
+    from llm_qat_tpu.models.config import LlamaConfig as JConfig
+    from llm_qat_tpu.utils import args as JA
+    from tests.test_torch_serving import np_params
+
+    d = str(tmp_path_factory.mktemp("cli_world2"))
+    cfg = JConfig(**WIDTHS)
+    JC.save_hf_checkpoint(jax.tree.map(jnp.asarray, np_params(cfg, seed=0)), cfg,
+                          os.path.join(d, "teacher"))
+    rng = np.random.default_rng(0)
+    with open(os.path.join(d, "train.jsonl"), "w") as f:
+        for _ in range(12):
+            f.write(json.dumps({"text": "".join(chr(97 + c) for c in rng.integers(0, 26, 40))})
+                    + "\n")
+    port = launch.spawn(_cli_rank, 2, args=(d, "torch", {}), timeout=240)
+    margs, dargs, targs = _cli_args(d, "jax")
+    jargs = (JA.ModelArguments(**vars(margs)), JA.DataArguments(**vars(dargs)),
+             JA.TrainingArguments(**{k: v for k, v in vars(targs).items() if k != "device"}))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JCLI.pmesh, "make_mesh",
+                   functools.partial(JCLI.pmesh.make_mesh, devices=jax.devices()[:2]))
+        jres = JCLI.run(*jargs, tokenize=fake_tokenize)
+    return d, port, jres
+
+
+def _losses(d, name):
+    with open(os.path.join(d, name, "out", "logs", "metrics.jsonl")) as f:
+        return [json.loads(line)["loss"] for line in f]
+
+
+def test_cli_world2_matches_jax_cli(cli_runs):
+    import jax.numpy as jnp
+
+    from llm_qat_tpu.models import convert as JC
+    from llm_qat_torch.models import convert as TC
+
+    d, port, jres = cli_runs
+    assert [r["train_steps"] for r in port] == [CLI_STEPS] * 2 == [jres["train_steps"]] * 2
+    np.testing.assert_allclose(_losses(d, "torch"), _losses(d, "jax"), rtol=1e-4)
+    for r in port:      # every rank sums the eval over both ranks' rows
+        np.testing.assert_allclose(r["perplexity"], jres["perplexity"], rtol=1e-4)
+    assert port[0]["model_path"] == port[1]["model_path"]
+    _, jp = JC.load_hf_checkpoint(jres["model_path"], dtype=jnp.float32)
+    _, tp = TC.load_hf_checkpoint(port[0]["model_path"], dtype=torch.float32, device="cpu")
+    _hold_params({n: a.numpy() for n, a in _leaves(tp)},
+                 {n: np.asarray(a) for n, a in _leaves(jp)}, CLI_STEPS * LR, "cli export")
+    # rank 0 wrote the step checkpoints (the newest kept) and the logs
+    assert os.listdir(os.path.join(d, "torch", "out", "checkpoints")) == [str(CLI_STEPS)]
+
+
+def test_world2_checkpoint_resumes_at_world1_and_world2(cli_runs):
+    """The checkpoint holds the whole state: restored at world 1 it is the
+    world-2 run's export and moments, whole; restored at world 2 (each rank
+    its shards) and exported again, the same bits; a world-1 run resumed from
+    it trains on."""
+    from llm_qat_torch.cli import train as TCLI
+    from llm_qat_torch.models import convert as TC
+    from llm_qat_torch.models import params as TP
+    from llm_qat_torch.training import trainer as TT
+    from llm_qat_torch.utils.checkpoint import CheckpointManager
+
+    d, port, _ = cli_runs
+    ckpt = os.path.join(d, "torch", "out", "checkpoints")
+    cfg, exported = TC.load_hf_checkpoint(port[0]["model_path"], dtype=torch.float32,
+                                          device="cpu")
+    tr = TT.Trainer(cfg, TT.TrainConfig(compute_dtype=torch.float32),
+                    TP.from_numpy(TP.to_numpy(exported), "cpu"), device="cpu")
+    state = CheckpointManager(ckpt).restore(tr.state)
+    assert state.step == CLI_STEPS and state.opt_state["count"] == CLI_STEPS
+    for (n, a), (_, b) in zip(_leaves(state.params), _leaves(exported)):
+        assert torch.equal(a, b), n
+    assert state.opt_state["mu"]["layers"]["q"].shape == exported["layers"]["q"].shape
+
+    # world 2 again: each rank restores its shards, trains no further, exports
+    import shutil
+
+    os.makedirs(os.path.join(d, "again", "out"))
+    shutil.copytree(ckpt, os.path.join(d, "again", "out", "checkpoints"))
+    again = launch.spawn(_cli_rank, 2, args=(d, "again", dict(resume_from_checkpoint=True,
+                                                               do_eval=False)), timeout=240)
+    assert again[0]["train_steps"] == CLI_STEPS
+    _, back = TC.load_hf_checkpoint(again[0]["model_path"], dtype=torch.float32, device="cpu")
+    for (n, a), (_, b) in zip(_leaves(back), _leaves(exported)):
+        assert torch.equal(a, b), n
+
+    # world 1, two steps on
+    os.makedirs(os.path.join(d, "one", "out"))
+    shutil.copytree(ckpt, os.path.join(d, "one", "out", "checkpoints"))
+    res = TCLI.run(*_cli_args(d, "one", mesh_fsdp=1, resume_from_checkpoint=True,
+                              max_steps=CLI_STEPS + 2, do_eval=False),
+                   tokenize=fake_tokenize, device="cpu")
+    assert res["train_steps"] == CLI_STEPS + 2
+    assert np.isfinite(_losses(d, "one")).all() and len(_losses(d, "one")) == 2

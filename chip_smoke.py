@@ -82,8 +82,18 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    2-layer f32 cut of each mode against the single-device step; K4/K10/K11
    non-causal at the ring's shape against their plain versions and SDPA;
    one step of the train CLI with NCCL at world 1 (see
-   ``multi_device_phase``). The two ranks' step times share one card and
-   are no scaling figure;
+   ``multi_device_phase``; the FSDP and CP runs on a 2-layer cut of the
+   full width). The two ranks' step times share one card and are no scaling
+   figure;
+4e. serves tensor-parallel over two ranks on the one card (gloo, as 4d) at
+   TinyLlama-1.1B's full width and depth: ``InferenceEngine(mesh=)`` and
+   ``PagedInferenceEngine(mesh=)`` at W8A8KV8 and W4A8KV4, every decode
+   step's and prefill call's K1/K2, K3/K8 and K4 launches counted (no K9),
+   the drift from one device teacher-forced at full depth and the prefill's
+   quantizer codes, the tokens against one rank's, a held step (every
+   K1/K2/K3/K8/K4 launch against its plain version), 2-layer cuts against
+   one device and the CPU path, beam search over TP and the multi-host
+   driver as 2 hosts x tp 1 (see ``tp_serving_phase``);
 5. prints what the compiler gave the tensor-core flash kernels, the
    decode megakernel and every K1/K2, K3/K7/K8 and K12/K13 variant
    (registers, shared memory, spills, blocks an SM holds; it fails on a
@@ -118,6 +128,7 @@ PROMPT_LENS = (16, 120, 250, 400, 550, 700, 850, 1000)
 NEW_TOKENS = 64
 ATTN_ULPS, ATTN_FLOOR = 2.0, 1e-2   # K3/K4 against their plain versions
 CUT_LAYERS, CUT_DRIFT = 2, 1e-3     # GPU vs CPU at the first layers
+CUT_FLIP_DRIFT = 0.05               # the cut's logits that see a one-level code flip (hold_flip)
 FULL_DRIFT_OVER = 1.5               # full depth: x the plain GPU path's drift
 K9_LENS = (48, 0, 282, 432, 512, 732, 882, 1032)   # slot 1 empty, 4 on a block edge
 K9_INACTIVE = 2                     # this slot sits the step out
@@ -265,8 +276,9 @@ def gemm_phase(timer, gen, QM, c, c7):
     return out
 
 
-def gemm_shape(timer, gen, QM, name, fn, plain, model, proj, M, K, N):
-    """One K1/K2 shape of ``gemm_phase``: held, timed, its bound."""
+def gemm_shape(timer, gen, QM, name, fn, plain, model, proj, M, K, N, out_dtype=torch.bfloat16):
+    """One K1/K2 shape of ``gemm_phase``: held, timed, its bound. ``out_dtype``:
+    bf16, or f32 as a row-parallel chunk under tensor parallelism writes it."""
     x = torch.randn(M, K, device="cuda", generator=gen)
     w = torch.randn(K, N, device="cuda", generator=gen) * 0.02
     xq, sx = QM.quantize_per_token(x)
@@ -277,20 +289,21 @@ def gemm_shape(timer, gen, QM, name, fn, plain, model, proj, M, K, N):
         wq, sw = QM.quantize_weights_w4(w)
         wbytes, wi = K * N // 2, QM.unpack_int4(wq)
     del x, w
-    got = fn(xq, wq, sx, sw)
-    again = fn(xq, wq, sx, sw)
-    want = plain(xq, wq, sx, sw)
+    od = dict(out_dtype=out_dtype)
+    got = fn(xq, wq, sx, sw, **od)
+    again = fn(xq, wq, sx, sw, **od)
+    want = plain(xq, wq, sx, sw, **od)
     torch.cuda.synchronize()
     if not (torch.equal(got, want) and torch.equal(again, got)):
         raise AssertionError(f"{name} {model} {proj} M={M}: not bit-equal to its plain "
                              "version, or a second launch differs")
-    ms = timer(lambda: fn(xq, wq, sx, sw))
-    plain_ms = timer(lambda: plain(xq, wq, sx, sw))
+    ms = timer(lambda: fn(xq, wq, sx, sw, **od))
+    plain_ms = timer(lambda: plain(xq, wq, sx, sw, **od))
     wt = wi.t().contiguous().t()   # K-contiguous [K, N]
     lib_ms = lib_row_ms = unpacked_ms = None
 
     def epi(acc):
-        return (acc.float() * (1.0 / ((sx + 1e-6) * (sw + 1e-6)))).to(torch.bfloat16)
+        return (acc.float() * (1.0 / ((sx + 1e-6) * (sw + 1e-6)))).to(out_dtype)
 
     if name == "int8_matmul":
         lib_ms = timer(lambda: epi(torch._int_mm(xq, wt)))
@@ -300,12 +313,14 @@ def gemm_shape(timer, gen, QM, name, fn, plain, model, proj, M, K, N):
         lib_row_ms = timer(lambda: epi(torch._int_mm(xq, wi)))
     plan = QM.gemm_plan(M, N, K, name == "int4_matmul",
                         torch.cuda.get_device_properties(0).multi_processor_count)
-    b_ms, b_by = bound(M * K + wbytes + 4 * (M + N) + 2 * M * N, 2.0 * M * K * N, INT8_OPS)
-    log(f"  {name} {model} {proj:6s} M={M:4d} K={K} N={N} ({plan['variant']}, "
+    out_bytes = M * N * torch.finfo(out_dtype).bits // 8
+    b_ms, b_by = bound(M * K + wbytes + 4 * (M + N) + out_bytes, 2.0 * M * K * N, INT8_OPS)
+    log(f"  {name} {model} {proj:6s} M={M:4d} K={K} N={N} {str(out_dtype)[6:]} ({plan['variant']}, "
         f"{plan['splits']} split): {ms:.4f} ms (plain {plain_ms:.4f}, library {lib_ms} "
         f"K-contiguous / {lib_row_ms} row-major, int8 library on the unpacked K-contiguous "
         f"weight {unpacked_ms}, bound {b_ms:.4f} {b_by}) bit-equal, twice")
-    return dict(model=model, proj=proj, M=M, K=K, N=N, variant=plan["variant"],
+    return dict(model=model, proj=proj, M=M, K=K, N=N, out_dtype=str(out_dtype)[6:],
+                variant=plan["variant"],
                 splits=plan["splits"], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_rowmajor_ms=lib_row_ms, int8_library_unpacked_ms=unpacked_ms,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
@@ -1180,20 +1195,33 @@ def k8_against_k3(found):
         DA.quantized_paged_attention = real
 
 
-def _greedy_logits(cfg, qp, prompt, dev, toks, max_len=64, dtype=torch.bfloat16):
-    """Prefill + 4 decode steps; the first run (``toks`` empty) picks the
-    greedy tokens and later runs are teacher-forced with them. Returns the
-    5 last-position logit vectors on the host."""
-    from llm_qat_torch.inference import model as M
-
-    n = len(prompt)
+def _bucketed(prompt):
+    """``[1, bucket]`` ids of ``prompt``, zero-padded to the engines' pow2
+    bucket (16 at least)."""
     bucket = 16
-    while bucket < n:
+    while bucket < len(prompt):
         bucket *= 2
     ids = np.zeros((1, bucket), np.int64)
-    ids[0, :n] = prompt
-    lg, rows = M.prefill_slot(qp, cfg, ids, dtype=dtype, device=dev)
-    cache = M.init_serving_cache(cfg, 1, max_len, device=dev)
+    ids[0, :len(prompt)] = prompt
+    return ids
+
+
+def _greedy_logits(cfg, qp, prompt, dev, toks, max_len=64, dtype=torch.bfloat16, mesh=None):
+    """Prefill + 4 decode steps; the first run (``toks`` empty) picks the
+    greedy tokens and later runs are teacher-forced with them. Returns the
+    5 last-position logit vectors on the host. ``mesh``: tensor-parallel over
+    its 'tp' group, ``qp`` this rank's shard. The cache holds ``max_len``
+    rows, or twice the prompt's bucket where that is more."""
+    from llm_qat_torch.inference import model as M
+    from llm_qat_torch.parallel import mesh as pmesh
+
+    group = None if mesh is None else pmesh.axis_group(mesh, "tp")
+    kvh = cfg.kv_heads // (1 if mesh is None else pmesh.axis_size(mesh, "tp"))
+
+    n, ids = len(prompt), _bucketed(prompt)
+    lg, rows = M.prefill_slot(qp, cfg, ids, dtype=dtype, device=dev, tp_group=group)
+    cache = M.init_serving_cache(cfg, 1, max(max_len, 2 * ids.shape[1]), device=dev,
+                                 kv_heads=kvh)
     M.insert_slot(cache, rows, 0)
     cache["lengths"] = torch.full((1,), len(prompt), dtype=torch.int32, device=dev)
     seq = [lg[0, n - 1].float().cpu()]
@@ -1201,37 +1229,43 @@ def _greedy_logits(cfg, qp, prompt, dev, toks, max_len=64, dtype=torch.bfloat16)
         if len(toks) == i:
             toks.append(int(seq[-1].argmax()))
         lg, cache = M.serving_forward(qp, cfg, [[toks[i]]], cache["lengths"], [True],
-                                      cache, dtype=dtype, device=dev)
+                                      cache, dtype=dtype, device=dev, tp_group=group)
         seq.append(lg[0, -1].float().cpu())
     return seq
 
 
-def _greedy_logits_paged(cfg, qp, prompt, dev, toks, dtype=torch.bfloat16):
+def _greedy_logits_paged(cfg, qp, prompt, dev, toks, dtype=torch.bfloat16, mesh=None):
     """``_greedy_logits`` through the paged forward: the prompt's bucket
     prefilled from empty into shuffled pages of a small pool, then 4 decode
     steps."""
     from llm_qat_torch.inference import paged as PG
+    from llm_qat_torch.parallel import mesh as pmesh
+
+    group = None if mesh is None else pmesh.axis_group(mesh, "tp")
+    kvh = cfg.kv_heads // (1 if mesh is None else pmesh.axis_size(mesh, "tp"))
 
     n = len(prompt)
-    bucket = 16
-    while bucket < n:
-        bucket *= 2
     pages = -(-(n + 4) // PAGE)
     pcfg = PG.PagedConfig(page_size=PAGE, n_pages=pages + 3, max_pages_per_seq=pages + 1)
-    cache = PG.init_paged_cache(cfg, pcfg, device=dev)
+    cache = PG.init_paged_cache(cfg, pcfg, device=dev, kv_heads=kvh)
     tables = [list(range(pages, 0, -1)) + [0]]          # pages + 1 entries, reversed ids
-    ids = np.zeros((1, bucket), np.int64)
-    ids[0, :n] = prompt
+    ids = _bucketed(prompt)
     lg, cache = PG.paged_forward(qp, cfg, pcfg, ids, [0], [True], tables, cache,
-                                 dtype=dtype, from_empty=True, device=dev)
+                                 dtype=dtype, from_empty=True, device=dev, tp_group=group)
     seq = [lg[0, n - 1].float().cpu()]
     for i in range(4):
         if len(toks) == i:
             toks.append(int(seq[-1].argmax()))
         lg, cache = PG.paged_forward(qp, cfg, pcfg, [[toks[i]]], [n + i], [True], tables,
-                                     cache, dtype=dtype, device=dev)
+                                     cache, dtype=dtype, device=dev, tp_group=group)
         seq.append(lg[0, -1].float().cpu())
     return seq
+
+
+def _compare_steps(a_seq, b_seq):
+    """(greedy tokens equal, relative L2 logit drift) per logit vector."""
+    return ([int(a.argmax()) == int(b.argmax()) for a, b in zip(a_seq, b_seq)],
+            [float((a - b).norm() / b.norm()) for a, b in zip(a_seq, b_seq)])
 
 
 def _compare(a_seq, b_seq):
@@ -1240,6 +1274,75 @@ def _compare(a_seq, b_seq):
     same = [int(a.argmax()) == int(b.argmax()) for a, b in zip(a_seq, b_seq)]
     drift = max(float((a - b).norm() / b.norm()) for a, b in zip(a_seq, b_seq))
     return same, drift, max(float((a - b).abs().max()) for a, b in zip(a_seq, b_seq))
+
+
+@contextlib.contextmanager
+def record_codes(found):
+    """Within the block every serving projection's activation quantizer
+    (``quant_matmul.quantize_rows``) appends its int8 codes, the real rows,
+    to ``found`` in call order: per forward and layer qkv, o, gate-up, down.
+    The codes are what a rounding flip changes first."""
+    from llm_qat_torch.ops import quant_matmul as QM
+
+    real = QM.quantize_rows
+
+    def rec(x, bits, amax=None):
+        xq, sx, M = real(x, bits, amax)
+        found.append(xq[:M].clone())
+        return xq, sx, M
+
+    QM.quantize_rows = rec
+    try:
+        yield found
+    finally:
+        QM.quantize_rows = real
+
+
+def first_code_parting(ref, got, layers, rank=0, n=1):
+    """The first quantizer call whose codes part between ``ref`` and ``got``
+    (``record_codes`` of the same forwards; under TP ``got`` is rank
+    ``rank`` of ``n``, whose row-parallel inputs hold its K-shard of
+    ``ref``'s). None when every code agrees; else the call (its forward,
+    layer and projection), how many elements part, the largest level
+    difference, the tensor's elements, and whether it is a shard."""
+    if len(ref) != len(got):
+        raise AssertionError(f"{len(ref)} quantizer calls against {len(got)}")
+    for i, (a, b) in enumerate(zip(ref, got)):
+        a, shard = a.to(b.device), a.shape != b.shape
+        if shard:
+            k = b.shape[-1]
+            if a.shape[:-1] != b.shape[:-1] or a.shape[-1] != n * k:
+                raise AssertionError(f"quantizer call {i}: {tuple(a.shape)} against "
+                                     f"{tuple(b.shape)}")
+            a = a[..., rank * k:(rank + 1) * k]
+        d = (a.int() - b.int()).abs()
+        parting = int((d > 0).sum())
+        if parting:
+            return dict(call=i, forward=i // (4 * layers), layer=i // 4 % layers,
+                        proj=("qkv", "o", "gateup", "down")[i % 4], parting=parting,
+                        levels=int(d.max()), elements=b.numel() * (n if shard else 1),
+                        shard=shard)
+    return None
+
+
+def parting_text(p):
+    return "none" if p is None else (
+        f"forward {p['forward']}, {p['proj']} input of layer {p['layer']}: {p['parting']} of "
+        f"{p['elements']} codes, {p['levels']} level(s) apart")
+
+
+def join_partings(per_rank):
+    """The first parting over the ranks' ``first_code_parting``: at a
+    row-parallel input each rank saw its own shard, so their counts add."""
+    found = [p for p in per_rank if p is not None]
+    if not found:
+        return None
+    first = min(p["call"] for p in found)
+    at = [p for p in found if p["call"] == first]
+    if not at[0]["shard"]:
+        return at[0]
+    return dict(at[0], parting=sum(p["parting"] for p in at),
+                levels=max(p["levels"] for p in at))
 
 
 def gpu_vs_cpu(cfg, qparams, prompt, long_prompt):
@@ -2708,6 +2811,10 @@ def eval_phase(cfg, model_dir=None):
 MD_BATCH, MD_SEQ = 4, 2048            # FSDP: the global batch, 2 x 2048 tokens a rank
 MD_CP_BATCH, MD_CP_SEQ = 2, 4096      # CP: 2 x 4096 tokens, 2048 a rank
 MD_WARM, MD_STEPS = 2, 3              # FSDP: warm-up and timed steps
+# the FSDP and CP runs' depth: a cut of TinyLlama-1.1B at its full width (at
+# full depth the steps take 13-25 s and 5-11 s each over the host's
+# transport; the cut launches every kernel the full depth does)
+MD_LAYERS = 2
 MD_CP_WARM, MD_CP_STEPS = 1, 2        # CP, each transport
 # the 2-layer f32 cuts against one device: (mode, quantized, batch, seq). The
 # cp layer takes the unfused norm and quant (as the JAX package's does), so
@@ -2979,8 +3086,8 @@ def _md_rank(rank, world, cfg):
     out = {"transport": _md_transport(cfg, fsdp),
            "cuts": [_md_cut(rank, cfg, fsdp if m == "fsdp" else cp, m, q, b, s)
                     for m, q, b, s in MD_CUTS]}
-    L = cfg.num_hidden_layers
-    full = train_cfg_of(cfg)
+    L = MD_LAYERS
+    full = train_cfg_of(cfg, MD_LAYERS)
     want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "rmsnorm_quant": 4 * L,
             "_flash_fwd_causal": 2 * L, "_flash_bwd_dq_causal": L, "_flash_bwd_dkv_causal": L}
     out["fsdp"] = _md_run(rank, "FSDP fsdp=2", full, fsdp, "fsdp", MD_WARM, MD_STEPS,
@@ -3089,8 +3196,8 @@ def flash_ring_phase(timer, gen, FA, B=8, G=8, S=2048, D=64):
 def multi_device_phase(cfg):
     """KD-QAT training over a mesh of two ranks on the one H100, spawned by
     ``parallel.launch`` over gloo (``MD_TRANSPORT``), at TinyLlama-1.1B's full
-    width and depth, the train recipe (W4A8KV4, bf16, ``kl_chunk=256``,
-    remat):
+    width on an MD_LAYERS-layer cut, the train recipe (W4A8KV4, bf16,
+    ``kl_chunk=256``, remat):
 
     * FSDP (data = 1, fsdp = 2): MD_BATCH x MD_SEQ tokens a step (half a
       rank), MD_WARM + MD_STEPS steps; every step launches K4 2L, K10 L,
@@ -3125,7 +3232,6 @@ def multi_device_phase(cfg):
     ranks = launch.spawn(_md_rank, 2, backend="gloo", device="cuda", args=(cfg,),
                          timeout=MD_TIMEOUT)
     spawn_s = time.perf_counter() - t0
-    L = cfg.num_hidden_layers
     tr = ranks[0]["transport"]
     log(f"  transport ({MD_TRANSPORT}), one layer's bf16 shard of {tr['shard_bytes'] / 1e6:.1f} "
         f"MB between the two ranks: all-gather {tr['all_gather_s']:.3f} s, reduce-scatter "
@@ -3143,7 +3249,7 @@ def multi_device_phase(cfg):
     for key in ("fsdp", "cp_transport_None", "cp_transport_8"):
         for r in (x[key] for x in ranks):
             h, one = r["held_bytes"], r["one_device_bytes"]
-            log(f"  {r['mode']} rank {r['rank']}: {L} layers, {r['batch']} x {r['seq']} tokens "
+            log(f"  {r['mode']} rank {r['rank']}: {r['layers']} layers, {r['batch']} x {r['seq']} tokens "
                 f"a step (global): losses " + " ".join(f"{x:.3f}" for x in r["losses"])
                 + "; grad norms " + " ".join(f"{x:.3f}" for x in r["grad_norms"])
                 + f"; step {1e3 * r['step_s']:.0f} ms on a card shared by two ranks ({MD_TRANSPORT};"
@@ -3199,7 +3305,718 @@ def multi_device_phase(cfg):
                 spawn_s=spawn_s, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP, TP_SEED = 2, 21                      # tp ranks; the phase's weights, prompts and inputs
+TP_PROMPT_LENS, TP_NEW = (16, 300, 700, 1000), 32   # 4 requests x 32 greedy new tokens
+TP_PAGES = 64                            # the paged engine's pool (pages of PAGE)
+TP_BEAM_NEW, TP_BEAM_PROMPT = 16, 40     # beam over TP: BEAM_NUM beams, tokens, prompt
+TP_FORCED = (0, 3)                       # teacher-forced at full depth: 16 and 1000 tokens
+TP_FULL_DRIFT = 0.15                     # its limit: TP against one rank (see tp_serving_phase)
+TP_CUT_PROMPTS = (0, 1)                  # the cut's prompts: 16 tokens, and 300 (512 rows)
+TP_TIMEOUT = 900                         # seconds the spawn of the two ranks may take
+TP_TRANSPORT = ("gloo, CUDA tensors staged through host memory: two ranks share the one "
+                "H100, which NCCL refuses (duplicate GPU)")
+
+
+def tp_modes(cfg):
+    """The served modes; the default config (``use_megakernel=True``): a TP
+    engine must decode on the scan path all the same."""
+    return {"W8A8KV8": cfg.replace(w_bits=8, a_bits=8, kv_bits=8),
+            "W4A8KV4": cfg.replace(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)}
+
+
+def tp_prompts(cfg):
+    rng = np.random.default_rng(TP_SEED)
+    return [list(map(int, rng.integers(1, cfg.vocab_size, n))) for n in TP_PROMPT_LENS]
+
+
+def tp_kernel_shapes(timer, gen, cfg):
+    """K1/K2 at the shard shapes a rank of tp = 2 gives them at decode (4
+    slots, padded to 32 rows): column-parallel qkv (N = 1280) and gate-up
+    (N = 5632) at K = 2048 in bf16, one of the four column chunks of the
+    row-parallel o (K = 1024) and down (K = 2816) in f32; K3 and K8 at the
+    rank's 2 kv heads (G = 8, hd = 64), int8 and packed. Held as their phases
+    hold them; times beside the bounds."""
+    from llm_qat_torch.ops import decode_attention as DA
+    from llm_qat_torch.ops import quant_matmul as QM
+
+    H, I, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    qkv_n = (cfg.num_attention_heads + 2 * cfg.kv_heads) * hd // TP
+    projs = {"qkv": (H, qkv_n, torch.bfloat16), "gateup": (H, 2 * I // TP, torch.bfloat16),
+             "o chunk": (H // TP, H // 4, torch.float32),
+             "down chunk": (I // TP, H // 4, torch.float32)}
+    out = {}
+    for name, fn, plain in (("int8_matmul", QM.int8_matmul, QM._int8_matmul_plain),
+                            ("int4_matmul", QM.int4_matmul, QM._int4_matmul_plain)):
+        out[name] = [gemm_shape(timer, gen, QM, name, fn, plain, f"TinyLlama-1.1B tp={TP}", proj,
+                                32, K, N, out_dtype=od) for proj, (K, N, od) in projs.items()]
+    kvh = cfg.kv_heads // TP
+    G = cfg.num_attention_heads // cfg.kv_heads
+    out["decode_attention"] = [decode_attention_phase(timer, gen, DA, kvh, G, hd, packed)
+                               for packed in (False, True)]
+    out["paged_attention"] = [paged_attention_phase(timer, gen, DA, kvh, G, hd, packed)
+                              for packed in (False, True)]
+    return out
+
+
+@contextlib.contextmanager
+def tp_hold_launches(holds):
+    """Within the block every launch of K1, K2, K3, K8 and K4 is also
+    computed by its plain version on the same inputs: K1/K2 held bit for bit
+    (``torch.equal``), K3/K8/K4 element-wise (``agreement``, the K3/K4
+    limit). ``holds[name]`` collects (launches, ok, max_abs_err, worst)."""
+    from llm_qat_torch.ops import decode_attention as DA
+    from llm_qat_torch.ops import flash_attention as FA
+    from llm_qat_torch.ops import quant_matmul as QM
+
+    pairs = [(QM, "int8_matmul", QM._int8_matmul_plain, True),
+             (QM, "int4_matmul", QM._int4_matmul_plain, True),
+             (DA, "quantized_decode_attention", DA._decode_attention_plain, False),
+             (DA, "quantized_paged_attention", DA._paged_attention_plain, False),
+             (FA, "_flash_fwd", FA._flash_fwd_plain, False)]
+    reals = [getattr(mod, name) for mod, name, _, _ in pairs]
+
+    def held(name, real, plain, exact):
+        def fn(*a, **kw):
+            out = real(*a, **kw)
+            want = plain(*a, **kw)
+            got_o, want_o = (out[0], want[0]) if name == "_flash_fwd" else (out, want)
+            torch.cuda.synchronize()
+            if exact:
+                a_ = dict(ok=torch.equal(got_o, want_o),
+                          max_abs_err=float((got_o.float() - want_o.float()).abs().max()),
+                          worst=0.0)
+            else:
+                a_ = agreement(got_o, want_o, ATTN_ULPS, ATTN_FLOOR)
+            h = holds.setdefault(name, dict(launches=0, ok=True, max_abs_err=0.0, worst=0.0,
+                                            shapes=set()))
+            h["launches"] += 1
+            h["ok"] = h["ok"] and a_["ok"]
+            h["max_abs_err"] = max(h["max_abs_err"], a_["max_abs_err"])
+            h["worst"] = max(h["worst"], a_["worst"])
+            h["shapes"].add(str([tuple(t.shape) for t in a[:2] if torch.is_tensor(t)]))
+            return out
+        fn.launches = real.launches
+        return fn
+
+    try:
+        for (mod, name, plain, exact), real in zip(pairs, reals):
+            setattr(mod, name, held(name, real, plain, exact))
+        yield
+    finally:
+        for (mod, name, _, _), real in zip(pairs, reals):
+            setattr(mod, name, real)
+        for h in holds.values():
+            h["shapes"] = sorted(h["shapes"])
+
+
+def tp_serve(label, eng, prompts, want_step=None, record=False):
+    """Serve ``prompts`` x TP_NEW greedy tokens through an engine: prefill
+    time and launches apart, each prefill call's launches with its rows;
+    every decode step's launches (set to 0 before the step, read after it)
+    must be ``want_step``; with ``record`` the logits each token was drawn
+    from are kept (the prefill's, then each step's). Returns (metrics,
+    tokens by request, logits)."""
+    pre = {"s": 0.0, "launches": dict.fromkeys(counters(), 0), "calls": []}
+    dec = dict.fromkeys(counters(), 0)
+    real_prefill, real_fwd = eng._prefill, eng._fwd
+    steps, tops, bad = [0], [], []
+
+    def timed_prefill(qp, ids, *a):
+        before = read_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_prefill(qp, ids, *a)
+        torch.cuda.synchronize()
+        pre["s"] += time.perf_counter() - t
+        got = {k: n - before[k] for k, n in read_counters().items() if n - before[k]}
+        for k, n in got.items():
+            pre["launches"][k] += n
+        pre["calls"].append((int(ids.shape[0] * ids.shape[1]), got))
+        return out
+
+    def step_fwd(*a):
+        if record and not steps[0]:
+            tops.append(eng._logits.float().clone())      # the prefill's: token 0's
+        for fn in counters().values():
+            fn.launches = 0
+        out = real_fwd(*a)
+        got = {k: n for k, n in read_counters().items() if n}
+        if want_step is not None and got != want_step:
+            bad.append(got)
+        for k, n in got.items():
+            dec[k] += n
+        steps[0] += 1
+        if record:       # a copy: the engine's next admission writes its logits in place
+            tops.append(out[0][:, 0].float().clone())
+        return out
+
+    eng._prefill, eng._fwd = timed_prefill, step_fwd
+    uids = [eng.submit(p, max_new_tokens=TP_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng._prefill, eng._fwd = real_prefill, real_fwd
+    by_uid = {r.uid: r for r in done}
+    toks = [by_uid[u].prompt[len(p):] + by_uid[u].output if u in by_uid else None
+            for u, p in zip(uids, prompts)]
+    if any(t is None or len(t) != TP_NEW for t in toks) or not torch.isfinite(eng._logits).all():
+        raise AssertionError(f"{label}: outputs {[None if t is None else len(t) for t in toks]}")
+    if bad:
+        raise AssertionError(f"{label}: decode steps launched {bad[:2]}, expected {want_step}")
+    decode_s = wall - pre["s"]
+    m = dict(mode=label, requests=len(done), prompt_tokens=sum(map(len, prompts)),
+             prefill_s=pre["s"], decode_steps=steps[0], decode_s=decode_s,
+             decode_ms_per_step=1e3 * decode_s / steps[0], wall_s=wall,
+             generated_tok_per_s=len(done) * TP_NEW / wall,
+             prefill_launches={k: n for k, n in pre["launches"].items() if n},
+             prefill_calls=pre["calls"], decode_launches={k: n for k, n in dec.items() if n},
+             launches_per_step=want_step)
+    log(f"  {label}: prefill {m['prefill_s']:.3f} s, decode {m['decode_ms_per_step']:.2f} ms/step "
+        f"over {m['decode_steps']} steps, wall {wall:.2f} s ({time.perf_counter() - T_START:.0f} s "
+        "into the run)")
+    return m, toks, [t.cpu() for t in tops]
+
+
+def tp_compare_tokens(label, ref, got, path_diff, codes):
+    """The TP run's greedy tokens against the one-rank run's, tie-aware as
+    ``compare_tokens``. The TP path sums the row-parallel partials in f32 and
+    rounds once, one rank rounds its exact integer sum: an output on a bf16
+    rounding boundary rounds the other way, a quantizer code that sees it
+    may move one level, and 22 layers that re-quantize every projection's
+    input carry that into a flip where logits nearly tie. ``path_diff`` is
+    the largest absolute logit difference of the teacher-forced full-depth
+    runs (``_tp_forced``, held at TP_FULL_DRIFT). ``codes``: each prompt's
+    first parting quantizer codes in its prefill (``_tp_forced``). Rules:
+    token 0 (the prefill's) is equal, or the request's prompt's prefill codes
+    part, one level apart (checked for every prompt by the caller); the
+    logits that drew token k saw tokens < k only, so wherever a request's
+    tokens before k agree, the two runs' logits of token k are on the same
+    context, and those differ by at most NEAR_TIE_OVER x ``path_diff`` (a
+    factor 2 for a lead against a difference, 2 for another prompt and a
+    longer context); at a request's first difference the one-rank run's
+    lead of its token over the TP run's is within that limit too."""
+    (r_toks, r_logits), (g_toks, g_logits) = ref, got
+    firsts = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+              for a, b in zip(r_toks, g_toks)]
+    shared = 0.0
+    for k, (rl, gl) in enumerate(zip(r_logits, g_logits)):
+        for r, t in enumerate(firsts):
+            if t is None or k <= t:
+                shared = max(shared, float((rl[r] - gl[r]).abs().max()))
+    flips = []
+    for r, t in enumerate(firsts):
+        if t is None:
+            continue
+        if t == 0 and codes[r] is None:
+            raise AssertionError(f"{label}: request {r} differs at the prefill's token, and its "
+                                 "prompt's prefill codes do not part")
+        row = r_logits[t][r]
+        flips.append(dict(request=r, step=t, lead=float(row[r_toks[r][t]] - row[g_toks[r][t]])))
+    limit = NEAR_TIE_OVER * path_diff
+    log(f"  {label}: tp={TP} against one rank, {len(firsts) - len(flips)} of {len(firsts)} "
+        f"requests equal over {TP_NEW} tokens; largest logit difference on a shared context "
+        f"{shared:.4g}; first differences (one rank's lead); limit of both {limit:.4g} "
+        f"({NEAR_TIE_OVER} x the teacher-forced {path_diff:.4g}): "
+        + ("; ".join(f"request {f['request']} step {f['step']} lead {f['lead']:.4g}"
+                     for f in flips) or "none"))
+    if shared > limit or any(f["lead"] > limit for f in flips):
+        raise AssertionError(f"{label}: shared-context difference {shared}, first differences "
+                             f"{flips}: over {limit}")
+    return dict(path_diff=path_diff, shared_diff=shared, flips=flips)
+
+
+def tp_transport(eng, prompt):
+    """One decode step of ``eng`` with every collective timed on the host
+    clock (the device synchronized before and after each): the gloo
+    transport a step issues, and how many collectives."""
+    from llm_qat_torch.parallel import comm
+
+    reals = {n: getattr(comm, n) for n in ("all_reduce_", "all_gather")}
+    spent = {"s": 0.0, "n": 0}
+
+    def timed(real):
+        def fn(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["n"] += 1
+            return out
+        return fn
+
+    # a lone collective of each kind the step issues, the card idle: 20 each
+    from llm_qat_torch.parallel import mesh as pmesh
+
+    group = pmesh.axis_group(eng.mesh, "tp")
+    lone = {}
+    if group is not None:
+        chunk = torch.ones(32, 512, device="cuda")
+        amax = torch.ones(4, 1, device="cuda")
+        for name, fn in (("sum_chunk", lambda: comm.all_reduce_(chunk, group)),
+                         ("max_amax", lambda: comm.all_reduce_(
+                             amax, group, op=torch.distributed.ReduceOp.MAX))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            lone[name] = (time.perf_counter() - t0) / 20
+    eng.submit(prompt, max_new_tokens=1)
+    eng._admit()
+    try:
+        for n, f in reals.items():
+            setattr(comm, n, timed(f))
+        spent.update(s=0.0, n=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for n, f in reals.items():
+            setattr(comm, n, f)
+    return dict(collectives=spent["n"], transport_s=spent["s"], step_wall_s=wall,
+                lone_collective_s=lone)
+
+
+def _tp_forced(scan, shard, one_q, prompts, mesh, rank):
+    """Full depth, with no engine: every prompt's prefill through
+    ``model.prefill_slot`` on one device, then over TP, every activation
+    quantizer's codes recorded (``first_code_parting``: this rank's view);
+    then the TP_FORCED prompts' prefill and 4 decode steps through the TP
+    scan and paged forwards (greedy) and, on rank 0, the one-device forwards
+    teacher-forced with their tokens (``_compare`` by path and prompt
+    length)."""
+    from llm_qat_torch.inference import model as M
+    from llm_qat_torch.parallel import mesh as pmesh
+
+    group = pmesh.axis_group(mesh, "tp")
+    L = scan.num_hidden_layers
+    codes = []
+    for p in prompts:
+        one, tp = [], []
+        with record_codes(one):
+            M.prefill_slot(one_q, scan, _bucketed(p), device="cuda")
+        with record_codes(tp):
+            M.prefill_slot(shard, scan, _bucketed(p), device="cuda", tp_group=group)
+        codes.append(first_code_parting(one, tp, L, rank, TP))
+        del one, tp
+    compare = {}
+    for i in TP_FORCED:
+        p, toks, ptoks = prompts[i], [], []
+        tp = _greedy_logits(scan, shard, p, "cuda", toks, mesh=mesh)
+        tp_paged = _greedy_logits_paged(scan, shard, p, "cuda", ptoks, mesh=mesh)
+        if rank == 0:
+            compare[f"scan {len(p)}"] = _compare(tp, _greedy_logits(scan, one_q, p, "cuda", toks))
+            compare[f"paged {len(p)}"] = _compare(
+                tp_paged, _greedy_logits_paged(scan, one_q, p, "cuda", ptoks))
+    return dict(codes=codes, compare=compare)
+
+
+def _tp_greedy_cut(cut, params, prompt, mesh, rank, cpu):
+    """The CUT_LAYERS-layer cut, greedy (prefill + 4 steps), through the TP
+    scan and paged forwards on the card, then teacher-forced with their
+    tokens the one-device forwards on the card and, with ``cpu`` (rank 0),
+    the port's CPU path (one device, plain versions), every activation
+    quantizer's codes recorded. Returns each comparison's greedy tokens and
+    drift per logit vector (``_compare_steps``, rank 0) and the first code
+    partings (``first_code_parting``, this rank's view of TP against one
+    device)."""
+    from llm_qat_torch.inference import quantized as Q
+    from llm_qat_torch.inference import sharded as S
+
+    scan = cut.replace(use_megakernel=False)
+    shard = S.shard_qparams(S.quantize_params_tp(params, cut, TP), mesh)
+    one_q = Q.quantize_params(params, scan)
+    out = {"steps": {}, "codes": {}}
+    for path, run in (("scan", _greedy_logits), ("paged", _greedy_logits_paged)):
+        toks, c_tp, c_one, c_cpu = [], [], [], []
+        with record_codes(c_tp):
+            tp = run(scan, shard, prompt, "cuda", toks, mesh=mesh)
+        with record_codes(c_one):
+            one = run(scan, one_q, prompt, "cuda", toks)
+        out["codes"][path] = dict(tp_vs_one=first_code_parting(c_one, c_tp, CUT_LAYERS, rank, TP))
+        out["steps"][path] = dict(tp_vs_one=_compare_steps(tp, one))
+        if cpu:
+            with record_codes(c_cpu):
+                on_cpu = run(scan, Q.quantize_params(params, scan, device="cpu"), prompt, "cpu",
+                             toks)
+            out["codes"][path]["one_vs_cpu"] = first_code_parting(c_cpu, c_one, CUT_LAYERS)
+            out["steps"][path].update(one_vs_cpu=_compare_steps(one, on_cpu),
+                                      tp_vs_cpu=_compare_steps(tp, on_cpu))
+    return out
+
+
+def hold_flip(label, steps, parting, limit=CUT_DRIFT):
+    """One comparison of the cut held by the flip rule (ROADMAP.md section
+    3): ``steps`` = (greedy tokens equal, relative L2 drift) per logit vector
+    (the prefill's, then each decode step's); ``parting``: the first
+    quantizer call whose codes part. With none, every vector within
+    ``limit`` and its greedy token equal. With one, it must part by one
+    level; the vectors of the forwards before it are held so, those from its
+    forward on (which see the flipped code) within CUT_FLIP_DRIFT."""
+    same, drift = steps
+    f = len(drift) if parting is None else parting["forward"]
+    ok = ((parting is None or parting["levels"] == 1) and all(same[:f])
+          and all(d <= limit for d in drift[:f]) and all(d <= CUT_FLIP_DRIFT for d in drift[f:]))
+    if not ok:
+        raise AssertionError(f"{label}: tokens {same}, drift {drift}, codes part {parting}; "
+                             f"limits {limit} before the parting, {CUT_FLIP_DRIFT} from it")
+
+
+def _tp_rank(rank, world, cfg, prompts):
+    """Rank ``rank`` of TP: for each mode the TP scan engine and the TP paged
+    engine serve ``prompts`` (launches checked every step; the logits kept
+    on rank 0), one held step of each (every K1/K2/K3/K8/K4 launch against
+    its plain version), the transport of one step, then the teacher-forced
+    full-depth runs and prefill codes (``_tp_forced``); the 2-layer cut
+    against one device and the CPU path; beam search over TP at W8A8KV8,
+    full depth and the cut; then the multi-host driver as 2 hosts x tp 1."""
+    from llm_qat_torch.inference import beam as B
+    from llm_qat_torch.inference import paged as PG
+    from llm_qat_torch.inference import paged_engine as PE
+    from llm_qat_torch.inference import quantized as Q
+    from llm_qat_torch.inference import sharded as S
+    from llm_qat_torch.inference.engine import InferenceEngine
+    from llm_qat_torch.inference.multihost import MultiHostServingDriver
+    from llm_qat_torch.models import params as P
+    from llm_qat_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = pmesh.make_serving_mesh(TP, device_type="cuda")
+    L = cfg.num_hidden_layers
+    pcfg = PG.PagedConfig(page_size=PAGE, n_pages=TP_PAGES, max_pages_per_seq=SEQ_PAGES)
+    out = {"part_s": {}}
+    clock = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        out["part_s"][name] = now - clock[0]
+        clock[0] = now
+
+    # the held steps: K1, K3 and K4 at W8A8KV8 scan, K2, K8 and K4 at W4A8KV4 paged
+    held = {"W8A8KV8 scan", "W4A8KV4 paged"}
+    for label, mcfg in tp_modes(cfg).items():
+        gemm_k = "int8_matmul" if mcfg.w_bits == 8 else "int4_matmul"
+        params = P.init_params(mcfg, seed=TP_SEED, dtype=torch.bfloat16)
+        qp = S.quantize_params_tp(params, mcfg, TP)
+        one_q = Q.quantize_params(params, mcfg)
+        del params
+        kw = dict(max_batch=len(prompts), mesh=mesh)
+        engines = {"scan": InferenceEngine(qp, mcfg, max_len=2048, **kw),
+                   "paged": PE.PagedInferenceEngine(qp, mcfg, pcfg=pcfg, **kw)}
+        del qp
+        gc.collect()
+        torch.cuda.empty_cache()
+        for kind, eng in engines.items():
+            attn = "decode_attention" if kind == "scan" else "paged_attention"
+            # K1/K2 a layer: qkv and gate-up once each, o and down in 4 chunks each
+            want = {gemm_k: 10 * L, attn: L}
+            eng.submit(prompts[0][:16], max_new_tokens=4)       # warm-up
+            eng.run()
+            m, toks, logits = tp_serve(f"{label} {kind} tp={TP}", eng, prompts, want,
+                                       record=rank == 0)
+            holds = {}
+            if f"{label} {kind}" in held:
+                with tp_hold_launches(holds):
+                    for p in prompts:
+                        eng.submit(p, max_new_tokens=1)       # the prefill and one decode step
+                    eng.run()
+            m["held_step"] = holds
+            m["transport"] = tp_transport(eng, prompts[1])
+            out[f"{label} {kind}"] = dict(metrics=m, tokens=toks, logits=logits)
+            part(f"{label} {kind}")
+        out[f"{label} forced"] = _tp_forced(mcfg.replace(use_megakernel=False),
+                                            engines["scan"].qparams, one_q, prompts, mesh, rank)
+        part(f"{label} forced")
+        del engines, one_q
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the 2-layer cut against one device, and on the first prompt the CPU path
+    cut = tp_modes(cfg)["W8A8KV8"].replace(num_hidden_layers=CUT_LAYERS)
+    cparams = P.init_params(cut, seed=TP_SEED, dtype=torch.bfloat16)
+    out["cut"] = {len(prompts[i]): _tp_greedy_cut(cut, cparams, prompts[i], mesh, rank,
+                                                  cpu=rank == 0 and i == TP_CUT_PROMPTS[0])
+                  for i in TP_CUT_PROMPTS}
+    part("cut")
+    # beam search over TP, W8A8KV8 scan path, full depth and the cut
+    bprompt = prompts[1][:TP_BEAM_PROMPT]
+    out["beam"] = {}
+    for name, bcfg in (("full", tp_modes(cfg)["W8A8KV8"]), ("cut", cut)):
+        scan = bcfg.replace(use_megakernel=False)
+        params = cparams if name == "cut" else P.init_params(bcfg, seed=TP_SEED,
+                                                              dtype=torch.bfloat16)
+        shard = S.shard_qparams(S.quantize_params_tp(params, bcfg, TP), mesh)
+        del params
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, score = B.beam_generate(
+            shard, scan, bprompt, num_beams=BEAM_NUM, max_new_tokens=TP_BEAM_NEW,
+            fwd=S.make_tp_forward(scan, mesh), prefill=S.make_tp_prefill(scan, mesh))
+        torch.cuda.synchronize()
+        out["beam"][name] = dict(tokens=[int(t) for t in toks], score=score,
+                                 wall_s=time.perf_counter() - t0,
+                                 launches={k: n for k, n in read_counters().items() if n})
+        del shard
+        part(f"beam {name}")
+    # the multi-host driver: 2 hosts x tp 1, the W8A8KV8 scan path
+    w8 = tp_modes(cfg)["W8A8KV8"].replace(use_megakernel=False)
+    params = P.init_params(w8, seed=TP_SEED, dtype=torch.bfloat16)
+    drv = MultiHostServingDriver(params, w8, tp=1, local_size=1, max_batch=len(prompts))
+    del params
+    uids = [drv.submit(p, max_new_tokens=TP_NEW) for p in prompts]
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = {r.uid: [int(t) for t in r.output] for r in drv.run()}
+    torch.cuda.synchronize()
+    out["multihost"] = dict(host=drv.process_index, hosts=drv.process_count, uids=uids,
+                            owners=[drv.owner(u) for u in uids], served=served,
+                            wall_s=time.perf_counter() - t0,
+                            launches={k: n for k, n in read_counters().items() if n})
+    part("multihost")
+    return out
+
+
+def tp_serving_phase(cfg):
+    """Tensor-parallel serving at TinyLlama-1.1B's full width and depth, tp =
+    TP ranks on the one H100 spawned by ``parallel.launch`` over gloo
+    (``TP_TRANSPORT``), through the entry points: ``InferenceEngine(mesh=)``
+    and ``PagedInferenceEngine(mesh=)`` over ``sharded.quantize_params_tp``
+    weights at W8A8KV8 and W4A8KV4 (packed cache), len(TP_PROMPT_LENS)
+    requests x TP_NEW greedy tokens each:
+
+    * every decode step launches 10L K1 (W8) or K2 (W4) a rank (qkv, gate-up,
+      and o and down in four column chunks each) and L K3 (scan) or K8
+      (paged), and no K9, though the config asks for the megakernel;
+    * every prefill call launches, a rank, L K4 and 10L K1 (below
+      XLA_INT8_MIN_ROWS padded rows; from there W8 takes the library GEMM)
+      or K2;
+    * teacher-forced with no engine (``_tp_forced``): the TP_FORCED prompts'
+      prefill and 4 decode steps through the TP scan and paged forwards
+      against one device's, drift <= TP_FULL_DRIFT; every prompt's prefill
+      codes against one device's, the first parting one level apart;
+    * the tokens equal the one-rank scan / paged engine's on the same weights
+      (``tp_compare_tokens``, tie-aware from the teacher-forced reading), the
+      same on both ranks;
+    * one held step (prefill and one decode step of the 4 requests): every
+      K1/K2/K3/K8/K4 launch at the shard shapes against its plain version;
+    * the gloo transport of one decode step, on the host's clock;
+    * a CUT_LAYERS-layer cut on 16 and 300 tokens (the latter's 512 rows
+      take W8's library GEMM in f32 chunks) through the TP scan and paged
+      forwards against one device, and on 16 tokens one device against the
+      port's CPU path: CUT_DRIFT, by the flip rule (``hold_flip``);
+    * beam search over TP (``beam_generate(fwd=, prefill=)``, BEAM_NUM beams x
+      TP_BEAM_NEW tokens) against one rank's: the cut's tokens equal and its
+      score within BEAM_CUT_REL, full depth's score within BEAM_SCORE_REL;
+    * ``multihost.MultiHostServingDriver`` on the two ranks as 2 hosts x tp
+      1: a disjoint, exhaustive partition of the requests with the one-rank
+      engine's tokens.
+
+    K1/K2 at the shard shapes, K3/K8 at the rank's kv heads are timed first
+    (``tp_kernel_shapes``). Walls are the card's shared by two ranks; the
+    transport is the host's."""
+    from llm_qat_torch.inference import beam as B
+    from llm_qat_torch.inference import paged as PG
+    from llm_qat_torch.inference import paged_engine as PE
+    from llm_qat_torch.inference import quantized as Q
+    from llm_qat_torch.inference.engine import InferenceEngine
+    from llm_qat_torch.models import params as P
+    from llm_qat_torch.ops import quant_matmul as QM
+    from llm_qat_torch.parallel import launch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TP_SEED)
+    shapes = tp_kernel_shapes(Timer(), gen, cfg)
+    prompts = tp_prompts(cfg)
+    L = cfg.num_hidden_layers
+    pcfg = PG.PagedConfig(page_size=PAGE, n_pages=TP_PAGES, max_pages_per_seq=SEQ_PAGES)
+    ref, ref_beam = {}, {}
+    cut = tp_modes(cfg)["W8A8KV8"].replace(num_hidden_layers=CUT_LAYERS)
+    for label, mcfg in tp_modes(cfg).items():
+        scan = mcfg.replace(use_megakernel=False)
+        gemm_k = "int8_matmul" if mcfg.w_bits == 8 else "int4_matmul"
+        params = P.init_params(mcfg, seed=TP_SEED, dtype=torch.bfloat16)
+        qp = Q.quantize_params(params, mcfg)
+        del params
+        for kind, eng in (("scan", InferenceEngine(qp, scan, max_batch=len(prompts))),
+                          ("paged", PE.PagedInferenceEngine(qp, scan, pcfg=pcfg,
+                                                            max_batch=len(prompts)))):
+            attn = "decode_attention" if kind == "scan" else "paged_attention"
+            eng.submit(prompts[0][:16], max_new_tokens=4)
+            eng.run()
+            m, toks, logits = tp_serve(f"{label} {kind} one rank", eng, prompts,
+                                       {gemm_k: 4 * L, attn: L}, record=True)
+            ref[f"{label} {kind}"] = dict(metrics=m, tokens=toks, logits=logits)
+        if mcfg.w_bits == 8:
+            for name, bcfg in (("full", scan), ("cut", cut.replace(use_megakernel=False))):
+                bq = qp if name == "full" else Q.quantize_params(
+                    P.init_params(cut, seed=TP_SEED, dtype=torch.bfloat16), bcfg)
+                toks, score = B.beam_generate(bq, bcfg, prompts[1][:TP_BEAM_PROMPT],
+                                              num_beams=BEAM_NUM, max_new_tokens=TP_BEAM_NEW)
+                ref_beam[name] = dict(tokens=[int(t) for t in toks], score=score)
+        del qp, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_tp_rank, TP, backend="gloo", device="cuda", args=(cfg, prompts),
+                         timeout=TP_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    log(f"  the ranks ran {spawn_s:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in ranks[0]["part_s"].items()))
+    out = dict(transport=TP_TRANSPORT, spawn_s=spawn_s, shapes=shapes, runs={}, beam={},
+               forced={}, rank_part_s=ranks[0]["part_s"])
+    # teacher-forced at full depth: the drift, the prefill codes
+    for label, mcfg in tp_modes(cfg).items():
+        fr = [r[f"{label} forced"] for r in ranks]
+        codes = [join_partings([f["codes"][i] for f in fr]) for i in range(len(prompts))]
+        cmp = fr[0]["compare"]
+        path_diff = max(v[2] for v in cmp.values())
+        log(f"  {label} tp={TP} teacher-forced at full depth against one device (prefill + 4 "
+            "steps; greedy tokens equal per step, relative L2 drift, largest absolute "
+            f"difference; limit {TP_FULL_DRIFT}): " + "; ".join(
+                f"{k} tokens {v[0]} {v[1]:.4g} ({v[2]:.4g})" for k, v in cmp.items())
+            + "; first parting prefill codes by prompt length: " + "; ".join(
+                f"{len(p)}: {parting_text(c)}" for p, c in zip(prompts, codes)))
+        if any(v[1] > TP_FULL_DRIFT for v in cmp.values()) or any(
+                c is not None and c["levels"] != 1 for c in codes):
+            raise AssertionError(f"{label} tp={TP} teacher-forced: {cmp}, codes {codes}")
+        out["forced"][label] = dict(compare=cmp, codes=codes, path_diff=path_diff)
+    launches = dict.fromkeys(counters(), 0)
+    for key, want in ref.items():
+        got = [r[key] for r in ranks]
+        if got[1]["tokens"] != got[0]["tokens"]:
+            raise AssertionError(f"{key} tp={TP}: the ranks emit different tokens")
+        forced = out["forced"][key.split()[0]]
+        cmp = tp_compare_tokens(key, (want["tokens"], want["logits"]),
+                                (got[0]["tokens"], got[0]["logits"]), forced["path_diff"],
+                                forced["codes"])
+        m, one = got[0]["metrics"], want["metrics"]
+        for r in got:
+            for name, h in r["metrics"]["held_step"].items():
+                if not h["ok"]:
+                    raise AssertionError(f"{key} tp={TP} rank held step: {name} {h}")
+        need = {"int8_matmul" if key.startswith("W8") else "int4_matmul", "_flash_fwd",
+                "quantized_decode_attention" if key.endswith("scan")
+                else "quantized_paged_attention"}
+        if m["held_step"] and not need <= set(m["held_step"]):
+            raise AssertionError(f"{key} tp={TP}: the held step held {set(m['held_step'])}")
+        tr = m["transport"]
+        log(f"  {key} tp={TP} (rank 0; the card's walls, two ranks sharing it): prefill "
+            f"{m['prefill_s']:.3f} s, decode {m['decode_ms_per_step']:.2f} ms/step over "
+            f"{m['decode_steps']} steps (one rank: {one['decode_ms_per_step']:.2f}), "
+            f"{m['generated_tok_per_s']:.1f} generated tok/s; launches a step "
+            f"{m['launches_per_step']} (one rank {one['launches_per_step']}); transport of one "
+            f"decode step on the host's clock ({TP_TRANSPORT}): {tr['collectives']} collectives "
+            f"in {1e3 * tr['transport_s']:.1f} ms of a {1e3 * tr['step_wall_s']:.1f} ms step (one "
+            "lone collective, the card idle: " + ", ".join(
+                f"{n} {1e3 * s:.3f} ms" for n, s in tr["lone_collective_s"].items()) + "); "
+            "held step: " + ("; ".join(
+                f"{n} {h['launches']} launches, max_abs_err {h['max_abs_err']:.3g}, worst "
+                f"{h['worst']:.3g}" for n, h in m["held_step"].items()) or "none in this run"))
+        out["runs"][key] = dict(tp=[r[key]["metrics"] for r in ranks], one_rank=one,
+                                tokens=cmp)
+        w4 = key.startswith("W4")
+        for r in got:
+            for rows, n in r["metrics"]["prefill_calls"]:
+                want_n = {"flash_fwd": L}
+                if w4 or -(-rows // 32) * 32 < QM.XLA_INT8_MIN_ROWS:
+                    want_n["int4_matmul" if w4 else "int8_matmul"] = 10 * L
+                if n != want_n:
+                    raise AssertionError(f"{key} tp={TP}: a prefill call of {rows} rows "
+                                         f"launched {n}, expected {want_n}")
+            for k, v in (*r["metrics"]["decode_launches"].items(),
+                         *r["metrics"]["prefill_launches"].items()):
+                launches[k] += v
+    held_names = {n for r in out["runs"].values() for n in r["tp"][0]["held_step"]}
+    if held_names != {"int8_matmul", "int4_matmul", "quantized_decode_attention",
+                      "quantized_paged_attention", "_flash_fwd"}:
+        raise AssertionError(f"tp={TP}: the held steps held {held_names}")
+    # the cut: TP against one device on the card, and one device against the
+    # CPU path (whose K4 and cuBLAS products round otherwise), by the flip
+    # rule; TP against the CPU path is their composition, shown
+    out["cut"] = {}
+    for n_tok in ranks[0]["cut"]:
+        res = ranks[0]["cut"][n_tok]
+        for path, r in res["steps"].items():
+            codes = dict(res["codes"][path], tp_vs_one=join_partings(
+                [rk["cut"][n_tok]["codes"][path]["tp_vs_one"] for rk in ranks]))
+            log(f"  {CUT_LAYERS}-layer cut, {n_tok} tokens, {path}: greedy tokens equal and "
+                "relative L2 drift per logit vector, and the first parting codes: " + "; ".join(
+                    f"{k} {v[0]} [{', '.join(f'{d:.3g}' for d in v[1])}]"
+                    + (f" codes {parting_text(codes[k])}" if k in codes else "")
+                    for k, v in r.items()))
+            for k, parting in codes.items():
+                hold_flip(f"TP {CUT_LAYERS}-layer cut, {n_tok} tokens, {path}, {k}", r[k], parting)
+            out["cut"][f"{n_tok} {path}"] = dict(steps=r, codes=codes)
+    steps = TP_BEAM_NEW - 1
+    for name, limit in (("full", BEAM_SCORE_REL), ("cut", BEAM_CUT_REL)):
+        b0, b1, want = ranks[0]["beam"][name], ranks[1]["beam"][name], ref_beam[name]
+        rel = abs(b0["score"] - want["score"]) / abs(want["score"])
+        Lb = cut.num_hidden_layers if name == "cut" else L
+        # the prefill's 64 rows take K1 too
+        want_l = {"int8_matmul": 10 * Lb * (steps + 1), "decode_attention": Lb * steps,
+                  "flash_fwd": Lb}
+        ok = (b0["tokens"] == b1["tokens"] and b0["score"] == b1["score"] and rel <= limit
+              and (name == "full" or b0["tokens"] == want["tokens"])
+              and all(b["launches"] == want_l for b in (b0, b1)))
+        log(f"  beam over TP, {name} ({Lb} layers), {BEAM_NUM} beams x {TP_BEAM_NEW} tokens: "
+            f"{1e3 * b0['wall_s'] / TP_BEAM_NEW:.1f} ms a token (the card's wall, shared), "
+            f"tokens {'equal to' if b0['tokens'] == want['tokens'] else 'part from'} one rank's, "
+            f"score {rel:.3g} apart (limit {limit}); launches {b0['launches']}")
+        if not ok:
+            raise AssertionError(f"beam over TP {name}: {b0}, {b1}, one rank {want}")
+        out["beam"][name] = dict(rank0=b0, one_rank=want, score_rel=rel)
+        if name == "full":
+            for b in (b0, b1):
+                for k, n in b["launches"].items():
+                    launches[k] += n
+    mh = [r["multihost"] for r in ranks]
+    served = {}
+    for r in mh:
+        served.update(r["served"])
+        mine = [u for u, o in zip(r["uids"], r["owners"]) if o == r["host"]]
+        if sorted(r["served"]) != sorted(mine) or r["hosts"] != 2:
+            raise AssertionError(f"multi-host: host {r['host']} served {sorted(r['served'])}, "
+                                 f"owns {mine}")
+    want_toks = ref["W8A8KV8 scan"]["tokens"]
+    if sorted(served) != list(range(len(prompts))) or any(
+            served[u] != want_toks[u] for u in served):
+        raise AssertionError(f"multi-host: served {served}, one rank {want_toks}")
+    walls = ", ".join(f"{r['wall_s']:.2f} s" for r in mh)
+    log(f"  multi-host driver, 2 hosts x tp 1 (W8A8KV8 scan path): {len(served)} requests, "
+        f"each on its owner, tokens equal to one rank's; walls {walls}; launches a host "
+        f"{mh[0]['launches']}")
+    for r in mh:
+        for k, n in r["launches"].items():
+            launches[k] += n
+    out["multihost"] = mh
+    out["launches"] = launches
+    return out
+
+
 T_START = time.perf_counter()
+PHASE_S = {}
+_LAP = [T_START]
+
+
+def lap(name):
+    """Seconds since the previous lap, kept as phase ``name``'s time."""
+    now = time.perf_counter()
+    PHASE_S[name] = now - _LAP[0]
+    _LAP[0] = now
+    log(f"    phase {name}: {PHASE_S[name]:.1f} s")
 
 
 def main() -> int:
@@ -3224,6 +4041,7 @@ def main() -> int:
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}")
     _build.build_all()
     log(f"    kernels built in {_build.build_seconds:.1f} s into {_build.BUILD_DIR}")
+    lap("build")
 
     cfg = TINYLLAMA_1B                 # the default: use_megakernel=True
     gen = torch.Generator(device="cuda")
@@ -3279,6 +4097,7 @@ def main() -> int:
         raise AssertionError(f"a tensor-core kernel, K9, a K1/K2, a K3/K7/K8 or a K12/K13 variant "
                              f"spills registers: {attrs}")
     fq = fused_quant_phase(timer, gen, FQ, cfg)
+    lap("[2] kernels")
 
     log("[3] TinyLlama-1.1B, 22 layers: the stacked GEMMs on the served weights, the "
         "decode megakernel against its plain version, then serving 8 requests x 64 new "
@@ -3314,6 +4133,7 @@ def main() -> int:
         served[label] = (scan, dflt, roomy)
         runs += [scan[0], dflt[0]]
         paged_runs += [roomy[0], tight[0]]
+    lap("[3] TinyLlama serving")
     log("[3b] LLaMA-7B, 32 layers, 32 MHA heads of 128: the decode megakernel against its "
         "plain version at W8A8KV8 and W4A8KV4, then serving the same 8 requests at "
         f"{', '.join(LLAMA7B_SERVE)} on the default path and on the scan path")
@@ -3322,6 +4142,7 @@ def main() -> int:
     runs += l7["runs"]
     flips.update({f"{k} LLaMA-7B": v for k, v in l7["flips"].items()})
     del timer
+    lap("[3b] LLaMA-7B serving")
     for label, mcfg in modes.items():
         checks.append(cpu_check(label, mcfg, qps.pop(label), rng))
         scan, dflt, roomy = served.pop(label)
@@ -3332,6 +4153,7 @@ def main() -> int:
             label, scan, roomy, max(checks[-1]["full_depth"]["paged_vs_scan"][2],
                                     checks[-1]["full_depth"]["kernels_vs_plain"][2]),
             other="paged")
+    lap("[3c] GPU against CPU")
 
     log(f"[4] KD-QAT training, TinyLlama-1.1B W4A8KV4, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} "
         f"tokens, kl_chunk {KL_CHUNK}: {TRAIN_WARM} + {TRAIN_STEPS} steps at full depth, "
@@ -3344,12 +4166,14 @@ def main() -> int:
     trains = train_phases(cfg, LLAMA_7B)
     tcheck = {"TinyLlama-1.1B": train_check(cfg),
               "LLaMA-7B width": train_check(LLAMA_7B, with_cpu=False)}
+    lap("[4] training")
     log(f"[4b] the reference's pipeline at TinyLlama-1.1B's full width and depth through the "
         f"port's entry points: HF teacher checkpoint, synthesis ({3 * PIPE_VOCAB} documents of "
         f"{PIPE_LEN} tokens), cli.train.run ({PIPE_STEPS} steps of {TRAIN_SEQ} tokens, export, "
         f"eval), resume on a {PIPE_RESUME_LAYERS}-layer cut ({smi})")
     pipe = pipeline_phase(cfg)
     student_dir = pipe.pop("student_dir")
+    lap("[4b] pipeline")
     log(f"[4c] evaluation at TinyLlama-1.1B's full width and depth through the port's entry "
         f"points: cli.eval.main on the pipeline's student (8 tasks x {EVAL_DOCS} docs, "
         f"perplexity over {EVAL_PPL_BLOCKS} x {EVAL_PPL_BLOCK} tokens, a --max_len {EVAL_CAP} "
@@ -3359,13 +4183,22 @@ def main() -> int:
         ev = eval_phase(cfg, os.path.join(student_dir, "model"))
     finally:
         shutil.rmtree(student_dir, ignore_errors=True)
-    log(f"[4d] multi-device KD-QAT training at TinyLlama-1.1B's full width and depth, two ranks "
-        f"on the one card ({MD_TRANSPORT}): FSDP fsdp=2 ({MD_BATCH} x {MD_SEQ} tokens, "
+    lap("[4c] eval")
+    log(f"[4d] multi-device KD-QAT training at TinyLlama-1.1B's full width, {MD_LAYERS} layers, "
+        f"two ranks on the one card ({MD_TRANSPORT}): FSDP fsdp=2 ({MD_BATCH} x {MD_SEQ} tokens, "
         f"{MD_WARM} + {MD_STEPS} steps), CP cp=2 ({MD_CP_BATCH} x {MD_CP_SEQ} tokens, "
         f"{MD_CP_WARM} + {MD_CP_STEPS} steps, ring transport bf16 and int8), {CUT_LAYERS}-layer "
         f"cuts against one device, K4/K10/K11 non-causal at the ring's shape, NCCL at world 1 "
         f"through the train CLI ({smi})")
     md = multi_device_phase(cfg)
+    lap("[4d] multi-device training")
+    log(f"[4e] tensor-parallel serving at TinyLlama-1.1B's full width and depth, tp={TP} ranks "
+        f"on the one card ({TP_TRANSPORT}): InferenceEngine(mesh=) and "
+        f"PagedInferenceEngine(mesh=) at W8A8KV8 and W4A8KV4, {len(TP_PROMPT_LENS)} requests x "
+        f"{TP_NEW} tokens, against one rank; a held step; a {CUT_LAYERS}-layer cut against the "
+        f"CPU path; beam search over TP; the multi-host driver as 2 hosts x tp 1 ({smi})")
+    tp = tp_serving_phase(cfg)
+    lap("[4e] tensor-parallel serving")
 
     # each path went through its kernels, and only through them
     for m in runs:
@@ -3403,7 +4236,7 @@ def main() -> int:
                     max_abs_err=max(s["max_abs_err"] for s in sel))
 
     launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) + pipe["launches"][k]
-                + ev["launches"][k] + md["launches"][k] for k in counters()}
+                + ev["launches"][k] + md["launches"][k] + tp["launches"][k] for k in counters()}
     # K5-K7 are on no serving path of either package: their counts are those
     # of their kernel phases
     launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
@@ -3421,21 +4254,25 @@ def main() -> int:
         dict(name="int8_matmul", source="llm_qat_torch/csrc/int8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:77",
              shape="one TinyLlama-1.1B decode layer: qkv+o+gateup+down at M=32 (LLaMA-7B's "
-                   "in shapes); library_ms: torch._int_mm on the K-contiguous weight "
-                   "(row-major: library_rowmajor_ms in shapes)",
-             **per_layer(gemm["int8_matmul"], 32), shapes=gemm["int8_matmul"]),
+                   "and a tp=2 rank's shard shapes in shapes); library_ms: torch._int_mm on the "
+                   "K-contiguous weight (row-major: library_rowmajor_ms in shapes)",
+             **per_layer(gemm["int8_matmul"], 32),
+             shapes=gemm["int8_matmul"] + tp["shapes"]["int8_matmul"]),
         dict(name="int4_matmul", source="llm_qat_torch/csrc/w4a8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:394",
              shape="one TinyLlama-1.1B decode layer: qkv+o+gateup+down at M=32 (prefill rows "
-                   "1024 and 4096, and LLaMA-7B's at 32 and 1024, in shapes)",
-             **per_layer(gemm["int4_matmul"], 32), shapes=gemm["int4_matmul"]),
+                   "1024 and 4096, LLaMA-7B's at 32 and 1024, and a tp=2 rank's shard shapes, "
+                   "in shapes)",
+             **per_layer(gemm["int4_matmul"], 32),
+             shapes=gemm["int4_matmul"] + tp["shapes"]["int4_matmul"]),
         dict(name="decode_attention", source="llm_qat_torch/csrc/decode_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:55",
              shape="b=8 S=2048 int8 cache, TinyLlama-1.1B heads (packed KV4, LLaMA-7B "
-                   "heads kvh=32 G=1 hd=128, and S=8192, in shapes)",
+                   "heads kvh=32 G=1 hd=128, S=8192, and a tp=2 rank's kvh=2, in shapes)",
              **{k: dec[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")},
-             max_abs_err=max(d["max_abs_err"] for d in dec), shapes=dec),
+             max_abs_err=max(d["max_abs_err"] for d in dec + tp["shapes"]["decode_attention"]),
+             shapes=dec + tp["shapes"]["decode_attention"]),
         dict(name="flash_fwd", source="llm_qat_torch/csrc/flash_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:94",
              shape="B=4 G=8 S=1024 D=64 causal (S=128, the scorer's B=64 at S=32, 64, 100 and "
@@ -3456,9 +4293,11 @@ def main() -> int:
         dict(name="paged_attention", source="llm_qat_torch/csrc/paged_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:646",
              shape=f"b=8, pool {ROOMY_PAGES} x {PAGE}, {SEQ_PAGES} pages a sequence, int8 pool, "
-                   "TinyLlama-1.1B heads (packed KV4 and LLaMA-7B heads in shapes)",
+                   "TinyLlama-1.1B heads (packed KV4, LLaMA-7B heads and a tp=2 rank's kvh=2 "
+                   "in shapes)",
              **{k: k8[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-             max_abs_err=max(d["max_abs_err"] for d in pag), shapes=pag),
+             max_abs_err=max(d["max_abs_err"] for d in pag + tp["shapes"]["paged_attention"]),
+             shapes=pag + tp["shapes"]["paged_attention"]),
         dict(name="int8_matmul_stacked", source="llm_qat_torch/csrc/int8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:237",
              shape=f"layer {STACK_LAYER} of the stacked weights: qkv+o+gateup+down at M=32",
@@ -3502,14 +4341,17 @@ def main() -> int:
                  launches_pipeline=pipe["launches"][r["name"]],
                  launches_eval=ev["launches"][r["name"]],
                  launches_multi_device=md["launches"][r["name"]],
+                 launches_tp=tp["launches"][r["name"]],
                  tpu_kernel=r["replaces"], max_err=r["max_abs_err"])
     log("[5] results")
-    log(f"    chip_smoke.py ran {time.perf_counter() - T_START:.1f} s (kernel builds included)")
+    log(f"    chip_smoke.py ran {time.perf_counter() - T_START:.1f} s (kernel builds included); "
+        "phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in PHASE_S.items()))
     log(json.dumps({"serving": runs, "paged_serving": paged_runs, "token_flips": flips,
                     "timer_floor_ms": gemm["timer_floor_ms"],
                     "llama7b_teacher_forced": l7["teacher_forced"],
                     "cpu_checks": checks, "training": trains, "train_check": tcheck,
-                    "pipeline": pipe, "eval": ev, "multi_device": md, "card": smi}))
+                    "pipeline": pipe, "eval": ev, "multi_device": md, "tp_serving": tp,
+                    "phase_s": PHASE_S, "card": smi}))
     log(json.dumps({"kernel_attributes": attrs}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

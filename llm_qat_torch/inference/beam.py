@@ -143,6 +143,7 @@ def beam_generate(
     length_penalty: float = 1.0,
     dtype=torch.bfloat16,
     fwd=None,
+    prefill=None,
     device=None,
 ) -> Tuple[np.ndarray, float]:
     """Beam-decode one prompt on ``device`` (``cuda`` unless ``device="cpu"``;
@@ -150,8 +151,12 @@ def beam_generate(
     best hypothesis (tokens truncated at EOS when hit).
 
     ``fwd(qparams, ids [B, 1], lens [B], active [B], cache) -> (logits
-    [B, 1, V], cache)`` defaults to the single-device ``serving_forward``; a
-    tensor-parallel step can run the same search.
+    [B, 1, V], cache)`` defaults to the single-device ``serving_forward`` and
+    ``prefill(qparams, ids [1, s]) -> (logits, rows)`` to ``prefill_slot``.
+    The tensor-parallel pair (``sharded.make_tp_forward``,
+    ``sharded.make_tp_prefill``, over this rank's ``shard_qparams``) runs the
+    same search on every rank of the group: the beams' cache holds the heads
+    the prefill's rows hold.
     """
     dev = resolve_device(device)
     check_on(dev, embed=qparams["embed"])
@@ -169,11 +174,15 @@ def beam_generate(
         bucket *= 2
     ids = np.zeros((1, bucket), np.int64)
     ids[0, :plen] = prompt
-    logits, rows = M.prefill_slot(qparams, config, ids, dtype=dtype, device=dev)
+    if prefill is None:
+        def prefill(qp, ids):
+            return M.prefill_slot(qp, config, ids, dtype=dtype, device=dev)
+    logits, rows = prefill(qparams, ids)
     max_len = 64
     while max_len < max(bucket, plen + max_new_tokens + 1):
         max_len *= 2
-    cache = M.init_serving_cache(config, num_beams, max_len, device=dev)
+    cache = M.init_serving_cache(config, num_beams, max_len, device=dev,
+                                 kv_heads=rows["k_q"].shape[2])
     for k in ("k_q", "k_s", "v_q", "v_s"):
         cache[k][:, :, ..., :bucket] = rows[k]        # rows' batch of 1 broadcasts
     cache["lengths"] = torch.full((num_beams,), plen, dtype=torch.int32, device=dev)

@@ -1,6 +1,7 @@
 """Continuous-batching inference engine over the true-int serving model.
 
-Port of the JAX package's ``inference/engine.py`` (single device):
+Port of the JAX package's ``inference/engine.py``, on one device or, with
+``mesh=``, tensor-parallel over a ``tp`` group (``inference/sharded.py``):
 
 * a fixed ``[max_batch]`` slot array shares one decode step;
 * sampling stays on the device and ``steps_per_sync`` tokens are sampled
@@ -12,6 +13,8 @@ Port of the JAX package's ``inference/engine.py`` (single device):
 Sampling is greedy where a request's temperature is 0, else top-k
 temperature sampling with ``torch.multinomial`` on the engine's
 ``torch.Generator`` (seeded from ``seed``; its numbers are not JAX's).
+Under a mesh every rank runs this loop on the same request stream with the
+same seed; the logits are replicated, so every rank emits the same tokens.
 """
 
 from __future__ import annotations
@@ -90,12 +93,16 @@ class InferenceEngine:
         top_k: int = 50,
         dtype=torch.bfloat16,
         seed: int = 0,
+        mesh=None,
         device=None,
     ):
-        """Single-device engine on ``device`` (``cuda`` unless
-        ``device="cpu"``) over ``qparams`` from
-        ``quantized.quantize_params`` (tensor-parallel serving is not
-        ported yet)."""
+        """Engine on ``device`` (``cuda`` unless ``device="cpu"``). With
+        ``mesh=None`` it serves on one device over ``qparams`` from
+        ``quantized.quantize_params``. ``mesh``: a ``DeviceMesh`` with a
+        ``tp`` axis (``parallel.mesh.make_serving_mesh``) makes it
+        tensor-parallel over that axis's group: pass the whole
+        ``sharded.quantize_params_tp`` tree (tp = the axis's size); the engine
+        keeps this rank's shard of it and of the cache."""
         self.device = resolve_device(device)
         self.config = config
         self.max_batch = max_batch
@@ -103,14 +110,29 @@ class InferenceEngine:
         self.steps_per_sync = steps_per_sync
         self.top_k = top_k
         self.dtype = dtype
-        self.qparams = qparams
-        if self.device.type == "cuda" and config.use_megakernel:
-            from llm_qat_torch.inference import megakernel
+        self.mesh = mesh
+        if mesh is None:
+            self.qparams = qparams
+            if self.device.type == "cuda" and config.use_megakernel:
+                from llm_qat_torch.inference import megakernel
 
-            if megakernel.card_takes(config, max_batch, max_len, dtype):
-                # the decode kernel's K-contiguous weights, made once, up front
-                megakernel.card_weights(qparams)
-        self.cache = M.init_serving_cache(config, max_batch, max_len, device=self.device)
+                if megakernel.card_takes(config, max_batch, max_len, dtype):
+                    # the decode kernel's K-contiguous weights, made once, up front
+                    megakernel.card_weights(qparams)
+            self.cache = M.init_serving_cache(config, max_batch, max_len, device=self.device)
+            self._fwd = lambda qp, ids, lens, active, cache: M.serving_forward(
+                qp, config, ids, lens, active, cache, dtype=dtype, device=self.device)
+            self._prefill = lambda qp, ids: M.prefill_slot(qp, config, ids, dtype=dtype,
+                                                           device=self.device)
+        else:
+            from llm_qat_torch.inference import sharded as S
+
+            S.check_mesh(mesh)
+            self.qparams = S.shard_qparams(qparams, mesh)
+            self.cache = S.init_serving_cache_tp(config, max_batch, max_len, mesh,
+                                                 device=self.device)
+            self._fwd = S.make_tp_forward(config, mesh, dtype=dtype, device=self.device)
+            self._prefill = S.make_tp_prefill(config, mesh, dtype=dtype, device=self.device)
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.queue: deque[Request] = deque()
         self._uid = 0
@@ -119,14 +141,6 @@ class InferenceEngine:
         # held logits for the next sample, one row per slot
         self._logits = torch.zeros((max_batch, config.vocab_size),
                                    dtype=torch.float32, device=self.device)
-
-    def _fwd(self, qparams, ids, lens, active, cache):
-        return M.serving_forward(qparams, self.config, ids, lens, active, cache,
-                                 dtype=self.dtype, device=self.device)
-
-    def _prefill(self, qparams, ids):
-        return M.prefill_slot(qparams, self.config, ids, dtype=self.dtype,
-                              device=self.device)
 
     # ------------------------------------------------------------------ API
 

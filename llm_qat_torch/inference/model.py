@@ -26,6 +26,14 @@ shape decodes on the scan path there); otherwise, and with
 per layer over the read-only cache with the current token folded in, then
 commits one K/V column per layer and slot. The scan path's layer stack is a
 Python loop (JAX: scan).
+
+``tp_group`` (a process group) makes a call the shard-local body of the
+tensor-parallel step (``inference/sharded.py``): qkv and gate-up hold this
+rank's heads and ffn channels, the cache its kv heads, o and down are summed
+over the group, every per-token scale of K, V and a row-parallel input comes
+from the group's global absmax (so the sharded cache holds the single-device
+integers), and a vocab-sharded lm_head's logits are all-gathered. The
+megakernel never runs under it (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from llm_qat_torch.device import check_on, resolve_device
 from llm_qat_torch.inference import quantized as Q
@@ -42,19 +51,21 @@ from llm_qat_torch.ops import decode_attention as DA
 from llm_qat_torch.ops import qat_matmul
 from llm_qat_torch.ops import quant_matmul as QM
 from llm_qat_torch.ops.flash_attention import flash_attention
+from llm_qat_torch.parallel import comm
 
 _NEG_INF = -1e9
 _CACHE_KEYS = ("k_q", "k_s", "v_q", "v_s")
 
 
 def init_serving_cache(config: LlamaConfig, batch: int, max_len: int,
-                       device=None) -> Dict[str, torch.Tensor]:
+                       device=None, kv_heads: int = None) -> Dict[str, torch.Tensor]:
     """Quantized KV cache for ``batch`` slots of ``max_len`` positions on
     ``device`` (``cuda`` unless ``device="cpu"``). ``max_len`` must be a
-    multiple of 8 (the JAX decode kernel's tiling; kept so caches match)."""
+    multiple of 8 (the JAX decode kernel's tiling; kept so caches match).
+    ``kv_heads``: the heads a tensor-parallel rank holds (default: all)."""
     if max_len % 8:
         raise ValueError(f"serving cache max_len must be a multiple of 8, got {max_len}")
-    return _empty_cache(config, batch, max_len, resolve_device(device))
+    return _empty_cache(config, batch, max_len, resolve_device(device), kv_heads)
 
 
 def cache_is_packed(config: LlamaConfig) -> bool:
@@ -64,12 +75,12 @@ def cache_is_packed(config: LlamaConfig) -> bool:
 
 
 def _empty_cache(config: LlamaConfig, batch: int, max_len: int,
-                 device) -> Dict[str, torch.Tensor]:
+                 device, kv_heads: int = None) -> Dict[str, torch.Tensor]:
     c = config
     packed = cache_is_packed(c)
     hd = c.head_dim // 2 if packed else c.head_dim
     qdt = torch.uint8 if packed else torch.int8
-    kshape = (c.num_hidden_layers, batch, c.kv_heads, hd, max_len)
+    kshape = (c.num_hidden_layers, batch, kv_heads or c.kv_heads, hd, max_len)
     sshape = (c.num_hidden_layers, batch, max_len)
     return {
         "k_q": torch.zeros(kshape, dtype=qdt, device=device),
@@ -80,15 +91,16 @@ def _empty_cache(config: LlamaConfig, batch: int, max_len: int,
     }
 
 
-def _write_kv(cache_q, cache_s, new, write_pos, kvh, hd, kv_bits, packed=False):
+def _write_kv(cache_q, cache_s, new, write_pos, kvh, hd, kv_bits, packed=False, group=None):
     """Quantize ``new`` [b, s, kvh*hd] per token and write each slot's rows
     at its own offset, IN PLACE, into the transposed cache_q
     [b, kvh, hd(/2), S] and cache_s [b, S]. As with ``dynamic_update_slice``
     the offset is clamped to ``S - s`` so the rows fit. Returns the
     fake-quant value of ``new`` ([b, s, kvh, hd] f32, equal to reading the
-    written rows back)."""
+    written rows back). ``group``: ``new`` holds this rank's heads; the scale
+    is the group's global absmax."""
     b, s, _ = new.shape
-    nq, ns = Q.quantize_kv(new, kv_bits)           # int8 [b,s,kv], [b,s,1]
+    nq, ns = Q.quantize_kv(new, kv_bits, Q.token_absmax(new, group))  # int8 [b,s,kv], [b,s,1]
     inv = (1.0 / (ns + 1e-6))[..., 0]              # [b, s] inverse scales
     fq = (nq.float() * inv[..., None]).reshape(b, s, kvh, hd)
     nq = nq.reshape(b, s, kvh, hd)
@@ -103,12 +115,12 @@ def _write_kv(cache_q, cache_s, new, write_pos, kvh, hd, kv_bits, packed=False):
     return fq
 
 
-def _quant_kv_cols(new, kvh, hd, kv_bits):
+def _quant_kv_cols(new, kvh, hd, kv_bits, group=None):
     """Quantize one decode step's K or V per token without touching the
     cache: ``new`` [b, 1, kvh*hd] -> (int8 columns [b, kvh, hd], inverse
-    scales [b, 1]). Same integers as ``_write_kv``."""
+    scales [b, 1]). Same integers as ``_write_kv``, ``group`` as there."""
     b = new.shape[0]
-    nq, ns = Q.quantize_kv(new, kv_bits)
+    nq, ns = Q.quantize_kv(new, kv_bits, Q.token_absmax(new, group))
     inv = (1.0 / (ns + 1e-6))[:, 0]                # [b, 1]
     return nq[:, 0].reshape(b, kvh, hd), inv
 
@@ -154,6 +166,7 @@ def _serving_layer(
     dtype,
     rope_tables=None,           # (cos, sin) [hd/2, max_len] for decode
     from_empty=False,           # active slots prefill at length 0
+    tp_group=None,              # the tensor-parallel group (module docstring)
 ):
     c = config
     b, s, _ = h.shape
@@ -167,6 +180,8 @@ def _serving_layer(
     k_q, k_s, v_q, v_s = kv_layer
     max_len = k_q.shape[-1]
     packed = cache_is_packed(c)
+    # local head counts come from the (possibly head-sharded) cache and the
+    # fused projection's shape
     kvh = k_q.shape[1]
 
     x = llama.rms_norm(h, lq["attn_norm"], c.rms_norm_eps)
@@ -188,11 +203,11 @@ def _serving_layer(
     if fold_decode:
         # quantize the current K/V but don't write: the kernel folds the
         # pair in, and the caller commits all layers' columns afterwards
-        k_cols, k_inv = _quant_kv_cols(k, kvh, hd, kb)
-        v_cols, v_inv = _quant_kv_cols(v, kvh, hd, kb)
+        k_cols, k_inv = _quant_kv_cols(k, kvh, hd, kb, tp_group)
+        v_cols, v_inv = _quant_kv_cols(v, kvh, hd, kb, tp_group)
     else:
-        fq_k = _write_kv(k_q, k_s, k, write_pos, kvh, hd, kb, packed)
-        fq_v = _write_kv(v_q, v_s, v, write_pos, kvh, hd, kb, packed)
+        fq_k = _write_kv(k_q, k_s, k, write_pos, kvh, hd, kb, packed, tp_group)
+        fq_v = _write_kv(v_q, v_s, v, write_pos, kvh, hd, kb, packed, tp_group)
 
     qh = llama.apply_rope(q.reshape(b, s, nh, hd), qcos, qsin)
 
@@ -225,15 +240,22 @@ def _serving_layer(
         mask = torch.where(vis, 0.0, _NEG_INF)[:, None].float()
         attn = llama._attend(qh, kd, vd, mask)
 
-    h = h + Q.quant_linear(attn, lq["o"], c.w_bits, a_bits=c.a_bits, out_dtype=dtype)
+    return _post_attention(h, attn, lq, c, dtype, tp_group), (
+        (k_cols, k_inv, v_cols, v_inv) if fold_decode else None)
+
+
+def _post_attention(h, attn, lq, config: LlamaConfig, dtype, tp_group=None):
+    """A layer past its attention: the o projection and residual, then the
+    MLP. o and down are the row-parallel half of the Megatron pair: under
+    ``tp_group`` they sum over the group in their stored column chunks."""
+    c = config
+    h = h + Q.quant_linear(attn, lq["o"], c.w_bits, a_bits=c.a_bits, out_dtype=dtype,
+                           reduce_group=tp_group)
     x = llama.rms_norm(h, lq["mlp_norm"], c.rms_norm_eps)
     gateup = Q.quant_linear(x, lq["gateup"], c.w_bits, a_bits=c.a_bits, out_dtype=dtype)
     gate, up = gateup.chunk(2, dim=-1)
-    x = Q.quant_linear(torch.nn.functional.silu(gate) * up, lq["down"], c.w_bits,
-                       a_bits=c.a_bits, out_dtype=dtype)
-    if fold_decode:
-        return h + x, (k_cols, k_inv, v_cols, v_inv)
-    return h + x, None
+    return h + Q.quant_linear(torch.nn.functional.silu(gate) * up, lq["down"], c.w_bits,
+                              a_bits=c.a_bits, out_dtype=dtype, reduce_group=tp_group)
 
 
 def _layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -243,7 +265,7 @@ def _layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 
 def _forward(qparams, config: LlamaConfig, input_ids, seq_lens, active, cache,
-             dtype=torch.bfloat16, from_empty=False):
+             dtype=torch.bfloat16, from_empty=False, tp_group=None):
     """Run ``s`` new tokens for every slot at its own offset. Inactive slots
     compute but don't commit (their rows go to a scratch position and their
     lengths don't advance). The cache tensors are updated IN PLACE; the
@@ -255,7 +277,7 @@ def _forward(qparams, config: LlamaConfig, input_ids, seq_lens, active, cache,
     b, s = input_ids.shape
     max_len = cache["k_q"].shape[4]
     dev = input_ids.device
-    if s == 1 and c.use_megakernel:
+    if s == 1 and c.use_megakernel and tp_group is None:
         from llm_qat_torch.inference import megakernel
 
         # configs outside supported() serve via the scan path below, and so,
@@ -285,7 +307,7 @@ def _forward(qparams, config: LlamaConfig, input_ids, seq_lens, active, cache,
         kv = tuple(cache[k][i] for k in _CACHE_KEYS)
         h, new_cols = _serving_layer(
             h, _layer_params(qparams["layers"], i), c, positions, kv,
-            write_pos, new_len, dtype, rope_tables, from_empty,
+            write_pos, new_len, dtype, rope_tables, from_empty, tp_group,
         )
         cols.append(new_cols)
     if fold_decode:
@@ -295,15 +317,20 @@ def _forward(qparams, config: LlamaConfig, input_ids, seq_lens, active, cache,
                           k_cols, v_cols, k_invs, v_invs, write_pos,
                           cache_is_packed(c))
 
-    return final_logits(h, qparams, c), dict(cache, lengths=new_len)
+    return final_logits(h, qparams, c, tp_group), dict(cache, lengths=new_len)
 
 
-def final_logits(h: torch.Tensor, qparams, config: LlamaConfig) -> torch.Tensor:
+def final_logits(h: torch.Tensor, qparams, config: LlamaConfig,
+                 tp_group=None) -> torch.Tensor:
     """Final RMSNorm and the fp lm_head: operands in the model type, fp32
-    products and output (the JAX package's ``preferred_element_type=f32``)."""
+    products and output (the JAX package's ``preferred_element_type=f32``).
+    Under ``tp_group`` an lm_head holds this rank's vocab columns: the
+    logits are all-gathered over the group (a tied head is replicated)."""
     h = llama.rms_norm(h, qparams["final_norm"], config.rms_norm_eps)
     head = qparams["lm_head"] if "lm_head" in qparams else qparams["embed"].T
     logits = qat_matmul.mm_f32(h.reshape(-1, h.shape[-1]), head.to(h.dtype))
+    if tp_group is not None and "lm_head" in qparams:
+        logits = comm.all_gather(logits, -1, tp_group)
     return logits.reshape(*h.shape[:-1], logits.shape[-1])
 
 
@@ -312,20 +339,22 @@ def _as_tensor(x, dtype, device) -> torch.Tensor:
 
 
 def prefill_slot(qparams, config: LlamaConfig, input_ids, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, tp_group=None):
     """Batch prefill from empty: run each row's (bucketed) prompt against a
     temporary ``s``-row cache and return (logits [b, s, V], rows), the rows
     to splice into the persistent cache with ``insert_slot``. Runs on
-    ``device`` (``cuda`` unless ``device="cpu"``)."""
+    ``device`` (``cuda`` unless ``device="cpu"``). Under ``tp_group`` the rows
+    hold this rank's kv heads, as its persistent cache does."""
     dev = resolve_device(device)
     ids = _as_tensor(input_ids, torch.int64, dev)
     b, s = ids.shape
-    cache = _empty_cache(config, b, s, dev)  # prefill-only: no alignment need
+    kvh = config.kv_heads // (1 if tp_group is None else dist.get_world_size(tp_group))
+    cache = _empty_cache(config, b, s, dev, kvh)  # prefill-only: no alignment need
     check_on(dev, embed=qparams["embed"])
     return _forward(
         qparams, config, ids, torch.zeros((b,), dtype=torch.int32, device=dev),
         torch.ones((b,), dtype=torch.bool, device=dev), cache, dtype,
-        from_empty=True,
+        from_empty=True, tp_group=tp_group,
     )
 
 
@@ -344,7 +373,8 @@ def insert_slot(cache: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor],
 
 
 def serving_forward(qparams, config: LlamaConfig, input_ids, seq_lens, active,
-                    cache, dtype=torch.bfloat16, from_empty=False, device=None):
+                    cache, dtype=torch.bfloat16, from_empty=False, device=None,
+                    tp_group=None):
     """One serving step for every slot (see ``_forward``) on ``device``
     (``cuda`` unless ``device="cpu"``); params and cache must lie there.
     Returns (logits [b, s, V] f32, cache) with the cache updated IN PLACE."""
@@ -353,5 +383,5 @@ def serving_forward(qparams, config: LlamaConfig, input_ids, seq_lens, active,
     return _forward(
         qparams, config, _as_tensor(input_ids, torch.int64, dev),
         _as_tensor(seq_lens, torch.int32, dev), _as_tensor(active, torch.bool, dev),
-        cache, dtype, from_empty=from_empty,
+        cache, dtype, from_empty=from_empty, tp_group=tp_group,
     )

@@ -23,7 +23,8 @@ pages (``_gather_dequant``) and attends with the plain attention.
 
 Where the JAX package returns a new pool from a donated buffer, the port
 writes the pool tensors IN PLACE and returns the same dict; each function
-that does so says it.
+that does so says it. ``tp_group`` is ``model.py``'s: the pool holds this
+rank's kv heads, the block tables are the same on every rank.
 """
 
 from __future__ import annotations
@@ -60,19 +61,20 @@ class PagedConfig:
 
 
 def init_paged_cache(config: LlamaConfig, pcfg: PagedConfig,
-                     device=None) -> Dict[str, torch.Tensor]:
+                     device=None, kv_heads: int = None) -> Dict[str, torch.Tensor]:
     """The page pool on ``device`` (``cuda`` unless ``device="cpu"``). K AND
     V pages are stored transposed, ``[L, n_pages, kvh, hd, P]``, so the decode
     kernel reads along the page, the contiguous axis. With
     ``config.kv_cache_pack`` and ``kv_bits <= 4`` the pool nibble-packs:
     ``[.., hd/2, P]`` uint8, split-half along hd (the contiguous cache's
-    scheme, ``model.cache_is_packed``)."""
+    scheme, ``model.cache_is_packed``). ``kv_heads``: the heads a
+    tensor-parallel rank holds (default: all)."""
     dev = resolve_device(device)
     c = config
     packed = M.cache_is_packed(c)
     hd = c.head_dim // 2 if packed else c.head_dim
     qdt = torch.uint8 if packed else torch.int8
-    kshape = (c.num_hidden_layers, pcfg.n_pages, c.kv_heads, hd, pcfg.page_size)
+    kshape = (c.num_hidden_layers, pcfg.n_pages, kv_heads or c.kv_heads, hd, pcfg.page_size)
     sshape = (c.num_hidden_layers, pcfg.n_pages, pcfg.page_size)
     return {
         "k_q": torch.zeros(kshape, dtype=qdt, device=dev),
@@ -82,16 +84,18 @@ def init_paged_cache(config: LlamaConfig, pcfg: PagedConfig,
     }
 
 
-def _write_pool(pool_q, pool_s, new, pages, offsets, kvh, hd, kv_bits, packed=False):
+def _write_pool(pool_q, pool_s, new, pages, offsets, kvh, hd, kv_bits, packed=False,
+                group=None):
     """Quantize ``new`` [b, s, kvh*hd] per token and scatter the rows, IN
     PLACE, into the transposed pool at (page, offset): pool_q
     [np, kvh, hd(/2), P] (``packed`` nibble-packs split-half along hd first),
     pool_s [np, P]. Inactive slots all aim at the scratch page, several at
     one offset: which of them lands is not defined, and nothing reads that
     page. Returns the fake-quant value of ``new`` ([b, s, kvh, hd] f32, equal
-    to gathering the written rows back out of the pool)."""
+    to gathering the written rows back out of the pool). ``group``: as
+    ``model._write_kv``'s."""
     b, s, _ = new.shape
-    nq, ns = Q.quantize_kv(new, kv_bits)
+    nq, ns = Q.quantize_kv(new, kv_bits, Q.token_absmax(new, group))
     inv = (1.0 / (ns + 1e-6))[..., 0]                    # [b, s]
     fq = (nq.float() * inv[..., None]).reshape(b, s, kvh, hd)
     nq = nq.reshape(b * s, kvh, hd)
@@ -135,6 +139,7 @@ def _paged_layer(
     fold_decode: bool,            # decided once, by ``_forward``
     rope_tables=None,             # (cos, sin) [hd/2, max_tok] hoisted for decode
     from_empty=False,             # active slots prefill at seq_len 0
+    tp_group=None,                # the tensor-parallel group (model.py)
 ):
     c = config
     b, s, _ = h.shape
@@ -169,11 +174,13 @@ def _paged_layer(
         # the pool stays read-only inside the layer loop: the current pair
         # rides the kernel's fold operands and the caller commits every
         # layer's columns afterwards
-        k_cols, k_inv = M._quant_kv_cols(k, kvh, hd, kb)
-        v_cols, v_inv = M._quant_kv_cols(v, kvh, hd, kb)
+        k_cols, k_inv = M._quant_kv_cols(k, kvh, hd, kb, tp_group)
+        v_cols, v_inv = M._quant_kv_cols(v, kvh, hd, kb, tp_group)
     else:
-        fq_k = _write_pool(k_q, k_s, k, write_pages, write_offsets, kvh, hd, kb, packed)
-        fq_v = _write_pool(v_q, v_s, v, write_pages, write_offsets, kvh, hd, kb, packed)
+        fq_k = _write_pool(k_q, k_s, k, write_pages, write_offsets, kvh, hd, kb, packed,
+                           tp_group)
+        fq_v = _write_pool(v_q, v_s, v, write_pages, write_offsets, kvh, hd, kb, packed,
+                           tp_group)
 
     qh = llama.apply_rope(q.reshape(b, s, nh, hd), qcos, qsin)
 
@@ -205,15 +212,8 @@ def _paged_layer(
         mask = torch.where(vis, 0.0, _NEG_INF)[:, None].float()
         attn = llama._attend(qh, kd, vd, mask)
 
-    h = h + Q.quant_linear(attn, lq["o"], c.w_bits, a_bits=c.a_bits, out_dtype=dtype)
-    x = llama.rms_norm(h, lq["mlp_norm"], c.rms_norm_eps)
-    gateup = Q.quant_linear(x, lq["gateup"], c.w_bits, a_bits=c.a_bits, out_dtype=dtype)
-    gate, up = gateup.chunk(2, dim=-1)
-    x = Q.quant_linear(torch.nn.functional.silu(gate) * up, lq["down"], c.w_bits,
-                       a_bits=c.a_bits, out_dtype=dtype)
-    if fold_decode:
-        return h + x, (k_cols, k_inv, v_cols, v_inv)
-    return h + x, None
+    return M._post_attention(h, attn, lq, c, dtype, tp_group), (
+        (k_cols, k_inv, v_cols, v_inv) if fold_decode else None)
 
 
 def _paged_fold_capable(c: LlamaConfig, pcfg: PagedConfig, device) -> bool:
@@ -242,7 +242,8 @@ def _commit_pool_columns(pool_q, pool_s, cols, invs, pages, offsets, packed):
 
 
 def _forward(qparams, config: LlamaConfig, pcfg: PagedConfig, input_ids, seq_lens,
-             active, block_tables, cache, dtype=torch.bfloat16, from_empty=False):
+             active, block_tables, cache, dtype=torch.bfloat16, from_empty=False,
+             tp_group=None):
     """Paged counterpart of ``model._forward``. The host must have assigned
     enough pages in ``block_tables`` to cover ``seq_lens + s``. Inactive
     slots write into page ``n_pages - 1`` (reserved scratch) and don't
@@ -290,7 +291,7 @@ def _forward(qparams, config: LlamaConfig, pcfg: PagedConfig, input_ids, seq_len
         h, new_cols = _paged_layer(
             h, M._layer_params(qparams["layers"], i), c, pcfg, positions,
             block_tables, kv, pages, offsets, new_len, dtype, fold_decode,
-            rope_tables, from_empty,
+            rope_tables, from_empty, tp_group,
         )
         cols.append(new_cols)
     if fold_decode:
@@ -300,12 +301,12 @@ def _forward(qparams, config: LlamaConfig, pcfg: PagedConfig, input_ids, seq_len
         _commit_pool_columns(cache["k_q"], cache["k_s"], k_cols, k_invs, wp, wo, packed)
         _commit_pool_columns(cache["v_q"], cache["v_s"], v_cols, v_invs, wp, wo, packed)
 
-    return M.final_logits(h, qparams, c), cache
+    return M.final_logits(h, qparams, c, tp_group), cache
 
 
 def paged_forward(qparams, config: LlamaConfig, pcfg: PagedConfig, input_ids,
                   seq_lens, active, block_tables, cache, dtype=torch.bfloat16,
-                  from_empty=False, device=None):
+                  from_empty=False, device=None, tp_group=None):
     """One paged serving step for every slot (see ``_forward``) on ``device``
     (``cuda`` unless ``device="cpu"``); params and pool must lie there.
     Returns (logits [b, s, V] f32, pool) with the pool updated IN PLACE."""
@@ -315,7 +316,7 @@ def paged_forward(qparams, config: LlamaConfig, pcfg: PagedConfig, input_ids,
         qparams, config, pcfg, M._as_tensor(input_ids, torch.int64, dev),
         M._as_tensor(seq_lens, torch.int32, dev), M._as_tensor(active, torch.bool, dev),
         M._as_tensor(block_tables, torch.int32, dev), cache, dtype,
-        from_empty=from_empty,
+        from_empty=from_empty, tp_group=tp_group,
     )
 
 

@@ -1,6 +1,7 @@
 """Continuous-batching engine over the paged quantized KV cache.
 
-Port of the JAX package's ``inference/paged_engine.py`` (single device). It
+Port of the JAX package's ``inference/paged_engine.py``, on one device or,
+with ``mesh=``, tensor-parallel as the slot engine is. It
 extends the slot engine (``inference/engine.py``) with pooled memory: KV
 lives in the shared page pool (``inference/paged.py``), slots allocate pages
 lazily as they grow, and when the pool runs dry the engine **preempts** the
@@ -8,7 +9,8 @@ request with the most remaining work: its pages are released and it is
 re-queued with its generated prefix folded into the prompt (recomputed on
 re-admission). The throughput path is the same chunked device-side sampling
 loop; sampling uses the engine's ``torch.Generator`` (its numbers are not
-JAX's).
+JAX's). Under a mesh the allocator and the block tables stay on the host,
+the same on every rank; each rank's pool holds its kv heads.
 """
 
 from __future__ import annotations
@@ -56,14 +58,11 @@ class PagedInferenceEngine:
         mesh=None,
         device=None,
     ):
-        """Single-device engine on ``device`` (``cuda`` unless
-        ``device="cpu"``) over ``qparams`` from ``quantized.quantize_params``.
-        ``mesh`` (tensor-parallel paged serving) is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "PagedInferenceEngine(mesh=...): tensor-parallel paged serving "
-                "is not ported yet"
-            )
+        """Engine on ``device`` (``cuda`` unless ``device="cpu"``) over
+        ``qparams`` from ``quantized.quantize_params``, or, with ``mesh`` (a
+        ``DeviceMesh`` with a ``tp`` axis), over the whole
+        ``sharded.quantize_params_tp`` tree, of which it keeps this rank's
+        shard (see ``engine.InferenceEngine``)."""
         self.device = resolve_device(device)
         self.config = config
         self.pcfg = pcfg or PG.PagedConfig()
@@ -71,8 +70,25 @@ class PagedInferenceEngine:
         self.steps_per_sync = steps_per_sync
         self.top_k = top_k
         self.dtype = dtype
-        self.qparams = qparams
-        self.cache = PG.init_paged_cache(config, self.pcfg, device=self.device)
+        self.mesh = mesh
+        dev, pc = self.device, self.pcfg
+        if mesh is None:
+            self.qparams = qparams
+            self.cache = PG.init_paged_cache(config, pc, device=dev)
+            self._fwd = lambda qp, ids, lens, active, tables, cache: PG.paged_forward(
+                qp, config, pc, ids, lens, active, tables, cache, dtype=dtype, device=dev)
+            self._prefill = lambda qp, ids, lens, active, tables, cache: PG.paged_forward(
+                qp, config, pc, ids, lens, active, tables, cache, dtype=dtype,
+                from_empty=True, device=dev)
+        else:
+            from llm_qat_torch.inference import sharded as S
+
+            S.check_mesh(mesh)
+            self.qparams = S.shard_qparams(qparams, mesh)
+            self.cache = S.init_paged_cache_tp(config, pc, mesh, device=dev)
+            self._fwd = S.make_tp_paged_forward(config, pc, mesh, dtype=dtype, device=dev)
+            self._prefill = S.make_tp_paged_forward(config, pc, mesh, dtype=dtype,
+                                                    from_empty=True, device=dev)
         self.alloc = PG.PageAllocator(self.pcfg)
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
@@ -85,15 +101,6 @@ class PagedInferenceEngine:
         self._logits = torch.zeros((max_batch, config.vocab_size),
                                    dtype=torch.float32, device=self.device)
         self._tables = np.zeros((max_batch, self.pcfg.max_pages_per_seq), np.int32)
-
-    def _fwd(self, qparams, ids, lens, active, tables, cache):
-        return PG.paged_forward(qparams, self.config, self.pcfg, ids, lens, active,
-                                tables, cache, dtype=self.dtype, device=self.device)
-
-    def _prefill(self, qparams, ids, lens, active, tables, cache):
-        return PG.paged_forward(qparams, self.config, self.pcfg, ids, lens, active,
-                                tables, cache, dtype=self.dtype, from_empty=True,
-                                device=self.device)
 
     # ------------------------------------------------------------------ API
 

@@ -3,8 +3,12 @@
 Port of the JAX package's ``inference/quantized.py``: materialized int8 or
 split-half packed int4 weights with per-channel scales feed the int kernels
 of ``ops/quant_matmul.py``; the KV cache holds int8 values and per-token
-scales. The tensor-parallel arguments (``reduce_axis``, ``n_chunks``) wait for
-the multi-device slice.
+scales. Under tensor parallelism (``inference/sharded.py``) ``quant_linear``
+is the row-parallel half of the Megatron pair: ``reduce_group`` is the tp
+process group, the activation scale comes from the group's global absmax, and
+the f32 partial products are summed over the group one column chunk at a
+time, rounded once at the end (the JAX package's ``reduce_axis`` and
+``n_chunks``: here the chunks are those ``sharded.shard_qparams`` stores).
 """
 
 from __future__ import annotations
@@ -14,10 +18,12 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from llm_qat_torch.device import resolve_device
 from llm_qat_torch.models.config import LlamaConfig
 from llm_qat_torch.ops import quant_matmul as QM
+from llm_qat_torch.parallel import comm
 
 # serving fuses shared-input projections into single wider matmuls;
 # per-output-channel quantization is column-independent, so fusion changes
@@ -134,12 +140,32 @@ def dequant_weight(qw: Dict[str, torch.Tensor], w_bits: int,
     return (q.float() / (qw["s"] + QM._EPS)).to(dtype)
 
 
+def column_chunks(qw: Dict[str, torch.Tensor]):
+    """The ``(q, s)`` column chunks of one layer's serving weight, each
+    contiguous: the stored chunks of a chunk-major ``q`` ``[n, K(/2), N/n]``
+    (``sharded.shard_qparams`` splits the row-parallel weights so once), else
+    the ``[K(/2), N]`` weight whole."""
+    q, s = qw["q"], qw["s"]
+    if q.dim() == 3:
+        return list(zip(q.unbind(0), s.unbind(0)))
+    return [(q, s)]
+
+
+def token_absmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Per-token absmax of ``x`` [..., K]; over ``group``'s K-shards when
+    given (an all-reduce MAX), so every rank quantizes with the global
+    scale."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    return amax if group is None else comm.all_reduce_(amax, group, op=dist.ReduceOp.MAX)
+
+
 def quant_linear(
-    x: torch.Tensor,   # [..., K] fp
+    x: torch.Tensor,   # [..., K] fp (a K-shard under reduce_group)
     qw: Dict[str, torch.Tensor],
     w_bits: int,
     a_bits: int = 8,
     out_dtype=torch.bfloat16,
+    reduce_group=None,
 ) -> torch.Tensor:
     """Serving linear: int kernels when quantized, plain matmul else.
 
@@ -147,7 +173,11 @@ def quant_linear(
     iff ``2 < a_bits < 32``): 3..8 ride the int8 kernels with ``a_bits``-level
     per-token quantization; ``<= 2`` or ``>= 32`` is the fp passthrough;
     16..31 is served fp (a documented approximation, with a warning);
-    9..15 cannot be held in the int8 activation container and raises."""
+    9..15 cannot be held in the int8 activation container and raises.
+
+    ``reduce_group``: the row-parallel product over a tp group (``x`` and the
+    weight's K split over it): the output is summed over the group, on the int
+    route in f32 one stored column chunk at a time (``column_chunks``)."""
     if 8 < a_bits < 16:
         raise NotImplementedError(
             f"serving activation container is int8: a_bits={a_bits} "
@@ -161,19 +191,31 @@ def quant_linear(
             stacklevel=2,
         )
     fp_act = a_bits <= 2 or a_bits >= 16
+    reduce = (lambda t: t) if reduce_group is None else (  # noqa: E731
+        lambda t: comm.all_reduce_(t, reduce_group))
     if "w" in qw:  # unquantized weight
         if not fp_act:
-            xq, sx = QM.quantize_per_token(x, a_bits)
+            xq, sx = QM.quantize_per_token(x, a_bits, amax=token_absmax(x, reduce_group))
             x = (xq.float() / (sx + QM._EPS)).to(x.dtype)
-        return torch.matmul(x, qw["w"].to(x.dtype))
+        return reduce(torch.matmul(x, qw["w"].to(x.dtype)))
     if fp_act:
         # fp activations against a quantized weight: dequantize the weight
-        w = dequant_weight(qw, w_bits, dtype=x.dtype)
-        return torch.matmul(x, w).to(out_dtype)
-    mm = QM.w8a8_matmul if w_bits == 8 else QM.w4a8_matmul
-    out = mm(x.reshape(-1, x.shape[-1]), qw["q"], qw["s"], out_dtype=out_dtype,
-             bits=a_bits)
-    return out.reshape(*x.shape[:-1], out.shape[-1])
+        ws = [dequant_weight({"q": q, "s": s}, w_bits, dtype=x.dtype)
+              for q, s in column_chunks(qw)]
+        w = ws[0] if len(ws) == 1 else torch.cat(ws, dim=-1)
+        return reduce(torch.matmul(x, w)).to(out_dtype)
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    if reduce_group is None:
+        mm = QM.w8a8_matmul if w_bits == 8 else QM.w4a8_matmul
+        out = mm(x2, qw["q"], qw["s"], out_dtype=out_dtype, bits=a_bits)
+        return out.reshape(*lead, out.shape[-1])
+    xq, sx, M = QM.quantize_rows(x2, a_bits, token_absmax(x2, reduce_group))
+    # partials summed over the group in f32, one rounding at the end
+    outs = [reduce(QM.act_matmul(xq, q, sx, s, w_bits == 4, torch.float32))
+            for q, s in column_chunks(qw)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+    return out[:M].to(out_dtype).reshape(*lead, out.shape[-1])
 
 
 def quantize_kv(x: torch.Tensor, bits: int = 8,

@@ -375,29 +375,39 @@ def int4_matmul_stacked(
 int4_matmul_stacked.launches = 0
 
 
-def _quant_act_matmul(kernel, x, w, sw, bits, out_dtype):
-    """Per-token activation quant at ``bits`` levels, rows padded to a
-    multiple of 32, the int product, padding sliced off. At W8 the padded
-    row count picks the route: from ``XLA_INT8_MIN_ROWS`` on, the library
-    int8 GEMM (the JAX package's ``quant_linear`` decides on the padded
-    count; its ``w8a8_matmul`` on the unpadded one, which differs only for
-    97..127 rows and only in the epilogue's last bit)."""
-    xq, sx = quantize_per_token(x, bits)
+def quantize_rows(x, bits: int, amax=None):
+    """Per-token activation quant at ``bits`` levels of ``[M, K]`` rows,
+    padded to a multiple of 32: (int8 rows, f32 scales, M). ``amax``: the
+    rows' absmax when another computed it (the global one under tensor
+    parallelism, where ``x`` holds a K-shard)."""
+    xq, sx = quantize_per_token(x, bits, amax=amax)
     xq, M = _pad_rows(xq, 32)
     sx, _ = _pad_rows(sx, 32)
-    if kernel is int8_matmul and xq.shape[0] >= XLA_INT8_MIN_ROWS:
-        kernel = int8_matmul_xla
-    return kernel(xq, w, sx, sw, out_dtype=out_dtype)[:M]
+    return xq, sx, M
 
 
-def w8a8_matmul(x, wq, sw, *, out_dtype=torch.bfloat16, bits: int = 8):
+def act_matmul(xq, w, sx, sw, w4: bool, out_dtype):
+    """The int product of padded rows from ``quantize_rows``: W4 through
+    ``int4_matmul``; W8 through ``int8_matmul`` below ``XLA_INT8_MIN_ROWS``
+    padded rows, the library int8 GEMM from there. The JAX package decides on
+    the unpadded count: the two differ only for 97..127 rows, and only in the
+    epilogue's last bit."""
+    if w4:
+        return int4_matmul(xq, w, sx, sw, out_dtype=out_dtype)
+    kernel = int8_matmul_xla if xq.shape[0] >= XLA_INT8_MIN_ROWS else int8_matmul
+    return kernel(xq, w, sx, sw, out_dtype=out_dtype)
+
+
+def w8a8_matmul(x, wq, sw, *, out_dtype=torch.bfloat16, bits: int = 8, amax=None):
     """Dynamic per-token activation quant + int8 matmul: the weight-bound
     int8 kernel at decode row counts, the library int8 GEMM from
     ``XLA_INT8_MIN_ROWS`` padded rows on."""
-    return _quant_act_matmul(int8_matmul, x, wq, sw, bits, out_dtype)
+    xq, sx, M = quantize_rows(x, bits, amax)
+    return act_matmul(xq, wq, sx, sw, False, out_dtype)[:M]
 
 
-def w4a8_matmul(x, w_packed, sw, *, out_dtype=torch.bfloat16, bits: int = 8):
+def w4a8_matmul(x, w_packed, sw, *, out_dtype=torch.bfloat16, bits: int = 8, amax=None):
     """Dynamic per-token activation quant + fused W4 matmul (every row
     count)."""
-    return _quant_act_matmul(int4_matmul, x, w_packed, sw, bits, out_dtype)
+    xq, sx, M = quantize_rows(x, bits, amax)
+    return act_matmul(xq, w_packed, sx, sw, True, out_dtype)[:M]

@@ -47,14 +47,15 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.to(x.device).movedim(0, dim).contiguous()
 
 
-def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``x`` over the group, in place; returns ``x``."""
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``x`` over the group with ``op`` (a sum by default), in place;
+    returns ``x``."""
     if _staged(x, group):
         h = x.cpu()
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=op, group=group)
         x.copy_(h)
     else:
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, op=op, group=group)
     return x
 
 

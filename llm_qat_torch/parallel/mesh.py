@@ -13,8 +13,13 @@ replicated. A spec is a tuple with one entry a dim: an axis name, a tuple of
 them, or None. Where GSPMD inserts the all-gathers and reduce-scatters in
 the JAX package, the port issues them itself (``parallel.zero``), so a rank
 holds only its shard of every split leaf (and of its AdamW moments). The
-batch splits over ('data', 'fsdp'), data-major. This slice splits nothing
-over 'tp' or 'pp': a mesh with either above 1 is refused.
+batch splits over ('data', 'fsdp'), data-major. Training splits nothing over
+'tp' or 'pp' yet: a training mesh with either above 1 is refused.
+
+Serving has a mesh of its own (``make_serving_mesh``): one ``('tp',)`` axis,
+or ``('host', 'tp')`` where the world holds several tensor-parallel groups
+(``inference/multihost.py``); ``inference/sharded.py`` splits the serving
+params and caches over 'tp'.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch.distributed as dist
 from llm_qat_torch.parallel import comm
 
 MESH_AXES = ("data", "fsdp", "tp")
-NEXT_SLICE = ("tensor and pipeline parallelism are slice 14 of the port "
+NEXT_SLICE = ("tensor and pipeline parallelism in training are slice 15 of the port "
               "(ROADMAP.md section 1, item 8)")
 
 
@@ -56,6 +61,26 @@ def make_mesh(data: int = 1, fsdp: int = -1, tp: int = 1, pp: int = 1, cp: int =
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=tuple(axes))
+
+
+def make_serving_mesh(tp: int, device_type: Optional[str] = None):
+    """The serving mesh over every rank of the initialized default process
+    group: ``('tp',)`` when ``tp`` is the world, else ``('host', 'tp')`` of
+    shape ``[world // tp, tp]``, each row ``tp`` consecutive ranks. Every rank
+    builds it (a group's creation is collective over the whole world)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_serving_mesh needs torch.distributed initialized")
+    n = dist.get_world_size()
+    if tp < 1 or n % tp:
+        raise ValueError(f"tp={tp} does not divide the world of {n} ranks")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if tp == n:
+        return DeviceMesh(device_type, torch.arange(n), mesh_dim_names=("tp",))
+    return DeviceMesh(device_type, torch.arange(n).reshape(n // tp, tp),
+                      mesh_dim_names=("host", "tp"))
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
@@ -119,10 +144,10 @@ def batch_spec():
     return (("data", "fsdp"), None)
 
 
-def split_dim(spec) -> Optional[int]:
-    """The dim ``spec`` splits over 'fsdp', or None."""
+def split_dim(spec, axis: str = "fsdp") -> Optional[int]:
+    """The dim ``spec`` splits over ``axis``, or None."""
     for d, e in enumerate(spec):
-        if e == "fsdp" or (isinstance(e, tuple) and "fsdp" in e):
+        if e == axis or (isinstance(e, tuple) and axis in e):
             return d
     return None
 

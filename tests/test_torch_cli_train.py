@@ -225,10 +225,11 @@ def test_resume_is_bit_equal_to_straight_steps(workdir, runs, monkeypatch):
 
 @pytest.mark.parametrize("axis", ["mesh_fsdp", "mesh_tp", "mesh_data", "mesh_pp", "mesh_cp"])
 def test_mesh_larger_than_one_raises(workdir, axis):
-    """tp and pp belong to the next slice; the axes this slice splits need
-    the ranks of a process group, which a single process does not have."""
+    """tp and pp in training belong to slice 15; the axes the trainer splits
+    need the ranks of a process group, which a single process does not
+    have."""
     if axis in ("mesh_tp", "mesh_pp"):
-        with pytest.raises(NotImplementedError, match="slice 14"):
+        with pytest.raises(NotImplementedError, match="slice 15"):
             TCLI.run(*_args(TA, workdir, "mesh", **{axis: 2}), tokenize=fake_tokenize,
                      device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 8"):

@@ -325,7 +325,7 @@ def test_paged_entry_points_raise_without_gpu_unless_cpu_asked():
                           pair.tcache)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TPE.PagedInferenceEngine(pair.tq, pair.tc, pcfg=pair.tp, max_batch=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         TPE.PagedInferenceEngine(pair.tq, pair.tc, pcfg=pair.tp, mesh=object(),
                                  device="cpu")
     assert TM.cache_is_packed(tcfg(MODES["w4kv4p_pre"]))

@@ -80,7 +80,7 @@ def test_mesh_shapes_shards_and_errors():
         assert r["{'data': 3, 'fsdp': 3}"] == ("ValueError", "mesh 3x3x1x1x1 != 4 devices")
         assert r["{'fsdp': 3}"][0] == "ValueError"
         for kw in ("{'tp': 2, 'fsdp': 2}", "{'pp': 2, 'fsdp': 2}"):
-            assert r[kw][0] == "NotImplementedError" and "slice 14" in r[kw][1]
+            assert r[kw][0] == "NotImplementedError" and "slice 15" in r[kw][1]
         assert r["coords"] == (rank // 2, rank % 2)
         q, kv, o = C.num_attention_heads * C.head_dim, C.kv_heads * C.head_dim, H
         assert r["shapes"] == {

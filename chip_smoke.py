@@ -110,6 +110,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -156,7 +157,7 @@ TRAIN_CUT_LOSS_REL, TRAIN_CUT_GRAD_REL = 2e-2, 0.25   # train_check: kernels aga
 PROFILE_WATCH = ("rmsnorm_quant", "silu_mul_quant")    # K12, K13: their time in each train profile
 PIPE_SEED, PIPE_VOCAB, PIPE_LEN = 5, 8, 256   # pipeline: weights' seed, start ids, doc tokens
 PIPE_STEPS, PIPE_RESUME_LAYERS, PIPE_RESUME_STEPS = 3, 2, 2   # pipeline train and resume
-EVAL_SEED, EVAL_DOCS, EVAL_CHECK_DOCS = 11, 32, 4   # eval: seed; docs a task in the CLI run, in the check
+EVAL_SEED, EVAL_DOCS, EVAL_CHECK_DOCS = 11, 16, 4   # eval: seed; docs a task in the CLI run, in the check
 EVAL_CAP, EVAL_CAP_TASKS = 100, ("boolq", "hellaswag")   # the capped run: --max_len (no multiple of 64)
 EVAL_PPL_BLOCKS, EVAL_PPL_BLOCK = 8, 1024            # the perplexity file
 EVAL_CUT_LAYERS = 2                                  # eval, beam and classify checks: the cut
@@ -164,7 +165,7 @@ EVAL_FULL_LOGP, EVAL_CUT_LOGP = 0.25, 0.1           # scorer, kernels vs plain (
 EVAL_CPU_ROWS, EVAL_CPU_LEN = 16, 128                # scorer: the CPU path's rows and cap (2-layer cut)
 SCORER_S = (32, 64, 100, 200)                        # K4 at the scorer's buckets and caps
 K12_REPLAY_SEED = 1000                               # K12 at [4096, 5120]: the seeded search's rows
-BEAM_NUM, BEAM_NEW, BEAM_PROMPTS = 4, 32, (40, 300)  # beam search: beams, new tokens, prompt lengths
+BEAM_NUM, BEAM_NEW, BEAM_PROMPTS = 4, 16, (40, 300)  # beam search: beams, new tokens, prompt lengths
 BEAM_SCORE_REL, BEAM_CUT_REL = 0.03, 1e-3           # beam: kernels vs plain, normalized score
 CLS_ROWS, CLS_LABELS = 8, 4                          # classify: right-padded rows, labels
 CLS_FULL_REL, CLS_CUT_REL = 0.15, 3e-2               # classify: pooled logits, kernels vs plain
@@ -870,7 +871,8 @@ def train_counters():
     from llm_qat_torch.ops import flash_attention as FA
     from llm_qat_torch.ops import fused_quant as FQ
     return {"flash_bwd_dq": FA._flash_bwd_dq, "flash_bwd_dkv": FA._flash_bwd_dkv,
-            "rmsnorm_quant": FQ.rmsnorm_quant, "silu_mul_quant": FQ.silu_mul_quant}
+            "rmsnorm_quant": FQ.rmsnorm_quant, "silu_mul_quant": FQ.silu_mul_quant,
+            "silu_mul_amax": FQ.silu_mul_amax, "silu_mul_quant_amax": FQ.silu_mul_quant_amax}
 
 
 def read_counters():
@@ -2810,12 +2812,12 @@ def eval_phase(cfg, model_dir=None):
 
 MD_BATCH, MD_SEQ = 4, 2048            # FSDP: the global batch, 2 x 2048 tokens a rank
 MD_CP_BATCH, MD_CP_SEQ = 2, 4096      # CP: 2 x 4096 tokens, 2048 a rank
-MD_WARM, MD_STEPS = 2, 3              # FSDP: warm-up and timed steps
+MD_WARM, MD_STEPS = 1, 2              # FSDP: warm-up and timed steps
 # the FSDP and CP runs' depth: a cut of TinyLlama-1.1B at its full width (at
 # full depth the steps take 13-25 s and 5-11 s each over the host's
 # transport; the cut launches every kernel the full depth does)
 MD_LAYERS = 2
-MD_CP_WARM, MD_CP_STEPS = 1, 2        # CP, each transport
+MD_CP_WARM, MD_CP_STEPS = 1, 1        # CP, each transport
 # the 2-layer f32 cuts against one device: (mode, quantized, batch, seq). The
 # cp layer takes the unfused norm and quant (as the JAX package's does), so
 # its quantized cut is held against one device on that route too
@@ -2890,12 +2892,14 @@ def md_hold_noncausal(holds):
     return lambda: [setattr(FA, n, f) for n, f in reals.items()]
 
 
-def _md_split(tree, specs):
-    """(leaf, the dim its spec splits over 'fsdp' or None) over a tree."""
+def _md_whole_bytes(tree, specs, mesh) -> int:
+    """The bytes one device holds of a tree of which a rank holds its shards:
+    each leaf's times the ranks of every axis its spec splits."""
     from llm_qat_torch.parallel import mesh as pmesh
     out = []
-    pmesh.map_specs(lambda t, sp: out.append((t, pmesh.split_dim(sp))), tree, specs)
-    return out
+    pmesh.map_specs(lambda t, sp: out.append(t.numel() * t.element_size() * math.prod(
+        pmesh.axis_size(mesh, a) for a in pmesh.split_axes(sp))), tree, specs)
+    return sum(out)
 
 
 def _md_bytes(tree) -> int:
@@ -2915,7 +2919,7 @@ def _md_cut(rank, cfg, mesh, parallel, quantized, b, s):
     from llm_qat_torch.training import trainer as T
 
     tcut = train_cfg_of(cfg, CUT_LAYERS).replace(w_bits=32, a_bits=32, kv_bits=32)
-    cut = train_cfg_of(cfg, CUT_LAYERS, fused_norm_quant=parallel == "fsdp") if quantized else tcut
+    cut = train_cfg_of(cfg, CUT_LAYERS, fused_norm_quant=parallel != "cp") if quantized else tcut
     g = torch.Generator(device="cuda")
     g.manual_seed(MD_SEED + 1)
     ids = torch.randint(0, cut.vocab_size, (b, s), device="cuda", generator=g)
@@ -2977,10 +2981,7 @@ def _md_run(rank, label, cfg, mesh, parallel, warm, steps, batch, seq, want, tc_
     held = dict(params=_md_bytes(st.params), moments=_md_bytes(st.opt_state["mu"])
                 + _md_bytes(st.opt_state["nu"]), teacher=_md_bytes(tr.teacher_params))
     # one device holds every leaf whole: a split leaf's shard times the ranks
-    from llm_qat_torch.parallel import mesh as pmesh
-    n = pmesh.axis_size(mesh, "fsdp") if parallel == "fsdp" else 1
-    whole_params = sum(t.numel() * t.element_size() * (1 if sp is None else n)
-                       for t, sp in _md_split(st.params, tr.param_specs))
+    whole_params = _md_whole_bytes(st.params, tr.param_specs, mesh)
     one_device = dict(params=whole_params, moments=2 * whole_params, teacher=whole_params)
     g = torch.Generator(device="cuda")
     g.manual_seed(MD_SEED + 3)
@@ -3109,6 +3110,23 @@ def _md_rank(rank, world, cfg):
     return out
 
 
+def write_cli_root(cfg, root, seed):
+    """A CUT_LAYERS-layer cut of ``cfg`` as a bf16 HF teacher checkpoint
+    (``root/teacher``) and 24 documents of 2 x MD_CLI_SEQ letters
+    (``root/train.jsonl``), for the train CLI's runs."""
+    from llm_qat_torch.models import convert
+    from llm_qat_torch.models import params as P
+
+    cut = train_cfg_of(cfg, CUT_LAYERS).replace(w_bits=32, a_bits=32, kv_bits=32)
+    convert.save_hf_checkpoint(P.init_params(cut, seed=seed, dtype=torch.bfloat16), cut,
+                               os.path.join(root, "teacher"), dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(root, "train.jsonl"), "w") as f:
+        for _ in range(24):
+            f.write(json.dumps({"text": "".join(chr(97 + c) for c in
+                                                rng.integers(0, 26, 2 * MD_CLI_SEQ))}) + "\n")
+
+
 def _md_nccl_rank(rank, world, root):
     """One step through ``train_torch.py``'s entry (``cli.train.main``) with
     the process group NCCL at world 1: the mesh path at fsdp = 1."""
@@ -3130,46 +3148,49 @@ def _md_nccl_rank(rank, world, root):
     return res
 
 
-def flash_ring_phase(timer, gen, FA, B=8, G=8, S=2048, D=64):
-    """K4, K10 and K11 non-causal at the ring's shape (a live ring step of
-    the CP phase: 2 sequences x 4 kv heads, 8 query heads a kv head, a
-    2048-token chunk, head dim 64, bf16) against their plain versions (the
-    K3/K4 limit) and timed beside them and beside SDPA non-causal (forward;
-    the backward of one call, dQ, dK and dV together, for K10 and K11)."""
+def flash_ring_phase(timer, gen, FA, B=8, G=8, S=2048, D=64, causal=False,
+                     label="the ring's shape"):
+    """K4, K10 and K11 at full lengths at one shape, by default non-causal at
+    the ring's (a live ring step of the CP phase: 2 sequences x 4 kv heads, 8
+    query heads a kv head, a 2048-token chunk, head dim 64, bf16), against
+    their plain versions (the K3/K4 limit) and timed beside them and beside
+    SDPA of the same causality (forward; the backward of one call, dQ, dK and
+    dV together, for K10 and K11)."""
     q, do = (torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
              for _ in range(2))
     k, v = (torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
             for _ in range(2))
     lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
-    o, lse = FA._flash_fwd(q, k, v, lens, causal=False)
-    o2, _ = FA._flash_fwd_plain(q, k, v, lens, causal=False)
+    o, lse = FA._flash_fwd(q, k, v, lens, causal=causal)
+    o2, _ = FA._flash_fwd_plain(q, k, v, lens, causal=causal)
     delta = FA._delta(o, do)
     args = (q, k, v, lens, lse, delta, do)
-    dq, (dk, dv) = FA._flash_bwd_dq(*args, causal=False), FA._flash_bwd_dkv(*args, causal=False)
-    dq2 = FA._flash_bwd_dq_plain(*args, causal=False)
-    dk2, dv2 = FA._flash_bwd_dkv_plain(*args, causal=False)
+    dq = FA._flash_bwd_dq(*args, causal=causal)
+    dk, dv = FA._flash_bwd_dkv(*args, causal=causal)
+    dq2 = FA._flash_bwd_dq_plain(*args, causal=causal)
+    dk2, dv2 = FA._flash_bwd_dkv_plain(*args, causal=causal)
     torch.cuda.synchronize()
     agr = {"fwd": agreement(o, o2, ATTN_ULPS, ATTN_FLOOR),
            "dq": agreement(dq, dq2, ATTN_ULPS, ATTN_FLOOR),
            "dk": agreement(dk, dk2, ATTN_ULPS, ATTN_FLOOR),
            "dv": agreement(dv, dv2, ATTN_ULPS, ATTN_FLOOR)}
     if not all(a["ok"] for a in agr.values()):
-        raise AssertionError(f"flash non-causal at the ring's shape: {agr}")
+        raise AssertionError(f"flash at {label}: {agr}")
     del o2, dq2, dk2, dv2
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kh, vh = k[:, None], v[:, None]
-    lib_fwd = timer(lambda: sdpa(q, kh, vh, is_causal=False, enable_gqa=True))
+    lib_fwd = timer(lambda: sdpa(q, kh, vh, is_causal=causal, enable_gqa=True))
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, kh, vh))
-    out = sdpa(ql, kl, vl, is_causal=False, enable_gqa=True)
+    out = sdpa(ql, kl, vl, is_causal=causal, enable_gqa=True)
     lib_bwd = timer(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
     del out, ql, kl, vl
-    ms = {"fwd": timer(lambda: FA._flash_fwd(q, k, v, lens, causal=False)),
-          "dq": timer(lambda: FA._flash_bwd_dq(*args, causal=False)),
-          "dkv": timer(lambda: FA._flash_bwd_dkv(*args, causal=False))}
-    plain = {"fwd": timer(lambda: FA._flash_fwd_plain(q, k, v, lens, causal=False), reps=3),
-             "dq": timer(lambda: FA._flash_bwd_dq_plain(*args, causal=False), reps=3),
-             "dkv": timer(lambda: FA._flash_bwd_dkv_plain(*args, causal=False), reps=3)}
-    pairs = G * live_pairs((S,) * B, S, causal=False)
+    ms = {"fwd": timer(lambda: FA._flash_fwd(q, k, v, lens, causal=causal)),
+          "dq": timer(lambda: FA._flash_bwd_dq(*args, causal=causal)),
+          "dkv": timer(lambda: FA._flash_bwd_dkv(*args, causal=causal))}
+    plain = {"fwd": timer(lambda: FA._flash_fwd_plain(q, k, v, lens, causal=causal), reps=3),
+             "dq": timer(lambda: FA._flash_bwd_dq_plain(*args, causal=causal), reps=3),
+             "dkv": timer(lambda: FA._flash_bwd_dkv_plain(*args, causal=causal), reps=3)}
+    pairs = G * live_pairs((S,) * B, S, causal=causal)
     qb, kvb, rowb = 2 * B * G * S * D, 2 * B * S * D, 4 * B * G * S
     bounds = {"fwd": bound(2 * qb + 2 * kvb + rowb, 2 * 2 * pairs * D, BF16_FLOPS),
               "dq": bound(3 * qb + 2 * kvb + 2 * rowb, 3 * 2 * pairs * D, BF16_FLOPS),
@@ -3177,16 +3198,17 @@ def flash_ring_phase(timer, gen, FA, B=8, G=8, S=2048, D=64):
     lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
     errs = {"fwd": agr["fwd"]["max_abs_err"], "dq": agr["dq"]["max_abs_err"],
             "dkv": max(agr["dk"]["max_abs_err"], agr["dv"]["max_abs_err"])}
-    rows = {key: dict(B=B, G=G, S=S, D=D, causal=False, lengths="full", live_pairs=pairs,
+    kind = "causal" if causal else "non-causal"
+    rows = {key: dict(B=B, G=G, S=S, D=D, causal=causal, lengths="full", live_pairs=pairs,
                       ms=ms[key], plain_ms=plain[key], library_ms=lib[key],
-                      library_is="sdpa non-causal" + (" backward, dQ+dK+dV together"
-                                                       if key != "fwd" else ""),
+                      library_is=f"sdpa {kind}" + (" backward, dQ+dK+dV together"
+                                                   if key != "fwd" else ""),
                       bound_ms=bounds[key][0], bound_by=bounds[key][1], max_abs_err=errs[key],
                       worst=max(a["worst"] for n, a in agr.items()
                                 if n == key or (key == "dkv" and n in ("dk", "dv"))))
             for key in ms}
     for key, r in rows.items():
-        log(f"  flash {key} non-causal at the ring's shape B={B} G={G} S={S} D={D}: "
+        log(f"  flash {key} {kind} at {label} B={B} G={G} S={S} D={D}: "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.2f}, {r['library_is']} {r['library_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} {r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}, "
             f"worst {r['worst']:.3g} of its limit")
@@ -3218,8 +3240,6 @@ def multi_device_phase(cfg):
     Losses must be finite and fall. The ranks share the card and exchange
     through host memory: their step times are printed as such and are no
     scaling figure."""
-    from llm_qat_torch.models import convert
-    from llm_qat_torch.models import params as P
     from llm_qat_torch.ops import flash_attention as FA
     from llm_qat_torch.parallel import launch
 
@@ -3278,14 +3298,7 @@ def multi_device_phase(cfg):
     # NCCL at world 1 through the train CLI, on a 2-layer cut as an HF checkpoint
     root = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
     try:
-        cut = train_cfg_of(cfg, CUT_LAYERS).replace(w_bits=32, a_bits=32, kv_bits=32)
-        convert.save_hf_checkpoint(P.init_params(cut, seed=MD_SEED, dtype=torch.bfloat16), cut,
-                                   os.path.join(root, "teacher"), dtype=torch.bfloat16)
-        rng = np.random.default_rng(MD_SEED)
-        with open(os.path.join(root, "train.jsonl"), "w") as f:
-            for _ in range(24):
-                f.write(json.dumps({"text": "".join(chr(97 + c) for c in
-                                                    rng.integers(0, 26, 2 * MD_CLI_SEQ))}) + "\n")
+        write_cli_root(cfg, root, MD_SEED)
         nccl = launch.spawn(_md_nccl_rank, 1, backend="nccl", device="cuda", args=(root,),
                             timeout=MD_TIMEOUT)[0]
     finally:
@@ -3306,11 +3319,237 @@ def multi_device_phase(cfg):
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel and pipeline training: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+TPP_TP, TPP_PP = 2, 2                    # the tp and pp meshes' axis
+TPP_BATCH, TPP_SEQ = 4, 2048             # the global batch of both modes
+TPP_MICRO = 4                            # pp's microbatches: 1 x 2048 tokens each
+TPP_WARM, TPP_STEPS = 1, 1               # warm-up and timed steps a run
+TPP_CUT = (2, 256)                       # the 2-layer f32 cuts' global batch
+TPP_SEED = 17                            # the phase's weights, tokens and kernel inputs
+
+
+def _tpp_cli(rank, root, axis):
+    """One step of ``train_torch.py``'s entry (``cli.train.main``) over the
+    two ranks with ``--mesh_<axis> 2`` on the CLI root's 2-layer cut;
+    every count set to 0 before it and read after it."""
+    from llm_qat_torch.cli import train as CLI
+
+    for fn in counters().values():
+        fn.launches = 0
+    res = CLI.main(["--input_model_filename", os.path.join(root, "teacher"),
+                    "--tokenizer", "byte", "--train_data_local_path",
+                    os.path.join(root, "train.jsonl"), "--eval_data_local_path",
+                    os.path.join(root, "train.jsonl"), "--output_dir",
+                    os.path.join(root, f"out_{axis}"), "--local_dir",
+                    os.path.join(root, f"local_{axis}"), "--model_max_length", str(MD_CLI_SEQ),
+                    "--qat", "true", "--use_kd", "true", "--w_bits", "4", "--a_bits", "8",
+                    "--kv_bits", "4", "--max_steps", "1", "--do_eval", "false",
+                    "--per_device_train_batch_size", "2", "--mesh_fsdp", "1",
+                    f"--mesh_{axis}", "2"])
+    res["launches"] = {k: n for k, n in read_counters().items() if n}
+    return res
+
+
+def _tpp_rank(rank, world, cfg, root):
+    """Rank ``rank`` of the two: the 2-layer f32 cuts (tp, then pp) against
+    one device; KD-QAT at TinyLlama-1.1B's full width on MD_LAYERS layers
+    over tp = 2 (without and with ``fused_silu_quant``) and pp = 2; one step
+    of the train CLI with ``--mesh_tp 2`` and with ``--mesh_pp 2``. Each
+    step's launches are held against the counts derived from the code."""
+    from llm_qat_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = pmesh.make_mesh(data=1, fsdp=1, tp=TPP_TP, device_type="cuda")
+    pp = pmesh.make_mesh(fsdp=1, pp=TPP_PP, device_type="cuda")
+    out = {"cuts": [_md_cut(rank, cfg, tp, "fsdp", True, *TPP_CUT),
+                    _md_cut(rank, cfg, pp, "pp", True, *TPP_CUT)]}
+    L = MD_LAYERS
+    full = train_cfg_of(cfg, L)
+    # a tp rank launches what one device does, at its heads: the teacher's and
+    # the student's forward (the recompute reads the saved attention), the
+    # backward pair, and RMSNorm+quant twice a layer forward and recompute;
+    # with fused_silu_quant the row-max entry and the given-max entry of K13
+    # once a layer forward and recompute, and no one-pass K13
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "rmsnorm_quant": 4 * L,
+            "_flash_fwd_causal": 2 * L, "_flash_bwd_dq_causal": L, "_flash_bwd_dkv_causal": L}
+    out["tp"] = _md_run(rank, f"TP tp={TPP_TP}", full, tp, "fsdp", TPP_WARM, TPP_STEPS,
+                        TPP_BATCH, TPP_SEQ, want, {})
+    out["tp_silu"] = _md_run(rank, f"TP tp={TPP_TP} fused_silu_quant",
+                             full.replace(fused_silu_quant=True), tp, "fsdp", TPP_WARM,
+                             TPP_STEPS, TPP_BATCH, TPP_SEQ,
+                             dict(want, silu_mul_amax=2 * L, silu_mul_quant_amax=2 * L), {})
+    # a pp stage sweeps its L / P layers on each of the M + P - 1 ticks, bubbles
+    # included, forward and backward; the teacher's forward is whole on each rank
+    n = (TPP_MICRO + TPP_PP - 1) * (L // TPP_PP)
+    want = {"flash_fwd": L + n, "flash_bwd_dq": n, "flash_bwd_dkv": n, "rmsnorm_quant": 4 * n,
+            "_flash_fwd_causal": L + n, "_flash_bwd_dq_causal": n, "_flash_bwd_dkv_causal": n}
+    out["pp"] = _md_run(rank, f"PP pp={TPP_PP}, {TPP_MICRO} microbatches", full, pp, "pp",
+                        TPP_WARM, TPP_STEPS, TPP_BATCH, TPP_SEQ, want,
+                        dict(num_microbatches=TPP_MICRO))
+    out["cli"] = {axis: _tpp_cli(rank, root, axis) for axis in ("tp", "pp")}
+    return out
+
+
+def k13_tp_phase(timer, gen, FQ, cfg, tp=TPP_TP):
+    """K13's two entries for tensor parallelism at a tp rank's shape,
+    [TPP_BATCH x TPP_SEQ, I / tp] bf16: the row max (``silu_mul_amax``) and
+    the quantization with a given row max (``silu_mul_quant(..., amax=)``),
+    each bit-equal to its plain version; the ranks' row maxima, their MAX
+    and the given-max quantization of each rank's columns bit-equal to the
+    one-pass K13 on the whole row. Timed beside the plain versions; bound by
+    bytes (the two inputs read once, a max a row written; and the integers
+    and a scale a row)."""
+    M, I = TPP_BATCH * TPP_SEQ, cfg.intermediate_size
+    c = I // tp
+    gate = (torch.randn(M, I, device="cuda", generator=gen) * 2).to(torch.bfloat16)
+    up = torch.randn(M, I, device="cuda", generator=gen).to(torch.bfloat16)
+    parts = [(gate[:, r * c:(r + 1) * c].contiguous(), up[:, r * c:(r + 1) * c].contiguous())
+             for r in range(tp)]
+    amax = [FQ.silu_mul_amax(g, u) for g, u in parts]
+    amax_ok = all(torch.equal(a, FQ._silu_mul_amax_plain(g, u)) for a, (g, u) in zip(amax, parts))
+    row_max = torch.stack(amax).amax(dim=0)
+    got = [FQ.silu_mul_quant(g, u, 8, amax=row_max) for g, u in parts]
+    plain_ok = all(torch.equal(q, pq) and torch.equal(sc, ps) for (q, sc), (pq, ps) in zip(
+        got, (FQ._silu_mul_quant_plain(g, u, 8, row_max) for g, u in parts)))
+    one_q, one_s = FQ.silu_mul_quant(gate, up, 8)
+    one_ok = (torch.equal(torch.cat([q for q, _ in got], dim=1), one_q)
+              and all(torch.equal(sc, one_s) for _, sc in got))
+    again = FQ.silu_mul_quant(*parts[0], 8, amax=row_max)
+    twice_ok = torch.equal(again[0], got[0][0]) and torch.equal(again[1], got[0][1])
+    torch.cuda.synchronize()
+    g0, u0 = parts[0]
+    rows = {
+        "silu_mul_amax": dict(
+            ms=timer(lambda: FQ.silu_mul_amax(g0, u0)),
+            plain_ms=timer(lambda: FQ._silu_mul_amax_plain(g0, u0)),
+            bound=bound(4 * M * c + 4 * M, 10.0 * M * c, F32_FLOPS), ok=amax_ok),
+        "silu_mul_quant_amax": dict(
+            ms=timer(lambda: FQ.silu_mul_quant(g0, u0, 8, amax=row_max)),
+            plain_ms=timer(lambda: FQ._silu_mul_quant_plain(g0, u0, 8, row_max)),
+            bound=bound(5 * M * c + 8 * M, 12.0 * M * c, F32_FLOPS),
+            ok=plain_ok and one_ok and twice_ok)}
+    out = {}
+    for name, r in rows.items():
+        (b_ms, b_by) = r.pop("bound")
+        out[name] = dict(M=M, K=c, plan=FQ.plan(c, 2, 2), library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=0.0 if r["ok"] else float("nan"), **r)
+        log(f"  K13 {name} at a tp={tp} rank's [{M}, {c}] bf16: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, bound {b_ms:.4f} {b_by}, {100 * b_ms / r['ms']:.1f}% of it); "
+            f"bit-equal to its plain version {r['ok']}")
+    if not (amax_ok and plain_ok and one_ok and twice_ok):
+        raise AssertionError(f"K13's tp entries: row max {amax_ok}, given max against the plain "
+                             f"version {plain_ok}, against the one-pass K13 on the whole row "
+                             f"{one_ok}, the same bits twice {twice_ok}")
+    out["whole_row_bit_equal"] = one_ok
+    return out
+
+
+def tp_pp_train_phase(cfg):
+    """KD-QAT training over 'tp' and over 'pp', two ranks on the one H100
+    spawned by ``parallel.launch`` over gloo (``MD_TRANSPORT``), at
+    TinyLlama-1.1B's full width on an MD_LAYERS-layer cut, the train recipe
+    (W4A8KV4, bf16, ``kl_chunk=256``, remat), TPP_BATCH x TPP_SEQ tokens a
+    step, TPP_WARM + TPP_STEPS steps a run:
+
+    * tp = 2 (the Megatron split; 16 query and 2 kv heads, 2816 intermediate
+      columns a rank), without and with ``fused_silu_quant`` (K13 through its
+      row-max and given-max entries);
+    * pp = 2 (GPipe, one layer a stage, TPP_MICRO microbatches of 2048
+      tokens);
+    * each rank's K4/K10/K11/K12/K13 launches every step held against the
+      counts derived from the code (``_tpp_rank``), losses finite and
+      falling, each rank's held bytes beside the one-device figure;
+    * a 2-layer f32 cut of each mode against the one-device step on the same
+      global batch (``_md_cut``'s limits);
+    * one step of ``train_torch.py``'s entry over the two ranks with
+      ``--mesh_tp 2`` and with ``--mesh_pp 2``;
+    * K4/K10/K11 at a tp rank's shard shape (B = 4 x 2 kv heads, G = 8,
+      S = 2048, causal) and K13's two tp entries at [8192, 2816] against their
+      plain versions and timed (``flash_ring_phase``, ``k13_tp_phase``).
+
+    Walls are the card's shared by two ranks over a host-staged transport: no
+    scaling figure."""
+    from llm_qat_torch.ops import flash_attention as FA
+    from llm_qat_torch.ops import fused_quant as FQ
+    from llm_qat_torch.parallel import launch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TPP_SEED)
+    G = cfg.num_attention_heads // cfg.kv_heads
+    shard = flash_ring_phase(Timer(), gen, FA, B=TPP_BATCH * cfg.kv_heads // TPP_TP, G=G,
+                             S=TPP_SEQ, D=cfg.head_dim, causal=True,
+                             label=f"a tp={TPP_TP} rank's shard")
+    k13 = k13_tp_phase(Timer(), gen, FQ, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tpp_")
+    try:
+        write_cli_root(cfg, root, TPP_SEED)
+        t0 = time.perf_counter()
+        ranks = launch.spawn(_tpp_rank, 2, backend="gloo", device="cuda", args=(cfg, root),
+                             timeout=MD_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for c in ranks[0]["cuts"]:
+        m = "tp=2" if c["parallel"] == "fsdp" else "pp=2"
+        log(f"  {m} W4A8KV4 {CUT_LAYERS}-layer f32 cut at full width, {c['batch']} x {c['seq']} "
+            f"tokens, one step against one device: loss {c['loss_rel']:.3g}, grad_norm "
+            f"{c['grad_norm_rel']:.3g} relative, params at most {c['params_max_over_lr']:.3g} lr "
+            f"apart, {100 * c['params_tight_share']:.3f}% within 1e-3 lr + 1e-6 |p| (limits: "
+            f"1e-4, 1e-4, 2.1 lr, 99.9%)")
+        if not c["ok"]:
+            raise AssertionError(f"{m} cut against one device: {c}")
+    for key in ("tp", "tp_silu", "pp"):
+        for r in (x[key] for x in ranks):
+            h, one = r["held_bytes"], r["one_device_bytes"]
+            log(f"  {r['mode']} rank {r['rank']}: {r['layers']} layers, {r['batch']} x {r['seq']} "
+                "tokens a step: losses " + " ".join(f"{x:.3f}" for x in r["losses"])
+                + f"; step {1e3 * r['step_s']:.0f} ms on a card shared by two ranks "
+                f"({MD_TRANSPORT}; no scaling figure); held: params {h['params'] / 1e9:.3f} GB, "
+                f"moments {h['moments'] / 1e9:.3f} GB, teacher {h['teacher'] / 1e9:.3f} GB (one "
+                f"device: {one['params'] / 1e9:.3f}, {one['moments'] / 1e9:.3f}, "
+                f"{one['teacher'] / 1e9:.3f} GB); peak memory "
+                f"{r['peak_memory_bytes'] / 2 ** 30:.2f} GiB; launches a step {r['launches_per_step']}")
+            if h["moments"] != 2 * h["params"] or not h["params"] < one["params"]:
+                raise AssertionError(f"{r['mode']} rank {r['rank']} holds {h}, one device {one}")
+            if key != "pp" and not one["params"] / 2 < h["params"] < 0.51 * one["params"]:
+                raise AssertionError(f"{r['mode']} rank {r['rank']} holds {h}, one device {one}")
+    Lc, cli = CUT_LAYERS, {}
+    n_pp = (2 + TPP_PP - 1) * (Lc // TPP_PP)    # the CLI's pp step: 2 rows, 2 microbatches
+    want = {"tp": {"flash_fwd": 2 * Lc, "flash_bwd_dq": Lc, "flash_bwd_dkv": Lc,
+                   "rmsnorm_quant": 4 * Lc},
+            "pp": {"flash_fwd": Lc + n_pp, "flash_bwd_dq": n_pp, "flash_bwd_dkv": n_pp,
+                   "rmsnorm_quant": 4 * n_pp}}
+    for axis in ("tp", "pp"):
+        for r in ranks:
+            got = r["cli"][axis]
+            if got["train_steps"] != 1 or got["launches"] != want[axis]:
+                raise AssertionError(f"cli.train.main --mesh_{axis} 2: {got}, launches expected "
+                                     f"{want[axis]}")
+        cli[axis] = dict(train_steps=1, launches_per_rank=want[axis],
+                         model_path=ranks[0]["cli"][axis].get("model_path"))
+        log(f"  cli.train.main --mesh_{axis} 2 over two gloo ranks, one step on a {Lc}-layer "
+            f"cut: launches a rank {want[axis]}")
+    per_mode = {key: {k: sum(r[key]["launches_per_step"].get(k, 0) * len(r[key]["losses"])
+                             for r in ranks) for k in counters()}
+                for key in ("tp", "tp_silu", "pp")}
+    launches_tp = {k: per_mode["tp"][k] + per_mode["tp_silu"][k] for k in counters()}
+    launches = {k: launches_tp[k] + per_mode["pp"][k] for k in counters()}
+    return dict(transport=MD_TRANSPORT, ranks=ranks, shard_shape=shard, k13=k13, cli=cli,
+                spawn_s=spawn_s, launches=launches, launches_tp=launches_tp,
+                launches_pp=per_mode["pp"])
+
+
+# ---------------------------------------------------------------------------
 # tensor-parallel serving: two ranks on the one card
 # ---------------------------------------------------------------------------
 
 TP, TP_SEED = 2, 21                      # tp ranks; the phase's weights, prompts and inputs
-TP_PROMPT_LENS, TP_NEW = (16, 300, 700, 1000), 32   # 4 requests x 32 greedy new tokens
+TP_PROMPT_LENS, TP_NEW = (16, 300, 700, 1000), 8   # 4 requests x 8 greedy new tokens
 TP_PAGES = 64                            # the paged engine's pool (pages of PAGE)
 TP_BEAM_NEW, TP_BEAM_PROMPT = 16, 40     # beam over TP: BEAM_NUM beams, tokens, prompt
 TP_FORCED = (0, 3)                       # teacher-forced at full depth: 16 and 1000 tokens
@@ -4199,6 +4438,14 @@ def main() -> int:
         f"CPU path; beam search over TP; the multi-host driver as 2 hosts x tp 1 ({smi})")
     tp = tp_serving_phase(cfg)
     lap("[4e] tensor-parallel serving")
+    log(f"[4f] tensor-parallel and pipeline KD-QAT training at TinyLlama-1.1B's full width, "
+        f"{MD_LAYERS} layers, two ranks on the one card ({MD_TRANSPORT}): tp={TPP_TP} without and "
+        f"with fused_silu_quant, pp={TPP_PP} with {TPP_MICRO} microbatches ({TPP_BATCH} x "
+        f"{TPP_SEQ} tokens, {TPP_WARM} + {TPP_STEPS} steps each), {CUT_LAYERS}-layer f32 cuts "
+        f"against one device, the train CLI with --mesh_tp 2 and --mesh_pp 2; K4/K10/K11 at a "
+        f"tp rank's shard and K13's tp entries ({smi})")
+    tpp = tp_pp_train_phase(cfg)
+    lap("[4f] tp/pp training")
 
     # each path went through its kernels, and only through them
     for m in runs:
@@ -4236,7 +4483,8 @@ def main() -> int:
                     max_abs_err=max(s["max_abs_err"] for s in sel))
 
     launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) + pipe["launches"][k]
-                + ev["launches"][k] + md["launches"][k] + tp["launches"][k] for k in counters()}
+                + ev["launches"][k] + md["launches"][k] + tp["launches"][k]
+                + tpp["launches"][k] for k in counters()}
     # K5-K7 are on no serving path of either package: their counts are those
     # of their kernel phases
     launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
@@ -4282,8 +4530,9 @@ def main() -> int:
                    "in shapes)",
              **{k: fl[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by")},
-             max_abs_err=max(f["max_abs_err"] for f in fwd_shapes + [md["ring_shape"]["fwd"]]),
-             shapes=fwd_shapes + [md["ring_shape"]["fwd"]]),
+             max_abs_err=max(f["max_abs_err"] for f in fwd_shapes + [md["ring_shape"]["fwd"],
+                                                                     tpp["shard_shape"]["fwd"]]),
+             shapes=fwd_shapes + [md["ring_shape"]["fwd"], tpp["shard_shape"]["fwd"]]),
         dict(name="decode_megakernel", source="llm_qat_torch/csrc/megakernel.cu",
              replaces="llm_qat_tpu/inference/megakernel.py:259",
              shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed, and "
@@ -4318,12 +4567,13 @@ def main() -> int:
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:236",
              shape=train_shape, **{k: ftr["full"]["dq"][k] for k in keys},
              shapes=[ftr["full"]["dq"], ftr["ragged"]["dq"], ftr7["full"]["dq"],
-                     ftr7["ragged"]["dq"], md["ring_shape"]["dq"]]),
+                     ftr7["ragged"]["dq"], md["ring_shape"]["dq"], tpp["shard_shape"]["dq"]]),
         dict(name="flash_bwd_dkv", source="llm_qat_torch/csrc/flash_attention_bwd.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:297",
              shape=train_shape, **{k: ftr["full"]["dkv"][k] for k in keys},
              shapes=[ftr["full"]["dkv"], ftr["ragged"]["dkv"], ftr7["full"]["dkv"],
-                     ftr7["ragged"]["dkv"], md["ring_shape"]["dkv"]]),
+                     ftr7["ragged"]["dkv"], md["ring_shape"]["dkv"],
+                     tpp["shard_shape"]["dkv"]]),
         dict(name="rmsnorm_quant", source="llm_qat_torch/csrc/fused_quant.cu",
              replaces="llm_qat_tpu/ops/pallas/fused_quant.py:77",
              shape="[8192, 2048] bf16 with an f32 gain (bf16 gain, and [4096, 4096] and "
@@ -4334,7 +4584,10 @@ def main() -> int:
              replaces="llm_qat_tpu/ops/pallas/fused_quant.py:129",
              shape="[8192, 5632] bf16 ([4096, 11008] in shapes); max_abs_err in integer steps",
              **{k: fq["silu_mul_quant"][0][k] for k in keys}, shapes=fq["silu_mul_quant"],
-             launches_from="the fused_silu_quant train run (off by default)"),
+             launches_from="the fused_silu_quant train run (off by default)",
+             entries={name: dict(tpp["k13"][name], launches=launches[name],
+                                 launches_tp_train=tpp["launches_tp"][name])
+                      for name in ("silu_mul_amax", "silu_mul_quant_amax")}),
     ]
     for r in rows:
         r.update(route="cuda", launches=launches[r["name"]],
@@ -4342,6 +4595,8 @@ def main() -> int:
                  launches_eval=ev["launches"][r["name"]],
                  launches_multi_device=md["launches"][r["name"]],
                  launches_tp=tp["launches"][r["name"]],
+                 launches_tp_train=tpp["launches_tp"][r["name"]],
+                 launches_pp=tpp["launches_pp"][r["name"]],
                  tpu_kernel=r["replaces"], max_err=r["max_abs_err"])
     log("[5] results")
     log(f"    chip_smoke.py ran {time.perf_counter() - T_START:.1f} s (kernel builds included); "
@@ -4351,6 +4606,7 @@ def main() -> int:
                     "llama7b_teacher_forced": l7["teacher_forced"],
                     "cpu_checks": checks, "training": trains, "train_check": tcheck,
                     "pipeline": pipe, "eval": ev, "multi_device": md, "tp_serving": tp,
+                    "tp_pp_training": tpp,
                     "phase_s": PHASE_S, "card": smi}))
     log(json.dumps({"kernel_attributes": attrs}))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,11 +1,12 @@
 """QAT training entry point (the JAX package's ``cli/train.py``): ``cuda``
 unless ``--device cpu`` (or ``run(..., device="cpu")``), on one device or,
 under ``torchrun --nproc_per_node N train_torch.py --mesh_fsdp N ...``, on a
-mesh of N ranks (``--mesh_data`` / ``--mesh_fsdp`` / ``--mesh_cp``; the
-process group comes from torchrun's environment, ``maybe_init_distributed``).
-Every rank reads the same data and walks the same global batches
-(``per_device_train_batch_size`` rows for each of the data x fsdp ranks);
-the trainer hands each rank its part. Checkpoints hold the whole state, so a
+mesh of N ranks (``--mesh_data`` / ``--mesh_fsdp`` / ``--mesh_tp`` for the
+ZeRO-3 and tensor-parallel trainer, ``--mesh_pp`` for GPipe,
+``--mesh_cp`` for the context ring; the process group comes from torchrun's
+environment, ``maybe_init_distributed``). Every rank reads the same data
+and walks the same global batches (``per_device_train_batch_size`` rows for
+each of the data x fsdp ranks); the trainer hands each rank its part. Checkpoints hold the whole state, so a
 run resumes at any world size; rank 0 writes them and the HF export.
 
 Reference flow (train.py:42-149): build the quantized student from an HF
@@ -72,7 +73,6 @@ def run(
     log.info("model args %s", model_args)
     if training_args.mesh_pp > 1 and training_args.mesh_cp > 1:
         raise ValueError("choose one of --mesh_pp / --mesh_cp (not both)")
-    A.check_mesh_axes(training_args)
     dev = resolve_device(device if device is not None else training_args.device)
     anomaly = torch.is_anomaly_enabled()
     if training_args.debug_nans:
@@ -142,7 +142,7 @@ def _run(model_args, data_args, training_args, tokenize, dev, log) -> dict:
     elif any(n not in (1, -1) for n in axes.values()):
         raise ValueError(f"mesh {axes} on one process: launch the ranks with torchrun "
                          f"(--nproc_per_node) or parallel.launch.spawn")
-    parallel = "cp" if ta.mesh_cp > 1 else "fsdp"
+    parallel = "pp" if ta.mesh_pp > 1 else "cp" if ta.mesh_cp > 1 else "fsdp"
     n_batch_shards = 1 if mesh is None else pmesh.batch_shards(mesh)[0]
     global_batch = training_args.per_device_train_batch_size * n_batch_shards
     steps_per_epoch = max(len(train_ds) // max(global_batch, 1), 1)

@@ -11,6 +11,13 @@
 // fp32 rounded to gate's type, gate * sig and then * up each rounded to that
 // type, then the same per-row quantization.
 //
+// Under tensor parallelism a rank holds I/tp of each intermediate row, and
+// the per-token scale spans the whole row. Two more entries of the same
+// kernel serve it: silu_mul_amax writes each row's local max |y| (the host
+// takes the MAX over the 'tp' group), and silu_mul_quant_amax quantizes with
+// a given row max instead of its own (MODE, a template parameter: 0 the
+// one-pass kernel, 1 the row max only, 2 with the given max).
+//
 // Bound on this card: bytes. Each reads its input once (2 or 4 bytes an
 // element; two inputs for silu_mul_quant) and writes one byte an element and
 // a scale a row, with a few operations an element. What keeps such a pass
@@ -307,11 +314,17 @@ __device__ __forceinline__ void rmsnorm_row(uint32_t (&x)[V][Words<T>::n], const
   if (t == 0) *s_out = s;
 }
 
-// One row of silu_mul_quant from the thread's chunks of gate (xg) and up (xu).
-template <typename T, int V>
+// Modes of the SiLU*up kernels: quantize with the row's own max, write the
+// row's max only, quantize with a given row max
+constexpr int SILU_QUANT = 0, SILU_AMAX = 1, SILU_GIVEN = 2;
+
+// One row of silu_mul_quant from the thread's chunks of gate (xg) and up
+// (xu). SILU_AMAX writes the row's max to *s_out and quantizes nothing;
+// SILU_GIVEN takes the row's max from `given`.
+template <typename T, int V, int MODE>
 __device__ __forceinline__ void silu_row(uint32_t (&xg)[V][Words<T>::n],
                                          const uint32_t (&xu)[V][Words<T>::n], int8_t* q_row,
-                                         float* s_out, const Group& gr, float qmax) {
+                                         float* s_out, const Group& gr, float qmax, float given) {
   const int t = gr.t, tpr = gr.tpr, nch = gr.nch;
   // y = round_T(round_T(g sig) u), kept in xg in T
   float am = 0.f;
@@ -337,8 +350,16 @@ __device__ __forceinline__ void silu_row(uint32_t (&xg)[V][Words<T>::n],
         }
       }
     }
-  if constexpr (sizeof(T) == 2) am = fmaxf(lo_f(am2), hi_f(am2));
-  am = row_reduce<true>(am, gr.max_slots, gr.wpr, gr.warp, gr.bar);
+  if constexpr (MODE == SILU_GIVEN) {
+    am = given;
+  } else {
+    if constexpr (sizeof(T) == 2) am = fmaxf(lo_f(am2), hi_f(am2));
+    am = row_reduce<true>(am, gr.max_slots, gr.wpr, gr.warp, gr.bar);
+  }
+  if constexpr (MODE == SILU_AMAX) {
+    if (t == 0) *s_out = am;
+    return;
+  }
   const float s = row_scale(am, qmax);
 #pragma unroll
   for (int i = 0; i < V; ++i) {
@@ -394,11 +415,13 @@ rmsnorm_quant_regs(const T* __restrict__ h, const G* __restrict__ g, int8_t* __r
 }
 
 // silu_mul_quant: a row group takes one row, loaded straight into registers;
-// the grid covers the rows.
-template <typename T, int V>
+// the grid covers the rows. SILU_AMAX writes each row's max to sy (yq
+// unused); SILU_GIVEN reads it from amax.
+template <typename T, int V, int MODE>
 __global__ void __launch_bounds__(MAX_THREADS)
 silu_mul_quant_regs(const T* __restrict__ gate, const T* __restrict__ up, int8_t* __restrict__ yq,
-                    float* __restrict__ sy, int M, int K, int wpr, float qmax) {
+                    float* __restrict__ sy, const float* __restrict__ amax, int M, int K, int wpr,
+                    float qmax) {
   constexpr int W = Words<T>::n;
   __shared__ float max_slots[MAX_GROUPS][32];
   const int tpr = 32 * wpr, grp = threadIdx.x / tpr, t = threadIdx.x - grp * tpr;
@@ -408,7 +431,8 @@ silu_mul_quant_regs(const T* __restrict__ gate, const T* __restrict__ up, int8_t
   uint32_t xg[V][W], xu[V][W];
   load_row<T, V>(xg, gate + (size_t)row * K, t, tpr, gr.nch);
   load_row<T, V>(xu, up + (size_t)row * K, t, tpr, gr.nch);
-  silu_row<T, V>(xg, xu, yq + (size_t)row * K, sy + row, gr, qmax);
+  silu_row<T, V, MODE>(xg, xu, yq + (size_t)row * K, sy + row, gr, qmax,
+                       MODE == SILU_GIVEN ? amax[row] : 0.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -448,10 +472,11 @@ rmsnorm_quant_staged(const T* __restrict__ h, const G* __restrict__ g,
   if (threadIdx.x == 0) sx[blockIdx.x] = s;
 }
 
-template <typename T>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 silu_mul_quant_staged(const T* __restrict__ gate, const T* __restrict__ up,
-                      int8_t* __restrict__ yq, float* __restrict__ sy, int K, float qmax) {
+                      int8_t* __restrict__ yq, float* __restrict__ sy,
+                      const float* __restrict__ amax, int K, float qmax) {
   extern __shared__ float fq_row[];
   __shared__ float max_slots[32];
   const int wpr = blockDim.x >> 5, warp = threadIdx.x >> 5;
@@ -464,7 +489,15 @@ silu_mul_quant_staged(const T* __restrict__ gate, const T* __restrict__ up,
     fq_row[u] = y;
     am = fmaxf(am, fabsf(y));
   }
-  am = row_reduce<true>(am, max_slots, wpr, warp, 1);
+  if constexpr (MODE == SILU_GIVEN) {
+    am = amax[blockIdx.x];                 // each thread reads back only its own values
+  } else {
+    am = row_reduce<true>(am, max_slots, wpr, warp, 1);
+  }
+  if constexpr (MODE == SILU_AMAX) {
+    if (threadIdx.x == 0) sy[blockIdx.x] = am;
+    return;
+  }
   const float s = row_scale(am, qmax);
   for (int u = threadIdx.x; u < K; u += blockDim.x)
     yq[base + u] = (int8_t)(qbyte(fq_row[u], s) & 0xffu);
@@ -547,9 +580,9 @@ int rmsnorm_launch(const void* h, const void* g, void* xq, void* sx, int M, int 
   return e ? e : (int)cudaGetLastError();
 }
 
-template <typename T>
-int silu_launch(const void* gate, const void* up, void* yq, void* sy, int M, int K, int v,
-                int wpr, int rows, float qmax, cudaStream_t st) {
+template <typename T, int MODE>
+int silu_launch(const void* gate, const void* up, void* yq, void* sy, const void* amax, int M,
+                int K, int v, int wpr, int rows, float qmax, cudaStream_t st) {
   constexpr int VMAX = vmax_of(2 * Words<T>::n);
   if (!plan_ok(v, VMAX, wpr, rows) || (v > 0 && K % 8) || K > STAGED_ROW)
     return (int)cudaErrorInvalidValue;
@@ -557,17 +590,19 @@ int silu_launch(const void* gate, const void* up, void* yq, void* sy, int M, int
   const T* up_ = static_cast<const T*>(up);
   int8_t* qp = static_cast<int8_t*>(yq);
   float* sp = static_cast<float*>(sy);
+  const float* ap = static_cast<const float*>(amax);
   int e = 0;
   if (v > 0) {
     with_v<VMAX>(v, [&](auto vc) {
-      silu_mul_quant_regs<T, decltype(vc)::value><<<(M + rows - 1) / rows, rows * wpr * 32, 0,
-                                                   st>>>(gp, up_, qp, sp, M, K, wpr, qmax);
+      silu_mul_quant_regs<T, decltype(vc)::value, MODE>
+          <<<(M + rows - 1) / rows, rows * wpr * 32, 0, st>>>(gp, up_, qp, sp, ap, M, K, wpr,
+                                                              qmax);
     });
   } else {
     const size_t smem = (size_t)K * sizeof(float);
-    auto kern = silu_mul_quant_staged<T>;
+    auto kern = silu_mul_quant_staged<T, MODE>;
     e = allow_smem(kern, smem);
-    if (!e) kern<<<M, wpr * 32, smem, st>>>(gp, up_, qp, sp, K, qmax);
+    if (!e) kern<<<M, wpr * 32, smem, st>>>(gp, up_, qp, sp, ap, K, qmax);
   }
   return e ? e : (int)cudaGetLastError();
 }
@@ -604,13 +639,13 @@ int rmsnorm_attributes(int v, int* out) {
   return e;
 }
 
-template <typename T>
+template <typename T, int MODE>
 int silu_attributes(int v, int* out) {
   constexpr int VMAX = vmax_of(2 * Words<T>::n);
-  if (v == -1) return attributes(silu_mul_quant_staged<T>, MAX_THREADS, STAGED_SMEM, out);
+  if (v == -1) return attributes(silu_mul_quant_staged<T, MODE>, MAX_THREADS, STAGED_SMEM, out);
   int e = (int)cudaErrorInvalidValue;
   with_v<VMAX>(v, [&](auto vc) {
-    e = attributes(silu_mul_quant_regs<T, decltype(vc)::value>, REPORT_THREADS, 0, out);
+    e = attributes(silu_mul_quant_regs<T, decltype(vc)::value, MODE>, REPORT_THREADS, 0, out);
   });
   return e;
 }
@@ -639,13 +674,37 @@ extern "C" int silu_mul_quant(const void* gate, const void* up, void* yq, void* 
                               int K, int dtype_code, int v, int wpr, int rows, float qmax,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 1) return silu_launch<bf16>(gate, up, yq, sy, M, K, v, wpr, rows, qmax, st);
-  return silu_launch<float>(gate, up, yq, sy, M, K, v, wpr, rows, qmax, st);
+  if (dtype_code == 1)
+    return silu_launch<bf16, SILU_QUANT>(gate, up, yq, sy, nullptr, M, K, v, wpr, rows, qmax, st);
+  return silu_launch<float, SILU_QUANT>(gate, up, yq, sy, nullptr, M, K, v, wpr, rows, qmax, st);
+}
+
+// Each row's max |silu(gate) * up| into amax [M] (f32), nothing quantized; the
+// plan as silu_mul_quant's.
+extern "C" int silu_mul_amax(const void* gate, const void* up, void* amax, int M, int K,
+                             int dtype_code, int v, int wpr, int rows, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype_code == 1)
+    return silu_launch<bf16, SILU_AMAX>(gate, up, nullptr, amax, nullptr, M, K, v, wpr, rows,
+                                        0.f, st);
+  return silu_launch<float, SILU_AMAX>(gate, up, nullptr, amax, nullptr, M, K, v, wpr, rows, 0.f,
+                                       st);
+}
+
+// silu_mul_quant with each row's max given in amax [M] (f32) in place of its own.
+extern "C" int silu_mul_quant_amax(const void* gate, const void* up, const void* amax, void* yq,
+                                   void* sy, int M, int K, int dtype_code, int v, int wpr,
+                                   int rows, float qmax, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype_code == 1)
+    return silu_launch<bf16, SILU_GIVEN>(gate, up, yq, sy, amax, M, K, v, wpr, rows, qmax, st);
+  return silu_launch<float, SILU_GIVEN>(gate, up, yq, sy, amax, M, K, v, wpr, rows, qmax, st);
 }
 
 // {registers, static shared bytes, dynamic shared bytes, spill bytes,
 // threads a block, blocks an SM holds} of one kernel: kernel 0 =
-// rmsnorm_quant (dtype_code, gain_code as there), 1 = silu_mul_quant; v as
+// rmsnorm_quant (dtype_code, gain_code as there), 1 = silu_mul_quant, 2 =
+// silu_mul_amax, 3 = silu_mul_quant_amax; v as
 // in the launches (the register kernels at 256 threads and their stages, the
 // staged kernels at 1024 threads and a row of STAGED_ROW values). Launches
 // nothing.
@@ -657,7 +716,14 @@ extern "C" int fused_quant_attributes(int* out, int kernel, int dtype_code, int 
                             : rmsnorm_attributes<bf16, float>(v, out);
     return rmsnorm_attributes<float, float>(v, out);
   }
-  return dtype_code == 1 ? silu_attributes<bf16>(v, out) : silu_attributes<float>(v, out);
+  if (kernel == 1)
+    return dtype_code == 1 ? silu_attributes<bf16, SILU_QUANT>(v, out)
+                           : silu_attributes<float, SILU_QUANT>(v, out);
+  if (kernel == 2)
+    return dtype_code == 1 ? silu_attributes<bf16, SILU_AMAX>(v, out)
+                           : silu_attributes<float, SILU_AMAX>(v, out);
+  return dtype_code == 1 ? silu_attributes<bf16, SILU_GIVEN>(v, out)
+                         : silu_attributes<float, SILU_GIVEN>(v, out);
 }
 
 // {IN_WORDS, STAGED_ROW, MAX_GROUPS, MAX_THREADS}: the limits that

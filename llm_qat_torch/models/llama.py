@@ -25,9 +25,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from llm_qat_torch.models.config import LlamaConfig
+from llm_qat_torch.parallel import comm
 from llm_qat_torch.ops.linear import quant_dense
 from llm_qat_torch.ops.qat_matmul import mm_f32
 from llm_qat_torch.ops.quantize import kv_fake_quant, sym_fake_quant
+from llm_qat_torch.parallel import tensor as ptensor
 
 Params = Dict[str, Any]
 
@@ -155,10 +157,15 @@ def decoder_layer(
     use_flash: bool = False,
     flash_lengths: Optional[torch.Tensor] = None,
     attn_saved=None,
+    tp=None,
 ):
     """One decoder block. ``attn_saved``: an ``ops.flash_attention.AttnSaved``
     holder through which a rematerialized layer keeps its attention output
-    (see ``backbone``).
+    (see ``backbone``). ``tp``: the mesh's 'tp' group, whose rank holds the
+    Megatron split of ``lp`` (``parallel/mesh.py:param_specs``): a contiguous
+    block of ``nh/tp`` query heads and the ``kvh/tp`` kv heads they read, and
+    ``I/tp`` intermediate columns; q/k/v and gate/up are column-parallel, o
+    and down row-parallel (``parallel.tensor``). The training path only.
 
     With ``cache_kv=(k_cache, v_cache)`` of shape ``[b, max_len, kvh, hd]``
     the new (fake-quantized, RoPE'd) K and (fake-quantized) V are written at
@@ -168,13 +175,14 @@ def decoder_layer(
     training path; returns ``(h, None)``."""
     c = config
     b, s, _ = h.shape
-    hd, nh, kvh = c.head_dim, c.num_attention_heads, c.kv_heads
+    n_tp = ptensor.size(tp)
+    hd, nh, kvh = c.head_dim, c.num_attention_heads // n_tp, c.kv_heads // n_tp
     qd = dict(
         w_bits=c.w_bits, a_bits=c.a_bits, symmetric=c.symmetric,
         act_layerwise=c.act_layerwise, weight_layerwise=c.weight_layerwise,
-        fused=c.fused_qat_matmul,
+        fused=c.fused_qat_matmul, tp=tp,
     )
-    fq = dict(w_bits=c.w_bits, a_bits=c.a_bits)
+    fq = dict(w_bits=c.w_bits, a_bits=c.a_bits, tp=tp)
     # producer-fused RMSNorm+quant / SiLU+quant path (ops/fused_layer.py):
     # same STE numerics, one pass over device memory per activation
     use_fused_norm = False
@@ -197,8 +205,8 @@ def decoder_layer(
         # KV fake-quant at the reference hook (pre-RoPE); the per-token
         # absmax spans (kvh, d) == the flat hidden dim
         if c.kv_bits < 32:
-            k4 = sym_fake_quant(k4, c.kv_bits, (1, 3))
-            v4 = sym_fake_quant(v4, c.kv_bits, (1, 3))
+            k4 = sym_fake_quant(k4, c.kv_bits, (1, 3), group=tp)
+            v4 = sym_fake_quant(v4, c.kv_bits, (1, 3), group=tp)
         q5 = _rope_rotate(q5, cos[:, None, None, :, :], sin[:, None, None, :, :])
         k4 = _rope_rotate(k4, cos[:, None, :, :], sin[:, None, :, :])
         groups = nh // kvh
@@ -218,7 +226,7 @@ def decoder_layer(
         if c.fused_silu_quant:
             x = fused_layer.fused_silu_mul_dense(gate, up, lp["down"], **fq)
         else:
-            x = quant_dense(silu(gate) * up, lp["down"], **qd)
+            x = quant_dense(silu(gate) * up, lp["down"], row=True, **qd)
         return h + x, None
 
     if use_fused_norm:
@@ -232,8 +240,8 @@ def decoder_layer(
 
     # KV fake-quant at the reference's hook point: flat [b, s, kv_dim],
     # before the head reshape and RoPE
-    k = kv_fake_quant(k, c.kv_bits)
-    v = kv_fake_quant(v, c.kv_bits)
+    k = kv_fake_quant(k, c.kv_bits, tp)
+    v = kv_fake_quant(v, c.kv_bits, tp)
 
     q = q.reshape(b, s, nh, hd)
     k = k.reshape(b, s, kvh, hd)
@@ -257,7 +265,7 @@ def decoder_layer(
                                softmax_bf16=c.flash_softmax_bf16, saved=attn_saved)
     else:
         attn = _attend(q, k, v, mask)
-    attn = quant_dense(attn, lp["o"], **qd)
+    attn = quant_dense(attn, lp["o"], row=True, **qd)
     h = h + attn
 
     # --- MLP: down(silu(gate(x)) * up(x)) ---
@@ -271,7 +279,7 @@ def decoder_layer(
     if use_fused_norm and c.fused_silu_quant:
         x = fused_layer.fused_silu_mul_dense(gate, up, lp["down"], **fq)
     else:
-        x = quant_dense(silu(gate) * up, lp["down"], **qd)
+        x = quant_dense(silu(gate) * up, lp["down"], row=True, **qd)
     return h + x, new_cache
 
 
@@ -295,14 +303,16 @@ def causal_mask(b: int, s: int, attention_mask: Optional[torch.Tensor],
 
 def head_matrix(params: Params, config: LlamaConfig, mesh=None) -> torch.Tensor:
     """The (unquantized) lm_head weight ``[H, V]``; tied embeddings
-    transpose. Under a mesh, gathered whole from this rank's shard."""
+    transpose. Under a mesh, gathered over 'fsdp' from this rank's shard: the
+    vocabulary stays split over 'tp' (``[H, V/tp]``)."""
     if config.tie_word_embeddings:
         return _whole(params, "embed", mesh).t()
     return _whole(params, "lm_head", mesh)
 
 
 def _whole(params: Params, name: str, mesh) -> torch.Tensor:
-    """``params[name]``, gathered whole under a mesh (``parallel.zero``)."""
+    """``params[name]``, gathered over 'fsdp' under a mesh
+    (``parallel.zero``)."""
     if mesh is None:
         return params[name]
     from llm_qat_torch.parallel import mesh as pmesh, zero
@@ -313,32 +323,43 @@ def _whole(params: Params, name: str, mesh) -> torch.Tensor:
 class _MatmulF32(torch.autograd.Function):
     """``x @ w`` with an fp32 result from operands of ``x``'s type. The
     backward rounds the fp32 cotangent to that type and takes both products
-    at it (fp32 results), as the reference's bf16 ``lm_head`` does."""
+    at it (fp32 results), as the reference's bf16 ``lm_head`` does; over
+    ``tp`` (``w`` this rank's vocabulary columns) the ``dx`` partials are
+    summed in fp32 before the rounding."""
 
     @staticmethod
-    def forward(ctx, x2, w):
+    def forward(ctx, x2, w, tp):
         ctx.save_for_backward(x2, w)
+        ctx.tp = tp
         return mm_f32(x2, w.to(x2.dtype))
 
     @staticmethod
     def backward(ctx, g):
         x2, w = ctx.saved_tensors
         gt = g.to(x2.dtype)
-        dx = mm_f32(gt, w.to(x2.dtype).t()).to(x2.dtype)
+        dx = mm_f32(gt, w.to(x2.dtype).t())
+        if ctx.tp is not None:
+            comm.all_reduce_(dx, ctx.tp)
         dw = mm_f32(x2.t(), gt).to(w.dtype)
-        return dx, dw
+        return dx.to(x2.dtype), dw, None
 
 
-def head_logits(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+def head_logits(h: torch.Tensor, head: torch.Tensor, tp=None) -> torch.Tensor:
     """fp32 logits ``[..., V]`` of hidden states ``[..., H]`` through the fp
-    head ``[H, V]``, cast to the activation type first."""
-    out = _MatmulF32.apply(h.reshape(-1, h.shape[-1]), head)
+    head ``[H, V]``, cast to the activation type first. ``tp``: ``head`` is
+    this rank's ``[H, V/tp]`` (column-parallel), and so are the logits."""
+    out = _MatmulF32.apply(h.reshape(-1, h.shape[-1]), head, tp)
     return out.reshape(*h.shape[:-1], head.shape[-1])
 
 
 def _logits(params: Params, config: LlamaConfig, h: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Final norm + lm_head; under a 'tp' mesh each rank's vocabulary columns
+    gathered whole (``parallel.tensor.gather_from_tp``)."""
+    from llm_qat_torch.parallel import mesh as pmesh
+
+    tp = pmesh.tp_group(mesh)
     h = rms_norm(h, params["final_norm"], config.rms_norm_eps)
-    return head_logits(h, head_matrix(params, config, mesh))
+    return ptensor.gather_from_tp(head_logits(h, head_matrix(params, config, mesh), tp), tp)
 
 
 _LAYER_KEYS = ("attn_norm", "q", "k", "v", "o", "mlp_norm", "gate", "up", "down")
@@ -362,8 +383,12 @@ def backbone(
 
     ``mesh``: ``params`` hold this rank's shards (``parallel.mesh.
     shard_params``) and ``input_ids`` its rows; each layer gathers its
-    weights whole inside the function a rematerialized layer re-runs, so
-    they live only while the layer runs (``parallel.zero``).
+    weights over 'fsdp' inside the function a rematerialized layer re-runs,
+    so they live only while the layer runs (``parallel.zero``). Over 'tp'
+    the weights stay split: the embedding lookup is vocabulary-parallel and
+    each layer computes its heads and intermediate columns
+    (``decoder_layer``'s ``tp``); the residual stream is whole on every
+    rank.
 
     ``remat=True`` re-runs each layer in its backward instead of saving its
     graph. ``remat_policy="save_attn"`` keeps each layer's attention output
@@ -378,7 +403,11 @@ def backbone(
     """
     c = config
     b, s = input_ids.shape
-    h = _whole(params, "embed", mesh)[input_ids]
+    from llm_qat_torch.parallel import mesh as pmesh
+
+    tp = pmesh.tp_group(mesh)
+    check_tp(c, ptensor.size(tp))
+    h = ptensor.vocab_embed(_whole(params, "embed", mesh), input_ids, tp)
     if dtype is not None:
         h = h.to(dtype)
     if positions is None:
@@ -411,16 +440,30 @@ def backbone(
         def body(h, *leaves, saved=saved):
             out, _ = decoder_layer(
                 h, whole(dict(zip(_LAYER_KEYS, leaves))), c, mask, cos, sin,
-                use_flash=use_flash, flash_lengths=flash_lengths, attn_saved=saved)
+                use_flash=use_flash, flash_lengths=flash_lengths, attn_saved=saved, tp=tp)
             return out.to(h.dtype)
 
         h = _Remat.apply(body, h, *leaves) if rematerialize else body(h, *leaves)
     return h
 
 
+def check_tp(config: LlamaConfig, tp: int) -> None:
+    """Refuse a 'tp' split the Megatron layout cannot take: a rank holds
+    whole heads, a block of kv heads with their query groups, so ``tp``
+    must divide the kv heads (and with them the query heads, the
+    intermediate and the vocabulary)."""
+    if tp == 1:
+        return
+    c = config
+    for name, n in (("kv heads", c.kv_heads), ("intermediate_size", c.intermediate_size),
+                    ("vocab_size", c.vocab_size)):
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide {name}={n}")
+
+
 def _layer_gather(mesh):
-    """One layer's shards -> its whole weights (the stacked specs without
-    the layer dim)."""
+    """One layer's shards -> its weights gathered over 'fsdp' (the stacked
+    specs without the layer dim); a 'tp' split stays."""
     from llm_qat_torch.parallel import mesh as pmesh, zero
 
     specs = {k: v[1:] for k, v in pmesh.param_specs()["layers"].items()}

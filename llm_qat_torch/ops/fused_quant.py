@@ -7,6 +7,12 @@ produces the activation, so the bf16 tensor never reaches device memory.
   RMSNorm + per-token symmetric quant in one pass.
 * ``silu_mul_quant`` launches ``csrc/fused_quant.cu:silu_mul_quant``, which
   replaces ``...:_silu_mul_quant_kernel``: SiLU(gate) * up + per-token quant.
+  Under tensor parallelism a rank holds ``I/tp`` of each row, and the scale
+  spans the whole row: ``silu_mul_amax`` (``fused_quant.cu:silu_mul_amax``)
+  writes each row's local max ``|silu(gate) * up|``, the caller takes the
+  MAX over 'tp', and ``silu_mul_quant(..., amax=)`` (launching
+  ``silu_mul_quant_amax``) quantizes with that given row max: the integers
+  and scale the one-device kernel gives the whole row.
 
 Beside each its plain PyTorch version; a wrapper takes it only for tensors on
 the CPU. ``plan`` picks the kernel's layout from the row width (a row held in
@@ -101,15 +107,17 @@ def _aligned(*ts) -> bool:
 
 def kernel_attributes() -> dict:
     """What the compiler gave every kernel of ``csrc/fused_quant.cu``, by name
-    ``{rmsnorm_quant|silu_mul_quant}_{input}[_{gain}]_{v<n>|staged}``:
+    ``{rmsnorm_quant|silu_mul_quant|silu_mul_amax|silu_mul_quant_amax}_{input}
+    [_{gain}]_{v<n>|staged}``:
     registers a thread, shared bytes (static, dynamic), local (spill) bytes a
     thread, threads a block and blocks an SM can hold (the register kernels
     at 256 threads, RMSNorm's with two stages, the staged ones at 1024 and a
     row of ``_MAX_ROW`` values). Launches nothing."""
     # kernel, name, h's code, the gain's, words of a chunk a thread holds
     variants = [(0, "rmsnorm_quant_bf16_bf16", 1, 1, 4), (0, "rmsnorm_quant_bf16_f32", 1, 0, 12),
-                (0, "rmsnorm_quant_f32", 0, 0, 16), (1, "silu_mul_quant_bf16", 1, 0, 8),
-                (1, "silu_mul_quant_f32", 0, 0, 16)]
+                (0, "rmsnorm_quant_f32", 0, 0, 16)]
+    for kernel, name in ((1, "silu_mul_quant"), (2, "silu_mul_amax"), (3, "silu_mul_quant_amax")):
+        variants += [(kernel, f"{name}_bf16", 1, 0, 8), (kernel, f"{name}_f32", 0, 0, 16)]
     out = {}
     for kernel, name, code, gain_code, rw in variants:
         vmax = 1 << ((_IN_WORDS // rw).bit_length() - 1)
@@ -181,11 +189,24 @@ def _rmsnorm_quant_plain(h, g, eps: float, a_bits: int, kernel_order=None):
     return _quant_rows(xnf, a_bits)
 
 
-def _silu_mul_quant_plain(gate, up, a_bits: int):
-    """Plain PyTorch version of the SiLU*up+quant kernel."""
+def _silu_mul(gate, up):
     sig = torch.sigmoid(gate.float()).to(gate.dtype)
-    y = gate * sig * up
-    return _quant_rows(y.float(), a_bits)
+    return gate * sig * up
+
+
+def _silu_mul_quant_plain(gate, up, a_bits: int, amax=None):
+    """Plain PyTorch version of the SiLU*up+quant kernel; ``amax`` ``[M, 1]``
+    f32: the row max to quantize with, in place of the row's own."""
+    y = _silu_mul(gate, up).float()
+    if amax is None:
+        return _quant_rows(y, a_bits)
+    s = _scale(float(2 ** (a_bits - 1) - 1), amax)
+    return torch.round(y * s).to(torch.int8), s
+
+
+def _silu_mul_amax_plain(gate, up):
+    """Plain PyTorch version of the row-max entry: ``[M, 1]`` f32."""
+    return _silu_mul(gate, up).float().abs().amax(dim=1, keepdim=True)
 
 
 def _check(name, x, *same):
@@ -230,10 +251,13 @@ def rmsnorm_quant(h: torch.Tensor, g: torch.Tensor, eps: float,
 rmsnorm_quant.launches = 0
 
 
-def silu_mul_quant(gate: torch.Tensor, up: torch.Tensor,
-                   a_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def silu_mul_quant(gate: torch.Tensor, up: torch.Tensor, a_bits: int,
+                   amax: torch.Tensor = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused SiLU(gate)*up + per-token symmetric quant. ``gate``, ``up``:
-    ``[M, I]``. Returns ``(yq int8 [M, I], sy f32 [M, 1])``."""
+    ``[M, I]``. Returns ``(yq int8 [M, I], sy f32 [M, 1])``. ``amax``
+    (``[M, 1]`` f32): quantize with this row max (``silu_mul_quant_amax``)."""
+    if amax is not None:
+        return silu_mul_quant_amax(gate, up, amax, a_bits)
     if gate.device.type == "cpu":
         return _silu_mul_quant_plain(gate, up, a_bits)
     _check("silu_mul_quant", gate, up)
@@ -251,3 +275,52 @@ def silu_mul_quant(gate: torch.Tensor, up: torch.Tensor,
 
 
 silu_mul_quant.launches = 0
+
+
+def silu_mul_amax(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """Each row's max ``|silu(gate) * up|`` as ``[M, 1]`` f32 (a rank's part
+    of the row under tensor parallelism), quantizing nothing."""
+    if gate.device.type == "cpu":
+        return _silu_mul_amax_plain(gate, up)
+    _check("silu_mul_amax", gate, up)
+    m, k = gate.shape
+    gc, uc = gate.contiguous(), up.contiguous()
+    am = torch.empty((m, 1), dtype=torch.float32, device=gate.device)
+    f = _build.bind("fused_quant", "silu_mul_amax", 3, 6)
+    err = f(gc.data_ptr(), uc.data_ptr(), am.data_ptr(), m, k, _DTYPE_CODES[gate.dtype],
+            *plan(k, gate.element_size(), 2, _aligned(gc, uc)),
+            torch.cuda.current_stream(gate.device).cuda_stream)
+    _build.check(err, "silu_mul_amax")
+    silu_mul_amax.launches += 1
+    return am
+
+
+silu_mul_amax.launches = 0
+
+
+def silu_mul_quant_amax(gate: torch.Tensor, up: torch.Tensor, amax: torch.Tensor,
+                        a_bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``silu_mul_quant`` with each row's max given (``amax`` ``[M, 1]`` f32,
+    e.g. ``silu_mul_amax``'s taken over the 'tp' group)."""
+    if amax.shape != (gate.shape[0], 1) or amax.dtype != torch.float32:
+        raise ValueError(f"silu_mul_quant_amax: amax {amax.dtype}{tuple(amax.shape)} for "
+                         f"{tuple(gate.shape)}")
+    if gate.device.type == "cpu":
+        return _silu_mul_quant_plain(gate, up, a_bits, amax)
+    _check("silu_mul_quant_amax", gate, up)
+    m, k = gate.shape
+    gc, uc, ac = gate.contiguous(), up.contiguous(), amax.contiguous()
+    if ac.device != gate.device:
+        raise ValueError(f"silu_mul_quant_amax: amax on {ac.device}")
+    yq = torch.empty((m, k), dtype=torch.int8, device=gate.device)
+    sy = torch.empty((m, 1), dtype=torch.float32, device=gate.device)
+    f = _build.bind("fused_quant", "silu_mul_quant_amax", 5, 6, 1)
+    err = f(gc.data_ptr(), uc.data_ptr(), ac.data_ptr(), yq.data_ptr(), sy.data_ptr(), m, k,
+            _DTYPE_CODES[gate.dtype], *plan(k, gate.element_size(), 2, _aligned(gc, uc)),
+            float(2 ** (a_bits - 1) - 1), torch.cuda.current_stream(gate.device).cuda_stream)
+    _build.check(err, "silu_mul_quant_amax")
+    silu_mul_quant_amax.launches += 1
+    return yq, sy
+
+
+silu_mul_quant_amax.launches = 0

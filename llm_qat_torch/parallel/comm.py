@@ -59,6 +59,19 @@ def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return x
 
 
+def broadcast_(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` of the group's rank ``src`` (an index in the group) on every
+    rank, in place; returns ``x``."""
+    g_src = dist.get_global_rank(group, src)
+    if _staged(x, group):
+        h = x.cpu()
+        dist.broadcast(h, g_src, group=group)
+        x.copy_(h)
+    else:
+        dist.broadcast(x, g_src, group=group)
+    return x
+
+
 def shift(tensors: Sequence[torch.Tensor], group, step: int = 1) -> List[torch.Tensor]:
     """Send each tensor ``step`` ranks on along the group's ring (``rank +
     step`` mod n) and receive those of ``rank - step``: one

@@ -9,12 +9,16 @@ and the same per-parameter layout (``param_specs``): stacked layer weights
 ``[L, in, out]`` split ``in`` over fsdp for the column-parallel projections
 (q/k/v/gate/up) and ``out`` for the row-parallel ones (o/down); embed
 ``[V, H]`` and lm_head ``[H, V]`` split the hidden dim; norm scales are
-replicated. A spec is a tuple with one entry a dim: an axis name, a tuple of
+replicated. Over 'tp' the column-parallel projections split ``out``, the
+row-parallel ones ``in``, embed and lm_head the vocabulary (the Megatron
+layout). A spec is a tuple with one entry a dim: an axis name, a tuple of
 them, or None. Where GSPMD inserts the all-gathers and reduce-scatters in
-the JAX package, the port issues them itself (``parallel.zero``), so a rank
-holds only its shard of every split leaf (and of its AdamW moments). The
-batch splits over ('data', 'fsdp'), data-major. Training splits nothing over
-'tp' or 'pp' yet: a training mesh with either above 1 is refused.
+the JAX package, the port issues them itself (``parallel.zero`` over
+'fsdp', ``parallel.tensor`` over 'tp'), so a rank holds only its shard of
+every split leaf (and of its AdamW moments). The batch splits over
+('data', 'fsdp'), data-major: the ranks of one 'tp' line see the same rows.
+``pp > 1`` appends the pipeline's axis, over which ``parallel.pipeline``
+splits the stacked layers.
 
 Serving has a mesh of its own (``make_serving_mesh``): one ``('tp',)`` axis,
 or ``('host', 'tp')`` where the world holds several tensor-parallel groups
@@ -24,7 +28,8 @@ params and caches over 'tp'.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -32,15 +37,14 @@ import torch.distributed as dist
 from llm_qat_torch.parallel import comm
 
 MESH_AXES = ("data", "fsdp", "tp")
-NEXT_SLICE = ("tensor and pipeline parallelism in training are slice 15 of the port "
-              "(ROADMAP.md section 1, item 8)")
 
 
 def make_mesh(data: int = 1, fsdp: int = -1, tp: int = 1, pp: int = 1, cp: int = 1,
               device_type: Optional[str] = None):
     """The global mesh over every rank of the initialized default process
-    group. ``fsdp=-1`` absorbs the ranks the other axes leave; ``cp > 1``
-    appends the ring's context axis. ``device_type``: where the ranks' tensors
+    group, ``('data', 'fsdp', 'tp')`` with ``pp > 1`` appending the
+    pipeline's axis and ``cp > 1`` the ring's context axis, as the JAX
+    package's. ``fsdp=-1`` absorbs the ranks the other axes leave. ``device_type``: where the ranks' tensors
     live (``cuda`` when the backend is NCCL, else ``cpu``)."""
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -52,9 +56,10 @@ def make_mesh(data: int = 1, fsdp: int = -1, tp: int = 1, pp: int = 1, cp: int =
         fsdp = n // (data * tp * pp * cp)
     if data * fsdp * tp * pp * cp != n:
         raise ValueError(f"mesh {data}x{fsdp}x{tp}x{pp}x{cp} != {n} devices")
-    if tp > 1 or pp > 1:
-        raise NotImplementedError(f"mesh tp={tp} pp={pp}: {NEXT_SLICE}")
     axes, shape = list(MESH_AXES), [data, fsdp, tp]
+    if pp > 1:
+        axes.append("pp")
+        shape.append(pp)
     if cp > 1:
         axes.append("cp")
         shape.append(cp)
@@ -101,6 +106,14 @@ def axis_index(mesh, axis: str) -> int:
 def axis_group(mesh, axis: str):
     """The process group of this rank's line along ``axis``."""
     return mesh.get_group(axis)
+
+
+def tp_group(mesh):
+    """The 'tp' group of this rank, or None without a mesh or at tp = 1 (the
+    tensor-parallel functions' "no split")."""
+    if mesh is None or axis_size(mesh, "tp") == 1:
+        return None
+    return axis_group(mesh, "tp")
 
 
 def batch_shards(mesh):
@@ -152,6 +165,14 @@ def split_dim(spec, axis: str = "fsdp") -> Optional[int]:
     return None
 
 
+def split_axes(spec) -> Tuple[str, ...]:
+    """Every axis ``spec`` splits a dim over, in the spec's order."""
+    out = []
+    for e in spec:
+        out += [] if e is None else [e] if isinstance(e, str) else list(e)
+    return tuple(out)
+
+
 def map_specs(fn, tree, specs):
     """``fn(leaf, spec)`` over a tree of tensors and its spec tree."""
     if isinstance(tree, dict):
@@ -159,23 +180,34 @@ def map_specs(fn, tree, specs):
     return fn(tree, specs)
 
 
+def _dim_axes(spec):
+    """(dim, its axes major to minor) for every dim ``spec`` splits."""
+    return [(d, (e,) if isinstance(e, str) else tuple(e))
+            for d, e in enumerate(spec) if e is not None]
+
+
 def shard_params(params, mesh, specs=None):
     """This rank's shard of every leaf of a full param tree: a dim a spec
-    splits over 'fsdp' keeps the rank's 1/fsdp (a copy, so the full tensor
-    can be freed); replicated leaves stay whole. The split dim must divide
-    evenly, as a JAX ``NamedSharding`` requires."""
+    splits keeps the rank's block over the axes it names (a copy, so the
+    full tensor can be freed; a dim over several axes splits major to
+    minor); a mesh without an axis holds it at size 1. Replicated leaves stay
+    whole. A split dim must divide evenly, as a JAX ``NamedSharding``
+    requires."""
     if specs is None:
         specs = param_specs("lm_head" not in params)
-    n, i = axis_size(mesh, "fsdp"), axis_index(mesh, "fsdp")
 
     def shard(t, spec):
-        d = split_dim(spec)
-        if d is None:
-            return t
-        if t.shape[d] % n:
-            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split over fsdp={n}")
-        c = t.shape[d] // n
-        return t.narrow(d, i * c, c).clone()
+        for d, axes in _dim_axes(spec):
+            n = math.prod(axis_size(mesh, a) for a in axes)
+            if t.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(t.shape)} does not split over "
+                                 f"{'x'.join(axes)}={n}")
+            i = 0
+            for a in axes:
+                i = i * axis_size(mesh, a) + (axis_index(mesh, a) if a in mesh_shape(mesh) else 0)
+            c = t.shape[d] // n
+            t = t.narrow(d, i * c, c)
+        return t if not _dim_axes(spec) else t.clone()
 
     return map_specs(shard, params, specs)
 
@@ -185,11 +217,14 @@ def gather_params(shards, mesh, specs=None):
     the mesh calls it). No gradient flows through it."""
     if specs is None:
         specs = param_specs("lm_head" not in shards)
-    group = axis_group(mesh, "fsdp")
 
     def gather(t, spec):
-        d = split_dim(spec)
-        return t if d is None else comm.all_gather(t.detach(), d, group)
+        t = t.detach()
+        for d, axes in _dim_axes(spec):
+            for a in reversed(axes):            # minor first
+                if axis_size(mesh, a) > 1:
+                    t = comm.all_gather(t, d, axis_group(mesh, a))
+        return t
 
     with torch.no_grad():
         return map_specs(gather, shards, specs)

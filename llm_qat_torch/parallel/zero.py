@@ -6,7 +6,9 @@ inserts for the JAX package's sharded params: its forward all-gathers the
 shard over 'fsdp' along the dim the spec splits; its backward reduce-scatters
 the full weight's gradient over 'fsdp' back onto the shard and sums it over
 'data'. Each rank differentiates the loss of its own rows, so the sums make
-every rank's shard gradient the gradient of the global loss. The decoder
+every rank's shard gradient the gradient of the global loss. A dim the spec
+splits over 'tp' stays split: that is ``parallel.tensor``'s, and a 'tp'
+rank's gradient of its block needs no sum over 'tp'. The decoder
 calls it inside the function that ``models/llama.py:_Remat`` re-runs, so a
 layer's full weights live only while that layer runs, forward and recompute
 alike. FSDP2's ``fully_shard`` is not used: the port keeps the JAX package's

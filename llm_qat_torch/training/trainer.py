@@ -20,20 +20,31 @@ moments are replaced leaf by leaf. Eval is label CE -> perplexity.
 
 Over a device mesh (``parallel.mesh.make_mesh``; one process a rank):
 
-* ``parallel="fsdp"``: ZeRO-3. Student and teacher are split with
-  ``param_specs`` (a rank holds 1/fsdp of every split leaf, and of its AdamW
-  moments), each layer gathers its weights whole while it runs
-  (``parallel.zero``), and the global batch's rows split over
-  ('data', 'fsdp'). Only this mode chunks the KL.
+* ``parallel="fsdp"``: ZeRO-3, with tensor parallelism where the mesh's
+  'tp' is above 1. Student and teacher are split with ``param_specs`` (a
+  rank holds 1/fsdp of every split leaf, and of its AdamW moments, and its
+  Megatron block of the leaves split over 'tp'), each layer gathers its
+  weights over 'fsdp' while it runs (``parallel.zero``) and computes its
+  heads and columns (``parallel.tensor``), and the global batch's rows split
+  over ('data', 'fsdp'): the ranks of a 'tp' line share their rows. Only
+  this mode chunks the KL, and under 'tp' the chunk's softmax terms meet
+  over the vocabulary's split.
+* ``parallel="pp"``: GPipe (``parallel.pipeline``): the stacked layers and
+  their moments split over 'pp', the teacher stays whole, every rank sees
+  the global batch, and the loss is the unchunked one (as the JAX
+  package's). The embedding's gradient is summed over 'pp'.
 * ``parallel="cp"``: ring context parallelism (``models.llama_cp``): the
   sequence splits over 'cp', student and teacher stay whole on every rank,
   and the gradients are summed over the ring.
 
-Either way each rank differentiates the loss of its own tokens with the
-GLOBAL normalizer (the KL's batch, the MSE's element count, the CE's token
-count), so the summed gradients are the global loss's; the reported loss is
-the sum over ranks, and the gradient norm counts every split leaf's shards
-and every replicated leaf once.
+Under "fsdp" and "cp" each rank differentiates the loss of its own tokens
+with the GLOBAL normalizer (the KL's batch, the MSE's element count, the
+CE's token count), so the summed gradients are the global loss's; the
+reported loss is the sum over those ranks (never over 'tp' or 'pp', whose
+ranks compute the same loss). A leaf replicated over 'tp' (the norm gains)
+has the same gradient on every 'tp' rank and is not summed over it. The
+gradient norm sums each leaf's squares over every axis that splits it and
+counts a replicated leaf once.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from llm_qat_torch.models import llama
 from llm_qat_torch.models.config import LlamaConfig
 from llm_qat_torch.parallel import comm
 from llm_qat_torch.parallel import mesh as pmesh
+from llm_qat_torch.parallel import tensor as ptensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,10 +131,12 @@ def global_norm(tree) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _kl_sum(s_logits: torch.Tensor, t_logits: torch.Tensor) -> torch.Tensor:
-    ls = torch.log_softmax(s_logits.float(), dim=-1)
-    lt = torch.log_softmax(t_logits.float(), dim=-1)
-    return torch.sum(torch.exp(lt) * (lt - ls))
+def _kl_sum(s_logits: torch.Tensor, t_logits: torch.Tensor, tp=None) -> torch.Tensor:
+    """``sum p_T (log p_T - log p_S)`` in fp32; ``tp``: the logits are this
+    rank's vocabulary columns, the softmax's terms and the sum meet over it."""
+    ls = ptensor.log_softmax_over_tp(s_logits.float(), tp)
+    lt = ptensor.log_softmax_over_tp(t_logits.float(), tp)
+    return ptensor.reduce_from_tp(torch.sum(torch.exp(lt) * (lt - ls)), tp)
 
 
 def kd_kl_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
@@ -147,19 +161,25 @@ def chunked_kd_kl(
     teacher_head: torch.Tensor,  # [H, V]
     chunk: int,
     batch: Optional[int] = None,
+    tp=None,
 ) -> torch.Tensor:
     """``kd_kl_loss`` with the lm_head fused into the sequence chunks: each
     step projects one ``[b, chunk, H]`` slice through the head and reduces the
     KL sum in fp32; the chunk is rematerialized, so the backward recomputes
     its logits instead of saving n copies. Peak loss memory is one chunk's
     logits (student + teacher). Same numbers as ``kd_kl_loss`` (same matmul
-    type, same fp32 reduction order over chunks); ``batch`` as there."""
+    type, same fp32 reduction order over chunks); ``batch`` as there.
+    ``tp``: the heads are this rank's ``[H, V/tp]`` and so are a chunk's
+    logits; the maximum, the log-sum-exp and the KL sum meet over 'tp'
+    (``parallel.tensor``), and the recomputed chunk issues them again in the
+    same order on every rank."""
     b, s, _ = student_h.shape
     if not (chunk and s % chunk == 0):
         chunk = s
 
     def body(hs_i, ht_i, s_head, t_head):
-        return _kl_sum(llama.head_logits(hs_i, s_head), llama.head_logits(ht_i, t_head))
+        return _kl_sum(llama.head_logits(hs_i, s_head, tp), llama.head_logits(ht_i, t_head, tp),
+                       tp)
 
     total = torch.zeros((), dtype=torch.float32, device=student_h.device)
     for i in range(0, s, chunk):
@@ -304,17 +324,13 @@ def _check_parallel(mesh, parallel: str) -> None:
 
 
 class _Ranks:
-    """What a step needs of the mesh: the specs of the student's leaves, the
-    axes its tokens split over, and the sums over them."""
+    """What a step needs of the mesh: the specs of the student's leaves
+    (``specs``, the Trainer's), the axes its tokens split over and the sums
+    over them."""
 
-    def __init__(self, mesh, parallel: str, params):
-        self.mesh, self.parallel = mesh, parallel
-        if parallel == "fsdp":
-            self.specs = pmesh.param_specs("lm_head" not in params)
-            self.axes = ("data", "fsdp")
-        else:
-            self.specs = pmesh.replicated_specs(params)
-            self.axes = ("cp",)
+    def __init__(self, mesh, parallel: str, specs):
+        self.mesh, self.parallel, self.specs = mesh, parallel, specs
+        self.axes = {"fsdp": ("data", "fsdp"), "cp": ("cp",), "pp": ()}[parallel]
         self.shards = math.prod(pmesh.axis_size(mesh, a) for a in self.axes)
 
     def sum_(self, x: torch.Tensor, axes=None) -> torch.Tensor:
@@ -323,29 +339,60 @@ class _Ranks:
             comm.all_reduce_(x, pmesh.axis_group(self.mesh, a))
         return x
 
-    def pairs(self, tree):
+    def leaves(self, tree):
+        """(name, leaf, spec) over a params-shaped tree, in its order."""
         out = []
-        pmesh.map_specs(lambda t, spec: out.append((t, pmesh.split_dim(spec) is not None)),
-                        tree, self.specs)
+
+        def walk(t, sp, name):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, sp[k], k)
+            else:
+                out.append((name, t, sp))
+
+        walk(tree, self.specs, "")
         return out
 
+    def grad_axes(self, name: str, spec) -> Tuple[str, ...]:
+        """The axes a leaf's gradient is summed over after the backward:
+        under "fsdp" a leaf not split over 'fsdp' over ('data', 'fsdp') (the
+        split leaves' gathers reduce-scatter theirs; nothing is summed over
+        'tp'); under "cp" every leaf over the ring; under "pp" the
+        embedding, whose gradient arises on stage 0, over 'pp'."""
+        if self.parallel == "fsdp":
+            return () if pmesh.split_dim(spec, "fsdp") is not None else self.axes
+        if self.parallel == "pp":
+            return ("pp",) if name == "embed" else ()
+        return self.axes
+
     def reduce_grads(self, grads) -> None:
-        """Sum the replicated leaves' gradients over the ranks (the split
-        leaves' were reduce-scattered by their gathers)."""
-        for g, split in self.pairs(grads):
-            if not split:
-                self.sum_(g)
+        for name, g, spec in self.leaves(grads):
+            self.sum_(g, self.grad_axes(name, spec))
 
     def norm(self, tree) -> torch.Tensor:
-        """The global norm: the split leaves' shards' squares summed over
-        'fsdp', every replicated leaf counted once."""
-        split = [torch.sum(g * g).float() for g, sp in self.pairs(tree) if sp]
-        whole = [torch.sum(g * g).float() for g, sp in self.pairs(tree) if not sp]
-        zero = torch.zeros((), dtype=torch.float32, device=(split + whole)[0].device)
-        sq = sum(split, zero)
-        if self.parallel == "fsdp":
-            self.sum_(sq, ("fsdp",))
-        return torch.sqrt(sum(whole, sq))
+        """The global norm: each leaf's squares summed over the axes that
+        split it (leaves grouped by those axes), every replicated leaf
+        counted once."""
+        groups: Dict[Tuple[str, ...], list] = {}
+        for _, g, spec in self.leaves(tree):
+            axes = tuple(a for a in pmesh.split_axes(spec) if pmesh.axis_size(self.mesh, a) > 1)
+            groups.setdefault(axes, []).append(torch.sum(g * g).float())
+        first = next(iter(groups.values()))[0]
+        total = torch.zeros((), dtype=torch.float32, device=first.device)
+        for axes, sqs in sorted(groups.items(), key=lambda kv: not kv[0]):
+            total = total + self.sum_(sum(sqs, torch.zeros_like(total)), axes)
+        return torch.sqrt(total)
+
+
+def _param_specs(params, mesh, parallel: str):
+    """The spec tree a mode splits the student with."""
+    if parallel == "fsdp":
+        return pmesh.param_specs("lm_head" not in params)
+    if parallel == "pp":
+        from llm_qat_torch.parallel import pipeline
+
+        return pipeline.pipeline_param_specs("lm_head" not in params)
+    return pmesh.replicated_specs(params)
 
 
 def _inner(tx):
@@ -367,8 +414,15 @@ def make_train_step(model_cfg: LlamaConfig, teacher_cfg: LlamaConfig,
     tc = train_cfg
     cp = parallel == "cp"
     ranks = None
+    tp = pmesh.tp_group(mesh) if parallel == "fsdp" else None
 
     def student_forward(params, ids, fwd):
+        if parallel == "pp":
+            from llm_qat_torch.parallel import pipeline
+
+            mb = tc.num_microbatches or pmesh.axis_size(mesh, "pp")
+            return pipeline.pipeline_forward(params, model_cfg, ids, mesh, num_microbatches=mb,
+                                             remat=tc.remat, dtype=tc.compute_dtype)
         if cp:
             from llm_qat_torch.models import llama_cp
 
@@ -389,16 +443,16 @@ def make_train_step(model_cfg: LlamaConfig, teacher_cfg: LlamaConfig,
     def step(state: TrainState, teacher_params, batch) -> Tuple[TrainState, Dict[str, Any]]:
         nonlocal ranks
         if mesh is not None and ranks is None:
-            ranks = _Ranks(mesh, parallel, state.params)
+            ranks = _Ranks(mesh, parallel, _param_specs(state.params, mesh, parallel))
             _inner(tx).norm = ranks.norm
         ids = batch["input_ids"]
         mask = batch.get("attention_mask")
-        if cp and mask is not None:
-            raise ValueError("cp training expects packed blocks (no attention_mask)")
+        if parallel in ("cp", "pp") and mask is not None:
+            raise ValueError(f"{parallel} training expects packed blocks (no attention_mask)")
         chunked_kl = (tc.use_kd and tc.kd_loss_type != "mse" and bool(tc.kl_chunk)
                       and parallel == "fsdp")
         fwd = dict(attention_mask=mask, dtype=tc.compute_dtype)
-        if mesh is not None and not cp:
+        if mesh is not None and parallel == "fsdp":
             fwd["mesh"] = mesh
         # the global normalizers: the batch (rows split over the ranks under
         # fsdp, columns under cp) and the element count
@@ -419,7 +473,7 @@ def make_train_step(model_cfg: LlamaConfig, teacher_cfg: LlamaConfig,
                 student_h = llama.final_hidden(params, model_cfg, ids, remat=tc.remat, **fwd)
                 kd = chunked_kd_kl(student_h, teacher_ref,
                                    llama.head_matrix(params, model_cfg, fwd.get("mesh")),
-                                   teacher_head, tc.kl_chunk, batch=n_rows)
+                                   teacher_head, tc.kl_chunk, batch=n_rows, tp=tp)
                 return tc.kd_loss_scale * kd
             student_logits = student_forward(params, ids, fwd)
             if not tc.use_kd:
@@ -465,16 +519,29 @@ def _or_zeros(g, p):
     return torch.zeros_like(p) if g is None else g
 
 
-def make_eval_step(model_cfg: LlamaConfig, compute_dtype=torch.bfloat16, mesh=None) -> Callable:
+def make_eval_step(model_cfg: LlamaConfig, compute_dtype=torch.bfloat16, mesh=None,
+                   parallel: str = "fsdp") -> Callable:
     """Eval = label CE (not the KD loss); perplexity = exp(mean loss).
     ``step(params, batch) -> (nll_sum, valid_token_count)``; ``mesh``: params
-    are this rank's shards and batch its rows (the sums are this rank's)."""
+    are this rank's shards and batch its rows (the sums are this rank's; the
+    vocabulary's 'tp' split is gathered whole). ``parallel="pp"``: params are
+    this stage's, the batch is whole, and the forward is the pipeline's (P
+    microbatches where they divide the batch, else one)."""
 
     def step(params, batch):
+        ids = batch["input_ids"]
         with torch.no_grad():
-            logits = llama.forward(params, model_cfg, batch["input_ids"],
-                                   attention_mask=batch.get("attention_mask"),
-                                   dtype=compute_dtype, mesh=mesh)
+            if parallel == "pp":
+                from llm_qat_torch.parallel import pipeline
+
+                P = pmesh.axis_size(mesh, "pp")
+                logits = pipeline.pipeline_forward(
+                    params, model_cfg, ids, mesh, num_microbatches=P if ids.shape[0] % P == 0
+                    else 1, dtype=compute_dtype)
+            else:
+                logits = llama.forward(params, model_cfg, ids,
+                                       attention_mask=batch.get("attention_mask"),
+                                       dtype=compute_dtype, mesh=mesh)
             return llama.causal_lm_loss_sum(logits, batch["labels"])
 
     return step
@@ -493,11 +560,11 @@ class Trainer:
     perplexity. Runs on ``cuda`` unless ``device="cpu"`` is passed; params,
     teacher and batches must lie on (batches are moved to) that device.
 
-    ``mesh`` (``parallel.mesh.make_mesh``) and ``parallel`` ("fsdp" or "cp";
-    "pp" is the next slice's): every rank builds the Trainer from the same
-    full params and teacher and steps the same global batches; the Trainer
-    keeps this rank's part of each (``state.params`` holds its shards under
-    "fsdp")."""
+    ``mesh`` (``parallel.mesh.make_mesh``) and ``parallel`` ("fsdp", with
+    'tp' where the mesh has it; "pp"; or "cp"): every rank builds the Trainer
+    from the same full params and teacher and steps the same global batches;
+    the Trainer keeps this rank's part of each (``state.params`` holds its
+    shards under "fsdp" and its stage's layers under "pp")."""
 
     def __init__(
         self,
@@ -529,13 +596,14 @@ class Trainer:
                 lambda x: x.clone() if x.untyped_storage().data_ptr() in shared else x, params)
         self.param_specs = None
         if mesh is not None:
+            self.param_specs = _param_specs(params, mesh, parallel)
             if parallel == "fsdp":
-                self.param_specs = pmesh.param_specs("lm_head" not in params)
+                llama.check_tp(model_cfg, pmesh.axis_size(mesh, "tp"))
                 params = pmesh.shard_params(params, mesh, self.param_specs)
                 if teacher_params is not None:
                     teacher_params = pmesh.shard_params(teacher_params, mesh)
-            else:
-                self.param_specs = pmesh.replicated_specs(params)
+            elif parallel == "pp":
+                params = pmesh.shard_params(params, mesh, self.param_specs)
         self.teacher_params = teacher_params
         self.teacher_cfg = teacher_cfg or model_cfg.replace(w_bits=32, a_bits=32, kv_bits=32)
         self.tx = make_optimizer(train_cfg)
@@ -543,21 +611,22 @@ class Trainer:
         self._step = make_train_step(model_cfg, self.teacher_cfg, train_cfg, self.tx,
                                      mesh=mesh, parallel=parallel)
         self._eval = make_eval_step(model_cfg, train_cfg.compute_dtype,
-                                    mesh if parallel == "fsdp" else None)
+                                    mesh if parallel in ("fsdp", "pp") else None,
+                                    parallel if mesh is not None else "fsdp")
 
     def place_batch(self, batch, evaluation: bool = False):
         """A global batch on this rank's device, cut to this rank's part:
-        its rows under "fsdp"; under "cp" (training) its chunk of the
-        sequence, ``labels`` becoming the chunk's next-token targets (-100
-        past the end), while evaluation takes the whole batch on every
-        rank."""
+        its rows under "fsdp"; the whole batch under "pp"; under "cp"
+        (training) its chunk of the sequence, ``labels`` becoming the chunk's
+        next-token targets (-100 past the end), while evaluation takes the
+        whole batch on every rank."""
         out = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
                .to(self.device) for k, v in batch.items()}
         if self.mesh is None:
             return out
         if self.parallel == "fsdp":
             return pmesh.shard_batch(out, self.mesh)
-        if evaluation:
+        if evaluation or self.parallel == "pp":
             return out
         n, i = pmesh.axis_size(self.mesh, "cp"), pmesh.axis_index(self.mesh, "cp")
         s = out["input_ids"].shape[1]
@@ -580,7 +649,8 @@ class Trainer:
     def evaluate(self, batches) -> Dict[str, float]:
         """Token-weighted mean label CE over ``batches`` and its perplexity
         (``inf``, not an exception, for a divergent model); under "fsdp" the
-        sums are over every rank's rows."""
+        sums are over every rank's rows (the ranks of a 'tp' line share
+        theirs)."""
         total_nll = 0.0
         total_tokens = 0.0
         for batch in batches:

@@ -5,8 +5,8 @@ ModelArguments / DataArguments / TrainingArguments with the bit-widths on
 ModelArguments and the QAT/KD switches on TrainingArguments. The same three
 dataclasses, flag for flag, parsed with a small argparse parser, plus a
 ``device`` field (``cuda`` unless ``cpu`` is asked for). The mesh fields size
-the ranks' mesh (``parallel.mesh.make_mesh``); ``check_mesh_axes`` refuses
-the axes this slice does not split (tp, pp).
+the ranks' mesh (``parallel.mesh.make_mesh``): data, fsdp and tp for the
+ZeRO-3 / tensor-parallel trainer, pp for GPipe, cp for the context ring.
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ class TrainingArguments:
     no_fused_norm_quant: bool = False   # producer-fused norm+quant / flash-
                                         # layout projections
     device: str = "cuda"                # "cpu": the kernels' plain versions
-    # mesh layout (the JAX package's flags; see check_mesh_axes)
+    # mesh layout (the JAX package's flags)
     mesh_data: int = 1
     mesh_fsdp: int = -1
     mesh_tp: int = 1
@@ -119,13 +119,3 @@ def process_args(
         return cls(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(cls)})
 
     return build(ModelArguments), build(DataArguments), build(TrainingArguments)
-
-
-def check_mesh_axes(training_args: TrainingArguments) -> None:
-    """Refuse the mesh axes this slice does not split: ``--mesh_tp`` and
-    ``--mesh_pp`` above 1."""
-    from llm_qat_torch.parallel.mesh import NEXT_SLICE
-
-    if training_args.mesh_tp > 1 or training_args.mesh_pp > 1:
-        raise NotImplementedError(
-            f"--mesh_tp {training_args.mesh_tp} --mesh_pp {training_args.mesh_pp}: {NEXT_SLICE}")

@@ -225,22 +225,12 @@ def test_resume_is_bit_equal_to_straight_steps(workdir, runs, monkeypatch):
 
 @pytest.mark.parametrize("axis", ["mesh_fsdp", "mesh_tp", "mesh_data", "mesh_pp", "mesh_cp"])
 def test_mesh_larger_than_one_raises(workdir, axis):
-    """tp and pp in training belong to slice 15; the axes the trainer splits
-    need the ranks of a process group, which a single process does not
-    have."""
-    if axis in ("mesh_tp", "mesh_pp"):
-        with pytest.raises(NotImplementedError, match="slice 15"):
-            TCLI.run(*_args(TA, workdir, "mesh", **{axis: 2}), tokenize=fake_tokenize,
-                     device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 8"):
-            TA.check_mesh_axes(TA.TrainingArguments(**{axis: 2}))
-    else:
-        with pytest.raises(ValueError, match="torchrun"):
-            TCLI.run(*_args(TA, workdir, "mesh", **{axis: 2}), tokenize=fake_tokenize,
-                     device="cpu")
-        TA.check_mesh_axes(TA.TrainingArguments(**{axis: 2}))
-    # -1 ("all devices") is one device here
-    TA.check_mesh_axes(TA.TrainingArguments(mesh_fsdp=-1))
+    """Every axis the trainer splits (tp and pp too) needs the ranks of a
+    process group, which a single process does not have: the run asks for
+    torchrun."""
+    with pytest.raises(ValueError, match="torchrun"):
+        TCLI.run(*_args(TA, workdir, "mesh", **{axis: 2}), tokenize=fake_tokenize,
+                 device="cpu")
 
 
 def test_run_needs_a_gpu_unless_cpu_is_asked(workdir, monkeypatch):

@@ -894,6 +894,41 @@ def test_silu_mul_quant_kernel(gen, M, K, dtype, a_bits):
     assert not got[0][0].any()
 
 
+# a tp rank's intermediate columns: TinyLlama-1.1B at tp = 2, LLaMA-7B at tp = 2 and 4
+TP_SILU_WIDTHS = [2816, 5504, 2752]
+
+
+@pytest.mark.parametrize("K", TP_SILU_WIDTHS)
+@pytest.mark.parametrize("M", [8, 8192 + 5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_silu_mul_quant_tp_entries(gen, M, K, dtype):
+    """K13's entries for tensor parallelism at a tp rank's widths: the row
+    max and the quantization with a given row max, each bit-equal to its
+    plain version and the same bits twice; two ranks' columns quantized with
+    the MAX of their row maxima give the one-pass kernel's integers and
+    scales of the whole row."""
+    gate = _quant_input(gen, M, 2 * K, dtype, 2.0)
+    up = torch.randn(M, 2 * K, device="cuda", generator=gen).to(dtype)
+    parts = [(gate[:, :K].contiguous(), up[:, :K].contiguous()),
+             (gate[:, K:].contiguous(), up[:, K:].contiguous())]
+    n_amax, n_given = FQ.silu_mul_amax.launches, FQ.silu_mul_quant_amax.launches
+    amax = [FQ.silu_mul_amax(g, u) for g, u in parts]
+    assert FQ.silu_mul_amax.launches == n_amax + 2
+    for a, (g, u) in zip(amax, parts):
+        assert torch.equal(a, FQ._silu_mul_amax_plain(g, u))
+        assert torch.equal(a, FQ.silu_mul_amax(g, u))
+    row_max = torch.maximum(*amax)
+    got = [FQ.silu_mul_quant(g, u, 8, amax=row_max) for g, u in parts]
+    assert FQ.silu_mul_quant_amax.launches == n_given + 2
+    for q, (g, u) in zip(got, parts):
+        assert _same_bits(q, FQ.silu_mul_quant(g, u, 8, amax=row_max),
+                          FQ._silu_mul_quant_plain(g, u, 8, row_max))
+    whole = FQ.silu_mul_quant(gate, up, 8)
+    assert torch.equal(torch.cat([got[0][0], got[1][0]], dim=1), whole[0])
+    assert torch.equal(got[0][1], whole[1]) and torch.equal(got[1][1], whole[1])
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("case", ["rows too wide for the registers", "width not a multiple of 8",
                                   "misaligned tensors", "the widest row"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -923,6 +958,11 @@ def test_fused_quant_staged_kernels(gen, case, dtype):
     assert _same_bits(got, FQ.rmsnorm_quant(h, g, 1e-5, 8), FQ._rmsnorm_quant_plain(h, g, 1e-5, 8))
     got = FQ.silu_mul_quant(gate, up, 8)
     assert _same_bits(got, FQ.silu_mul_quant(gate, up, 8), FQ._silu_mul_quant_plain(gate, up, 8))
+    amax = FQ.silu_mul_amax(gate, up)
+    assert torch.equal(amax, FQ._silu_mul_amax_plain(gate, up))
+    given = FQ.silu_mul_quant(gate, up, 8, amax=2 * amax)
+    assert _same_bits(given, FQ.silu_mul_quant(gate, up, 8, amax=2 * amax),
+                      FQ._silu_mul_quant_plain(gate, up, 8, 2 * amax))
     torch.cuda.synchronize()
 
 
@@ -938,7 +978,9 @@ def test_fused_quant_kernel_attributes(gen):
     """Every register and staged kernel of fused_quant.cu compiles without a
     spill; the register kernels hold 1024 threads a block."""
     attrs = FQ.kernel_attributes()
-    assert len(attrs) == (4 + 2 + 2 + 3 + 2) + 5     # V = 1, 2 (, 4, 8); staged
+    # RMSNorm's V = 1, 2 (, 4, 8) and staged; each SiLU*up entry's (one-pass,
+    # row max, given max) V = 1, 2 (, 4) and staged
+    assert len(attrs) == (4 + 2 + 2 + 3) + 3 * (3 + 2 + 2)
     for name, a in attrs.items():
         assert a["spill_bytes"] == 0 and a["blocks_per_sm"] >= 1, (name, a)
         assert a["registers"] <= 64, (name, a)

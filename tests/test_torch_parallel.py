@@ -46,7 +46,10 @@ def _mesh_rank(rank, world):
 
     out = {"absorb": pmesh.mesh_shape(pmesh.make_mesh(data=2))}
     out["cp"] = pmesh.mesh_shape(pmesh.make_mesh(fsdp=2, cp=2))
-    for kw in (dict(data=3, fsdp=3), dict(fsdp=3), dict(tp=2, fsdp=2), dict(pp=2, fsdp=2)):
+    out["tp"] = pmesh.mesh_shape(pmesh.make_mesh(tp=2, fsdp=2))
+    out["pp"] = pmesh.mesh_shape(pmesh.make_mesh(pp=2, fsdp=2))
+    out["tp_coords"] = [pmesh.axis_index(pmesh.make_mesh(tp=2, fsdp=2), a) for a in ("fsdp", "tp")]
+    for kw in (dict(data=3, fsdp=3), dict(fsdp=3), dict(tp=3, fsdp=2), dict(pp=3, fsdp=1)):
         try:
             pmesh.make_mesh(**kw)
             out[str(kw)] = None
@@ -79,8 +82,11 @@ def test_mesh_shapes_shards_and_errors():
         assert r["cp"] == {"data": 1, "fsdp": 2, "tp": 1, "cp": 2}
         assert r["{'data': 3, 'fsdp': 3}"] == ("ValueError", "mesh 3x3x1x1x1 != 4 devices")
         assert r["{'fsdp': 3}"][0] == "ValueError"
-        for kw in ("{'tp': 2, 'fsdp': 2}", "{'pp': 2, 'fsdp': 2}"):
-            assert r[kw][0] == "NotImplementedError" and "slice 15" in r[kw][1]
+        assert r["tp"] == {"data": 1, "fsdp": 2, "tp": 2}
+        assert r["pp"] == {"data": 1, "fsdp": 2, "tp": 1, "pp": 2}
+        assert r["tp_coords"] == [rank // 2, rank % 2]              # tp the minor axis
+        assert r["{'tp': 3, 'fsdp': 2}"] == ("ValueError", "mesh 1x2x3x1x1 != 4 devices")
+        assert r["{'pp': 3, 'fsdp': 1}"] == ("ValueError", "mesh 1x1x1x3x1 != 4 devices")
         assert r["coords"] == (rank // 2, rank % 2)
         q, kv, o = C.num_attention_heads * C.head_dim, C.kv_heads * C.head_dim, H
         assert r["shapes"] == {

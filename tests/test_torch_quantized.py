@@ -228,6 +228,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "llm_qat_torch/parallel/zero.py", "llm_qat_torch/parallel/ring_attention.py",
             "llm_qat_torch/models/llama_cp.py"} <= names
     assert {"llm_qat_torch/inference/sharded.py", "llm_qat_torch/inference/multihost.py"} <= names
+    assert {"llm_qat_torch/parallel/tensor.py", "llm_qat_torch/parallel/pipeline.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

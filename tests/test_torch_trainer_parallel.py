@@ -36,6 +36,11 @@ from each run's params, must be equal or part in one element by one level
 (``_mesh_flip``); where the two JAX runs part past the loss limit, they must
 part so.
 
+The train CLI also runs at world 2 with ``--mesh_tp 2`` and with
+``--mesh_pp 2`` against JAX's CLI under the same flags (the same limits),
+and a run stopped before its third step and restarted from its step-2
+checkpoint under the same axis logs the straight run's losses to the bit.
+
 The ranks import this module, so JAX is imported inside the reference
 functions only.
 """
@@ -371,3 +376,81 @@ def test_world2_checkpoint_resumes_at_world1_and_world2(cli_runs):
                    tokenize=fake_tokenize, device="cpu")
     assert res["train_steps"] == CLI_STEPS + 2
     assert np.isfinite(_losses(d, "one")).all() and len(_losses(d, "one")) == 2
+
+
+# --- the CLI over 'tp' and 'pp' at world 2, and a resume under each ----------
+
+AXIS_CASES = {"mesh_tp": dict(mesh_fsdp=1, mesh_tp=2), "mesh_pp": dict(mesh_fsdp=1, mesh_pp=2)}
+
+
+class _Crash(Exception):
+    pass
+
+
+def _cli_axis_rank(rank, world, d, axis):
+    """On each rank: the CLI straight through CLI_STEPS steps; then in another
+    directory the same run stopped before its third step (every rank at
+    once) and restarted with ``resume_from_checkpoint``."""
+    from llm_qat_torch.cli import train as TCLI
+    from llm_qat_torch.training import trainer as TT
+
+    kw = dict(AXIS_CASES[axis], per_device_train_batch_size=2)
+    straight = TCLI.run(*_cli_args(d, f"{axis}_torch", **kw), tokenize=fake_tokenize,
+                        device="cpu")
+    real, calls = TT.Trainer.train_step, []
+
+    def crashing(self, batch):
+        calls.append(1)
+        if len(calls) == 3:
+            raise _Crash
+        return real(self, batch)
+
+    TT.Trainer.train_step = crashing
+    try:
+        TCLI.run(*_cli_args(d, f"{axis}_resumed", **kw, do_eval=False),
+                 tokenize=fake_tokenize, device="cpu")
+    except _Crash:
+        pass
+    finally:
+        TT.Trainer.train_step = real
+    resumed = TCLI.run(*_cli_args(d, f"{axis}_resumed", **kw, resume_from_checkpoint=True,
+                                  do_eval=False), tokenize=fake_tokenize, device="cpu")
+    return straight, resumed
+
+
+@pytest.mark.parametrize("axis", list(AXIS_CASES))
+def test_cli_tp_pp_world2_matches_jax_cli_and_resumes(cli_runs, axis):
+    """``--mesh_tp 2`` and ``--mesh_pp 2`` through ``cli.train.run`` on two
+    gloo ranks against JAX's CLI on two fake devices (the losses at
+    ``test_cli_world2_matches_jax_cli``'s 1e-4, the eval on every rank, the
+    export's params); the checkpoint of step 2 resumed under the same axis
+    continues the straight run: steps 3 and 4 log its losses to the bit."""
+    import jax
+    import jax.numpy as jnp
+
+    from llm_qat_tpu.cli import train as JCLI
+    from llm_qat_tpu.models import convert as JC
+    from llm_qat_tpu.utils import args as JA
+    from llm_qat_torch.models import convert as TC
+
+    d = cli_runs[0]
+    ranks = launch.spawn(_cli_axis_rank, 2, args=(d, axis), timeout=240)
+    margs, dargs, targs = _cli_args(d, f"{axis}_jax", **AXIS_CASES[axis],
+                                    per_device_train_batch_size=2)
+    jargs = (JA.ModelArguments(**vars(margs)), JA.DataArguments(**vars(dargs)),
+             JA.TrainingArguments(**{k: v for k, v in vars(targs).items() if k != "device"}))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JCLI.pmesh, "make_mesh",
+                   functools.partial(JCLI.pmesh.make_mesh, devices=jax.devices()[:2]))
+        jres = JCLI.run(*jargs, tokenize=fake_tokenize)
+    straight = [r[0] for r in ranks]
+    assert [r["train_steps"] for r in straight] == [CLI_STEPS] * 2 == [jres["train_steps"]] * 2
+    np.testing.assert_allclose(_losses(d, f"{axis}_torch"), _losses(d, f"{axis}_jax"), rtol=1e-4)
+    for r in straight:
+        np.testing.assert_allclose(r["perplexity"], jres["perplexity"], rtol=1e-4)
+    _, jp = JC.load_hf_checkpoint(jres["model_path"], dtype=jnp.float32)
+    _, tp = TC.load_hf_checkpoint(straight[0]["model_path"], dtype=torch.float32, device="cpu")
+    _hold_params({n: a.numpy() for n, a in _leaves(tp)},
+                 {n: np.asarray(a) for n, a in _leaves(jp)}, CLI_STEPS * LR, f"{axis} export")
+    assert [r[1]["train_steps"] for r in ranks] == [CLI_STEPS] * 2
+    assert _losses(d, f"{axis}_resumed")[-2:] == _losses(d, f"{axis}_torch")[2:]

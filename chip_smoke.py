@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
-``build/llm_qat_torch/``), then:
+``build/llm_qat_torch/``; ``megakernel.cu``, the slowest, compiles on
+through phases 2 and 2b), then:
 
-1. prints the card's name and power limit and the build time;
+1. prints the card's name and power limit and each source's build time;
 2. runs each kernel's wrapper at the TinyLlama-1.1B shapes of the serving
    path (K1/K2 also at LLaMA-7B's projections, at decode and prefill rows;
    K4 also at the zero-shot scorer's buckets and caps, S = 32 to 200),
@@ -94,6 +95,15 @@ Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
    K1/K2/K3/K8/K4 launch against its plain version), 2-layer cuts against
    one device and the CPU path, beam search over TP and the multi-host
    driver as 2 hosts x tp 1 (see ``tp_serving_phase``);
+4f. trains tensor- and pipeline-parallel over two ranks (see
+   ``tp_pp_train_phase``);
+4g. runs ``examples/tiny_pipeline_torch.py`` as a user does (head dim 16,
+   two query heads a kv head, f32), launches counted stage by stage, and
+   ``examples/accuracy_experiment_torch.py`` at its model's shape (head dim
+   32, bf16) for a handful of steps (see ``tiny_pipeline_phase``,
+   ``accuracy_phase``); phase 2b holds every kernel instantiation of the
+   repo's other head shapes and K tails against its plain version (see
+   ``shapes_phase``);
 5. prints what the compiler gave the tensor-core flash kernels, the
    decode megakernel and every K1/K2, K3/K7/K8 and K12/K13 variant
    (registers, shared memory, spills, blocks an SM holds; it fails on a
@@ -4245,6 +4255,311 @@ def tp_serving_phase(cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the kernels at every head shape and K of the repo's models, and the two
+# example scripts (tiny pipeline, accuracy experiment) on the card
+# ---------------------------------------------------------------------------
+
+SHAPES_SEED = 16                     # the shapes phase's generator
+# K1/K2 at K no multiple of the 128-row stage: (model and projection, K, N) at
+# decode rows; the tiny models' qkv (hidden 64), the accuracy model's down
+# (768), LLaMA-7B's down at tp = 8 and tp = 4
+K_TAIL_PROJ = (("tiny", "qkv", 64, 128), ("accuracy", "down", 768, 256),
+               ("LLaMA-7B tp=8", "down", 1376, 4096), ("LLaMA-7B tp=4", "down", 2752, 4096))
+# K3/K7/K8 at the new (G, hd): (kv heads, G, hd, model)
+NEW_DECODE = ((2, 2, 16, "tiny"), (4, 2, 32, "accuracy"), (8, 4, 128, "LLaMA-3-8B"),
+              (8, 8, 128, "LLaMA-2-70B"))
+# K4/K10/K11 at the new head dims: (D, dtype, B, G, S, what); B = batch x kv heads
+NEW_FLASH = ((16, torch.float32, 4, 2, 32, "tiny pipeline train"),
+             (16, torch.float32, 16, 2, 2048, "long"),
+             (16, torch.bfloat16, 16, 2, 2048, "long"),
+             (32, torch.bfloat16, 128, 2, 256, "accuracy train"),
+             (32, torch.float32, 16, 2, 2048, "long"),
+             (32, torch.bfloat16, 16, 2, 2048, "long"),
+             (128, torch.float32, 8, 1, 2048, "LLaMA-7B heads, long"))
+F32_ULPS_REL, F32_FLOOR = 1e-5, 1e-4  # f32 kernels against their plain versions
+TINY_SEQ, ACC_ARGV = 32, ("--teacher_steps", "4", "--qat_steps", "4", "--corpus_mb", "0.1")
+ACC_SIZES = dict(n_mc=32, synth_per_shard=8, synth_rounds=1)  # main()'s keyword arguments
+
+
+def f32_agreement(got, want):
+    """Element-wise |got - want| <= 1e-5 |want| + 1e-4 median|want| (the f32
+    kernels' limit of ``tests/test_torch_cuda_kernels.py``)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    med = float(w.abs().median())
+    lim = F32_ULPS_REL * w.abs() + F32_FLOOR * med
+    return dict(ok=bool(torch.isfinite(g).all()) and bool((err <= lim).all()),
+                max_abs_err=float(err.max()), worst=float((err / lim.clamp_min(1e-30)).max()),
+                median_abs_want=med, rel_l2=float((g - w).norm() / w.norm().clamp_min(1e-30)))
+
+
+def flash_shape(timer, gen, FA, D, dtype, B, G, S, what):
+    """K4, K10 and K11 at one new (head dim, type): causal, full lengths but
+    one sequence cut mid-block and one of length 1; each against its plain
+    version (bf16: ``agreement``; f32: ``f32_agreement``), the same bits on a
+    second launch, exact zeros of dK/dV past the lengths. ``library_ms``:
+    SDPA causal with ``enable_gqa`` (forward), its backward (dQ, dK, dV
+    together) for K10 and K11; at the full lengths only the first sequence
+    is cut, so SDPA computes a little more. Bounds: bf16 at the tensor-core
+    peak, f32 at the fp32 units'."""
+    q, do = (torch.randn(B, G, S, D, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, D, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    lens_l = [S] * B
+    lens_l[-1], lens_l[-2] = 1, S // 2 + 3
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    hold = (lambda a, b: agreement(a, b, ATTN_ULPS, ATTN_FLOOR)) if dtype == torch.bfloat16 \
+        else f32_agreement
+    o, lse = FA._flash_fwd(q, k, v, lens)
+    o_again, _ = FA._flash_fwd(q, k, v, lens)
+    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens)
+    args = (q, k, v, lens, lse, FA._delta(o, do), do)
+    dq, (dk, dv) = FA._flash_bwd_dq(*args), FA._flash_bwd_dkv(*args)
+    dq_a, (dk_a, dv_a) = FA._flash_bwd_dq(*args), FA._flash_bwd_dkv(*args)
+    dq2, (dk2, dv2) = FA._flash_bwd_dq_plain(*args), FA._flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    rows = [i for i, n in enumerate(lens_l) if n > 1]
+    agr = {"fwd": hold(o[rows], o2[rows]), "dq": hold(dq[rows], dq2[rows]),
+           "dk": hold(dk[rows], dk2[rows]), "dv": hold(dv[rows], dv2[rows])}
+    lse_err = float((lse - lse2).abs().max())
+    same = (torch.equal(o, o_again) and torch.equal(dq, dq_a) and torch.equal(dk, dk_a)
+            and torch.equal(dv, dv_a))
+    zeros = all(not t[b, max(n, 1):].any() for t in (dk, dv) for b, n in enumerate(lens_l))
+    lse_lim = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    if not (all(a["ok"] for a in agr.values()) and same and zeros and lse_err <= lse_lim):
+        raise AssertionError(f"flash D={D} {dtype} B={B} G={G} S={S}: {agr}, lse {lse_err}, the "
+                             f"same bits twice {same}, zeros past the lengths {zeros}")
+    del o_again, o2, lse2, dq, dk, dv, dq_a, dk_a, dv_a, dq2, dk2, dv2
+    ms = {"fwd": timer(lambda: FA._flash_fwd(q, k, v, lens)),
+          "dq": timer(lambda: FA._flash_bwd_dq(*args)),
+          "dkv": timer(lambda: FA._flash_bwd_dkv(*args))}
+    plain = {"fwd": timer(lambda: FA._flash_fwd_plain(q, k, v, lens), reps=3),
+             "dq": timer(lambda: FA._flash_bwd_dq_plain(*args), reps=3),
+             "dkv": timer(lambda: FA._flash_bwd_dkv_plain(*args), reps=3)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kh, vh = k[:, None], v[:, None]
+    lib_fwd = timer(lambda: sdpa(q, kh, vh, is_causal=True, enable_gqa=True))
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, kh, vh))
+    out = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+    lib_bwd = timer(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
+    del out, ql, kl, vl
+    es = torch.finfo(dtype).bits // 8
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    pairs = G * live_pairs(lens_l, S)
+    qb, kvb, rowb = es * B * G * S * D, es * B * S * D, 4 * B * G * S
+    bounds = {"fwd": bound(2 * qb + 2 * kvb + rowb, 2 * 2 * pairs * D, peak),
+              "dq": bound(3 * qb + 2 * kvb + 2 * rowb, 3 * 2 * pairs * D, peak),
+              "dkv": bound(2 * qb + 4 * kvb + 2 * rowb, 4 * 2 * pairs * D, peak)}
+    lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+    tag = str(dtype)[6:]
+    log(f"  flash D={D} {tag} B={B} G={G} S={S} ({what}), lengths full but {lens_l[-2]} and 1: "
+        + "; ".join(f"{k_} {ms[k_]:.4f} ms (plain {plain[k_]:.3f}, sdpa {lib[k_]:.4f}, bound "
+                    f"{bounds[k_][0]:.5f} {bounds[k_][1]})" for k_ in ms)
+        + f"; max_abs_err fwd {agr['fwd']['max_abs_err']:.3g} dq {agr['dq']['max_abs_err']:.3g} "
+        f"dk {agr['dk']['max_abs_err']:.3g} dv {agr['dv']['max_abs_err']:.3g}, worst "
+        f"{max(a['worst'] for a in agr.values()):.3g} of its limit, lse {lse_err:.3g}; the same "
+        "bits twice")
+    shape = dict(B=B, G=G, S=S, D=D, dtype=tag, what=what, lengths=lens_l, live_pairs=pairs)
+    return {k_: dict(shape, ms=ms[k_], plain_ms=plain[k_], library_ms=lib[k_],
+                     library_is="sdpa causal" + ("" if k_ == "fwd" else " backward, dQ+dK+dV"),
+                     bound_ms=bounds[k_][0], bound_by=bounds[k_][1],
+                     bit_identical_twice=True,
+                     **(agr[k_] if k_ != "dkv" else dict(
+                         agr["dk"], max_abs_err=max(agr["dk"]["max_abs_err"],
+                                                    agr["dv"]["max_abs_err"]),
+                         worst=max(agr["dk"]["worst"], agr["dv"]["worst"]))))
+            for k_ in ms}
+
+
+def gemm_splits_check(gen, QM, K, N, M=32):
+    """K1 and K2 at ``[M, K] x [K, N]`` forced through every split count the
+    plan could take: each bit-equal to the plain version."""
+    x = torch.randn(M, K, device="cuda", generator=gen)
+    w = torch.randn(K, N, device="cuda", generator=gen) * 0.02
+    xq, sx = QM.quantize_per_token(x)
+    done = {}
+    for stem, wq, sw, plain in (("int8_matmul", *QM.quantize_per_channel(w),
+                                 QM._int8_matmul_plain),
+                                ("w4a8_matmul", *QM.quantize_weights_w4(w),
+                                 QM._int4_matmul_plain)):
+        want = plain(xq, wq, sx, sw, torch.bfloat16)
+        plan = QM.gemm_plan(M, N, K, stem == "w4a8_matmul")
+        splits = list(range(1, min(plan["steps"], QM.MAX_SPLITS) + 1))
+        for s in splits:
+            got = QM._launch_gemm(stem, stem, xq, wq, sx, sw, torch.bfloat16, M, N, K,
+                                  plan=dict(plan, splits=s))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{stem} M={M} K={K} N={N} at {s} splits: not bit-equal")
+        done[stem] = splits
+    return done
+
+
+def shapes_phase(timer, QM, DA, FA):
+    """Every kernel instantiation this slice added, against its plain version
+    and timed: K1/K2 at K no multiple of the 128-row stage (``K_TAIL_PROJ``,
+    bit-equal, at every split count), K3, K8 and K7 at the new (G, hd)
+    (``NEW_DECODE``, int8 and packed caches; K7 int8), K4/K10/K11 at head dims
+    16 and 32 in f32 and bf16 and 128 in f32 (``NEW_FLASH``). Then K1 at the
+    TinyLlama-1.1B decode layer's qkv shape through ``utils.benchmarking.
+    measure`` (a CUDA graph of the runs, its floor subtracted) beside the
+    ``Timer``'s median. From a generator of its own."""
+    from llm_qat_torch.models.config import TINYLLAMA_1B
+    from llm_qat_torch.utils import benchmarking as B
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SHAPES_SEED)
+    out = {"int8_matmul": [], "int4_matmul": [], "splits": {}}
+    for model, proj, K, N in K_TAIL_PROJ:
+        for name, fn, plain in (("int8_matmul", QM.int8_matmul, QM._int8_matmul_plain),
+                                ("int4_matmul", QM.int4_matmul, QM._int4_matmul_plain)):
+            out[name].append(gemm_shape(timer, gen, QM, name, fn, plain, model, proj, 32, K, N))
+        out["splits"][f"K={K} N={N}"] = gemm_splits_check(gen, QM, K, N)
+    out["decode_attention"], out["paged_attention"], out["decode_attention_stacked"] = [], [], []
+    for kvh, G, hd, model in NEW_DECODE:
+        for packed in (False, True):
+            for key, fn in (("decode_attention", decode_attention_phase),
+                            ("paged_attention", paged_attention_phase)):
+                r = fn(timer, gen, DA, kvh, G, hd, packed)
+                r.update(model=model, bit_equal=r["max_abs_err"] == 0.0)
+                out[key].append(r)
+        c = TINYLLAMA_1B.replace(num_attention_heads=kvh * G, num_key_value_heads=kvh,
+                                 hidden_size=kvh * G * hd)
+        r = stacked_attention_phase(timer, gen, DA, c)
+        r.update(kvh=kvh, G=G, hd=hd, model=model, bit_equal=r["max_abs_err"] == 0.0)
+        out["decode_attention_stacked"].append(r)
+    out["flash"] = {"fwd": [], "dq": [], "dkv": []}
+    for D, dtype, Bq, G, S, what in NEW_FLASH:
+        for k_, r in flash_shape(timer, gen, FA, D, dtype, Bq, G, S, what).items():
+            out["flash"][k_].append(r)
+        torch.cuda.empty_cache()
+    # K1 through utils.benchmarking.measure, beside the Timer
+    c = TINYLLAMA_1B
+    K, N = c.hidden_size, (c.num_attention_heads + 2 * c.kv_heads) * c.head_dim
+    xq, sx = QM.quantize_per_token(torch.randn(32, K, device="cuda", generator=gen))
+    wq, sw = QM.quantize_per_channel(torch.randn(K, N, device="cuda", generator=gen) * 0.02)
+    floor_s = B.dispatch_floor(iters=200, reps=3)
+    per_s = B.measure(QM.int8_matmul, [xq, wq, sx, sw], iters=200, reps=3, floor=floor_s)
+    timer_ms = timer(lambda: QM.int8_matmul(xq, wq, sx, sw))
+    out["measure"] = dict(kernel="int8_matmul", M=32, K=K, N=N, measure_ms=per_s * 1e3,
+                          measure_floor_ms_per_iter=floor_s * 1e3 / 200, timer_ms=timer_ms,
+                          iters=200, reps=3)
+    log(f"  K1 TinyLlama-1.1B qkv M=32 K={K} N={N}: utils.benchmarking.measure {per_s * 1e3:.4f} "
+        f"ms a run (a CUDA graph of 200 runs, its floor {floor_s * 1e3 / 200:.4f} ms a run "
+        f"subtracted; warm L2) against the Timer's {timer_ms:.4f} ms (L2 flushed, one launch "
+        "between events)")
+    return out
+
+
+def _example(name):
+    """``examples/<name>.py`` as a module (the folder is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", os.path.join(REPO, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _stage_counts(per_stage):
+    """A ``stage_hook`` that files each stage's launch counts under its name
+    and sets every count to 0 for the next stage."""
+    def hook(name):
+        per_stage[name] = read_counters()
+        for fn in counters().values():
+            fn.launches = 0
+    return hook
+
+
+def tiny_pipeline_phase():
+    """``examples/tiny_pipeline_torch.py`` on the card as a user runs it
+    (hidden 64, 4 / 2 heads: head dim 16, G = 2, f32), each stage's launches
+    counted: K4/K10/K11 at D = 16 in the KD-QAT stage, K4 in its eval and the
+    zero-shot stage, K1 at K = 64, K3 at (2, 16) and K4 in serving (scan
+    path: the decode megakernel is not built for these heads). Then the
+    exported student's logits on the card against the CPU path (1e-4 of the
+    largest logit)."""
+    from llm_qat_torch.models import convert
+    from llm_qat_torch.models import llama as LL
+
+    tiny = _example("tiny_pipeline_torch")
+    per_stage = {}
+    work = tempfile.mkdtemp(prefix="tiny_pipeline_")
+    try:
+        for fn in counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = tiny.main(work, device="cuda", stage_hook=_stage_counts(per_stage))
+        wall = time.perf_counter() - t0
+        path = res["train"]["model_path"]
+        ids = torch.randint(0, tiny.CONFIG.vocab_size, (2, TINY_SEQ),
+                            generator=torch.Generator().manual_seed(SHAPES_SEED))
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            cfg, p = convert.load_hf_checkpoint(path, dtype=torch.float32, device=dev,
+                                                w_bits=4, a_bits=8, kv_bits=4)
+            with torch.no_grad():
+                logits[dev] = LL.forward(p, cfg, ids.to(dev), dtype=torch.float32).cpu()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    drift = float((logits["cuda"] - logits["cpu"]).abs().max() / logits["cpu"].abs().max())
+    total = {k: sum(s[k] for s in per_stage.values()) for k in counters()}
+    want = ("int8_matmul", "decode_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    ok = (all(total[k] > 0 for k in want) and total["decode_megakernel"] == 0
+          and per_stage["qat"]["flash_bwd_dq"] > 0 and per_stage["serve"]["decode_attention"] > 0
+          and per_stage["serve"]["int8_matmul"] > 0 and not any(per_stage["synthesis"].values())
+          and math.isfinite(res["train"]["perplexity"]) and len(res["served"]) == 2
+          and drift <= 1e-4)
+    log(f"  tiny pipeline: {wall:.1f} s, {res['train']['train_steps']} QAT steps, eval ppl "
+        f"{res['train']['perplexity']:.2f}, zero-shot acc {res['zero_shot']['acc']:.2f}, served "
+        f"{[len(s) for s in res['served']]} characters; launches by stage "
+        + "; ".join(f"{s}: " + ", ".join(f"{k} {n}" for k, n in c.items() if n)
+                    for s, c in per_stage.items())
+        + f"; the student's logits on the card against the CPU path {drift:.3g} of the largest")
+    if not ok:
+        raise AssertionError(f"tiny pipeline: launches by stage {per_stage}, logits drift {drift}, "
+                             f"result {res}")
+    return dict(wall_s=wall, perplexity=res["train"]["perplexity"],
+                zero_shot=res["zero_shot"], served=res["served"], launches_by_stage=per_stage,
+                launches=total, cpu_drift=drift)
+
+
+def accuracy_phase():
+    """``examples/accuracy_experiment_torch.py`` at the experiment's full
+    model shape (hidden 256, 8 / 4 heads: head dim 32, G = 2, bf16, 32 x 256
+    tokens) for a handful of steps (``ACC_ARGV``: 4 teacher and 4 QAT steps,
+    a corpus of 0.1 MB; ``ACC_SIZES``: 32 examples a task, one synthesis round
+    of 8 start tokens a shard): each stage's launches counted, K4/K10/K11 at D = 32 and
+    K12 at hidden 256 in the QAT stage; results finite."""
+    acc = _example("accuracy_experiment_torch")
+    per_stage = {}
+    work = tempfile.mkdtemp(prefix="accuracy_")
+    try:
+        for fn in counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = acc.main([work, *ACC_ARGV], stage_hook=_stage_counts(per_stage), **ACC_SIZES)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    total = {k: sum(s[k] for s in per_stage.values()) for k in counters()}
+    qat = per_stage["qat_w4a8kv4"]
+    ok = (all(qat[k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rmsnorm_quant"))
+          and per_stage["teacher"]["flash_bwd_dkv"] > 0
+          and all(math.isfinite(res[k]["ppl"]) for k in ("fp_teacher", "ptq", "qat")))
+    log(f"  accuracy experiment ({' '.join(ACC_ARGV)}, {ACC_SIZES}): {wall:.1f} s; fp ppl "
+        f"{res['fp_teacher']['ppl']}, PTQ {res['ptq']['ppl']}, QAT {res['qat']['ppl']}; seconds by "
+        f"stage {res['timing']}; launches by stage "
+        + "; ".join(f"{s}: " + ", ".join(f"{k} {n}" for k, n in c.items() if n)
+                    for s, c in per_stage.items()))
+    if not ok:
+        raise AssertionError(f"accuracy experiment: launches by stage {per_stage}, results {res}")
+    return dict(wall_s=wall, argv=list(ACC_ARGV), sizes=ACC_SIZES, results={k: res[k] for k in (
+        "fp_teacher", "ptq", "qat", "timing")}, launches_by_stage=per_stage, launches=total)
+
+
 T_START = time.perf_counter()
 PHASE_S = {}
 _LAP = [T_START]
@@ -4278,8 +4593,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}")
-    _build.build_all()
-    log(f"    kernels built in {_build.build_seconds:.1f} s into {_build.BUILD_DIR}")
+    # every source starts compiling now; the megakernel, the slowest, goes on
+    # compiling through phases 2 and 2b and is waited for at its first use
+    _build.build_all(wait_for=[p.stem for p in _build.CSRC.glob("*.cu")
+                               if p.stem != "megakernel"])
+    log(f"    kernels built into {_build.BUILD_DIR} in "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items()))
+        + "; megakernel.cu still compiling")
     lap("build")
 
     cfg = TINYLLAMA_1B                 # the default: use_megakernel=True
@@ -4327,24 +4647,36 @@ def main() -> int:
     for name, shapes in (("flash_bwd_dkv", ftr), ("flash_bwd_dkv_d128", ftr7)):
         attrs[name]["blocks"] = {f"B={shapes['full']['dkv']['B']} G={shapes['full']['dkv']['G']} "
                                  "S=2048": shapes["full"]["dkv"]["blocks"]}
-    from llm_qat_torch.inference import megakernel as MK
-    attrs.update({f"decode_megakernel_{k}": v for k, v in MK.kernel_attributes().items()})
     attrs.update({f"gemm_{k}": v for k, v in QM.kernel_attributes().items()})
     attrs.update(DA.kernel_attributes())
     attrs.update(FQ.kernel_attributes())
     if any(a["spill_bytes"] for a in attrs.values()):
-        raise AssertionError(f"a tensor-core kernel, K9, a K1/K2, a K3/K7/K8 or a K12/K13 variant "
+        raise AssertionError(f"a tensor-core kernel, a K1/K2, a K3/K7/K8 or a K12/K13 variant "
                              f"spills registers: {attrs}")
     fq = fused_quant_phase(timer, gen, FQ, cfg)
     lap("[2] kernels")
+    log("[2b] the shapes this slice added, against their plain versions: K1/K2 at K = 64, 768, "
+        "1376, 2752 (every split count), K3/K8/K7 at (G, hd) = (2, 16), (2, 32), (4, 128), "
+        "(8, 128), K4/K10/K11 at head dims 16 and 32 (f32, bf16) and 128 (f32); K1 through "
+        "utils.benchmarking.measure")
+    shp = shapes_phase(timer, QM, DA, FA)
+    lap("[2b] new shapes")
 
     log("[3] TinyLlama-1.1B, 22 layers: the stacked GEMMs on the served weights, the "
         "decode megakernel against its plain version, then serving 8 requests x 64 new "
         "tokens: max_len 2048 on the scan path (use_megakernel=False) and on the default "
         f"path, then paged (pages of {PAGE}, {SEQ_PAGES} a sequence) from a pool of "
         f"{ROOMY_PAGES} and of {TIGHT_PAGES} pages")
+    from llm_qat_torch.inference import megakernel as MK
     from llm_qat_torch.inference import quantized as Q
     from llm_qat_torch.models import params as P
+
+    mk_attrs = {f"decode_megakernel_{k}": v for k, v in MK.kernel_attributes().items()}
+    log(f"    megakernel.cu built, {_build.build_seconds.get('megakernel', 0.0):.1f} s after "
+        "the build started")
+    if any(a["spill_bytes"] for a in mk_attrs.values()):
+        raise AssertionError(f"K9 spills registers: {mk_attrs}")
+    attrs.update(mk_attrs)
 
     rng = np.random.default_rng(0)
     modes = {
@@ -4446,6 +4778,15 @@ def main() -> int:
         f"tp rank's shard and K13's tp entries ({smi})")
     tpp = tp_pp_train_phase(cfg)
     lap("[4f] tp/pp training")
+    log(f"[4g] examples/tiny_pipeline_torch.py on the card: teacher, synthesis, KD-QAT W4A8KV4, "
+        f"zero-shot, W8A8KV8 serving on a model of head dim 16, two query heads a kv head, f32 "
+        f"({smi})")
+    tinyp = tiny_pipeline_phase()
+    lap("[4g] tiny pipeline")
+    log(f"[4h] examples/accuracy_experiment_torch.py at the experiment's model shape (head dim "
+        f"32, two query heads a kv head, bf16, 32 x 256 tokens) for a handful of steps ({smi})")
+    accp = accuracy_phase()
+    lap("[4h] accuracy experiment")
 
     # each path went through its kernels, and only through them
     for m in runs:
@@ -4484,7 +4825,8 @@ def main() -> int:
 
     launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) + pipe["launches"][k]
                 + ev["launches"][k] + md["launches"][k] + tp["launches"][k]
-                + tpp["launches"][k] for k in counters()}
+                + tpp["launches"][k] + tinyp["launches"][k] + accp["launches"][k]
+                for k in counters()}
     # K5-K7 are on no serving path of either package: their counts are those
     # of their kernel phases
     launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
@@ -4505,22 +4847,23 @@ def main() -> int:
                    "and a tp=2 rank's shard shapes in shapes); library_ms: torch._int_mm on the "
                    "K-contiguous weight (row-major: library_rowmajor_ms in shapes)",
              **per_layer(gemm["int8_matmul"], 32),
-             shapes=gemm["int8_matmul"] + tp["shapes"]["int8_matmul"]),
+             shapes=gemm["int8_matmul"] + tp["shapes"]["int8_matmul"] + shp["int8_matmul"]),
         dict(name="int4_matmul", source="llm_qat_torch/csrc/w4a8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:394",
              shape="one TinyLlama-1.1B decode layer: qkv+o+gateup+down at M=32 (prefill rows "
                    "1024 and 4096, LLaMA-7B's at 32 and 1024, and a tp=2 rank's shard shapes, "
                    "in shapes)",
              **per_layer(gemm["int4_matmul"], 32),
-             shapes=gemm["int4_matmul"] + tp["shapes"]["int4_matmul"]),
+             shapes=gemm["int4_matmul"] + tp["shapes"]["int4_matmul"] + shp["int4_matmul"]),
         dict(name="decode_attention", source="llm_qat_torch/csrc/decode_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:55",
              shape="b=8 S=2048 int8 cache, TinyLlama-1.1B heads (packed KV4, LLaMA-7B "
                    "heads kvh=32 G=1 hd=128, S=8192, and a tp=2 rank's kvh=2, in shapes)",
              **{k: dec[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")},
-             max_abs_err=max(d["max_abs_err"] for d in dec + tp["shapes"]["decode_attention"]),
-             shapes=dec + tp["shapes"]["decode_attention"]),
+             max_abs_err=max(d["max_abs_err"] for d in dec + tp["shapes"]["decode_attention"]
+                             + shp["decode_attention"]),
+             shapes=dec + tp["shapes"]["decode_attention"] + shp["decode_attention"]),
         dict(name="flash_fwd", source="llm_qat_torch/csrc/flash_attention.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:94",
              shape="B=4 G=8 S=1024 D=64 causal (S=128, the scorer's B=64 at S=32, 64, 100 and "
@@ -4531,8 +4874,10 @@ def main() -> int:
              **{k: fl[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by")},
              max_abs_err=max(f["max_abs_err"] for f in fwd_shapes + [md["ring_shape"]["fwd"],
-                                                                     tpp["shard_shape"]["fwd"]]),
-             shapes=fwd_shapes + [md["ring_shape"]["fwd"], tpp["shard_shape"]["fwd"]]),
+                                                                     tpp["shard_shape"]["fwd"]]
+                             + shp["flash"]["fwd"]),
+             shapes=fwd_shapes + [md["ring_shape"]["fwd"], tpp["shard_shape"]["fwd"]]
+             + shp["flash"]["fwd"]),
         dict(name="decode_megakernel", source="llm_qat_torch/csrc/megakernel.cu",
              replaces="llm_qat_tpu/inference/megakernel.py:259",
              shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed, and "
@@ -4545,8 +4890,9 @@ def main() -> int:
                    "TinyLlama-1.1B heads (packed KV4, LLaMA-7B heads and a tp=2 rank's kvh=2 "
                    "in shapes)",
              **{k: k8[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-             max_abs_err=max(d["max_abs_err"] for d in pag + tp["shapes"]["paged_attention"]),
-             shapes=pag + tp["shapes"]["paged_attention"]),
+             max_abs_err=max(d["max_abs_err"] for d in pag + tp["shapes"]["paged_attention"]
+                             + shp["paged_attention"]),
+             shapes=pag + tp["shapes"]["paged_attention"] + shp["paged_attention"]),
         dict(name="int8_matmul_stacked", source="llm_qat_torch/csrc/int8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:237",
              shape=f"layer {STACK_LAYER} of the stacked weights: qkv+o+gateup+down at M=32",
@@ -4562,18 +4908,20 @@ def main() -> int:
              shape="layer 2 of a 3-layer stacked int8 cache, b=8 S=2048",
              **{k: k7[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                                    "max_abs_err")},
-             shapes=[k7], launches_from="kernel phase (on no serving path)"),
+             shapes=[k7] + shp["decode_attention_stacked"],
+             launches_from="kernel phase (on no serving path)"),
         dict(name="flash_bwd_dq", source="llm_qat_torch/csrc/flash_attention_bwd.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:236",
              shape=train_shape, **{k: ftr["full"]["dq"][k] for k in keys},
              shapes=[ftr["full"]["dq"], ftr["ragged"]["dq"], ftr7["full"]["dq"],
-                     ftr7["ragged"]["dq"], md["ring_shape"]["dq"], tpp["shard_shape"]["dq"]]),
+                     ftr7["ragged"]["dq"], md["ring_shape"]["dq"], tpp["shard_shape"]["dq"]]
+             + shp["flash"]["dq"]),
         dict(name="flash_bwd_dkv", source="llm_qat_torch/csrc/flash_attention_bwd.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:297",
              shape=train_shape, **{k: ftr["full"]["dkv"][k] for k in keys},
              shapes=[ftr["full"]["dkv"], ftr["ragged"]["dkv"], ftr7["full"]["dkv"],
                      ftr7["ragged"]["dkv"], md["ring_shape"]["dkv"],
-                     tpp["shard_shape"]["dkv"]]),
+                     tpp["shard_shape"]["dkv"]] + shp["flash"]["dkv"]),
         dict(name="rmsnorm_quant", source="llm_qat_torch/csrc/fused_quant.cu",
              replaces="llm_qat_tpu/ops/pallas/fused_quant.py:77",
              shape="[8192, 2048] bf16 with an f32 gain (bf16 gain, and [4096, 4096] and "
@@ -4597,6 +4945,8 @@ def main() -> int:
                  launches_tp=tp["launches"][r["name"]],
                  launches_tp_train=tpp["launches_tp"][r["name"]],
                  launches_pp=tpp["launches_pp"][r["name"]],
+                 launches_tiny_pipeline=tinyp["launches"][r["name"]],
+                 launches_accuracy=accp["launches"][r["name"]],
                  tpu_kernel=r["replaces"], max_err=r["max_abs_err"])
     log("[5] results")
     log(f"    chip_smoke.py ran {time.perf_counter() - T_START:.1f} s (kernel builds included); "
@@ -4606,7 +4956,8 @@ def main() -> int:
                     "llama7b_teacher_forced": l7["teacher_forced"],
                     "cpu_checks": checks, "training": trains, "train_check": tcheck,
                     "pipeline": pipe, "eval": ev, "multi_device": md, "tp_serving": tp,
-                    "tp_pp_training": tpp,
+                    "tp_pp_training": tpp, "shapes": shp, "tiny_pipeline": tinyp,
+                    "accuracy_experiment": accp,
                     "phase_s": PHASE_S, "card": smi}))
     log(json.dumps({"kernel_attributes": attrs}))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -18,8 +18,7 @@
 // scales [b, S] f32, lengths [b] int32 (pre-append with a fold), RoPE tables
 // [hd/2, S] f32; fold 1: k_new/v_new [b, kvh, hd] int8, k_inv/v_inv [b]
 // f32, active [b] int32, q_cos/q_sin [b, hd/2] f32. Out [b, nh, hd] in q's
-// type. Built for (G, hd) = (8, 64) (TinyLlama-1.1B) and (1, 128) (the
-// LLaMA-7B family).
+// type. Built for the (G, hd) of decode_attn.cuh's kernel_of.
 
 #include "decode_attn.cuh"
 

@@ -56,8 +56,18 @@
 // launch gives the same bits every time (no atomics). The scratch (the
 // wrapper's torch.empty, laid out by carve below) holds per (slot, query
 // head, chunk) the chunk's partial sums, scores, maximum and its block's
-// rescale factor. Built for (G, hd) = (8, 64) (TinyLlama-1.1B) and (1, 128)
-// (the LLaMA-7B family) with f32 or bf16 q, at most BMAX slots.
+// rescale factor. Built for (G, hd) = (8, 64) (TinyLlama-1.1B), (1, 128)
+// (the LLaMA-7B family), (2, 16) (the tiny test and pipeline models), (2, 32)
+// (the accuracy experiment's model), (4, 128) (LLaMA-3-8B's 32 / 8 heads)
+// and (8, 128) (LLaMA-2-70B's 64 / 8) with f32 or bf16 q, at most BMAX
+// slots. Nothing of the layout depends on hd but the buffers' sizes: the
+// cache rows run along S, so a packed row of hd = 16 (8 bytes of head dim)
+// is still S bytes, read in the same 16-byte pieces. At hd = 128 with G = 4
+// or 8 the scores stage's buffers take more than half an SM's shared
+// memory: one block an SM (the cooperative grid is whatever is resident).
+// The finish stage loads each output's partial p.V sums NB chunks at a
+// time (8, or 4 where a thread owns 4 outputs: (8, 128)), summed in the
+// same order either way.
 
 #pragma once
 
@@ -675,11 +685,12 @@ __device__ void softmax_v_stage(const Args& a, Smem<G, HD>* s, int items) {
 template <typename T, int G, int HD>
 __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
   constexpr int H2 = HD / 2, NO = G * HD, OPT = NO > NT ? NO / NT : 1, QPT = (NO + NT - 1) / NT;
+  constexpr int NB = OPT > 2 ? 4 : 8;   // chunks of partial sums in flight an output
   const int tid = threadIdx.x, lane = tid % 32, gw = tid / 32, nh = a.kvh * G, CH = a.CH;
   const int nch = (s->lens[i] + CH - 1) / CH, cpb = a.BK / CH;
   auto& F = s->u.f;
   // the query heads, the current token's pair, this warp's head's first 64
-  // chunk statistics and each output's first eight partial p.V sums
+  // chunk statistics and each output's first NB partial p.V sums
   const T* qp = static_cast<const T*>(a.q) + ((size_t)i * nh + h * G) * HD;
   float qv[QPT];
 #pragma unroll
@@ -713,13 +724,13 @@ __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
     cmr[e] = ok ? __ldcg(a.cmax + cg0 + cc) : NEG_INF;
     cpr[e] = ok ? __ldcg(a.ppart + cg0 + cc) : 0.0;
   }
-  double v0[OPT][8];
+  double v0[OPT][NB];
 #pragma unroll
   for (int u = 0; u < OPT; ++u) {
     const int o = min(tid + u * NT, NO - 1);
     const double* pv = a.pvpart + cell<G>(a, i, h * G + o / HD, 0) * HD + o % HD;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v0[u][e] = e < nch ? __ldcg(pv + (size_t)e * HD) : 0.0;
+    for (int e = 0; e < NB; ++e) v0[u][e] = e < nch ? __ldcg(pv + (size_t)e * HD) : 0.0;
   }
   // into shared memory
 #pragma unroll
@@ -809,20 +820,20 @@ __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
     acc[u] = 0.f;
     PV[u] = 0.0;
   }
-  // eight chunks of every output of the thread a batch: their loads in flight together
+  // NB chunks of every output of the thread a batch: their loads in flight together
   int jb = 0, end = min(nch, cpb);    // block jb ends at chunk end
-  for (int b0 = 0; b0 < nch; b0 += 8) {
+  for (int b0 = 0; b0 < nch; b0 += NB) {
     if (b0 > 0) {                     // the first batch is v0, loaded first
 #pragma unroll
       for (int u = 0; u < OPT; ++u) {
         const int o = tid + u * NT;
         const double* pv = a.pvpart + cell<G>(a, i, h * G + o / HD, 0) * HD + o % HD;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v0[u][e] = b0 + e < nch ? __ldcg(pv + (size_t)(b0 + e) * HD) : 0.0;
+        for (int e = 0; e < NB; ++e) v0[u][e] = b0 + e < nch ? __ldcg(pv + (size_t)(b0 + e) * HD) : 0.0;
       }
     }
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+    for (int e = 0; e < NB; ++e) {
       const int cc = b0 + e;
       if (cc < nch) {
 #pragma unroll
@@ -891,15 +902,20 @@ const void* kernel_ptr() {
 
 // the kernel and its dynamic shared memory for dtype_code (0 f32, 1 bf16)
 // and (G, hd); nullptr for a shape it is not built for
+template <int G, int HD>
+const void* kernel_t(int dtype_code, int* smem) {
+  *smem = (int)sizeof(Smem<G, HD>);
+  return dtype_code == 1 ? kernel_ptr<__nv_bfloat16, G, HD>() : kernel_ptr<float, G, HD>();
+}
+
+// the (G, hd) the kernels are built for (ops/decode_attention.py _SHAPES)
 inline const void* kernel_of(int dtype_code, int G, int hd, int* smem) {
-  if (G == 8 && hd == 64) {
-    *smem = (int)sizeof(Smem<8, 64>);
-    return dtype_code == 1 ? kernel_ptr<__nv_bfloat16, 8, 64>() : kernel_ptr<float, 8, 64>();
-  }
-  if (G == 1 && hd == 128) {
-    *smem = (int)sizeof(Smem<1, 128>);
-    return dtype_code == 1 ? kernel_ptr<__nv_bfloat16, 1, 128>() : kernel_ptr<float, 1, 128>();
-  }
+  if (G == 8 && hd == 64) return kernel_t<8, 64>(dtype_code, smem);
+  if (G == 1 && hd == 128) return kernel_t<1, 128>(dtype_code, smem);
+  if (G == 2 && hd == 16) return kernel_t<2, 16>(dtype_code, smem);
+  if (G == 2 && hd == 32) return kernel_t<2, 32>(dtype_code, smem);
+  if (G == 4 && hd == 128) return kernel_t<4, 128>(dtype_code, smem);
+  if (G == 8 && hd == 128) return kernel_t<8, 128>(dtype_code, smem);
   return nullptr;
 }
 

@@ -19,12 +19,17 @@
 // against ~4 * S * D bytes per (B, G): at the prefill and train shapes the
 // bf16 tensor-core rate (989 TFLOP/s) bounds it, by 10-50x over the bytes.
 //
-// bf16 (D = 64 and 128): the products run on the tensor cores,
+// Head dims 16, 32, 64 and 128, in bf16 and in f32 (one entry per head
+// dim: flash_fwd is 64, flash_fwd_d16 / _d32 / _d128 the others).
+//
+// bf16: the products run on the tensor cores,
 // mma.sync m16n8k16 bf16 x bf16 -> fp32, which is exactly the contract's
 // "bf16 operands, fp32 sums". One block of 4 warps per (B, g, 64 query
 // rows), each warp 16 rows. The Q tile arrives once by cp.async into a
-// swizzled shared layout (16-byte chunk index XOR row % 8, so that ldmatrix
-// is free of bank conflicts) and stays in registers as A fragments. 64-key
+// swizzled shared layout (tc_bf16.cuh swz: 16-byte chunk index XOR row % 8,
+// or at D = 16 and 32, where a row holds 2 or 4 chunks, several rows to a
+// 128-byte line XOR the line % 8, so that ldmatrix is free of bank
+// conflicts) and stays in registers as A fragments. 64-key
 // K and V tiles stream through a 2-stage cp.async ring, so the next tile's
 // copy overlaps this tile's products; rows past S are zero-filled by the
 // copy's src-size operand. Two passes over the live tiles of each TPU key
@@ -39,10 +44,24 @@
 // by element; causally dead tiles and tiles past the length are never
 // loaded; the heaviest query blocks launch first so the causal tail is short.
 //
-// f32 (D = 64): a SIMT kernel (flash_fwd_kernel below): products on
-// the fp32 units through fp32 shared-memory tiles. Tensor cores would need
-// TF32 operands (about three decimal digits), which the f32 contract (1e-5)
-// does not allow.
+// f32: a SIMT kernel (flash_fwd_kernel below): products on the fp32 units
+// through fp32 shared-memory tiles (dynamic shared memory: 74 KB at
+// D = 128), each of 16 threads of a row owning D / 16 output columns.
+// Tensor cores would need TF32 operands (about three decimal digits), which
+// the f32 contract (1e-5) does not allow.
+
+// Launch bounds: the f32 kernels, and the bf16 kernels at head dims 16 and
+// 32 (the *_narrow_kernel instantiations of one body), name one block an SM
+// as their minimum. With the thread count alone, ptxas held them to 64 or
+// 128 registers a thread and spilled to local memory; with the minimum
+// stated it gives them what they use, without a spill (kernel_attributes()).
+// The bf16 kernels at 64 and 128 keep the thread count alone, and so the
+// code they had.
+// Named on them too, the minimum lets ptxas give the D = 64 forward and dQ
+// kernels 185 and 214 registers instead of 168: an SM then holds two blocks
+// instead of three, and at TinyLlama's training shape (B = 16, G = 8,
+// S = 2048) an H100 runs the forward 17% and dQ 8% slower, with the same
+// outputs (flash_launch_bounds.py). So each kind has two kernels of one body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,18 +81,24 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+template <int D>
+__host__ __device__ constexpr int fwd_simt_smem() {   // sq, sk, sv, sp
+  return (int)sizeof(float) * (BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1));
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ lengths, T* __restrict__ o,
                  float* __restrict__ lse, int G, int S, int bk, float scale_log2, int causal,
                  int soft_bf16) {
   constexpr bool P_BF16 = sizeof(T) == 2;   // p rounds to V's type for p.V
   constexpr int DC = D / 16;                // output columns per thread
-  __shared__ float sq[BQ][D + 1];
-  __shared__ float sk[BKV][D + 1];
-  __shared__ float sv[BKV][D];
-  __shared__ float sp[BQ][BKV + 1];
+  extern __shared__ float simt_smem[];
+  float (*sq)[D + 1] = reinterpret_cast<float (*)[D + 1]>(simt_smem);
+  float (*sk)[D + 1] = sq + BQ;
+  float (*sv)[D] = reinterpret_cast<float (*)[D]>(sk + BKV);
+  float (*sp)[BKV + 1] = reinterpret_cast<float (*)[BKV + 1]>(sv + BKV);
 
   const int iq = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -212,12 +237,15 @@ constexpr int fwd_tc_smem() {
   return TC_BQ * D * 2 + 2 * 2 * TC_BK * D * 2;   // Q, then 2 stages of K and V
 }
 
+#define FWD_TC_PARAMS                                                                        \
+  const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,       \
+      const int* __restrict__ lengths, bf16* __restrict__ o, float* __restrict__ lse, int G,   \
+      int S, int bk, float scale_log2, int causal, int soft_bf16
+#define FWD_TC_ARGS \
+  q, k, v, lengths, o, lse, G, S, bk, scale_log2, causal, soft_bf16
+
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ lengths,
-                    bf16* __restrict__ o, float* __restrict__ lse, int G, int S, int bk,
-                    float scale_log2, int causal, int soft_bf16) {
+__device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
   constexpr int KC = D / 16;          // 16-deep chunks of the q.k product
   constexpr int NT = TC_BK / 8;       // 8-key column tiles of the scores
   constexpr int DT = D / 8;           // 8-wide column tiles of O
@@ -391,52 +419,96 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
+__global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc_kernel(FWD_TC_PARAMS) {
+  flash_fwd_tc_body<D>(FWD_TC_ARGS);
+}
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_fwd_tc_narrow_kernel(FWD_TC_PARAMS) {
+  flash_fwd_tc_body<D>(FWD_TC_ARGS);
+}
+// head dims 16 and 32 take the kernel with one block an SM named as its
+// minimum (see the header); 64 and 128 keep the thread count alone
+template <int D>
+auto flash_fwd_tc() {
+  if constexpr (D < 64) return &flash_fwd_tc_narrow_kernel<D>;
+  else return &flash_fwd_tc_kernel<D>;
+}
+
+template <int D>
 int launch_fwd_tc(const void* q, const void* k, const void* v, const void* lengths, void* o,
                   void* lse, int B, int G, int S, int bk, int causal, int soft_bf16,
                   float scale_log2, cudaStream_t st) {
   constexpr int smem = fwd_tc_smem<D>();
-  if (int e = (int)cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+  if (int e = (int)cudaFuncSetAttribute(flash_fwd_tc<D>(),
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return e;
   const int nq = (S + TC_BQ - 1) / TC_BQ;
-  flash_fwd_tc_kernel<D><<<nq * G * B, TC_THREADS, smem, st>>>(
+  flash_fwd_tc<D>()<<<nq * G * B, TC_THREADS, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths, (bf16*)o,
       (float*)lse, G, S, bk, scale_log2, causal, soft_bf16);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// D = 64. dtype_code: 0 = f32 q/k/v/o (SIMT kernel), 1 = bf16 (tensor cores).
-// bk: the TPU kernel's key block, a divisor of S (_fit_block).
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* lengths,
-                         void* o, void* lse, int B, int G, int S, int bk, int causal,
-                         int soft_bf16, int dtype_code, float scale_log2, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bk < 1 || S % bk) return (int)cudaErrorInvalidValue;
-  if (dtype_code == 1)
-    return launch_fwd_tc<64>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16,
-                             scale_log2, st);
-  dim3 grid((S + BQ - 1) / BQ, G, B);
-  flash_fwd_kernel<float, 64><<<grid, THREADS, 0, st>>>(
+template <int D>
+int launch_fwd_simt(const void* q, const void* k, const void* v, const void* lengths, void* o,
+                    void* lse, int B, int G, int S, int bk, int causal, int soft_bf16,
+                    float scale_log2, cudaStream_t st) {
+  constexpr int smem = fwd_simt_smem<D>();
+  if (int e = (int)cudaFuncSetAttribute(flash_fwd_kernel<float, D>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return e;
+  flash_fwd_kernel<float, D><<<dim3((S + BQ - 1) / BQ, G, B), THREADS, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const int*)lengths, (float*)o,
       (float*)lse, G, S, bk, scale_log2, causal, soft_bf16);
   return (int)cudaGetLastError();
 }
 
-// D = 128 (the LLaMA-7B family's heads), bf16 only; the same arguments.
-extern "C" int flash_fwd_d128(const void* q, const void* k, const void* v, const void* lengths,
-                              void* o, void* lse, int B, int G, int S, int bk, int causal,
-                              int soft_bf16, int dtype_code, float scale_log2, void* stream) {
-  if (dtype_code != 1 || bk < 1 || S % bk) return (int)cudaErrorInvalidValue;
-  return launch_fwd_tc<128>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16,
-                            scale_log2, static_cast<cudaStream_t>(stream));
+// dtype_code: 0 = f32 q/k/v/o (SIMT kernel), 1 = bf16 (tensor cores). bk:
+// the TPU kernel's key block, a divisor of S (_fit_block).
+template <int D>
+int fwd_entry(const void* q, const void* k, const void* v, const void* lengths, void* o,
+              void* lse, int B, int G, int S, int bk, int causal, int soft_bf16, int dtype_code,
+              float scale_log2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bk < 1 || S % bk || dtype_code < 0 || dtype_code > 1) return (int)cudaErrorInvalidValue;
+  if (dtype_code == 1)
+    return launch_fwd_tc<D>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16,
+                            scale_log2, st);
+  return launch_fwd_simt<D>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16,
+                            scale_log2, st);
 }
 
-// The bf16 kernel's registers, shared memory, spills and occupancy at head
-// dim 64 or 128 (tc_bf16::attributes; launches nothing).
-extern "C" int flash_fwd_attributes(int* out, int head_dim) {
-  if (head_dim == 128)
-    return tc_bf16::attributes(flash_fwd_tc_kernel<128>, TC_THREADS, fwd_tc_smem<128>(), out);
-  return tc_bf16::attributes(flash_fwd_tc_kernel<64>, TC_THREADS, fwd_tc_smem<64>(), out);
+template <int D>
+int fwd_attributes(int* out, int dtype_code) {
+  if (dtype_code == 1)
+    return tc_bf16::attributes(flash_fwd_tc<D>(), TC_THREADS, fwd_tc_smem<D>(), out);
+  return tc_bf16::attributes(flash_fwd_kernel<float, D>, THREADS, fwd_simt_smem<D>(), out);
+}
+
+}  // namespace
+
+// One entry per head dim, each with the arguments of fwd_entry.
+#define FLASH_FWD_ENTRY(name, D)                                                              \
+  extern "C" int name(const void* q, const void* k, const void* v, const void* lengths,      \
+                      void* o, void* lse, int B, int G, int S, int bk, int causal,            \
+                      int soft_bf16, int dtype_code, float scale_log2, void* stream) {        \
+    return fwd_entry<D>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16, dtype_code, \
+                        scale_log2, stream);                                                  \
+  }
+FLASH_FWD_ENTRY(flash_fwd, 64)
+FLASH_FWD_ENTRY(flash_fwd_d16, 16)
+FLASH_FWD_ENTRY(flash_fwd_d32, 32)
+FLASH_FWD_ENTRY(flash_fwd_d128, 128)
+
+// A kernel's registers, shared memory, spills and occupancy at a head dim
+// (16, 32, 64, 128) and dtype_code (tc_bf16::attributes; launches nothing).
+extern "C" int flash_fwd_attributes(int* out, int head_dim, int dtype_code) {
+  switch (head_dim) {
+    case 16: return fwd_attributes<16>(out, dtype_code);
+    case 32: return fwd_attributes<32>(out, dtype_code);
+    case 64: return fwd_attributes<64>(out, dtype_code);
+    case 128: return fwd_attributes<128>(out, dtype_code);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -21,7 +21,11 @@
 // Bound on this card: operations (dQ three products, dK/dV four, against a
 // few bytes an element), at the bf16 tensor-core rate.
 //
-// bf16 (D = 64 and 128): tensor cores, mma.sync m16n8k16 bf16 x bf16 ->
+// Head dims 16, 32, 64 and 128, in bf16 and in f32: one entry per head dim
+// and kernel (flash_bwd_dq / flash_bwd_dkv are 64, the _d16 / _d32 / _d128
+// entries the others).
+//
+// bf16: tensor cores, mma.sync m16n8k16 bf16 x bf16 ->
 // fp32 (exactly the contract's bf16 operands and fp32 sums); tiles arrive
 // by cp.async in the swizzled layout of tc_bf16.cuh and are read by
 // ldmatrix (.trans for the second products). Every rounding the contract
@@ -60,12 +64,27 @@
 // walks S/64 + 1 query tiles a head when causal (the middle key block runs
 // alone when nkb is odd); each key block still has one owner.
 //
-// f32 (D = 64): SIMT kernels, products on the fp32 units through fp32
-// shared-memory tiles. dQ: one block per (B, g, 64 query rows), a loop over
+// f32: SIMT kernels, products on the fp32 units through fp32
+// shared-memory tiles (dynamic shared memory: 107 KB for dQ and 116 KB for
+// dK/dV at D = 128, one block an SM there), each of 16 threads of a row
+// owning D / 16 output columns. dQ: one block per (B, g, 64 query rows), a loop over
 // the live 32-key tiles (causal and length), dQ in registers, one write.
 // dK/dV: one block per (B, 64 keys), the same loops as the bf16 kernel over
 // 32-row tiles. Tensor cores would need TF32 operands in f32 (about three
 // decimal digits), which the f32 contract (1e-5) does not allow.
+
+// Launch bounds: the f32 kernels, and the bf16 kernels at head dims 16 and
+// 32 (the *_narrow_kernel instantiations of one body), name one block an SM
+// as their minimum. With the thread count alone, ptxas held them (and the
+// f32 dQ kernel at D = 64) to 64 or 128 registers a thread and spilled to
+// local memory; with the minimum stated it gives them what they use,
+// without a spill (kernel_attributes()). The bf16 kernels at 64 and 128 keep
+// the thread count alone, and so the code they had.
+// Named on them too, the minimum lets ptxas give the D = 64 forward and dQ
+// kernels 185 and 214 registers instead of 168: an SM then holds two blocks
+// instead of three, and at TinyLlama's training shape (B = 16, G = 8,
+// S = 2048) an H100 runs the forward 17% and dQ 8% slower, with the same
+// outputs (flash_launch_bounds.py). So each kind has two kernels of one body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,7 +122,7 @@ constexpr size_t dq_smem_bytes() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -212,7 +231,7 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -350,14 +369,16 @@ __host__ __device__ constexpr int dq_step_keys() { return D <= 64 ? 64 : 32; }
 template <int D>
 __host__ __device__ constexpr bool kv_in_registers() { return D <= 64; }
 
+#define DKV_TC_PARAMS                                                                        \
+  const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,       \
+      const bf16* __restrict__ dout, const float* __restrict__ lse,                         \
+      const float* __restrict__ delta, const int* __restrict__ lengths, bf16* __restrict__ dk, \
+      bf16* __restrict__ dv, int G, int S, float scale_log2, float scale, int causal
+#define DKV_TC_ARGS \
+  q, k, v, dout, lse, delta, lengths, dk, dv, G, S, scale_log2, scale, causal
+
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const int* __restrict__ lengths, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int G, int S, float scale_log2, float scale,
-                        int causal) {
+__device__ __forceinline__ void flash_bwd_dkv_tc_body(DKV_TC_PARAMS) {
   constexpr int KC = D / 16;          // 16-deep chunks of the products over d
   constexpr int QW = dkv_step_rows<D>();   // query rows of an inner step
   constexpr int NT = QW / 8;          // 8-row column tiles of S^T and dP^T in a step
@@ -519,6 +540,23 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(DKV_TC_PARAMS) {
+  flash_bwd_dkv_tc_body<D>(DKV_TC_ARGS);
+}
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dkv_tc_narrow_kernel(DKV_TC_PARAMS) {
+  flash_bwd_dkv_tc_body<D>(DKV_TC_ARGS);
+}
+// head dims 16 and 32 take the kernel with one block an SM named as its
+// minimum (see the header); 64 and 128 keep the thread count alone
+template <int D>
+auto flash_bwd_dkv_tc() {
+  if constexpr (D < 64) return &flash_bwd_dkv_tc_narrow_kernel<D>;
+  else return &flash_bwd_dkv_tc_kernel<D>;
+}
+
 // ---------------------------------------------------------------------------
 // dQ in bf16: tensor cores
 // ---------------------------------------------------------------------------
@@ -528,13 +566,16 @@ __host__ __device__ constexpr int dq_tc_smem() {
   return 2 * TC_BQ * D * 2 + 2 * 2 * TC_BK * D * 2;   // Q, dO, then 2 stages of K and V
 }
 
+#define DQ_TC_PARAMS                                                                         \
+  const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,       \
+      const bf16* __restrict__ dout, const float* __restrict__ lse,                         \
+      const float* __restrict__ delta, const int* __restrict__ lengths, bf16* __restrict__ dq, \
+      int G, int S, float scale_log2, float scale, int causal
+#define DQ_TC_ARGS \
+  q, k, v, dout, lse, delta, lengths, dq, G, S, scale_log2, scale, causal
+
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       const int* __restrict__ lengths, bf16* __restrict__ dq, int G, int S,
-                       float scale_log2, float scale, int causal) {
+__device__ __forceinline__ void flash_bwd_dq_tc_body(DQ_TC_PARAMS) {
   constexpr int KC = D / 16;          // 16-deep chunks of q.k and dO.v
   constexpr int KW = dq_step_keys<D>();    // keys of an inner step
   constexpr int NT = KW / 8;          // 8-key column tiles of S and dP in a step
@@ -668,6 +709,23 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(DQ_TC_PARAMS) {
+  flash_bwd_dq_tc_body<D>(DQ_TC_ARGS);
+}
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dq_tc_narrow_kernel(DQ_TC_PARAMS) {
+  flash_bwd_dq_tc_body<D>(DQ_TC_ARGS);
+}
+// head dims 16 and 32 take the kernel with one block an SM named as its
+// minimum (see the header); 64 and 128 keep the thread count alone
+template <int D>
+auto flash_bwd_dq_tc() {
+  if constexpr (D < 64) return &flash_bwd_dq_tc_narrow_kernel<D>;
+  else return &flash_bwd_dq_tc_kernel<D>;
+}
+
 template <typename Kern>
 int allow_smem(Kern kern, size_t bytes) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -679,9 +737,9 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, const void* lengths, void* dq, int B,
                  int G, int S, int causal, float scale_log2, float scale, cudaStream_t st) {
   constexpr int smem = dq_tc_smem<D>();
-  if (int e = allow_smem(flash_bwd_dq_tc_kernel<D>, smem)) return e;
+  if (int e = allow_smem(flash_bwd_dq_tc<D>(), smem)) return e;
   const int nq = (S + TC_BQ - 1) / TC_BQ;
-  flash_bwd_dq_tc_kernel<D><<<nq * G * B, TC_THREADS, smem, st>>>(
+  flash_bwd_dq_tc<D>()<<<nq * G * B, TC_THREADS, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
       (const float*)delta, (const int*)lengths, (bf16*)dq, G, S, scale_log2, scale, causal);
   return (int)cudaGetLastError();
@@ -693,30 +751,26 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                   int B, int G, int S, int causal, float scale_log2, float scale,
                   cudaStream_t st) {
   constexpr int smem = dkv_tc_smem<D>();
-  if (int e = allow_smem(flash_bwd_dkv_tc_kernel<D>, smem)) return e;
+  if (int e = allow_smem(flash_bwd_dkv_tc<D>(), smem)) return e;
   const int nkb = (S + TC_BK - 1) / TC_BK;
-  flash_bwd_dkv_tc_kernel<D><<<dim3((nkb + 1) / 2, B), TC_THREADS, smem, st>>>(
+  flash_bwd_dkv_tc<D>()<<<dim3((nkb + 1) / 2, B), TC_THREADS, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
       (const float*)delta, (const int*)lengths, (bf16*)dk, (bf16*)dv, G, S, scale_log2, scale,
       causal);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype_code: 0 = f32 q/k/v/dO and gradients (SIMT kernels, D = 64), 1 = bf16
-// (tensor cores). flash_bwd_dq and flash_bwd_dkv take D = 64, the _d128
-// entries D = 128 in bf16 only, with the same arguments; the wrappers raise
-// on other head dims.
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, const void* lengths, void* dq,
-                            int B, int G, int S, int causal, int dtype_code, float scale_log2,
-                            float scale, void* stream) {
-  constexpr int D = 64;
+// dtype_code: 0 = f32 q/k/v/dO and gradients (SIMT kernels), 1 = bf16
+// (tensor cores)
+template <int D>
+int dq_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* delta, const void* lengths, void* dq, int B, int G, int S, int causal,
+             int dtype_code, float scale_log2, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype_code == 1)
     return launch_dq_tc<D>(q, k, v, dout, lse, delta, lengths, dq, B, G, S, causal,
                            scale_log2, scale, st);
+  if (dtype_code != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = dq_smem_bytes<D>();
   if (int e = allow_smem(flash_bwd_dq_kernel<D>, smem)) return e;
   flash_bwd_dq_kernel<D><<<dim3((S + DQ_BQ - 1) / DQ_BQ, G, B), THREADS, smem, st>>>(
@@ -726,24 +780,15 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   return (int)cudaGetLastError();
 }
 
-extern "C" int flash_bwd_dq_d128(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, const void* lengths,
-                                 void* dq, int B, int G, int S, int causal, int dtype_code,
-                                 float scale_log2, float scale, void* stream) {
-  if (dtype_code != 1) return (int)cudaErrorInvalidValue;
-  return launch_dq_tc<128>(q, k, v, dout, lse, delta, lengths, dq, B, G, S, causal, scale_log2,
-                           scale, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, const void* lengths, void* dk,
-                             void* dv, int B, int G, int S, int causal, int dtype_code,
-                             float scale_log2, float scale, void* stream) {
-  constexpr int D = 64;
+template <int D>
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* lengths, void* dk, void* dv, int B, int G, int S,
+              int causal, int dtype_code, float scale_log2, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype_code == 1)
     return launch_dkv_tc<D>(q, k, v, dout, lse, delta, lengths, dk, dv, B, G, S, causal,
                             scale_log2, scale, st);
+  if (dtype_code != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = dkv_smem_bytes<D>();
   if (int e = allow_smem(flash_bwd_dkv_kernel<D>, smem)) return e;
   flash_bwd_dkv_kernel<D><<<dim3((S + KV_BKV - 1) / KV_BKV, B), THREADS, smem, st>>>(
@@ -753,28 +798,62 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   return (int)cudaGetLastError();
 }
 
-extern "C" int flash_bwd_dkv_d128(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse, const void* delta, const void* lengths,
-                                  void* dk, void* dv, int B, int G, int S, int causal,
-                                  int dtype_code, float scale_log2, float scale, void* stream) {
-  if (dtype_code != 1) return (int)cudaErrorInvalidValue;
-  return launch_dkv_tc<128>(q, k, v, dout, lse, delta, lengths, dk, dv, B, G, S, causal,
-                            scale_log2, scale, static_cast<cudaStream_t>(stream));
+template <int D>
+int dq_attributes(int* out, int dtype_code) {
+  if (dtype_code == 1)
+    return tc_bf16::attributes(flash_bwd_dq_tc<D>(), TC_THREADS, dq_tc_smem<D>(), out);
+  return tc_bf16::attributes(flash_bwd_dq_kernel<D>, THREADS, (int)dq_smem_bytes<D>(), out);
 }
 
-// The bf16 kernels' registers, shared memory, spills and occupancy at head
-// dim 64 or 128 (tc_bf16::attributes; launches nothing).
-extern "C" int flash_bwd_dq_attributes(int* out, int head_dim) {
-  if (head_dim == 128)
-    return tc_bf16::attributes(flash_bwd_dq_tc_kernel<128>, TC_THREADS, dq_tc_smem<128>(), out);
-  if (head_dim != 64) return (int)cudaErrorInvalidValue;
-  return tc_bf16::attributes(flash_bwd_dq_tc_kernel<64>, TC_THREADS, dq_tc_smem<64>(), out);
+template <int D>
+int dkv_attributes(int* out, int dtype_code) {
+  if (dtype_code == 1)
+    return tc_bf16::attributes(flash_bwd_dkv_tc<D>(), TC_THREADS, dkv_tc_smem<D>(), out);
+  return tc_bf16::attributes(flash_bwd_dkv_kernel<D>, THREADS, (int)dkv_smem_bytes<D>(), out);
 }
 
-extern "C" int flash_bwd_dkv_attributes(int* out, int head_dim) {
-  if (head_dim == 128)
-    return tc_bf16::attributes(flash_bwd_dkv_tc_kernel<128>, TC_THREADS, dkv_tc_smem<128>(),
-                               out);
-  if (head_dim != 64) return (int)cudaErrorInvalidValue;
-  return tc_bf16::attributes(flash_bwd_dkv_tc_kernel<64>, TC_THREADS, dkv_tc_smem<64>(), out);
+}  // namespace
+
+// One entry per head dim and kernel, each with the arguments of dq_entry /
+// dkv_entry.
+#define FLASH_BWD_ENTRIES(suffix, D)                                                          \
+  extern "C" int flash_bwd_dq##suffix(                                                        \
+      const void* q, const void* k, const void* v, const void* dout, const void* lse,         \
+      const void* delta, const void* lengths, void* dq, int B, int G, int S, int causal,      \
+      int dtype_code, float scale_log2, float scale, void* stream) {                          \
+    return dq_entry<D>(q, k, v, dout, lse, delta, lengths, dq, B, G, S, causal, dtype_code,   \
+                       scale_log2, scale, stream);                                            \
+  }                                                                                           \
+  extern "C" int flash_bwd_dkv##suffix(                                                       \
+      const void* q, const void* k, const void* v, const void* dout, const void* lse,         \
+      const void* delta, const void* lengths, void* dk, void* dv, int B, int G, int S,        \
+      int causal, int dtype_code, float scale_log2, float scale, void* stream) {              \
+    return dkv_entry<D>(q, k, v, dout, lse, delta, lengths, dk, dv, B, G, S, causal,          \
+                        dtype_code, scale_log2, scale, stream);                               \
+  }
+FLASH_BWD_ENTRIES(, 64)
+FLASH_BWD_ENTRIES(_d16, 16)
+FLASH_BWD_ENTRIES(_d32, 32)
+FLASH_BWD_ENTRIES(_d128, 128)
+
+// A kernel's registers, shared memory, spills and occupancy at a head dim
+// (16, 32, 64, 128) and dtype_code (tc_bf16::attributes; launches nothing).
+extern "C" int flash_bwd_dq_attributes(int* out, int head_dim, int dtype_code) {
+  switch (head_dim) {
+    case 16: return dq_attributes<16>(out, dtype_code);
+    case 32: return dq_attributes<32>(out, dtype_code);
+    case 64: return dq_attributes<64>(out, dtype_code);
+    case 128: return dq_attributes<128>(out, dtype_code);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_bwd_dkv_attributes(int* out, int head_dim, int dtype_code) {
+  switch (head_dim) {
+    case 16: return dkv_attributes<16>(out, dtype_code);
+    case 32: return dkv_attributes<32>(out, dtype_code);
+    case 64: return dkv_attributes<64>(out, dtype_code);
+    case 128: return dkv_attributes<128>(out, dtype_code);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -41,6 +41,16 @@
 // order, and runs its share of the epilogue. No workspace in device memory,
 // no counters. Integer sums are exact in any order, so every split count
 // gives the same bits as the plain version.
+//
+// K: any multiple of 32 (K/2 packed rows at W4, a multiple of 16). The last
+// stage of a product whose stored rows are no multiple of the stage depth is
+// partial: its weight rows past the end and its x columns past K(/2) arrive
+// as zeros (cp.async with a source size of 0), which add nothing to the
+// int32 sums, so a K tail gives the plain version's bits too. A split's
+// stages are whole stages of the same walk, so the split that holds the
+// last stage holds the tail. The x rows are read in 16-byte pieces from
+// column offsets that are multiples of 16: hence 32 and not 16 (the W4 high
+// half starts at K/2).
 
 #pragma once
 
@@ -598,7 +608,7 @@ int launch_t(const void* x, const void* w, const void* sx, const void* sw, void*
   OutT* op = (OutT*)out;
   const int kw = W4 ? K / 2 : K;
   const int bk = variant == PREFILL ? prefill_bk<W4>() : BK;
-  if (M < 1 || N % 64 || K % 128 || splits < 1 || splits > MAX_SPLITS ||
+  if (M < 1 || N % 64 || K % 32 || splits < 1 || splits > MAX_SPLITS ||
       splits > (kw + bk - 1) / bk)
     return (int)cudaErrorInvalidValue;
   if (variant == DECODE) {

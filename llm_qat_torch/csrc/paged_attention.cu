@@ -16,8 +16,8 @@
 // or [n_pages, kvh, hd/2, P] uint8 (low nibble = rows 0..hd/2-1, high =
 // hd/2..hd-1); scales [n_pages, P] f32; lengths [b] int32 (pre-append with
 // fold); block tables [b, max_pages] int32; fold as decode_attention.cu.
-// Out [b, nh, hd] in q's type. Built for P = 128 and (G, hd) = (8, 64) and
-// (1, 128).
+// Out [b, nh, hd] in q's type. Built for P = 128 and the (G, hd) of
+// decode_attn.cuh's kernel_of.
 
 #include "decode_attn.cuh"
 

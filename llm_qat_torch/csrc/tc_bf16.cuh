@@ -3,9 +3,13 @@
 // layout, ldmatrix fragment loads and mma.sync m16n8k16 (bf16 x bf16 ->
 // fp32).
 //
-// Tiles are [rows][D] bf16, D a multiple of 64, one row 2 * D bytes. The
-// 16-byte chunk ch of row r lives at chunk ch ^ (r % 8): the 8 rows that one
-// ldmatrix 8 x 8 matrix reads then fall in 8 different bank groups.
+// Tiles are [rows][D] bf16, D in {16, 32, 64, 128}, one row 2 * D bytes.
+// D >= 64: the 16-byte chunk ch of row r lives at chunk ch ^ (r % 8) of its
+// row. D = 16 and 32: a row is 2 or 4 chunks, too narrow for that XOR, so
+// 64 / D rows share a 128-byte line, and the chunk at position p of line L
+// lives at position p ^ (L % 8). Either way the 8 rows that one ldmatrix
+// 8 x 8 matrix reads (8 consecutive rows from a multiple of 8, one chunk
+// each) fall in 8 different bank groups.
 //
 // Fragment addresses (lane l of a warp; each ldmatrix.x4 loads four 8 x 8
 // matrices, lanes 8i..8i+7 giving the row addresses of matrix i):
@@ -89,7 +93,14 @@ __device__ __forceinline__ void acc_to_a(const float (&lo)[4], const float (&hi)
 
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int ch) {
-  return (uint32_t)(r * D * 2 + ((ch ^ (r & 7)) << 4));
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dims of the kernels");
+  if constexpr (D >= 64) {
+    return (uint32_t)(r * D * 2 + ((ch ^ (r & 7)) << 4));
+  } else {
+    constexpr int RPL = 64 / D;   // rows a 128-byte line
+    const int line = r / RPL, pos = (r % RPL) * (D / 8) + ch;
+    return (uint32_t)(line * 128 + ((pos ^ (line & 7)) << 4));
+  }
 }
 
 // rows [r0, r0 + ROWS) of a [nrows, D] bf16 matrix into a swizzled tile at

@@ -9,12 +9,15 @@ a shared library with a plain C interface, loaded with ``ctypes``:
 The libraries go to ``build/llm_qat_torch/`` at the repository root (listed in
 ``.gitignore``), named by a hash of their source, so a changed source builds
 anew and an unchanged one is reused. All sources build at first use, one
-``nvcc`` process each, started together. Nothing here runs at import: the
+``nvcc`` process each, started together; ``start_build`` starts them and
+returns, so a caller can work while the slow ones compile, and ``library``
+then waits only for the source it loads. Nothing here runs at import: the
 package imports without CUDA or ``nvcc``.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
@@ -34,7 +37,8 @@ NVCC_FLAGS = [
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, object] = {}
-build_seconds = 0.0   # time the last build_all() spent compiling
+_pending: Dict[str, tuple] = {}   # stem -> (nvcc process, temporary output, its log, start)
+build_seconds: Dict[str, float] = {}   # stem -> seconds from its nvcc's start until a wait saw it end
 
 
 def _nvcc() -> str:
@@ -57,44 +61,88 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-def build_all() -> Dict[str, Path]:
-    """Compile every source whose library is missing, in parallel; return
-    ``{stem: library path}``. Raises with the compiler's output on failure."""
-    global build_seconds
-    srcs = sorted(CSRC.glob("*.cu"))
+def start_build() -> None:
+    """Start one ``nvcc`` for each source whose library is missing (and is not
+    compiling already), and return at once. Each writes its messages to a
+    file beside its output, so none blocks on a full pipe."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
-    for src in srcs:
+    for src in sorted(CSRC.glob("*.cu")):
         out = _target(src)
-        if out.exists():
+        if out.exists() or src.stem in _pending:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(tmp.with_suffix(".log"), "w+")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[src.stem] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ), tmp, out)
-    failed = []
-    for stem, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        _pending[src.stem] = (proc, tmp, log, time.perf_counter())
+
+
+def wait_build(stem: str) -> Path:
+    """Wait for ``csrc/<stem>.cu``'s ``nvcc`` if one is running; return the
+    library's path. Raises with the compiler's output on failure."""
+    out = _target(CSRC / f"{stem}.cu")
+    if stem in _pending:
+        proc, tmp, log, t0 = _pending.pop(stem)
+        proc.wait()
+        build_seconds[stem] = time.perf_counter() - t0
+        log.seek(0)
+        text = log.read()
+        log.close()
+        os.unlink(log.name)
         if proc.returncode != 0:
-            failed.append(f"--- {stem}.cu ---\n{log}")
-            continue
+            raise RuntimeError(f"nvcc failed:\n--- {stem}.cu ---\n{text}")
         os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def build_all(wait_for=None) -> Dict[str, Path]:
+    """Compile every source whose library is missing, in parallel, and wait
+    for those named in ``wait_for`` (default: all), each as it finishes;
+    return ``{stem: library path}``. Raises with the compiler's output on
+    failure."""
+    start_build()
+    names = set(_pending) if wait_for is None else set(wait_for) & set(_pending)
+    failed = []
+    while names:
+        done = [stem for stem in sorted(names) if _pending[stem][0].poll() is not None]
+        if not done:
+            time.sleep(0.05)
+        for stem in done:
+            names.discard(stem)
+            try:
+                wait_build(stem)
+            except RuntimeError as e:
+                failed.append(str(e))
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return {src.stem: _target(src) for src in srcs}
+        raise RuntimeError("\n".join(failed))
+    return {src.stem: _target(src) for src in sorted(CSRC.glob("*.cu"))}
+
+
+@atexit.register
+def _stop_pending() -> None:
+    """Stop the compilers nothing waited for (a run that failed early)."""
+    for proc, tmp, log, _ in _pending.values():
+        proc.kill()
+        proc.wait()
+        log.close()
+        for f in (tmp, Path(log.name)):
+            f.unlink(missing_ok=True)
+    _pending.clear()
 
 
 def library(stem: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<stem>.cu`` (builds all sources
-    on first use)."""
+    """The loaded library built from ``csrc/<stem>.cu``: waits for it alone
+    if ``start_build`` started it, builds all missing sources if it is
+    missing, and waits for nothing if it is built."""
     if stem not in _libs:
-        paths = build_all()
-        if stem not in paths:
+        if not (CSRC / f"{stem}.cu").exists():
             raise RuntimeError(f"no CUDA source csrc/{stem}.cu")
-        _libs[stem] = ctypes.CDLL(str(paths[stem]))
+        path = _target(CSRC / f"{stem}.cu")
+        if stem in _pending:
+            wait_build(stem)
+        elif not path.exists():
+            build_all()
+        _libs[stem] = ctypes.CDLL(str(path))
     return _libs[stem]
 
 

@@ -6,8 +6,9 @@ cooperative launch over every SM, items of (slot, chunk of columns, kv
 head)), each beside its plain PyTorch version; a wrapper takes the plain
 version only for tensors on the CPU, and on a CUDA tensor it launches its
 kernel or raises. Each wrapper counts its launches in ``launches``. On the
-card all three take (query heads per kv head, head dim) (8, 64) and
-(1, 128), f32 or bf16 q, and at most 256 slots.
+card all three take (query heads per kv head, head dim) in ``_SHAPES``
+((8, 64), (1, 128), (2, 16), (2, 32), (4, 128), (8, 128)), f32 or bf16 q,
+and at most 256 slots; another shape raises ``NotImplementedError``.
 
 * ``quantized_decode_attention`` (``csrc/decode_attention.cu``, plain
   ``_decode_attention_plain``) replaces
@@ -299,7 +300,9 @@ def _paged_attention_plain(q, k_q, k_s, v_q, v_s, lengths, block_tables,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/decode_attn.cuh: the (query heads per kv head, head dim) it is built
 # for, its widest chunk, its most slots, and the page size of the paged entry
-_SHAPES = ((8, 64), (1, 128))
+# (TinyLlama-1.1B, the LLaMA-7B family, the tiny test and pipeline models, the
+# accuracy experiment's model, LLaMA-3-8B's 32 / 8 heads, LLaMA-2-70B's 64 / 8)
+_SHAPES = ((8, 64), (1, 128), (2, 16), (2, 32), (4, 128), (8, 128))
 _CHUNK = 128
 _MAX_SLOTS = 256
 _PAGED_P = 128

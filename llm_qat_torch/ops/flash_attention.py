@@ -17,8 +17,9 @@ p is rounded to V's type before the p.V product; ``soft_bf16`` evaluates
 exp2 on bf16 operands (``config.flash_softmax_bf16``; the forward only).
 Returns O and the per-row log-sum-exp in nats, ``[B, G, 1, S]``.
 
-On the card the forward and the backward pair take head dim 64 (f32, bf16)
-and 128 (bf16). In bf16 all three kernels run their products on the tensor
+On the card the forward and the backward pair take head dims 16, 32, 64
+and 128 (``HEAD_DIMS``), each in f32 and bf16; another head dim raises
+``NotImplementedError``. In bf16 all three kernels run their products on the tensor
 cores, and their plain versions take q.k and dO.v the same way
 (``_scores``); in f32 they run on the fp32 units with fp32 products.
 
@@ -126,6 +127,25 @@ def _flash_fwd_plain(q, k, v, lengths, causal: bool = True, soft_bf16: bool = Fa
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the head dims the card's kernels (K4, K10, K11) are built for, each in f32
+# and bf16: the tiny test and pipeline models' 16, the accuracy experiment's
+# 32, TinyLlama-1.1B's 64 and the LLaMA-7B family's 128
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _check_built(source: str, D: int, tensors) -> None:
+    """Raise ``NotImplementedError``, naming the built set, unless every
+    tensor has q's f32 / bf16 type and ``D`` is a built head dim."""
+    dts = [t.dtype for t in tensors]
+    if dts[0] not in _DTYPE_CODES or any(d != dts[0] for d in dts) or D not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"{source} is built for head dims {HEAD_DIMS} in f32 or bf16 (one type for "
+            f"every operand); got D={D}, {'/'.join(str(d) for d in dts)}")
+
+
+def _entry(stem: str, D: int) -> str:
+    """The kernel entry of head dim ``D``: ``stem`` at 64, else ``stem_d{D}``."""
+    return stem if D == 64 else f"{stem}_d{D}"
 
 
 def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False,
@@ -134,8 +154,8 @@ def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False,
     ``causal=False``: every column below the length). Returns
     ([B, G, S, D], lse [B, G, 1, S]). p is rounded in the TPU kernel's key
     blocks (``_fit_block(bk, S)``: every caller of the JAX kernel passes
-    1024); the CUDA kernel's own tiles are fixed and mask the ragged edge. On the card: head dim 64 in
-    f32 or bf16, 128 in bf16."""
+    1024); the CUDA kernel's own tiles are fixed and mask the ragged edge. On the card: head dims
+    ``HEAD_DIMS`` in f32 or bf16."""
     B, G, S, D = q.shape
     if k.shape != (B, S, D) or v.shape != (B, S, D):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}")
@@ -143,20 +163,14 @@ def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False,
         return _flash_fwd_plain(q, k, v, lengths, causal, soft_bf16, bk)
     if not q.is_cuda:
         raise ValueError(f"_flash_fwd: q on {q.device}")
-    if (q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype
-            or D not in (64, 128) or (D == 128 and q.dtype != torch.bfloat16)):
-        raise NotImplementedError(
-            f"flash_attention.cu is built for head dim 64 in f32/bf16 and 128 in bf16 "
-            f"(the f32 kernel takes head dim 64 only); got D={D}, "
-            f"{q.dtype}/{k.dtype}/{v.dtype}"
-        )
+    _check_built("flash_attention.cu", D, (q, k, v))
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.numel() != B:
         raise ValueError(f"_flash_fwd: {lens.numel()} lengths for B={B}")
     o = torch.empty_like(qc)
     lse = torch.empty((B, G, 1, S), dtype=torch.float32, device=q.device)
-    f = _build.bind("flash_attention", "flash_fwd" if D == 64 else "flash_fwd_d128", 6, 7, 1)
+    f = _build.bind("flash_attention", _entry("flash_fwd", D), 6, 7, 1)
     err = f(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(),
             o.data_ptr(), lse.data_ptr(), B, G, S, _fit_block(bk, S), int(causal),
             int(soft_bf16),
@@ -235,11 +249,7 @@ def _bwd_operands(name, q, k, v, lengths, lse, delta, do):
                          f"lse {tuple(lse.shape)} delta {tuple(delta.shape)}")
     if not q.is_cuda:
         raise ValueError(f"{name}: q on {q.device}")
-    if (q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, do))
-            or D not in (64, 128) or (D == 128 and q.dtype != torch.bfloat16)):
-        raise NotImplementedError(
-            f"flash_attention_bwd.cu is built for head dim 64 in f32/bf16 and 128 in bf16; "
-            f"got D={D}, {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
+    _check_built("flash_attention_bwd.cu", D, (q, k, v, do))
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.numel() != B:
         raise ValueError(f"{name}: {lens.numel()} lengths for B={B}")
@@ -261,8 +271,7 @@ def _flash_bwd_dq(q, k, v, lengths, lse, delta, do, causal: bool = True):
     ops = _bwd_operands("_flash_bwd_dq", q, k, v, lengths, lse, delta, do)
     B, G, S, D = q.shape
     dq = torch.empty_like(ops[0])
-    f = _build.bind("flash_attention_bwd", "flash_bwd_dq" if D == 64 else "flash_bwd_dq_d128",
-                    8, 5, 2)
+    f = _build.bind("flash_attention_bwd", _entry("flash_bwd_dq", D), 8, 5, 2)
     err = f(*(t.data_ptr() for t in ops), dq.data_ptr(), B, G, S, int(causal),
             _DTYPE_CODES[q.dtype], *_bwd_scales(D),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -281,8 +290,7 @@ def _flash_bwd_dkv(q, k, v, lengths, lse, delta, do, causal: bool = True):
     ops = _bwd_operands("_flash_bwd_dkv", q, k, v, lengths, lse, delta, do)
     B, G, S, D = q.shape
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
-    f = _build.bind("flash_attention_bwd", "flash_bwd_dkv" if D == 64 else "flash_bwd_dkv_d128",
-                    9, 5, 2)
+    f = _build.bind("flash_attention_bwd", _entry("flash_bwd_dkv", D), 9, 5, 2)
     err = f(*(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(), B, G, S,
             int(causal), _DTYPE_CODES[q.dtype], *_bwd_scales(D),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -303,16 +311,17 @@ def _flash_bwd(q, k, v, lengths, o, lse, do, causal: bool = True):
 
 
 def kernel_attributes() -> dict:
-    """What the compiler gave the bf16 tensor-core kernels, by name:
-    registers a thread, shared bytes (static, dynamic), local (spill) bytes
-    a thread, threads a block and blocks an SM can hold. Launches nothing."""
-    queries = (("flash_fwd", "flash_attention", "flash_fwd_attributes", 64),
-               ("flash_fwd_d128", "flash_attention", "flash_fwd_attributes", 128),
-               ("flash_bwd_dq", "flash_attention_bwd", "flash_bwd_dq_attributes", 64),
-               ("flash_bwd_dq_d128", "flash_attention_bwd", "flash_bwd_dq_attributes", 128),
-               ("flash_bwd_dkv", "flash_attention_bwd", "flash_bwd_dkv_attributes", 64),
-               ("flash_bwd_dkv_d128", "flash_attention_bwd", "flash_bwd_dkv_attributes", 128))
-    return {name: _build.attributes(stem, fn, d) for name, stem, fn, d in queries}
+    """What the compiler gave every kernel of K4, K10 and K11 at every head
+    dim, by entry name, ``_f32`` appended for the f32 (SIMT) kernels (the
+    bf16 tensor-core kernels keep the bare name): registers a thread, shared
+    bytes (static, dynamic), local (spill) bytes a thread, threads a block
+    and blocks an SM can hold. Launches nothing."""
+    return {_entry(stem, D) + ("" if code else "_f32"): _build.attributes(
+                src, f"{stem}_attributes", D, code)
+            for stem, src in (("flash_fwd", "flash_attention"),
+                              ("flash_bwd_dq", "flash_attention_bwd"),
+                              ("flash_bwd_dkv", "flash_attention_bwd"))
+            for D in HEAD_DIMS for code in (1, 0)}
 
 
 class AttnSaved:

@@ -179,6 +179,9 @@ _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 DECODE_MAX_ROWS = 64
 GEMM_BK = 128
+# K the kernels take: any multiple of 32 (a last, partial stage zero-fills
+# the rows past K; the W4 high half starts at K/2, read in 16-byte pieces)
+GEMM_K_MULTIPLE = 32
 DECODE_BN, PREFILL_BM, PREFILL_BN = 64, 128, 128
 DECODE_BLOCKS_PER_SM = 1
 MAX_SPLITS = 8          # csrc/gemm_int8.cuh MAX_SPLITS: a portable cluster
@@ -229,6 +232,13 @@ def _plan(M: int, N: int, K: int, w4: bool, device_index: int) -> dict:
     return gemm_plan(M, N, K, w4, sms)
 
 
+def check_gemm_shape(fn: str, N: int, K: int) -> None:
+    """Raise ``ValueError`` unless the kernels take an ``[., K] x [K, N]``
+    product: ``N % 64 == 0`` and ``K % GEMM_K_MULTIPLE == 0``."""
+    if N % 64 or K % GEMM_K_MULTIPLE:
+        raise ValueError(f"{fn}: needs N % 64 == 0 and K % {GEMM_K_MULTIPLE} == 0, got {N}, {K}")
+
+
 def _launch_gemm(stem, fn, xq, w, sx, sw, out_dtype, M, N, K, layer=None, plan=None):
     """``layer`` given: ``w``/``sw`` are the stacked tensors and ``fn`` the
     stacked entry point, which takes the layer index. ``plan``: a
@@ -240,8 +250,7 @@ def _launch_gemm(stem, fn, xq, w, sx, sw, out_dtype, M, N, K, layer=None, plan=N
             raise ValueError(f"{fn}: {name} must be a contiguous CUDA {dt}")
     if not w.is_contiguous() or not w.is_cuda:
         raise ValueError(f"{fn}: weight must be a contiguous CUDA tensor")
-    if N % 64 or K % 128:
-        raise ValueError(f"{fn}: needs N % 64 == 0 and K % 128 == 0, got {N}, {K}")
+    check_gemm_shape(fn, N, K)
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     if M == 0:
         return out

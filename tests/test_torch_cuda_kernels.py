@@ -138,11 +138,43 @@ def test_gemm_kernel_attributes(gen):
 
 
 def test_gemm_kernel_rejects_unsupported_shapes(gen):
-    xq = torch.zeros(8, 100, dtype=torch.int8, device="cuda")
-    wq = torch.zeros(100, 64, dtype=torch.int8, device="cuda")
-    with pytest.raises(ValueError, match="K % 128"):
-        QM.int8_matmul(xq, wq, torch.ones(8, 1, device="cuda"),
-                       torch.ones(1, 64, device="cuda"))
+    """K = 2736 is a multiple of 16 but not of 32: refused by both kernels."""
+    K = 2736
+    xq = torch.zeros(8, K, dtype=torch.int8, device="cuda")
+    wq = torch.zeros(K, 64, dtype=torch.int8, device="cuda")
+    sx, sw = torch.ones(8, 1, device="cuda"), torch.ones(1, 64, device="cuda")
+    with pytest.raises(ValueError, match="K % 32"):
+        QM.int8_matmul(xq, wq, sx, sw)
+    with pytest.raises(ValueError, match="K % 32"):
+        QM.int4_matmul(xq, wq[:K // 2].view(torch.uint8).contiguous(), sx, sw)
+
+
+# (K, N) whose K is no multiple of the 128-row stage: the tiny models' qkv
+# (64), the accuracy model's qkv and down (256, 768), LLaMA-7B's down at
+# tp = 8 and 4 (1376, 2752); and K = 2080 (a stage and a 32-row tail at W8)
+K_TAIL_PROJ = [(64, 128), (256, 512), (768, 256), (1376, 4096), (2752, 4096), (2080, 192)]
+
+
+@pytest.mark.parametrize("M", [1, 32, 64, 65, 1024])
+@pytest.mark.parametrize("K,N", K_TAIL_PROJ)
+def test_gemm_kernels_k_tail_at_every_split(gen, M, K, N):
+    """K1/K2 (and so K5/K6) at K a multiple of 32 but not of 128: the last
+    stage is partial and zero-filled. Bit-equal to the plain versions at every
+    split count the plan could take (the split holding the tail included),
+    and the same bits on a second launch."""
+    xq, sx, wq, sw, wp, sw4 = _gemm_operands(gen, M, K, N)
+    for stem, fn, plain, w, s in (("int8_matmul", QM.int8_matmul, QM._int8_matmul_plain, wq, sw),
+                                  ("w4a8_matmul", QM.int4_matmul, QM._int4_matmul_plain, wp,
+                                   sw4)):
+        want = plain(xq, w, sx, s, torch.bfloat16)
+        first = fn(xq, w, sx, s)
+        assert torch.equal(first, want), stem
+        assert torch.equal(fn(xq, w, sx, s), first), stem
+        plan = QM.gemm_plan(M, N, K, stem == "w4a8_matmul")
+        for splits in range(1, min(plan["steps"], QM.MAX_SPLITS) + 1):
+            got = QM._launch_gemm(stem, stem, xq, w, sx, s, torch.bfloat16, M, N, K,
+                                  plan=dict(plan, splits=splits))
+            assert torch.equal(got, want), (stem, splits)
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -246,16 +278,22 @@ def _quant_fold(gen, b, kvh, hd, packed, active, kc, ksn, pos):
             kc[:, pos].T.contiguous(), ksn[:, pos].T.contiguous())
 
 
-@pytest.mark.parametrize("G,hd", [(8, 64), (1, 128)])
+# kv heads of each built (G, hd) in these cases: TinyLlama-1.1B's, LLaMA-7B's,
+# the tiny models', the accuracy model's, LLaMA-3-8B's, LLaMA-2-70B's
+DECODE_KVH = {(8, 64): 4, (1, 128): 32, (2, 16): 2, (2, 32): 4, (4, 128): 8, (8, 128): 8}
+
+
+@pytest.mark.parametrize("G,hd", list(DECODE_KVH))
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("rope", [True, False])
 @pytest.mark.parametrize("fold", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_attention_kernel_block_edges(gen, G, hd, packed, rope, fold, dtype):
     """S = 2048 at the JAX picker's block (1024 at (8, 64) with 4 kv heads,
-    256 at (1, 128) with 32): lengths 0, 1, 127, 128, 129, bk - 1, bk,
-    bk + 1 and S, slot 2 inactive; the same bits on a second launch."""
-    kvh, S = (4, 2048) if G == 8 else (32, 2048)
+    256 at (1, 128) with 32) at every built (G, hd): lengths 0, 1, 127, 128,
+    129, bk - 1, bk, bk + 1 and S, slot 2 inactive; the same bits on a
+    second launch."""
+    kvh, S = DECODE_KVH[(G, hd)], 2048
     bk = DA._pick_bk(S, kvh, hd, 1024)
     lens_l = [0, 1, 127, 128, 129, bk - 1, bk, bk + 1, S]
     b = len(lens_l)
@@ -320,7 +358,7 @@ def test_decode_attention_kernel_attributes(gen):
     """Every variant of decode_attn.cuh (K3, K7, K8): no spill, one block an
     SM at least (the cooperative launch needs them resident)."""
     attrs = DA.kernel_attributes()
-    assert len(attrs) == 4
+    assert len(attrs) == 2 * len(DECODE_KVH)
     for name, a in attrs.items():
         assert a["spill_bytes"] == 0 and a["blocks_per_sm"] >= 1, (name, a)
 
@@ -338,7 +376,7 @@ def _paged_case(b, G, hd, packed, dtype, gen, fold=True, max_pages=8):
     """Slots that are empty, hold one token, end on a page edge, mid-page
     and fill their table; shuffled tables whose unused entries point outside
     the pool; every third slot inactive."""
-    kvh, P = (4, 128) if G == 8 else (8, 128)
+    kvh, P = PAGED_KVH[(G, hd)], 128
     base = [0, 1, P - 1, P, P + 1, 2 * P + 37, max_pages * P, 3 * P - 1]
     lens_l = [base[i % len(base)] for i in range(b)]
     n_pages = sum(-(-n // P) for n in lens_l) + b + 3
@@ -367,7 +405,10 @@ def _paged_case(b, G, hd, packed, dtype, gen, fold=True, max_pages=8):
     return q, pool, lens, bt.cuda(), kc, ksn, fd
 
 
-@pytest.mark.parametrize("G,hd", [(8, 64), (1, 128)])
+PAGED_KVH = {**DECODE_KVH, (1, 128): 8}
+
+
+@pytest.mark.parametrize("G,hd", list(PAGED_KVH))
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("fold", [True, False])
@@ -436,7 +477,8 @@ def test_stacked_gemm_kernels_bit_exact(gen, layer, out_dtype):
 @pytest.mark.parametrize("layer", [0, 2])
 @pytest.mark.parametrize("rope", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("kvh,G,hd", [(4, 8, 64), (32, 1, 128)])
+@pytest.mark.parametrize("kvh,G,hd", [(4, 8, 64), (32, 1, 128), (2, 2, 16), (4, 2, 32),
+                                      (8, 4, 128), (8, 8, 128)])
 def test_stacked_decode_attention_kernel(gen, layer, rope, dtype, kvh, G, hd):
     L, b, S = 3, 8, 512
     kq = torch.randint(-127, 128, (L, b, kvh, hd, S), device="cuda", generator=gen).to(torch.int8)
@@ -532,10 +574,10 @@ def test_flash_fwd_kernel_refuses_shapes_it_is_not_built_for(gen):
     q = torch.randn(1, 1, 64, 128, device="cuda", generator=gen)
     k = torch.randn(1, 64, 128, device="cuda", generator=gen)
     lens = torch.tensor([64], dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="f32 kernel takes head dim 64 only"):
-        FA._flash_fwd(q, k, k, lens)
-    with pytest.raises(NotImplementedError, match="head dim 64 in f32/bf16 and 128 in bf16"):
+    with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\)"):
         FA._flash_fwd(*(t[..., :96].to(torch.bfloat16) for t in (q, k, k)), lens)
+    with pytest.raises(NotImplementedError, match="one type for every operand"):
+        FA._flash_fwd(q, k.to(torch.bfloat16), k, lens)
 
 
 @pytest.mark.parametrize("S", [100, 1024, 1536, 1800])
@@ -763,25 +805,63 @@ def test_flash_bwd_tensor_core_kernels(gen, D, G, causal, S, short):
         assert not dk[b, max(n_live, 1):].any() and not dv[b, max(n_live, 1):].any()
 
 
-def test_flash_bwd_kernels_refuse_f32_at_head_dim_128(gen):
-    q = torch.randn(1, 1, 64, 128, device="cuda", generator=gen)
-    k = torch.randn(1, 64, 128, device="cuda", generator=gen)
+def test_flash_bwd_kernels_refuse_other_head_dims(gen):
+    q = torch.randn(1, 1, 64, 96, device="cuda", generator=gen)
+    k = torch.randn(1, 64, 96, device="cuda", generator=gen)
     lens = torch.full((1,), 64, dtype=torch.int32, device="cuda")
     lse = torch.zeros(1, 1, 1, 64, device="cuda")
     for fn in (FA._flash_bwd_dq, FA._flash_bwd_dkv):
-        with pytest.raises(NotImplementedError, match="128 in bf16"):
+        with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\)"):
             fn(q, k, k, lens, lse, lse, q)
 
 
+@pytest.mark.parametrize("S", [100, 1100])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("D,dtype", [(16, torch.bfloat16), (16, torch.float32),
+                                     (32, torch.bfloat16), (32, torch.float32),
+                                     (128, torch.float32)])
+def test_flash_kernels_at_the_new_head_dims(gen, D, dtype, G, causal, S):
+    """K4, K10 and K11 at head dims 16 and 32 (bf16: the narrow-row swizzle;
+    f32: the SIMT kernels) and 128 in f32 against their plain versions, from
+    the forward kernel's O and log-sum-exp; lengths S, 1, one cut mid-tile and
+    one a few short. Exact zeros past each length in dK and dV, and the same
+    bits from a second launch of each kernel."""
+    B = 4
+    q, do = (torch.randn(B, G, S, D, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, D, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    lens_l = [S, 1, S // 2 + 3, S - 5]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    n = FA._flash_fwd.launches
+    o, lse = FA._flash_fwd(q, k, v, lens, causal=causal)
+    o_again, _ = FA._flash_fwd(q, k, v, lens, causal=causal)
+    assert FA._flash_fwd.launches == n + 2
+    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, causal)
+    args = (q, k, v, lens, lse, FA._delta(o, do), do, causal)
+    dq, (dk, dv) = FA._flash_bwd_dq(*args), FA._flash_bwd_dkv(*args)
+    dq_again, (dk_again, dv_again) = FA._flash_bwd_dq(*args), FA._flash_bwd_dkv(*args)
+    dq2, (dk2, dv2) = FA._flash_bwd_dq_plain(*args), FA._flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert _close(o, o2) and torch.equal(o, o_again)
+    assert float((lse - lse2).abs().max()) < (1e-3 if dtype == torch.bfloat16 else 1e-5)
+    assert _close(dq, dq2) and _close(dk, dk2) and _close(dv, dv2)
+    assert torch.equal(dq, dq_again) and torch.equal(dk, dk_again) and torch.equal(dv, dv_again)
+    for b, n_live in enumerate(lens_l):
+        assert not dk[b, max(n_live, 1):].any() and not dv[b, max(n_live, 1):].any()
+
+
 def test_flash_kernel_attributes(gen):
-    """The tensor-core kernels compile to at most 255 registers a thread,
-    spill nothing, and fit at least one block of 128 threads on an SM."""
+    """Every K4/K10/K11 kernel (bf16 tensor-core and f32 SIMT, head dims 16,
+    32, 64, 128) compiles to at most 255 registers a thread, spills nothing,
+    and fits at least one block on an SM."""
     attrs = FA.kernel_attributes()
-    assert set(attrs) == {"flash_fwd", "flash_fwd_d128", "flash_bwd_dq", "flash_bwd_dq_d128",
-                          "flash_bwd_dkv", "flash_bwd_dkv_d128"}
-    for a in attrs.values():
-        assert a["spill_bytes"] == 0 and a["registers"] <= 255
-        assert a["threads"] == 128 and a["blocks_per_sm"] >= 1
+    assert set(attrs) == {FA._entry(stem, D) + suf for stem in
+                          ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                          for D in FA.HEAD_DIMS for suf in ("", "_f32")}
+    for name, a in attrs.items():
+        assert a["spill_bytes"] == 0 and a["registers"] <= 255, (name, a)
+        assert a["threads"] == (256 if name.endswith("_f32") else 128), (name, a)
+        assert a["blocks_per_sm"] >= 1, (name, a)
 
 
 def test_flash_attention_gqa_gradient_runs_the_kernels(gen):
@@ -800,9 +880,9 @@ def test_flash_attention_gqa_gradient_runs_the_kernels(gen):
     want = FA._flash_bwd_plain(q.detach(), k.detach(), v.detach(), lens, o.detach(),
                                saved.lse, g)
     assert all(_close(a, b) for a, b in zip((dq, dk, dv), want))
-    with pytest.raises(NotImplementedError, match="head dim 64 in f32/bf16 and 128 in bf16"):
-        FA._flash_bwd(q[..., :32].detach(), k[..., :32].detach(), v[..., :32].detach(), lens,
-                      o[..., :32].detach(), saved.lse, g[..., :32])
+    with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\)"):
+        FA._flash_bwd(q[..., :48].detach(), k[..., :48].detach(), v[..., :48].detach(), lens,
+                      o[..., :48].detach(), saved.lse, g[..., :48])
 
 
 # row widths of the models' hidden and MLP rows (TinyLlama, LLaMA-7B/13B/30B)
@@ -1089,3 +1169,24 @@ def test_engine_serves_mha_head_dim_128_through_the_megakernel(gen, monkeypatch)
         lg.append(M.serving_forward(qp, cfg.replace(use_megakernel=flag), [[29], [31]],
                                     c["lengths"], [True, True], c)[0])
     assert float((lg[0] - lg[1]).norm() / lg[1].norm()) <= 0.15
+
+
+def test_measure_times_a_cuda_graph_of_the_kernel(gen):
+    """``utils.benchmarking.measure`` on the card: N launches of K1 captured
+    in one CUDA graph, the replay timed between events, the floor (the same
+    harness around a one-element op) subtracted; the graph's launches give
+    the kernel's bits."""
+    from llm_qat_torch.utils import benchmarking as B
+
+    xq, sx, wq, sw, _, _ = _gemm_operands(gen, 32, 2048, 2560)
+    want = QM.int8_matmul(xq, wq, sx, sw)
+    outs = []
+    per = B.measure(lambda *a: outs.append(QM.int8_matmul(*a)), [xq, wq, sx, sw],
+                    iters=20, reps=2)
+    torch.cuda.synchronize()
+    assert 0.0 <= per < 1e-3
+    assert all(torch.equal(o, want) for o in outs)
+    floor = B.dispatch_floor(iters=20, reps=2)
+    assert 0.0 < floor < 1e-2
+    assert B.measure(lambda *a: QM.int8_matmul(*a), [xq, wq, sx, sw], iters=20, reps=2,
+                     floor=1e9) == 0.0                 # clamped at 0

@@ -204,7 +204,10 @@ def _imports(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "llm_qat_torch").rglob("*.py")) + [
         REPO / name for name in ("chip_smoke.py", "train_torch.py", "generate_data_torch.py",
-                                 "merge_gen_data_torch.py", "eval_torch.py")]
+                                 "merge_gen_data_torch.py", "eval_torch.py",
+                                 "examples/tiny_pipeline_torch.py",
+                                 "examples/accuracy_experiment_torch.py",
+                                 "flash_launch_bounds.py")]
     assert len(files) > 10
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"llm_qat_torch/models/convert.py", "llm_qat_torch/utils/args.py",
@@ -229,6 +232,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "llm_qat_torch/models/llama_cp.py"} <= names
     assert {"llm_qat_torch/inference/sharded.py", "llm_qat_torch/inference/multihost.py"} <= names
     assert {"llm_qat_torch/parallel/tensor.py", "llm_qat_torch/parallel/pipeline.py"} <= names
+    assert {"llm_qat_torch/utils/benchmarking.py", "examples/tiny_pipeline_torch.py",
+            "examples/accuracy_experiment_torch.py", "flash_launch_bounds.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
-``build/llm_qat_torch/``; ``megakernel.cu``, the slowest, compiles on
-through phases 2 and 2b), then:
+``build/llm_qat_torch/``; ``megakernel.cu`` and ``megakernel_d128.cu``, the
+slowest, compile on through phases 2 and 2b), then:
 
 1. prints the card's name and power limit and each source's build time;
 2. runs each kernel's wrapper at the TinyLlama-1.1B shapes of the serving
@@ -42,7 +42,11 @@ through phases 2 and 2b), then:
    a seed): the decode megakernel against its plain version at W8A8KV8 and
    W4A8KV4, and ``InferenceEngine`` with default flags (every decode step
    one launch of the megakernel, no decode-attention launch) against the
-   scan path on the same 8 requests (see ``llama7b_phase``);
+   scan path on the same 8 requests (see ``llama7b_phase``). Then
+   LLaMA-3-8B's published widths ((4, 128) heads, vocabulary 128256) cut to
+   4 layers: the megakernel against its plain version, and the default,
+   scan and paged engines on 8 requests of 16 greedy tokens, held by their
+   launch counts and against the scan path (see ``llama3_phase``);
 4. holds the four training kernels against their plain versions at the train
    steps' shapes (flash backward dQ and dK/dV and the flash forward at
    B = 16, G = 8, S = 2048, D = 64 and at LLaMA-7B's B = 32, G = 1, S = 2048,
@@ -102,8 +106,9 @@ through phases 2 and 2b), then:
    ``examples/accuracy_experiment_torch.py`` at its model's shape (head dim
    32, bf16) for a handful of steps (see ``tiny_pipeline_phase``,
    ``accuracy_phase``); phase 2b holds every kernel instantiation of the
-   repo's other head shapes and K tails against its plain version (see
-   ``shapes_phase``);
+   repo's other head shapes and K tails, and K3/K7/K8 and K9 at every G of
+   1..8 query heads a kv head at head dims 64 and 128, against its plain
+   version (see ``shapes_phase``);
 5. prints what the compiler gave the tensor-core flash kernels, the
    decode megakernel and every K1/K2, K3/K7/K8 and K12/K13 variant
    (registers, shared memory, spills, blocks an SM holds; it fails on a
@@ -407,7 +412,7 @@ def attn_grid(DA, G, hd, kvh, lens_l, ch, n_chunks):
     blocks of the cooperative launch, at most one an item the cache could
     give."""
     items = sum(-(-min(n, n_chunks * ch) // ch) for n in lens_l) * kvh
-    per_sm = DA.kernel_attributes()[f"decode_attention_g{G}_d{hd}_bf16"]["blocks_per_sm"]
+    per_sm = DA.kernel_attributes()[DA._build_name(G, hd, "bf16")]["blocks_per_sm_by_g"][G]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return items, min(sms * per_sm, max(len(lens_l) * kvh * n_chunks, 1))
 
@@ -716,7 +721,6 @@ def megakernel_phase(timer, label, cfg, qparams, gen):
     version's time at full depth, the time between the kernel's grid
     barriers by stage, and the cost of its barriers alone."""
     from llm_qat_torch.inference import megakernel as MK
-    from llm_qat_torch.models import llama
 
     b, S, L = len(K9_LENS), 2048, cfg.num_hidden_layers
     if not MK.supported(cfg, b, S):
@@ -734,14 +738,8 @@ def megakernel_phase(timer, label, cfg, qparams, gen):
         if not r["ok"]:
             raise AssertionError(f"decode_megakernel {label}: {r}")
 
-    hd = cfg.head_dim
-    x = qparams["embed"][ids[:, 0]].to(torch.bfloat16)
-    qcos, qsin = llama.rope_cos_sin(lens_t[:, None], hd, cfg.rope_theta)
-    qcos, qsin = qcos[:, 0, :hd // 2].contiguous(), qsin[:, 0, :hd // 2].contiguous()
-    kcos, ksin = MK._cache_rope_tables(S, hd, cfg.rope_theta, ids.device)
-    bk = MK.pick_bk(cfg, b, S)
-    args = (x, qcos, qsin, kcos, ksin, qparams["layers"], cache, lens_t, act, cfg, bk,
-            torch.bfloat16)
+    args = k9_args(cfg, qparams, cache, lens_t, act, ids, S)
+    bk = args[10]
     card = MK.card_weights(qparams)
     once, twice = (MK.decode_layers(*args, card=card) for _ in range(2))
     same_twice = all(torch.equal(a, w) for a, w in zip(once, twice))
@@ -773,26 +771,7 @@ def megakernel_phase(timer, label, cfg, qparams, gen):
     barriers(10)
     barrier_us = (barriers(2000) - barriers(0)) / 2000 * 1e3
 
-    # bound: every stacked weight, scale and gain, the live cache columns
-    # with their scales, the RoPE tables up to the longest slot, x, y and
-    # the new columns, each moved once; operations: the int8 products and
-    # the attention's q.k and p.V
-    lay = qparams["layers"]
-    wbytes = sum(lay[k]["q"].numel() * lay[k]["q"].element_size() + 4 * lay[k]["s"].numel()
-                 for k in ("qkv", "o", "gateup", "down"))
-    kv_dim, tot = cfg.kv_heads * hd, sum(K9_LENS)
-    hdc = cache["k_q"].shape[3]
-    nbytes = (wbytes + 2 * 2 * L * cfg.hidden_size
-              + L * (2 * cfg.kv_heads * hdc * tot + 2 * 4 * tot)
-              + 2 * 4 * (hd // 2) * max(K9_LENS) + 2 * 2 * b * cfg.hidden_size
-              + L * b * (2 * kv_dim + 8))
-    mac = cfg.hidden_size * (cfg.hidden_size + 2 * kv_dim + cfg.hidden_size
-                             + 2 * cfg.intermediate_size) + cfg.intermediate_size * cfg.hidden_size
-    int_ops = 2.0 * b * mac * L
-    attn_ops = 2.0 * 2 * cfg.num_attention_heads * hd * (tot + b) * L
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = int_ops / INT8_OPS + attn_ops / BF16_FLOPS
-    b_ms, b_by = 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    b_ms, b_by, nbytes = megakernel_bound(cfg, qparams, K9_LENS, cache["k_q"].shape[3])
     grid = torch.cuda.get_device_properties(0).multi_processor_count   # a block per SM
     log(f"  decode_megakernel {label} b={b} S={S} BK={bk} lens={list(K9_LENS)} grid "
         f"{grid} blocks: {ms:.4f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} {b_by}, "
@@ -810,6 +789,30 @@ def megakernel_phase(timer, label, cfg, qparams, gen):
                 max_abs_err=max(cut["max_abs_err"], full["max_abs_err"]),
                 bit_equal=cut["bit_equal"] and full["bit_equal"], same_bits_twice=same_twice,
                 layers=L, cut=cut, full=full)
+
+
+def megakernel_bound(cfg, qparams, lens, hdc):
+    """(least ms, "bytes" or "operations", bytes) of one K9 step: every
+    stacked weight, scale and gain, the live cache columns (``hdc`` bytes of
+    head dim a column) with their scales, the RoPE tables up to the longest
+    slot, x, y and the new columns, each moved once; operations: the int8
+    products and the attention's q.k and p.V."""
+    lay = qparams["layers"]
+    L, b, hd = cfg.num_hidden_layers, len(lens), cfg.head_dim
+    wbytes = sum(lay[k]["q"].numel() * lay[k]["q"].element_size() + 4 * lay[k]["s"].numel()
+                 for k in ("qkv", "o", "gateup", "down"))
+    kv_dim, tot = cfg.kv_heads * hd, sum(lens)
+    nbytes = (wbytes + 2 * 2 * L * cfg.hidden_size
+              + L * (2 * cfg.kv_heads * hdc * tot + 2 * 4 * tot)
+              + 2 * 4 * (hd // 2) * max(lens) + 2 * 2 * b * cfg.hidden_size
+              + L * b * (2 * kv_dim + 8))
+    mac = cfg.hidden_size * (cfg.hidden_size + 2 * kv_dim + cfg.hidden_size
+                             + 2 * cfg.intermediate_size) + cfg.intermediate_size * cfg.hidden_size
+    int_ops = 2.0 * b * mac * L
+    attn_ops = 2.0 * 2 * cfg.num_attention_heads * hd * (tot + b) * L
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = int_ops / INT8_OPS + attn_ops / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes
 
 
 def llama7b_phase(timer, gen, cfg7, prompts):
@@ -857,6 +860,122 @@ def llama7b_phase(timer, gen, cfg7, prompts):
     return out
 
 
+# Meta-Llama-3-8B's published config.json widths (32 query heads and 8 kv
+# heads of 128, the vocabulary of 128256, rope_theta 500000), its 32 layers
+# cut to LLAMA3_LAYERS; random weights from LLAMA3_SEED
+LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+                 num_attention_heads=32, num_key_value_heads=8, rope_theta=500000.0,
+                 rms_norm_eps=1e-5, max_position_embeddings=8192, tie_word_embeddings=False)
+LLAMA3_LAYERS, LLAMA3_NEW, LLAMA3_SEED = 4, 16, 18   # depth cut, greedy tokens a request, seed
+# the default and paged paths against the scan path at these widths: the
+# teacher-forced relative L2 logit drift (sound runs 0.0765-0.0826), and a
+# served request's scan-path lead at its first difference in units of that
+# logit row's standard deviation (sound runs at most 0.267; about 2.5 of the
+# 128256 random-weight logits lie within 0.35 of the row's top, so a path
+# whose choice is not a near tie of the scan path's lands far outside it)
+LLAMA3_DRIFT, LLAMA3_LEAD_STD = 0.15, 0.5
+
+
+def llama3_phase(timer, gen, base):
+    """LLaMA-3-8B at its published widths (``LLAMA3_8B``), (G, hd) = (4, 128),
+    cut to LLAMA3_LAYERS layers, at W8A8KV8 and W4A8KV4 (packed cache): the
+    K9 phase (kernel against its plain version at the cut's depth and at
+    CUT_LAYERS, timed); then ``InferenceEngine`` with default flags (every
+    decode step one K9 launch, held by its launch count), on the scan path
+    (``use_megakernel=False``, K3 every layer: the witness) and
+    ``PagedInferenceEngine`` (K8 every layer) serving 8 requests of
+    PROMPT_LENS tokens, LLAMA3_NEW greedy tokens each. Default and paged
+    against scan: the longest prompt (1000 tokens, 8 pages) teacher-forced
+    through the three paths is held to LLAMA3_DRIFT, and each served
+    request's first difference to a near tie, a lead of at most
+    LLAMA3_LEAD_STD of the scan path's logit row's standard deviation
+    (``compare_tokens``); every failure is reported before the phase fails.
+    Weights, prompts and tokens from a generator of its own."""
+    from llm_qat_torch.inference import megakernel as MK
+    from llm_qat_torch.inference import quantized as Q
+    from llm_qat_torch.models import params as P
+
+    cfg0 = base.replace(num_hidden_layers=LLAMA3_LAYERS, **LLAMA3_8B)
+    rng = np.random.default_rng(LLAMA3_SEED)
+    prompts = [list(map(int, rng.integers(1, cfg0.vocab_size, n))) for n in PROMPT_LENS]
+    out = dict(kernel=[], runs=[], flips={}, teacher_forced={}, peak_gib={},
+               launches=dict.fromkeys(counters(), 0))
+    modes = {"W8A8KV8": dict(w_bits=8, a_bits=8, kv_bits=8),
+             "W4A8KV4": dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)}
+    L = cfg0.num_hidden_layers
+    for label, mode in modes.items():
+        cfg = cfg0.replace(**mode)
+        name = f"{label} LLaMA-3-8B"
+        if not MK.card_takes(cfg, 8, 2048, torch.bfloat16):
+            raise AssertionError(f"{name}: K9 does not take it")
+        params = P.init_params(cfg, seed=LLAMA3_SEED, dtype=torch.bfloat16)
+        qp = Q.quantize_params(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        out["kernel"].append(megakernel_phase(timer, name, cfg, qp, gen))
+        torch.cuda.reset_peak_memory_stats()
+        dflt = serve(f"{name} megakernel", cfg, qp, prompts, new_tokens=LLAMA3_NEW,
+                     profile=label == "W8A8KV8")
+        out["peak_gib"][label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        scan = serve(f"{name} scan", cfg.replace(use_megakernel=False), qp, prompts,
+                     new_tokens=LLAMA3_NEW, profile=False)
+        paged = serve_paged(f"{name} paged", cfg, qp, prompts, ROOMY_PAGES, profile=False,
+                            new_tokens=LLAMA3_NEW)
+        gemm_k = "int8_matmul" if label.startswith("W8") else "int4_matmul"
+        for m in (dflt[0], scan[0], paged[0]):
+            dl, pl = m["decode_launches"], m["prefill_launches"]
+            if m is dflt[0]:
+                ok = (dl["decode_megakernel"] == m["decode_steps"] and dl["decode_attention"] == 0
+                      and dl["int8_matmul"] == dl["int4_matmul"] == 0)
+            elif m is scan[0]:
+                ok = (dl["decode_attention"] == L * m["decode_steps"] and dl[gemm_k] > 0
+                      and m["launches"]["decode_megakernel"] == 0)
+            else:
+                ok = (dl["paged_attention"] == L * m["decode_steps"] and dl[gemm_k] > 0
+                      and m["launches"]["decode_megakernel"] == 0
+                      and m["launches"]["decode_attention"] == 0)
+            if not (ok and pl[gemm_k] > 0 and pl["flash_fwd"] > 0):
+                raise AssertionError(f"{m['mode']}: launches off the path: prefill {pl}, "
+                                     f"decode {dl}")
+            for k in out["launches"]:
+                out["launches"][k] += m["launches"][k]
+        out["runs"] += [dflt[0], scan[0], paged[0]]
+        # teacher-forced on the longest prompt: it spans several pages and KV
+        # blocks, where the paged path's per-page roundings part from the
+        # scan path's (within one page the two agree to the bit)
+        toks, prompt = [], prompts[-1]
+        n9 = MK.decode_layers.launches
+        mega = _greedy_logits(cfg, qp, prompt, "cuda", toks)
+        if MK.decode_layers.launches - n9 != 4:
+            raise AssertionError(f"{name}: the teacher-forced default run missed K9")
+        wit = _greedy_logits(cfg.replace(use_megakernel=False), qp, prompt, "cuda", toks)
+        pgd = _greedy_logits_paged(cfg, qp, prompt, "cuda", toks)
+        tf, bad = {}, []
+        for other, seq in (("megakernel", mega), ("paged", pgd)):
+            same, drift, diff = _compare(seq, wit)
+            log(f"  {name}: {other} against scan path teacher-forced on a {len(prompt)}-token "
+                f"prompt: tokens equal {same}, drift {drift:.4g} (limit {LLAMA3_DRIFT}), "
+                f"largest logit difference {diff:.4g}")
+            if drift > LLAMA3_DRIFT:
+                bad.append(f"{other} drifts {drift:.4g} from the scan path")
+            tf[other] = dict(tokens_equal=same, drift=drift, max_abs=diff)
+            try:
+                out["flips"][f"{label} {other}"] = compare_tokens(
+                    name, scan, dflt if other == "megakernel" else paged, None, other=other,
+                    lead_std=LLAMA3_LEAD_STD)
+            except AssertionError as e:
+                bad.append(str(e))
+        if bad:
+            raise AssertionError(f"{name}: " + "; ".join(bad))
+        out["teacher_forced"][label] = tf
+        log(f"  {name}: decode ms/step default {dflt[0]['decode_ms_per_step']:.3f}, scan "
+            f"{scan[0]['decode_ms_per_step']:.3f}, paged {paged[0]['decode_ms_per_step']:.3f}; "
+            f"peak {out['peak_gib'][label]:.2f} GiB in the default run")
+        del qp, dflt, scan, paged
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
@@ -889,11 +1008,13 @@ def read_counters():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def serve(label, cfg, qparams, prompts):
-    """Serve 8 requests through the engine at full TinyLlama width and
-    depth on ``cfg``'s decode path; returns the run's metrics, with the
-    launches of prefill and of decode apart, each request's tokens and
-    every decode step's logits."""
+def serve(label, cfg, qparams, prompts, new_tokens=NEW_TOKENS, profile=True):
+    """Serve 8 requests through the engine at ``cfg``'s width and depth
+    (TinyLlama-1.1B's full ones unless a phase says otherwise) on ``cfg``'s
+    decode path, ``new_tokens`` greedy tokens each; returns the run's
+    metrics, with the launches of prefill and of decode apart, each
+    request's tokens and every decode step's logits. ``profile``: one
+    8-step chunk under the profiler after the run."""
     from llm_qat_torch.inference import engine as E
 
     # warm-up: one short request (cuBLAS handles, first launches)
@@ -903,7 +1024,7 @@ def serve(label, cfg, qparams, prompts):
     del warm
 
     eng = E.InferenceEngine(qparams, cfg, max_batch=8, max_len=2048)
-    pre = {"s": 0.0, "tokens": sum(PROMPT_LENS), "rows": 0,
+    pre = {"s": 0.0, "tokens": sum(map(len, prompts)), "rows": 0,
            "launches": dict.fromkeys(counters(), 0)}
     real_prefill = eng._prefill
 
@@ -929,7 +1050,7 @@ def serve(label, cfg, qparams, prompts):
         return logits, cache
 
     eng._fwd = recorded_fwd
-    uids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    uids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
     for fn in counters().values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -939,7 +1060,7 @@ def serve(label, cfg, qparams, prompts):
     wall = time.perf_counter() - t0
     launches = read_counters()
 
-    if len(done) != len(prompts) or any(len(r.output) != NEW_TOKENS for r in done):
+    if len(done) != len(prompts) or any(len(r.output) != new_tokens for r in done):
         raise AssertionError(f"{label}: {len(done)} finished, outputs "
                              f"{[len(r.output) for r in done]}")
     if not torch.isfinite(eng._logits).all():
@@ -955,11 +1076,12 @@ def serve(label, cfg, qparams, prompts):
         prefill_tok_per_s=pre["tokens"] / pre["s"],
         decode_steps=steps, decode_s=decode_s,
         decode_ms_per_step=1e3 * decode_s / steps,
-        generated_tok_per_s=len(done) * NEW_TOKENS / wall, wall_s=wall,
+        generated_tok_per_s=len(done) * new_tokens / wall, wall_s=wall,
         launches=launches, prefill_launches=pre["launches"],
         decode_launches={k: launches[k] - pre["launches"][k] for k in launches},
     )
-    m["profile"] = profile_decode_chunk(eng, prompts)
+    if profile:
+        m["profile"] = profile_decode_chunk(eng, prompts)
     log(f"  {label}: prefill {m['prefill_tok_per_s']:.0f} tok/s "
         f"({pre['tokens']} prompt tokens in {m['prefill_s']:.3f} s), decode "
         f"{m['decode_ms_per_step']:.3f} ms/step over {steps} steps of 8 slots, "
@@ -968,7 +1090,7 @@ def serve(label, cfg, qparams, prompts):
     return m, [by_uid[u] for u in uids], tops
 
 
-def serve_paged(label, cfg, qparams, prompts, n_pages, profile):
+def serve_paged(label, cfg, qparams, prompts, n_pages, profile, new_tokens=NEW_TOKENS):
     """Serve the 8 requests through ``PagedInferenceEngine`` at full
     TinyLlama width and depth: pages of PAGE tokens, SEQ_PAGES a sequence, a
     pool of ``n_pages`` (one of them scratch). At admission the prompts'
@@ -1025,7 +1147,7 @@ def serve_paged(label, cfg, qparams, prompts, n_pages, profile):
         return hit
 
     eng._prefill, eng._fwd, eng._preempt_victim = timed_prefill, counted_fwd, counted_preempt
-    uids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    uids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
     for fn in counters().values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1042,7 +1164,7 @@ def serve_paged(label, cfg, qparams, prompts, n_pages, profile):
     for u, p in zip(uids, prompts):
         r = by_uid.get(u)
         toks.append(None if r is None else r.prompt[len(p):] + r.output)
-    if len(done) != len(prompts) or any(t is None or len(t) != NEW_TOKENS for t in toks):
+    if len(done) != len(prompts) or any(t is None or len(t) != new_tokens for t in toks):
         raise AssertionError(f"{label}: {len(done)} finished, outputs "
                              f"{[None if t is None else len(t) for t in toks]}")
     if not torch.isfinite(eng._logits).all():
@@ -1053,15 +1175,15 @@ def serve_paged(label, cfg, qparams, prompts, n_pages, profile):
         raise AssertionError(f"{label}: {eng.alloc.available} of {n_pages - 1} pages back "
                              "in the pool after the run")
     decode_s = wall - pre["s"]
-    prompt_tokens = sum(PROMPT_LENS) + preempted["tokens"]
+    prompt_tokens = sum(map(len, prompts)) + preempted["tokens"]
     m = dict(
         mode=label, requests=len(done), n_pages=n_pages, page_size=PAGE,
-        prompt_tokens=sum(PROMPT_LENS), prefilled_tokens=prompt_tokens,
+        prompt_tokens=sum(map(len, prompts)), prefilled_tokens=prompt_tokens,
         prefill_calls=pre["calls"], prefill_rows=pre["rows"], prefill_s=pre["s"],
         prefill_tok_per_s=prompt_tokens / pre["s"],
         decode_steps=steps[0], decode_s=decode_s,
         decode_ms_per_step=1e3 * decode_s / steps[0],
-        generated_tok_per_s=len(done) * NEW_TOKENS / wall, wall_s=wall,
+        generated_tok_per_s=len(done) * new_tokens / wall, wall_s=wall,
         preemptions=preempted["n"], recomputed_tokens=preempted["tokens"],
         launches=launches, prefill_launches=pre["launches"],
         decode_launches={k: launches[k] - pre["launches"][k] for k in launches},
@@ -1079,7 +1201,7 @@ def serve_paged(label, cfg, qparams, prompts, n_pages, profile):
     return m, toks
 
 
-def compare_tokens(label, scan, mega, path_diff, other="megakernel"):
+def compare_tokens(label, scan, mega, path_diff, other="megakernel", lead_std=None):
     """The megakernel run's (or, with ``other="paged"``, the roomy paged
     run's) greedy tokens against the scan run's, request by request. The two decode paths differ by design (SiLU in fp32 against
     the model type, attention rounded block by block against per slot), and
@@ -1093,7 +1215,9 @@ def compare_tokens(label, scan, mega, path_diff, other="megakernel"):
     megakernel's token by at most 2 e. Rule: token 0 (from the prefill,
     which both runs share) is equal; at a request's first difference that
     lead is at most NEAR_TIE_OVER x ``path_diff`` (2 e, and a factor 2 for
-    another prompt and a longer context than e was measured on)."""
+    another prompt and a longer context than e was measured on). With
+    ``lead_std`` the limit is instead that many of the scan path's logit
+    row's standard deviation at the step."""
     (_, s_tok, s_logits), m_tok = scan, mega[1]
     flips = []
     for r, (a, b) in enumerate(zip(s_tok, m_tok)):
@@ -1105,13 +1229,15 @@ def compare_tokens(label, scan, mega, path_diff, other="megakernel"):
         row = s_logits[t - 1][r]               # the step that produced token t
         flips.append(dict(request=r, step=t, scan_token=a[t], other_token=b[t],
                           scan_lead=float(row[a[t]] - row[b[t]]), row_std=float(row.std())))
-    limit = NEAR_TIE_OVER * path_diff
+    for f in flips:
+        f["limit"] = NEAR_TIE_OVER * path_diff if lead_std is None else lead_std * f["row_std"]
+    limit = f"{NEAR_TIE_OVER * path_diff:.4g}" if lead_std is None else f"{lead_std} std"
     log(f"  {label}: {other} run against scan run, {len(s_tok) - len(flips)} of "
-        f"{len(s_tok)} requests equal over {NEW_TOKENS} tokens; first differences "
-        f"(scan path's lead there, limit {limit:.4g}): "
+        f"{len(s_tok)} requests equal over {len(s_tok[0])} tokens; first differences "
+        f"(scan path's lead there, limit {limit}): "
         + ("; ".join(f"request {f['request']} step {f['step']} lead {f['scan_lead']:.4g} "
                      f"({f['scan_lead'] / f['row_std']:.3g} std)" for f in flips) or "none"))
-    bad = [f for f in flips if f["scan_lead"] > limit]
+    bad = [f for f in flips if f["scan_lead"] > f["limit"]]
     if bad:
         raise AssertionError(f"{label}: tokens part where the scan path is not near a tie: {bad}")
     return flips
@@ -4269,6 +4395,16 @@ K_TAIL_PROJ = (("tiny", "qkv", 64, 128), ("accuracy", "down", 768, 256),
 # K3/K7/K8 at the new (G, hd): (kv heads, G, hd, model)
 NEW_DECODE = ((2, 2, 16, "tiny"), (4, 2, 32, "accuracy"), (8, 4, 128, "LLaMA-3-8B"),
               (8, 8, 128, "LLaMA-2-70B"))
+# every G of 1..8 query heads a kv head at head dims 64 and 128, the public GQA
+# checkpoints' 8 kv heads (12 MHA heads of 64 for llama-68m): (G, hd) -> model
+GQA_MODELS = {(1, 64): "llama-68m", (4, 64): "Llama-3.2-1B", (8, 64): "TinyLlama-1.1B heads",
+              (1, 128): "LLaMA-7B heads", (3, 128): "Llama-3.2-3B", (4, 128): "LLaMA-3-8B",
+              (7, 128): "Yi-34B", (8, 128): "LLaMA-2-70B"}
+GQA_SHAPES = tuple((g, hd) for hd in (64, 128) for g in range(1, 9))
+# K3 (int8, packed), K8 (int8) and K7 at those not already in NEW_DECODE
+GQA_DECODE = tuple((12 if (g, hd) == (1, 64) else 8, g, hd, GQA_MODELS.get((g, hd), "-"))
+                   for g, hd in GQA_SHAPES if (g, hd) not in ((4, 128), (8, 128)))
+K9_SHAPE_KVH, K9_SHAPE_I = 8, 2048   # K9 at the 16 (G, hd): kv heads, intermediate size (2 layers)
 # K4/K10/K11 at the new head dims: (D, dtype, B, G, S, what); B = batch x kv heads
 NEW_FLASH = ((16, torch.float32, 4, 2, 32, "tiny pipeline train"),
              (16, torch.float32, 16, 2, 2048, "long"),
@@ -4395,14 +4531,19 @@ def gemm_splits_check(gen, QM, K, N, M=32):
 
 
 def shapes_phase(timer, QM, DA, FA):
-    """Every kernel instantiation this slice added, against its plain version
-    and timed: K1/K2 at K no multiple of the 128-row stage (``K_TAIL_PROJ``,
-    bit-equal, at every split count), K3, K8 and K7 at the new (G, hd)
-    (``NEW_DECODE``, int8 and packed caches; K7 int8), K4/K10/K11 at head dims
-    16 and 32 in f32 and bf16 and 128 in f32 (``NEW_FLASH``). Then K1 at the
-    TinyLlama-1.1B decode layer's qkv shape through ``utils.benchmarking.
-    measure`` (a CUDA graph of the runs, its floor subtracted) beside the
-    ``Timer``'s median. From a generator of its own."""
+    """Every kernel shape the repo's models and the public GQA checkpoints
+    take beyond phase 2's, against its plain version and timed: K1/K2 at K
+    no multiple of the 128-row stage (``K_TAIL_PROJ``, bit-equal, at every
+    split count), K3, K8 and K7 at the new (G, hd) (``NEW_DECODE``, int8 and
+    packed caches; K7 int8) and at every G of 1..8 at head dims 64 and 128
+    (``GQA_DECODE``: K3 int8 and packed, K8 int8, K7; bit-equal),
+    K4/K10/K11 at head dims 16 and 32 in f32 and bf16 and 128 in f32
+    (``NEW_FLASH``). Then K1 at the TinyLlama-1.1B decode layer's qkv shape
+    through ``utils.benchmarking.measure`` (a CUDA graph of the runs, its
+    floor subtracted) beside the ``Timer``'s median. Last (the megakernel
+    compiles through the phases before it), K9 at the 16 (G, hd) on a
+    2-layer cut (``megakernel_shape``, bit-equal). From a generator of its
+    own."""
     from llm_qat_torch.models.config import TINYLLAMA_1B
     from llm_qat_torch.utils import benchmarking as B
 
@@ -4427,6 +4568,24 @@ def shapes_phase(timer, QM, DA, FA):
         r = stacked_attention_phase(timer, gen, DA, c)
         r.update(kvh=kvh, G=G, hd=hd, model=model, bit_equal=r["max_abs_err"] == 0.0)
         out["decode_attention_stacked"].append(r)
+    for kvh, G, hd, model in GQA_DECODE:
+        for key, fn, packs in (("decode_attention", decode_attention_phase, (False, True)),
+                               ("paged_attention", paged_attention_phase, (False,))):
+            for packed in packs:
+                r = fn(timer, gen, DA, kvh, G, hd, packed)
+                r.update(model=model, bit_equal=r["max_abs_err"] == 0.0)
+                out[key].append(r)
+        c = TINYLLAMA_1B.replace(num_attention_heads=kvh * G, num_key_value_heads=kvh,
+                                 hidden_size=kvh * G * hd)
+        r = stacked_attention_phase(timer, gen, DA, c)
+        r.update(kvh=kvh, G=G, hd=hd, model=model, bit_equal=r["max_abs_err"] == 0.0)
+        out["decode_attention_stacked"].append(r)
+    gqa = [r for key in ("decode_attention", "paged_attention", "decode_attention_stacked")
+           for r in out[key] if (r.get("G"), r.get("hd")) in GQA_SHAPES]
+    if not all(r["bit_equal"] for r in gqa):
+        raise AssertionError("K3/K8/K7 not bit-equal to their plain versions at "
+                             + ", ".join(f"G={r['G']} hd={r['hd']}" for r in gqa
+                                         if not r["bit_equal"]))
     out["flash"] = {"fwd": [], "dq": [], "dkv": []}
     for D, dtype, Bq, G, S, what in NEW_FLASH:
         for k_, r in flash_shape(timer, gen, FA, D, dtype, Bq, G, S, what).items():
@@ -4447,7 +4606,61 @@ def shapes_phase(timer, QM, DA, FA):
         f"ms a run (a CUDA graph of 200 runs, its floor {floor_s * 1e3 / 200:.4f} ms a run "
         f"subtracted; warm L2) against the Timer's {timer_ms:.4f} ms (L2 flushed, one launch "
         "between events)")
+    out["decode_megakernel"] = [megakernel_shape(timer, gen, G, hd) for G, hd in GQA_SHAPES]
     return out
+
+
+def k9_args(cfg, qparams, cache, lens_t, act, ids, S):
+    """``decode_layers``' arguments for one step of ``cfg`` from this cache
+    (bf16, the JAX picker's KV block)."""
+    from llm_qat_torch.inference import megakernel as MK
+    from llm_qat_torch.models import llama
+
+    hd = cfg.head_dim
+    x = qparams["embed"][ids[:, 0]].to(torch.bfloat16)
+    qcos, qsin = llama.rope_cos_sin(lens_t[:, None], hd, cfg.rope_theta)
+    qcos, qsin = qcos[:, 0, :hd // 2].contiguous(), qsin[:, 0, :hd // 2].contiguous()
+    kcos, ksin = MK._cache_rope_tables(S, hd, cfg.rope_theta, ids.device)
+    return (x, qcos, qsin, kcos, ksin, qparams["layers"], cache, lens_t, act, cfg,
+            MK.pick_bk(cfg, len(lens_t), S), torch.bfloat16)
+
+
+def megakernel_shape(timer, gen, G, hd, kvh=K9_SHAPE_KVH):
+    """K9 at G query heads per kv head and head dim ``hd``: a CUT_LAYERS
+    cut, ``kvh`` kv heads, intermediate size K9_SHAPE_I, W8A8KV8 "pre", b = 8,
+    max_len 2048, lengths K9_LENS (slot K9_INACTIVE inactive): one step
+    through the kernel and its plain version (``megakernel_step_check``),
+    held bit-equal; the kernel's time, the plain version's and the bound."""
+    from llm_qat_torch.inference import megakernel as MK
+    from llm_qat_torch.inference import quantized as Q
+    from llm_qat_torch.models import params as P
+    from llm_qat_torch.models.config import LLAMA_7B
+
+    cfg = LLAMA_7B.replace(num_hidden_layers=CUT_LAYERS, hidden_size=kvh * G * hd,
+                           intermediate_size=K9_SHAPE_I, num_attention_heads=kvh * G,
+                           num_key_value_heads=kvh, w_bits=8, a_bits=8, kv_bits=8)
+    b, S = len(K9_LENS), 2048
+    if not MK.card_takes(cfg, b, S, torch.bfloat16):
+        raise AssertionError(f"K9 does not take G={G} hd={hd}")
+    qp = Q.quantize_params(P.init_params(cfg, seed=SHAPES_SEED, dtype=torch.bfloat16), cfg)
+    active = [i != K9_INACTIVE for i in range(b)]
+    res, (cache, lens_t, act, ids) = megakernel_step_check(cfg, qp, K9_LENS, active, gen)
+    if not (res["ok"] and res["bit_equal"]):
+        raise AssertionError(f"K9 G={G} hd={hd}: not bit-equal to its plain version: {res}")
+    args = k9_args(cfg, qp, cache, lens_t, act, ids, S)
+    card = MK.card_weights(qp)
+    ms = timer(lambda: MK.decode_layers(*args, card=card))
+    plain_ms = timer(lambda: MK.decode_layers_plain(*args), reps=3)
+    b_ms, b_by, nbytes = megakernel_bound(cfg, qp, K9_LENS, cache["k_q"].shape[3])
+    log(f"  decode_megakernel G={G} hd={hd} ({GQA_MODELS.get((G, hd), '-')}) kvh={kvh} "
+        f"{CUT_LAYERS} layers H={cfg.hidden_size} I={K9_SHAPE_I} W8A8KV8 b={b} S={S} BK={args[10]}: "
+        f"{ms:.4f} ms (plain {plain_ms:.3f}, bound {b_ms:.5f} {b_by}); bit-equal: K/V integers, "
+        "scales, hidden and logits")
+    return dict(G=G, hd=hd, kvh=kvh, model=GQA_MODELS.get((G, hd), "-"), layers=CUT_LAYERS,
+                H=cfg.hidden_size, I=K9_SHAPE_I, mode="W8A8KV8", b=b, S=S, BK=args[10],
+                lengths=list(K9_LENS), ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=res["max_abs_err"],
+                bit_equal=True)
 
 
 def _example(name):
@@ -4596,10 +4809,10 @@ def main() -> int:
     # every source starts compiling now; the megakernel, the slowest, goes on
     # compiling through phases 2 and 2b and is waited for at its first use
     _build.build_all(wait_for=[p.stem for p in _build.CSRC.glob("*.cu")
-                               if p.stem != "megakernel"])
+                               if not p.stem.startswith("megakernel")])
     log(f"    kernels built into {_build.BUILD_DIR} in "
         + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items()))
-        + "; megakernel.cu still compiling")
+        + "; megakernel.cu and megakernel_d128.cu still compiling")
     lap("build")
 
     cfg = TINYLLAMA_1B                 # the default: use_megakernel=True
@@ -4655,10 +4868,11 @@ def main() -> int:
                              f"spills registers: {attrs}")
     fq = fused_quant_phase(timer, gen, FQ, cfg)
     lap("[2] kernels")
-    log("[2b] the shapes this slice added, against their plain versions: K1/K2 at K = 64, 768, "
+    log("[2b] the shapes beyond phase 2's, against their plain versions: K1/K2 at K = 64, 768, "
         "1376, 2752 (every split count), K3/K8/K7 at (G, hd) = (2, 16), (2, 32), (4, 128), "
-        "(8, 128), K4/K10/K11 at head dims 16 and 32 (f32, bf16) and 128 (f32); K1 through "
-        "utils.benchmarking.measure")
+        "(8, 128) and at every G of 1..8 at head dims 64 and 128, K4/K10/K11 at head dims 16 "
+        "and 32 (f32, bf16) and 128 (f32); K1 through utils.benchmarking.measure; K9 at every G "
+        "of 1..8 at head dims 64 and 128 on a 2-layer cut")
     shp = shapes_phase(timer, QM, DA, FA)
     lap("[2b] new shapes")
 
@@ -4672,8 +4886,8 @@ def main() -> int:
     from llm_qat_torch.models import params as P
 
     mk_attrs = {f"decode_megakernel_{k}": v for k, v in MK.kernel_attributes().items()}
-    log(f"    megakernel.cu built, {_build.build_seconds.get('megakernel', 0.0):.1f} s after "
-        "the build started")
+    log("    " + ", ".join(f"{stem}.cu built, {_build.build_seconds.get(stem, 0.0):.1f} s"
+                          for stem in MK._STEMS.values()) + " after the build started")
     if any(a["spill_bytes"] for a in mk_attrs.values()):
         raise AssertionError(f"K9 spills registers: {mk_attrs}")
     attrs.update(mk_attrs)
@@ -4712,8 +4926,17 @@ def main() -> int:
     mega += l7["kernel"]
     runs += l7["runs"]
     flips.update({f"{k} LLaMA-7B": v for k, v in l7["flips"].items()})
-    del timer
     lap("[3b] LLaMA-7B serving")
+    log(f"[3b2] LLaMA-3-8B's published widths (32 query and 8 kv heads of 128, vocabulary "
+        f"128256, rope_theta 500000), its 32 layers cut to {LLAMA3_LAYERS}, random weights: the "
+        f"decode megakernel against its plain version at W8A8KV8 and W4A8KV4, then 8 requests x "
+        f"{LLAMA3_NEW} greedy tokens on the default path (K9), the scan path (K3) and the paged "
+        f"engine (K8) ({smi})")
+    l3 = llama3_phase(timer, gen, LLAMA_7B)
+    mega += l3["kernel"]
+    flips.update({f"{k} LLaMA-3-8B": v for k, v in l3["flips"].items()})
+    del timer
+    lap("[3b2] LLaMA-3-8B serving")
     for label, mcfg in modes.items():
         checks.append(cpu_check(label, mcfg, qps.pop(label), rng))
         scan, dflt, roomy = served.pop(label)
@@ -4826,7 +5049,7 @@ def main() -> int:
     launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) + pipe["launches"][k]
                 + ev["launches"][k] + md["launches"][k] + tp["launches"][k]
                 + tpp["launches"][k] + tinyp["launches"][k] + accp["launches"][k]
-                for k in counters()}
+                + l3["launches"][k] for k in counters()}
     # K5-K7 are on no serving path of either package: their counts are those
     # of their kernel phases
     launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
@@ -4855,10 +5078,11 @@ def main() -> int:
                    "in shapes)",
              **per_layer(gemm["int4_matmul"], 32),
              shapes=gemm["int4_matmul"] + tp["shapes"]["int4_matmul"] + shp["int4_matmul"]),
-        dict(name="decode_attention", source="llm_qat_torch/csrc/decode_attention.cu",
+        dict(name="decode_attention", source="llm_qat_torch/csrc/decode_attn.cuh",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:55",
              shape="b=8 S=2048 int8 cache, TinyLlama-1.1B heads (packed KV4, LLaMA-7B "
-                   "heads kvh=32 G=1 hd=128, S=8192, and a tp=2 rank's kvh=2, in shapes)",
+                   "heads kvh=32 G=1 hd=128, S=8192, a tp=2 rank's kvh=2, and every G of 1..8 "
+                   "at hd 64 and 128, in shapes)",
              **{k: dec[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")},
              max_abs_err=max(d["max_abs_err"] for d in dec + tp["shapes"]["decode_attention"]
@@ -4878,17 +5102,20 @@ def main() -> int:
                              + shp["flash"]["fwd"]),
              shapes=fwd_shapes + [md["ring_shape"]["fwd"], tpp["shard_shape"]["fwd"]]
              + shp["flash"]["fwd"]),
-        dict(name="decode_megakernel", source="llm_qat_torch/csrc/megakernel.cu",
+        dict(name="decode_megakernel", source="llm_qat_torch/csrc/megakernel.cuh",
              replaces="llm_qat_tpu/inference/megakernel.py:259",
-             shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed, and "
-                   "LLaMA-7B's 32 layers of (1, 128) heads at both, in shapes)",
+             shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed, "
+                   "LLaMA-7B's 32 layers of (1, 128) heads and LLaMA-3-8B's widths on 4 "
+                   "layers ((4, 128) heads) at both, and a 2-layer cut at every G of 1..8 at "
+                   "hd 64 and 128, in shapes)",
              **{k: k9[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-             max_abs_err=max(m["max_abs_err"] for m in mega), shapes=mega),
-        dict(name="paged_attention", source="llm_qat_torch/csrc/paged_attention.cu",
+             max_abs_err=max(m["max_abs_err"] for m in mega + shp["decode_megakernel"]),
+             shapes=mega + shp["decode_megakernel"]),
+        dict(name="paged_attention", source="llm_qat_torch/csrc/decode_attn.cuh",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:646",
              shape=f"b=8, pool {ROOMY_PAGES} x {PAGE}, {SEQ_PAGES} pages a sequence, int8 pool, "
-                   "TinyLlama-1.1B heads (packed KV4, LLaMA-7B heads and a tp=2 rank's kvh=2 "
-                   "in shapes)",
+                   "TinyLlama-1.1B heads (packed KV4, LLaMA-7B heads, a tp=2 rank's kvh=2 "
+                   "and every G of 1..8 at hd 64 and 128 in shapes)",
              **{k: k8[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
              max_abs_err=max(d["max_abs_err"] for d in pag + tp["shapes"]["paged_attention"]
                              + shp["paged_attention"]),
@@ -4903,7 +5130,7 @@ def main() -> int:
              shape=f"layer {STACK_LAYER} of the stacked weights: qkv+o+gateup+down at M=32",
              **per_layer(stacked["W4A8KV4"]["shapes"], 32), shapes=stacked["W4A8KV4"]["shapes"],
              launches_from="kernel phase (on no serving path)"),
-        dict(name="decode_attention_stacked", source="llm_qat_torch/csrc/decode_attention.cu",
+        dict(name="decode_attention_stacked", source="llm_qat_torch/csrc/decode_attn.cuh",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:403",
              shape="layer 2 of a 3-layer stacked int8 cache, b=8 S=2048",
              **{k: k7[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -4957,8 +5184,10 @@ def main() -> int:
                     "cpu_checks": checks, "training": trains, "train_check": tcheck,
                     "pipeline": pipe, "eval": ev, "multi_device": md, "tp_serving": tp,
                     "tp_pp_training": tpp, "shapes": shp, "tiny_pipeline": tinyp,
+                    "llama3_8b": {k: l3[k] for k in ("runs", "teacher_forced", "peak_gib",
+                                                     "launches")},
                     "accuracy_experiment": accp,
-                    "phase_s": PHASE_S, "card": smi}))
+                    "phase_s": PHASE_S, "build_seconds": _build.build_seconds, "card": smi}))
     log(json.dumps({"kernel_attributes": attrs}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,154 @@
+"""Decode kernel times of checkouts of the port, in turns, on one NVIDIA GPU.
+
+    python3 decode_ab.py [--k3-only] OTHER_CHECKOUT [OTHER_CHECKOUT ...]
+
+Times, with each checkout's own kernels and ``chip_smoke.Timer`` (median of
+25 CUDA-event runs, the L2 flushed before each): K3 (int8 and packed cache)
+and K8 (int8 pool) through ``chip_smoke.decode_attention_phase`` /
+``paged_attention_phase`` at the heads of ``SHAPES`` (kv heads, query heads
+a kv head G, head dim): TinyLlama-1.1B's (4, 8, 64), the LLaMA-7B family's
+(32, 1, 128), Meta-Llama-3-8B's (8, 4, 128), Llama-2-70B's (8, 8, 128), the
+tiny pipeline's (2, 2, 16) and the accuracy experiment's (4, 2, 32); and,
+without ``--k3-only``, the decode megakernel K9 (``megakernel.decode_layers``,
+one step) at TinyLlama-1.1B's and LLaMA-7B's full width and depth, W8A8KV8
+and W4A8KV4 (packed cache), b = 8, max_len 2048, lengths
+``chip_smoke.K9_LENS``, random weights and cache from seed 0.
+
+Before the timed runs every checkout builds its sources into its own
+``build/``, every ``nvcc`` of every checkout started together
+(``--k3-only``: the decode attention sources alone), and the seconds each
+took are printed. Then the checkouts run in turns, this one first, then the
+others, then the others in reverse and this one last (A B C C B A), each run
+in a process of its own. Prints one line a run and kernel. Imports nothing
+of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SHAPES = ((4, 8, 64), (32, 1, 128), (8, 4, 128), (8, 8, 128), (2, 2, 16), (4, 2, 32))
+
+# one checkout's build: every source, or (an argument "k3") the decode
+# attention sources (one a head dim, or one for all; K8's own before they
+# were merged), each nvcc started at once
+BUILD = r"""
+import json, subprocess, sys, tempfile, time
+sys.path.insert(0, ".")
+from llm_qat_torch.ops import _build as B
+if sys.argv[1:] != ["k3"]:
+    B.build_all()
+    print("BUILD " + json.dumps(B.build_seconds), flush=True)
+    sys.exit(0)
+B.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+procs, secs = {}, {}
+for src in sorted(B.CSRC.glob("decode_attention*.cu")) + sorted(B.CSRC.glob("paged_attention.cu")):
+    if not B._target(src).exists():
+        log = tempfile.TemporaryFile(mode="w+")
+        cmd = [B._nvcc(), *B.NVCC_FLAGS, "-o", str(B._target(src)), str(src)]
+        procs[src.stem] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log,
+                           time.perf_counter())
+while procs:
+    for stem, (p, log, t0) in list(procs.items()):
+        if p.poll() is None:
+            continue
+        secs[stem] = time.perf_counter() - t0
+        del procs[stem]
+        if p.returncode:
+            log.seek(0)
+            sys.exit(f"nvcc failed on {stem}.cu:\n{log.read()}")
+    time.sleep(0.05)
+print("BUILD " + json.dumps(secs), flush=True)
+"""
+
+RUN = r"""
+import json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as S
+from llm_qat_torch.inference import megakernel as MK
+from llm_qat_torch.inference import quantized as Q
+from llm_qat_torch.models import llama
+from llm_qat_torch.models import params as P
+from llm_qat_torch.models.config import LLAMA_7B, TINYLLAMA_1B
+from llm_qat_torch.ops import decode_attention as DA
+k3_only, shapes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+timer = S.Timer()
+gen = torch.Generator(device="cuda")
+gen.manual_seed(0)
+out = []
+for kvh, G, hd in shapes:
+    for packed in (False, True):
+        r = S.decode_attention_phase(timer, gen, DA, kvh, G, hd, packed)
+        out.append(dict(run=f"K3 G={G} hd={hd} {'packed' if packed else 'int8'}", ms=r["ms"]))
+    r = S.paged_attention_phase(timer, gen, DA, kvh, G, hd, False)
+    out.append(dict(run=f"K8 G={G} hd={hd} int8", ms=r["ms"]))
+modes = (("W8A8KV8", dict(w_bits=8, a_bits=8, kv_bits=8)),
+         ("W4A8KV4", dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)))
+for name, base in () if k3_only else (("TinyLlama-1.1B", TINYLLAMA_1B), ("LLaMA-7B", LLAMA_7B)):
+    for label, mode in modes:
+        cfg = base.replace(**mode)
+        qp = Q.quantize_params(P.init_params(cfg, seed=0, dtype=torch.bfloat16), cfg)
+        torch.cuda.empty_cache()
+        b, n, hd = len(S.K9_LENS), 2048, cfg.head_dim
+        cache = S.random_cache(cfg, b, n, gen)
+        lens = torch.tensor(S.K9_LENS, dtype=torch.int32, device="cuda")
+        act = torch.tensor([i != S.K9_INACTIVE for i in range(b)], device="cuda")
+        ids = torch.randint(0, cfg.vocab_size, (b, 1), device="cuda", generator=gen)
+        x = qp["embed"][ids[:, 0]].to(torch.bfloat16)
+        qcos, qsin = llama.rope_cos_sin(lens[:, None], hd, cfg.rope_theta)
+        qcos, qsin = qcos[:, 0, :hd // 2].contiguous(), qsin[:, 0, :hd // 2].contiguous()
+        kcos, ksin = MK._cache_rope_tables(n, hd, cfg.rope_theta, "cuda")
+        args = (x, qcos, qsin, kcos, ksin, qp["layers"], cache, lens, act, cfg,
+                MK.pick_bk(cfg, b, n), torch.bfloat16)
+        card = MK.card_weights(qp)
+        ms = timer(lambda: MK.decode_layers(*args, card=card))
+        out.append(dict(run=f"K9 {name} {label}", ms=ms))
+        del qp, cache, card, args, x
+        torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def _result(proc, tree: str, tag: str):
+    out, err = proc.communicate() if isinstance(proc, subprocess.Popen) else (proc.stdout, proc.stderr)
+    lines = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
+    if proc.returncode or not lines:
+        raise RuntimeError(f"{tree}: exit {proc.returncode}\n{out[-2000:]}\n{err[-4000:]}")
+    return json.loads(lines[-1][len(tag) + 1:])
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    k3_only = "--k3-only" in args
+    others = [os.path.abspath(a) for a in args if a != "--k3-only"]
+    if not others:
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    trees = [REPO, *others]
+    name = {t: "this" if t == REPO else f"other{i}" for i, t in enumerate(trees)}
+    builds = [subprocess.Popen([sys.executable, "-c", BUILD, *(["k3"] if k3_only else [])],
+                               cwd=t, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+              for t in trees]
+    for t, p in zip(trees, builds):
+        secs = _result(p, t, "BUILD")
+        print(f"{name[t]:7s} {t}: build (s a source, every checkout's started together): "
+              + (", ".join(f"{k} {v:.1f}" for k, v in sorted(secs.items())) or "built already"),
+              flush=True)
+    for t in trees + trees[::-1]:
+        proc = subprocess.run([sys.executable, "-c", RUN, json.dumps(k3_only),
+                               json.dumps(SHAPES)], cwd=t, capture_output=True, text=True)
+        for r in _result(proc, t, "RESULT"):
+            print(f"{name[t]:7s} {r['run']:28s} {r['ms']:.4f} ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,8 +2,9 @@
 
     python3 decode_attn_timeline.py
 
-Builds ``llm_qat_torch/csrc/decode_attention.cu`` and ``paged_attention.cu``
-with ``-DDECODE_ATTN_TRACE`` (into ``build/llm_qat_torch/``), then launches
+Builds ``llm_qat_torch/csrc/decode_attention.cu`` and ``decode_attention_d128.cu``
+(K3's and K8's entries at head dims 64 and 128) with ``-DDECODE_ATTN_TRACE``
+(into ``build/llm_qat_torch/``), then launches
 K3 and K8 at ``chip_smoke.py``'s phase shapes (b = 8 slots, int8 cache,
 bf16; TinyLlama-1.1B's heads and LLaMA-7B's; K3 also at S = 8192), the L2
 flushed before the launch as ``chip_smoke.py`` times them. Thread 0 of every
@@ -30,22 +31,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 STAGES = ("table", "scores", "barrier 1", "softmax.V", "barrier 2", "finish")
 
 
-def traced_libraries(_build) -> dict:
-    """Build both sources with DECODE_ATTN_TRACE and load them under their stems."""
-    out = {}
+def traced_library(_build, stem: str) -> ctypes.CDLL:
+    """Build csrc/<stem>.cu with DECODE_ATTN_TRACE and load it."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for stem in ("decode_attention", "paged_attention"):
-        so = _build.BUILD_DIR / f"{stem}-trace.so"
-        procs[stem] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-DDECODE_ATTN_TRACE", "-o", str(so),
-             str(_build.CSRC / f"{stem}.cu")]))
-    for stem, (so, proc) in procs.items():
-        if proc.wait():
-            raise RuntimeError(f"nvcc failed on {stem}.cu")
-        out[stem] = ctypes.CDLL(str(so))
-        getattr(out[stem], f"{stem}_read_trace").argtypes = [ctypes.c_void_p]
-    return out
+    so = _build.BUILD_DIR / f"{stem}-trace.so"
+    if subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DDECODE_ATTN_TRACE", "-o", str(so),
+                       str(_build.CSRC / f"{stem}.cu")]).returncode:
+        raise RuntimeError(f"nvcc failed on {stem}.cu")
+    lib = ctypes.CDLL(str(so))
+    lib.decode_attention_read_trace.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def main() -> int:
@@ -57,8 +52,9 @@ def main() -> int:
     from llm_qat_torch.ops import _build
     from llm_qat_torch.ops import decode_attention as DA
 
-    libs = traced_libraries(_build)
-    _build._libs.update(libs)
+    libs = {hd: traced_library(_build, DA._STEMS[hd]) for hd in (64, 128)}
+    for hd, lib in libs.items():
+        _build._libs[DA._STEMS[hd]] = lib
     _build._fns.clear()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
@@ -78,7 +74,6 @@ def main() -> int:
             kq = torch.randint(-127, 128, (b, kvh, hd, S), device="cuda", generator=gen).to(torch.int8)
             ks = torch.rand(b, S, device="cuda", generator=gen) * 0.02 + 0.005
             kc, ksn = DA._rope_tables(S, hd, 10000.0, "cuda")
-            stem = "decode_attention"
             call = lambda: DA.quantized_decode_attention(q, kq, ks, kq, ks, lens, kc, ksn)  # noqa: E731
         else:
             pages, mp = C.ROOMY_PAGES, C.SEQ_PAGES
@@ -88,7 +83,6 @@ def main() -> int:
             bt = torch.randperm(pages, device="cuda", generator=gen)[:b * mp].reshape(b, mp)
             bt = bt.to(torch.int32)
             kc, ksn = DA._rope_tables(mp * C.PAGE, hd, 10000.0, "cuda")
-            stem = "paged_attention"
             call = lambda: DA.quantized_paged_attention(q, kq, ks, kq, ks, lens, bt, kc, ksn)  # noqa: E731
         for _ in range(3):
             call()
@@ -101,7 +95,7 @@ def main() -> int:
         e.record()
         torch.cuda.synchronize()
         stamps[:] = 0
-        if getattr(libs[stem], f"{stem}_read_trace")(stamps.ctypes.data):
+        if libs[hd].decode_attention_read_trace(stamps.ctypes.data):
             raise RuntimeError("read_trace failed")
         n = int((stamps[0] > 0).sum())
         t = stamps[:7, :n].astype(np.int64)

@@ -1,6 +1,6 @@
 // One-token attention over a quantized KV cache, split over every SM of a
-// Hopper card (sm_90a): the device code of K3 and K7 (decode_attention.cu)
-// and K8 (paged_attention.cu).
+// Hopper card (sm_90a): the device code and entry points of K3, K7 and K8
+// (decode_attention.cu and its siblings build them, one head dim each).
 //
 // Replaces the body the TPU kernels share,
 // llm_qat_tpu/ops/pallas/decode_attention.py:_decode_attn_kernel (K3, and
@@ -22,20 +22,20 @@
 // Bound on this card: the live cache bytes (and their scales and RoPE
 // columns). Each byte takes about 2 G multiply-adds, far below the ~295
 // operations a byte at which Hopper turns compute-bound. One cooperative
-// launch of NT-thread blocks, two an SM (all resident), in three stages
-// separated by grid-wide barriers (the design of the decode megakernel's
-// attention, cut to one layer):
+// launch of NT-thread blocks, two an SM where they fit (all resident), in
+// three stages separated by grid-wide barriers (the design of the decode
+// megakernel's attention, cut to one layer):
 //
 //   scores     item = (slot, CH cache columns, kv head), only chunks below
 //              the slot's length; chunk-major, so the kv heads of a chunk
 //              (an item group) run in a row and share its RoPE columns. A
 //              block takes a contiguous run, inside one group while there
 //              are no more groups than blocks (item_run); the next item's K
-//              rows, K scales, query heads and (at head dim 64) RoPE columns
-//              arrive by 16-byte cp.async while one is computed, and the
-//              item's V rows go to L2 for the next stage. q.k in float64
-//              (NQ threads a column), the scores and each chunk's row maxima
-//              -> scratch.
+//              rows, K scales, query heads and (at head dim 64 and below)
+//              RoPE columns arrive by 16-byte cp.async while one is
+//              computed, and the item's V rows go to L2 for the next stage.
+//              q.k in float64 (NQ threads a column), the scores and each
+//              chunk's row maxima -> scratch.
 //   softmax.V  the same runs; V rows, scores and V scales two items ahead
 //              by cp.async into a ring of three buffers (the first two
 //              items' V rows issued before the barrier). m_j is the maximum
@@ -56,20 +56,38 @@
 // launch gives the same bits every time (no atomics). The scratch (the
 // wrapper's torch.empty, laid out by carve below) holds per (slot, query
 // head, chunk) the chunk's partial sums, scores, maximum and its block's
-// rescale factor. Built for (G, hd) = (8, 64) (TinyLlama-1.1B), (1, 128)
-// (the LLaMA-7B family), (2, 16) (the tiny test and pipeline models), (2, 32)
-// (the accuracy experiment's model), (4, 128) (LLaMA-3-8B's 32 / 8 heads)
-// and (8, 128) (LLaMA-2-70B's 64 / 8) with f32 or bf16 q, at most BMAX
-// slots. Nothing of the layout depends on hd but the buffers' sizes: the
-// cache rows run along S, so a packed row of hd = 16 (8 bytes of head dim)
-// is still S bytes, read in the same 16-byte pieces. At hd = 128 with G = 4
-// or 8 the scores stage's buffers take more than half an SM's shared
-// memory: one block an SM (the cooperative grid is whatever is resident).
-// The finish stage loads each output's partial p.V sums NB chunks at a
-// time (8, or 4 where a thread owns 4 outputs: (8, 128)), summed in the
+// rescale factor.
+//
+// Shapes: any G = 1..GMAX query heads a kv head at head dims hd = 16, 32,
+// 64 and 128, f32 or bf16 q, at most BMAX slots. The q.k and p.V loops hold
+// a register tile of GT = 1, 2, 4 or 8 heads (4 at most at hd <= 32, where a
+// tile of 8 spills: G > 4 then runs two passes); G is rounded up to the tile
+// (g_tile), the padding heads' query rows and p * vs columns are zeros, so
+// their sums are zeros that nothing reads. Each head dim has one build a
+// range of G [GL, GH] (build_lo): G = 1, 2, 3..4, 5..7 and 8, so that G
+// rounds to one tile in each. A build of one G has it as a constant; the
+// others read it from the launch. G = 8 has a build of its own beside 5..7:
+// with G from the launch it measured 5-7% slower at (8, 64) and (8, 128);
+// at hd 32 one build of G = 3..8 spilled (PERF.md, PR 18). The shared
+// memory is carved at run time by G (Smem
+// below), so a shape takes only what it uses: two blocks an SM at every G
+// for hd <= 64 and at G <= 2 for hd = 128, one block an SM past that (see
+// min_blocks). The finish stage is built for 1, 2 or 4 outputs a thread
+// (ceil(G hd / NT) rounded up). Nothing of the layout
+// depends on hd but the buffers' sizes: the cache rows run along S, so a
+// packed row of hd = 16 (8 bytes of head dim) is still S bytes, read in the
+// same 16-byte pieces. The finish stage loads each output's partial p.V sums
+// NB chunks at a time (8, or 4 where a thread owns 4 outputs), summed in the
 // same order either way.
 
 #pragma once
+
+// One source builds one head dim (DECODE_ATTN_HD: decode_attention.cu 64,
+// decode_attention_d16.cu, _d32.cu and _d128.cu the others), so the four
+// compile side by side; each exports the same entry points (end of file).
+#ifndef DECODE_ATTN_HD
+#error "define DECODE_ATTN_HD (16, 32, 64 or 128) before including decode_attn.cuh"
+#endif
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -86,9 +104,23 @@ constexpr int CHMAX = 128;           // columns a chunk, at most
 constexpr int NQ = NT / CHMAX;       // threads a column in the scores stage
 constexpr int VSA = CHMAX + 16;      // V chunk row stride: 16-byte pieces, rows 4 banks apart
 constexpr int BMAX = 256;            // slots
+constexpr int GMAX = 8;              // query heads a kv head
 constexpr int FW = 256;              // chunk statistics the finish stage stages at a time
 constexpr int MINB = 2;              // blocks an SM: registers a thread at most 65536 / (2 NT)
+                                     // (but see min_blocks)
 constexpr float NEG_INF = -1e30f;
+
+// G query heads a kv head rounded up to a register tile of heads, the
+// largest tile the q.k and p.V loops take at head dim HD, the tile of a
+// build whose most G is GH there, and the fewest G of the build that takes G
+__host__ __device__ constexpr int g_tile(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
+template <int HD>
+__host__ __device__ constexpr int tile_max() { return HD <= 32 ? 4 : 8; }
+template <int HD>
+__host__ __device__ constexpr int build_tile(int GH) {
+  return g_tile(GH) < tile_max<HD>() ? g_tile(GH) : tile_max<HD>();
+}
+__host__ __device__ constexpr int build_lo(int G) { return G <= 2 ? G : G <= 4 ? 3 : G < GMAX ? 5 : GMAX; }
 
 struct Args {
   const void* q;                     // [b, nh, hd] T
@@ -113,7 +145,7 @@ struct Args {
   float* scores;                     // [b, nh, NC, CH]
   float* cmax;                       // [b, nh, NC]
   float* alpha;                      // [b, nh, NC]: block jb's rescale factor at jb
-  int b, kvh, S, CH, BK, NC, TS, packed, rope, fold;
+  int b, kvh, G, S, CH, BK, NC, TS, packed, rope, fold;
   float scale;
 };
 
@@ -230,58 +262,132 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // RoPE column buffers of the scores stage: two (prefetched with the next
-// item) at head dim 64, one at 128, where two would not leave room for two
-// blocks an SM (a run stays in one chunk while there are no more item
-// groups than blocks, see item_run, so it loads them once)
+// item) at head dim 64 and below, one at 128, where two would not leave
+// room for two blocks an SM (a run stays in one chunk while there are no
+// more item groups than blocks, see item_run, so it loads them once)
 template <int HD>
 __host__ __device__ constexpr int tab_bufs() { return HD >= 128 ? 1 : 2; }
 
-template <int G, int HD>
+// The block's dynamic shared memory (every kernel of a source launches with
+// its own size of it)
+extern __shared__ __align__(16) unsigned char attn_smem[];
+
+// The dynamic shared memory of a block for G query heads a kv head (the
+// build takes G = GL..GH), carved at run time: the
+// three stages' buffers, which share its start (128-byte aligned: off that,
+// the scores stage measured 14% slower at (1, 128)), then the scores stage's
+// query heads in float64 (GP = g_tile(G) rows, the padding rows zero) and
+// the item table. Every offset is a multiple of 16 bytes; the arrays that
+// scale with G come after the fixed ones of their stage. bytes(G) is the
+// size the host launches with.
+template <int HD, int GL, int GH>
 struct Smem {
-  union {
-    struct {                                     // scores
-      double red[NQ * G * CHMAX];                // part sums of q.k [NQ][G][CHMAX]
-      uint8_t kbuf[2][HD * CHMAX];               // K chunk [hd(/2)][CHMAX], two in flight
-      float tab[tab_bufs<HD>()][2][HD / 2 * CHMAX];   // its RoPE cos, sin [hd/2][CHMAX]
-      float ksb[2][CHMAX];                       // its K inverse scales
-      float qb[2][G * HD];                       // the query heads (T's bytes)
-      float wmax[G][CHMAX / 32];                 // the chunk's maxima, a warp's part
-      uint32_t lut4[256];                        // byte -> bf16 pair of its nibbles
-      uint16_t lut8[256];                        // byte -> bf16 of the int8
-    } a;
-    struct {                                     // softmax.V
-      uint8_t vbuf[3][HD * VSA];                 // V chunks [hd(/2)][VSA], a ring of three
-      float sbuf[3][G * CHMAX];                  // their scores
-      float vsb[3][CHMAX];                       // their V scales
-      double spv[CHMAX * G];                     // p * vs in the compute type
-      float spf[G * CHMAX];                      // p
-      double redd[NT / HD * G * HD];            // p.V over each part of the columns
-      float sm[G];                               // m_j
-    } v;
-    struct {                                     // finish
-      double chp[G][FW];                         // chunk partial sums of p
-      float chm[G][FW];                          //   and maxima
-      float bal[G][FW];                          // each block's rescale factor
-      float kf[HD], vf[HD];                      // the current token, folded
-      float scur[G], fin_m[G], fin_l[G];
-    } f;
-  } u;
-  alignas(16) double sq[G * HD];                 // the item's query heads (scores stage:
-                                                 // the pairs (j, j + hd/2) side by side)
-  int first[BMAX + 1];                           // items before each slot
-  int lens[BMAX];                                // the slots' lengths (at most NC * CH)
-  int wsum[NW];
+  static constexpr int H2 = HD / 2, TB = tab_bufs<HD>();
+  // the item table: first[BMAX + 1] (items before each slot; 1040 bytes),
+  // lens[BMAX] (the slots' lengths, at most NC * CH), wsum[NW]
+  static constexpr int TABLE = 1040 + 4 * BMAX + 4 * NW;
+  // scores: kbuf[2][hd(/2) x CHMAX] (K chunks, two in flight), tab[TB][2]
+  // [hd/2 x CHMAX] (their RoPE cos, sin), ksb[2][CHMAX] (K inverse scales),
+  // lut4[256] (byte -> bf16 pair of its nibbles), lut8[256] (byte -> bf16 of
+  // the int8); then per G: qb[2][G hd] (the query heads, T's bytes),
+  // red[NQ][G][CHMAX] (part sums of q.k), wmax[G][CHMAX / 32] (the chunk's
+  // maxima, a warp's part)
+  static constexpr int A_TAB = 2 * HD * CHMAX, A_KSB = A_TAB + TB * 2 * H2 * CHMAX * 4,
+                       A_LUT4 = A_KSB + 2 * CHMAX * 4, A_LUT8 = A_LUT4 + 1024,
+                       A_QB = A_LUT8 + 512, A_PER_G = 8 * HD + NQ * CHMAX * 8 + CHMAX / 32 * 4;
+  // softmax.V: vbuf[3][hd(/2) x VSA] (V chunks, a ring of three),
+  // vsb[3][CHMAX] (their V scales); then per G: sbuf[3][G][CHMAX] (their
+  // scores), spv[CHMAX][GP] (p * vs in the compute type, float64; the GP - G
+  // padding columns zero), spf[G][CHMAX] (p), redd[NT / hd][G][hd] (p.V over
+  // each part of the columns), sm[G] (m_j)
+  static constexpr int V_VSB = 3 * HD * VSA, V_SBUF = V_VSB + 3 * CHMAX * 4;
+  // finish: kf[hd], vf[hd] (the current token, folded); then per G:
+  // chp[G][FW] (chunk partial sums of p), chm[G][FW] (and maxima),
+  // bal[G][FW] (each block's rescale factor), scur[G], fin_m[G], fin_l[G]
+  static constexpr int F_CHP = 8 * HD;
+
+  // the stages' shared part, rounded to 16 bytes
+  __host__ __device__ static constexpr int ubytes(int G) {
+    const int a = A_QB + G * A_PER_G;
+    const int v = V_SBUF + G * (3 * CHMAX * 4 + CHMAX * 4 + NT * 8 + 4) + g_tile(G) * CHMAX * 8;
+    const int f = F_CHP + G * (FW * 16 + 12);
+    return ((a > v ? (a > f ? a : f) : (v > f ? v : f)) + 15) / 16 * 16;
+  }
+  __host__ __device__ static constexpr int bytes(int G) {
+    return ubytes(G) + g_tile(G) * HD * 8 + TABLE;
+  }
+
+  int g;
+  __device__ explicit Smem(int g_run) : g(g_run) {}
+  // G, a constant in a build of one G; G rounded up to the tile (all the
+  // build's G round to one)
+  __device__ int G() const { return GL == GH ? GL : g; }
+  __device__ int GP() const { return g_tile(GH); }
+
+  __device__ int table() const { return ubytes(G()) + GP() * HD * 8; }
+  __device__ int* first() const { return reinterpret_cast<int*>(attn_smem + table()); }
+  __device__ int* lens() const { return reinterpret_cast<int*>(attn_smem + table() + 1040); }
+  __device__ int* wsum() const {
+    return reinterpret_cast<int*>(attn_smem + table() + 1040 + 4 * BMAX);
+  }
+  // the item's query heads (scores stage: the pairs (j, j + hd/2) side by
+  // side, GP rows; finish: G rows of hd)
+  __device__ double* sq() const { return reinterpret_cast<double*>(attn_smem + ubytes(G())); }
+  __device__ unsigned char* u() const { return attn_smem; }
+  // scores
+  __device__ uint8_t* kbuf(int buf) const { return u() + buf * HD * CHMAX; }
+  __device__ float* tab(int buf, int tb) const {
+    return reinterpret_cast<float*>(u() + A_TAB) + (buf * 2 + tb) * H2 * CHMAX;
+  }
+  __device__ float* ksb(int buf) const { return reinterpret_cast<float*>(u() + A_KSB) + buf * CHMAX; }
+  __device__ uint32_t* lut4() const { return reinterpret_cast<uint32_t*>(u() + A_LUT4); }
+  __device__ uint16_t* lut8() const { return reinterpret_cast<uint16_t*>(u() + A_LUT8); }
+  __device__ float* qb(int buf) const { return reinterpret_cast<float*>(u() + A_QB) + buf * G() * HD; }
+  __device__ double* red() const { return reinterpret_cast<double*>(u() + A_QB + G() * 8 * HD); }
+  __device__ float* wmax() const {
+    return reinterpret_cast<float*>(u() + A_QB + G() * (8 * HD + NQ * CHMAX * 8));
+  }
+  // softmax.V
+  __device__ uint8_t* vbuf(int buf) const { return u() + buf * HD * VSA; }
+  __device__ float* vsb(int buf) const { return reinterpret_cast<float*>(u() + V_VSB) + buf * CHMAX; }
+  __device__ float* sbuf(int buf) const {
+    return reinterpret_cast<float*>(u() + V_SBUF) + buf * G() * CHMAX;
+  }
+  __device__ double* spv() const {
+    return reinterpret_cast<double*>(u() + V_SBUF + G() * 3 * CHMAX * 4);
+  }
+  __device__ float* spf() const {
+    return reinterpret_cast<float*>(u() + V_SBUF + G() * 3 * CHMAX * 4 + GP() * CHMAX * 8);
+  }
+  __device__ double* redd() const {
+    return reinterpret_cast<double*>(u() + V_SBUF + G() * 4 * CHMAX * 4 + GP() * CHMAX * 8);
+  }
+  __device__ float* sm() const {
+    return reinterpret_cast<float*>(u() + V_SBUF + G() * (4 * CHMAX * 4 + NT * 8) +
+                                    GP() * CHMAX * 8);
+  }
+  // finish
+  __device__ float* kf() const { return reinterpret_cast<float*>(u()); }
+  __device__ float* vf() const { return reinterpret_cast<float*>(u()) + HD; }
+  __device__ double* chp() const { return reinterpret_cast<double*>(u() + F_CHP); }
+  __device__ float* chm() const { return reinterpret_cast<float*>(u() + F_CHP + G() * FW * 8); }
+  __device__ float* bal() const { return reinterpret_cast<float*>(u() + F_CHP + G() * FW * 12); }
+  __device__ float* scur() const { return reinterpret_cast<float*>(u() + F_CHP + G() * FW * 16); }
+  __device__ float* fin_m() const { return scur() + G(); }
+  __device__ float* fin_l() const { return scur() + 2 * G(); }
 };
 
 // Items: per slot ceil(len / CH) chunks for each kv head; first[i] counts
 // those before slot i. Every block derives the same table.
-template <int G, int HD>
-__device__ int prep_items(const Args& a, Smem<G, HD>* s) {
+template <int HD, int GL, int GH>
+__device__ int prep_items(const Args& a, Smem<HD, GL, GH> s) {
   const int t = threadIdx.x, lane = t % 32, w = t / 32;
+  int* first = s.first();
+  int* wsum = s.wsum();
   int x = 0;
   if (t < a.b) {
     const int len = min(max(__ldg(a.lens + t), 0), a.NC * a.CH);
-    s->lens[t] = len;
+    s.lens()[t] = len;
     x = (len + a.CH - 1) / a.CH * a.kvh;
   }
 #pragma unroll
@@ -289,23 +395,23 @@ __device__ int prep_items(const Args& a, Smem<G, HD>* s) {
     const int y = __shfl_up_sync(0xffffffffu, x, o);
     if (lane >= o) x += y;
   }
-  if (lane == 31) s->wsum[w] = x;
+  if (lane == 31) wsum[w] = x;
   __syncthreads();
   if (w == 0) {
-    int z = lane < NW ? s->wsum[lane] : 0;
+    int z = lane < NW ? wsum[lane] : 0;
 #pragma unroll
     for (int o = 1; o < NW; o *= 2) {
       const int y = __shfl_up_sync(0xffffffffu, z, o);
       if (lane >= o) z += y;
     }
-    if (lane < NW) s->wsum[lane] = z;
+    if (lane < NW) wsum[lane] = z;
   }
   __syncthreads();
-  if (w > 0) x += s->wsum[w - 1];
-  if (t < a.b) s->first[t + 1] = x;
-  if (t == 0) s->first[0] = 0;
+  if (w > 0) x += wsum[w - 1];
+  if (t < a.b) first[t + 1] = x;
+  if (t == 0) first[0] = 0;
   __syncthreads();
-  return s->first[a.b];
+  return first[a.b];
 }
 
 // A block's contiguous run [lo, hi) of the items. Items come in groups of
@@ -354,44 +460,117 @@ __device__ __forceinline__ void chunk_src(const Args& a, int i, int h, int c, in
   }
 }
 
-// the (slot i, query head hq, chunk c) cell of the scratch arrays
-template <int G>
-__device__ __forceinline__ size_t cell(const Args& a, int i, int hq, int c) {
+// the (slot i, query head hq, chunk c) cell of the scratch arrays (G: the
+// stage's, a constant in the builds of tile 1 and 2)
+__device__ __forceinline__ size_t cell(const Args& a, int G, int i, int hq, int c) {
   return ((size_t)i * a.kvh * G + hq) * a.NC + c;
 }
 
+// q.k of column `col` of the item in buffer `bf` against the GT query heads
+// from g0 (sq's rows G..GP-1 are zero), NQ threads a column, each over PQ of
+// the hd/2 pairs -> red (the real heads' part sums). With a bf16 q the
+// cached integers become bf16 through a table and their RoPE runs on bf16
+// pairs: no conversion instruction but one to pack (cos ks, sin ks).
+template <typename T, int HD, int GL, int GH>
+__device__ __forceinline__ void qk_col(const Args& a, Smem<HD, GL, GH> s, int bf, int qp,
+                                       int col, int ncol, int g0) {
+  constexpr int H2 = HD / 2, PQ = H2 / NQ, TB = tab_bufs<HD>(), GT = build_tile<HD>(GH);
+  double acc[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) acc[g] = 0.0;
+  if (col < ncol) {
+    const float ksc = s.ksb(bf)[col];
+    const float st = rt<T>(ksc);
+    const uint8_t* kb = s.kbuf(bf);
+    const float* tc = s.tab(TB == 2 ? bf : 0, 0);
+    const float* ts = s.tab(TB == 2 ? bf : 0, 1);
+    const uint32_t* lut4 = s.lut4();
+    const uint16_t* lut8 = s.lut8();
+    const double2* sq2 = reinterpret_cast<const double2*>(s.sq());
+    const uint32_t st2 = bf2_bits(__floats2bfloat162_rn(st, st));
+#pragma unroll 4
+    for (int u = 0; u < PQ; ++u) {
+      const int j = qp * PQ + u;
+      float r1, r2;
+      if constexpr (sizeof(T) == 2) {
+        const uint32_t kk = a.packed ? lut4[kb[j * CHMAX + col]]
+                                     : (uint32_t)lut8[kb[j * CHMAX + col]] |
+                                           ((uint32_t)lut8[kb[(j + H2) * CHMAX + col]] << 16);
+        uint32_t r;                   // (r1, r2) as a bf16 pair
+        if (a.rope) {
+          const uint32_t cs = bf2_bits(__floats2bfloat162_rn(__fmul_rn(tc[j * CHMAX + col], ksc),
+                                                             __fmul_rn(ts[j * CHMAX + col], ksc)));
+          const uint32_t kc = bf2_mul_rn(kk, __byte_perm(cs, 0, 0x1010));   // (k1 c, k2 c)
+          const uint32_t ks2 = bf2_mul_rn(kk, __byte_perm(cs, 0, 0x3232));  // (k1 s, k2 s)
+          r = bf2_add_rn(kc, __byte_perm(ks2, 0, 0x1032) ^ 0x8000u);         // (k1 c - k2 s, k2 c + k1 s)
+        } else {
+          r = bf2_mul_rn(kk, st2);
+        }
+        r1 = bf_lo(r);
+        r2 = bf_hi(r);
+      } else {
+        float k1, k2;
+        if (a.packed) {
+          const uint8_t v = kb[j * CHMAX + col];
+          k1 = (float)((int8_t)(v << 4) >> 4);
+          k2 = (float)((int8_t)v >> 4);
+        } else {
+          k1 = (float)(int8_t)kb[j * CHMAX + col];
+          k2 = (float)(int8_t)kb[(j + H2) * CHMAX + col];
+        }
+        if (a.rope) {
+          rope_pair<T>(k1, k2, __fmul_rn(tc[j * CHMAX + col], ksc),
+                       __fmul_rn(ts[j * CHMAX + col], ksc), r1, r2);
+        } else {
+          r1 = __fmul_rn(k1, st);
+          r2 = __fmul_rn(k2, st);
+        }
+      }
+      const double d1 = (double)r1, d2 = (double)r2;
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        const double2 qq = sq2[(g0 + g) * H2 + j];
+        acc[g] = fma(qq.x, d1, fma(qq.y, d2, acc[g]));
+      }
+    }
+  }
+  double* red = s.red();
+  const int G = s.G();
+#pragma unroll
+  for (int g = 0; g < GT; ++g)
+    if (g0 + g < G) red[(qp * G + g0 + g) * CHMAX + col] = acc[g];
+}
+
 // The scores stage: a contiguous run of items a block (item_run). The next
-// item's K rows, K scales, query heads and (for a new chunk, at head dim 64)
-// RoPE columns arrive by cp.async while one is computed: q.k of each live
-// column against the G query heads in float64, NQ threads a column ->
-// scores; the chunk's maxima -> cmax. With a bf16 q the cached integers
-// become bf16 through a table and their RoPE runs on bf16 pairs: no
-// conversion instruction but one to pack (cos ks, sin ks). The item's V
-// rows and scales are prefetched into L2 for the softmax.V stage.
-template <typename T, int G, int HD>
-__device__ void scores_stage(const Args& a, Smem<G, HD>* s, int items) {
-  constexpr int H2 = HD / 2, PQ = H2 / NQ;
+// item's K rows, K scales, query heads and (for a new chunk, at head dim 64
+// and below) RoPE columns arrive by cp.async while one is computed: q.k of
+// each live column against the G query heads in float64 (qk_col) ->
+// scores; the chunk's maxima -> cmax. The item's V rows and scales are
+// prefetched into L2 for the softmax.V stage.
+template <typename T, int HD, int GL, int GH>
+__device__ void scores_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
+  constexpr int H2 = HD / 2, TB = tab_bufs<HD>(), GT = build_tile<HD>(GH);
+  const int G = s.G(), GP = s.GP();
   const int tid = threadIdx.x, qp = tid / CHMAX, col = tid % CHMAX, lane = tid % 32;
   const int nh = a.kvh * G, hdc = a.packed ? H2 : HD, CH = a.CH;
   const bool v16 = CH % 16 == 0 && a.S % 16 == 0;  // else 8-byte pieces (CH = 8)
   const int vec = v16 ? 16 : 8, per_row = CH / vec;
+  const int* first = s.first();
   int lo, hi;
   item_run(items, a.kvh, lo, hi);
   trace_count(hi - lo);
-  auto& A = s->u.a;
   {                                 // byte -> bf16 tables
     const int v = tid;
-    A.lut4[v] = bf2_bits(__floats2bfloat162_rn((float)((int8_t)(v << 4) >> 4), (float)((int8_t)v >> 4)));
-    A.lut8[v] = (uint16_t)(bf2_bits(__floats2bfloat162_rn((float)(int8_t)v, 0.f)) & 0xffffu);
+    s.lut4()[v] = bf2_bits(__floats2bfloat162_rn((float)((int8_t)(v << 4) >> 4), (float)((int8_t)v >> 4)));
+    s.lut8()[v] = (uint16_t)(bf2_bits(__floats2bfloat162_rn((float)(int8_t)v, 0.f)) & 0xffffu);
   }
-  constexpr int TB = tab_bufs<HD>();
   int tab0 = -1, tab1 = -1;         // the chunk whose RoPE columns buffer 0 / 1 holds
   auto issue_tab = [&](int c, int buf) {
     const int per_t = CH / 4;
     for (int idx = tid; idx < 2 * H2 * per_t; idx += NT) {
       const int tb = idx / (H2 * per_t), r = idx % (H2 * per_t), row = r / per_t;
       const int pc = r % per_t;
-      cp_async(A.tab[buf][tb] + row * CHMAX + pc * 4,
+      cp_async(s.tab(buf, tb) + row * CHMAX + pc * 4,
                (tb ? a.ksin : a.kcos) + (size_t)row * a.TS + (size_t)c * CH + pc * 4, true);
     }
     if (buf)
@@ -402,27 +581,31 @@ __device__ void scores_stage(const Args& a, Smem<G, HD>* s, int items) {
   auto issue = [&](int item, int buf) {
     if (item < hi) {
       int i, h, c;
-      find_item(a, s->first, item, i, h, c);
+      find_item(a, first, item, i, h, c);
       size_t kv, so;
       chunk_src(a, i, h, c, hdc, kv, so);
+      uint8_t* kb = s.kbuf(buf);
       for (int idx = tid; idx < hdc * per_row; idx += NT) {
         const int row = idx / per_row, pc = idx % per_row;
-        cp_async(A.kbuf[buf] + row * CHMAX + pc * vec, a.kq + kv + (size_t)row * a.S + pc * vec,
-                 v16);
+        cp_async(kb + row * CHMAX + pc * vec, a.kq + kv + (size_t)row * a.S + pc * vec, v16);
       }
-      if (tid < CH / 4) cp_async(A.ksb[buf] + tid * 4, a.ks + so + tid * 4, true);
+      if (tid < CH / 4) cp_async(s.ksb(buf) + tid * 4, a.ks + so + tid * 4, true);
       const char* qsrc = static_cast<const char*>(a.q) + ((size_t)i * nh + h * G) * HD * sizeof(T);
+      char* qdst = reinterpret_cast<char*>(s.qb(buf));
       for (int idx = tid; idx < G * HD * (int)sizeof(T) / 16; idx += NT)
-        cp_async(reinterpret_cast<char*>(A.qb[buf]) + idx * 16, qsrc + idx * 16, true);
+        cp_async(qdst + idx * 16, qsrc + idx * 16, true);
       if (TB == 2 && a.rope && (buf ? tab1 : tab0) != c) issue_tab(c, buf);
     }
     cp_async_commit();
   };
   issue(lo, 0);
+  double* sq = s.sq();
+  const double* red = s.red();
+  float* wmax = s.wmax();
   for (int item = lo, k = 0; item < hi; ++item, ++k) {
     __syncthreads();                // the previous item is done with the shared memory
     int i, h, c;
-    find_item(a, s->first, item, i, h, c);
+    find_item(a, first, item, i, h, c);
     if (TB == 1 && a.rope && tab0 != c) {   // a new chunk: its RoPE columns, not prefetched
       issue_tab(c, 0);
       cp_async_commit();
@@ -439,92 +622,35 @@ __device__ void scores_stage(const Args& a, Smem<G, HD>* s, int items) {
     const int bf = k & 1;
     cp_async_wait<1>();
     __syncthreads();
-    const T* qt = reinterpret_cast<const T*>(A.qb[bf]);
-    for (int idx = tid; idx < G * HD; idx += NT) {
+    const T* qt = reinterpret_cast<const T*>(s.qb(bf));
+    for (int idx = tid; idx < GP * HD; idx += NT) {
       const int g = idx / HD, d = idx % HD;
-      s->sq[(g * H2 + d % H2) * 2 + d / H2] = (double)to_f(qt[idx]);
+      sq[(g * H2 + d % H2) * 2 + d / H2] = g < G ? (double)to_f(qt[idx]) : 0.0;
     }
     __syncthreads();
-    const double2* sq2 = reinterpret_cast<const double2*>(s->sq);
-    const int ncol = min(CH, s->lens[i] - c * CH);
-    double acc[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) acc[g] = 0.0;
-    if (col < ncol) {
-      const float ksc = A.ksb[bf][col];
-      const float st = rt<T>(ksc);
-      const uint8_t* kb = A.kbuf[bf];
-      const float* tc = A.tab[TB == 2 ? bf : 0][0];
-      const float* ts = A.tab[TB == 2 ? bf : 0][1];
-      const uint32_t st2 = bf2_bits(__floats2bfloat162_rn(st, st));
-#pragma unroll 4
-      for (int u = 0; u < PQ; ++u) {
-        const int j = qp * PQ + u;
-        float r1, r2;
-        if constexpr (sizeof(T) == 2) {
-          const uint32_t kk = a.packed ? A.lut4[kb[j * CHMAX + col]]
-                                       : (uint32_t)A.lut8[kb[j * CHMAX + col]] |
-                                             ((uint32_t)A.lut8[kb[(j + H2) * CHMAX + col]] << 16);
-          uint32_t r;                   // (r1, r2) as a bf16 pair
-          if (a.rope) {
-            const uint32_t cs = bf2_bits(__floats2bfloat162_rn(__fmul_rn(tc[j * CHMAX + col], ksc),
-                                                               __fmul_rn(ts[j * CHMAX + col], ksc)));
-            const uint32_t kc = bf2_mul_rn(kk, __byte_perm(cs, 0, 0x1010));   // (k1 c, k2 c)
-            const uint32_t ks2 = bf2_mul_rn(kk, __byte_perm(cs, 0, 0x3232));  // (k1 s, k2 s)
-            r = bf2_add_rn(kc, __byte_perm(ks2, 0, 0x1032) ^ 0x8000u);         // (k1 c - k2 s, k2 c + k1 s)
-          } else {
-            r = bf2_mul_rn(kk, st2);
-          }
-          r1 = bf_lo(r);
-          r2 = bf_hi(r);
-        } else {
-          float k1, k2;
-          if (a.packed) {
-            const uint8_t v = kb[j * CHMAX + col];
-            k1 = (float)((int8_t)(v << 4) >> 4);
-            k2 = (float)((int8_t)v >> 4);
-          } else {
-            k1 = (float)(int8_t)kb[j * CHMAX + col];
-            k2 = (float)(int8_t)kb[(j + H2) * CHMAX + col];
-          }
-          if (a.rope) {
-            rope_pair<T>(k1, k2, __fmul_rn(tc[j * CHMAX + col], ksc),
-                         __fmul_rn(ts[j * CHMAX + col], ksc), r1, r2);
-          } else {
-            r1 = __fmul_rn(k1, st);
-            r2 = __fmul_rn(k2, st);
-          }
-        }
-        const double d1 = (double)r1, d2 = (double)r2;
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const double2 qq = sq2[g * H2 + j];
-          acc[g] = fma(qq.x, d1, fma(qq.y, d2, acc[g]));
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) A.red[(qp * G + g) * CHMAX + col] = acc[g];
+    const int ncol = min(CH, s.lens()[i] - c * CH);
+    for (int g0 = 0; g0 < G; g0 += GT)         // one pass but at hd <= 32 past 4 heads
+      qk_col<T>(a, s, bf, qp, col, ncol, g0);
     __syncthreads();
     for (int idx = tid; idx < G * CHMAX; idx += NT) {   // a warp: 32 columns of one head
       const int g = idx / CHMAX, cl = idx % CHMAX;
       float v = NEG_INF;
       if (cl < ncol) {
-        double t = A.red[g * CHMAX + cl];
+        double t = red[g * CHMAX + cl];
 #pragma unroll
-        for (int e = 1; e < NQ; ++e) t += A.red[(e * G + g) * CHMAX + cl];
+        for (int e = 1; e < NQ; ++e) t += red[(e * G + g) * CHMAX + cl];
         v = __fmul_rn((float)t, a.scale);
-        a.scores[cell<G>(a, i, h * G + g, c) * CH + cl] = v;
+        a.scores[cell(a, G, i, h * G + g, c) * CH + cl] = v;
       }
       v = warp_max(v);
-      if (lane == 0) A.wmax[g][cl / 32] = v;
+      if (lane == 0) wmax[g * (CHMAX / 32) + cl / 32] = v;
     }
     __syncthreads();
     if (tid < G) {
-      float m = A.wmax[tid][0];
+      float m = wmax[tid * (CHMAX / 32)];
 #pragma unroll
-      for (int e = 1; e < CHMAX / 32; ++e) m = fmaxf(m, A.wmax[tid][e]);
-      a.cmax[cell<G>(a, i, h * G + tid, c)] = m;
+      for (int e = 1; e < CHMAX / 32; ++e) m = fmaxf(m, wmax[tid * (CHMAX / 32) + e]);
+      a.cmax[cell(a, G, i, h * G + tid, c)] = m;
     }
   }
   cp_async_wait<0>();
@@ -533,48 +659,81 @@ __device__ void scores_stage(const Args& a, Smem<G, HD>* s, int items) {
 // The softmax.V stage's loads of item `item` of the run [.., hi) into ring
 // buffer `buf`: its V rows and V scales (issue_v, which need nothing of the
 // scores stage), and its scores (issue_s). The caller commits.
-template <int G, int HD>
-__device__ void issue_v(const Args& a, Smem<G, HD>* s, int item, int hi, int buf) {
+template <int HD, int GL, int GH>
+__device__ void issue_v(const Args& a, Smem<HD, GL, GH> s, int item, int hi,
+                                        int buf) {
   if (item >= hi) return;
   const int hdc = a.packed ? HD / 2 : HD, CH = a.CH, tid = threadIdx.x;
   const bool v16 = CH % 16 == 0 && a.S % 16 == 0;  // else 8-byte pieces (CH = 8)
   const int vec = v16 ? 16 : 8, per_row = CH / vec;
   int i, h, c;
-  find_item(a, s->first, item, i, h, c);
+  find_item(a, s.first(), item, i, h, c);
   size_t kv, so;
   chunk_src(a, i, h, c, hdc, kv, so);
+  uint8_t* vb = s.vbuf(buf);
   for (int idx = tid; idx < hdc * per_row; idx += NT) {
     const int row = idx / per_row, pc = idx % per_row;
-    cp_async(s->u.v.vbuf[buf] + row * VSA + pc * vec, a.vq + kv + (size_t)row * a.S + pc * vec,
-             v16);
+    cp_async(vb + row * VSA + pc * vec, a.vq + kv + (size_t)row * a.S + pc * vec, v16);
   }
-  if (tid < CH / 4) cp_async(s->u.v.vsb[buf] + tid * 4, a.vs + so + tid * 4, true);
+  if (tid < CH / 4) cp_async(s.vsb(buf) + tid * 4, a.vs + so + tid * 4, true);
 }
 
-template <int G, int HD>
-__device__ void issue_s(const Args& a, Smem<G, HD>* s, int item, int hi, int buf) {
+template <int HD, int GL, int GH>
+__device__ void issue_s(const Args& a, Smem<HD, GL, GH> s, int item, int hi,
+                                        int buf) {
   if (item >= hi) return;
   const int CH = a.CH;
   int i, h, c;
-  find_item(a, s->first, item, i, h, c);
+  find_item(a, s.first(), item, i, h, c);
+  float* sb = s.sbuf(buf);
+  const int G = s.G();
   for (int idx = threadIdx.x; idx < G * (CH / 4); idx += NT) {
     const int g = idx / (CH / 4), pc = idx % (CH / 4);
-    cp_async(s->u.v.sbuf[buf] + g * CHMAX + pc * 4,
-             a.scores + cell<G>(a, i, h * G + g, c) * CH + pc * 4, true);
+    cp_async(sb + g * CHMAX + pc * 4, a.scores + cell(a, G, i, h * G + g, c) * CH + pc * 4, true);
   }
 }
 
 // Before the barrier that ends the scores stage: the V rows of the
 // softmax.V stage's first two items (one commit group each).
-template <int G, int HD>
-__device__ void prefetch_v(const Args& a, Smem<G, HD>* s, int items) {
+template <int HD, int GL, int GH>
+__device__ void prefetch_v(const Args& a, Smem<HD, GL, GH> s, int items) {
   int lo, hi;
   item_run(items, a.kvh, lo, hi);
   __syncthreads();                  // the scores stage is done with the shared memory
   for (int k = 0; k < 2; ++k) {
-    issue_v<G, HD>(a, s, lo + k, hi, k);
+    issue_v(a, s, lo + k, hi, k);
     cp_async_commit();
   }
+}
+
+// p.V of the item in buffer `bf`: a thread takes head dim d of the GT heads
+// from g0 over a part of the columns (each V value is widened once for the
+// heads; spv's padding columns G..GP-1 are zero) -> redd (the real heads).
+template <int HD, int GL, int GH>
+__device__ __forceinline__ void pv_col(const Args& a, Smem<HD, GL, GH> s, int bf, int ncol,
+                                       int g0) {
+  constexpr int H2 = HD / 2, NPART = NT / HD, PART = CHMAX / NPART, GT = build_tile<HD>(GH);
+  const int tid = threadIdx.x, d = tid % HD, part = tid / HD, ncol4 = (ncol + 3) & ~3;
+  const uint8_t* vrow = s.vbuf(bf) + (a.packed ? d % H2 : d) * VSA;
+  const int shift = a.packed ? (d < H2 ? 28 : 24) : 24, back = a.packed ? 28 : 24;
+  const int G = s.G(), GP = s.GP();
+  const double* spv = s.spv() + g0;
+  double acc[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) acc[g] = 0.0;
+  for (int c4 = part * PART; c4 < min(ncol4, (part + 1) * PART); c4 += 4) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(vrow + c4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const double v = int_to_double((int)(((w >> (8 * e)) & 0xffu) << shift) >> back);
+#pragma unroll
+      for (int g = 0; g < GT; ++g) acc[g] = fma(spv[(c4 + e) * GP + g], v, acc[g]);
+    }
+  }
+  double* redd = s.redd();
+#pragma unroll
+  for (int g = 0; g < GT; ++g)
+    if (g0 + g < G) redd[(part * G + g0 + g) * HD + d] = acc[g];
 }
 
 // The same runs as the scores stage: p against m_j, the prefix maximum of
@@ -582,98 +741,86 @@ __device__ void prefetch_v(const Args& a, Smem<G, HD>* s, int items) {
 // scales and scores of the item two ahead arrive by cp.async into a ring of
 // three buffers (the first two items' V rows since prefetch_v), its first
 // chunk maxima one item ahead in registers.
-template <typename T, int G, int HD>
-__device__ void softmax_v_stage(const Args& a, Smem<G, HD>* s, int items) {
-  constexpr int H2 = HD / 2, NO = G * HD, SPT = (G * CHMAX + NT - 1) / NT;
+template <typename T, int HD, int GL, int GH>
+__device__ void softmax_v_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
+  constexpr int SPT = (g_tile(GH) * CHMAX + NT - 1) / NT, GT = build_tile<HD>(GH);
+  const int G = s.G(), GP = s.GP(), NO = G * HD;
   const int tid = threadIdx.x, lane = tid % 32;
   const int CH = a.CH, cpb = a.BK / CH;
+  const int* first = s.first();
   int lo, hi;
   item_run(items, a.kvh, lo, hi);
-  auto& V = s->u.v;
+  float* sm = s.sm();
+  float* spf = s.spf();
+  double* spv = s.spv();
   float cmr = NEG_INF;                // this warp's head's first 32 chunk maxima
   auto fetch_max = [&](int item) {
     if (item < hi && tid / 32 < G) {
       int i, h, c;
-      find_item(a, s->first, item, i, h, c);
-      const int ce = min((s->lens[i] + CH - 1) / CH, (c / cpb + 1) * cpb);
-      cmr = lane < ce ? __ldcg(a.cmax + cell<G>(a, i, h * G + tid / 32, 0) + lane) : NEG_INF;
+      find_item(a, first, item, i, h, c);
+      const int ce = min((s.lens()[i] + CH - 1) / CH, (c / cpb + 1) * cpb);
+      cmr = lane < ce ? __ldcg(a.cmax + cell(a, G, i, h * G + tid / 32, 0) + lane) : NEG_INF;
     }
   };
   fetch_max(lo);
   for (int k = 0; k < 2; ++k) {
-    issue_s<G, HD>(a, s, lo + k, hi, k);
+    issue_s(a, s, lo + k, hi, k);
     cp_async_commit();
   }
   for (int item = lo, k = 0; item < hi; ++item, ++k) {
     __syncthreads();                // the previous item is done with the shared memory
-    issue_v<G, HD>(a, s, item + 2, hi, (k + 2) % 3);
-    issue_s<G, HD>(a, s, item + 2, hi, (k + 2) % 3);
+    issue_v(a, s, item + 2, hi, (k + 2) % 3);
+    issue_s(a, s, item + 2, hi, (k + 2) % 3);
     cp_async_commit();
     int i, h, c;
-    find_item(a, s->first, item, i, h, c);
-    const int bf = k % 3, len = s->lens[i], ncol = min(CH, len - c * CH);
+    find_item(a, first, item, i, h, c);
+    const int bf = k % 3, len = s.lens()[i], ncol = min(CH, len - c * CH);
     const int ce = min((len + CH - 1) / CH, (c / cpb + 1) * cpb);
     if (tid / 32 < G) {             // m_j: a warp a head
-      const size_t c0 = cell<G>(a, i, h * G + tid / 32, 0);
+      const size_t c0 = cell(a, G, i, h * G + tid / 32, 0);
       float m = cmr;
       for (int cc = lane + 32; cc < ce; cc += 32) m = fmaxf(m, __ldcg(a.cmax + c0 + cc));
       m = warp_max(m);
-      if (lane == 0) V.sm[tid / 32] = m;
+      if (lane == 0) sm[tid / 32] = m;
     }
     fetch_max(item + 1);
     cp_async_wait<2>();
     __syncthreads();
+    const float* sb = s.sbuf(bf);
+    const float* vsb = s.vsb(bf);
 #pragma unroll
     for (int e = 0; e < SPT; ++e) {
       const int idx = tid + e * NT, g = idx / CHMAX, cl = idx % CHMAX;
-      if (idx < G * CHMAX) {
+      if (idx < GP * CHMAX) {
         float pr = 0.f;
         double pv = 0.0;
-        if (cl < ncol) {
-          pr = expf(__fsub_rn(V.sbuf[bf][idx], V.sm[g]));
-          pv = (double)rt<T>(__fmul_rn(pr, rt<T>(V.vsb[bf][cl])));
+        if (g < G && cl < ncol) {
+          pr = expf(__fsub_rn(sb[idx], sm[g]));
+          pv = (double)rt<T>(__fmul_rn(pr, rt<T>(vsb[cl])));
         }
-        V.spf[g * CHMAX + cl] = pr;
-        V.spv[cl * G + g] = pv;
+        if (g < G) spf[g * CHMAX + cl] = pr;
+        spv[cl * GP + g] = pv;
       }
     }
     __syncthreads();
     for (int g = tid / 32; g < G; g += NW) {
       double t = 0.0;
 #pragma unroll
-      for (int e = 0; e < CHMAX / 32; ++e) t += (double)V.spf[g * CHMAX + lane + 32 * e];
+      for (int e = 0; e < CHMAX / 32; ++e) t += (double)spf[g * CHMAX + lane + 32 * e];
       t = warp_sum(t);
-      if (lane == 0) a.ppart[cell<G>(a, i, h * G + g, c)] = t;
+      if (lane == 0) a.ppart[cell(a, G, i, h * G + g, c)] = t;
     }
-    // p.V: a thread takes head dim d of every head over a part of the
-    // columns (each V value is widened once for the G heads), the parts
-    // summed through shared memory
-    {
-      constexpr int NPART = NT / HD, PART = CHMAX / NPART;
-      const int d = tid % HD, part = tid / HD, ncol4 = (ncol + 3) & ~3;
-      const uint8_t* vrow = V.vbuf[bf] + (a.packed ? d % H2 : d) * VSA;
-      const int shift = a.packed ? (d < H2 ? 28 : 24) : 24, back = a.packed ? 28 : 24;
-      double acc[G];
+    // p.V over each part of the columns, the parts summed through shared
+    // memory
+    for (int g0 = 0; g0 < G; g0 += GT)         // one pass but at hd <= 32 past 4 heads
+      pv_col(a, s, bf, ncol, g0);
+    __syncthreads();
+    const double* redd = s.redd();
+    for (int o = tid; o < NO; o += NT) {
+      double t = redd[o];
 #pragma unroll
-      for (int g = 0; g < G; ++g) acc[g] = 0.0;
-      for (int c4 = part * PART; c4 < min(ncol4, (part + 1) * PART); c4 += 4) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(vrow + c4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const double v = int_to_double((int)(((w >> (8 * e)) & 0xffu) << shift) >> back);
-#pragma unroll
-          for (int g = 0; g < G; ++g) acc[g] = fma(V.spv[(c4 + e) * G + g], v, acc[g]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) V.redd[(part * G + g) * HD + d] = acc[g];
-      __syncthreads();
-      for (int o = tid; o < NO; o += NT) {
-        double t = V.redd[o];
-#pragma unroll
-        for (int e = 1; e < NPART; ++e) t += V.redd[e * NO + o];
-        a.pvpart[cell<G>(a, i, h * G + o / HD, c) * HD + o % HD] = t;
-      }
+      for (int e = 1; e < NT / HD; ++e) t += redd[e * NO + o];
+      a.pvpart[cell(a, G, i, h * G + o / HD, c) * HD + o % HD] = t;
     }
   }
   cp_async_wait<0>();
@@ -681,20 +828,27 @@ __device__ void softmax_v_stage(const Args& a, Smem<G, HD>* s, int items) {
 
 // (slot i, kv head h): the fp32 recurrence over the slot's BK blocks from
 // the chunks' partial sums, the current token folded in, the division.
-// Every load is issued first, so that they are in flight together.
-template <typename T, int G, int HD>
-__device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
-  constexpr int H2 = HD / 2, NO = G * HD, OPT = NO > NT ? NO / NT : 1, QPT = (NO + NT - 1) / NT;
+// Every load is issued first, so that they are in flight together. OPT:
+// outputs a thread, at least ceil(G hd / NT).
+template <typename T, int OPT, int HD, int GL, int GH>
+__device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
+  constexpr int H2 = HD / 2;
   constexpr int NB = OPT > 2 ? 4 : 8;   // chunks of partial sums in flight an output
+  const int G = s.G(), NO = G * HD;
   const int tid = threadIdx.x, lane = tid % 32, gw = tid / 32, nh = a.kvh * G, CH = a.CH;
-  const int nch = (s->lens[i] + CH - 1) / CH, cpb = a.BK / CH;
-  auto& F = s->u.f;
+  const int nch = (s.lens()[i] + CH - 1) / CH, cpb = a.BK / CH;
+  double* sq = s.sq();
+  float* kf = s.kf();
+  float* vf = s.vf();
+  double* chp = s.chp();
+  float* chm = s.chm();
+  float* bal = s.bal();
   // the query heads, the current token's pair, this warp's head's first 64
   // chunk statistics and each output's first NB partial p.V sums
   const T* qp = static_cast<const T*>(a.q) + ((size_t)i * nh + h * G) * HD;
-  float qv[QPT];
+  float qv[OPT];
 #pragma unroll
-  for (int u = 0; u < QPT; ++u) qv[u] = tid + u * NT < NO ? to_f(qp[tid + u * NT]) : 0.f;
+  for (int u = 0; u < OPT; ++u) qv[u] = tid + u * NT < NO ? to_f(qp[tid + u * NT]) : 0.f;
   float f1 = 0.f, f2 = 0.f, f3 = 0.f, f4 = 0.f, fc = 0.f, fs = 0.f, ki = 0.f, vi = 0.f;
   const size_t pair = ((size_t)i * a.kvh + h) * HD;
   if (a.fold == 1 && tid < H2) {
@@ -714,7 +868,7 @@ __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
     f1 = to_f(static_cast<const T*>(a.knew)[pair + tid]);
     f3 = to_f(static_cast<const T*>(a.vnew)[pair + tid]);
   }
-  const size_t cg0 = cell<G>(a, i, h * G + min(gw, G - 1), 0);
+  const size_t cg0 = cell(a, G, i, h * G + min(gw, G - 1), 0);
   float cmr[2];
   double cpr[2];
 #pragma unroll
@@ -728,20 +882,20 @@ __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
 #pragma unroll
   for (int u = 0; u < OPT; ++u) {
     const int o = min(tid + u * NT, NO - 1);
-    const double* pv = a.pvpart + cell<G>(a, i, h * G + o / HD, 0) * HD + o % HD;
+    const double* pv = a.pvpart + cell(a, G, i, h * G + o / HD, 0) * HD + o % HD;
 #pragma unroll
     for (int e = 0; e < NB; ++e) v0[u][e] = e < nch ? __ldcg(pv + (size_t)e * HD) : 0.0;
   }
   // into shared memory
 #pragma unroll
-  for (int u = 0; u < QPT; ++u)
-    if (tid + u * NT < NO) s->sq[tid + u * NT] = (double)qv[u];
+  for (int u = 0; u < OPT; ++u)
+    if (tid + u * NT < NO) sq[tid + u * NT] = (double)qv[u];
   if (gw < G) {
 #pragma unroll
     for (int e = 0; e < 2; ++e)
       if (lane + 32 * e < nch) {
-        F.chm[gw][lane + 32 * e] = cmr[e];
-        F.chp[gw][lane + 32 * e] = cpr[e];
+        chm[gw * FW + lane + 32 * e] = cmr[e];
+        chp[gw * FW + lane + 32 * e] = cpr[e];
       }
   }
   if (a.fold == 1 && tid < H2) {
@@ -753,18 +907,18 @@ __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
       kf2 = rt<T>(__fmul_rn(f2, rt<T>(ki)));
     }
     const float vt = rt<T>(vi);
-    F.kf[tid] = kf1;
-    F.kf[tid + H2] = kf2;
-    F.vf[tid] = rt<T>(__fmul_rn(f3, vt));
-    F.vf[tid + H2] = rt<T>(__fmul_rn(f4, vt));
+    kf[tid] = kf1;
+    kf[tid + H2] = kf2;
+    vf[tid] = rt<T>(__fmul_rn(f3, vt));
+    vf[tid + H2] = rt<T>(__fmul_rn(f4, vt));
   } else if (a.fold == 2 && tid < HD) {
-    F.kf[tid] = f1;
-    F.vf[tid] = f3;
+    kf[tid] = f1;
+    vf[tid] = f3;
   }
   __syncthreads();
   // the denominator's recurrence, a warp a head: lane 0 walks the chunk
   // statistics in order (FW at a time; past the first 64 the warp loads
-  // them here), the block factors -> F.bal (block FW on: a.alpha)
+  // them here), the block factors -> bal (block FW on: a.alpha)
   if (gw < G) {
     const int g = gw;
     float m = NEG_INF, l = 0.f, mb = NEG_INF;
@@ -774,21 +928,21 @@ __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
       const int wn = min(FW, nch - w0);
       __syncwarp();
       for (int e = w0 ? lane : lane + 64; e < wn; e += 32) {
-        F.chm[g][e] = __ldcg(a.cmax + cg0 + w0 + e);
-        F.chp[g][e] = __ldcg(a.ppart + cg0 + w0 + e);
+        chm[g * FW + e] = __ldcg(a.cmax + cg0 + w0 + e);
+        chp[g * FW + e] = __ldcg(a.ppart + cg0 + w0 + e);
       }
       __syncwarp();
       if (lane == 0) {
         for (int e = 0; e < wn; ++e) {
           const int cc = w0 + e;
-          mb = fmaxf(mb, F.chm[g][e]);
-          P += F.chp[g][e];
+          mb = fmaxf(mb, chm[g * FW + e]);
+          P += chp[g * FW + e];
           if (cc + 1 == end) {         // block jb is complete
             mb = fmaxf(m, mb);
             const float al = expf(__fsub_rn(m, mb));
             l = __fadd_rn(__fmul_rn(l, al), (float)P);
             if (jb < FW)
-              F.bal[g][jb] = al;
+              bal[g * FW + jb] = al;
             else
               a.alpha[cg0 + jb] = al;
             m = mb;
@@ -800,14 +954,14 @@ __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
       }
     }
     if (lane == 0) {
-      F.fin_m[g] = m;
-      F.fin_l[g] = l;
+      s.fin_m()[g] = m;
+      s.fin_l()[g] = l;
     }
     if (a.fold) {                     // the current token's score
       double sc = 0.0;
-      for (int d = lane; d < HD; d += 32) sc = fma(s->sq[g * HD + d], (double)F.kf[d], sc);
+      for (int d = lane; d < HD; d += 32) sc = fma(sq[g * HD + d], (double)kf[d], sc);
       sc = warp_sum(sc);
-      if (lane == 0) F.scur[g] = __fmul_rn((float)sc, a.scale);
+      if (lane == 0) s.scur()[g] = __fmul_rn((float)sc, a.scale);
     }
   }
   __syncthreads();
@@ -826,8 +980,8 @@ __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
     if (b0 > 0) {                     // the first batch is v0, loaded first
 #pragma unroll
       for (int u = 0; u < OPT; ++u) {
-        const int o = tid + u * NT;
-        const double* pv = a.pvpart + cell<G>(a, i, h * G + o / HD, 0) * HD + o % HD;
+        const int o = min(tid + u * NT, NO - 1);
+        const double* pv = a.pvpart + cell(a, G, i, h * G + o / HD, 0) * HD + o % HD;
 #pragma unroll
         for (int e = 0; e < NB; ++e) v0[u][e] = b0 + e < nch ? __ldcg(pv + (size_t)(b0 + e) * HD) : 0.0;
       }
@@ -841,8 +995,8 @@ __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
         if (cc + 1 == end) {          // block jb is complete
 #pragma unroll
           for (int u = 0; u < OPT; ++u) {
-            const int g = (tid + u * NT) / HD;
-            const float al = jb < FW ? F.bal[g][jb] : __ldcg(a.alpha + cell<G>(a, i, h * G + g, jb));
+            const int g = min(tid + u * NT, NO - 1) / HD;
+            const float al = jb < FW ? bal[g * FW + jb] : __ldcg(a.alpha + cell(a, G, i, h * G + g, jb));
             acc[u] = __fadd_rn(__fmul_rn(acc[u], al), (float)PV[u]);
             PV[u] = 0.0;
           }
@@ -855,38 +1009,67 @@ __device__ void finish_head(const Args& a, Smem<G, HD>* s, int i, int h) {
 #pragma unroll
   for (int u = 0; u < OPT; ++u) {
     const int o = tid + u * NT, g = o / HD, d = o % HD;
-    float l = F.fin_l[g], r = acc[u];
+    if (o >= NO) break;
+    float l = s.fin_l()[g], r = acc[u];
     if (a.fold) {
-      const float m = F.fin_m[g], sc = inc ? F.scur[g] : NEG_INF, m_new = fmaxf(m, sc);
+      const float m = s.fin_m()[g], sc = inc ? s.scur()[g] : NEG_INF, m_new = fmaxf(m, sc);
       const float al = expf(__fsub_rn(m, m_new));
       const float pr = a.fold == 2 || inc ? expf(__fsub_rn(sc, m_new)) : 0.f;
       l = __fadd_rn(__fmul_rn(l, al), pr);
-      r = __fadd_rn(__fmul_rn(r, al), __fmul_rn(a.fold == 2 ? rt<T>(pr) : pr, F.vf[d]));
+      r = __fadd_rn(__fmul_rn(r, al), __fmul_rn(a.fold == 2 ? rt<T>(pr) : pr, vf[d]));
     }
     put(static_cast<T*>(a.out) + ((size_t)i * nh + h * G + g) * HD + d, r / fmaxf(l, 1e-9f));
   }
 }
 
-template <typename T, int G, int HD>
-__global__ void __launch_bounds__(NT, MINB) attn_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto* s = reinterpret_cast<Smem<G, HD>*>(smem_raw);
+// outputs a thread for NO = G hd outputs: 1, 2 or 4
+__host__ __device__ constexpr int outputs_a_thread(int no) { return no > 2 * NT ? 4 : no > NT ? 2 : 1; }
+
+// finish_head with the fewest outputs a thread that G hd needs (only those
+// the build's G can ask for are built)
+template <typename T, int HD, int GL, int GH>
+__device__ __forceinline__ void finish(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
+  constexpr int LO = outputs_a_thread(GL * HD), HI = outputs_a_thread(GH * HD);
+  const int opt = outputs_a_thread(s.G() * HD);
+  if constexpr (HI == 4) {
+    if (opt == 4) return finish_head<T, 4>(a, s, i, h);
+  }
+  if constexpr (LO <= 2 && HI >= 2) {
+    if (opt == 2) return finish_head<T, 2>(a, s, i, h);
+  }
+  if constexpr (LO == 1) finish_head<T, 1>(a, s, i, h);
+}
+
+// blocks an SM a build asks its registers to allow: MINB, but one where the
+// shared memory of the build's fewest G already leaves room for one block an
+// SM only (head dim 128 from G = 3), so the registers have nothing to buy
+// (MINB there cost the run-time-G build at (8, 128) 13%, PERF.md, PR 18)
+constexpr int SM_SMEM = 228 * 1024, BLOCK_SMEM_RESERVED = 1024;   // Hopper, a block's reserve
+template <int HD, int GL, int GH>
+__host__ __device__ constexpr int min_blocks() {
+  return 2 * (Smem<HD, GL, GH>::bytes(GL) + BLOCK_SMEM_RESERVED) > SM_SMEM ? 1 : MINB;
+}
+
+// GL..GH: the query heads a kv head the build takes (build_lo)
+template <typename T, int HD, int GL, int GH>
+__global__ void __launch_bounds__(NT, (min_blocks<HD, GL, GH>())) attn_kernel(Args a) {
+  const Smem<HD, GL, GH> s(a.G);
   cg::grid_group grid = cg::this_grid();
   trace(0);
   const int items = prep_items(a, s);
   trace(1);
-  scores_stage<T, G, HD>(a, s, items);
+  scores_stage<T>(a, s, items);
   trace(2);
-  prefetch_v<G, HD>(a, s, items);
+  prefetch_v(a, s, items);
   grid.sync();
   trace(3);
-  softmax_v_stage<T, G, HD>(a, s, items);
+  softmax_v_stage<T>(a, s, items);
   trace(4);
   grid.sync();
   trace(5);
   for (int item = blockIdx.x; item < a.b * a.kvh; item += gridDim.x) {
     __syncthreads();                // the previous item is done with the shared memory
-    finish_head<T, G, HD>(a, s, item / a.kvh, item % a.kvh);
+    finish<T>(a, s, item / a.kvh, item % a.kvh);
   }
   trace(6);
 }
@@ -895,63 +1078,73 @@ __global__ void __launch_bounds__(NT, MINB) attn_kernel(Args a) {
 // host side
 // ---------------------------------------------------------------------------
 
-template <typename T, int G, int HD>
-const void* kernel_ptr() {
-  return reinterpret_cast<const void*>(&attn_kernel<T, G, HD>);
+// the kernel of the build GL..GH for dtype_code (0 f32, 1 bf16) at head
+// dim HD, the dynamic shared memory of a launch at G query heads a kv head,
+// and the most a launch of that build takes
+template <int HD, int GL, int GH>
+const void* kernel_t(int dtype_code, int G, int* smem, int* smem_max) {
+  *smem = Smem<HD, GL, GH>::bytes(G);
+  *smem_max = Smem<HD, GL, GH>::bytes(GH);
+  return dtype_code == 1 ? reinterpret_cast<const void*>(&attn_kernel<__nv_bfloat16, HD, GL, GH>)
+                         : reinterpret_cast<const void*>(&attn_kernel<float, HD, GL, GH>);
 }
 
-// the kernel and its dynamic shared memory for dtype_code (0 f32, 1 bf16)
-// and (G, hd); nullptr for a shape it is not built for
-template <int G, int HD>
-const void* kernel_t(int dtype_code, int* smem) {
-  *smem = (int)sizeof(Smem<G, HD>);
-  return dtype_code == 1 ? kernel_ptr<__nv_bfloat16, G, HD>() : kernel_ptr<float, G, HD>();
+// the build of head dim HD that takes G (build_lo)
+template <int HD>
+const void* kernel_hd(int dtype_code, int G, int* smem, int* smem_max) {
+  switch (build_lo(G)) {
+    case 1: return kernel_t<HD, 1, 1>(dtype_code, G, smem, smem_max);
+    case 2: return kernel_t<HD, 2, 2>(dtype_code, G, smem, smem_max);
+    case 3: return kernel_t<HD, 3, 4>(dtype_code, G, smem, smem_max);
+    case 5: return kernel_t<HD, 5, GMAX - 1>(dtype_code, G, smem, smem_max);
+    default: return kernel_t<HD, GMAX, GMAX>(dtype_code, G, smem, smem_max);
+  }
 }
 
-// the (G, hd) the kernels are built for (ops/decode_attention.py _SHAPES)
-inline const void* kernel_of(int dtype_code, int G, int hd, int* smem) {
-  if (G == 8 && hd == 64) return kernel_t<8, 64>(dtype_code, smem);
-  if (G == 1 && hd == 128) return kernel_t<1, 128>(dtype_code, smem);
-  if (G == 2 && hd == 16) return kernel_t<2, 16>(dtype_code, smem);
-  if (G == 2 && hd == 32) return kernel_t<2, 32>(dtype_code, smem);
-  if (G == 4 && hd == 128) return kernel_t<4, 128>(dtype_code, smem);
-  if (G == 8 && hd == 128) return kernel_t<8, 128>(dtype_code, smem);
-  return nullptr;
+// nullptr for a shape this source does not take (ops/decode_attention.py
+// _check_kernel_shape states the rule: G = 1..8 at every head dim, each head
+// dim in its own source)
+inline const void* kernel_of(int dtype_code, int G, int hd, int* smem, int* smem_max) {
+  if (G < 1 || G > GMAX || hd != DECODE_ATTN_HD) return nullptr;
+  return kernel_hd<DECODE_ATTN_HD>(dtype_code, G, smem, smem_max);
 }
 
-// blocks the card holds of `kern` at once (all of them resident: the
-// cooperative launch's ceiling), cached per device and variant
-inline int resident_blocks(const void* kern, int smem, int* grid) {
-  struct Entry { const void* kern; int dev, grid; };
-  static Entry cache[32];
+// blocks the card holds of `kern` at once with `smem` bytes a block (all of
+// them resident: the cooperative launch's ceiling), cached per device,
+// kernel and size. The kernel's dynamic shared memory limit is set to the
+// most any G takes, so every launch of it fits.
+inline int resident_blocks(const void* kern, int smem, int smem_max, int* grid) {
+  struct Entry { const void* kern; int dev, smem, grid; };
+  static Entry cache[128];
   static int n = 0;
   int dev = 0;
   if (int e = (int)cudaGetDevice(&dev)) return e;
   for (int k = 0; k < n; ++k)
-    if (cache[k].kern == kern && cache[k].dev == dev) {
+    if (cache[k].kern == kern && cache[k].dev == dev && cache[k].smem == smem) {
       *grid = cache[k].grid;
       return 0;
     }
   int sms = 0, occ = 0;
   cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, NT, smem);
   if (e != cudaSuccess) return (int)e;
   if (occ < 1) return (int)cudaErrorLaunchOutOfResources;
   *grid = sms * occ;
-  if (n < 32) cache[n++] = Entry{kern, dev, *grid};
+  if (n < 128) cache[n++] = Entry{kern, dev, smem, *grid};
   return 0;
 }
 
 // One launch: the grid is the resident blocks, at most one per item the
 // lengths could give (b * kvh * NC).
-inline int launch(Args a, void* scratch, int G, int hd, int dtype_code, cudaStream_t st) {
-  int smem = 0;
-  const void* kern = kernel_of(dtype_code, G, hd, &smem);
+inline int launch(Args a, void* scratch, int hd, int dtype_code, cudaStream_t st) {
+  int smem = 0, smem_max = 0;
+  const void* kern = kernel_of(dtype_code, a.G, hd, &smem, &smem_max);
   if (!kern || a.b < 1 || a.b > BMAX || a.CH < 8 || a.CH > CHMAX || a.BK % a.CH) return (int)cudaErrorInvalidValue;
-  carve(a, scratch, a.kvh * G, hd);
+  carve(a, scratch, a.kvh * a.G, hd);
   int grid = 0;
-  if (int e = resident_blocks(kern, smem, &grid)) return e;
+  if (int e = resident_blocks(kern, smem, smem_max, &grid)) return e;
   const long long most = (long long)a.b * a.kvh * a.NC;
   grid = (int)(most < grid ? (most > 0 ? most : 1) : grid);
   void* args[] = {&a};
@@ -962,12 +1155,13 @@ inline int launch(Args a, void* scratch, int G, int hd, int dtype_code, cudaStre
 
 // What the compiler gave a variant: {registers a thread, static shared
 // bytes, dynamic shared bytes, local (spill) bytes a thread, threads a
-// block, blocks an SM can hold}. Launches nothing.
+// block, blocks an SM can hold}, the last two at G query heads a kv head.
+// Launches nothing.
 inline int attributes(int* out, int dtype_code, int G, int hd) {
-  int smem = 0;
-  const void* kern = kernel_of(dtype_code, G, hd, &smem);
+  int smem = 0, smem_max = 0;
+  const void* kern = kernel_of(dtype_code, G, hd, &smem, &smem_max);
   if (!kern) return (int)cudaErrorInvalidValue;
-  if (int e = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+  if (int e = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max))
     return e;
   cudaFuncAttributes fa;
   if (int e = (int)cudaFuncGetAttributes(&fa, kern)) return e;
@@ -1017,6 +1211,7 @@ inline int run(DECODE_ATTN_PARAMS) {
   a.out = out;
   a.b = b;
   a.kvh = kvh;
+  a.G = G;
   a.S = S;
   a.CH = CH;
   a.BK = BK;
@@ -1026,7 +1221,53 @@ inline int run(DECODE_ATTN_PARAMS) {
   a.rope = rope;
   a.fold = fold;
   a.scale = scale;
-  return launch(a, scratch, G, hd, dtype_code, static_cast<cudaStream_t>(stream));
+  return launch(a, scratch, hd, dtype_code, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace decode_attn
+
+// ---------------------------------------------------------------------------
+// entry points (the same in every source; decode_attention.cu says what each replaces)
+// ---------------------------------------------------------------------------
+
+// tables null, NC = S / CH chunks, TS = S. dtype_code: 0 = f32 q/out, 1 = bf16.
+extern "C" int decode_attention(DECODE_ATTN_PARAMS) { return decode_attn::run(DECODE_ATTN_ARGS); }
+
+// S = CH = BK = P, NC = max_pages, TS = max_pages * P. The pool's page count
+// is not an argument: the tables index the pool.
+extern "C" int paged_attention(DECODE_ATTN_PARAMS) { return decode_attn::run(DECODE_ATTN_ARGS); }
+
+// Layer `layer` of the stacked int8 cache kq_all/vq_all [L, b, kvh, hd, S]
+// and scales ks_all/vs_all [L, b, S]: only the base pointers move, nothing
+// is copied. k_new/v_new [b, kvh, hd] in q's type (fake-quantized, K
+// rotated), include_new [b] int32: the pair's p rounds to q's type before
+// p.v and is not zeroed for an excluded pair, as in the TPU kernel.
+extern "C" int decode_attention_stacked(const void* q, const void* kq_all, const void* ks_all,
+                                        const void* vq_all, const void* vs_all,
+                                        const void* lens, const void* kcos, const void* ksin,
+                                        const void* k_new, const void* v_new,
+                                        const void* include_new, void* out, void* scratch,
+                                        int b, int kvh, int G, int hd, int S, int CH, int BK,
+                                        int layer, int rope, int dtype_code, float scale,
+                                        void* stream) {
+  const size_t q_off = (size_t)layer * b * kvh * hd * S, s_off = (size_t)layer * b * S;
+  return decode_attn::run(q, static_cast<const uint8_t*>(kq_all) + q_off,
+                          static_cast<const float*>(ks_all) + s_off,
+                          static_cast<const uint8_t*>(vq_all) + q_off,
+                          static_cast<const float*>(vs_all) + s_off, lens, nullptr, kcos, ksin,
+                          k_new, nullptr, v_new, nullptr, include_new, nullptr, nullptr, out,
+                          scratch, b, kvh, G, hd, S, CH, BK, S / CH, S, 0, rope, 2, dtype_code,
+                          scale, stream);
+}
+
+// {registers, static shared bytes, dynamic shared bytes, spill bytes,
+// threads a block, blocks an SM holds} of the kernel a launch at
+// (dtype_code, G, hd) takes.
+extern "C" int decode_attention_attributes(int* out, int dtype_code, int G, int hd) {
+  return decode_attn::attributes(out, dtype_code, G, hd);
+}
+
+#ifdef DECODE_ATTN_TRACE
+// the last launch's stamps (decode_attn.cuh, DECODE_ATTN_TRACE): host [8][4096]
+extern "C" int decode_attention_read_trace(unsigned long long* host) { return decode_attn::read_trace(host); }
+#endif

@@ -103,7 +103,7 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
 }
 
 // Sign-extend the 4-bit fields (bits 0-3 of each byte of w) to int8 bytes
-// (the decode megakernel's unpack; megakernel.cu includes this header).
+// (the decode megakernel's unpack; megakernel.cuh includes this header).
 __device__ __forceinline__ uint32_t sext_nibbles(uint32_t w) {
   return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }

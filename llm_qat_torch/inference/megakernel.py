@@ -4,7 +4,8 @@ Port of the JAX package's ``inference/megakernel.py``. ``decode_step`` has
 the contract of ``model._forward`` at s = 1; ``model._forward`` sends the
 default configuration (``use_megakernel=True``) here when ``supported()``.
 
-``decode_layers`` launches ``csrc/megakernel.cu``, which replaces
+``decode_layers`` launches ``csrc/megakernel.cuh`` (built by ``megakernel.cu``
+at head dim 64 and ``megakernel_d128.cu`` at 128), which replaces
 ``llm_qat_tpu/inference/megakernel.py:_kernel`` (the body of its
 ``pl.pallas_call``): one persistent cooperative launch computes every layer.
 Beside it ``decode_layers_plain`` (and ``decode_step_plain`` around it)
@@ -40,13 +41,16 @@ re-quantizing layers have no last-bit difference to amplify.
 
 Shape rules. ``supported()`` (decided from the configuration, before any
 launch): ``w_bits`` in {4, 8}, ``2 < a_bits <= 8``, ``b <= 32``,
-``max_len % BK == 0``. The CUDA kernel is built for (query heads per kv
-head, head dim) = (8, 64) (TinyLlama-1.1B) and (1, 128) (the LLaMA-7B/13B
-family), ``H`` and ``I`` multiples of 256, projection widths multiples of
-128, ``BK`` and ``S`` multiples of 16, bf16 or f32 (``card_takes``); its
-shared memory does not depend on ``BK`` or ``b``. For another shape on the
-GPU ``decode_layers`` raises ``NotImplementedError`` and ``model._forward``
-sends the step to the scan path (decided from the configuration).
+``max_len % BK == 0``. The CUDA kernel takes 1 to 8 query heads per kv head
+(G, at run time) at head dims 64 and 128 (a build each): MHA heads of 128
+(the LLaMA-7B/13B family), TinyLlama-1.1B's (8, 64), Llama-3's and
+Mistral's (4, 128), Llama-2-70B's (8, 128), Llama-3.2's (4, 64) and
+(3, 128), Yi-34B's (7, 128). Also ``H`` and ``I`` multiples of 256,
+projection widths multiples of 128, ``BK`` and ``S`` multiples of 16, bf16
+or f32 (``card_takes``); its shared memory does not depend on ``BK``, ``b``
+or G. For another shape on the GPU ``decode_layers`` raises
+``NotImplementedError`` naming the rule, and ``model._forward`` sends the
+step to the scan path (decided from the configuration).
 
 The kernel reads a K-contiguous copy of the projections' integers
 (``card_weights``: ``[L, N, K]`` int8, or ``[L, N, K/2]`` split-half
@@ -367,28 +371,35 @@ _PTRS = ("x", "qcos", "qsin", "kcos", "ksin", "qkv_s", "o_s", "gu_s", "dn_s",
          "acc_qkv", "acc_o", "acc_gu", "acc_dn", "amax", "kvmax", "ss", "tcnt",
          "scores", "cmax", "ppart", "pvpart", "stamps", "arrive")
 _INTS = ("L", "b", "H", "I", "kvh", "S", "BK", "CH", "w4", "packed", "rope",
-         "norm_round", "smem", "shape")
+         "norm_round", "smem", "G", "hd")
 _FLOATS = ("eps", "a_qmax", "kv_qmax", "scale")
 
 
 class _Params(ctypes.Structure):
-    """``struct Params`` of ``csrc/megakernel.cu``, field for field."""
+    """``struct Params`` of ``csrc/megakernel.cuh``, field for field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS]
                 + [(n, ctypes.c_int) for n in _INTS]
                 + [(n, ctypes.c_float) for n in _FLOATS])
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# (query heads per kv head, head dim) -> the kernel's instantiation
-SHAPES = {(8, 64): 0, (1, 128): 1}
+# the head dims the kernel is built for, and the most query heads per kv head
+# a launch takes
+HEAD_DIMS = (64, 128)
+MAX_GROUPS = 8
 _TILE = 128            # the products' column tile (and the sum-of-squares partials)
 _TK = 256              # the products' K tile
 _CHUNK = 128           # cache columns of an attention item (at most)
 _MAX_CHUNKS = 256      # attention chunks a slot may have
 
 
-def _fn(name: str, argtypes):
-    f = getattr(_build.library("megakernel"), name)
+# the source of each head dim's build (csrc/megakernel.cuh, one source a
+# head dim so that the two compile side by side)
+_STEMS = {64: "megakernel", 128: "megakernel_d128"}
+
+
+def _fn(name: str, argtypes, hd: int = 64):
+    f = getattr(_build.library(_STEMS[hd]), name)
     if f.argtypes is None:
         f.argtypes, f.restype = argtypes, ctypes.c_int
     return f
@@ -399,9 +410,11 @@ def _card_shape_error(c: LlamaConfig, b: int, S: int, bk: int, dtype):
     groups = c.num_attention_heads // c.kv_heads
     kv_dim = c.kv_heads * c.head_dim
     widths = (c.hidden_size + 2 * kv_dim, c.hidden_size, 2 * c.intermediate_size)
-    if (groups, c.head_dim) not in SHAPES:
-        return (f"{groups} query heads per kv head at head dim {c.head_dim} "
-                f"(built for {' and '.join(f'{g} at {d}' for g, d in SHAPES)})")
+    if (not 1 <= groups <= MAX_GROUPS or c.head_dim not in HEAD_DIMS
+            or groups * c.kv_heads != c.num_attention_heads):
+        return (f"{c.num_attention_heads} query heads over {c.kv_heads} kv heads at head dim "
+                f"{c.head_dim} (built for 1 <= G <= {MAX_GROUPS} query heads per kv head at "
+                f"head dims {' and '.join(map(str, HEAD_DIMS))})")
     if (c.hidden_size % 256 or c.intermediate_size % 256 or any(n % _TILE for n in widths)
             or c.num_attention_heads * c.head_dim != c.hidden_size):
         return (f"H={c.hidden_size}, I={c.intermediate_size} (multiples of 256, H = heads x "
@@ -500,7 +513,7 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
     why = _card_shape_error(c, b, S, bk, dtype)
     if why:
         raise NotImplementedError(
-            f"megakernel.cu does not take {why}; serve this configuration "
+            f"megakernel.cuh does not take {why}; serve this configuration "
             "with use_megakernel=False (the scan path)")
     if card is None:
         card = {n: _k_contiguous(lay[n]["q"]) for n in _PROJ}
@@ -581,11 +594,11 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
         **ptrs,
         L=L, b=b, H=H, I=I, kvh=kvh, S=S, BK=bk, CH=ch, w4=int(w4), packed=int(packed),
         rope=int(c.kv_cache_rope != "post"), norm_round=int(norm_round), smem=0,
-        shape=SHAPES[(nh // kvh, hd)], eps=c.rms_norm_eps,
+        G=nh // kvh, hd=hd, eps=c.rms_norm_eps,
         a_qmax=float(2 ** (c.a_bits - 1) - 1),
         kv_qmax=float(2 ** (min(c.kv_bits, 8) - 1) - 1), scale=1.0 / (hd ** 0.5),
     )
-    f = _fn("megakernel_decode", [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p])
+    f = _fn("megakernel_decode", [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p], hd)
     err = f(ctypes.byref(p), _DTYPE_CODES[dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "megakernel_decode")
     decode_layers.launches += 1
@@ -595,13 +608,12 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
 decode_layers.launches = 0
 
 def kernel_attributes() -> dict:
-    """What the compiler gave each variant of the kernel, by name
-    (``{dtype}_g{G}_d{hd}``): registers a thread, shared bytes (static,
-    dynamic), local (spill) bytes a thread, threads a block and blocks an
-    SM can hold. Launches nothing."""
-    return {f"{dn}_g{g}_d{d}": _build.attributes("megakernel", "megakernel_attributes", code,
-                                                 shape)
-            for dn, code in (("f32", 0), ("bf16", 1)) for (g, d), shape in SHAPES.items()}
+    """What the compiler gave each variant of the kernel (one a head dim and
+    type; G is an argument), by name (``{dtype}_d{hd}``): registers a
+    thread, shared bytes (static, dynamic), local (spill) bytes a thread,
+    threads a block and blocks an SM can hold. Launches nothing."""
+    return {f"{dn}_d{d}": _build.attributes(_STEMS[d], "megakernel_attributes", code, d)
+            for dn, code in (("f32", 0), ("bf16", 1)) for d in HEAD_DIMS}
 
 
 def grid_size(device=None) -> int:

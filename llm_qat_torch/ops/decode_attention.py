@@ -6,9 +6,12 @@ cooperative launch over every SM, items of (slot, chunk of columns, kv
 head)), each beside its plain PyTorch version; a wrapper takes the plain
 version only for tensors on the CPU, and on a CUDA tensor it launches its
 kernel or raises. Each wrapper counts its launches in ``launches``. On the
-card all three take (query heads per kv head, head dim) in ``_SHAPES``
-((8, 64), (1, 128), (2, 16), (2, 32), (4, 128), (8, 128)), f32 or bf16 q,
-and at most 256 slots; another shape raises ``NotImplementedError``.
+card all three take 1 to 8 query heads per kv head (G, at run time) at head
+dims 16, 32, 64 and 128 (``_SHAPES``), f32 or bf16 q, and at most 256
+slots; another shape raises ``NotImplementedError`` naming that rule.
+Each head dim has a source of its own (``_STEMS``: ``csrc/decode_attention.cu``
+at 64, ``decode_attention_d16.cu``, ``_d32.cu``, ``_d128.cu``), with one
+build for each range of G (``_build_range``: 1, 2, 3..4, 5..7, 8).
 
 * ``quantized_decode_attention`` (``csrc/decode_attention.cu``, plain
   ``_decode_attention_plain``) replaces
@@ -20,8 +23,8 @@ and at most 256 slots; another shape raises ``NotImplementedError``.
   _decode_attn_stacked_kernel``: the same attention over layer ``layer`` of a
   stacked cache ``[L, b, kvh, hd, S]`` read in place, with its own fold
   contract (the current pair arrives as fake-quantized floats, K rotated).
-* ``quantized_paged_attention`` (``csrc/paged_attention.cu``, plain
-  ``_paged_attention_plain``) replaces
+* ``quantized_paged_attention`` (the same source, entry point
+  ``paged_attention``; plain ``_paged_attention_plain``) replaces
   ``llm_qat_tpu/ops/pallas/decode_attention.py:_paged_attn_kernel`` and
   ``_paged_attn_kernel_fold``: the same attention over a shared page pool
   ``[n_pages, kvh, hd(/2), P]`` through per-slot block tables (P = 128 on
@@ -298,11 +301,17 @@ def _paged_attention_plain(q, k_q, k_s, v_q, v_s, lengths, block_tables,
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/decode_attn.cuh: the (query heads per kv head, head dim) it is built
-# for, its widest chunk, its most slots, and the page size of the paged entry
-# (TinyLlama-1.1B, the LLaMA-7B family, the tiny test and pipeline models, the
-# accuracy experiment's model, LLaMA-3-8B's 32 / 8 heads, LLaMA-2-70B's 64 / 8)
-_SHAPES = ((8, 64), (1, 128), (2, 16), (2, 32), (4, 128), (8, 128))
+# csrc/decode_attn.cuh: the head dims it is built for (a build for each
+# range of G there, _build_range), the most query heads per kv
+# head a launch takes, every (G, head dim) pair that gives, its widest
+# chunk, its most slots, and the page size of the paged entry
+_HEAD_DIMS = (16, 32, 64, 128)
+_MAX_GROUPS = 8
+_SHAPES = tuple((g, hd) for hd in _HEAD_DIMS for g in range(1, _MAX_GROUPS + 1))
+# the source that builds each head dim (csrc/decode_attn.cuh DECODE_ATTN_HD),
+# so the four compile side by side
+_STEMS = {16: "decode_attention_d16", 32: "decode_attention_d32", 64: "decode_attention",
+          128: "decode_attention_d128"}
 _CHUNK = 128
 _MAX_SLOTS = 256
 _PAGED_P = 128
@@ -362,13 +371,14 @@ def _fold_operands(what, fold, b, kvh, hd, rope, dev):
 
 
 def _check_kernel_shape(what, q, groups, hd, b):
-    """Raise unless ``(groups, hd)`` is one the kernels are built for, with
-    an f32/bf16 q and at most 256 slots."""
+    """Raise unless the kernels take ``groups`` query heads per kv head at
+    head dim ``hd`` (1 <= G <= 8, hd in 16, 32, 64, 128), with an f32/bf16
+    q and at most 256 slots."""
     if (groups, hd) not in _SHAPES or q.dtype not in _DTYPE_CODES or b > _MAX_SLOTS:
         raise NotImplementedError(
-            f"{what}: decode_attn.cuh is built for (query heads per kv head, head dim) in "
-            f"{list(_SHAPES)}, f32/bf16 q, at most {_MAX_SLOTS} slots; got G={groups}, "
-            f"hd={hd}, {q.dtype}, b={b}")
+            f"{what}: decode_attn.cuh takes 1 <= G <= {_MAX_GROUPS} query heads per kv head "
+            f"at head dims {_HEAD_DIMS}, f32/bf16 q, at most {_MAX_SLOTS} slots; got "
+            f"G={groups}, hd={hd}, {q.dtype}, b={b}")
 
 
 def _check_contiguous_kernel_shape(what, q, groups, hd, S, b=1):
@@ -389,14 +399,46 @@ def _launch(stem, fn, what, ptrs, ints, scale, dev):
     _build.check(err, what)
 
 
+def _build_range(groups: int) -> tuple:
+    """(fewest, most) G of the build that takes ``groups`` query heads per
+    kv head at any head dim (``decode_attn.cuh: build_lo``): 1, 2, 3..4, 5..7
+    and 8."""
+    if groups <= 2:
+        return groups, groups
+    if groups <= 4:
+        return 3, 4
+    return (5, _MAX_GROUPS - 1) if groups < _MAX_GROUPS else (_MAX_GROUPS, _MAX_GROUPS)
+
+
+def _build_name(groups: int, hd: int, dtype: str) -> str:
+    """``kernel_attributes``' name of the build that takes ``groups`` at
+    head dim ``hd`` with a ``dtype`` ("bf16" or "f32") q."""
+    lo, hi = _build_range(groups)
+    return f"decode_attention_d{hd}_g{lo}" + (f"-{hi}" if hi > lo else "") + f"_{dtype}"
+
+
 def kernel_attributes() -> dict:
-    """What the compiler gave every variant of ``csrc/decode_attn.cuh`` (K3,
-    K7, K8), by name ``decode_attention_g{G}_d{hd}_{bf16|f32}``: registers a
-    thread, shared bytes (static, dynamic), local (spill) bytes a thread,
-    threads a block and blocks an SM can hold. Launches nothing."""
-    return {f"decode_attention_g{g}_d{hd}_{name}": _build.attributes(
-                "decode_attention", "decode_attention_attributes", code, g, hd)
-            for g, hd in _SHAPES for name, code in (("bf16", 1), ("f32", 0))}
+    """What the compiler gave every build of ``csrc/decode_attn.cuh`` (K3,
+    K7, K8), one for each head dim, range of G (``_build_range``) and q type,
+    by ``_build_name``: registers a thread, shared bytes (static, dynamic),
+    local (spill) bytes a thread, threads a block and blocks an SM can hold
+    (at the fewest G the build takes), and ``blocks_per_sm_by_g``, the blocks
+    an SM a launch at each of its G gets (the shared memory is carved by G).
+    Launches nothing."""
+    out = {}
+    for hd in _HEAD_DIMS:
+        for name, code in (("bf16", 1), ("f32", 0)):
+            def attrs(g):
+                return _build.attributes(_STEMS[hd], "decode_attention_attributes",
+                                         code, g, hd)
+
+            for g in range(1, _MAX_GROUPS + 1):
+                key = _build_name(g, hd, name)
+                if key not in out:
+                    out[key] = attrs(g)
+                    out[key]["blocks_per_sm_by_g"] = {}
+                out[key]["blocks_per_sm_by_g"][g] = attrs(g)["blocks_per_sm"]
+    return out
 
 
 def quantized_decode_attention(
@@ -453,7 +495,7 @@ def quantized_decode_attention(
     out = torch.empty_like(qc)
     ptrs = [qc, kq, ksc, vq, vsc, lens, None, kc, ksn, *fold_t, out,
             _scratch(b, nh, S // ch, ch, hd, dev)]
-    _launch("decode_attention", "decode_attention", what, ptrs,
+    _launch(_STEMS[hd], "decode_attention", what, ptrs,
             [b, kvh, groups, hd, S, ch, blk, S // ch, S, int(packed), int(rope),
              int(fold is not None), _DTYPE_CODES[q.dtype]], 1.0 / math.sqrt(hd), dev)
     quantized_decode_attention.launches += 1
@@ -529,7 +571,7 @@ def quantized_decode_attention_stacked(
     out = torch.empty_like(qc)
     ptrs = [qc, k_q_all, k_s_all, v_q_all, v_s_all, lens, kc, ksn, kn, vn, inc, out,
             _scratch(b, nh, S // ch, ch, hd, dev)]
-    _launch("decode_attention", "decode_attention_stacked", what, ptrs,
+    _launch(_STEMS[hd], "decode_attention_stacked", what, ptrs,
             [b, kvh, groups, hd, S, ch, blk, layer, int(rope), _DTYPE_CODES[q.dtype]],
             1.0 / math.sqrt(hd), dev)
     quantized_decode_attention_stacked.launches += 1
@@ -580,8 +622,8 @@ def quantized_paged_attention(
         raise ValueError(f"{what}: q on {q.device}")
     _check_kernel_shape(what, q, groups, hd, b)
     if P != _PAGED_P:
-        raise NotImplementedError(f"{what}: paged_attention.cu is built for page size "
-                                  f"{_PAGED_P}; got P={P}")
+        raise NotImplementedError(f"{what}: decode_attn.cuh's paged entry is built for "
+                                  f"page size {_PAGED_P}; got P={P}")
     dev = q.device
     for name, t, dts in (("k_q", k_q, (torch.int8, torch.uint8)),
                          ("v_q", v_q, (torch.int8, torch.uint8)),
@@ -607,7 +649,7 @@ def quantized_paged_attention(
     out = torch.empty_like(qc)
     ptrs = [qc, k_q, k_s, v_q, v_s, lens, bt, kc, ksn, *fold_t, out,
             _scratch(b, nh, max_pages, P, hd, dev)]
-    _launch("paged_attention", "paged_attention", what, ptrs,
+    _launch(_STEMS[hd], "paged_attention", what, ptrs,
             [b, kvh, groups, hd, P, P, P, max_pages, max_pages * P, int(packed), int(rope),
              int(fold is not None), _DTYPE_CODES[q.dtype]], 1.0 / math.sqrt(hd), dev)
     quantized_paged_attention.launches += 1

@@ -241,12 +241,12 @@ def test_decode_attention_kernel_mha_head_dim_128(gen, packed, rope, dtype):
 
 
 def test_decode_attention_kernel_refuses_shapes_it_is_not_built_for(gen):
-    q = torch.zeros(1, 4, 128, device="cuda")
+    q = torch.zeros(1, 18, 128, device="cuda")
     kq = torch.zeros(1, 2, 128, 64, dtype=torch.int8, device="cuda")
     ks = torch.ones(1, 64, device="cuda")
     lens = torch.ones(1, dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match=r"\(8, 64\), \(1, 128\)"):
-        DA.quantized_decode_attention(q, kq, ks, kq, ks, lens, rope=False)   # G = 2
+    with pytest.raises(NotImplementedError, match=r"1 <= G <= 8 query heads per kv head"):
+        DA.quantized_decode_attention(q, kq, ks, kq, ks, lens, rope=False)   # G = 9
     # no length limit any more: a cache past the old 32768 / G runs; a
     # length that is no multiple of 8 is refused
     kq = torch.zeros(1, 1, 128, 32768 + 64, dtype=torch.int8, device="cuda")
@@ -278,9 +278,12 @@ def _quant_fold(gen, b, kvh, hd, packed, active, kc, ksn, pos):
             kc[:, pos].T.contiguous(), ksn[:, pos].T.contiguous())
 
 
-# kv heads of each built (G, hd) in these cases: TinyLlama-1.1B's, LLaMA-7B's,
-# the tiny models', the accuracy model's, LLaMA-3-8B's, LLaMA-2-70B's
-DECODE_KVH = {(8, 64): 4, (1, 128): 32, (2, 16): 2, (2, 32): 4, (4, 128): 8, (8, 128): 8}
+# kv heads of each (G, hd) in these cases: TinyLlama-1.1B's, LLaMA-7B's, the
+# tiny models', the accuracy model's, then 8 (the public GQA checkpoints')
+# for every other G of 1..8 at head dims 64 and 128
+DECODE_KVH = {(8, 64): 4, (1, 128): 32, (2, 16): 2, (2, 32): 4,
+              **{(g, hd): 8 for hd in (64, 128) for g in range(1, 9)
+                 if (g, hd) not in ((8, 64), (1, 128))}}
 
 
 @pytest.mark.parametrize("G,hd", list(DECODE_KVH))
@@ -290,7 +293,7 @@ DECODE_KVH = {(8, 64): 4, (1, 128): 32, (2, 16): 2, (2, 32): 4, (4, 128): 8, (8,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_attention_kernel_block_edges(gen, G, hd, packed, rope, fold, dtype):
     """S = 2048 at the JAX picker's block (1024 at (8, 64) with 4 kv heads,
-    256 at (1, 128) with 32) at every built (G, hd): lengths 0, 1, 127, 128,
+    256 at (1, 128) with 32) at every (G, hd) of the table: lengths 0, 1, 127, 128,
     129, bk - 1, bk, bk + 1 and S, slot 2 inactive; the same bits on a
     second launch."""
     kvh, S = DECODE_KVH[(G, hd)], 2048
@@ -355,12 +358,26 @@ def test_decode_attention_kernel_small_chunks(gen):
 
 
 def test_decode_attention_kernel_attributes(gen):
-    """Every variant of decode_attn.cuh (K3, K7, K8): no spill, one block an
-    SM at least (the cooperative launch needs them resident)."""
+    """Every build of decode_attn.cuh (K3, K7, K8: one for each head dim,
+    range of G and q type): no spill, one block an SM at least at every G
+    (the cooperative launch needs them resident), two or more where the
+    carve of G heads leaves room (every G below head dim 128, and G <= 2
+    there); the builds of a head dim take G = 1..8 between them, each G in
+    the build ``_build_name`` names."""
     attrs = DA.kernel_attributes()
-    assert len(attrs) == 2 * len(DECODE_KVH)
+    names = {DA._build_name(g, hd, dt) for g in range(1, 9) for hd in DA._HEAD_DIMS
+             for dt in ("bf16", "f32")}
+    assert set(attrs) == names
+    for hd in DA._HEAD_DIMS:
+        for dt in ("bf16", "f32"):
+            for g in range(1, 9):
+                assert g in attrs[DA._build_name(g, hd, dt)]["blocks_per_sm_by_g"], (hd, dt, g)
     for name, a in attrs.items():
         assert a["spill_bytes"] == 0 and a["blocks_per_sm"] >= 1, (name, a)
+        by_g = a["blocks_per_sm_by_g"]
+        assert all(n >= 1 for n in by_g.values()), (name, a)
+        if "_d128_" not in name or max(by_g) <= 2:
+            assert min(by_g.values()) >= 2, (name, a)
 
 
 def _random_pool(n_pages, kvh, hd, packed, gen):
@@ -440,8 +457,8 @@ def test_paged_attention_kernel_builds_its_own_tables_and_refuses_other_shapes(g
     a = DA.quantized_paged_attention(q, *pool, lens, bt, kc, ksn, fd)
     b = DA.quantized_paged_attention(q, *pool, lens, bt, None, None, fd)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match=r"\(8, 64\), \(1, 128\)"):
-        DA.quantized_paged_attention(q[:, :16], *pool, lens, bt)        # G = 4
+    with pytest.raises(NotImplementedError, match=r"1 <= G <= 8 query heads per kv head"):
+        DA.quantized_paged_attention(torch.cat([q, q[:, :4]], 1), *pool, lens, bt)   # G = 9
     small = tuple(t[..., :64].contiguous() for t in pool)
     with pytest.raises(NotImplementedError, match="page size 128"):
         DA.quantized_paged_attention(q, *small, lens, bt)
@@ -478,7 +495,8 @@ def test_stacked_gemm_kernels_bit_exact(gen, layer, out_dtype):
 @pytest.mark.parametrize("rope", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kvh,G,hd", [(4, 8, 64), (32, 1, 128), (2, 2, 16), (4, 2, 32),
-                                      (8, 4, 128), (8, 8, 128)])
+                                      (8, 4, 128), (8, 8, 128), (12, 1, 64), (8, 3, 128),
+                                      (8, 4, 64), (8, 7, 128)])
 def test_stacked_decode_attention_kernel(gen, layer, rope, dtype, kvh, G, hd):
     L, b, S = 3, 8, 512
     kq = torch.randint(-127, 128, (L, b, kvh, hd, S), device="cuda", generator=gen).to(torch.int8)
@@ -700,9 +718,9 @@ def test_decode_megakernel_mha_head_dim_128_against_plain(gen, mode, rope_mode, 
 
 
 def test_decode_megakernel_kernel_attributes(gen):
-    """Every variant of the kernel (bf16 and f32, (8, 64) and (1, 128)) keeps
-    its registers (no spill) and fits one block an SM: the cooperative grid
-    is one block per SM."""
+    """Every variant of the kernel (bf16 and f32 at head dims 64 and 128, G
+    at run time) keeps its registers (no spill) and fits one block an SM:
+    the cooperative grid is one block per SM."""
     attrs = MK.kernel_attributes()
     assert len(attrs) == 4
     for name, a in attrs.items():
@@ -711,13 +729,34 @@ def test_decode_megakernel_kernel_attributes(gen):
 
 
 def test_decode_megakernel_refuses_shapes_it_is_not_built_for(gen):
-    cfg = LLAMA_7B.replace(num_hidden_layers=1, vocab_size=256, num_key_value_heads=16,
-                           w_bits=8, a_bits=8, kv_bits=8)
+    cfg = LLAMA_7B.replace(num_hidden_layers=1, vocab_size=256, hidden_size=3072,
+                           intermediate_size=8192, w_bits=8, a_bits=8, kv_bits=8)  # head dim 96
     qp = Q.quantize_params(P.init_params(cfg, seed=0, dtype=torch.bfloat16), cfg)
     cache = M.init_serving_cache(cfg, 1, 256)
     assert not MK.card_takes(cfg, 1, 256, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="2 query heads per kv head at head dim 128"):
+    with pytest.raises(NotImplementedError,
+                       match="1 <= G <= 8 query heads per kv head at head dims 64 and 128"):
         MK.decode_step(qp, cfg, [[3]], [0], [True], cache)
+
+
+@pytest.mark.parametrize("G", list(range(1, 9)))
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("mode", list(K9_MODES))
+@pytest.mark.parametrize("rope_mode", ["pre", "post"])
+def test_decode_megakernel_every_gqa_shape_against_plain(gen, G, hd, mode, rope_mode):
+    """G query heads per kv head at head dims 64 and 128 (8 kv heads, the
+    public GQA checkpoints'), a 2-layer cut with an intermediate size of
+    2048, b = 8, max_len 2048 at the JAX picker's block: lengths as the
+    TinyLlama case."""
+    kvh = 8
+    cfg = LLAMA_7B.replace(num_hidden_layers=2, hidden_size=kvh * G * hd, intermediate_size=2048,
+                           num_attention_heads=kvh * G, num_key_value_heads=kvh,
+                           kv_cache_rope=rope_mode, **K9_MODES[mode])
+    assert MK.card_takes(cfg, 8, 2048, torch.bfloat16)
+    lens = [48, 0, 282, 511, 512, 513, 1024, 1400]
+    active = [True, True, False, True, True, True, True, True]
+    lg = _megakernel_against_plain(cfg, lens, active, torch.bfloat16, gen, 2048)
+    assert lg.shape == (8, 1, cfg.vocab_size)
 
 
 @pytest.mark.parametrize("S", [16, 100, 256, 1100])

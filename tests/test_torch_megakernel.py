@@ -487,8 +487,8 @@ CARD_GRID = {
     "tinyllama": (JC.TINYLLAMA_1B, True),
     "llama7b": (JC.LLAMA_7B, True),
     "llama13b": (JC.LLAMA_13B, True),
-    "g4_d64": (JC.TINYLLAMA_1B.replace(num_key_value_heads=8), False),
-    "g2_d128": (JC.LLAMA_7B.replace(num_key_value_heads=16), False),
+    "g4_d64": (JC.TINYLLAMA_1B.replace(num_key_value_heads=8), True),
+    "g2_d128": (JC.LLAMA_7B.replace(num_key_value_heads=16), True),
     "off_grid": (JC.LLAMA_7B.replace(intermediate_size=11000), False),
 }
 
@@ -496,8 +496,9 @@ CARD_GRID = {
 @pytest.mark.parametrize("name", list(CARD_GRID))
 @pytest.mark.parametrize("w_bits,kv_bits", [(8, 8), (4, 4)])
 def test_card_takes_the_shapes_it_is_built_for(name, w_bits, kv_bits):
-    """(8, 64) at TinyLlama-1.1B's widths, (1, 128) at LLaMA-7B's and 13B's;
-    not (4, 64), (2, 128), or an intermediate size off the 256 grid."""
+    """(8, 64) at TinyLlama-1.1B's widths, (1, 128) at LLaMA-7B's and 13B's,
+    and since the kernel takes any G of 1..8 at head dims 64 and 128 also
+    (4, 64) and (2, 128); not an intermediate size off the 256 grid."""
     base, takes = CARD_GRID[name]
     cfg = tcfg(base.replace(w_bits=w_bits, a_bits=8, kv_bits=kv_bits,
                             kv_cache_pack=kv_bits == 4))

@@ -13,6 +13,15 @@ tests hold each new kernel instantiation against, and the wrappers' gates.
   bf16 steps + 1e-2 x the median (``test_torch_flash_backward.py``'s limit).
 * The gates: what the kernels are built for passes, anything else raises and
   names the built set.
+* The GQA head shapes of public checkpoints (1 to 8 query heads per kv head
+  at head dims 64 and 128, ``GQA_SHAPES``): K3/K7/K8 as above, the
+  whole-model decode step K9 (its plain version against JAX's
+  ``megakernel.decode_step`` in interpret mode, W8KV8 "pre" and W4KV4
+  packed: integers equal, scales rtol 1e-6, logits 1e-5, as
+  ``test_torch_megakernel.py``), a greedy engine rollout at (3, 128) against
+  the JAX serving loop (tokens equal), and the card routing: every public
+  config that JAX's ``supported()`` sends to its megakernel is one the
+  card's K9 and K3/K8 gates take.
 """
 
 import jax
@@ -21,15 +30,28 @@ import numpy as np
 import pytest
 import torch
 
+from llm_qat_tpu.inference import megakernel as JMK
+from llm_qat_tpu.models import config as JC
 from llm_qat_tpu.ops.pallas import decode_attention as JDA
 from llm_qat_tpu.ops.pallas import flash_attention as JFA
 from llm_qat_tpu.ops.pallas import quant_matmul as JQM
+from llm_qat_torch.inference import engine as TE
+from llm_qat_torch.inference import megakernel as TMK
 from llm_qat_torch.ops import decode_attention as TDA
 from llm_qat_torch.ops import flash_attention as TFA
 from llm_qat_torch.ops import quant_matmul as TQM
 
+from tests.test_torch_megakernel import BASE as MK_BASE
+from tests.test_torch_megakernel import assert_step_equal, both_steps
+from tests.test_torch_serving import _jax_greedy, both_qparams, tcfg
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 NEW_DECODE_SHAPES = [(2, 16), (2, 32), (4, 128), (8, 128)]
+# (query heads per kv head, head dim) of public GQA checkpoints: Llama-3.2-1B's
+# (4, 64), Llama-3.2-3B's (3, 128), Llama-3-8B's and Mistral-7B's (4, 128),
+# Yi-34B's (7, 128), Llama-2-70B's (8, 128), and MHA at head dim 64
+GQA_SHAPES = [(1, 64), (3, 128), (4, 64), (4, 128), (7, 128), (8, 128)]
+DECODE_SHAPES = NEW_DECODE_SHAPES + [s for s in GQA_SHAPES if s not in NEW_DECODE_SHAPES]
 
 
 def _t(a):
@@ -103,7 +125,7 @@ def _fold(rng, b, kvh, hd, active, packed):
             np.asarray(active, np.int32), kc[:, pos].T.copy(), ks[:, pos].T.copy())
 
 
-@pytest.mark.parametrize("G,hd", NEW_DECODE_SHAPES)
+@pytest.mark.parametrize("G,hd", DECODE_SHAPES)
 @pytest.mark.parametrize("packed", [False, True])
 def test_decode_attention_plain_matches_jax_at_the_new_shapes(G, hd, packed):
     """K3: ragged lengths, an empty slot with its pair folded in, slot 1
@@ -123,7 +145,7 @@ def test_decode_attention_plain_matches_jax_at_the_new_shapes(G, hd, packed):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("G,hd", NEW_DECODE_SHAPES)
+@pytest.mark.parametrize("G,hd", DECODE_SHAPES)
 @pytest.mark.parametrize("packed", [False, True])
 def test_paged_attention_plain_matches_jax_at_the_new_shapes(G, hd, packed):
     """K8: pages of 8, shuffled tables whose unused entries point far outside
@@ -152,7 +174,7 @@ def test_paged_attention_plain_matches_jax_at_the_new_shapes(G, hd, packed):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("G,hd", NEW_DECODE_SHAPES)
+@pytest.mark.parametrize("G,hd", DECODE_SHAPES)
 def test_stacked_decode_attention_plain_matches_jax_at_the_new_shapes(G, hd):
     """K7 on layer 1 of a 3-layer stacked int8 cache: ragged lengths, an
     empty slot whose pair is included, a slot whose pair is excluded."""
@@ -171,12 +193,141 @@ def test_stacked_decode_attention_plain_matches_jax_at_the_new_shapes(G, hd):
 
 
 def test_decode_gate_takes_the_built_shapes_and_names_them():
+    """Every G of 1..8 at head dims 16, 32, 64 and 128 passes; past that the
+    gate raises and names the rule."""
     q = torch.zeros(1, 1, dtype=torch.bfloat16)
     for G, hd in TDA._SHAPES:
         TDA._check_kernel_shape("decode", q, G, hd, 8)
     assert set(NEW_DECODE_SHAPES) <= set(TDA._SHAPES)
-    for G, hd in ((2, 64), (4, 64), (2, 128), (1, 16), (8, 32)):
-        with pytest.raises(NotImplementedError, match=r"\(2, 16\), \(2, 32\), \(4, 128\)"):
+    assert set(TDA._SHAPES) == {(g, hd) for g in range(1, 9) for hd in (16, 32, 64, 128)}
+    for G, hd in ((9, 64), (16, 128), (2, 96), (1, 8), (4, 256), (0, 64)):
+        with pytest.raises(NotImplementedError,
+                           match=r"1 <= G <= 8 query heads per kv head at head dims "
+                                 r"\(16, 32, 64, 128\)"):
+            TDA._check_kernel_shape("decode", q, G, hd, 8)
+
+
+# ---------------------------------------------------------------- K9 and routing at the GQA shapes
+
+GQA_MODES = {"w8kv8_pre": dict(w_bits=8, kv_bits=8, kv_cache_pack=False),
+             "w4kv4_packed": dict(w_bits=4, kv_bits=4, kv_cache_pack=True)}
+
+
+def gqa_cfg(G, hd, **kw):
+    """The tiny test model (2 layers) with G query heads per kv head at head
+    dim ``hd``: 1 kv head at 128, 2 at 64."""
+    kvh = 1 if hd == 128 else 2
+    return MK_BASE.replace(hidden_size=kvh * G * hd, intermediate_size=256,
+                           num_attention_heads=kvh * G, num_key_value_heads=kvh, **kw)
+
+
+@pytest.mark.parametrize("G,hd", GQA_SHAPES)
+@pytest.mark.parametrize("mode", list(GQA_MODES))
+def test_decode_step_matches_jax_at_every_gqa_shape(G, hd, mode):
+    """K9's plain version through the port's decode step against JAX's
+    decode_step (its Pallas kernel in interpret mode): an active slot, an
+    empty active slot, an inactive slot."""
+    cfg = gqa_cfg(G, hd, **GQA_MODES[mode])
+    assert cfg.head_dim == hd and cfg.num_attention_heads // cfg.kv_heads == G
+    assert JMK.supported(cfg, 3, 32) and TMK.supported(tcfg(cfg), 3, 32)
+    tl, tc, jl, jc, _ = both_steps(cfg, [5, 0, 11], [True, True, False])
+    assert_step_equal(tl, tc, jl, jc, rows=[0, 1])
+
+
+@pytest.mark.parametrize("use_megakernel", [True, False])
+def test_engine_greedy_matches_jax_at_three_heads_of_128(use_megakernel):
+    """Llama-3.2-3B's (3, 128) heads: 3 requests through a 2-slot engine on
+    the default path (K9's plain version) and on the scan path (K3's) give
+    the JAX serving loop's greedy tokens."""
+    cfg = gqa_cfg(3, 128, w_bits=8, kv_bits=8, use_megakernel=use_megakernel)
+    jq, tq = both_qparams(cfg)
+    rng = np.random.default_rng(6)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n))) for n in (3, 9, 20)]
+    eng = TE.InferenceEngine(tq, tcfg(cfg), max_batch=2, max_len=64, steps_per_sync=4,
+                             dtype=torch.float32, device="cpu")
+    uids = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    done = {r.uid: r.output for r in eng.run()}
+    for uid, p in zip(uids, prompts):
+        assert done[uid] == _jax_greedy(jq, cfg, p, 5), (uid, p)
+
+
+# Public config.json widths: (hidden, intermediate, heads, kv heads), each
+# loadable through LlamaConfig.from_json in both packages
+PUBLIC_GQA = {
+    "Meta-Llama-3-8B": (4096, 14336, 32, 8),
+    "Mistral-7B-v0.1": (4096, 14336, 32, 8),
+    "SOLAR-10.7B": (4096, 14336, 32, 8),
+    "Llama-2-70B": (8192, 28672, 64, 8),
+    "Meta-Llama-3-70B": (8192, 28672, 64, 8),
+    "Yi-6B": (4096, 11008, 32, 4),
+    "Llama-3.2-1B": (2048, 8192, 32, 8),
+    "Llama-3.2-3B": (3072, 8192, 24, 8),
+    "Yi-34B": (7168, 20480, 56, 8),
+    "llama-68m": (768, 3072, 12, 12),
+    "TinyLlama-1.1B": (2048, 5632, 32, 4),
+    "LLaMA-7B": (4096, 11008, 32, 32),
+    "LLaMA-13B": (5120, 13824, 40, 40),
+}
+
+
+# the GQA rows whose K9 routing the card must take at b = 8, S = 1024 and 2048
+CARD_MUST_TAKE = ("Meta-Llama-3-8B", "Llama-2-70B", "Llama-3.2-1B", "Llama-3.2-3B", "Yi-34B",
+                  "Mistral-7B-v0.1", "SOLAR-10.7B", "Meta-Llama-3-70B", "Yi-6B", "llama-68m")
+
+
+@pytest.mark.parametrize("name", list(PUBLIC_GQA))
+@pytest.mark.parametrize("w_bits,kv_bits", [(8, 8), (4, 4)])
+def test_card_routing_takes_every_public_gqa_shape(name, w_bits, kv_bits):
+    """At b = 8 and S = 1024, 2048: wherever JAX's megakernel.supported()
+    is True (for every GQA row, ``CARD_MUST_TAKE``), the card's K9 takes the
+    config (card_takes) at JAX's KV block and K3/K8's gates take its
+    (G, hd)."""
+    H, I, nh, kvh = PUBLIC_GQA[name]
+    jcfg = JC.LlamaConfig(hidden_size=H, intermediate_size=I, num_attention_heads=nh,
+                          num_key_value_heads=kvh, w_bits=w_bits, a_bits=8, kv_bits=kv_bits,
+                          kv_cache_pack=kv_bits == 4)
+    cfg = tcfg(jcfg)
+    G, hd = nh // kvh, H // nh
+    q = torch.zeros(1, 1, dtype=torch.bfloat16)
+    for S in (1024, 2048):
+        if not JMK.supported(jcfg, 8, S):        # JAX serves it on its scan path
+            assert name not in CARD_MUST_TAKE
+            continue
+        assert TMK.pick_bk(cfg, 8, S) == JMK._pick_nc_bk(jcfg, 8, S)[1]
+        assert TMK.card_takes(cfg, 8, S, torch.bfloat16), (
+            name, S, TMK._card_shape_error(cfg, 8, S, TMK.pick_bk(cfg, 8, S), torch.bfloat16))
+        TDA._check_contiguous_kernel_shape("decode", q, G, hd, S, 8)
+        TDA._check_kernel_shape("paged", q, G, hd, 8)
+
+
+def test_jax_kv_blocks_at_llama3_8b_and_llama2_70b():
+    """(nc, bk, kh) of JAX's picker at W8, b = 8, S = 1024: the block K9 walks."""
+    for name, want in (("Meta-Llama-3-8B", (256, 128, 4)), ("Llama-2-70B", (128, 128, 2))):
+        H, I, nh, kvh = PUBLIC_GQA[name]
+        jcfg = JC.LlamaConfig(hidden_size=H, intermediate_size=I, num_attention_heads=nh,
+                              num_key_value_heads=kvh, w_bits=8, a_bits=8, kv_bits=8)
+        assert JMK._pick_nc_bk(jcfg, 8, 1024) == want
+        assert TMK.pick_bk(tcfg(jcfg), 8, 1024) == want[1]
+
+
+@pytest.mark.parametrize("G,hd", [(9, 128), (16, 64), (4, 96), (2, 32)])
+def test_card_routing_refuses_shapes_outside_the_rule_and_names_it(G, hd):
+    """G = 9, hd = 96: K9 refuses and names its rule (the step then takes the
+    scan path); hd = 32 is K3/K8's but not K9's; K3/K8 refuse G past 8 and
+    hd 96, naming theirs."""
+    kvh = 8
+    cfg = tcfg(JC.LlamaConfig(hidden_size=kvh * G * hd, intermediate_size=4096,
+                              num_attention_heads=kvh * G, num_key_value_heads=kvh,
+                              w_bits=8, a_bits=8, kv_bits=8))
+    assert cfg.head_dim == hd
+    assert TMK.supported(cfg, 8, 2048) and not TMK.card_takes(cfg, 8, 2048, torch.bfloat16)
+    why = TMK._card_shape_error(cfg, 8, 2048, TMK.pick_bk(cfg, 8, 2048), torch.bfloat16)
+    assert "1 <= G <= 8 query heads per kv head at head dims 64 and 128" in why
+    q = torch.zeros(1, 1, dtype=torch.bfloat16)
+    if (G, hd) in TDA._SHAPES:
+        TDA._check_kernel_shape("decode", q, G, hd, 8)
+    else:
+        with pytest.raises(NotImplementedError, match=r"1 <= G <= 8 .* \(16, 32, 64, 128\)"):
             TDA._check_kernel_shape("decode", q, G, hd, 8)
 
 

@@ -342,7 +342,8 @@ def gemm_shape(timer, gen, QM, name, fn, plain, model, proj, M, K, N, out_dtype=
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
 
 
-def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed, S=2048, lens_l=None):
+def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed, S=2048, lens_l=None,
+                           plain_reps=0):
     """K3 at the decode shape: b=8 slots, S=2048, TinyLlama-1.1B's heads
     (kvh=4, G=8, hd=64) or LLaMA-7B's (kvh=32, G=1, hd=128), slot
     lengths those of the served prompts after half the new tokens (or
@@ -352,7 +353,9 @@ def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed, S=2048, lens_l=No
     LLaMA-7B's: the lengths 48..1032 cross it), round to bf16 at the same
     points against the same running maximum, and take their sums in
     float64: held element-wise to ATTN_ULPS bf16 steps plus ATTN_FLOOR of
-    the median output (``agreement``); the same bits on a second launch."""
+    the median output (``agreement``); the same bits on a second launch.
+    ``plain_reps``: the plain version's timed runs (the Timer's default
+    unless given; a block of 8 columns makes it slow, see PAD_DECODE)."""
     b = 8
     hdc = hd // 2 if packed else hd
     if packed:
@@ -387,7 +390,7 @@ def decode_attention_phase(timer, gen, DA, kvh, G, hd, packed, S=2048, lens_l=No
     bk, ch = DA._kernel_chunk(S, kvh, hd, 1024)
     items, grid = attn_grid(DA, G, hd, kvh, lens_l, ch, S // ch)
     ms = timer(lambda: DA.quantized_decode_attention(*args, **kw))
-    plain_ms = timer(lambda: DA._decode_attention_plain(*args, **kw))
+    plain_ms = timer(lambda: DA._decode_attention_plain(*args, **kw), reps=plain_reps)
     tot = sum(lens_l)
     nbytes = (2 * kvh * hdc * tot + 2 * 4 * tot          # K/V ints, scales
               + 2 * 4 * (hd // 2) * max(lens_l)          # RoPE tables
@@ -411,8 +414,11 @@ def attn_grid(DA, G, hd, kvh, lens_l, ch, n_chunks):
     the live chunks of ``ch`` columns times the kv heads, and the resident
     blocks of the cooperative launch, at most one an item the cache could
     give."""
+    from llm_qat_torch.ops import _build
+
     items = sum(-(-min(n, n_chunks * ch) // ch) for n in lens_l) * kvh
-    per_sm = DA.kernel_attributes()[DA._build_name(G, hd, "bf16")]["blocks_per_sm_by_g"][G]
+    per_sm = _build.attributes(DA._stem(hd), "decode_attention_attributes", 1, G,
+                               hd)["blocks_per_sm"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return items, min(sms * per_sm, max(len(lens_l) * kvh * n_chunks, 1))
 
@@ -432,29 +438,32 @@ def ragged_sdpa_inputs(k, v, lens_l, G):
     return kx, vx, mask
 
 
-def flash_phase(timer, gen, FA, B, G, S, D, lens_l=None):
+def flash_phase(timer, gen, FA, B, G, S, D, lens_l=None, dtype=torch.bfloat16):
     """K4 at a prefill shape: B = prompts x kv heads, G query heads a kv
-    head, causal, bf16, full lengths unless ``lens_l``. Kernel and plain
-    version walk the TPU kernel's key blocks (``_fit_block(1024, S)``: one
-    block up to 1024, two of 768 at S = 1536, fifteen of 120 at S = 1800),
-    take p against the same running maxima, from the same tensor-core q.k,
-    and round it to bf16 alike; they differ in their fp32 summation orders:
-    held element-wise as K3 is, and the LSE to 1e-3. SDPA is the
+    head, causal, bf16 (or ``dtype``), full lengths unless ``lens_l``.
+    Kernel and plain version walk the TPU kernel's key blocks
+    (``_fit_block(1024, S)``: one block up to 1024, two of 768 at S = 1536,
+    fifteen of 120 at S = 1800), take p against the same running maxima,
+    from the same tensor-core q.k, and round it to bf16 alike; they differ
+    in their fp32 summation orders: held element-wise as K3 is, and the LSE
+    to 1e-3 (f32: ``f32_agreement``, the LSE to 1e-5). SDPA is the
     yardstick: causal at full lengths, under the lengths' boolean mask
     otherwise (``ragged_sdpa_inputs``)."""
-    q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(torch.bfloat16)
-    k = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
-    v = torch.randn(B, S, D, device="cuda", generator=gen).to(torch.bfloat16)
+    q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(B, S, D, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, S, D, device="cuda", generator=gen).to(dtype)
     full = lens_l is None
     lens_l = [S] * B if full else list(lens_l)
     lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
     o, lse = FA._flash_fwd(q, k, v, lens)
     o2, lse2 = FA._flash_fwd_plain(q, k, v, lens)
     torch.cuda.synchronize()
-    agr = agreement(o, o2, ATTN_ULPS, ATTN_FLOOR)
+    bf = dtype == torch.bfloat16
+    agr = agreement(o, o2, ATTN_ULPS, ATTN_FLOOR) if bf else f32_agreement(o, o2)
     lse_err = float((lse - lse2).abs().max())
-    if not (agr["ok"] and lse_err <= 1e-3):
-        raise AssertionError(f"flash B={B} G={G} S={S} D={D} lens={lens_l}: {agr}, lse {lse_err}")
+    if not (agr["ok"] and lse_err <= (1e-3 if bf else 1e-5)):
+        raise AssertionError(f"flash B={B} G={G} S={S} D={D} {dtype} lens={lens_l}: {agr}, "
+                             f"lse {lse_err}")
     ms = timer(lambda: FA._flash_fwd(q, k, v, lens))
     plain_ms = timer(lambda: FA._flash_fwd_plain(q, k, v, lens))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -465,14 +474,16 @@ def flash_phase(timer, gen, FA, B, G, S, D, lens_l=None):
         kx, vx, mask = ragged_sdpa_inputs(k, v, lens_l, G)
         lib_ms = timer(lambda: sdpa(q, kx, vx, attn_mask=mask))
         del kx, vx, mask
-    nbytes = 2 * (2 * B * G * S * D + 2 * B * S * D) + 4 * B * G * S
+    nbytes = (2 if bf else 4) * (2 * B * G * S * D + 2 * B * S * D) + 4 * B * G * S
     ops = 2 * 2 * G * D * live_pairs(lens_l, S)
-    b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
-    log(f"  flash_fwd B={B} G={G} S={S} D={D} {'full' if full else 'ragged'} lengths: {ms:.4f} ms "
+    b_ms, b_by = bound(nbytes, ops, BF16_FLOPS if bf else F32_FLOPS)
+    log(f"  flash_fwd B={B} G={G} S={S} D={D} {str(dtype)[6:]} "
+        f"{'full' if full else 'ragged'} lengths: {ms:.4f} ms "
         f"(plain {plain_ms:.4f}, sdpa {lib_ms}, bound {b_ms:.5f} {b_by}) max_abs_err "
         f"{agr['max_abs_err']:.3g}, worst {agr['worst']:.3g} of its limit, rel L2 {agr['rel_l2']:.3g}, "
         f"lse {lse_err:.3g}")
-    return dict(B=B, G=G, S=S, D=D, lengths="full" if full else lens_l, blocks=-(-S // 64) * G * B,
+    return dict(B=B, G=G, S=S, D=D, dtype=str(dtype)[6:], lengths="full" if full else lens_l,
+                blocks=-(-S // 64) * G * B,
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                 lse_err=lse_err, **agr)
 
@@ -614,7 +625,7 @@ def stacked_gemm_phase(timer, gen, QM, qparams, w4):
     return dict(shapes=shapes, launches=fn.launches - before)
 
 
-def stacked_attention_phase(timer, gen, DA, c):
+def stacked_attention_phase(timer, gen, DA, c, plain_reps=0):
     """K7 at the K3 phase's shape on layer STACK_LAYER - 1 of a 3-layer
     stacked int8 cache: b = 8, S = 2048, the lengths of the K3 phase with
     slot 1 empty, slot K9_INACTIVE's pair excluded; the pair arrives as bf16
@@ -642,7 +653,7 @@ def stacked_attention_phase(timer, gen, DA, c):
     if not agr["ok"]:
         raise AssertionError(f"stacked decode attention: {agr}")
     ms = timer(lambda: DA.quantized_decode_attention_stacked(*args, layer=l))
-    plain_ms = timer(lambda: DA._decode_attention_stacked_plain(*args, layer=l))
+    plain_ms = timer(lambda: DA._decode_attention_stacked_plain(*args, layer=l), reps=plain_reps)
     tot = sum(lens_l)
     nbytes = (2 * kvh * hd * tot + 2 * 4 * tot + 2 * 4 * (hd // 2) * max(lens_l)
               + 2 * 2 * b * kvh * G * hd + 2 * 2 * b * kvh * hd + 8 * b)
@@ -973,6 +984,178 @@ def llama3_phase(timer, gen, base):
             f"peak {out['peak_gib'][label]:.2f} GiB in the default run")
         del qp, dflt, scan, paged
         torch.cuda.empty_cache()
+    return out
+
+
+# OpenLLaMA-3B's published config.json (openlm-research/open_llama_3b): 32
+# MHA heads of 100, H 3200 and I 8640 (off the products' 256 K grid), 26
+# layers, vocabulary 32000, rms_norm_eps 1e-6; full depth, random weights from
+# OPENLLAMA_SEED
+OPENLLAMA_3B = dict(vocab_size=32000, hidden_size=3200, intermediate_size=8640,
+                    num_hidden_layers=26, num_attention_heads=32, num_key_value_heads=32,
+                    rms_norm_eps=1e-6, rope_theta=10000.0, max_position_embeddings=2048,
+                    tie_word_embeddings=False)
+OPENLLAMA_NEW, OPENLLAMA_SEED = 16, 23   # greedy tokens a request, the phase's seed
+
+
+def cut_against_cpu(label, cfg, params, prompt):
+    """The CUT_LAYERS cut of ``cfg`` (``params``: its bf16 weights on the
+    card) greedy through the scan and the paged path on the card, then
+    teacher-forced with their tokens on the CPU path (plain versions), every
+    activation quantizer's codes recorded on both: each held by the flip rule
+    (``hold_flip``: CUT_DRIFT before the first parting quantizer, one level,
+    CUT_FLIP_DRIFT from it). The default path (K9) against the scan path on
+    the card, teacher-forced with the scan path's tokens: within
+    MEGA_CUT_DRIFT, and where a step's greedy token parts (the paths differ
+    by design: SiLU in fp32, attention rounded block by block) the scan
+    path's lead of its token at most LLAMA3_LEAD_STD of that logit row's
+    standard deviation: a near tie."""
+    from llm_qat_torch.inference import quantized as Q
+
+    scan = cfg.replace(use_megakernel=False)
+    gpu_q, cpu_q = Q.quantize_params(params, scan), Q.quantize_params(params, scan, device="cpu")
+    out = {}
+    for path, run in (("scan", _greedy_logits), ("paged", _greedy_logits_paged)):
+        toks, cg, cc = [], [], []
+        with record_codes(cg):
+            card = run(scan, gpu_q, prompt, "cuda", toks)
+        with record_codes(cc):
+            cpu = run(scan, cpu_q, prompt, "cpu", toks)
+        parting = first_code_parting(cc, cg, CUT_LAYERS)
+        steps = _compare_steps(card, cpu)
+        log(f"  {label} {CUT_LAYERS}-layer cut, {len(prompt)} tokens, {path} path against the "
+            f"CPU path: greedy tokens equal {steps[0]}, relative L2 drift "
+            f"[{', '.join(f'{d:.3g}' for d in steps[1])}], codes {parting_text(parting)}")
+        hold_flip(f"{label} {CUT_LAYERS}-layer cut, {path} against the CPU path", steps, parting)
+        out[path] = dict(steps=steps, codes=parting)
+        if path == "scan":
+            mega = _greedy_logits(cfg, gpu_q, prompt, "cuda", toks)
+            same, drift, diff = _compare(mega, card)
+            leads = [float((r[r.argmax()] - r[m.argmax()]) / r.std())
+                     for r, m, eq in zip(card, mega, same) if not eq]
+            log(f"  {label} {CUT_LAYERS}-layer cut: default path (K9) against the scan path: "
+                f"tokens equal {same} (scan path's lead where they part, in row std: "
+                f"{', '.join(f'{x:.3g}' for x in leads) or 'none'}; limit {LLAMA3_LEAD_STD}), "
+                f"drift {drift:.4g} (limit {MEGA_CUT_DRIFT})")
+            if not (drift <= MEGA_CUT_DRIFT and all(x <= LLAMA3_LEAD_STD for x in leads)):
+                raise AssertionError(f"{label} cut: K9 against the scan path: drift {drift}, "
+                                     f"leads {leads} row std")
+            out["megakernel_vs_scan"] = dict(tokens_equal=same, drift=drift, max_abs=diff,
+                                             leads_std=leads)
+    return out
+
+
+def openllama3b_phase(timer, gen, base):
+    """OpenLLaMA-3B at its published widths and full depth (``OPENLLAMA_3B``),
+    (G, hd) = (1, 100): head dim 100 through the padded builds of K4, K3/K8
+    and K9, and the products' K tails (H, I off the 256 grid), at W8A8KV8 and
+    W4A8KV4 (packed cache). The K9 phase (kernel against its plain version
+    at full depth and at CUT_LAYERS, bit-equal, timed); then
+    ``InferenceEngine`` with default flags (every decode step one K9
+    launch), on the scan path (``use_megakernel=False``, K3 every layer) and
+    ``PagedInferenceEngine`` (K8 every layer) serving 8 requests of
+    PROMPT_LENS tokens, OPENLLAMA_NEW greedy tokens each, prefill through K4
+    and K1/K2, every launch count held. Default and paged against scan: at
+    LLaMA-3-8B's depth (a LLAMA3_LAYERS cut) by that phase's gate, the
+    1000-token prompt teacher-forced through the three paths within
+    LLAMA3_DRIFT; at full depth by the rule the repo holds its other
+    full-depth models to (TinyLlama-1.1B, LLaMA-7B): the same prompt within
+    MEGA_FULL_DRIFT, and each served request's first difference a near tie
+    of the scan path (``compare_tokens`` with the teacher-forced run's
+    largest logit difference). 26 random-weight layers that re-quantize
+    every projection's input amplify the paths' by-design differences past
+    the 4-layer limit: 0.209-0.221 in this phase's first run, leads to 0.59
+    row std (PERF.md, PR 19). Last, a CUT_LAYERS cut against the CPU path
+    (``cut_against_cpu``). Weights, prompts and tokens from a generator of
+    its own."""
+    from llm_qat_torch.inference import megakernel as MK
+    from llm_qat_torch.inference import quantized as Q
+    from llm_qat_torch.models import params as P
+
+    cfg0 = base.replace(**OPENLLAMA_3B)
+    rng = np.random.default_rng(OPENLLAMA_SEED)
+    prompts = [list(map(int, rng.integers(1, cfg0.vocab_size, n))) for n in PROMPT_LENS]
+    out = dict(kernel=[], runs=[], flips={}, teacher_forced={}, peak_gib={},
+               launches=dict.fromkeys(counters(), 0))
+    modes = {"W8A8KV8": dict(w_bits=8, a_bits=8, kv_bits=8),
+             "W4A8KV4": dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)}
+    L = cfg0.num_hidden_layers
+    for label, mode in modes.items():
+        t_mode = time.perf_counter()
+        cfg = cfg0.replace(**mode)
+        name = f"{label} OpenLLaMA-3B"
+        if not (MK.card_takes(cfg, 8, 2048, torch.bfloat16) and MK.padded(cfg.head_dim)):
+            raise AssertionError(f"{name}: K9's padded build does not take it")
+        params = P.init_params(cfg, seed=OPENLLAMA_SEED, dtype=torch.bfloat16)
+        qp = Q.quantize_params(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        out["kernel"].append(megakernel_phase(timer, name, cfg, qp, gen))
+        torch.cuda.reset_peak_memory_stats()
+        dflt = serve(f"{name} megakernel", cfg, qp, prompts, new_tokens=OPENLLAMA_NEW,
+                     profile=False)
+        out["peak_gib"][label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        scan = serve(f"{name} scan", cfg.replace(use_megakernel=False), qp, prompts,
+                     new_tokens=OPENLLAMA_NEW, profile=False)
+        paged = serve_paged(f"{name} paged", cfg, qp, prompts, ROOMY_PAGES, profile=False,
+                            new_tokens=OPENLLAMA_NEW)
+        gemm_k = "int8_matmul" if label.startswith("W8") else "int4_matmul"
+        for m in (dflt[0], scan[0], paged[0]):
+            dl, pl = m["decode_launches"], m["prefill_launches"]
+            if m is dflt[0]:
+                ok = (dl["decode_megakernel"] == m["decode_steps"] and dl["decode_attention"] == 0
+                      and dl["int8_matmul"] == dl["int4_matmul"] == 0)
+            elif m is scan[0]:
+                ok = (dl["decode_attention"] == L * m["decode_steps"] and dl[gemm_k] > 0
+                      and m["launches"]["decode_megakernel"] == 0)
+            else:
+                ok = (dl["paged_attention"] == L * m["decode_steps"] and dl[gemm_k] > 0
+                      and m["launches"]["decode_megakernel"] == 0
+                      and m["launches"]["decode_attention"] == 0)
+            if not (ok and pl[gemm_k] > 0 and pl["flash_fwd"] > 0):
+                raise AssertionError(f"{m['mode']}: launches off the path: prefill {pl}, "
+                                     f"decode {dl}")
+            for k in out["launches"]:
+                out["launches"][k] += m["launches"][k]
+        out["runs"] += [dflt[0], scan[0], paged[0]]
+        prompt, tf, bad = prompts[-1], {}, []
+        for depth, limit in ((LLAMA3_LAYERS, LLAMA3_DRIFT), (L, MEGA_FULL_DRIFT)):
+            c, q = cfg.replace(num_hidden_layers=depth), qp if depth == L else cut_layers(qp, depth)
+            toks, n9 = [], MK.decode_layers.launches
+            mega = _greedy_logits(c, q, prompt, "cuda", toks)
+            if MK.decode_layers.launches - n9 != 4:
+                raise AssertionError(f"{name}: the teacher-forced default run missed K9")
+            wit = _greedy_logits(c.replace(use_megakernel=False), q, prompt, "cuda", toks)
+            pgd = _greedy_logits_paged(c, q, prompt, "cuda", toks)
+            for other, seq in (("megakernel", mega), ("paged", pgd)):
+                same, drift, diff = _compare(seq, wit)
+                log(f"  {name} at {depth} layers: {other} against scan path teacher-forced on "
+                    f"a {len(prompt)}-token prompt: tokens equal {same}, drift {drift:.4g} "
+                    f"(limit {limit}), largest logit difference {diff:.4g}")
+                if drift > limit:
+                    bad.append(f"{other} drifts {drift:.4g} from the scan path at {depth} layers")
+                tf[f"{other} {depth} layers"] = dict(tokens_equal=same, drift=drift, max_abs=diff)
+                if depth != L:
+                    continue
+                try:
+                    out["flips"][f"{label} {other}"] = compare_tokens(
+                        name, scan, dflt if other == "megakernel" else paged, diff, other=other)
+                except AssertionError as e:
+                    bad.append(str(e))
+        if bad:
+            raise AssertionError(f"{name}: " + "; ".join(bad))
+        out["teacher_forced"][label] = tf
+        log(f"  {name}: decode ms/step default {dflt[0]['decode_ms_per_step']:.3f}, scan "
+            f"{scan[0]['decode_ms_per_step']:.3f}, paged {paged[0]['decode_ms_per_step']:.3f}; "
+            f"peak {out['peak_gib'][label]:.2f} GiB in the default run; the mode took "
+            f"{time.perf_counter() - t_mode:.1f} s")
+        del qp, dflt, scan, paged
+        torch.cuda.empty_cache()
+    cut = cfg0.replace(num_hidden_layers=CUT_LAYERS, **modes["W8A8KV8"])
+    params = P.init_params(cut, seed=OPENLLAMA_SEED, dtype=torch.bfloat16)
+    out["cut_vs_cpu"] = cut_against_cpu("W8A8KV8 OpenLLaMA-3B", cut, params, prompts[0])
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4405,6 +4588,15 @@ GQA_SHAPES = tuple((g, hd) for hd in (64, 128) for g in range(1, 9))
 GQA_DECODE = tuple((12 if (g, hd) == (1, 64) else 8, g, hd, GQA_MODELS.get((g, hd), "-"))
                    for g, hd in GQA_SHAPES if (g, hd) not in ((4, 128), (8, 128)))
 K9_SHAPE_KVH, K9_SHAPE_I = 8, 2048   # K9 at the 16 (G, hd): kv heads, intermediate size (2 layers)
+# head dim 100 through the padded builds: K3 (int8, packed), K8 (int8, packed)
+# and K7 at (kv heads, G, hd, model), K4 at OpenLLaMA-3B's prefill of 1024
+# tokens (B = its 32 MHA heads, G = 1) in bf16 and f32. At 32 kv heads of 100
+# the JAX picker's KV block is 8 columns (its cap 2**20 / (32 x 100) = 327 is
+# odd, and it steps down by 8 to its floor): K3 and K7 walk 256 blocks a
+# slot, and their plain versions take PAD_PLAIN_REPS timed runs
+PAD_DECODE = ((32, 1, 100, "OpenLLaMA-3B"), (8, 4, 100, "-"), (8, 8, 100, "-"))
+PAD_FLASH = (32, 1, 1024, 100)
+PAD_PLAIN_REPS = 3
 # K4/K10/K11 at the new head dims: (D, dtype, B, G, S, what); B = batch x kv heads
 NEW_FLASH = ((16, torch.float32, 4, 2, 32, "tiny pipeline train"),
              (16, torch.float32, 16, 2, 2048, "long"),
@@ -4536,10 +4728,13 @@ def shapes_phase(timer, QM, DA, FA):
     no multiple of the 128-row stage (``K_TAIL_PROJ``, bit-equal, at every
     split count), K3, K8 and K7 at the new (G, hd) (``NEW_DECODE``, int8 and
     packed caches; K7 int8) and at every G of 1..8 at head dims 64 and 128
-    (``GQA_DECODE``: K3 int8 and packed, K8 int8, K7; bit-equal),
-    K4/K10/K11 at head dims 16 and 32 in f32 and bf16 and 128 in f32
-    (``NEW_FLASH``). Then K1 at the TinyLlama-1.1B decode layer's qkv shape
-    through ``utils.benchmarking.measure`` (a CUDA graph of the runs, its
+    (``GQA_DECODE``: K3 int8 and packed, K8 int8, K7; bit-equal) and at
+    head dim 100 through the padded builds (``PAD_DECODE``: K3 and K8 int8
+    and packed, K7; bit-equal), K4/K10/K11 at head dims 16 and 32 in f32
+    and bf16 and 128 in f32 (``NEW_FLASH``), K4 at head dim 100 in bf16 and
+    f32 (``PAD_FLASH``, the forward: the backward refuses it). Then K1 at
+    the TinyLlama-1.1B decode layer's qkv shape through
+    ``utils.benchmarking.measure`` (a CUDA graph of the runs, its
     floor subtracted) beside the ``Timer``'s median. Last (the megakernel
     compiles through the phases before it), K9 at the 16 (G, hd) on a
     2-layer cut (``megakernel_shape``, bit-equal). From a generator of its
@@ -4580,8 +4775,22 @@ def shapes_phase(timer, QM, DA, FA):
         r = stacked_attention_phase(timer, gen, DA, c)
         r.update(kvh=kvh, G=G, hd=hd, model=model, bit_equal=r["max_abs_err"] == 0.0)
         out["decode_attention_stacked"].append(r)
+    for kvh, G, hd, model in PAD_DECODE:
+        for packed in (False, True):
+            for key, r in (("decode_attention", decode_attention_phase(
+                                timer, gen, DA, kvh, G, hd, packed, plain_reps=PAD_PLAIN_REPS)),
+                           ("paged_attention", paged_attention_phase(
+                                timer, gen, DA, kvh, G, hd, packed))):
+                r.update(model=model, bit_equal=r["max_abs_err"] == 0.0)
+                out[key].append(r)
+        c = TINYLLAMA_1B.replace(num_attention_heads=kvh * G, num_key_value_heads=kvh,
+                                 hidden_size=kvh * G * hd)
+        r = stacked_attention_phase(timer, gen, DA, c, plain_reps=PAD_PLAIN_REPS)
+        r.update(kvh=kvh, G=G, hd=hd, model=model, bit_equal=r["max_abs_err"] == 0.0)
+        out["decode_attention_stacked"].append(r)
+    held = set(GQA_SHAPES) | {(G, hd) for _, G, hd, _ in PAD_DECODE}
     gqa = [r for key in ("decode_attention", "paged_attention", "decode_attention_stacked")
-           for r in out[key] if (r.get("G"), r.get("hd")) in GQA_SHAPES]
+           for r in out[key] if (r.get("G"), r.get("hd")) in held]
     if not all(r["bit_equal"] for r in gqa):
         raise AssertionError("K3/K8/K7 not bit-equal to their plain versions at "
                              + ", ".join(f"G={r['G']} hd={r['hd']}" for r in gqa
@@ -4591,6 +4800,11 @@ def shapes_phase(timer, QM, DA, FA):
         for k_, r in flash_shape(timer, gen, FA, D, dtype, Bq, G, S, what).items():
             out["flash"][k_].append(r)
         torch.cuda.empty_cache()
+    Bq, G, S, D = PAD_FLASH
+    for dtype in (torch.bfloat16, torch.float32):      # the forward only: no backward at hd 100
+        out["flash"]["fwd"].append(dict(flash_phase(timer, gen, FA, Bq, G, S, D, dtype=dtype),
+                                        what="OpenLLaMA-3B prefill"))
+    torch.cuda.empty_cache()
     # K1 through utils.benchmarking.measure, beside the Timer
     c = TINYLLAMA_1B
     K, N = c.hidden_size, (c.num_attention_heads + 2 * c.kv_heads) * c.head_dim
@@ -4806,13 +5020,14 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}")
-    # every source starts compiling now; the megakernel, the slowest, goes on
-    # compiling through phases 2 and 2b and is waited for at its first use
-    _build.build_all(wait_for=[p.stem for p in _build.CSRC.glob("*.cu")
-                               if not p.stem.startswith("megakernel")])
+    # every source starts compiling now; the megakernels, the slowest, and the
+    # padded decode attention build (first used in phase 2b) go on compiling
+    # through phase 2 and are waited for at their first use
+    late = ("megakernel", "megakernel_d128", "megakernel_dpad", "decode_attention_dpad")
+    _build.build_all(wait_for=[p.stem for p in _build.CSRC.glob("*.cu") if p.stem not in late])
     log(f"    kernels built into {_build.BUILD_DIR} in "
         + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items()))
-        + "; megakernel.cu and megakernel_d128.cu still compiling")
+        + f"; {', '.join(s + '.cu' for s in late)} still compiling")
     lap("build")
 
     cfg = TINYLLAMA_1B                 # the default: use_megakernel=True
@@ -4935,8 +5150,18 @@ def main() -> int:
     l3 = llama3_phase(timer, gen, LLAMA_7B)
     mega += l3["kernel"]
     flips.update({f"{k} LLaMA-3-8B": v for k, v in l3["flips"].items()})
-    del timer
     lap("[3b2] LLaMA-3-8B serving")
+    log(f"[3b3] OpenLLaMA-3B's published widths at full depth (26 layers, 32 MHA heads of 100, "
+        f"H 3200, I 8640, vocabulary 32000), random weights: head dim 100 through the padded "
+        f"builds of K4, K3/K8 and K9, the products' K off the 256 grid; K9 against its plain "
+        f"version at W8A8KV8 and W4A8KV4, then 8 requests x {OPENLLAMA_NEW} greedy tokens on the "
+        f"default path (K9), the scan path (K3) and the paged engine (K8); a {CUT_LAYERS}-layer "
+        f"cut against the CPU path ({smi})")
+    o3 = openllama3b_phase(timer, gen, LLAMA_7B)
+    mega += o3["kernel"]
+    flips.update({f"{k} OpenLLaMA-3B": v for k, v in o3["flips"].items()})
+    del timer
+    lap("[3b3] OpenLLaMA-3B serving")
     for label, mcfg in modes.items():
         checks.append(cpu_check(label, mcfg, qps.pop(label), rng))
         scan, dflt, roomy = served.pop(label)
@@ -5049,7 +5274,7 @@ def main() -> int:
     launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) + pipe["launches"][k]
                 + ev["launches"][k] + md["launches"][k] + tp["launches"][k]
                 + tpp["launches"][k] + tinyp["launches"][k] + accp["launches"][k]
-                + l3["launches"][k] for k in counters()}
+                + l3["launches"][k] + o3["launches"][k] for k in counters()}
     # K5-K7 are on no serving path of either package: their counts are those
     # of their kernel phases
     launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
@@ -5081,8 +5306,9 @@ def main() -> int:
         dict(name="decode_attention", source="llm_qat_torch/csrc/decode_attn.cuh",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:55",
              shape="b=8 S=2048 int8 cache, TinyLlama-1.1B heads (packed KV4, LLaMA-7B "
-                   "heads kvh=32 G=1 hd=128, S=8192, a tp=2 rank's kvh=2, and every G of 1..8 "
-                   "at hd 64 and 128, in shapes)",
+                   "heads kvh=32 G=1 hd=128, S=8192, a tp=2 rank's kvh=2, every G of 1..8 "
+                   "at hd 64 and 128, and (1, 4, 8) at hd 100 through the padded build, "
+                   "in shapes)",
              **{k: dec[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")},
              max_abs_err=max(d["max_abs_err"] for d in dec + tp["shapes"]["decode_attention"]
@@ -5093,8 +5319,9 @@ def main() -> int:
              shape="B=4 G=8 S=1024 D=64 causal (S=128, the scorer's B=64 at S=32, 64, 100 and "
                    "200 at ragged lengths, the train shape B=16 S=2048 at full and "
                    "ragged lengths, LLaMA-7B's B=32 G=1 S=1024 and S=2048 D=128 at full and "
-                   "ragged lengths, and the ring's live step B=8 G=8 S=2048 D=64 non-causal "
-                   "in shapes)",
+                   "ragged lengths, the ring's live step B=8 G=8 S=2048 D=64 non-causal, "
+                   "and OpenLLaMA-3B's B=32 G=1 S=1024 D=100 in bf16 and f32 through the "
+                   "padded build, in shapes)",
              **{k: fl[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by")},
              max_abs_err=max(f["max_abs_err"] for f in fwd_shapes + [md["ring_shape"]["fwd"],
@@ -5105,8 +5332,9 @@ def main() -> int:
         dict(name="decode_megakernel", source="llm_qat_torch/csrc/megakernel.cuh",
              replaces="llm_qat_tpu/inference/megakernel.py:259",
              shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed, "
-                   "LLaMA-7B's 32 layers of (1, 128) heads and LLaMA-3-8B's widths on 4 "
-                   "layers ((4, 128) heads) at both, and a 2-layer cut at every G of 1..8 at "
+                   "LLaMA-7B's 32 layers of (1, 128) heads, LLaMA-3-8B's widths on 4 "
+                   "layers ((4, 128) heads) and OpenLLaMA-3B's 26 layers of (1, 100) heads "
+                   "(the padded build) at both, and a 2-layer cut at every G of 1..8 at "
                    "hd 64 and 128, in shapes)",
              **{k: k9[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
              max_abs_err=max(m["max_abs_err"] for m in mega + shp["decode_megakernel"]),
@@ -5114,8 +5342,8 @@ def main() -> int:
         dict(name="paged_attention", source="llm_qat_torch/csrc/decode_attn.cuh",
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:646",
              shape=f"b=8, pool {ROOMY_PAGES} x {PAGE}, {SEQ_PAGES} pages a sequence, int8 pool, "
-                   "TinyLlama-1.1B heads (packed KV4, LLaMA-7B heads, a tp=2 rank's kvh=2 "
-                   "and every G of 1..8 at hd 64 and 128 in shapes)",
+                   "TinyLlama-1.1B heads (packed KV4, LLaMA-7B heads, a tp=2 rank's kvh=2, "
+                   "every G of 1..8 at hd 64 and 128 and (1, 4, 8) at hd 100 in shapes)",
              **{k: k8[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
              max_abs_err=max(d["max_abs_err"] for d in pag + tp["shapes"]["paged_attention"]
                              + shp["paged_attention"]),
@@ -5186,6 +5414,8 @@ def main() -> int:
                     "tp_pp_training": tpp, "shapes": shp, "tiny_pipeline": tinyp,
                     "llama3_8b": {k: l3[k] for k in ("runs", "teacher_forced", "peak_gib",
                                                      "launches")},
+                    "openllama_3b": {k: o3[k] for k in ("runs", "teacher_forced", "peak_gib",
+                                                        "launches", "cut_vs_cpu")},
                     "accuracy_experiment": accp,
                     "phase_s": PHASE_S, "build_seconds": _build.build_seconds, "card": smi}))
     log(json.dumps({"kernel_attributes": attrs}))

@@ -9,10 +9,13 @@ and K8 (int8 pool) through ``chip_smoke.decode_attention_phase`` /
 a kv head G, head dim): TinyLlama-1.1B's (4, 8, 64), the LLaMA-7B family's
 (32, 1, 128), Meta-Llama-3-8B's (8, 4, 128), Llama-2-70B's (8, 8, 128), the
 tiny pipeline's (2, 2, 16) and the accuracy experiment's (4, 2, 32); and,
-without ``--k3-only``, the decode megakernel K9 (``megakernel.decode_layers``,
-one step) at TinyLlama-1.1B's and LLaMA-7B's full width and depth, W8A8KV8
-and W4A8KV4 (packed cache), b = 8, max_len 2048, lengths
-``chip_smoke.K9_LENS``, random weights and cache from seed 0.
+without ``--k3-only``, the flash forward K4 (``chip_smoke.flash_phase``,
+bf16, causal, full lengths) at the train shapes of ``FLASH`` (B, G, S, D):
+TinyLlama-1.1B's (16, 8, 2048, 64) and LLaMA-7B's (32, 1, 2048, 128), and
+the decode megakernel K9 (``megakernel.decode_layers``, one step) at
+TinyLlama-1.1B's and LLaMA-7B's full width and depth, W8A8KV8 and W4A8KV4
+(packed cache), b = 8, max_len 2048, lengths ``chip_smoke.K9_LENS``, random
+weights and cache from seed 0.
 
 Before the timed runs every checkout builds its sources into its own
 ``build/``, every ``nvcc`` of every checkout started together
@@ -32,6 +35,7 @@ import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((4, 8, 64), (32, 1, 128), (8, 4, 128), (8, 8, 128), (2, 2, 16), (4, 2, 32))
+FLASH = ((16, 8, 2048, 64), (32, 1, 2048, 128))
 
 # one checkout's build: every source, or (an argument "k3") the decode
 # attention sources (one a head dim, or one for all; K8's own before they
@@ -76,7 +80,8 @@ from llm_qat_torch.models import llama
 from llm_qat_torch.models import params as P
 from llm_qat_torch.models.config import LLAMA_7B, TINYLLAMA_1B
 from llm_qat_torch.ops import decode_attention as DA
-k3_only, shapes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+from llm_qat_torch.ops import flash_attention as FA
+k3_only, shapes, flash = (json.loads(a) for a in sys.argv[1:4])
 timer = S.Timer()
 gen = torch.Generator(device="cuda")
 gen.manual_seed(0)
@@ -87,6 +92,10 @@ for kvh, G, hd in shapes:
         out.append(dict(run=f"K3 G={G} hd={hd} {'packed' if packed else 'int8'}", ms=r["ms"]))
     r = S.paged_attention_phase(timer, gen, DA, kvh, G, hd, False)
     out.append(dict(run=f"K8 G={G} hd={hd} int8", ms=r["ms"]))
+for B, G, n, D in () if k3_only else flash:
+    r = S.flash_phase(timer, gen, FA, B, G, n, D)
+    out.append(dict(run=f"K4 B={B} G={G} S={n} D={D}", ms=r["ms"]))
+    torch.cuda.empty_cache()
 modes = (("W8A8KV8", dict(w_bits=8, a_bits=8, kv_bits=8)),
          ("W4A8KV4", dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)))
 for name, base in () if k3_only else (("TinyLlama-1.1B", TINYLLAMA_1B), ("LLaMA-7B", LLAMA_7B)):
@@ -144,7 +153,8 @@ def main() -> int:
               flush=True)
     for t in trees + trees[::-1]:
         proc = subprocess.run([sys.executable, "-c", RUN, json.dumps(k3_only),
-                               json.dumps(SHAPES)], cwd=t, capture_output=True, text=True)
+                               json.dumps(SHAPES), json.dumps(FLASH)], cwd=t,
+                              capture_output=True, text=True)
         for r in _result(proc, t, "RESULT"):
             print(f"{name[t]:7s} {r['run']:28s} {r['ms']:.4f} ms", flush=True)
     return 0

@@ -85,6 +85,16 @@
 // One source builds one head dim (DECODE_ATTN_HD: decode_attention.cu 64,
 // decode_attention_d16.cu, _d32.cu and _d128.cu the others), so the four
 // compile side by side; each exports the same entry points (end of file).
+// decode_attention_dpad.cu defines DECODE_ATTN_PAD beside HD = 128: its
+// kernels take every head dim hd % 4 == 0 with 32 < hd <= 128 (OpenLLaMA-3B's
+// 100, and 48, 80, 96) from the launch (Args::hd). HD is then the most the
+// shared buffers hold, sized as at head dim 128; the layouts in global memory
+// keep the true hd (cache rows, q and out rows of hd values, the scratch's
+// hd partial sums), and every count, stride and pair (j, j + hd/2) of RoPE
+// and of the nibble packing comes from it (head_dim). A q row of hd bf16
+// values that is no multiple of 16 bytes (hd 100: 200 bytes) arrives in
+// 8-byte cp.async pieces; the p.V stage's column parts round up to whole
+// words (pv_parts).
 #ifndef DECODE_ATTN_HD
 #error "define DECODE_ATTN_HD (16, 32, 64 or 128) before including decode_attn.cuh"
 #endif
@@ -109,6 +119,13 @@ constexpr int FW = 256;              // chunk statistics the finish stage stages
 constexpr int MINB = 2;              // blocks an SM: registers a thread at most 65536 / (2 NT)
                                      // (but see min_blocks)
 constexpr float NEG_INF = -1e30f;
+#ifdef DECODE_ATTN_PAD
+constexpr bool PAD = true;           // hd from the launch, at most DECODE_ATTN_HD
+constexpr int HD_MIN = 36;           // the fewest it takes
+#else
+constexpr bool PAD = false;
+constexpr int HD_MIN = DECODE_ATTN_HD;
+#endif
 
 // G query heads a kv head rounded up to a register tile of heads, the
 // largest tile the q.k and p.V loops take at head dim HD, the tile of a
@@ -147,7 +164,22 @@ struct Args {
   float* alpha;                      // [b, nh, NC]: block jb's rescale factor at jb
   int b, kvh, G, S, CH, BK, NC, TS, packed, rope, fold;
   float scale;
+  int hd;                            // last: the other fields keep their offsets
 };
+
+// the head dim of the launch: the build's HD, or the launch's in the padded
+// build (a constant everywhere else, so those builds' code is unchanged)
+template <int HD>
+__device__ __forceinline__ int head_dim(const Args& a) {
+  return PAD ? a.hd : HD;
+}
+
+// p.V splits each head dim's columns into parts, one thread a part: (parts,
+// columns a part, a multiple of 4) for head dim hd (a part past CHMAX is empty)
+__host__ __device__ constexpr int pv_nparts(int hd) { return NT / hd; }
+__host__ __device__ constexpr int pv_part_w(int hd) {
+  return ((CHMAX + pv_nparts(hd) - 1) / pv_nparts(hd) + 3) & ~3;
+}
 
 // DECODE_ATTN_TRACE (decode_attn_timeline.py builds with it; off
 // otherwise): thread 0 of each block stamps the global timer (ns) at entry
@@ -474,7 +506,8 @@ __device__ __forceinline__ size_t cell(const Args& a, int G, int i, int hq, int 
 template <typename T, int HD, int GL, int GH>
 __device__ __forceinline__ void qk_col(const Args& a, Smem<HD, GL, GH> s, int bf, int qp,
                                        int col, int ncol, int g0) {
-  constexpr int H2 = HD / 2, PQ = H2 / NQ, TB = tab_bufs<HD>(), GT = build_tile<HD>(GH);
+  constexpr int TB = tab_bufs<HD>(), GT = build_tile<HD>(GH);
+  const int H2 = head_dim<HD>(a) / 2, PQ = H2 / NQ;
   double acc[GT];
 #pragma unroll
   for (int g = 0; g < GT; ++g) acc[g] = 0.0;
@@ -549,10 +582,15 @@ __device__ __forceinline__ void qk_col(const Args& a, Smem<HD, GL, GH> s, int bf
 // prefetched into L2 for the softmax.V stage.
 template <typename T, int HD, int GL, int GH>
 __device__ void scores_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
-  constexpr int H2 = HD / 2, TB = tab_bufs<HD>(), GT = build_tile<HD>(GH);
+  constexpr int TB = tab_bufs<HD>(), GT = build_tile<HD>(GH);
+  const int hd = head_dim<HD>(a), H2 = hd / 2;
   const int G = s.G(), GP = s.GP();
   const int tid = threadIdx.x, qp = tid / CHMAX, col = tid % CHMAX, lane = tid % 32;
-  const int nh = a.kvh * G, hdc = a.packed ? H2 : HD, CH = a.CH;
+  const int nh = a.kvh * G, hdc = a.packed ? H2 : hd, CH = a.CH;
+  // the query heads' bytes: 16-byte pieces, or 8 where a row is no multiple
+  // of 16 bytes (bf16 at hd 100)
+  const bool q16 = hd * (int)sizeof(T) % 16 == 0;
+  const int qvec = q16 ? 16 : 8;
   const bool v16 = CH % 16 == 0 && a.S % 16 == 0;  // else 8-byte pieces (CH = 8)
   const int vec = v16 ? 16 : 8, per_row = CH / vec;
   const int* first = s.first();
@@ -590,10 +628,10 @@ __device__ void scores_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
         cp_async(kb + row * CHMAX + pc * vec, a.kq + kv + (size_t)row * a.S + pc * vec, v16);
       }
       if (tid < CH / 4) cp_async(s.ksb(buf) + tid * 4, a.ks + so + tid * 4, true);
-      const char* qsrc = static_cast<const char*>(a.q) + ((size_t)i * nh + h * G) * HD * sizeof(T);
+      const char* qsrc = static_cast<const char*>(a.q) + ((size_t)i * nh + h * G) * hd * sizeof(T);
       char* qdst = reinterpret_cast<char*>(s.qb(buf));
-      for (int idx = tid; idx < G * HD * (int)sizeof(T) / 16; idx += NT)
-        cp_async(qdst + idx * 16, qsrc + idx * 16, true);
+      for (int idx = tid; idx < G * hd * (int)sizeof(T) / qvec; idx += NT)
+        cp_async(qdst + idx * qvec, qsrc + idx * qvec, q16);
       if (TB == 2 && a.rope && (buf ? tab1 : tab0) != c) issue_tab(c, buf);
     }
     cp_async_commit();
@@ -623,8 +661,8 @@ __device__ void scores_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
     cp_async_wait<1>();
     __syncthreads();
     const T* qt = reinterpret_cast<const T*>(s.qb(bf));
-    for (int idx = tid; idx < GP * HD; idx += NT) {
-      const int g = idx / HD, d = idx % HD;
+    for (int idx = tid; idx < GP * hd; idx += NT) {
+      const int g = idx / hd, d = idx % hd;
       sq[(g * H2 + d % H2) * 2 + d / H2] = g < G ? (double)to_f(qt[idx]) : 0.0;
     }
     __syncthreads();
@@ -663,7 +701,7 @@ template <int HD, int GL, int GH>
 __device__ void issue_v(const Args& a, Smem<HD, GL, GH> s, int item, int hi,
                                         int buf) {
   if (item >= hi) return;
-  const int hdc = a.packed ? HD / 2 : HD, CH = a.CH, tid = threadIdx.x;
+  const int hd = head_dim<HD>(a), hdc = a.packed ? hd / 2 : hd, CH = a.CH, tid = threadIdx.x;
   const bool v16 = CH % 16 == 0 && a.S % 16 == 0;  // else 8-byte pieces (CH = 8)
   const int vec = v16 ? 16 : 8, per_row = CH / vec;
   int i, h, c;
@@ -712,8 +750,10 @@ __device__ void prefetch_v(const Args& a, Smem<HD, GL, GH> s, int items) {
 template <int HD, int GL, int GH>
 __device__ __forceinline__ void pv_col(const Args& a, Smem<HD, GL, GH> s, int bf, int ncol,
                                        int g0) {
-  constexpr int H2 = HD / 2, NPART = NT / HD, PART = CHMAX / NPART, GT = build_tile<HD>(GH);
-  const int tid = threadIdx.x, d = tid % HD, part = tid / HD, ncol4 = (ncol + 3) & ~3;
+  constexpr int GT = build_tile<HD>(GH);
+  const int hd = head_dim<HD>(a), H2 = hd / 2, NPART = pv_nparts(hd), PART = pv_part_w(hd);
+  const int tid = threadIdx.x, d = tid % hd, part = tid / hd, ncol4 = (ncol + 3) & ~3;
+  if (PAD && part >= NPART) return;   // threads past NPART x hd (hd no divisor of NT)
   const uint8_t* vrow = s.vbuf(bf) + (a.packed ? d % H2 : d) * VSA;
   const int shift = a.packed ? (d < H2 ? 28 : 24) : 24, back = a.packed ? 28 : 24;
   const int G = s.G(), GP = s.GP();
@@ -733,7 +773,7 @@ __device__ __forceinline__ void pv_col(const Args& a, Smem<HD, GL, GH> s, int bf
   double* redd = s.redd();
 #pragma unroll
   for (int g = 0; g < GT; ++g)
-    if (g0 + g < G) redd[(part * G + g0 + g) * HD + d] = acc[g];
+    if (g0 + g < G) redd[(part * G + g0 + g) * hd + d] = acc[g];
 }
 
 // The same runs as the scores stage: p against m_j, the prefix maximum of
@@ -744,7 +784,7 @@ __device__ __forceinline__ void pv_col(const Args& a, Smem<HD, GL, GH> s, int bf
 template <typename T, int HD, int GL, int GH>
 __device__ void softmax_v_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
   constexpr int SPT = (g_tile(GH) * CHMAX + NT - 1) / NT, GT = build_tile<HD>(GH);
-  const int G = s.G(), GP = s.GP(), NO = G * HD;
+  const int hd = head_dim<HD>(a), G = s.G(), GP = s.GP(), NO = G * hd;
   const int tid = threadIdx.x, lane = tid % 32;
   const int CH = a.CH, cpb = a.BK / CH;
   const int* first = s.first();
@@ -819,8 +859,8 @@ __device__ void softmax_v_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
     for (int o = tid; o < NO; o += NT) {
       double t = redd[o];
 #pragma unroll
-      for (int e = 1; e < NT / HD; ++e) t += redd[e * NO + o];
-      a.pvpart[cell(a, G, i, h * G + o / HD, c) * HD + o % HD] = t;
+      for (int e = 1; e < pv_nparts(hd); ++e) t += redd[e * NO + o];
+      a.pvpart[cell(a, G, i, h * G + o / hd, c) * hd + o % hd] = t;
     }
   }
   cp_async_wait<0>();
@@ -832,9 +872,9 @@ __device__ void softmax_v_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
 // outputs a thread, at least ceil(G hd / NT).
 template <typename T, int OPT, int HD, int GL, int GH>
 __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
-  constexpr int H2 = HD / 2;
   constexpr int NB = OPT > 2 ? 4 : 8;   // chunks of partial sums in flight an output
-  const int G = s.G(), NO = G * HD;
+  const int hd = head_dim<HD>(a), H2 = hd / 2;
+  const int G = s.G(), NO = G * hd;
   const int tid = threadIdx.x, lane = tid % 32, gw = tid / 32, nh = a.kvh * G, CH = a.CH;
   const int nch = (s.lens()[i] + CH - 1) / CH, cpb = a.BK / CH;
   double* sq = s.sq();
@@ -845,12 +885,12 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
   float* bal = s.bal();
   // the query heads, the current token's pair, this warp's head's first 64
   // chunk statistics and each output's first NB partial p.V sums
-  const T* qp = static_cast<const T*>(a.q) + ((size_t)i * nh + h * G) * HD;
+  const T* qp = static_cast<const T*>(a.q) + ((size_t)i * nh + h * G) * hd;
   float qv[OPT];
 #pragma unroll
   for (int u = 0; u < OPT; ++u) qv[u] = tid + u * NT < NO ? to_f(qp[tid + u * NT]) : 0.f;
   float f1 = 0.f, f2 = 0.f, f3 = 0.f, f4 = 0.f, fc = 0.f, fs = 0.f, ki = 0.f, vi = 0.f;
-  const size_t pair = ((size_t)i * a.kvh + h) * HD;
+  const size_t pair = ((size_t)i * a.kvh + h) * hd;
   if (a.fold == 1 && tid < H2) {
     const int8_t* kn = static_cast<const int8_t*>(a.knew) + pair;
     const int8_t* vn = static_cast<const int8_t*>(a.vnew) + pair;
@@ -864,7 +904,7 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
       fc = __ldg(a.qcos + (size_t)i * H2 + tid);
       fs = __ldg(a.qsin + (size_t)i * H2 + tid);
     }
-  } else if (a.fold == 2 && tid < HD) {
+  } else if (a.fold == 2 && tid < hd) {
     f1 = to_f(static_cast<const T*>(a.knew)[pair + tid]);
     f3 = to_f(static_cast<const T*>(a.vnew)[pair + tid]);
   }
@@ -882,9 +922,9 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
 #pragma unroll
   for (int u = 0; u < OPT; ++u) {
     const int o = min(tid + u * NT, NO - 1);
-    const double* pv = a.pvpart + cell(a, G, i, h * G + o / HD, 0) * HD + o % HD;
+    const double* pv = a.pvpart + cell(a, G, i, h * G + o / hd, 0) * hd + o % hd;
 #pragma unroll
-    for (int e = 0; e < NB; ++e) v0[u][e] = e < nch ? __ldcg(pv + (size_t)e * HD) : 0.0;
+    for (int e = 0; e < NB; ++e) v0[u][e] = e < nch ? __ldcg(pv + (size_t)e * hd) : 0.0;
   }
   // into shared memory
 #pragma unroll
@@ -911,7 +951,7 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
     kf[tid + H2] = kf2;
     vf[tid] = rt<T>(__fmul_rn(f3, vt));
     vf[tid + H2] = rt<T>(__fmul_rn(f4, vt));
-  } else if (a.fold == 2 && tid < HD) {
+  } else if (a.fold == 2 && tid < hd) {
     kf[tid] = f1;
     vf[tid] = f3;
   }
@@ -959,7 +999,7 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
     }
     if (a.fold) {                     // the current token's score
       double sc = 0.0;
-      for (int d = lane; d < HD; d += 32) sc = fma(sq[g * HD + d], (double)kf[d], sc);
+      for (int d = lane; d < hd; d += 32) sc = fma(sq[g * hd + d], (double)kf[d], sc);
       sc = warp_sum(sc);
       if (lane == 0) s.scur()[g] = __fmul_rn((float)sc, a.scale);
     }
@@ -981,9 +1021,9 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
 #pragma unroll
       for (int u = 0; u < OPT; ++u) {
         const int o = min(tid + u * NT, NO - 1);
-        const double* pv = a.pvpart + cell(a, G, i, h * G + o / HD, 0) * HD + o % HD;
+        const double* pv = a.pvpart + cell(a, G, i, h * G + o / hd, 0) * hd + o % hd;
 #pragma unroll
-        for (int e = 0; e < NB; ++e) v0[u][e] = b0 + e < nch ? __ldcg(pv + (size_t)(b0 + e) * HD) : 0.0;
+        for (int e = 0; e < NB; ++e) v0[u][e] = b0 + e < nch ? __ldcg(pv + (size_t)(b0 + e) * hd) : 0.0;
       }
     }
 #pragma unroll
@@ -995,7 +1035,7 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
         if (cc + 1 == end) {          // block jb is complete
 #pragma unroll
           for (int u = 0; u < OPT; ++u) {
-            const int g = min(tid + u * NT, NO - 1) / HD;
+            const int g = min(tid + u * NT, NO - 1) / hd;
             const float al = jb < FW ? bal[g * FW + jb] : __ldcg(a.alpha + cell(a, G, i, h * G + g, jb));
             acc[u] = __fadd_rn(__fmul_rn(acc[u], al), (float)PV[u]);
             PV[u] = 0.0;
@@ -1008,7 +1048,7 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
   }
 #pragma unroll
   for (int u = 0; u < OPT; ++u) {
-    const int o = tid + u * NT, g = o / HD, d = o % HD;
+    const int o = tid + u * NT, g = o / hd, d = o % hd;
     if (o >= NO) break;
     float l = s.fin_l()[g], r = acc[u];
     if (a.fold) {
@@ -1018,7 +1058,7 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
       l = __fadd_rn(__fmul_rn(l, al), pr);
       r = __fadd_rn(__fmul_rn(r, al), __fmul_rn(a.fold == 2 ? rt<T>(pr) : pr, vf[d]));
     }
-    put(static_cast<T*>(a.out) + ((size_t)i * nh + h * G + g) * HD + d, r / fmaxf(l, 1e-9f));
+    put(static_cast<T*>(a.out) + ((size_t)i * nh + h * G + g) * hd + d, r / fmaxf(l, 1e-9f));
   }
 }
 
@@ -1029,8 +1069,8 @@ __host__ __device__ constexpr int outputs_a_thread(int no) { return no > 2 * NT 
 // the build's G can ask for are built)
 template <typename T, int HD, int GL, int GH>
 __device__ __forceinline__ void finish(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
-  constexpr int LO = outputs_a_thread(GL * HD), HI = outputs_a_thread(GH * HD);
-  const int opt = outputs_a_thread(s.G() * HD);
+  constexpr int LO = outputs_a_thread(GL * HD_MIN), HI = outputs_a_thread(GH * HD);
+  const int opt = outputs_a_thread(s.G() * head_dim<HD>(a));
   if constexpr (HI == 4) {
     if (opt == 4) return finish_head<T, 4>(a, s, i, h);
   }
@@ -1105,7 +1145,8 @@ const void* kernel_hd(int dtype_code, int G, int* smem, int* smem_max) {
 // _check_kernel_shape states the rule: G = 1..8 at every head dim, each head
 // dim in its own source)
 inline const void* kernel_of(int dtype_code, int G, int hd, int* smem, int* smem_max) {
-  if (G < 1 || G > GMAX || hd != DECODE_ATTN_HD) return nullptr;
+  const bool hd_ok = PAD ? hd % 4 == 0 && hd >= HD_MIN && hd <= DECODE_ATTN_HD : hd == DECODE_ATTN_HD;
+  if (G < 1 || G > GMAX || !hd_ok) return nullptr;
   return kernel_hd<DECODE_ATTN_HD>(dtype_code, G, smem, smem_max);
 }
 
@@ -1212,6 +1253,7 @@ inline int run(DECODE_ATTN_PARAMS) {
   a.b = b;
   a.kvh = kvh;
   a.G = G;
+  a.hd = hd;
   a.S = S;
   a.CH = CH;
   a.BK = BK;

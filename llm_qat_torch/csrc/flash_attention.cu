@@ -20,7 +20,15 @@
 // bf16 tensor-core rate (989 TFLOP/s) bounds it, by 10-50x over the bytes.
 //
 // Head dims 16, 32, 64 and 128, in bf16 and in f32 (one entry per head
-// dim: flash_fwd is 64, flash_fwd_d16 / _d32 / _d128 the others).
+// dim: flash_fwd is 64, flash_fwd_d16 / _d32 / _d128 the others), and every
+// other hd with hd % 4 == 0 and 32 < hd <= 128 (OpenLLaMA-3B's 100, 48, 80,
+// 96) through flash_fwd_dpad: the D = 128 kernels built with PAD, hd an
+// argument. Global memory keeps rows of hd values (2 hd bytes, 8-byte
+// aligned at hd 100, so the bf16 tiles arrive in 8-byte cp.async pieces,
+// tc_bf16.cuh load_tile_hd); the shared tiles are 128 wide with the columns
+// past hd zero, which add exact zeros to q.k; the 16-deep q.k chunks and
+// 16-wide P.V column pairs wholly past hd are skipped, and output columns
+// past hd are never written. The scale comes from the true hd.
 //
 // bf16: the products run on the tensor cores,
 // mma.sync m16n8k16 bf16 x bf16 -> fp32, which is exactly the contract's
@@ -86,14 +94,16 @@ __host__ __device__ constexpr int fwd_simt_smem() {   // sq, sk, sv, sp
   return (int)sizeof(float) * (BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1));
 }
 
-template <typename T, int D>
+// PAD: rows of hd <= D values in global memory (zeros past hd in the tiles)
+template <typename T, int D, bool PAD = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ lengths, T* __restrict__ o,
                  float* __restrict__ lse, int G, int S, int bk, float scale_log2, int causal,
-                 int soft_bf16) {
+                 int soft_bf16, int hd) {
   constexpr bool P_BF16 = sizeof(T) == 2;   // p rounds to V's type for p.V
   constexpr int DC = D / 16;                // output columns per thread
+  const int HD = PAD ? hd : D;              // values a row in global memory
   extern __shared__ float simt_smem[];
   float (*sq)[D + 1] = reinterpret_cast<float (*)[D + 1]>(simt_smem);
   float (*sk)[D + 1] = sq + BQ;
@@ -104,12 +114,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = iq * BQ;
   const int lenc = max(lengths[b], 1);
-  const size_t qoff = ((size_t)b * G + grp) * S * D;
-  const size_t kvoff = (size_t)b * S * D;
+  const size_t qoff = ((size_t)b * G + grp) * S * HD;
+  const size_t kvoff = (size_t)b * S * HD;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     int r = i / D, d = i % D;
-    sq[r][d] = q0 + r < S ? to_f(q[qoff + (size_t)(q0 + r) * D + d]) : 0.f;
+    sq[r][d] = q0 + r < S && d < HD ? to_f(q[qoff + (size_t)(q0 + r) * HD + d]) : 0.f;
   }
   int last = lenc - 1;
   if (causal) last = min(last, min(q0 + BQ, S) - 1);
@@ -134,9 +144,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int k0 = j0 - j0 % BKV; k0 < j1; k0 += BKV) {
         for (int i = tid; i < BKV * D; i += THREADS) {
           int j = i / D, d = i % D;
-          bool in = k0 + j < S;
-          sk[j][d] = in ? to_f(k[kvoff + (size_t)(k0 + j) * D + d]) : 0.f;
-          if (pass) sv[j][d] = in ? to_f(v[kvoff + (size_t)(k0 + j) * D + d]) : 0.f;
+          bool in = k0 + j < S && d < HD;
+          sk[j][d] = in ? to_f(k[kvoff + (size_t)(k0 + j) * HD + d]) : 0.f;
+          if (pass) sv[j][d] = in ? to_f(v[kvoff + (size_t)(k0 + j) * HD + d]) : 0.f;
         }
         __syncthreads();
 
@@ -145,7 +155,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         for (int r = 0; r < 4; ++r)
 #pragma unroll
           for (int c = 0; c < 2; ++c) s[r][c] = 0.f;
-        for (int d = 0; d < D; ++d) {
+        for (int d = 0; d < HD; ++d) {
           float kd0 = sk[tx * 2][d], kd1 = sk[tx * 2 + 1][d];
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
@@ -220,7 +230,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (row >= S) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      put(o + qoff + (size_t)row * D + tx + 16 * c, acc[r][c] / l[r]);
+      if (!PAD || tx + 16 * c < HD) put(o + qoff + (size_t)row * HD + tx + 16 * c, acc[r][c] / l[r]);
     if (tx == 0) lse[((size_t)b * G + grp) * S + row] = m[r] * LN2 + logf(l[r]);
   }
 }
@@ -240,11 +250,13 @@ constexpr int fwd_tc_smem() {
 #define FWD_TC_PARAMS                                                                        \
   const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,       \
       const int* __restrict__ lengths, bf16* __restrict__ o, float* __restrict__ lse, int G,   \
-      int S, int bk, float scale_log2, int causal, int soft_bf16
+      int S, int bk, float scale_log2, int causal, int soft_bf16, int hd
 #define FWD_TC_ARGS \
-  q, k, v, lengths, o, lse, G, S, bk, scale_log2, causal, soft_bf16
+  q, k, v, lengths, o, lse, G, S, bk, scale_log2, causal, soft_bf16, hd
 
-template <int D>
+// PAD: rows of hd <= D values in global memory (load_tile_hd; the chunks
+// and column pairs wholly past hd skipped, their outputs not written)
+template <int D, bool PAD>
 __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
   constexpr int KC = D / 16;          // 16-deep chunks of the q.k product
   constexpr int NT = TC_BK / 8;       // 8-key column tiles of the scores
@@ -263,13 +275,19 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int q0 = iq * TC_BQ, wr = q0 + warp * 16;   // the warp's first row
   const int lenc = min(max(lengths[b], 1), S);
-  const size_t qoff = (size_t)bg * S * D;
-  const bf16* kbase = k + (size_t)b * S * D;
-  const bf16* vbase = v + (size_t)b * S * D;
+  const int HD = PAD ? hd : D;          // values a row in global memory
+  const size_t qoff = (size_t)bg * S * HD;
+  const bf16* kbase = k + (size_t)b * S * HD;
+  const bf16* vbase = v + (size_t)b * S * HD;
   int last = lenc - 1;
   if (causal) last = min(last, min(q0 + TC_BQ, S) - 1);
+  auto tile = [&](uint32_t dst, const bf16* src, int r0) {
+    if constexpr (PAD) load_tile_hd<D, TC_BK, TC_THREADS>(dst, src, r0, S, HD);
+    else load_tile<D, TC_BK, TC_THREADS>(dst, src, r0, S);
+  };
 
-  load_tile<D, TC_BQ, TC_THREADS>(sq, q + qoff, q0, S);
+  if constexpr (PAD) load_tile_hd<D, TC_BQ, TC_THREADS>(sq, q + qoff, q0, S, HD);
+  else load_tile<D, TC_BQ, TC_THREADS>(sq, q + qoff, q0, S);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -292,8 +310,8 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
     const int t0 = j0 / TC_BK, t1 = (j1 - 1) / TC_BK + 1;
     const float m_old[2] = {m[0], m[1]};
     for (int pass = 0; pass < 2; ++pass) {
-      load_tile<D, TC_BK, TC_THREADS>(sk, kbase, t0 * TC_BK, S);
-      if (pass) load_tile<D, TC_BK, TC_THREADS>(sv, vbase, t0 * TC_BK, S);
+      tile(sk, kbase, t0 * TC_BK);
+      if (pass) tile(sv, vbase, t0 * TC_BK);
       cp_async_commit();
       for (int kt = t0; kt < t1; ++kt) {
         const int k0 = kt * TC_BK;
@@ -301,8 +319,8 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
         const uint32_t skt = sk + stage * TILE, svt = sv + stage * TILE;
         if (kt + 1 < t1) {           // the next tile's copy overlaps this tile's products
           const uint32_t nxt = (stage ^ 1) * TILE;
-          load_tile<D, TC_BK, TC_THREADS>(sk + nxt, kbase, k0 + TC_BK, S);
-          if (pass) load_tile<D, TC_BK, TC_THREADS>(sv + nxt, vbase, k0 + TC_BK, S);
+          tile(sk + nxt, kbase, k0 + TC_BK);
+          if (pass) tile(sv + nxt, vbase, k0 + TC_BK);
           cp_async_commit();
           cp_async_wait<1>();
         } else {
@@ -319,6 +337,7 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
         for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
           for (int np = 0; np < NT / 2; ++np) {
+            if (PAD && kc * 16 >= HD) continue;   // zero columns only
             uint32_t kf[4];
             ldsm_x4(b_addr<D>(skt, np * 16, kc, lane), kf);
             mma(s[2 * np], qa[kc], kf[0], kf[1]);
@@ -367,6 +386,7 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
             acc_to_a(s[2 * c], s[2 * c + 1], pa);
 #pragma unroll
             for (int np = 0; np < DT / 2; ++np) {
+              if (PAD && np * 16 >= HD) continue;   // output columns past hd
               uint32_t vf[4];
               ldsm_x4_t(t_addr<D>(svt, c, np, lane), vf);
               mma(acc[2 * np], pa, vf[0], vf[1]);
@@ -409,81 +429,85 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
   for (int h = 0; h < 2; ++h) {
     const int row = wr + g + 8 * h;
     if (row >= S) continue;
-    bf16* orow = o + qoff + (size_t)row * D;
+    bf16* orow = o + qoff + (size_t)row * HD;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
-          pack(acc[j][2 * h] / l[h], acc[j][2 * h + 1] / l[h]);
+      if (!PAD || j * 8 + 2 * t < HD)
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
+            pack(acc[j][2 * h] / l[h], acc[j][2 * h + 1] / l[h]);
     if (t == 0) lse[(size_t)bg * S + row] = __fadd_rn(__fmul_rn(m[h], LN2), logf(l[h]));
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc_kernel(FWD_TC_PARAMS) {
-  flash_fwd_tc_body<D>(FWD_TC_ARGS);
+  flash_fwd_tc_body<D, PAD>(FWD_TC_ARGS);
 }
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_tc_narrow_kernel(FWD_TC_PARAMS) {
-  flash_fwd_tc_body<D>(FWD_TC_ARGS);
+  flash_fwd_tc_body<D, PAD>(FWD_TC_ARGS);
 }
 // head dims 16 and 32 take the kernel with one block an SM named as its
-// minimum (see the header); 64 and 128 keep the thread count alone
-template <int D>
+// minimum (see the header); 64 and 128 keep the thread count alone, and so
+// does the padded build
+template <int D, bool PAD>
 auto flash_fwd_tc() {
-  if constexpr (D < 64) return &flash_fwd_tc_narrow_kernel<D>;
-  else return &flash_fwd_tc_kernel<D>;
+  if constexpr (D < 64) return &flash_fwd_tc_narrow_kernel<D, PAD>;
+  else return &flash_fwd_tc_kernel<D, PAD>;
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch_fwd_tc(const void* q, const void* k, const void* v, const void* lengths, void* o,
                   void* lse, int B, int G, int S, int bk, int causal, int soft_bf16,
-                  float scale_log2, cudaStream_t st) {
+                  float scale_log2, int hd, cudaStream_t st) {
   constexpr int smem = fwd_tc_smem<D>();
-  if (int e = (int)cudaFuncSetAttribute(flash_fwd_tc<D>(),
+  if (int e = (int)cudaFuncSetAttribute(flash_fwd_tc<D, PAD>(),
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return e;
   const int nq = (S + TC_BQ - 1) / TC_BQ;
-  flash_fwd_tc<D>()<<<nq * G * B, TC_THREADS, smem, st>>>(
+  flash_fwd_tc<D, PAD>()<<<nq * G * B, TC_THREADS, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths, (bf16*)o,
-      (float*)lse, G, S, bk, scale_log2, causal, soft_bf16);
+      (float*)lse, G, S, bk, scale_log2, causal, soft_bf16, hd);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch_fwd_simt(const void* q, const void* k, const void* v, const void* lengths, void* o,
                     void* lse, int B, int G, int S, int bk, int causal, int soft_bf16,
-                    float scale_log2, cudaStream_t st) {
+                    float scale_log2, int hd, cudaStream_t st) {
   constexpr int smem = fwd_simt_smem<D>();
-  if (int e = (int)cudaFuncSetAttribute(flash_fwd_kernel<float, D>,
+  if (int e = (int)cudaFuncSetAttribute(flash_fwd_kernel<float, D, PAD>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return e;
-  flash_fwd_kernel<float, D><<<dim3((S + BQ - 1) / BQ, G, B), THREADS, smem, st>>>(
+  flash_fwd_kernel<float, D, PAD><<<dim3((S + BQ - 1) / BQ, G, B), THREADS, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const int*)lengths, (float*)o,
-      (float*)lse, G, S, bk, scale_log2, causal, soft_bf16);
+      (float*)lse, G, S, bk, scale_log2, causal, soft_bf16, hd);
   return (int)cudaGetLastError();
 }
 
 // dtype_code: 0 = f32 q/k/v/o (SIMT kernel), 1 = bf16 (tensor cores). bk:
-// the TPU kernel's key block, a divisor of S (_fit_block).
-template <int D>
+// the TPU kernel's key block, a divisor of S (_fit_block). hd: the head dim
+// of the rows in memory, D unless PAD.
+template <int D, bool PAD>
 int fwd_entry(const void* q, const void* k, const void* v, const void* lengths, void* o,
               void* lse, int B, int G, int S, int bk, int causal, int soft_bf16, int dtype_code,
-              float scale_log2, void* stream) {
+              float scale_log2, int hd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bk < 1 || S % bk || dtype_code < 0 || dtype_code > 1) return (int)cudaErrorInvalidValue;
+  if (PAD ? hd % 4 || hd <= 32 || hd > D : hd != D) return (int)cudaErrorInvalidValue;
   if (dtype_code == 1)
-    return launch_fwd_tc<D>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16,
-                            scale_log2, st);
-  return launch_fwd_simt<D>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16,
-                            scale_log2, st);
+    return launch_fwd_tc<D, PAD>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16,
+                                 scale_log2, hd, st);
+  return launch_fwd_simt<D, PAD>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16,
+                                 scale_log2, hd, st);
 }
 
-template <int D>
+template <int D, bool PAD = false>
 int fwd_attributes(int* out, int dtype_code) {
   if (dtype_code == 1)
-    return tc_bf16::attributes(flash_fwd_tc<D>(), TC_THREADS, fwd_tc_smem<D>(), out);
-  return tc_bf16::attributes(flash_fwd_kernel<float, D>, THREADS, fwd_simt_smem<D>(), out);
+    return tc_bf16::attributes(flash_fwd_tc<D, PAD>(), TC_THREADS, fwd_tc_smem<D>(), out);
+  return tc_bf16::attributes(flash_fwd_kernel<float, D, PAD>, THREADS, fwd_simt_smem<D>(), out);
 }
 
 }  // namespace
@@ -493,16 +517,27 @@ int fwd_attributes(int* out, int dtype_code) {
   extern "C" int name(const void* q, const void* k, const void* v, const void* lengths,      \
                       void* o, void* lse, int B, int G, int S, int bk, int causal,            \
                       int soft_bf16, int dtype_code, float scale_log2, void* stream) {        \
-    return fwd_entry<D>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16, dtype_code, \
-                        scale_log2, stream);                                                  \
+    return fwd_entry<D, false>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16,    \
+                               dtype_code, scale_log2, D, stream);                            \
   }
 FLASH_FWD_ENTRY(flash_fwd, 64)
 FLASH_FWD_ENTRY(flash_fwd_d16, 16)
 FLASH_FWD_ENTRY(flash_fwd_d32, 32)
 FLASH_FWD_ENTRY(flash_fwd_d128, 128)
 
+// Any other head dim hd % 4 == 0, 32 < hd <= 128: the arguments of the
+// entries above with hd after dtype_code.
+extern "C" int flash_fwd_dpad(const void* q, const void* k, const void* v, const void* lengths,
+                              void* o, void* lse, int B, int G, int S, int bk, int causal,
+                              int soft_bf16, int dtype_code, int hd, float scale_log2,
+                              void* stream) {
+  return fwd_entry<128, true>(q, k, v, lengths, o, lse, B, G, S, bk, causal, soft_bf16,
+                              dtype_code, scale_log2, hd, stream);
+}
+
 // A kernel's registers, shared memory, spills and occupancy at a head dim
-// (16, 32, 64, 128) and dtype_code (tc_bf16::attributes; launches nothing).
+// (16, 32, 64, 128; another: the padded build) and dtype_code
+// (tc_bf16::attributes; launches nothing).
 extern "C" int flash_fwd_attributes(int* out, int head_dim, int dtype_code) {
   switch (head_dim) {
     case 16: return fwd_attributes<16>(out, dtype_code);
@@ -510,5 +545,7 @@ extern "C" int flash_fwd_attributes(int* out, int head_dim, int dtype_code) {
     case 64: return fwd_attributes<64>(out, dtype_code);
     case 128: return fwd_attributes<128>(out, dtype_code);
   }
+  if (head_dim % 4 == 0 && head_dim > 32 && head_dim < 128)
+    return fwd_attributes<128, true>(out, dtype_code);
   return (int)cudaErrorInvalidValue;
 }

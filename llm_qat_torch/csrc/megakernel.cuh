@@ -68,7 +68,8 @@
 // __fmul_rn / __fadd_rn, which the compiler never contracts into one fused
 // multiply-add. Scratch written by one block and read by another is read
 // with __ldcg (L2 only). Built for head dims 64 and 128 (a template each)
-// with 1 to 8 query heads a kv head taken at run time (p.G): the attention
+// and for the other head dims of the padded build (below), with 1 to 8
+// query heads a kv head taken at run time (p.G): the attention
 // stages' shared memory is sized for 8, the q.k loop runs with a register
 // tile of 1, 2, 4 or 8 heads (G rounded up; the padding heads' query rows
 // are zeros) and the finish stage with 1, 2 or 4 outputs a thread. The
@@ -76,6 +77,23 @@
 //
 // One source builds one head dim (MEGAKERNEL_HD: megakernel.cu 64,
 // megakernel_d128.cu 128), so the two compile side by side.
+// megakernel_dpad.cu defines MEGAKERNEL_PAD beside HD = 128: its kernels
+// take every head dim p.hd % 4 == 0 with 32 < p.hd <= 128 (OpenLLaMA-3B's
+// 100) at run time. HD is then the most the attention stages' shared memory
+// holds (sized as at 128); every layout in global memory keeps the true hd
+// (projection columns, cache rows, RoPE tables, scratch) and every count,
+// stride and pair (j, j + hd/2) comes from it (head_dim). Heads then
+// straddle the products' 128-column tiles, which nothing assumes otherwise.
+// A RoPE row of hd/2 floats that is no multiple of 16 bytes (hd 100: 200)
+// arrives in 8-byte pieces.
+//
+// The padded build also takes products whose K is no multiple of TK
+// (OpenLLaMA-3B's H = 3200 and I = 8640): the wrapper's tiled weight copy is
+// zero-padded to whole TK chunks, the activations past K arrive as zeros
+// (issue_x), so the int32 sums are exact; the norms' sums of squares and
+// absmax run over the true width. The builds of head dims 64 and 128 keep
+// K % TK == 0 and their code: the zero-filling copies cost LLaMA-7B's W8 step
+// 6-7% there (registers at 255), with nothing of theirs to take.
 
 #pragma once
 
@@ -157,6 +175,11 @@ constexpr int NQ = NT / CHMAX;        // threads a column in the scores stage
 constexpr int VS = CHMAX + 4;         // V chunk row stride: an odd count of words
 constexpr float QEPS = 1e-6f;
 constexpr float NEG_INF = -1e30f;
+#ifdef MEGAKERNEL_PAD
+constexpr bool PAD = true;            // the head dim from the launch (p.hd)
+#else
+constexpr bool PAD = false;
+#endif
 
 __device__ __forceinline__ float ld_f(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ float ld_f(const __nv_bfloat16* p) {
@@ -225,6 +248,29 @@ __device__ __forceinline__ int stage_g(const Params& p) {
   return g;
 }
 
+// the head dim: HD, or p.hd in the padded build, re-read as stage_g does
+template <int HD>
+__device__ __forceinline__ int head_dim(const Params& p) {
+  if constexpr (PAD) {
+    int h = p.hd;
+    asm volatile("" : "+r"(h));
+    return h;
+  } else {
+    return HD;
+  }
+}
+
+// K chunks of TK values a product of depth K has (the padded build: the last
+// one zero-padded; the others take K % TK == 0)
+__device__ __forceinline__ int k_chunks(int K) { return PAD ? (K + TK - 1) / TK : K / TK; }
+
+// v, hidden from the compiler as stage_g hides p.G, so that what is derived
+// from it is computed where used and not held across the products
+__device__ __forceinline__ int fresh(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
 __device__ __forceinline__ float act_scale(const Params& p, const int* amax) {
   return p.a_qmax / (__int_as_float(__ldcg(amax)) + QEPS);
 }
@@ -232,6 +278,16 @@ __device__ __forceinline__ float act_scale(const Params& p, const int* amax) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem));
+}
+// 16 bytes, zeros when !in (gmem is then not read)
+__device__ __forceinline__ void cp_async16z(void* smem, const void* gmem, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
 template <int N>
@@ -382,7 +438,8 @@ __device__ __forceinline__ int swz(int row, int ch, int rb) {
 }
 
 // Start the copy of an item's weight tile (TN rows of TK or, packed, TK/2
-// bytes, contiguous: w is [N / TN, K / TK] such tiles) into ring slot `slot`.
+// bytes, contiguous: w is [N / TN, k_chunks(K)] such tiles) into ring slot
+// `slot`.
 template <bool W4>
 __device__ __forceinline__ void issue_w(const uint8_t* w, int item, GemmSmem* s, int slot) {
   constexpr int RB = W4 ? TK / 2 : TK, CPR = RB / 16;
@@ -396,16 +453,24 @@ __device__ __forceinline__ void issue_w(const uint8_t* w, int item, GemmSmem* s,
 
 // Start the copy of an item's activations (b rows of TK values of type S:
 // K chunk kc, or at W4 the chunk's low-half and high-half K values) from
-// src [b, K] into slot `slot`.
+// src [b, K] into slot `slot`. The padded build: zeros past K (past K/2 in
+// each half at W4: K % 16 == 0 keeps each 16-byte piece whole on one side).
 template <typename S, bool W4>
 __device__ __forceinline__ void issue_x(const S* src, int K, int b, int kc, GemmSmem* s,
                                         int slot) {
   constexpr int VPC = 16 / sizeof(S), CPR = TK / VPC;   // values a chunk, chunks a row
   for (int idx = threadIdx.x; idx < b * CPR; idx += NT) {
     const int row = idx / CPR, v = (idx % CPR) * VPC;
-    const int col = W4 ? (v < TK / 2 ? kc * (TK / 2) + v : K / 2 + kc * (TK / 2) + v - TK / 2)
-                       : kc * TK + v;
-    cp_async16(s->xraw[slot] + (size_t)idx * 16, src + (size_t)row * K + col);
+    if constexpr (PAD) {
+      const int kk = W4 ? kc * (TK / 2) + (v < TK / 2 ? v : v - TK / 2) : kc * TK + v;
+      const bool in = kk < (W4 ? K / 2 : K);
+      const int col = W4 && v >= TK / 2 ? K / 2 + kk : kk;
+      cp_async16z(s->xraw[slot] + (size_t)idx * 16, src + (in ? (size_t)row * K + col : 0), in);
+    } else {
+      const int col = W4 ? (v < TK / 2 ? kc * (TK / 2) + v : K / 2 + kc * (TK / 2) + v - TK / 2)
+                         : kc * TK + v;
+      cp_async16(s->xraw[slot] + (size_t)idx * 16, src + (size_t)row * K + col);
+    }
   }
 }
 
@@ -416,7 +481,7 @@ __device__ __forceinline__ void issue_x(const S* src, int K, int b, int kc, Gemm
 template <bool W4>
 __device__ __forceinline__ void prefetch_w(GemmSmem* s, const uint8_t* w, int N, int K) {
   int lo, hi;
-  item_range(N / TN * (K / TK), lo, hi);
+  item_range(N / TN * k_chunks(K), lo, hi);
 #pragma unroll
   for (int k = 0; k < NSTAGE - 1; ++k) {
     if (lo + k < hi) issue_w<W4>(w, lo + k, s, k);
@@ -496,7 +561,7 @@ __device__ void gemm_stage(const Params& p, GemmSmem* s, const uint8_t* w, int N
                            const S* src, const int* amax, int* acc, const float* sw) {
   constexpr int RB = W4 ? TK / 2 : TK;
   __shared__ float sxs[32];
-  const int kch = K / TK, b = p.b;
+  const int kch = k_chunks(K), b = p.b;
   const int nb_n = (b + 7) / 8, mt = b > 16 ? 2 : 1;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
   const int mi = warp & 3, kh = warp >> 2;    // m16 tiles mi and mi + 4, K half kh
@@ -650,21 +715,21 @@ __device__ __forceinline__ void find_item(const Params& p, const int* first, int
 // type -> sq (float64)
 template <typename T, int HD>
 __device__ void rotate_query(const Params& p, int l, int i, int hh, double* sq) {
-  constexpr int H2 = HD / 2;
-  const int G = stage_g(p), q_dim = p.kvh * G * HD, Dq = q_dim + 2 * p.kvh * HD;
+  const int hd = head_dim<HD>(p), H2 = hd / 2;
+  const int G = stage_g(p), q_dim = p.kvh * G * hd, Dq = q_dim + 2 * p.kvh * hd;
   const float sxi = act_scale(p, p.amax + i);
   const int* acc = p.acc_qkv + (size_t)i * Dq;
   const float* sw = p.qkv_s + (size_t)l * Dq;
   const float* qc = p.qcos + (size_t)i * H2;
   const float* qs = p.qsin + (size_t)i * H2;
   for (int idx = threadIdx.x; idx < G * H2; idx += NT) {
-    const int g = idx / H2, j = idx % H2, c1 = (hh * G + g) * HD + j, c2 = c1 + H2;
+    const int g = idx / H2, j = idx % H2, c1 = (hh * G + g) * hd + j, c2 = c1 + H2;
     const float q1 = rt<T>(fixup(__ldcg(acc + c1), sxi, __ldg(sw + c1)));
     const float q2 = rt<T>(fixup(__ldcg(acc + c2), sxi, __ldg(sw + c2)));
     float r1, r2;
     rope_pair<T>(q1, q2, rt<T>(__ldg(qc + j)), rt<T>(__ldg(qs + j)), r1, r2);
-    sq[g * HD + j] = (double)r1;
-    sq[g * HD + j + H2] = (double)r2;
+    sq[g * hd + j] = (double)r1;
+    sq[g * hd + j + H2] = (double)r2;
   }
 }
 
@@ -674,12 +739,12 @@ __device__ void rotate_query(const Params& p, int l, int i, int hh, double* sq) 
 template <typename T, int HD>
 __device__ __forceinline__ void kv_pair(const Params& p, int l, int i, int idx, float& k1,
                                         float& k2, float& v1, float& v2) {
-  constexpr int H2 = HD / 2;
-  const int kv_dim = p.kvh * HD, q_dim = p.H, Dq = q_dim + 2 * kv_dim;
+  const int hd = head_dim<HD>(p), H2 = hd / 2;
+  const int kv_dim = p.kvh * hd, q_dim = p.H, Dq = q_dim + 2 * kv_dim;
   const float sxi = act_scale(p, p.amax + i);
   const int* acc = p.acc_qkv + (size_t)i * Dq;
   const float* sw = p.qkv_s + (size_t)l * Dq;
-  const int c1 = q_dim + (idx / H2) * HD + idx % H2, c2 = c1 + H2;
+  const int c1 = q_dim + (idx / H2) * hd + idx % H2, c2 = c1 + H2;
   k1 = rt<T>(fixup(__ldcg(acc + c1), sxi, __ldg(sw + c1)));
   k2 = rt<T>(fixup(__ldcg(acc + c2), sxi, __ldg(sw + c2)));
   if (!p.rope) {   // "post": the cache holds rotated K
@@ -705,11 +770,11 @@ __device__ __forceinline__ int kv_items(const Params& p, int hd) {
 
 template <typename T, int HD>
 __device__ void kv_absmax(const Params& p, int l) {
-  const int per = (p.kvh * HD / 2 + NT - 1) / NT;
-  for (int k = blockIdx.x; k < kv_items(p, HD); k += gridDim.x) {
+  const int hd = head_dim<HD>(p), per = (p.kvh * hd / 2 + NT - 1) / NT;
+  for (int k = blockIdx.x; k < kv_items(p, hd); k += gridDim.x) {
     const int i = k / per, idx = (k % per) * NT + threadIdx.x;
     float kam = 0.f, vam = 0.f;
-    if (idx < p.kvh * HD / 2) {
+    if (idx < p.kvh * hd / 2) {
       float k1, k2, v1, v2;
       kv_pair<T, HD>(p, l, i, idx, k1, k2, v1, v2);
       kam = fmaxf(fabsf(k1), fabsf(k2));
@@ -726,16 +791,16 @@ __device__ void kv_absmax(const Params& p, int l) {
 
 template <typename T, int HD>
 __device__ void kv_quant(const Params& p, int l) {
-  constexpr int H2 = HD / 2;
-  const int per = (p.kvh * H2 + NT - 1) / NT, kv_dim = p.kvh * HD;
-  for (int k = gridDim.x - 1 - blockIdx.x; k < kv_items(p, HD); k += gridDim.x) {
+  const int hd = head_dim<HD>(p), H2 = hd / 2;
+  const int per = (p.kvh * H2 + NT - 1) / NT, kv_dim = p.kvh * hd;
+  for (int k = gridDim.x - 1 - blockIdx.x; k < kv_items(p, hd); k += gridDim.x) {
     const int i = k / per, idx = (k % per) * NT + threadIdx.x;
     const float ks_s = p.kv_qmax / (__int_as_float(__ldcg(p.kvmax + i)) + QEPS);
     const float vs_s = p.kv_qmax / (__int_as_float(__ldcg(p.kvmax + p.b + i)) + QEPS);
     if (idx < p.kvh * H2) {
       float k1, k2, v1, v2;
       kv_pair<T, HD>(p, l, i, idx, k1, k2, v1, v2);
-      const size_t o = ((size_t)l * p.b + i) * kv_dim + (idx / H2) * HD + idx % H2;
+      const size_t o = ((size_t)l * p.b + i) * kv_dim + (idx / H2) * hd + idx % H2;
       p.kint[o] = (int8_t)__float2int_rn(k1 * ks_s);
       p.kint[o + H2] = (int8_t)__float2int_rn(k2 * ks_s);
       p.vint[o] = (int8_t)__float2int_rn(v1 * vs_s);
@@ -750,13 +815,13 @@ __device__ void kv_quant(const Params& p, int l) {
 
 // the G query heads from the accumulators, weight scales and RoPE values
 // in shared memory (as rotate_query) -> sq, and rows G..GB-1 of sq zero
-template <typename T, int HD>
-__device__ __forceinline__ void rotate_query_smem(int G, int GB, const int* qacc, const float* qsw,
-                                                  const float* qc, const float* qs, float sxi,
-                                                  double* sq) {
-  constexpr int H2 = HD / 2;
+template <typename T>
+__device__ __forceinline__ void rotate_query_smem(int G, int GB, int hd, const int* qacc,
+                                                  const float* qsw, const float* qc,
+                                                  const float* qs, float sxi, double* sq) {
+  const int H2 = hd / 2;
   for (int idx = threadIdx.x; idx < GB * H2; idx += NT) {
-    const int g = idx / H2, j = idx % H2, c1 = g * HD + j, c2 = c1 + H2;
+    const int g = idx / H2, j = idx % H2, c1 = g * hd + j, c2 = c1 + H2;
     float r1 = 0.f, r2 = 0.f;
     if (g < G) {
       const float q1 = rt<T>(fixup(qacc[c1], sxi, qsw[c1]));
@@ -793,7 +858,7 @@ __device__ __forceinline__ uint32_t bf2_add_rn(uint32_t a, uint32_t b) {
 template <typename T, int GB, int HD>
 __device__ __forceinline__ void qk_col(const Params& p, AttnSmem<HD>* s, int bf, int q, int col,
                                        int ncol) {
-  constexpr int H2 = HD / 2, PQ = H2 / NQ;
+  const int hd = head_dim<HD>(p), H2 = hd / 2, PQ = H2 / NQ;
   constexpr bool BF = sizeof(T) == 2;
   auto& A = s->u.a;
   double a[GB];
@@ -848,7 +913,7 @@ __device__ __forceinline__ void qk_col(const Params& p, AttnSmem<HD>* s, int bf,
       const double d1 = (double)r1, d2 = (double)r2;
 #pragma unroll
       for (int g = 0; g < GB; ++g)
-        a[g] = fma(s->sq[g * HD + j], d1, fma(s->sq[g * HD + j + H2], d2, a[g]));
+        a[g] = fma(s->sq[g * hd + j], d1, fma(s->sq[g * hd + j + H2], d2, a[g]));
     }
   }
 #pragma unroll
@@ -864,11 +929,11 @@ __device__ __forceinline__ void qk_col(const Params& p, AttnSmem<HD>* s, int bf,
 // its run, a block takes its kv_absmax items.
 template <typename T, int HD>
 __device__ void scores_stage(const Params& p, AttnSmem<HD>* s, int l) {
-  constexpr int H2 = HD / 2;
+  const int hd = head_dim<HD>(p), H2 = hd / 2;
   const int G = stage_g(p), GB = g_tile(G);
   const int b = p.b, S = p.S, CH = p.CH, NC = S / CH, nh = p.kvh * G;
-  const int q_dim = nh * HD, Dq = q_dim + 2 * p.kvh * HD;
-  const int hdc = p.packed ? H2 : HD, tid = threadIdx.x, q = tid / CHMAX, col = tid % CHMAX;
+  const int q_dim = nh * hd, Dq = q_dim + 2 * p.kvh * hd;
+  const int hdc = p.packed ? H2 : hd, tid = threadIdx.x, q = tid / CHMAX, col = tid % CHMAX;
   auto& A = s->u.a;
   {   // byte -> bf16 tables, and the slots' activation scales
     const int v = tid;
@@ -893,14 +958,19 @@ __device__ void scores_stage(const Params& p, AttnSmem<HD>* s, int l) {
                    base + (size_t)(idx / per_row) * S + (idx % per_row) * 16);
       if (tid < CH / 4)
         cp_async16(A.ksb[buf] + tid * 4, p.ks + ((size_t)l * b + i) * S + c * CH + tid * 4);
-      const int q0 = hh * G * HD;     // the query heads' first column
-      for (int idx = tid; idx < G * HD / 4; idx += NT) {
+      const int q0 = hh * G * hd;     // the query heads' first column
+      for (int idx = tid; idx < G * hd / 4; idx += NT) {
         cp_async16(A.qacc[buf] + idx * 4, p.acc_qkv + (size_t)i * Dq + q0 + idx * 4);
         cp_async16(A.qsw[buf] + idx * 4, p.qkv_s + (size_t)l * Dq + q0 + idx * 4);
       }
-      if (tid < H2 / 2) {
-        const int t2 = tid % (H2 / 4), tb = tid / (H2 / 4);
-        cp_async16(A.qcs[buf][tb] + t2 * 4, (tb ? p.qsin : p.qcos) + (size_t)i * H2 + t2 * 4);
+      if (H2 % 4 == 0) {
+        if (tid < H2 / 2) {
+          const int t2 = tid % (H2 / 4), tb = tid / (H2 / 4);
+          cp_async16(A.qcs[buf][tb] + t2 * 4, (tb ? p.qsin : p.qcos) + (size_t)i * H2 + t2 * 4);
+        }
+      } else if (tid < H2) {          // rows of hd/2 floats only 8-byte aligned (hd 100)
+        const int t2 = tid % (H2 / 2), tb = tid / (H2 / 2);
+        cp_async8(A.qcs[buf][tb] + t2 * 2, (tb ? p.qsin : p.qcos) + (size_t)i * H2 + t2 * 2);
       }
       if (p.rope && (buf ? tab1 : tab0) != c) {
         const int per_t = CH / 4;
@@ -927,8 +997,8 @@ __device__ void scores_stage(const Params& p, AttnSmem<HD>* s, int l) {
     const int bf = k & 1;
     cp_async_wait<1>();
     __syncthreads();
-    rotate_query_smem<T, HD>(G, GB, A.qacc[bf], A.qsw[bf], A.qcs[bf][0], A.qcs[bf][1], A.sxa[i],
-                             s->sq);
+    rotate_query_smem<T>(G, GB, hd, A.qacc[bf], A.qsw[bf], A.qcs[bf][0], A.qcs[bf][1], A.sxa[i],
+                         s->sq);
     __syncthreads();
     const int ncol = min(CH, s->lens[i] - c * CH);
     switch (GB) {
@@ -972,17 +1042,18 @@ __device__ void scores_stage(const Params& p, AttnSmem<HD>* s, int l) {
 // at a time.
 template <typename T, int HD, int OPT>
 __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int hh, int nch) {
-  constexpr int H2 = HD / 2, NB = OPT > 2 ? 4 : 8;
-  const int G = stage_g(p), NO = G * HD;
+  constexpr int NB = OPT > 2 ? 4 : 8;
+  const int hd = head_dim<HD>(p), H2 = hd / 2;
+  const int G = stage_g(p), NO = G * hd;
   const int b = p.b, CH = p.CH, NC = p.S / CH, nh = p.kvh * G, tid = threadIdx.x, lane = tid % 32;
-  const int kv_dim = p.kvh * HD, q_dim = nh * HD, len = s->lens[i];
+  const int kv_dim = p.kvh * hd, q_dim = nh * hd, len = s->lens[i];
   const int cpb = p.BK / CH, nblk = (len + p.BK - 1) / p.BK;
   const bool act = __ldg(p.active + i) != 0;
   auto& V = s->u.v;
   // every load first, so that they are in flight together
   const float k_inv = __ldcg(p.kinv + (size_t)l * b + i), v_inv = __ldcg(p.vinv + (size_t)l * b + i);
-  const int8_t* ki = p.kint + ((size_t)l * b + i) * kv_dim + hh * HD;
-  const int8_t* vi = p.vint + ((size_t)l * b + i) * kv_dim + hh * HD;
+  const int8_t* ki = p.kint + ((size_t)l * b + i) * kv_dim + hh * hd;
+  const int8_t* vi = p.vint + ((size_t)l * b + i) * kv_dim + hh * hd;
   float kr[2] = {0.f, 0.f}, vr[2] = {0.f, 0.f}, qcs[2] = {0.f, 0.f};
   if (tid < H2) {
     kr[0] = (float)__ldcg(ki + tid);
@@ -1008,9 +1079,9 @@ __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int 
 #pragma unroll
   for (int u = 0; u < OPT; ++u) {
     const int o = min(tid + u * NT, NO - 1);
-    pv[u] = p.pvpart + (size_t)(i * nh + hh * G + o / HD) * NC * HD + o % HD;
+    pv[u] = p.pvpart + (size_t)(i * nh + hh * G + o / hd) * NC * hd + o % hd;
 #pragma unroll
-    for (int e = 0; e < NB; ++e) v0[u][e] = e < nch ? __ldcg(pv[u] + (size_t)e * HD) : 0.0;
+    for (int e = 0; e < NB; ++e) v0[u][e] = e < nch ? __ldcg(pv[u] + (size_t)e * hd) : 0.0;
   }
   rotate_query<T, HD>(p, l, i, hh, s->sq);
   if (gw < G) {
@@ -1060,7 +1131,7 @@ __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int 
   __syncthreads();
   for (int g = tid / 32; g < G; g += NW) {   // the current token's score: a warp a head
     double sc = 0.0;
-    for (int d = lane; d < HD; d += 32) sc = fma(s->sq[g * HD + d], (double)V.kf[d], sc);
+    for (int d = lane; d < hd; d += 32) sc = fma(s->sq[g * hd + d], (double)V.kf[d], sc);
     sc = warp_sum(sc);
     if (lane == 0) V.scur[g] = (float)sc * p.scale;
   }
@@ -1083,7 +1154,7 @@ __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int 
       for (int u = 0; u < OPT; ++u)
 #pragma unroll
         for (int e = 0; e < NB; ++e)
-          v[u][e] = c0 == 0 ? v0[u][e] : c0 + e < nch ? __ldcg(pv[u] + (size_t)(c0 + e) * HD) : 0.0;
+          v[u][e] = c0 == 0 ? v0[u][e] : c0 + e < nch ? __ldcg(pv[u] + (size_t)(c0 + e) * hd) : 0.0;
 #pragma unroll
       for (int e = 0; e < NB; ++e) {
         const int cc = c0 + e;
@@ -1093,7 +1164,7 @@ __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int 
           if ((cc + 1) % cpb == 0 || cc + 1 == nch) {     // block jb is complete
 #pragma unroll
             for (int u = 0; u < OPT; ++u) {
-              const float alpha = V.bal[min(tid + u * NT, NO - 1) / HD][jb];
+              const float alpha = V.bal[min(tid + u * NT, NO - 1) / hd][jb];
               acc[u] = __fadd_rn(__fmul_rn(acc[u], alpha), (float)PV[u]);
               PV[u] = 0.0;
             }
@@ -1104,7 +1175,7 @@ __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int 
     }
 #pragma unroll
     for (int u = 0; u < OPT; ++u) {
-      const int o = tid + u * NT, g = o / HD, d = o % HD;
+      const int o = tid + u * NT, g = o / hd, d = o % hd;
       if (o >= NO) break;
       const float m = V.fin_m[g];
       const float sc = act ? V.scur[g] : NEG_INF;
@@ -1114,7 +1185,7 @@ __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int 
       const float ll = fmaxf(__fadd_rn(__fmul_rn(V.fin_l[g], al), pr), 1e-9f);
       const float num = __fadd_rn(__fmul_rn(acc[u], al), __fmul_rn(pr, V.vf[d]));
       const float res = rt<T>(num / ll);
-      put(static_cast<T*>(p.attn) + (size_t)i * q_dim + (hh * G + g) * HD + d, res);
+      put(static_cast<T*>(p.attn) + (size_t)i * q_dim + (hh * G + g) * hd + d, res);
       am = fmaxf(am, fabsf(res));
     }
   }
@@ -1163,10 +1234,11 @@ __device__ __forceinline__ void store_chunk(const Params& p, const ChunkRegs& R,
 // kv_quant items.
 template <typename T, int HD>
 __device__ void softmax_v_stage(const Params& p, AttnSmem<HD>* s, int l) {
-  constexpr int H2 = HD / 2, SPT = (GMAX * CHMAX + NT - 1) / NT;
-  const int G = stage_g(p), NO = G * HD;
+  constexpr int SPT = (GMAX * CHMAX + NT - 1) / NT;
+  const int hd = head_dim<HD>(p), H2 = hd / 2;
+  const int G = stage_g(p), NO = G * hd;
   const int b = p.b, S = p.S, CH = p.CH, NC = S / CH, nh = p.kvh * G, tid = threadIdx.x;
-  const int hdc = p.packed ? H2 : HD, lane = tid % 32, cpb = p.BK / CH;
+  const int hdc = p.packed ? H2 : hd, lane = tid % 32, cpb = p.BK / CH;
   const int items = s->first[b];    // first and lens as the scores stage left them
   ChunkRegs R;
   float sreg[SPT], vsr = 0.f, cmr[2];
@@ -1237,7 +1309,7 @@ __device__ void softmax_v_stage(const Params& p, AttnSmem<HD>* s, int l) {
     }
     const int ncol4 = (ncol + 3) & ~3;
     auto pv_out = [&](int o, int c0, int c1) {
-      const int g = o / HD, d = o % HD;
+      const int g = o / hd, d = o % hd;
       const uint8_t* vrow = s->u.v.vbuf + (p.packed ? d % H2 : d) * VS;
       const int shift = p.packed ? (d < H2 ? 28 : 24) : 24, back = p.packed ? 28 : 24;
       double a4[4] = {0.0, 0.0, 0.0, 0.0};   // independent chains
@@ -1252,18 +1324,21 @@ __device__ void softmax_v_stage(const Params& p, AttnSmem<HD>* s, int l) {
     };
     if (NO >= NT) {
       for (int o = tid; o < NO; o += NT)
-        p.pvpart[((size_t)(i * nh + hh * G + o / HD) * NC + c) * HD + o % HD] = pv_out(o, 0, ncol4);
+        p.pvpart[((size_t)(i * nh + hh * G + o / hd) * NC + c) * hd + o % hd] = pv_out(o, 0, ncol4);
     } else {
       // split parts of the columns an output, summed through shared memory
-      // (threads past split x NO, where NO does not divide NT, take none)
-      const int split = NT / NO, part_w = CHMAX / split;
+      // (threads past split x NO, where NO does not divide NT, take none);
+      // in the padded build a part is rounded up to whole words (hd 48: 5
+      // parts of 28 columns)
+      const int split = NT / NO;
+      const int part_w = PAD ? ((CHMAX + split - 1) / split + 3) & ~3 : CHMAX / split;
       const int o = tid % NO, part = tid / NO;
       double a = part < split ? pv_out(o, part * part_w, min(ncol4, (part + 1) * part_w)) : 0.0;
       s->u.v.redd[tid] = a;
       __syncthreads();
       if (part == 0) {
         for (int k = 1; k < split; ++k) a += s->u.v.redd[tid + k * NO];
-        p.pvpart[((size_t)(i * nh + hh * G + o / HD) * NC + c) * HD + o % HD] = a;
+        p.pvpart[((size_t)(i * nh + hh * G + o / hd) * NC + c) * hd + o % hd] = a;
       }
     }
   }
@@ -1276,7 +1351,7 @@ template <typename T, int HD>
 __device__ void finish_stage(const Params& p, AttnSmem<HD>* s, int l) {
   // first and lens as the scores stage left them (no GEMM tile has been
   // staged over them since)
-  const int no = stage_g(p) * HD;
+  const int no = stage_g(p) * head_dim<HD>(p);
   for (int item = blockIdx.x; item < p.b * p.kvh; item += gridDim.x) {
     __syncthreads();                  // the previous item is done with the shared memory
     const int i = item / p.kvh, hh = item % p.kvh, nch = (s->lens[i] + p.CH - 1) / p.CH;
@@ -1325,8 +1400,14 @@ __device__ void run_layers(const Params& p, unsigned char* smem) {
   AttnSmem<HD>* as = reinterpret_cast<AttnSmem<HD>*>(smem);
   GemmSmem* gs = reinterpret_cast<GemmSmem*>(smem);
   const int H = p.H, I = p.I, b = p.b, bid = blockIdx.x;
-  const int Dq = H + 2 * p.kvh * HD;
+  const int Dq = H + 2 * p.kvh * head_dim<HD>(p);
   const size_t kdiv = W4 ? 2 : 1;
+  // layer l's weight tiles of a product of N columns and depth K (the
+  // padded build's copy zero-pads K to whole chunks), computed where used;
+  // there K is re-read (fresh): held across the products it spilled
+  auto layer_w = [&](const uint8_t* w, int l, int N, int K) {
+    return w + (size_t)l * N * ((size_t)k_chunks(PAD ? fresh(K) : K) * TK / kdiv);
+  };
   const T* attn = static_cast<const T*>(p.attn);
   const T* actv = static_cast<const T*>(p.act);
   int* amax_a = p.amax;           // attention norm's rows
@@ -1348,16 +1429,12 @@ __device__ void run_layers(const Params& p, unsigned char* smem) {
   barrier(grid, p, stamp);
 
   for (int l = 0; l < p.L; ++l) {
-    const uint8_t* wq = p.qkv_w + (size_t)l * Dq * (H / kdiv);
-    const uint8_t* wo = p.o_w + (size_t)l * H * (H / kdiv);
-    const uint8_t* wg = p.gu_w + (size_t)l * 2 * I * (H / kdiv);
-    const uint8_t* wd = p.dn_w + (size_t)l * H * (I / kdiv);
-
-    prefetch_w<W4>(gs, wq, Dq, H);
+    prefetch_w<W4>(gs, layer_w(p.qkv_w, l, Dq, H), Dq, H);
     if (bid == 0 && threadIdx.x < b) amax_d[threadIdx.x] = 0;
     norm_stage<T>(p, p.anorm + (size_t)l * H, amax_a);
     barrier(grid, p, stamp);
-    gemm_stage<T, float, W4, false>(p, gs, wq, Dq, H, p.xn, amax_a, p.acc_qkv, nullptr);
+    gemm_stage<T, float, W4, false>(p, gs, layer_w(p.qkv_w, l, Dq, H), Dq, H, p.xn, amax_a,
+                                    p.acc_qkv, nullptr);
     barrier(grid, p, stamp);
     scores_stage<T, HD>(p, as, l);
     barrier(grid, p, stamp);
@@ -1365,7 +1442,7 @@ __device__ void run_layers(const Params& p, unsigned char* smem) {
     barrier(grid, p, stamp);
     finish_stage<T, HD>(p, as, l);
     __syncthreads();
-    prefetch_w<W4>(gs, wo, H, H);
+    prefetch_w<W4>(gs, layer_w(p.o_w, l, H, H), H, H);
     barrier(grid, p, stamp);
     clear(p.acc_qkv, (size_t)b * Dq);   // the attention stages are done with it
     if (bid == 0 && threadIdx.x < b) {   // the attention stages are done with these
@@ -1373,19 +1450,22 @@ __device__ void run_layers(const Params& p, unsigned char* smem) {
       p.kvmax[threadIdx.x] = 0;
       p.kvmax[b + threadIdx.x] = 0;
     }
-    gemm_stage<T, T, W4, true>(p, gs, wo, H, H, attn, amax_o, p.acc_o, p.o_s + (size_t)l * H);
+    gemm_stage<T, T, W4, true>(p, gs, layer_w(p.o_w, l, H, H), H, H, attn, amax_o, p.acc_o,
+                               p.o_s + (size_t)l * H);
     barrier(grid, p, stamp);
-    prefetch_w<W4>(gs, wg, 2 * I, H);
+    prefetch_w<W4>(gs, layer_w(p.gu_w, l, 2 * I, H), 2 * I, H);
     if (bid == 0 && threadIdx.x < b) amax_o[threadIdx.x] = 0;
     norm_stage<T>(p, p.mnorm + (size_t)l * H, amax_m);
     barrier(grid, p, stamp);
-    gemm_stage<T, float, W4, false>(p, gs, wg, 2 * I, H, p.xn, amax_m, p.acc_gu, nullptr);
+    gemm_stage<T, float, W4, false>(p, gs, layer_w(p.gu_w, l, 2 * I, H), 2 * I, H, p.xn, amax_m,
+                                    p.acc_gu, nullptr);
     barrier(grid, p, stamp);
     silu_stage<T>(p, l);
-    prefetch_w<W4>(gs, wd, H, I);
+    prefetch_w<W4>(gs, layer_w(p.dn_w, l, H, I), H, I);
     barrier(grid, p, stamp);
     if (bid == 0 && threadIdx.x < b) amax_m[threadIdx.x] = 0;
-    gemm_stage<T, T, W4, true>(p, gs, wd, H, I, actv, amax_d, p.acc_dn, p.dn_s + (size_t)l * H);
+    gemm_stage<T, T, W4, true>(p, gs, layer_w(p.dn_w, l, H, I), H, I, actv, amax_d, p.acc_dn,
+                               p.dn_s + (size_t)l * H);
     barrier(grid, p, stamp);
   }
 }
@@ -1414,10 +1494,11 @@ constexpr int smem_bytes() {
   return (int)(sizeof(AttnSmem<HD>) > sizeof(GemmSmem) ? sizeof(AttnSmem<HD>) : sizeof(GemmSmem));
 }
 
-// the kernel for dtype_code at this source's head dim (hd must be it)
+// the kernel for dtype_code at this source's head dim (hd must be it; the
+// padded build: hd % 4 == 0, 32 < hd <= HD)
 int kernel_of(int dtype_code, int hd, const void** kern, int* smem) {
   constexpr int HD = MEGAKERNEL_HD;
-  if (hd != HD) return (int)cudaErrorInvalidValue;
+  if (PAD ? hd % 4 || hd <= 32 || hd > HD : hd != HD) return (int)cudaErrorInvalidValue;
   *kern = dtype_code == 1 ? reinterpret_cast<const void*>(&decode_kernel<__nv_bfloat16, HD>)
                           : reinterpret_cast<const void*>(&decode_kernel<float, HD>);
   *smem = smem_bytes<HD>();

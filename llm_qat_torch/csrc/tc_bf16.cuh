@@ -4,6 +4,9 @@
 // fp32).
 //
 // Tiles are [rows][D] bf16, D in {16, 32, 64, 128}, one row 2 * D bytes.
+// load_tile_hd fills a tile of width D from rows of hd < D values (hd % 4
+// == 0: rows 2 hd bytes apart, 8-byte aligned), in 8-byte pieces, the
+// columns past hd zero (the forward's build for head dims off that set).
 // D >= 64: the 16-byte chunk ch of row r lives at chunk ch ^ (r % 8) of its
 // row. D = 16 and 32: a row is 2 or 4 chunks, too narrow for that XOR, so
 // 64 / D rows share a 128-byte line, and the chunk at position p of line L
@@ -39,6 +42,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(in ? 16 : 0));
+}
+// 8 bytes global -> shared, zero-filled when !in
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 8 : 0));
 }
 // 4 bytes global -> shared, zero-filled when !in
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool in) {
@@ -112,6 +120,20 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int r0,
     const int r = i / CH, ch = i % CH;
     const bool in = r0 + r < nrows;
     cp_async16(dst + swz<D>(r, ch), src + (size_t)(in ? r0 + r : 0) * D + ch * 8, in);
+  }
+}
+
+// the same from a [nrows, hd] matrix, hd % 4 == 0 and hd <= D: 8-byte
+// pieces, two to a 16-byte chunk of the tile, zeros past nrows and in the
+// columns [hd, D)
+template <int D, int ROWS, int NTHREADS>
+__device__ __forceinline__ void load_tile_hd(uint32_t dst, const bf16* src, int r0, int nrows,
+                                             int hd) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < ROWS * CH * 2; i += NTHREADS) {
+    const int r = i / (2 * CH), ch = (i >> 1) % CH, h = i & 1, col = ch * 8 + h * 4;
+    const bool in = r0 + r < nrows && col < hd;
+    cp_async8(dst + swz<D>(r, ch) + h * 8, src + (in ? (size_t)(r0 + r) * hd + col : 0), in);
   }
 }
 

@@ -5,7 +5,8 @@ the contract of ``model._forward`` at s = 1; ``model._forward`` sends the
 default configuration (``use_megakernel=True``) here when ``supported()``.
 
 ``decode_layers`` launches ``csrc/megakernel.cuh`` (built by ``megakernel.cu``
-at head dim 64 and ``megakernel_d128.cu`` at 128), which replaces
+at head dim 64, ``megakernel_d128.cu`` at 128 and ``megakernel_dpad.cu`` at
+every other head dim of its rule), which replaces
 ``llm_qat_tpu/inference/megakernel.py:_kernel`` (the body of its
 ``pl.pallas_call``): one persistent cooperative launch computes every layer.
 Beside it ``decode_layers_plain`` (and ``decode_step_plain`` around it)
@@ -42,21 +43,26 @@ re-quantizing layers have no last-bit difference to amplify.
 Shape rules. ``supported()`` (decided from the configuration, before any
 launch): ``w_bits`` in {4, 8}, ``2 < a_bits <= 8``, ``b <= 32``,
 ``max_len % BK == 0``. The CUDA kernel takes 1 to 8 query heads per kv head
-(G, at run time) at head dims 64 and 128 (a build each): MHA heads of 128
-(the LLaMA-7B/13B family), TinyLlama-1.1B's (8, 64), Llama-3's and
-Mistral's (4, 128), Llama-2-70B's (8, 128), Llama-3.2's (4, 64) and
-(3, 128), Yi-34B's (7, 128). Also ``H`` and ``I`` multiples of 256,
-projection widths multiples of 128, ``BK`` and ``S`` multiples of 16, bf16
-or f32 (``card_takes``); its shared memory does not depend on ``BK``, ``b``
-or G. For another shape on the GPU ``decode_layers`` raises
-``NotImplementedError`` naming the rule, and ``model._forward`` sends the
-step to the scan path (decided from the configuration).
+(G, at run time) at head dims 64 and 128 (a build each) and at every head
+dim ``hd % 4 == 0`` with ``32 < hd <= 128`` (one build, hd at run time):
+MHA heads of 128 (the LLaMA-7B/13B family) and of 100 (OpenLLaMA-3B),
+TinyLlama-1.1B's (8, 64), Llama-3's and Mistral's (4, 128), Llama-2-70B's
+(8, 128), Llama-3.2's (4, 64) and (3, 128), Yi-34B's (7, 128). Also ``H``
+and ``I`` multiples of 256 at head dims 64 and 128, of 16 in the padded
+build (the products' K: a last chunk of the 256-wide K item is
+zero-padded; OpenLLaMA-3B's 3200 and 8640), projection widths multiples of
+128, ``BK`` and ``S`` multiples of 16, bf16 or f32 (``card_takes``); its
+shared memory does not depend on ``BK``, ``b`` or G. For another shape on the GPU
+``decode_layers`` raises ``NotImplementedError`` naming the rule, and
+``model._forward`` sends the step to the scan path (decided from the
+configuration).
 
 The kernel reads a K-contiguous copy of the projections' integers
 (``card_weights``: ``[L, N, K]`` int8, or ``[L, N, K/2]`` split-half
-nibbles at W4, cut into the kernel's contiguous 128 x 256 tiles), made
-once and kept beside the JAX-layout ``q`` that the scan path and the plain
-version read: as many bytes again as the weights (6.5 GB at LLaMA-7B W8).
+nibbles at W4, K zero-padded to whole 256-value chunks, cut into the
+kernel's contiguous 128 x 256 tiles), made once and kept beside the
+JAX-layout ``q`` that the scan path and the plain version read: as many
+bytes again as the weights (6.5 GB at LLaMA-7B W8).
 """
 
 from __future__ import annotations
@@ -383,8 +389,8 @@ class _Params(ctypes.Structure):
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the head dims the kernel is built for, and the most query heads per kv head
-# a launch takes
+# the head dims the kernel has builds of its own for, the padded build's rule
+# beside them, and the most query heads per kv head a launch takes
 HEAD_DIMS = (64, 128)
 MAX_GROUPS = 8
 _TILE = 128            # the products' column tile (and the sum-of-squares partials)
@@ -394,12 +400,27 @@ _MAX_CHUNKS = 256      # attention chunks a slot may have
 
 
 # the source of each head dim's build (csrc/megakernel.cuh, one source a
-# head dim so that the two compile side by side)
-_STEMS = {64: "megakernel", 128: "megakernel_d128"}
+# head dim so that they compile side by side; "dpad" the padded build's)
+_STEMS = {64: "megakernel", 128: "megakernel_d128", "dpad": "megakernel_dpad"}
+
+
+def padded(hd: int) -> bool:
+    """Whether head dim ``hd`` takes the padded build
+    (``megakernel_dpad.cu``)."""
+    return hd not in HEAD_DIMS and _build.in_padded_rule(hd)
+
+
+def _stem(hd: int) -> str:
+    return _STEMS["dpad" if padded(hd) else hd]
+
+
+def _k_pad(k: int) -> int:
+    """K rounded up to whole ``_TK`` chunks: the tiled copy's depth."""
+    return -(-k // _TK) * _TK
 
 
 def _fn(name: str, argtypes, hd: int = 64):
-    f = getattr(_build.library(_STEMS[hd]), name)
+    f = getattr(_build.library(_stem(hd)), name)
     if f.argtypes is None:
         f.argtypes, f.restype = argtypes, ctypes.c_int
     return f
@@ -410,14 +431,18 @@ def _card_shape_error(c: LlamaConfig, b: int, S: int, bk: int, dtype):
     groups = c.num_attention_heads // c.kv_heads
     kv_dim = c.kv_heads * c.head_dim
     widths = (c.hidden_size + 2 * kv_dim, c.hidden_size, 2 * c.intermediate_size)
-    if (not 1 <= groups <= MAX_GROUPS or c.head_dim not in HEAD_DIMS
+    if (not 1 <= groups <= MAX_GROUPS
+            or not (c.head_dim in HEAD_DIMS or padded(c.head_dim))
             or groups * c.kv_heads != c.num_attention_heads):
         return (f"{c.num_attention_heads} query heads over {c.kv_heads} kv heads at head dim "
                 f"{c.head_dim} (built for 1 <= G <= {MAX_GROUPS} query heads per kv head at "
-                f"head dims {' and '.join(map(str, HEAD_DIMS))})")
-    if (c.hidden_size % 256 or c.intermediate_size % 256 or any(n % _TILE for n in widths)
+                f"head dims {' and '.join(map(str, HEAD_DIMS))} and every {_build.PADDED_RULE})")
+    k_grid = 16 if padded(c.head_dim) else _TK       # the products' K
+    if (c.hidden_size % k_grid or c.intermediate_size % k_grid
+            or any(n % _TILE for n in widths)
             or c.num_attention_heads * c.head_dim != c.hidden_size):
-        return (f"H={c.hidden_size}, I={c.intermediate_size} (multiples of 256, H = heads x "
+        return (f"H={c.hidden_size}, I={c.intermediate_size} (multiples of {_TK} at head dims "
+                f"{' and '.join(map(str, HEAD_DIMS))}, of 16 at the padded build's, H = heads x "
                 f"head dim), projection widths {widths} (multiples of {_TILE})")
     if bk % 16 or S % 16 or S // math.gcd(_CHUNK, bk) > _MAX_CHUNKS:
         return (f"KV block {bk} and cache length {S} (multiples of 16, at most "
@@ -441,21 +466,27 @@ _PROJ = ("qkv", "o", "gateup", "down")
 
 
 def _k_contiguous(q: torch.Tensor) -> torch.Tensor:
-    """``[L, K(/2), N]`` -> ``[L, N / 128, K / 256, 128, 256 (/2)]``: the
+    """``[L, K(/2), N]`` -> ``[L, N / 128, Kp / 256, 128, 256 (/2)]``: the
     kernel's tiles (128 output columns x 256 K values, as int8, or packed
     nibble pairs at W4), each tile's rows K-contiguous and each tile
-    contiguous, in the order a block streams them."""
+    contiguous, in the order a block streams them; K zero-padded to
+    ``Kp = _k_pad(K)`` (at W4 each half: a zero byte is two zero nibbles)."""
     L, kp, n = q.shape
     rb = _TK // 2 if q.dtype == torch.uint8 else _TK
-    if n % _TILE or kp % rb:
+    if n % _TILE or kp % (16 if rb == _TK else 8):
         raise ValueError(f"weights [L, {kp}, {n}] are off the kernel's tile grid "
-                         f"({_TILE} output columns x {_TK} K values)")
-    t = q.transpose(1, 2).reshape(L, n // _TILE, _TILE, kp // rb, rb)
+                         f"({_TILE} output columns, K a multiple of 16)")
+    kt = -(-kp // rb)
+    t = q.transpose(1, 2)
+    if kt * rb != kp:
+        t = torch.nn.functional.pad(t, (0, kt * rb - kp))
+    t = t.reshape(L, n // _TILE, _TILE, kt, rb)
     return t.permute(0, 1, 3, 2, 4).contiguous()
 
 
 def untile(t: torch.Tensor) -> torch.Tensor:
-    """A ``card_weights`` tensor back to ``[L, N, K(/2)]``."""
+    """A ``card_weights`` tensor back to ``[L, N, Kp(/2)]`` (K's zero
+    padding included)."""
     L, nt, kt, tn, rb = t.shape
     return t.permute(0, 1, 3, 2, 4).reshape(L, nt * tn, kt * rb)
 
@@ -540,6 +571,7 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
     norm_round = dtype == torch.bfloat16 and all(g.dtype == torch.bfloat16 for g in gains)
     kdiv = 2 if w4 else 1
     rb = _TK // kdiv
+    hk = _k_pad(H) // _TK              # K chunks of the products on H
     hdc = hd // 2 if packed else hd
     cdt = torch.uint8 if packed else torch.int8
     t = dict(
@@ -552,10 +584,10 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
         dn_s=want("down scales", lay["down"]["s"], f32, (L, 1, H)),
         anorm=want("attn_norm", gains[0].float(), f32, (L, H)),
         mnorm=want("mlp_norm", gains[1].float(), f32, (L, H)),
-        qkv_w=want("qkv weights", card["qkv"], wdt, (L, dq // _TILE, H // _TK, _TILE, rb)),
-        o_w=want("o weights", card["o"], wdt, (L, H // _TILE, H // _TK, _TILE, rb)),
-        gu_w=want("gateup weights", card["gateup"], wdt, (L, 2 * I // _TILE, H // _TK, _TILE, rb)),
-        dn_w=want("down weights", card["down"], wdt, (L, H // _TILE, I // _TK, _TILE, rb)),
+        qkv_w=want("qkv weights", card["qkv"], wdt, (L, dq // _TILE, hk, _TILE, rb)),
+        o_w=want("o weights", card["o"], wdt, (L, H // _TILE, hk, _TILE, rb)),
+        gu_w=want("gateup weights", card["gateup"], wdt, (L, 2 * I // _TILE, hk, _TILE, rb)),
+        dn_w=want("down weights", card["down"], wdt, (L, H // _TILE, _k_pad(I) // _TK, _TILE, rb)),
         kq=want("k_q", cache["k_q"], cdt, (L, b, kvh, hdc, S)),
         ks=want("k_s", cache["k_s"], f32, (L, b, S)),
         vq=want("v_q", cache["v_q"], cdt, (L, b, kvh, hdc, S)),
@@ -609,11 +641,13 @@ decode_layers.launches = 0
 
 def kernel_attributes() -> dict:
     """What the compiler gave each variant of the kernel (one a head dim and
-    type; G is an argument), by name (``{dtype}_d{hd}``): registers a
-    thread, shared bytes (static, dynamic), local (spill) bytes a thread,
-    threads a block and blocks an SM can hold. Launches nothing."""
-    return {f"{dn}_d{d}": _build.attributes(_STEMS[d], "megakernel_attributes", code, d)
-            for dn, code in (("f32", 0), ("bf16", 1)) for d in HEAD_DIMS}
+    type; G is an argument), by name (``{dtype}_d{hd}``, the padded build
+    ``{dtype}_dpad``, queried at head dim 100): registers a thread, shared
+    bytes (static, dynamic), local (spill) bytes a thread, threads a block
+    and blocks an SM can hold. Launches nothing."""
+    return {f"{dn}_d{'pad' if padded(d) else d}": _build.attributes(
+                _stem(d), "megakernel_attributes", code, d)
+            for dn, code in (("f32", 0), ("bf16", 1)) for d in HEAD_DIMS + (100,)}
 
 
 def grid_size(device=None) -> int:

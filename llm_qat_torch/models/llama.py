@@ -49,10 +49,12 @@ def rope_cos_sin(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 cos/sin tables ``[b, s, head_dim]`` for absolute positions
     ``[b, s]``."""
-    inv_freq = 1.0 / (
-        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                               device=positions.device) / head_dim)
-    )
+    # theta ** (2i / d) taken in float64 and rounded once: the bits of XLA's
+    # f32 pow in the JAX package at every head dim a repo model or public
+    # config has, where torch's f32 pow is a last bit off at some (one of
+    # OpenLLaMA-3B's 50 frequencies at head dim 100), on the CPU and the card alike
+    e = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    inv_freq = 1.0 / (theta ** e.double()).float()
     freqs = positions.float()[..., None] * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)

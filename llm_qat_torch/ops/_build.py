@@ -174,6 +174,19 @@ def query(stem: str, fn: str, n_out: int, *ints: int) -> list:
     return list(out)
 
 
+# The head dims the padded builds take beside their own power-of-two ones:
+# K4's flash_fwd_dpad (csrc/flash_attention.cu), K3/K7/K8's
+# decode_attention_dpad.cu (decode_attn.cuh DECODE_ATTN_PAD) and K9's
+# megakernel_dpad.cu (megakernel.cuh MEGAKERNEL_PAD): rows of hd values in
+# global memory, 8-byte aligned, in shared buffers sized for 128.
+PADDED_RULE = "hd % 4 == 0 with 32 < hd <= 128"
+
+
+def in_padded_rule(hd: int) -> bool:
+    """Whether head dim ``hd`` is of ``PADDED_RULE``."""
+    return hd % 4 == 0 and 32 < hd <= 128
+
+
 # what csrc/tc_bf16.cuh attributes() reports, in its order
 ATTRIBUTE_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "spill_bytes",
                   "threads", "blocks_per_sm")

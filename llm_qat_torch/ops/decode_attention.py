@@ -7,11 +7,14 @@ head)), each beside its plain PyTorch version; a wrapper takes the plain
 version only for tensors on the CPU, and on a CUDA tensor it launches its
 kernel or raises. Each wrapper counts its launches in ``launches``. On the
 card all three take 1 to 8 query heads per kv head (G, at run time) at head
-dims 16, 32, 64 and 128 (``_SHAPES``), f32 or bf16 q, and at most 256
-slots; another shape raises ``NotImplementedError`` naming that rule.
-Each head dim has a source of its own (``_STEMS``: ``csrc/decode_attention.cu``
-at 64, ``decode_attention_d16.cu``, ``_d32.cu``, ``_d128.cu``), with one
-build for each range of G (``_build_range``: 1, 2, 3..4, 5..7, 8).
+dims 16, 32, 64 and 128 and at every head dim ``hd % 4 == 0`` with
+``32 < hd <= 128`` (``_SHAPES`` and ``padded``: OpenLLaMA-3B's 100), f32 or
+bf16 q, and at most 256 slots; another shape raises ``NotImplementedError``
+naming that rule. Each of the four head dims has a source of its own
+(``_STEMS``: ``csrc/decode_attention.cu`` at 64, ``decode_attention_d16.cu``,
+``_d32.cu``, ``_d128.cu``) and the others share ``decode_attention_dpad.cu``
+(hd from the launch, shared buffers sized for 128), each with one build for
+each range of G (``_build_range``: 1, 2, 3..4, 5..7, 8).
 
 * ``quantized_decode_attention`` (``csrc/decode_attention.cu``, plain
   ``_decode_attention_plain``) replaces
@@ -309,9 +312,20 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUPS = 8
 _SHAPES = tuple((g, hd) for hd in _HEAD_DIMS for g in range(1, _MAX_GROUPS + 1))
 # the source that builds each head dim (csrc/decode_attn.cuh DECODE_ATTN_HD),
-# so the four compile side by side
+# so the five compile side by side; "dpad" the padded build's
 _STEMS = {16: "decode_attention_d16", 32: "decode_attention_d32", 64: "decode_attention",
-          128: "decode_attention_d128"}
+          128: "decode_attention_d128", "dpad": "decode_attention_dpad"}
+
+
+def padded(hd: int) -> bool:
+    """Whether head dim ``hd`` takes the padded build
+    (``decode_attention_dpad.cu``)."""
+    return hd not in _HEAD_DIMS and _build.in_padded_rule(hd)
+
+
+def _stem(hd: int) -> str:
+    """The source whose build takes head dim ``hd``."""
+    return _STEMS["dpad" if padded(hd) else hd]
 _CHUNK = 128
 _MAX_SLOTS = 256
 _PAGED_P = 128
@@ -372,13 +386,14 @@ def _fold_operands(what, fold, b, kvh, hd, rope, dev):
 
 def _check_kernel_shape(what, q, groups, hd, b):
     """Raise unless the kernels take ``groups`` query heads per kv head at
-    head dim ``hd`` (1 <= G <= 8, hd in 16, 32, 64, 128), with an f32/bf16
-    q and at most 256 slots."""
-    if (groups, hd) not in _SHAPES or q.dtype not in _DTYPE_CODES or b > _MAX_SLOTS:
+    head dim ``hd`` (1 <= G <= 8, hd in 16, 32, 64, 128 or ``_build.PADDED_RULE``),
+    with an f32/bf16 q and at most 256 slots."""
+    shape_ok = (groups, hd) in _SHAPES or (1 <= groups <= _MAX_GROUPS and padded(hd))
+    if not shape_ok or q.dtype not in _DTYPE_CODES or b > _MAX_SLOTS:
         raise NotImplementedError(
             f"{what}: decode_attn.cuh takes 1 <= G <= {_MAX_GROUPS} query heads per kv head "
-            f"at head dims {_HEAD_DIMS}, f32/bf16 q, at most {_MAX_SLOTS} slots; got "
-            f"G={groups}, hd={hd}, {q.dtype}, b={b}")
+            f"at head dims {_HEAD_DIMS} and every {_build.PADDED_RULE}, f32/bf16 q, at most "
+            f"{_MAX_SLOTS} slots; got G={groups}, hd={hd}, {q.dtype}, b={b}")
 
 
 def _check_contiguous_kernel_shape(what, q, groups, hd, S, b=1):
@@ -412,9 +427,11 @@ def _build_range(groups: int) -> tuple:
 
 def _build_name(groups: int, hd: int, dtype: str) -> str:
     """``kernel_attributes``' name of the build that takes ``groups`` at
-    head dim ``hd`` with a ``dtype`` ("bf16" or "f32") q."""
+    head dim ``hd`` with a ``dtype`` ("bf16" or "f32") q (``dpad`` for the
+    padded build's head dims)."""
     lo, hi = _build_range(groups)
-    return f"decode_attention_d{hd}_g{lo}" + (f"-{hi}" if hi > lo else "") + f"_{dtype}"
+    return (f"decode_attention_d{'pad' if padded(hd) else hd}_g{lo}"
+            + (f"-{hi}" if hi > lo else "") + f"_{dtype}")
 
 
 def kernel_attributes() -> dict:
@@ -424,12 +441,13 @@ def kernel_attributes() -> dict:
     local (spill) bytes a thread, threads a block and blocks an SM can hold
     (at the fewest G the build takes), and ``blocks_per_sm_by_g``, the blocks
     an SM a launch at each of its G gets (the shared memory is carved by G).
-    Launches nothing."""
+    The padded build is queried at OpenLLaMA-3B's head dim 100. Launches
+    nothing."""
     out = {}
-    for hd in _HEAD_DIMS:
+    for hd in _HEAD_DIMS + (100,):
         for name, code in (("bf16", 1), ("f32", 0)):
             def attrs(g):
-                return _build.attributes(_STEMS[hd], "decode_attention_attributes",
+                return _build.attributes(_stem(hd), "decode_attention_attributes",
                                          code, g, hd)
 
             for g in range(1, _MAX_GROUPS + 1):
@@ -495,7 +513,7 @@ def quantized_decode_attention(
     out = torch.empty_like(qc)
     ptrs = [qc, kq, ksc, vq, vsc, lens, None, kc, ksn, *fold_t, out,
             _scratch(b, nh, S // ch, ch, hd, dev)]
-    _launch(_STEMS[hd], "decode_attention", what, ptrs,
+    _launch(_stem(hd), "decode_attention", what, ptrs,
             [b, kvh, groups, hd, S, ch, blk, S // ch, S, int(packed), int(rope),
              int(fold is not None), _DTYPE_CODES[q.dtype]], 1.0 / math.sqrt(hd), dev)
     quantized_decode_attention.launches += 1
@@ -571,7 +589,7 @@ def quantized_decode_attention_stacked(
     out = torch.empty_like(qc)
     ptrs = [qc, k_q_all, k_s_all, v_q_all, v_s_all, lens, kc, ksn, kn, vn, inc, out,
             _scratch(b, nh, S // ch, ch, hd, dev)]
-    _launch(_STEMS[hd], "decode_attention_stacked", what, ptrs,
+    _launch(_stem(hd), "decode_attention_stacked", what, ptrs,
             [b, kvh, groups, hd, S, ch, blk, layer, int(rope), _DTYPE_CODES[q.dtype]],
             1.0 / math.sqrt(hd), dev)
     quantized_decode_attention_stacked.launches += 1
@@ -649,7 +667,7 @@ def quantized_paged_attention(
     out = torch.empty_like(qc)
     ptrs = [qc, k_q, k_s, v_q, v_s, lens, bt, kc, ksn, *fold_t, out,
             _scratch(b, nh, max_pages, P, hd, dev)]
-    _launch(_STEMS[hd], "paged_attention", what, ptrs,
+    _launch(_stem(hd), "paged_attention", what, ptrs,
             [b, kvh, groups, hd, P, P, P, max_pages, max_pages * P, int(packed), int(rope),
              int(fold is not None), _DTYPE_CODES[q.dtype]], 1.0 / math.sqrt(hd), dev)
     quantized_paged_attention.launches += 1

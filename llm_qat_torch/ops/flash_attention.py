@@ -18,8 +18,12 @@ exp2 on bf16 operands (``config.flash_softmax_bf16``; the forward only).
 Returns O and the per-row log-sum-exp in nats, ``[B, G, 1, S]``.
 
 On the card the forward and the backward pair take head dims 16, 32, 64
-and 128 (``HEAD_DIMS``), each in f32 and bf16; another head dim raises
-``NotImplementedError``. In bf16 all three kernels run their products on the tensor
+and 128 (``HEAD_DIMS``), each in f32 and bf16; the forward also takes every
+other head dim with ``hd % 4 == 0`` and ``32 < hd <= 128`` (``padded``:
+OpenLLaMA-3B's 100, and 48, 80, 96) through one build of its D = 128
+kernels with hd an argument. Another head dim raises
+``NotImplementedError`` naming the rule; the backward at the padded head
+dims (training such a model) is the next slice and raises so too. In bf16 all three kernels run their products on the tensor
 cores, and their plain versions take q.k and dO.v the same way
 (``_scores``); in f32 they run on the fp32 units with fp32 products.
 
@@ -65,10 +69,16 @@ def _scores(a, b, tensor_cores: bool = True):
     tensor-core kernels (K4, K10, K11), whose fp32 accumulation differs from a
     chain of fp32 multiply-adds by enough to move p or ds across a bf16
     rounding step, and a sum that cancels then misses the kernels' limit
-    (``flash_numerics.py`` measures it). Otherwise fp32 products of the widened
-    operands (the CPU and f32 operands)."""
+    (``flash_numerics.py`` measures it). At a head dim of the padded build
+    the operands are zero-padded to its 128-wide tiles first: the library's
+    product over a depth of 100 sums in another order than the kernel's
+    16-deep chunks (it moved a p a step past K4's limit at hd 100). Otherwise
+    fp32 products of the widened operands (the CPU and f32 operands)."""
     if tensor_cores and a.is_cuda and a.dtype == torch.bfloat16:
         B, G, S, D = a.shape
+        if padded(D):
+            a, b = (torch.nn.functional.pad(t, (0, 128 - D)) for t in (a, b))
+            D = 128
         return torch.bmm(a.reshape(B, G * S, D), b.transpose(1, 2),
                          out_dtype=torch.float32).reshape(B, G, S, -1)
     return torch.einsum("bgqd,bkd->bgqk", a.float(), b.float())
@@ -133,19 +143,36 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
 
+def padded(D: int) -> bool:
+    """Whether the forward takes head dim ``D`` through its padded build
+    (``flash_fwd_dpad``; OpenLLaMA-3B's 100)."""
+    return D not in HEAD_DIMS and _build.in_padded_rule(D)
+
+
 def _check_built(source: str, D: int, tensors) -> None:
     """Raise ``NotImplementedError``, naming the built set, unless every
-    tensor has q's f32 / bf16 type and ``D`` is a built head dim."""
+    tensor has q's f32 / bf16 type and ``D`` is a head dim ``source`` takes:
+    ``HEAD_DIMS``, and for the forward (``flash_attention.cu``) also the
+    padded build's."""
     dts = [t.dtype for t in tensors]
-    if dts[0] not in _DTYPE_CODES or any(d != dts[0] for d in dts) or D not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"{source} is built for head dims {HEAD_DIMS} in f32 or bf16 (one type for "
-            f"every operand); got D={D}, {'/'.join(str(d) for d in dts)}")
+    fwd = source == "flash_attention.cu"
+    if (dts[0] in _DTYPE_CODES and all(d == dts[0] for d in dts)
+            and (D in HEAD_DIMS or (fwd and padded(D)))):
+        return
+    rule = (f"head dims {HEAD_DIMS} and every {_build.PADDED_RULE}" if fwd else
+            f"head dims {HEAD_DIMS}")
+    note = ("" if fwd or not padded(D) else
+            f" (the forward takes {_build.PADDED_RULE}; the backward at those head dims, "
+            "training such a model, is the next slice)")
+    raise NotImplementedError(
+        f"{source} is built for {rule} in f32 or bf16 (one type for every operand); got "
+        f"D={D}, {'/'.join(str(d) for d in dts)}{note}")
 
 
 def _entry(stem: str, D: int) -> str:
-    """The kernel entry of head dim ``D``: ``stem`` at 64, else ``stem_d{D}``."""
-    return stem if D == 64 else f"{stem}_d{D}"
+    """The kernel entry of head dim ``D``: ``stem`` at 64, ``stem_dpad``
+    for the padded build, else ``stem_d{D}``."""
+    return stem if D == 64 else f"{stem}_dpad" if padded(D) else f"{stem}_d{D}"
 
 
 def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False,
@@ -155,7 +182,7 @@ def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False,
     ([B, G, S, D], lse [B, G, 1, S]). p is rounded in the TPU kernel's key
     blocks (``_fit_block(bk, S)``: every caller of the JAX kernel passes
     1024); the CUDA kernel's own tiles are fixed and mask the ragged edge. On the card: head dims
-    ``HEAD_DIMS`` in f32 or bf16."""
+    ``HEAD_DIMS`` and the padded build's (``padded``) in f32 or bf16."""
     B, G, S, D = q.shape
     if k.shape != (B, S, D) or v.shape != (B, S, D):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}")
@@ -170,11 +197,12 @@ def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False,
         raise ValueError(f"_flash_fwd: {lens.numel()} lengths for B={B}")
     o = torch.empty_like(qc)
     lse = torch.empty((B, G, 1, S), dtype=torch.float32, device=q.device)
-    f = _build.bind("flash_attention", _entry("flash_fwd", D), 6, 7, 1)
+    ints = [B, G, S, _fit_block(bk, S), int(causal), int(soft_bf16), _DTYPE_CODES[q.dtype]]
+    if padded(D):
+        ints.append(D)
+    f = _build.bind("flash_attention", _entry("flash_fwd", D), 6, len(ints), 1)
     err = f(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), B, G, S, _fit_block(bk, S), int(causal),
-            int(soft_bf16),
-            _DTYPE_CODES[q.dtype], float(_LOG2E / math.sqrt(D)),
+            o.data_ptr(), lse.data_ptr(), *ints, float(_LOG2E / math.sqrt(D)),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_fwd")
     _flash_fwd.launches += 1
@@ -312,8 +340,9 @@ def _flash_bwd(q, k, v, lengths, o, lse, do, causal: bool = True):
 
 def kernel_attributes() -> dict:
     """What the compiler gave every kernel of K4, K10 and K11 at every head
-    dim, by entry name, ``_f32`` appended for the f32 (SIMT) kernels (the
-    bf16 tensor-core kernels keep the bare name): registers a thread, shared
+    dim (K4's padded build as ``flash_fwd_dpad``), by entry name, ``_f32``
+    appended for the f32 (SIMT) kernels (the bf16 tensor-core kernels keep
+    the bare name): registers a thread, shared
     bytes (static, dynamic), local (spill) bytes a thread, threads a block
     and blocks an SM can hold. Launches nothing."""
     return {_entry(stem, D) + ("" if code else "_f32"): _build.attributes(
@@ -321,7 +350,9 @@ def kernel_attributes() -> dict:
             for stem, src in (("flash_fwd", "flash_attention"),
                               ("flash_bwd_dq", "flash_attention_bwd"),
                               ("flash_bwd_dkv", "flash_attention_bwd"))
-            for D in HEAD_DIMS for code in (1, 0)}
+            for D in HEAD_DIMS for code in (1, 0)} | {
+        f"flash_fwd_dpad{'' if code else '_f32'}": _build.attributes(
+            "flash_attention", "flash_fwd_attributes", 100, code) for code in (1, 0)}
 
 
 class AttnSaved:

@@ -362,13 +362,14 @@ def test_decode_attention_kernel_attributes(gen):
     range of G and q type): no spill, one block an SM at least at every G
     (the cooperative launch needs them resident), two or more where the
     carve of G heads leaves room (every G below head dim 128, and G <= 2
-    there); the builds of a head dim take G = 1..8 between them, each G in
-    the build ``_build_name`` names."""
+    there and in the padded build, whose buffers are 128's); the builds of a
+    head dim take G = 1..8 between them, each G in the build ``_build_name``
+    names."""
     attrs = DA.kernel_attributes()
-    names = {DA._build_name(g, hd, dt) for g in range(1, 9) for hd in DA._HEAD_DIMS
+    names = {DA._build_name(g, hd, dt) for g in range(1, 9) for hd in DA._HEAD_DIMS + (100,)
              for dt in ("bf16", "f32")}
     assert set(attrs) == names
-    for hd in DA._HEAD_DIMS:
+    for hd in DA._HEAD_DIMS + (100,):
         for dt in ("bf16", "f32"):
             for g in range(1, 9):
                 assert g in attrs[DA._build_name(g, hd, dt)]["blocks_per_sm_by_g"], (hd, dt, g)
@@ -376,7 +377,7 @@ def test_decode_attention_kernel_attributes(gen):
         assert a["spill_bytes"] == 0 and a["blocks_per_sm"] >= 1, (name, a)
         by_g = a["blocks_per_sm_by_g"]
         assert all(n >= 1 for n in by_g.values()), (name, a)
-        if "_d128_" not in name or max(by_g) <= 2:
+        if ("_d128_" not in name and "_dpad_" not in name) or max(by_g) <= 2:
             assert min(by_g.values()) >= 2, (name, a)
 
 
@@ -592,8 +593,9 @@ def test_flash_fwd_kernel_refuses_shapes_it_is_not_built_for(gen):
     q = torch.randn(1, 1, 64, 128, device="cuda", generator=gen)
     k = torch.randn(1, 64, 128, device="cuda", generator=gen)
     lens = torch.tensor([64], dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\)"):
-        FA._flash_fwd(*(t[..., :96].to(torch.bfloat16) for t in (q, k, k)), lens)
+    with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\) and every "
+                                                  r"hd % 4 == 0 with 32 < hd <= 128"):
+        FA._flash_fwd(*(t[..., :98].to(torch.bfloat16) for t in (q, k, k)), lens)
     with pytest.raises(NotImplementedError, match="one type for every operand"):
         FA._flash_fwd(q, k.to(torch.bfloat16), k, lens)
 
@@ -623,9 +625,9 @@ def _random_cache(cfg, b, S, gen):
     return {"k_q": ints(), "k_s": scales(), "v_q": ints(), "v_s": scales()}
 
 
-def _megakernel_against_plain(cfg, lens, active, dtype, gen, S):
+def _megakernel_against_plain(cfg, lens, active, dtype, gen, S, exact=False):
     """One decode step through the kernel and through its plain version
-    from the same random cache and weights."""
+    from the same random cache and weights (``exact``: logits bit-equal)."""
     qp = Q.quantize_params(P.init_params(cfg, seed=0, dtype=dtype), cfg)
     b = len(lens)
     cache = _random_cache(cfg, b, S, gen)
@@ -644,7 +646,7 @@ def _megakernel_against_plain(cfg, lens, active, dtype, gen, S):
         assert torch.equal(c1[k], c2[k]), k
     for k in ("k_s", "v_s"):
         assert torch.allclose(c1[k], c2[k], rtol=1e-6, atol=0), k
-    assert _close(lg1, lg2)
+    assert torch.equal(lg1, lg2) if exact else _close(lg1, lg2)
     # the step wrote column `length` of active slots and nothing below it
     for i, (n, a) in enumerate(zip(lens, active)):
         assert torch.equal(c1["k_q"][:, i, :, :, :n], cache["k_q"][:, i, :, :, :n])
@@ -718,24 +720,25 @@ def test_decode_megakernel_mha_head_dim_128_against_plain(gen, mode, rope_mode, 
 
 
 def test_decode_megakernel_kernel_attributes(gen):
-    """Every variant of the kernel (bf16 and f32 at head dims 64 and 128, G
-    at run time) keeps its registers (no spill) and fits one block an SM:
-    the cooperative grid is one block per SM."""
+    """Every variant of the kernel (bf16 and f32 at head dims 64 and 128 and
+    in the padded build, G at run time) keeps its registers (no spill) and
+    fits one block an SM: the cooperative grid is one block per SM."""
     attrs = MK.kernel_attributes()
-    assert len(attrs) == 4
+    assert len(attrs) == 6
     for name, a in attrs.items():
         assert a["spill_bytes"] == 0, (name, a)
         assert a["blocks_per_sm"] >= 1 and a["threads"] == 256, (name, a)
 
 
 def test_decode_megakernel_refuses_shapes_it_is_not_built_for(gen):
-    cfg = LLAMA_7B.replace(num_hidden_layers=1, vocab_size=256, hidden_size=3072,
-                           intermediate_size=8192, w_bits=8, a_bits=8, kv_bits=8)  # head dim 96
+    cfg = LLAMA_7B.replace(num_hidden_layers=1, vocab_size=256, hidden_size=4352,
+                           intermediate_size=8192, w_bits=8, a_bits=8, kv_bits=8)  # head dim 136
     qp = Q.quantize_params(P.init_params(cfg, seed=0, dtype=torch.bfloat16), cfg)
     cache = M.init_serving_cache(cfg, 1, 256)
     assert not MK.card_takes(cfg, 1, 256, torch.bfloat16)
     with pytest.raises(NotImplementedError,
-                       match="1 <= G <= 8 query heads per kv head at head dims 64 and 128"):
+                       match="1 <= G <= 8 query heads per kv head at head dims 64 and 128 and "
+                             "every hd % 4 == 0 with 32 < hd <= 128"):
         MK.decode_step(qp, cfg, [[3]], [0], [True], cache)
 
 
@@ -850,7 +853,8 @@ def test_flash_bwd_kernels_refuse_other_head_dims(gen):
     lens = torch.full((1,), 64, dtype=torch.int32, device="cuda")
     lse = torch.zeros(1, 1, 1, 64, device="cuda")
     for fn in (FA._flash_bwd_dq, FA._flash_bwd_dkv):
-        with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\)"):
+        with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\) in f32 .* "
+                                                      r"is the next slice"):
             fn(q, k, k, lens, lse, lse, q)
 
 
@@ -891,12 +895,13 @@ def test_flash_kernels_at_the_new_head_dims(gen, D, dtype, G, causal, S):
 
 def test_flash_kernel_attributes(gen):
     """Every K4/K10/K11 kernel (bf16 tensor-core and f32 SIMT, head dims 16,
-    32, 64, 128) compiles to at most 255 registers a thread, spills nothing,
-    and fits at least one block on an SM."""
+    32, 64, 128, and K4's padded build) compiles to at most 255 registers a
+    thread, spills nothing, and fits at least one block on an SM."""
     attrs = FA.kernel_attributes()
     assert set(attrs) == {FA._entry(stem, D) + suf for stem in
                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-                          for D in FA.HEAD_DIMS for suf in ("", "_f32")}
+                          for D in FA.HEAD_DIMS for suf in ("", "_f32")} | {
+        "flash_fwd_dpad", "flash_fwd_dpad_f32"}
     for name, a in attrs.items():
         assert a["spill_bytes"] == 0 and a["registers"] <= 255, (name, a)
         assert a["threads"] == (256 if name.endswith("_f32") else 128), (name, a)
@@ -1208,6 +1213,131 @@ def test_engine_serves_mha_head_dim_128_through_the_megakernel(gen, monkeypatch)
         lg.append(M.serving_forward(qp, cfg.replace(use_megakernel=flag), [[29], [31]],
                                     c["lengths"], [True, True], c)[0])
     assert float((lg[0] - lg[1]).norm() / lg[1].norm()) <= 0.15
+
+
+# ---------------------------------------------------------------- head dims of the padded builds
+
+PAD_DIMS = (48, 80, 96, 100)
+
+
+@pytest.mark.parametrize("hd", PAD_DIMS)
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_kernel_padded_head_dims(gen, hd, G, packed, fold, dtype):
+    """K3's padded build (hd from the launch, buffers sized for 128) at S =
+    2048 and the JAX picker's block: lengths 0, 1, 127-129, bk - 1..bk + 1
+    and S, slot 2 inactive, RoPE from the tables; bit-equal to its plain
+    version and the same bits twice."""
+    kvh, S = 4, 2048
+    bk = DA._pick_bk(S, kvh, hd, 1024)
+    lens_l = [0, 1, 127, 128, 129, bk - 1, bk, bk + 1, S]
+    b = len(lens_l)
+    kq, ks, vq, vs = _cache(gen, b, kvh, hd, S, packed)
+    q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(dtype)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    kc, ksn = DA._rope_tables(S, hd, 10000.0, "cuda")
+    fd = None
+    if fold:
+        fd = _quant_fold(gen, b, kvh, hd, packed, [int(i != 2) for i in range(b)], kc, ksn,
+                         torch.clamp(lens.long(), max=S - 1))
+    args = (q, kq, ks, vq, vs, lens, kc, ksn, fd)
+    n = DA.quantized_decode_attention.launches
+    got = DA.quantized_decode_attention(*args, packed=packed)
+    again = DA.quantized_decode_attention(*args, packed=packed)
+    assert DA.quantized_decode_attention.launches == n + 2
+    want = DA._decode_attention_plain(*args, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, want)
+
+
+PAGED_KVH.update({(g, hd): 4 for hd in PAD_DIMS for g in (1, 8)})
+
+
+@pytest.mark.parametrize("hd", PAD_DIMS)
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_kernel_padded_head_dims(gen, hd, G, packed, dtype):
+    """K8's padded build over 32 slots of ``_paged_case`` (fold on, RoPE):
+    bit-equal to its plain version and the same bits twice."""
+    q, pool, lens, bt, kc, ksn, fd = _paged_case(32, G, hd, packed, dtype, gen)
+    args = (q, *pool, lens, bt, kc, ksn, fd)
+    got = DA.quantized_paged_attention(*args, packed=packed)
+    assert torch.equal(got, DA.quantized_paged_attention(*args, packed=packed))
+    want = DA._paged_attention_plain(*args, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hd", PAD_DIMS)
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stacked_decode_attention_kernel_padded_head_dims(gen, hd, G, dtype):
+    """K7's padded build on layer 2 of a 3-layer stacked cache: bit-equal to
+    its plain version."""
+    L, b, S, kvh = 3, 8, 512, 4
+    kq = torch.randint(-127, 128, (L, b, kvh, hd, S), device="cuda", generator=gen).to(torch.int8)
+    vq = torch.randint(-127, 128, (L, b, kvh, hd, S), device="cuda", generator=gen).to(torch.int8)
+    ks = torch.rand(L, b, S, device="cuda", generator=gen) * 0.02 + 0.005
+    vs = torch.rand(L, b, S, device="cuda", generator=gen) * 0.02 + 0.005
+    q = torch.randn(b, kvh * G, hd, device="cuda", generator=gen).to(dtype)
+    lens = torch.tensor([0, 0, 17, 255, 256, 257, 400, 511], dtype=torch.int32, device="cuda")
+    inc = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.int32, device="cuda")
+    kn = (torch.randn(b, kvh, hd, device="cuda", generator=gen) * 0.5).to(dtype)
+    vn = (torch.randn(b, kvh, hd, device="cuda", generator=gen) * 0.5).to(dtype)
+    kc, ksn = DA._rope_tables(S, hd, 10000.0, "cuda")
+    args = (q, kq, ks, vq, vs, lens, inc, kn, vn, kc, ksn)
+    got = DA.quantized_decode_attention_stacked(*args, layer=2)
+    want = DA._decode_attention_stacked_plain(*args, layer=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hd", PAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [100, 1100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_kernel_padded_head_dims(gen, hd, dtype, S, causal):
+    """K4's padded build (rows of hd values in 8-byte pieces, tiles 128 wide
+    with zeros past hd) against its plain version within its gate, lengths
+    S, 1, one cut mid-tile and one a few short; the same bits twice."""
+    B, G = 4, 2
+    q = torch.randn(B, G, S, hd, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(B, S, hd, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    lens = torch.tensor([S, 1, S // 2 + 3, S - 5], dtype=torch.int32, device="cuda")
+    n = FA._flash_fwd.launches
+    o, lse = FA._flash_fwd(q, k, v, lens, causal=causal)
+    o_again, _ = FA._flash_fwd(q, k, v, lens, causal=causal)
+    assert FA._flash_fwd.launches == n + 2
+    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, causal)
+    torch.cuda.synchronize()
+    assert o.shape == (B, G, S, hd) and _close(o, o2) and torch.equal(o, o_again)
+    assert float((lse - lse2).abs().max()) < (1e-3 if dtype == torch.bfloat16 else 1e-5)
+
+
+# (kv heads, G, intermediate) of each head dim's 2-layer K9 case: widths on
+# the products' 128-column tiles; I = 2112 at 80 and OpenLLaMA-3B's 32 MHA
+# heads and I = 8640 at 100 (K off the 256 grid: the zero-padded last chunk)
+PAD_K9 = {48: (8, 1, 2048), 80: (8, 2, 2112), 96: (8, 4, 2048), 100: (32, 1, 8640)}
+
+
+@pytest.mark.parametrize("hd", PAD_DIMS)
+@pytest.mark.parametrize("mode", list(K9_MODES))
+@pytest.mark.parametrize("rope_mode", ["pre", "post"])
+def test_decode_megakernel_padded_head_dims_against_plain(gen, hd, mode, rope_mode):
+    """K9's padded build on a 2-layer cut, b = 8, max_len 2048 at the JAX
+    picker's block, lengths as the TinyLlama case: bit-equal logits."""
+    kvh, G, inter = PAD_K9[hd]
+    cfg = LLAMA_7B.replace(num_hidden_layers=2, hidden_size=kvh * G * hd,
+                           intermediate_size=inter, num_attention_heads=kvh * G,
+                           num_key_value_heads=kvh, kv_cache_rope=rope_mode, **K9_MODES[mode])
+    assert cfg.head_dim == hd and MK.card_takes(cfg, 8, 2048, torch.bfloat16)
+    lens = [48, 0, 282, 511, 512, 513, 1024, 1400]
+    active = [True, True, False, True, True, True, True, True]
+    lg = _megakernel_against_plain(cfg, lens, active, torch.bfloat16, gen, 2048, exact=True)
+    assert lg.shape == (8, 1, cfg.vocab_size)
 
 
 def test_measure_times_a_cuda_graph_of_the_kernel(gen):

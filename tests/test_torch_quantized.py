@@ -207,7 +207,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                  "merge_gen_data_torch.py", "eval_torch.py",
                                  "examples/tiny_pipeline_torch.py",
                                  "examples/accuracy_experiment_torch.py",
-                                 "flash_launch_bounds.py", "decode_ab.py")]
+                                 "flash_launch_bounds.py", "decode_ab.py", "flip_trace.py")]
     assert len(files) > 10
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"llm_qat_torch/models/convert.py", "llm_qat_torch/utils/args.py",
@@ -234,7 +234,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {"llm_qat_torch/parallel/tensor.py", "llm_qat_torch/parallel/pipeline.py"} <= names
     assert {"llm_qat_torch/utils/benchmarking.py", "examples/tiny_pipeline_torch.py",
             "examples/accuracy_experiment_torch.py", "flash_launch_bounds.py",
-            "decode_ab.py"} <= names
+            "decode_ab.py", "flip_trace.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -6,9 +6,11 @@ tests hold each new kernel instantiation against, and the wrappers' gates.
   projection at tp = 4): no multiple of the kernels' 128-row stage. The plain
   versions against JAX's Pallas kernels in interpret mode, to the bit.
 * K3, K7 and K8 at (query heads per kv head, head dim) = (2, 16), (2, 32),
-  (4, 128), (8, 128), int8 and nibble-packed caches, at rtol / atol 1e-5
-  (the tolerance of ``test_torch_decode_attention.py``).
-* K4, K10 and K11 at head dims 16 and 32 (f32 and bf16) and 128 (f32): f32 at
+  (4, 128), (8, 128), and (1, 4) x (100, 80) of the padded builds
+  (``PAD_DECODE_SHAPES``), int8 and nibble-packed caches, at rtol / atol
+  1e-5 (the tolerance of ``test_torch_decode_attention.py``).
+* K4, K10 and K11 at head dims 16 and 32 (f32 and bf16), 128 (f32), and 100
+  and 80 (f32 and bf16; on the card the forward's padded build): f32 at
   1e-5, bf16 with the JAX side compiled without excess precision, held at 2
   bf16 steps + 1e-2 x the median (``test_torch_flash_backward.py``'s limit).
 * The gates: what the kernels are built for passes, anything else raises and
@@ -21,7 +23,9 @@ tests hold each new kernel instantiation against, and the wrappers' gates.
   ``test_torch_megakernel.py``), a greedy engine rollout at (3, 128) against
   the JAX serving loop (tokens equal), and the card routing: every public
   config that JAX's ``supported()`` sends to its megakernel is one the
-  card's K9 and K3/K8 gates take.
+  card's K9 and K3/K8 gates take (OpenLLaMA-3B's head dim 100 since the
+  padded builds), and the public shapes the card still refuses
+  (``STILL_REFUSED``) are named.
 """
 
 import jax
@@ -51,7 +55,11 @@ NEW_DECODE_SHAPES = [(2, 16), (2, 32), (4, 128), (8, 128)]
 # (4, 64), Llama-3.2-3B's (3, 128), Llama-3-8B's and Mistral-7B's (4, 128),
 # Yi-34B's (7, 128), Llama-2-70B's (8, 128), and MHA at head dim 64
 GQA_SHAPES = [(1, 64), (3, 128), (4, 64), (4, 128), (7, 128), (8, 128)]
-DECODE_SHAPES = NEW_DECODE_SHAPES + [s for s in GQA_SHAPES if s not in NEW_DECODE_SHAPES]
+# head dims off the power-of-two set through the padded builds: OpenLLaMA-3B's
+# 100 and 80, one and four query heads a kv head
+PAD_DECODE_SHAPES = [(1, 100), (4, 100), (1, 80), (4, 80)]
+DECODE_SHAPES = (NEW_DECODE_SHAPES + [s for s in GQA_SHAPES if s not in NEW_DECODE_SHAPES]
+                 + PAD_DECODE_SHAPES)
 
 
 def _t(a):
@@ -193,14 +201,15 @@ def test_stacked_decode_attention_plain_matches_jax_at_the_new_shapes(G, hd):
 
 
 def test_decode_gate_takes_the_built_shapes_and_names_them():
-    """Every G of 1..8 at head dims 16, 32, 64 and 128 passes; past that the
-    gate raises and names the rule."""
+    """Every G of 1..8 at head dims 16, 32, 64 and 128 passes, and at the
+    padded build's head dims (hd % 4 == 0, 32 < hd <= 128: 96 and 100
+    here); past that the gate raises and names the rule."""
     q = torch.zeros(1, 1, dtype=torch.bfloat16)
-    for G, hd in TDA._SHAPES:
+    for G, hd in TDA._SHAPES + ((2, 96), (8, 100)):
         TDA._check_kernel_shape("decode", q, G, hd, 8)
     assert set(NEW_DECODE_SHAPES) <= set(TDA._SHAPES)
     assert set(TDA._SHAPES) == {(g, hd) for g in range(1, 9) for hd in (16, 32, 64, 128)}
-    for G, hd in ((9, 64), (16, 128), (2, 96), (1, 8), (4, 256), (0, 64)):
+    for G, hd in ((9, 64), (16, 128), (2, 98), (1, 8), (4, 256), (0, 64), (9, 100)):
         with pytest.raises(NotImplementedError,
                            match=r"1 <= G <= 8 query heads per kv head at head dims "
                                  r"\(16, 32, 64, 128\)"):
@@ -267,12 +276,14 @@ PUBLIC_GQA = {
     "TinyLlama-1.1B": (2048, 5632, 32, 4),
     "LLaMA-7B": (4096, 11008, 32, 32),
     "LLaMA-13B": (5120, 13824, 40, 40),
+    "open_llama_3b": (3200, 8640, 32, 32),
 }
 
 
 # the GQA rows whose K9 routing the card must take at b = 8, S = 1024 and 2048
 CARD_MUST_TAKE = ("Meta-Llama-3-8B", "Llama-2-70B", "Llama-3.2-1B", "Llama-3.2-3B", "Yi-34B",
-                  "Mistral-7B-v0.1", "SOLAR-10.7B", "Meta-Llama-3-70B", "Yi-6B", "llama-68m")
+                  "Mistral-7B-v0.1", "SOLAR-10.7B", "Meta-Llama-3-70B", "Yi-6B", "llama-68m",
+                  "open_llama_3b")
 
 
 @pytest.mark.parametrize("name", list(PUBLIC_GQA))
@@ -310,25 +321,75 @@ def test_jax_kv_blocks_at_llama3_8b_and_llama2_70b():
         assert TMK.pick_bk(tcfg(jcfg), 8, 1024) == want[1]
 
 
-@pytest.mark.parametrize("G,hd", [(9, 128), (16, 64), (4, 96), (2, 32)])
+K9_RULE = ("1 <= G <= 8 query heads per kv head at head dims 64 and 128 and every "
+           "hd % 4 == 0 with 32 < hd <= 128")
+
+
+@pytest.mark.parametrize("G,hd", [(9, 128), (16, 64), (4, 96), (2, 32), (4, 136), (2, 98)])
 def test_card_routing_refuses_shapes_outside_the_rule_and_names_it(G, hd):
-    """G = 9, hd = 96: K9 refuses and names its rule (the step then takes the
-    scan path); hd = 32 is K3/K8's but not K9's; K3/K8 refuse G past 8 and
-    hd 96, naming theirs."""
+    """G = 9, G = 16, hd = 32, 98 and 136: K9 refuses and names its rule (the
+    step then takes the scan path); hd = 32 is K3/K8's but not K9's; K3/K8
+    refuse G past 8 and hd 98 and 136, naming theirs. hd = 96 is inside the
+    rule since the padded builds: K9 and K3/K8 take it."""
     kvh = 8
     cfg = tcfg(JC.LlamaConfig(hidden_size=kvh * G * hd, intermediate_size=4096,
                               num_attention_heads=kvh * G, num_key_value_heads=kvh,
                               w_bits=8, a_bits=8, kv_bits=8))
     assert cfg.head_dim == hd
-    assert TMK.supported(cfg, 8, 2048) and not TMK.card_takes(cfg, 8, 2048, torch.bfloat16)
-    why = TMK._card_shape_error(cfg, 8, 2048, TMK.pick_bk(cfg, 8, 2048), torch.bfloat16)
-    assert "1 <= G <= 8 query heads per kv head at head dims 64 and 128" in why
+    assert TMK.supported(cfg, 8, 2048)
     q = torch.zeros(1, 1, dtype=torch.bfloat16)
+    if (G, hd) == (4, 96):
+        assert TMK.card_takes(cfg, 8, 2048, torch.bfloat16) and TMK.padded(hd)
+        TDA._check_kernel_shape("decode", q, G, hd, 8)
+        return
+    assert not TMK.card_takes(cfg, 8, 2048, torch.bfloat16)
+    why = TMK._card_shape_error(cfg, 8, 2048, TMK.pick_bk(cfg, 8, 2048), torch.bfloat16)
+    assert K9_RULE in why
     if (G, hd) in TDA._SHAPES:
         TDA._check_kernel_shape("decode", q, G, hd, 8)
     else:
-        with pytest.raises(NotImplementedError, match=r"1 <= G <= 8 .* \(16, 32, 64, 128\)"):
+        with pytest.raises(NotImplementedError, match=r"1 <= G <= 8 .* \(16, 32, 64, 128\) "
+                                                      r"and every hd % 4 == 0"):
             TDA._check_kernel_shape("decode", q, G, hd, 8)
+
+
+# public checkpoints whose shapes JAX's kernels take and the card's still
+# refuse (ROADMAP section 3 item 3): more than 8 query heads a kv head
+STILL_REFUSED = {"Mistral-Large-2": (12288, 28672, 96, 8),
+                 "Llama-3.1-405B": (16384, 53248, 128, 8)}
+
+
+def test_card_names_the_public_shapes_it_still_refuses_where_jax_takes_them():
+    """Mistral-Large-2 (G = 12): JAX's supported() sends it to its megakernel
+    at W4, and the card's K9 refuses it naming the rule. Llama-3.1-405B and
+    its tp = 8 shard (16 query heads over one kv head of 128): JAX's decode
+    attention kernel takes G = 16, and the card's K3/K8 refuse it naming
+    theirs; so does K9."""
+    q = torch.zeros(1, 1, dtype=torch.bfloat16)
+    for name, (H, I, nh, kvh) in STILL_REFUSED.items():
+        jcfg = JC.LlamaConfig(hidden_size=H, intermediate_size=I, num_attention_heads=nh,
+                              num_key_value_heads=kvh, w_bits=4, a_bits=8, kv_bits=4,
+                              kv_cache_pack=True)
+        cfg = tcfg(jcfg)
+        G, hd = nh // kvh, H // nh
+        assert hd == 128 and G > 8
+        assert JMK.supported(jcfg, 8, 1024) == (name == "Mistral-Large-2")
+        assert not TMK.card_takes(cfg, 8, 1024, torch.bfloat16)
+        assert K9_RULE in TMK._card_shape_error(cfg, 8, 1024, TMK.pick_bk(cfg, 8, 1024),
+                                                torch.bfloat16)
+        for g in {G, nh // 8}:                   # the model, and a tp = 8 rank's heads
+            with pytest.raises(NotImplementedError,
+                               match=r"1 <= G <= 8 query heads per kv head"):
+                TDA._check_kernel_shape("decode", q, g, hd, 8)
+    # JAX's kernel at the shard's (16, 128), a 32-column cache
+    rng = np.random.default_rng(405)
+    b, kvh, S = 2, 1, 32
+    qj = rng.normal(size=(b, 16, 128)).astype(np.float32)
+    cache = _cache(rng, (b,), kvh, 128, S, False)
+    kc, ks = _rope(S, 128)
+    got = JDA.quantized_decode_attention(_j(qj), *(_j(a) for a in cache),
+                                         _j(np.asarray([S, 5], np.int32)), _j(kc), _j(ks))
+    assert np.isfinite(np.asarray(got)).all() and got.shape == (b, 16, 128)
 
 
 # ---------------------------------------------------------------- K4 / K10 / K11
@@ -352,7 +413,8 @@ def _assert_close(got, want, dt, what, rows):
 
 
 @pytest.mark.parametrize("D,dt", [(16, "f32"), (16, "bf16"), (32, "f32"), (32, "bf16"),
-                                  (128, "f32")])
+                                  (128, "f32"), (100, "f32"), (100, "bf16"), (80, "f32"),
+                                  (80, "bf16")])
 def test_flash_plain_matches_jax_kernels_at_the_new_head_dims(D, dt):
     """The forward (O, log-sum-exp) and the dQ / dK / dV pair, causal, two
     query heads a kv head, lengths full, cut mid-block and 1."""
@@ -382,13 +444,21 @@ def test_flash_plain_matches_jax_kernels_at_the_new_head_dims(D, dt):
 
 
 def test_flash_gate_takes_every_built_head_dim_in_both_types_and_names_them():
+    """The forward and backward take head dims 16, 32, 64 and 128; the
+    forward also the padded build's (96 here); anything else raises naming
+    the built set, and the backward at 96 says it is the next slice."""
     assert TFA.HEAD_DIMS == (16, 32, 64, 128)
     for D in TFA.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             t = torch.zeros(1, dtype=dt)
             TFA._check_built("flash_attention.cu", D, (t, t, t))
+            TFA._check_built("flash_attention_bwd.cu", D, (t, t, t, t))
     f, b = torch.zeros(1), torch.zeros(1, dtype=torch.bfloat16)
-    for D, ts in ((96, (b, b, b)), (8, (f, f, f)), (256, (b, b, b)), (64, (f, b, f)),
+    TFA._check_built("flash_attention.cu", 96, (b, b, b))
+    with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\) in f32 or "
+                                                  r"bf16 .* the next slice"):
+        TFA._check_built("flash_attention_bwd.cu", 96, (b, b, b, b))
+    for D, ts in ((98, (b, b, b)), (8, (f, f, f)), (256, (b, b, b)), (64, (f, b, f)),
                   (32, (torch.zeros(1, dtype=torch.float16),) * 3)):
         with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\)"):
             TFA._check_built("flash_attention.cu", D, ts)

@@ -64,6 +64,11 @@ slowest, compile on through phases 2 and 2b), then:
    card path with the plain versions swapped in, and at TinyLlama's width
    also against the port's CPU path (``train_check``). Each train run prints
    the memory allocated at its entry (after ``gc.collect``) beside its peak;
+4i. trains OpenLLaMA-3B at its published widths and full depth (head dim 100
+   through the padded builds of K4, K10 and K11): the three kernels at its
+   attention shape against their plain versions, 2 + 3 steps through
+   ``Trainer``, a 2-layer cut against the plain versions (see
+   ``openllama3b_train_phase``);
 4b. runs the reference's pipeline through the port's entry points at
    TinyLlama-1.1B's full width and depth: the teacher as an HF checkpoint
    written and read back, synthesis on the card, ``cli.train.run`` (3 steps
@@ -91,7 +96,8 @@ slowest, compile on through phases 2 and 2b), then:
    full width). The two ranks' step times share one card and are no scaling
    figure;
 4e. serves tensor-parallel over two ranks on the one card (gloo, as 4d) at
-   TinyLlama-1.1B's full width and depth: ``InferenceEngine(mesh=)`` and
+   TinyLlama-1.1B's full width, 8 of its 22 layers (``TP_LAYERS``):
+   ``InferenceEngine(mesh=)`` and
    ``PagedInferenceEngine(mesh=)`` at W8A8KV8 and W4A8KV4, every decode
    step's and prefill call's K1/K2, K3/K8 and K4 launches counted (no K9),
    the drift from one device teacher-forced at full depth and the prefill's
@@ -2073,7 +2079,7 @@ def profile_kernels(fn, label):
 
 
 def train_cfg_of(cfg, layers=None, **kw):
-    """``cfg`` (TinyLlama-1.1B or LLaMA-7B) at W4A8KV4 with the library's
+    """``cfg`` (TinyLlama-1.1B, LLaMA-7B or OpenLLaMA-3B) at W4A8KV4 with the library's
     default flags, optionally cut to its first ``layers`` layers."""
     c = cfg.replace(w_bits=4, a_bits=8, kv_bits=4, **kw)
     return c if layers is None else c.replace(num_hidden_layers=layers)
@@ -2310,6 +2316,43 @@ def train_check(cfg, with_cpu=True):
     del student, teacher
     torch.cuda.empty_cache()
     return out
+
+
+# phase [4i]: OpenLLaMA-3B's KD-QAT training. The flash train rows at its
+# attention shape (TRAIN_BATCH sequences x 32 MHA heads, G = 1, head dim 100):
+# full lengths and these (full, ragged, 1 and 0)
+O3_TRAIN_LENS = (2048,) * 64 + tuple(2048 - 31 * i for i in range(1, 63)) + (1, 0)
+O3_TRAIN_SEED = 24                       # the phase's kernel inputs
+
+
+def openllama3b_train_phase(timer, base):
+    """KD-QAT training of OpenLLaMA-3B (``OPENLLAMA_3B``: H 3200, I 8640, 32
+    MHA heads of 100, vocabulary 32000, 26 layers) at W4A8KV4, head dim 100
+    through the padded builds of K4, K10 and K11. First K4, K10 and K11 at
+    its train step's attention shape (B = 128, G = 1, S = TRAIN_SEQ, D = 100,
+    bf16; ``flash_train_phase``: full and O3_TRAIN_LENS lengths, each against
+    its plain version, K10 and K11 against their second launches bit for bit,
+    bounds from the real head dim); then ``train_run`` at full width and
+    depth, TRAIN_WARM + TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens
+    (every step K4 2L, K10 L, K11 L, K12 4L and nothing else; the loss finite
+    and falling, the teacher unchanged; one step profiled); then
+    ``train_check`` on a CUT_LAYERS cut of the same width: the kernels against
+    their plain versions (no CPU path, as at LLaMA-7B's width). Kernel inputs
+    from a generator of its own."""
+    from llm_qat_torch.ops import flash_attention as FA
+
+    cfg = base.replace(**OPENLLAMA_3B)
+    G, D = cfg.num_attention_heads // cfg.kv_heads, cfg.head_dim
+    if not FA.padded(D) or len(O3_TRAIN_LENS) != TRAIN_BATCH * cfg.kv_heads:
+        raise AssertionError(f"OpenLLaMA-3B: head dim {D}, {len(O3_TRAIN_LENS)} train lengths")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(O3_TRAIN_SEED)
+    flash = flash_train_phase(timer, gen, FA, G, D, O3_TRAIN_LENS)
+    torch.cuda.empty_cache()
+    run = train_run("OpenLLaMA-3B W4A8KV4 train", train_cfg_of(cfg), TRAIN_STEPS, TRAIN_WARM,
+                    profile=True)
+    check = train_check(cfg, with_cpu=False)
+    return dict(flash=flash, train=run, train_check=check)
 
 
 def train_phases(cfg, cfg7):
@@ -3868,6 +3911,11 @@ def tp_pp_train_phase(cfg):
 # ---------------------------------------------------------------------------
 
 TP, TP_SEED = 2, 21                      # tp ranks; the phase's weights, prompts and inputs
+# the depth it serves: every layer of TinyLlama-1.1B's 22 does the same work
+# over gloo through the host; the phase ran 161.8 s at all 22 and 138.0 s at
+# 11 on a host that ran the other phases 1.2-1.4x slower (PERF.md); at 8 it
+# leaves the time phase [4i] takes
+TP_LAYERS = 8
 TP_PROMPT_LENS, TP_NEW = (16, 300, 700, 1000), 8   # 4 requests x 8 greedy new tokens
 TP_PAGES = 64                            # the paged engine's pool (pages of PAGE)
 TP_BEAM_NEW, TP_BEAM_PROMPT = 16, 40     # beam over TP: BEAM_NUM beams, tokens, prompt
@@ -4347,8 +4395,9 @@ def _tp_rank(rank, world, cfg, prompts):
 
 
 def tp_serving_phase(cfg):
-    """Tensor-parallel serving at TinyLlama-1.1B's full width and depth, tp =
-    TP ranks on the one H100 spawned by ``parallel.launch`` over gloo
+    """Tensor-parallel serving at ``cfg``'s width and depth (main gives it
+    TinyLlama-1.1B's full width at TP_LAYERS layers; "full depth" below is
+    that depth), tp = TP ranks on the one H100 spawned by ``parallel.launch`` over gloo
     (``TP_TRANSPORT``), through the entry points: ``InferenceEngine(mesh=)``
     and ``PagedInferenceEngine(mesh=)`` over ``sharded.quantize_params_tp``
     weights at W8A8KV8 and W4A8KV4 (packed cache), len(TP_PROMPT_LENS)
@@ -4597,6 +4646,14 @@ K9_SHAPE_KVH, K9_SHAPE_I = 8, 2048   # K9 at the 16 (G, hd): kv heads, intermedi
 PAD_DECODE = ((32, 1, 100, "OpenLLaMA-3B"), (8, 4, 100, "-"), (8, 8, 100, "-"))
 PAD_FLASH = (32, 1, 1024, 100)
 PAD_PLAIN_REPS = 3
+# K4/K10/K11 at every padded head dim of the repo's tests, bf16 and f32, causal
+# and not (the ring's backward): (B, G, S), two query heads a kv head, S off
+# the 64-row tiles; and at a tp = 2 rank's shard of OpenLLaMA-3B's train step
+# (16 of its MHA heads of 100, 2 sequences); from a generator of their own
+PAD_DIMS = (48, 80, 96, 100)
+PAD_BWD = (4, 2, 1100)
+PAD_TP_SHARD = (32, 1, 2048, 100)
+PAD_BWD_SEED = 25
 # K4/K10/K11 at the new head dims: (D, dtype, B, G, S, what); B = batch x kv heads
 NEW_FLASH = ((16, torch.float32, 4, 2, 32, "tiny pipeline train"),
              (16, torch.float32, 16, 2, 2048, "long"),
@@ -4622,15 +4679,16 @@ def f32_agreement(got, want):
                 median_abs_want=med, rel_l2=float((g - w).norm() / w.norm().clamp_min(1e-30)))
 
 
-def flash_shape(timer, gen, FA, D, dtype, B, G, S, what):
-    """K4, K10 and K11 at one new (head dim, type): causal, full lengths but
-    one sequence cut mid-block and one of length 1; each against its plain
-    version (bf16: ``agreement``; f32: ``f32_agreement``), the same bits on a
-    second launch, exact zeros of dK/dV past the lengths. ``library_ms``:
-    SDPA causal with ``enable_gqa`` (forward), its backward (dQ, dK, dV
-    together) for K10 and K11; at the full lengths only the first sequence
-    is cut, so SDPA computes a little more. Bounds: bf16 at the tensor-core
-    peak, f32 at the fp32 units'."""
+def flash_shape(timer, gen, FA, D, dtype, B, G, S, what, causal=True):
+    """K4, K10 and K11 at one new (head dim, type): causal (or not), full
+    lengths but one sequence cut mid-block and one of length 1; each against
+    its plain version (bf16: ``agreement``; f32: ``f32_agreement``), the same
+    bits on a second launch, exact zeros of dK/dV past the lengths.
+    ``library_ms``: SDPA (causal or not) with ``enable_gqa`` (forward), its
+    backward (dQ, dK, dV together) for K10 and K11; at the full lengths only
+    the first sequence is cut, so SDPA computes a little more. Bounds: bf16
+    at the tensor-core peak, f32 at the fp32 units', the work of the real
+    head dim D (a padded build's tiles are 128 wide)."""
     q, do = (torch.randn(B, G, S, D, device="cuda", generator=gen).to(dtype) for _ in range(2))
     k, v = (torch.randn(B, S, D, device="cuda", generator=gen).to(dtype) for _ in range(2))
     lens_l = [S] * B
@@ -4638,10 +4696,10 @@ def flash_shape(timer, gen, FA, D, dtype, B, G, S, what):
     lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
     hold = (lambda a, b: agreement(a, b, ATTN_ULPS, ATTN_FLOOR)) if dtype == torch.bfloat16 \
         else f32_agreement
-    o, lse = FA._flash_fwd(q, k, v, lens)
-    o_again, _ = FA._flash_fwd(q, k, v, lens)
-    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens)
-    args = (q, k, v, lens, lse, FA._delta(o, do), do)
+    o, lse = FA._flash_fwd(q, k, v, lens, causal)
+    o_again, _ = FA._flash_fwd(q, k, v, lens, causal)
+    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, causal)
+    args = (q, k, v, lens, lse, FA._delta(o, do), do, causal)
     dq, (dk, dv) = FA._flash_bwd_dq(*args), FA._flash_bwd_dkv(*args)
     dq_a, (dk_a, dv_a) = FA._flash_bwd_dq(*args), FA._flash_bwd_dkv(*args)
     dq2, (dk2, dv2) = FA._flash_bwd_dq_plain(*args), FA._flash_bwd_dkv_plain(*args)
@@ -4655,41 +4713,45 @@ def flash_shape(timer, gen, FA, D, dtype, B, G, S, what):
     zeros = all(not t[b, max(n, 1):].any() for t in (dk, dv) for b, n in enumerate(lens_l))
     lse_lim = 1e-3 if dtype == torch.bfloat16 else 1e-5
     if not (all(a["ok"] for a in agr.values()) and same and zeros and lse_err <= lse_lim):
-        raise AssertionError(f"flash D={D} {dtype} B={B} G={G} S={S}: {agr}, lse {lse_err}, the "
-                             f"same bits twice {same}, zeros past the lengths {zeros}")
+        raise AssertionError(f"flash D={D} {dtype} B={B} G={G} S={S} causal={causal}: {agr}, lse "
+                             f"{lse_err}, the same bits twice {same}, zeros past the lengths "
+                             f"{zeros}")
     del o_again, o2, lse2, dq, dk, dv, dq_a, dk_a, dv_a, dq2, dk2, dv2
-    ms = {"fwd": timer(lambda: FA._flash_fwd(q, k, v, lens)),
+    ms = {"fwd": timer(lambda: FA._flash_fwd(q, k, v, lens, causal)),
           "dq": timer(lambda: FA._flash_bwd_dq(*args)),
           "dkv": timer(lambda: FA._flash_bwd_dkv(*args))}
-    plain = {"fwd": timer(lambda: FA._flash_fwd_plain(q, k, v, lens), reps=3),
+    plain = {"fwd": timer(lambda: FA._flash_fwd_plain(q, k, v, lens, causal), reps=3),
              "dq": timer(lambda: FA._flash_bwd_dq_plain(*args), reps=3),
              "dkv": timer(lambda: FA._flash_bwd_dkv_plain(*args), reps=3)}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kh, vh = k[:, None], v[:, None]
-    lib_fwd = timer(lambda: sdpa(q, kh, vh, is_causal=True, enable_gqa=True))
+    lib_fwd = timer(lambda: sdpa(q, kh, vh, is_causal=causal, enable_gqa=True))
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, kh, vh))
-    out = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+    out = sdpa(ql, kl, vl, is_causal=causal, enable_gqa=True)
     lib_bwd = timer(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
     del out, ql, kl, vl
     es = torch.finfo(dtype).bits // 8
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    pairs = G * live_pairs(lens_l, S)
+    pairs = G * live_pairs(lens_l, S, causal)
     qb, kvb, rowb = es * B * G * S * D, es * B * S * D, 4 * B * G * S
     bounds = {"fwd": bound(2 * qb + 2 * kvb + rowb, 2 * 2 * pairs * D, peak),
               "dq": bound(3 * qb + 2 * kvb + 2 * rowb, 3 * 2 * pairs * D, peak),
               "dkv": bound(2 * qb + 4 * kvb + 2 * rowb, 4 * 2 * pairs * D, peak)}
     lib = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
     tag = str(dtype)[6:]
-    log(f"  flash D={D} {tag} B={B} G={G} S={S} ({what}), lengths full but {lens_l[-2]} and 1: "
+    log(f"  flash D={D} {tag} B={B} G={G} S={S} {'causal' if causal else 'non-causal'} ({what}), "
+        f"lengths full but {lens_l[-2]} and 1: "
         + "; ".join(f"{k_} {ms[k_]:.4f} ms (plain {plain[k_]:.3f}, sdpa {lib[k_]:.4f}, bound "
                     f"{bounds[k_][0]:.5f} {bounds[k_][1]})" for k_ in ms)
         + f"; max_abs_err fwd {agr['fwd']['max_abs_err']:.3g} dq {agr['dq']['max_abs_err']:.3g} "
         f"dk {agr['dk']['max_abs_err']:.3g} dv {agr['dv']['max_abs_err']:.3g}, worst "
         f"{max(a['worst'] for a in agr.values()):.3g} of its limit, lse {lse_err:.3g}; the same "
         "bits twice")
-    shape = dict(B=B, G=G, S=S, D=D, dtype=tag, what=what, lengths=lens_l, live_pairs=pairs)
+    shape = dict(B=B, G=G, S=S, D=D, dtype=tag, what=what, causal=causal, lengths=lens_l,
+                 live_pairs=pairs)
     return {k_: dict(shape, ms=ms[k_], plain_ms=plain[k_], library_ms=lib[k_],
-                     library_is="sdpa causal" + ("" if k_ == "fwd" else " backward, dQ+dK+dV"),
+                     library_is=("sdpa causal" if causal else "sdpa")
+                     + ("" if k_ == "fwd" else " backward, dQ+dK+dV"),
                      bound_ms=bounds[k_][0], bound_by=bounds[k_][1],
                      bit_identical_twice=True,
                      **(agr[k_] if k_ != "dkv" else dict(
@@ -4732,7 +4794,9 @@ def shapes_phase(timer, QM, DA, FA):
     head dim 100 through the padded builds (``PAD_DECODE``: K3 and K8 int8
     and packed, K7; bit-equal), K4/K10/K11 at head dims 16 and 32 in f32
     and bf16 and 128 in f32 (``NEW_FLASH``), K4 at head dim 100 in bf16 and
-    f32 (``PAD_FLASH``, the forward: the backward refuses it). Then K1 at
+    f32 (``PAD_FLASH``), K4/K10/K11 at head dims 48, 80, 96 and 100 in bf16
+    and f32, causal and not (``PAD_BWD``), and at a tp = 2 rank's shard of
+    OpenLLaMA-3B's train step (``PAD_TP_SHARD``). Then K1 at
     the TinyLlama-1.1B decode layer's qkv shape through
     ``utils.benchmarking.measure`` (a CUDA graph of the runs, its
     floor subtracted) beside the ``Timer``'s median. Last (the megakernel
@@ -4801,9 +4865,20 @@ def shapes_phase(timer, QM, DA, FA):
             out["flash"][k_].append(r)
         torch.cuda.empty_cache()
     Bq, G, S, D = PAD_FLASH
-    for dtype in (torch.bfloat16, torch.float32):      # the forward only: no backward at hd 100
+    for dtype in (torch.bfloat16, torch.float32):
         out["flash"]["fwd"].append(dict(flash_phase(timer, gen, FA, Bq, G, S, D, dtype=dtype),
                                         what="OpenLLaMA-3B prefill"))
+    torch.cuda.empty_cache()
+    gen_pad = torch.Generator(device="cuda")
+    gen_pad.manual_seed(PAD_BWD_SEED)
+    Bq, G, S = PAD_BWD
+    pad = [(D, dtype, Bq, G, S, "padded build", causal) for D in PAD_DIMS
+           for dtype in (torch.bfloat16, torch.float32) for causal in (True, False)]
+    Bq, G, S, D = PAD_TP_SHARD
+    pad.append((D, torch.bfloat16, Bq, G, S, "OpenLLaMA-3B train, a tp=2 rank's shard", True))
+    for D, dtype, Bq, G, S, what, causal in pad:
+        for k_, r in flash_shape(timer, gen_pad, FA, D, dtype, Bq, G, S, what, causal).items():
+            out["flash"][k_].append(r)
     torch.cuda.empty_cache()
     # K1 through utils.benchmarking.measure, beside the Timer
     c = TINYLLAMA_1B
@@ -5086,8 +5161,10 @@ def main() -> int:
     log("[2b] the shapes beyond phase 2's, against their plain versions: K1/K2 at K = 64, 768, "
         "1376, 2752 (every split count), K3/K8/K7 at (G, hd) = (2, 16), (2, 32), (4, 128), "
         "(8, 128) and at every G of 1..8 at head dims 64 and 128, K4/K10/K11 at head dims 16 "
-        "and 32 (f32, bf16) and 128 (f32); K1 through utils.benchmarking.measure; K9 at every G "
-        "of 1..8 at head dims 64 and 128 on a 2-layer cut")
+        "and 32 (f32, bf16) and 128 (f32), K3/K8/K7 and K4 at head dim 100 and K4/K10/K11 at "
+        "head dims 48, 80, 96, 100 (f32, bf16, causal and not) and a tp=2 rank's shard of "
+        "OpenLLaMA-3B through the padded builds; K1 through utils.benchmarking.measure; K9 at "
+        "every G of 1..8 at head dims 64 and 128 on a 2-layer cut")
     shp = shapes_phase(timer, QM, DA, FA)
     lap("[2b] new shapes")
 
@@ -5186,6 +5263,17 @@ def main() -> int:
     tcheck = {"TinyLlama-1.1B": train_check(cfg),
               "LLaMA-7B width": train_check(LLAMA_7B, with_cpu=False)}
     lap("[4] training")
+    log(f"[4i] KD-QAT training of OpenLLaMA-3B at its published widths and full depth (26 "
+        f"layers, 32 MHA heads of 100, H 3200, I 8640, vocabulary 32000), W4A8KV4, bf16: K4, "
+        f"K10 and K11 at its attention shape through the padded builds (B={len(O3_TRAIN_LENS)} "
+        f"G=1 S={TRAIN_SEQ} D=100, full and ragged lengths) against their plain versions, "
+        f"{TRAIN_WARM} + {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens through "
+        f"Trainer (kl_chunk {KL_CHUNK}), a {CUT_LAYERS}-layer cut against the plain versions "
+        f"({smi})")
+    o3t = openllama3b_train_phase(Timer(), LLAMA_7B)
+    trains.append(o3t["train"])
+    tcheck["OpenLLaMA-3B width"] = o3t["train_check"]
+    lap("[4i] OpenLLaMA-3B training")
     log(f"[4b] the reference's pipeline at TinyLlama-1.1B's full width and depth through the "
         f"port's entry points: HF teacher checkpoint, synthesis ({3 * PIPE_VOCAB} documents of "
         f"{PIPE_LEN} tokens), cli.train.run ({PIPE_STEPS} steps of {TRAIN_SEQ} tokens, export, "
@@ -5211,12 +5299,13 @@ def main() -> int:
         f"through the train CLI ({smi})")
     md = multi_device_phase(cfg)
     lap("[4d] multi-device training")
-    log(f"[4e] tensor-parallel serving at TinyLlama-1.1B's full width and depth, tp={TP} ranks "
-        f"on the one card ({TP_TRANSPORT}): InferenceEngine(mesh=) and "
+    log(f"[4e] tensor-parallel serving at TinyLlama-1.1B's full width, {TP_LAYERS} of its "
+        f"{cfg.num_hidden_layers} layers, tp={TP} ranks on the one card ({TP_TRANSPORT}): "
+        f"InferenceEngine(mesh=) and "
         f"PagedInferenceEngine(mesh=) at W8A8KV8 and W4A8KV4, {len(TP_PROMPT_LENS)} requests x "
         f"{TP_NEW} tokens, against one rank; a held step; a {CUT_LAYERS}-layer cut against the "
         f"CPU path; beam search over TP; the multi-host driver as 2 hosts x tp 1 ({smi})")
-    tp = tp_serving_phase(cfg)
+    tp = tp_serving_phase(cfg.replace(num_hidden_layers=TP_LAYERS))
     lap("[4e] tensor-parallel serving")
     log(f"[4f] tensor-parallel and pipeline KD-QAT training at TinyLlama-1.1B's full width, "
         f"{MD_LAYERS} layers, two ranks on the one card ({MD_TRANSPORT}): tp={TPP_TP} without and "
@@ -5283,11 +5372,15 @@ def main() -> int:
     k8 = pag[0]
     k9 = mega[0]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    ftro = o3t["flash"]
     fwd_shapes = fl + fls + [ftr["full"]["fwd"], ftr["ragged"]["fwd"]] + fl7 + [
-        ftr7["full"]["fwd"], ftr7["ragged"]["fwd"]]
+        ftr7["full"]["fwd"], ftr7["ragged"]["fwd"], ftro["full"]["fwd"], ftro["ragged"]["fwd"]]
     train_shape = ("B=16 G=8 S=2048 D=64 causal bf16, full lengths (lengths full, ragged, 1 "
-                   "and 0, LLaMA-7B heads B=32 G=1 S=2048 D=128 full and ragged, and the ring's "
-                   "live step B=8 G=8 S=2048 D=64 non-causal, in shapes)")
+                   "and 0, LLaMA-7B heads B=32 G=1 S=2048 D=128 and OpenLLaMA-3B's B=128 G=1 "
+                   "S=2048 D=100 through the padded build, full and ragged, the ring's live step "
+                   "B=8 G=8 S=2048 D=64 non-causal, and the padded build at head dims 48, 80, "
+                   "96, 100 causal and not and at a tp=2 rank's shard of OpenLLaMA-3B, in "
+                   "shapes)")
     rows = [
         dict(name="int8_matmul", source="llm_qat_torch/csrc/int8_matmul.cu",
              replaces="llm_qat_tpu/ops/pallas/quant_matmul.py:77",
@@ -5320,8 +5413,8 @@ def main() -> int:
                    "200 at ragged lengths, the train shape B=16 S=2048 at full and "
                    "ragged lengths, LLaMA-7B's B=32 G=1 S=1024 and S=2048 D=128 at full and "
                    "ragged lengths, the ring's live step B=8 G=8 S=2048 D=64 non-causal, "
-                   "and OpenLLaMA-3B's B=32 G=1 S=1024 D=100 in bf16 and f32 through the "
-                   "padded build, in shapes)",
+                   "and OpenLLaMA-3B's B=32 G=1 S=1024 D=100 in bf16 and f32 and its train "
+                   "shape B=128 G=1 S=2048 D=100 through the padded build, in shapes)",
              **{k: fl[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by")},
              max_abs_err=max(f["max_abs_err"] for f in fwd_shapes + [md["ring_shape"]["fwd"],
@@ -5369,14 +5462,14 @@ def main() -> int:
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:236",
              shape=train_shape, **{k: ftr["full"]["dq"][k] for k in keys},
              shapes=[ftr["full"]["dq"], ftr["ragged"]["dq"], ftr7["full"]["dq"],
-                     ftr7["ragged"]["dq"], md["ring_shape"]["dq"], tpp["shard_shape"]["dq"]]
-             + shp["flash"]["dq"]),
+                     ftr7["ragged"]["dq"], ftro["full"]["dq"], ftro["ragged"]["dq"],
+                     md["ring_shape"]["dq"], tpp["shard_shape"]["dq"]] + shp["flash"]["dq"]),
         dict(name="flash_bwd_dkv", source="llm_qat_torch/csrc/flash_attention_bwd.cu",
              replaces="llm_qat_tpu/ops/pallas/flash_attention.py:297",
              shape=train_shape, **{k: ftr["full"]["dkv"][k] for k in keys},
              shapes=[ftr["full"]["dkv"], ftr["ragged"]["dkv"], ftr7["full"]["dkv"],
-                     ftr7["ragged"]["dkv"], md["ring_shape"]["dkv"],
-                     tpp["shard_shape"]["dkv"]] + shp["flash"]["dkv"]),
+                     ftr7["ragged"]["dkv"], ftro["full"]["dkv"], ftro["ragged"]["dkv"],
+                     md["ring_shape"]["dkv"], tpp["shard_shape"]["dkv"]] + shp["flash"]["dkv"]),
         dict(name="rmsnorm_quant", source="llm_qat_torch/csrc/fused_quant.cu",
              replaces="llm_qat_tpu/ops/pallas/fused_quant.py:77",
              shape="[8192, 2048] bf16 with an f32 gain (bf16 gain, and [4096, 4096] and "
@@ -5416,6 +5509,7 @@ def main() -> int:
                                                      "launches")},
                     "openllama_3b": {k: o3[k] for k in ("runs", "teacher_forced", "peak_gib",
                                                         "launches", "cut_vs_cpu")},
+                    "openllama_3b_training_flash": o3t["flash"],
                     "accuracy_experiment": accp,
                     "phase_s": PHASE_S, "build_seconds": _build.build_seconds, "card": smi}))
     log(json.dumps({"kernel_attributes": attrs}))

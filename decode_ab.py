@@ -10,8 +10,11 @@ a kv head G, head dim): TinyLlama-1.1B's (4, 8, 64), the LLaMA-7B family's
 (32, 1, 128), Meta-Llama-3-8B's (8, 4, 128), Llama-2-70B's (8, 8, 128), the
 tiny pipeline's (2, 2, 16) and the accuracy experiment's (4, 2, 32); and,
 without ``--k3-only``, the flash forward K4 (``chip_smoke.flash_phase``,
-bf16, causal, full lengths) at the train shapes of ``FLASH`` (B, G, S, D):
-TinyLlama-1.1B's (16, 8, 2048, 64) and LLaMA-7B's (32, 1, 2048, 128), and
+bf16, causal, full lengths) and the flash backward pair K10 (dQ) and K11
+(dK/dV, ``flash_attention._flash_bwd_dq`` / ``_flash_bwd_dkv`` on the
+forward kernel's O and log-sum-exp, the same Timer) at the train shapes of
+``FLASH`` (B, G, S, D): TinyLlama-1.1B's (16, 8, 2048, 64) and LLaMA-7B's
+(32, 1, 2048, 128), and
 the decode megakernel K9 (``megakernel.decode_layers``, one step) at
 TinyLlama-1.1B's and LLaMA-7B's full width and depth, W8A8KV8 and W4A8KV4
 (packed cache), b = 8, max_len 2048, lengths ``chip_smoke.K9_LENS``, random
@@ -95,6 +98,17 @@ for kvh, G, hd in shapes:
 for B, G, n, D in () if k3_only else flash:
     r = S.flash_phase(timer, gen, FA, B, G, n, D)
     out.append(dict(run=f"K4 B={B} G={G} S={n} D={D}", ms=r["ms"]))
+    q, do = (torch.randn(B, G, n, D, device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, n, D, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    o, lse = FA._flash_fwd(q, k, v, lens)
+    bwd = (q, k, v, lens, lse, FA._delta(o, do), do)
+    out.append(dict(run=f"K10 B={B} G={G} S={n} D={D}", ms=timer(lambda: FA._flash_bwd_dq(*bwd))))
+    out.append(dict(run=f"K11 B={B} G={G} S={n} D={D}",
+                    ms=timer(lambda: FA._flash_bwd_dkv(*bwd))))
+    del q, do, k, v, o, lse, bwd
     torch.cuda.empty_cache()
 modes = (("W8A8KV8", dict(w_bits=8, a_bits=8, kv_bits=8)),
          ("W4A8KV4", dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)))

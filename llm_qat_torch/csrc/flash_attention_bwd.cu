@@ -23,7 +23,18 @@
 //
 // Head dims 16, 32, 64 and 128, in bf16 and in f32: one entry per head dim
 // and kernel (flash_bwd_dq / flash_bwd_dkv are 64, the _d16 / _d32 / _d128
-// entries the others).
+// entries the others); and every other hd with hd % 4 == 0 and
+// 32 < hd <= 128 (OpenLLaMA-3B's 100, 48, 80, 96) through
+// flash_bwd_dq_dpad / flash_bwd_dkv_dpad: the D = 128 kernels built with
+// PAD, hd an argument, as the forward's flash_fwd_dpad. Global memory keeps
+// rows of hd values (2 hd bytes, 8-byte aligned at hd 100, so the bf16 tiles
+// arrive in 8-byte cp.async pieces, tc_bf16.cuh load_tile_hd; the f32 rows
+// element by element); the shared tiles are 128 wide with the columns past
+// hd zero, which add exact zeros to q.k and dO.v; the 16-deep chunks of those
+// products and the 16-wide output column pairs wholly past hd are skipped,
+// and output columns past hd are never written. The scales come from the
+// true hd (the caller's). Every padded difference sits behind PAD, so the
+// power-of-two builds compile to the code they had.
 //
 // bf16: tensor cores, mma.sync m16n8k16 bf16 x bf16 ->
 // fp32 (exactly the contract's bf16 operands and fp32 sums); tiles arrive
@@ -100,13 +111,17 @@ constexpr float LN2 = 0.6931471805599453f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // rows [r0, r0 + n) of a [rows_total, D] matrix at src into dst[n][D + 1],
-// zeros past rows_total
-template <int D>
+// zeros past rows_total; PAD: of a [rows_total, hd] matrix, zeros also in
+// the columns [hd, D)
+template <int D, bool PAD>
 __device__ __forceinline__ void load_tile(float (*dst)[D + 1], const float* src, int r0, int n,
-                                          int rows_total) {
+                                          int rows_total, int hd) {
   for (int i = threadIdx.x; i < n * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    dst[r][d] = r0 + r < rows_total ? src[(size_t)(r0 + r) * D + d] : 0.f;
+    if constexpr (PAD)
+      dst[r][d] = r0 + r < rows_total && d < hd ? src[(size_t)(r0 + r) * hd + d] : 0.f;
+    else
+      dst[r][d] = r0 + r < rows_total ? src[(size_t)(r0 + r) * D + d] : 0.f;
   }
 }
 
@@ -121,14 +136,16 @@ constexpr size_t dq_smem_bytes() {
   return sizeof(float) * ((2 * DQ_BQ + 2 * DQ_BKV) * (D + 1) + DQ_BQ * (DQ_BKV + 1));
 }
 
-template <int D>
+// PAD: rows of hd <= D values in global memory (zeros past hd in the tiles)
+template <int D, bool PAD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int* __restrict__ lengths, float* __restrict__ dq, int G, int S,
-                    float scale_log2, float scale, int causal) {
+                    float scale_log2, float scale, int causal, int hd) {
   constexpr int BQ = DQ_BQ, BKV = DQ_BKV, DC = D / 16;
+  const int HD = PAD ? hd : D;              // values a row in global memory
   extern __shared__ float smem[];
   float (*sq)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem);
   float (*sdo)[D + 1] = sq + BQ;
@@ -140,12 +157,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = iq * BQ;
   const int lenc = max(lengths[b], 1);
-  const size_t qoff = ((size_t)b * G + grp) * S * D;
-  const size_t kvoff = (size_t)b * S * D;
+  const size_t qoff = ((size_t)b * G + grp) * S * HD;
+  const size_t kvoff = (size_t)b * S * HD;
   const size_t roff = ((size_t)b * G + grp) * S;
 
-  load_tile<D>(sq, q + qoff, q0, BQ, S);
-  load_tile<D>(sdo, dout + qoff, q0, BQ, S);
+  load_tile<D, PAD>(sq, q + qoff, q0, BQ, S, HD);
+  load_tile<D, PAD>(sdo, dout + qoff, q0, BQ, S, HD);
   float lse2[4], dl[4], acc[4][DC];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -162,8 +179,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kb = 0; kb < nkb; ++kb) {
     const int k0 = kb * BKV;
     __syncthreads();                       // the last tile's sk and sp are read no more
-    load_tile<D>(sk, k + kvoff, k0, BKV, S);
-    load_tile<D>(sv, v + kvoff, k0, BKV, S);
+    load_tile<D, PAD>(sk, k + kvoff, k0, BKV, S, HD);
+    load_tile<D, PAD>(sv, v + kvoff, k0, BKV, S, HD);
     __syncthreads();
 
     float s[4][2], dp[4][2];
@@ -214,7 +231,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= S) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      dq[qoff + (size_t)row * D + tx + 16 * c] = scale * acc[r][c];
+      if (!PAD || tx + 16 * c < HD) dq[qoff + (size_t)row * HD + tx + 16 * c] = scale * acc[r][c];
   }
 }
 
@@ -230,15 +247,16 @@ constexpr size_t dkv_smem_bytes() {
                           + 2 * KV_BQ);
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const int* __restrict__ lengths, float* __restrict__ dk,
                      float* __restrict__ dv, int G, int S, float scale_log2, float scale,
-                     int causal) {
+                     int causal, int hd) {
   constexpr int BKV = KV_BKV, BQ = KV_BQ, DC = D / 16;
+  const int HD = PAD ? hd : D;              // values a row in global memory
   extern __shared__ float smem[];
   float (*sk)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem);
   float (*sv)[D + 1] = sk + BKV;
@@ -252,7 +270,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * BKV, b = blockIdx.y;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int lenc = max(lengths[b], 1);
-  const size_t kvoff = (size_t)b * S * D;
+  const size_t kvoff = (size_t)b * S * HD;
 
   float ak[4][DC], av[4][DC];
 #pragma unroll
@@ -261,18 +279,18 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DC; ++c) ak[r][c] = av[r][c] = 0.f;
 
   if (k0 < lenc) {                         // else every column is masked: p = 0
-    load_tile<D>(sk, k + kvoff, k0, BKV, S);
-    load_tile<D>(sv, v + kvoff, k0, BKV, S);
+    load_tile<D, PAD>(sk, k + kvoff, k0, BKV, S, HD);
+    load_tile<D, PAD>(sv, v + kvoff, k0, BKV, S, HD);
     const int nqt = (S + BQ - 1) / BQ;
     const int first = causal ? k0 / BQ : 0;
     for (int grp = 0; grp < G; ++grp) {
-      const size_t qoff = ((size_t)b * G + grp) * S * D;
+      const size_t qoff = ((size_t)b * G + grp) * S * HD;
       const size_t roff = ((size_t)b * G + grp) * S;
       for (int iq = first; iq < nqt; ++iq) {
         const int q0 = iq * BQ;
         __syncthreads();                   // the last tile's sq, sdo, spt, sds are read no more
-        load_tile<D>(sq, q + qoff, q0, BQ, S);
-        load_tile<D>(sdo, dout + qoff, q0, BQ, S);
+        load_tile<D, PAD>(sq, q + qoff, q0, BQ, S, HD);
+        load_tile<D, PAD>(sdo, dout + qoff, q0, BQ, S, HD);
         if (tid < BQ) {
           const int row = q0 + tid;
           slse[tid] = row < S ? lse[roff + row] * LOG2E : 0.f;
@@ -337,8 +355,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (key >= S) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      dk[kvoff + (size_t)key * D + tx + 16 * c] = scale * ak[r][c];
-      dv[kvoff + (size_t)key * D + tx + 16 * c] = av[r][c];
+      if (PAD && tx + 16 * c >= HD) continue;
+      dk[kvoff + (size_t)key * HD + tx + 16 * c] = scale * ak[r][c];
+      dv[kvoff + (size_t)key * HD + tx + 16 * c] = av[r][c];
     }
   }
 }
@@ -349,6 +368,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 using namespace tc_bf16;
 constexpr int TC_BK = 64, TC_BQ = 64, TC_THREADS = 128;   // 4 warps x 16 keys
+static_assert(TC_BK == TC_BQ, "one tile height for every operand (the kernels' tile())");
 
 template <int D>
 __host__ __device__ constexpr int dkv_tc_stage() {
@@ -373,11 +393,13 @@ __host__ __device__ constexpr bool kv_in_registers() { return D <= 64; }
   const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,       \
       const bf16* __restrict__ dout, const float* __restrict__ lse,                         \
       const float* __restrict__ delta, const int* __restrict__ lengths, bf16* __restrict__ dk, \
-      bf16* __restrict__ dv, int G, int S, float scale_log2, float scale, int causal
+      bf16* __restrict__ dv, int G, int S, float scale_log2, float scale, int causal, int hd
 #define DKV_TC_ARGS \
-  q, k, v, dout, lse, delta, lengths, dk, dv, G, S, scale_log2, scale, causal
+  q, k, v, dout, lse, delta, lengths, dk, dv, G, S, scale_log2, scale, causal, hd
 
-template <int D>
+// PAD: rows of hd <= D values in global memory (load_tile_hd; the chunks
+// and column pairs wholly past hd skipped, their outputs not written)
+template <int D, bool PAD>
 __device__ __forceinline__ void flash_bwd_dkv_tc_body(DKV_TC_PARAMS) {
   constexpr int KC = D / 16;          // 16-deep chunks of the products over d
   constexpr int QW = dkv_step_rows<D>();   // query rows of an inner step
@@ -393,7 +415,13 @@ __device__ __forceinline__ void flash_bwd_dkv_tc_body(DKV_TC_PARAMS) {
   const int b = blockIdx.y, nkb = (S + TC_BK - 1) / TC_BK, nqt = (S + TC_BQ - 1) / TC_BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int lenc = max(lengths[b], 1);
-  const size_t kvoff = (size_t)b * S * D;
+  const int HD = PAD ? hd : D;          // values a row in global memory
+  const size_t kvoff = (size_t)b * S * HD;
+  // rows [r0, r0 + 64) of a [S, HD] matrix into a swizzled shared tile
+  auto tile = [&](uint32_t dst, const bf16* src, int r0) {
+    if constexpr (PAD) load_tile_hd<D, TC_BQ, TC_THREADS>(dst, src, r0, S, HD);
+    else tc_bf16::load_tile<D, TC_BQ, TC_THREADS>(dst, src, r0, S);
+  };
 
   for (int half = 0; half < 2; ++half) {
     // key blocks kb and nkb - 1 - kb share this block: the same causal work in every block
@@ -414,16 +442,16 @@ __device__ __forceinline__ void flash_bwd_dkv_tc_body(DKV_TC_PARAMS) {
         const int q0 = (first + it % nlive) * TC_BQ;
         const size_t r0 = ((size_t)b * G + it / nlive) * S;
         const uint32_t st = ring + (it & 1) * STAGE;
-        tc_bf16::load_tile<D, TC_BQ, TC_THREADS>(st, q + r0 * D, q0, S);
-        tc_bf16::load_tile<D, TC_BQ, TC_THREADS>(st + TILE, dout + r0 * D, q0, S);
+        tile(st, q + r0 * HD, q0);
+        tile(st + TILE, dout + r0 * HD, q0);
         const int i = threadIdx.x % TC_BQ, which = threadIdx.x / TC_BQ;   // lse, then delta
         const bool in = q0 + i < S;
         cp_async4(st + 2 * TILE + (which * TC_BQ + i) * 4,
                   (which ? delta : lse) + r0 + (in ? q0 + i : 0), in);
       };
       __syncthreads();                   // the last key block's tiles are read no more
-      tc_bf16::load_tile<D, TC_BK, TC_THREADS>(sk, k + kvoff, k0, S);
-      tc_bf16::load_tile<D, TC_BK, TC_THREADS>(sv, v + kvoff, k0, S);
+      tile(sk, k + kvoff, k0);
+      tile(sv, v + kvoff, k0);
       cp_async_commit();
       issue(0);
       cp_async_commit();
@@ -465,6 +493,7 @@ __device__ __forceinline__ void flash_bwd_dkv_tc_body(DKV_TC_PARAMS) {
             for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
           for (int kc = 0; kc < KC; ++kc) {
+            if (PAD && kc * 16 >= HD) continue;   // zero columns only
             uint32_t kf[4], vf[4];
             if constexpr (KV_REGS) {
 #pragma unroll
@@ -511,6 +540,7 @@ __device__ __forceinline__ void flash_bwd_dkv_tc_body(DKV_TC_PARAMS) {
             acc_to_a(dp[2 * c], dp[2 * c + 1], da);
 #pragma unroll
             for (int np = 0; np < DT / 2; ++np) {
+              if (PAD && np * 16 >= HD) continue;   // output columns past hd
               uint32_t of[4], qf[4];
               ldsm_x4_t(t_addr<D>(sdo, r0 / 16 + c, np, lane), of);
               ldsm_x4_t(t_addr<D>(sq, r0 / 16 + c, np, lane), qf);
@@ -528,10 +558,11 @@ __device__ __forceinline__ void flash_bwd_dkv_tc_body(DKV_TC_PARAMS) {
     for (int h = 0; h < 2; ++h) {
       const int key = kw + g + 8 * h;
       if (key >= S) continue;
-      bf16* dkr = dk + kvoff + (size_t)key * D;
-      bf16* dvr = dv + kvoff + (size_t)key * D;
+      bf16* dkr = dk + kvoff + (size_t)key * HD;
+      bf16* dvr = dv + kvoff + (size_t)key * HD;
 #pragma unroll
       for (int j = 0; j < DT; ++j) {
+        if (PAD && j * 8 + 2 * t >= HD) continue;
         *reinterpret_cast<uint32_t*>(dkr + j * 8 + 2 * t) =
             pack(scale * dka[j][2 * h], scale * dka[j][2 * h + 1]);
         *reinterpret_cast<uint32_t*>(dvr + j * 8 + 2 * t) = pack(dva[j][2 * h], dva[j][2 * h + 1]);
@@ -540,21 +571,22 @@ __device__ __forceinline__ void flash_bwd_dkv_tc_body(DKV_TC_PARAMS) {
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dkv_tc_kernel(DKV_TC_PARAMS) {
-  flash_bwd_dkv_tc_body<D>(DKV_TC_ARGS);
+  flash_bwd_dkv_tc_body<D, PAD>(DKV_TC_ARGS);
 }
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_bwd_dkv_tc_narrow_kernel(DKV_TC_PARAMS) {
-  flash_bwd_dkv_tc_body<D>(DKV_TC_ARGS);
+  flash_bwd_dkv_tc_body<D, PAD>(DKV_TC_ARGS);
 }
 // head dims 16 and 32 take the kernel with one block an SM named as its
-// minimum (see the header); 64 and 128 keep the thread count alone
-template <int D>
+// minimum (see the header); 64 and 128 keep the thread count alone, and so
+// does the padded build
+template <int D, bool PAD>
 auto flash_bwd_dkv_tc() {
-  if constexpr (D < 64) return &flash_bwd_dkv_tc_narrow_kernel<D>;
-  else return &flash_bwd_dkv_tc_kernel<D>;
+  if constexpr (D < 64) return &flash_bwd_dkv_tc_narrow_kernel<D, PAD>;
+  else return &flash_bwd_dkv_tc_kernel<D, PAD>;
 }
 
 // ---------------------------------------------------------------------------
@@ -570,11 +602,12 @@ __host__ __device__ constexpr int dq_tc_smem() {
   const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,       \
       const bf16* __restrict__ dout, const float* __restrict__ lse,                         \
       const float* __restrict__ delta, const int* __restrict__ lengths, bf16* __restrict__ dq, \
-      int G, int S, float scale_log2, float scale, int causal
+      int G, int S, float scale_log2, float scale, int causal, int hd
 #define DQ_TC_ARGS \
-  q, k, v, dout, lse, delta, lengths, dq, G, S, scale_log2, scale, causal
+  q, k, v, dout, lse, delta, lengths, dq, G, S, scale_log2, scale, causal, hd
 
-template <int D>
+// PAD: as flash_bwd_dkv_tc_body's
+template <int D, bool PAD>
 __device__ __forceinline__ void flash_bwd_dq_tc_body(DQ_TC_PARAMS) {
   constexpr int KC = D / 16;          // 16-deep chunks of q.k and dO.v
   constexpr int KW = dq_step_keys<D>();    // keys of an inner step
@@ -594,18 +627,24 @@ __device__ __forceinline__ void flash_bwd_dq_tc_body(DQ_TC_PARAMS) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int q0 = iq * TC_BQ, wr = q0 + warp * 16;   // the warp's first row
   const int lenc = min(max(lengths[b], 1), S);
-  const size_t qoff = (size_t)bg * S * D;
-  const bf16* kbase = k + (size_t)b * S * D;
-  const bf16* vbase = v + (size_t)b * S * D;
+  const int HD = PAD ? hd : D;          // values a row in global memory
+  const size_t qoff = (size_t)bg * S * HD;
+  const bf16* kbase = k + (size_t)b * S * HD;
+  const bf16* vbase = v + (size_t)b * S * HD;
   int last = lenc - 1;
   if (causal) last = min(last, min(q0 + TC_BQ, S) - 1);
   const int nkt = last / TC_BK + 1;
+  // rows [r0, r0 + 64) of a [S, HD] matrix into a swizzled shared tile
+  auto tile = [&](uint32_t dst, const bf16* src, int r0) {
+    if constexpr (PAD) load_tile_hd<D, TC_BK, TC_THREADS>(dst, src, r0, S, HD);
+    else tc_bf16::load_tile<D, TC_BK, TC_THREADS>(dst, src, r0, S);
+  };
 
-  tc_bf16::load_tile<D, TC_BQ, TC_THREADS>(sq, q + qoff, q0, S);
-  tc_bf16::load_tile<D, TC_BQ, TC_THREADS>(sdo, dout + qoff, q0, S);
+  tile(sq, q + qoff, q0);
+  tile(sdo, dout + qoff, q0);
   cp_async_commit();
-  tc_bf16::load_tile<D, TC_BK, TC_THREADS>(sk, kbase, 0, S);
-  tc_bf16::load_tile<D, TC_BK, TC_THREADS>(sv, vbase, 0, S);
+  tile(sk, kbase, 0);
+  tile(sv, vbase, 0);
   cp_async_commit();
   // the thread's two rows (g and g + 8 of the warp's 16): lse in base 2, delta
   float lse2[2], dl[2];
@@ -635,8 +674,8 @@ __device__ __forceinline__ void flash_bwd_dq_tc_body(DQ_TC_PARAMS) {
     const uint32_t skt = sk + (kt & 1) * TILE, svt = sv + (kt & 1) * TILE;
     if (kt + 1 < nkt) {              // the next tile's copy overlaps this tile's products
       const uint32_t nxt = ((kt + 1) & 1) * TILE;
-      tc_bf16::load_tile<D, TC_BK, TC_THREADS>(sk + nxt, kbase, k0 + TC_BK, S);
-      tc_bf16::load_tile<D, TC_BK, TC_THREADS>(sv + nxt, vbase, k0 + TC_BK, S);
+      tile(sk + nxt, kbase, k0 + TC_BK);
+      tile(sv + nxt, vbase, k0 + TC_BK);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -657,6 +696,7 @@ __device__ __forceinline__ void flash_bwd_dq_tc_body(DQ_TC_PARAMS) {
       for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
+          if (PAD && kc * 16 >= HD) continue;   // zero columns only
           uint32_t kf[4], vf[4];
           ldsm_x4(b_addr<D>(skt, c0 + np * 16, kc, lane), kf);
           ldsm_x4(b_addr<D>(svt, c0 + np * 16, kc, lane), vf);
@@ -688,6 +728,7 @@ __device__ __forceinline__ void flash_bwd_dq_tc_body(DQ_TC_PARAMS) {
         acc_to_a(dp[2 * c], dp[2 * c + 1], da);
 #pragma unroll
         for (int np = 0; np < DT / 2; ++np) {
+          if (PAD && np * 16 >= HD) continue;   // output columns past hd
           uint32_t kf[4];
           ldsm_x4_t(t_addr<D>(skt, c0 / 16 + c, np, lane), kf);
           mma(acc[2 * np], da, kf[0], kf[1]);
@@ -701,29 +742,31 @@ __device__ __forceinline__ void flash_bwd_dq_tc_body(DQ_TC_PARAMS) {
   for (int h = 0; h < 2; ++h) {
     const int row = wr + g + 8 * h;
     if (row >= S) continue;
-    bf16* drow = dq + qoff + (size_t)row * D;
+    bf16* drow = dq + qoff + (size_t)row * HD;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<uint32_t*>(drow + j * 8 + 2 * t) =
-          pack(scale * acc[j][2 * h], scale * acc[j][2 * h + 1]);
+      if (!PAD || j * 8 + 2 * t < HD)
+        *reinterpret_cast<uint32_t*>(drow + j * 8 + 2 * t) =
+            pack(scale * acc[j][2 * h], scale * acc[j][2 * h + 1]);
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_tc_kernel(DQ_TC_PARAMS) {
-  flash_bwd_dq_tc_body<D>(DQ_TC_ARGS);
+  flash_bwd_dq_tc_body<D, PAD>(DQ_TC_ARGS);
 }
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_bwd_dq_tc_narrow_kernel(DQ_TC_PARAMS) {
-  flash_bwd_dq_tc_body<D>(DQ_TC_ARGS);
+  flash_bwd_dq_tc_body<D, PAD>(DQ_TC_ARGS);
 }
 // head dims 16 and 32 take the kernel with one block an SM named as its
-// minimum (see the header); 64 and 128 keep the thread count alone
-template <int D>
+// minimum (see the header); 64 and 128 keep the thread count alone, and so
+// does the padded build
+template <int D, bool PAD>
 auto flash_bwd_dq_tc() {
-  if constexpr (D < 64) return &flash_bwd_dq_tc_narrow_kernel<D>;
-  else return &flash_bwd_dq_tc_kernel<D>;
+  if constexpr (D < 64) return &flash_bwd_dq_tc_narrow_kernel<D, PAD>;
+  else return &flash_bwd_dq_tc_kernel<D, PAD>;
 }
 
 template <typename Kern>
@@ -732,112 +775,144 @@ int allow_smem(Kern kern, size_t bytes) {
                                    (int)bytes);
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, const void* lengths, void* dq, int B,
-                 int G, int S, int causal, float scale_log2, float scale, cudaStream_t st) {
+                 int G, int S, int causal, float scale_log2, float scale, int hd,
+                 cudaStream_t st) {
   constexpr int smem = dq_tc_smem<D>();
-  if (int e = allow_smem(flash_bwd_dq_tc<D>(), smem)) return e;
+  if (int e = allow_smem(flash_bwd_dq_tc<D, PAD>(), smem)) return e;
   const int nq = (S + TC_BQ - 1) / TC_BQ;
-  flash_bwd_dq_tc<D>()<<<nq * G * B, TC_THREADS, smem, st>>>(
+  flash_bwd_dq_tc<D, PAD>()<<<nq * G * B, TC_THREADS, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-      (const float*)delta, (const int*)lengths, (bf16*)dq, G, S, scale_log2, scale, causal);
+      (const float*)delta, (const int*)lengths, (bf16*)dq, G, S, scale_log2, scale, causal, hd);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, const void* lengths, void* dk, void* dv,
-                  int B, int G, int S, int causal, float scale_log2, float scale,
+                  int B, int G, int S, int causal, float scale_log2, float scale, int hd,
                   cudaStream_t st) {
   constexpr int smem = dkv_tc_smem<D>();
-  if (int e = allow_smem(flash_bwd_dkv_tc<D>(), smem)) return e;
+  if (int e = allow_smem(flash_bwd_dkv_tc<D, PAD>(), smem)) return e;
   const int nkb = (S + TC_BK - 1) / TC_BK;
-  flash_bwd_dkv_tc<D>()<<<dim3((nkb + 1) / 2, B), TC_THREADS, smem, st>>>(
+  flash_bwd_dkv_tc<D, PAD>()<<<dim3((nkb + 1) / 2, B), TC_THREADS, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
       (const float*)delta, (const int*)lengths, (bf16*)dk, (bf16*)dv, G, S, scale_log2, scale,
-      causal);
+      causal, hd);
   return (int)cudaGetLastError();
+}
+
+// hd: the head dim of the rows in memory, D unless PAD (then hd % 4 == 0,
+// 32 < hd <= D)
+template <int D, bool PAD>
+bool head_dim_ok(int hd) {
+  return PAD ? hd % 4 == 0 && hd > 32 && hd <= D : hd == D;
 }
 
 // dtype_code: 0 = f32 q/k/v/dO and gradients (SIMT kernels), 1 = bf16
 // (tensor cores)
-template <int D>
+template <int D, bool PAD>
 int dq_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
              const void* delta, const void* lengths, void* dq, int B, int G, int S, int causal,
-             int dtype_code, float scale_log2, float scale, void* stream) {
+             int dtype_code, float scale_log2, float scale, int hd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!head_dim_ok<D, PAD>(hd)) return (int)cudaErrorInvalidValue;
   if (dtype_code == 1)
-    return launch_dq_tc<D>(q, k, v, dout, lse, delta, lengths, dq, B, G, S, causal,
-                           scale_log2, scale, st);
+    return launch_dq_tc<D, PAD>(q, k, v, dout, lse, delta, lengths, dq, B, G, S, causal,
+                                scale_log2, scale, hd, st);
   if (dtype_code != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = dq_smem_bytes<D>();
-  if (int e = allow_smem(flash_bwd_dq_kernel<D>, smem)) return e;
-  flash_bwd_dq_kernel<D><<<dim3((S + DQ_BQ - 1) / DQ_BQ, G, B), THREADS, smem, st>>>(
+  if (int e = allow_smem(flash_bwd_dq_kernel<D, PAD>, smem)) return e;
+  flash_bwd_dq_kernel<D, PAD><<<dim3((S + DQ_BQ - 1) / DQ_BQ, G, B), THREADS, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       (const float*)lse, (const float*)delta, (const int*)lengths, (float*)dq, G, S,
-      scale_log2, scale, causal);
+      scale_log2, scale, causal, hd);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool PAD>
 int dkv_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* lengths, void* dk, void* dv, int B, int G, int S,
-              int causal, int dtype_code, float scale_log2, float scale, void* stream) {
+              int causal, int dtype_code, float scale_log2, float scale, int hd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!head_dim_ok<D, PAD>(hd)) return (int)cudaErrorInvalidValue;
   if (dtype_code == 1)
-    return launch_dkv_tc<D>(q, k, v, dout, lse, delta, lengths, dk, dv, B, G, S, causal,
-                            scale_log2, scale, st);
+    return launch_dkv_tc<D, PAD>(q, k, v, dout, lse, delta, lengths, dk, dv, B, G, S, causal,
+                                 scale_log2, scale, hd, st);
   if (dtype_code != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = dkv_smem_bytes<D>();
-  if (int e = allow_smem(flash_bwd_dkv_kernel<D>, smem)) return e;
-  flash_bwd_dkv_kernel<D><<<dim3((S + KV_BKV - 1) / KV_BKV, B), THREADS, smem, st>>>(
+  if (int e = allow_smem(flash_bwd_dkv_kernel<D, PAD>, smem)) return e;
+  flash_bwd_dkv_kernel<D, PAD><<<dim3((S + KV_BKV - 1) / KV_BKV, B), THREADS, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       (const float*)lse, (const float*)delta, (const int*)lengths, (float*)dk, (float*)dv,
-      G, S, scale_log2, scale, causal);
+      G, S, scale_log2, scale, causal, hd);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool PAD = false>
 int dq_attributes(int* out, int dtype_code) {
   if (dtype_code == 1)
-    return tc_bf16::attributes(flash_bwd_dq_tc<D>(), TC_THREADS, dq_tc_smem<D>(), out);
-  return tc_bf16::attributes(flash_bwd_dq_kernel<D>, THREADS, (int)dq_smem_bytes<D>(), out);
+    return tc_bf16::attributes(flash_bwd_dq_tc<D, PAD>(), TC_THREADS, dq_tc_smem<D>(), out);
+  return tc_bf16::attributes(flash_bwd_dq_kernel<D, PAD>, THREADS, (int)dq_smem_bytes<D>(),
+                             out);
 }
 
-template <int D>
+template <int D, bool PAD = false>
 int dkv_attributes(int* out, int dtype_code) {
   if (dtype_code == 1)
-    return tc_bf16::attributes(flash_bwd_dkv_tc<D>(), TC_THREADS, dkv_tc_smem<D>(), out);
-  return tc_bf16::attributes(flash_bwd_dkv_kernel<D>, THREADS, (int)dkv_smem_bytes<D>(), out);
+    return tc_bf16::attributes(flash_bwd_dkv_tc<D, PAD>(), TC_THREADS, dkv_tc_smem<D>(), out);
+  return tc_bf16::attributes(flash_bwd_dkv_kernel<D, PAD>, THREADS, (int)dkv_smem_bytes<D>(),
+                             out);
 }
 
 }  // namespace
 
 // One entry per head dim and kernel, each with the arguments of dq_entry /
-// dkv_entry.
+// dkv_entry but hd.
 #define FLASH_BWD_ENTRIES(suffix, D)                                                          \
   extern "C" int flash_bwd_dq##suffix(                                                        \
       const void* q, const void* k, const void* v, const void* dout, const void* lse,         \
       const void* delta, const void* lengths, void* dq, int B, int G, int S, int causal,      \
       int dtype_code, float scale_log2, float scale, void* stream) {                          \
-    return dq_entry<D>(q, k, v, dout, lse, delta, lengths, dq, B, G, S, causal, dtype_code,   \
-                       scale_log2, scale, stream);                                            \
+    return dq_entry<D, false>(q, k, v, dout, lse, delta, lengths, dq, B, G, S, causal,        \
+                              dtype_code, scale_log2, scale, D, stream);                      \
   }                                                                                           \
   extern "C" int flash_bwd_dkv##suffix(                                                       \
       const void* q, const void* k, const void* v, const void* dout, const void* lse,         \
       const void* delta, const void* lengths, void* dk, void* dv, int B, int G, int S,        \
       int causal, int dtype_code, float scale_log2, float scale, void* stream) {              \
-    return dkv_entry<D>(q, k, v, dout, lse, delta, lengths, dk, dv, B, G, S, causal,          \
-                        dtype_code, scale_log2, scale, stream);                               \
+    return dkv_entry<D, false>(q, k, v, dout, lse, delta, lengths, dk, dv, B, G, S, causal,   \
+                               dtype_code, scale_log2, scale, D, stream);                     \
   }
 FLASH_BWD_ENTRIES(, 64)
 FLASH_BWD_ENTRIES(_d16, 16)
 FLASH_BWD_ENTRIES(_d32, 32)
 FLASH_BWD_ENTRIES(_d128, 128)
 
+// Any other head dim hd % 4 == 0, 32 < hd <= 128: the arguments of the
+// entries above with hd after dtype_code.
+extern "C" int flash_bwd_dq_dpad(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, const void* lengths,
+                                 void* dq, int B, int G, int S, int causal, int dtype_code,
+                                 int hd, float scale_log2, float scale, void* stream) {
+  return dq_entry<128, true>(q, k, v, dout, lse, delta, lengths, dq, B, G, S, causal,
+                             dtype_code, scale_log2, scale, hd, stream);
+}
+
+extern "C" int flash_bwd_dkv_dpad(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, const void* delta,
+                                  const void* lengths, void* dk, void* dv, int B, int G, int S,
+                                  int causal, int dtype_code, int hd, float scale_log2,
+                                  float scale, void* stream) {
+  return dkv_entry<128, true>(q, k, v, dout, lse, delta, lengths, dk, dv, B, G, S, causal,
+                              dtype_code, scale_log2, scale, hd, stream);
+}
+
 // A kernel's registers, shared memory, spills and occupancy at a head dim
-// (16, 32, 64, 128) and dtype_code (tc_bf16::attributes; launches nothing).
+// (16, 32, 64, 128; another: the padded build) and dtype_code
+// (tc_bf16::attributes; launches nothing).
 extern "C" int flash_bwd_dq_attributes(int* out, int head_dim, int dtype_code) {
   switch (head_dim) {
     case 16: return dq_attributes<16>(out, dtype_code);
@@ -845,6 +920,8 @@ extern "C" int flash_bwd_dq_attributes(int* out, int head_dim, int dtype_code) {
     case 64: return dq_attributes<64>(out, dtype_code);
     case 128: return dq_attributes<128>(out, dtype_code);
   }
+  if (head_dim % 4 == 0 && head_dim > 32 && head_dim < 128)
+    return dq_attributes<128, true>(out, dtype_code);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -855,5 +932,7 @@ extern "C" int flash_bwd_dkv_attributes(int* out, int head_dim, int dtype_code) 
     case 64: return dkv_attributes<64>(out, dtype_code);
     case 128: return dkv_attributes<128>(out, dtype_code);
   }
+  if (head_dim % 4 == 0 && head_dim > 32 && head_dim < 128)
+    return dkv_attributes<128, true>(out, dtype_code);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,14 +18,14 @@ exp2 on bf16 operands (``config.flash_softmax_bf16``; the forward only).
 Returns O and the per-row log-sum-exp in nats, ``[B, G, 1, S]``.
 
 On the card the forward and the backward pair take head dims 16, 32, 64
-and 128 (``HEAD_DIMS``), each in f32 and bf16; the forward also takes every
-other head dim with ``hd % 4 == 0`` and ``32 < hd <= 128`` (``padded``:
-OpenLLaMA-3B's 100, and 48, 80, 96) through one build of its D = 128
-kernels with hd an argument. Another head dim raises
-``NotImplementedError`` naming the rule; the backward at the padded head
-dims (training such a model) is the next slice and raises so too. In bf16 all three kernels run their products on the tensor
-cores, and their plain versions take q.k and dO.v the same way
-(``_scores``); in f32 they run on the fp32 units with fp32 products.
+and 128 (``HEAD_DIMS``), each in f32 and bf16, and every other head dim
+with ``hd % 4 == 0`` and ``32 < hd <= 128`` (``padded``: OpenLLaMA-3B's 100,
+and 48, 80, 96) through one build of each kernel's D = 128 code with hd an
+argument (``flash_fwd_dpad``, ``flash_bwd_dq_dpad``, ``flash_bwd_dkv_dpad``).
+Another head dim raises ``NotImplementedError`` naming the rule. In bf16
+all three kernels run their products on the tensor cores, and their plain
+versions take q.k and dO.v the same way (``_scores``); in f32 they run on
+the fp32 units with fp32 products.
 
 Block structure: the TPU forward walks key blocks of
 ``_fit_block(1024, S)`` (the ``bk`` every caller of the JAX package passes)
@@ -144,29 +144,24 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 
 def padded(D: int) -> bool:
-    """Whether the forward takes head dim ``D`` through its padded build
-    (``flash_fwd_dpad``; OpenLLaMA-3B's 100)."""
+    """Whether head dim ``D`` goes through the padded builds
+    (``flash_fwd_dpad``, ``flash_bwd_dq_dpad``, ``flash_bwd_dkv_dpad``;
+    OpenLLaMA-3B's 100)."""
     return D not in HEAD_DIMS and _build.in_padded_rule(D)
 
 
 def _check_built(source: str, D: int, tensors) -> None:
     """Raise ``NotImplementedError``, naming the built set, unless every
-    tensor has q's f32 / bf16 type and ``D`` is a head dim ``source`` takes:
-    ``HEAD_DIMS``, and for the forward (``flash_attention.cu``) also the
-    padded build's."""
+    tensor has q's f32 / bf16 type and ``D`` is a head dim ``source``
+    (``flash_attention.cu`` or ``flash_attention_bwd.cu``) takes:
+    ``HEAD_DIMS`` and the padded build's."""
     dts = [t.dtype for t in tensors]
-    fwd = source == "flash_attention.cu"
     if (dts[0] in _DTYPE_CODES and all(d == dts[0] for d in dts)
-            and (D in HEAD_DIMS or (fwd and padded(D)))):
+            and (D in HEAD_DIMS or padded(D))):
         return
-    rule = (f"head dims {HEAD_DIMS} and every {_build.PADDED_RULE}" if fwd else
-            f"head dims {HEAD_DIMS}")
-    note = ("" if fwd or not padded(D) else
-            f" (the forward takes {_build.PADDED_RULE}; the backward at those head dims, "
-            "training such a model, is the next slice)")
     raise NotImplementedError(
-        f"{source} is built for {rule} in f32 or bf16 (one type for every operand); got "
-        f"D={D}, {'/'.join(str(d) for d in dts)}{note}")
+        f"{source} is built for head dims {HEAD_DIMS} and every {_build.PADDED_RULE} in f32 "
+        f"or bf16 (one type for every operand); got D={D}, {'/'.join(str(d) for d in dts)}")
 
 
 def _entry(stem: str, D: int) -> str:
@@ -286,9 +281,17 @@ def _bwd_operands(name, q, k, v, lengths, lse, delta, do):
 
 
 def _bwd_scales(D):
-    """(scale * log2 e, scale) as the plain versions compute them."""
+    """(scale * log2 e, scale) as the plain versions compute them, from the
+    true head dim (the padded build's tiles are 128 wide)."""
     scale = 1.0 / (D ** 0.5)
     return float(scale * _LOG2E), float(scale)
+
+
+def _bwd_ints(q, causal):
+    """The backward entries' integers: B, G, S, causal, the type's code and,
+    for the padded build, the head dim."""
+    B, G, S, D = q.shape
+    return [B, G, S, int(causal), _DTYPE_CODES[q.dtype]] + ([D] if padded(D) else [])
 
 
 def _flash_bwd_dq(q, k, v, lengths, lse, delta, do, causal: bool = True):
@@ -297,11 +300,11 @@ def _flash_bwd_dq(q, k, v, lengths, lse, delta, do, causal: bool = True):
     if q.device.type == "cpu":
         return _flash_bwd_dq_plain(q, k, v, lengths, lse, delta, do, causal)
     ops = _bwd_operands("_flash_bwd_dq", q, k, v, lengths, lse, delta, do)
-    B, G, S, D = q.shape
+    D = q.shape[-1]
     dq = torch.empty_like(ops[0])
-    f = _build.bind("flash_attention_bwd", _entry("flash_bwd_dq", D), 8, 5, 2)
-    err = f(*(t.data_ptr() for t in ops), dq.data_ptr(), B, G, S, int(causal),
-            _DTYPE_CODES[q.dtype], *_bwd_scales(D),
+    ints = _bwd_ints(q, causal)
+    f = _build.bind("flash_attention_bwd", _entry("flash_bwd_dq", D), 8, len(ints), 2)
+    err = f(*(t.data_ptr() for t in ops), dq.data_ptr(), *ints, *_bwd_scales(D),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd_dq")
     _flash_bwd_dq.launches += 1
@@ -316,12 +319,12 @@ def _flash_bwd_dkv(q, k, v, lengths, lse, delta, do, causal: bool = True):
     if q.device.type == "cpu":
         return _flash_bwd_dkv_plain(q, k, v, lengths, lse, delta, do, causal)
     ops = _bwd_operands("_flash_bwd_dkv", q, k, v, lengths, lse, delta, do)
-    B, G, S, D = q.shape
+    D = q.shape[-1]
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
-    f = _build.bind("flash_attention_bwd", _entry("flash_bwd_dkv", D), 9, 5, 2)
-    err = f(*(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(), B, G, S,
-            int(causal), _DTYPE_CODES[q.dtype], *_bwd_scales(D),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    ints = _bwd_ints(q, causal)
+    f = _build.bind("flash_attention_bwd", _entry("flash_bwd_dkv", D), 9, len(ints), 2)
+    err = f(*(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(), *ints,
+            *_bwd_scales(D), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd_dkv")
     _flash_bwd_dkv.launches += 1
     return dk, dv
@@ -340,7 +343,8 @@ def _flash_bwd(q, k, v, lengths, o, lse, do, causal: bool = True):
 
 def kernel_attributes() -> dict:
     """What the compiler gave every kernel of K4, K10 and K11 at every head
-    dim (K4's padded build as ``flash_fwd_dpad``), by entry name, ``_f32``
+    dim (the padded builds as ``flash_fwd_dpad``, ``flash_bwd_dq_dpad`` and
+    ``flash_bwd_dkv_dpad``), by entry name, ``_f32``
     appended for the f32 (SIMT) kernels (the bf16 tensor-core kernels keep
     the bare name): registers a thread, shared
     bytes (static, dynamic), local (spill) bytes a thread, threads a block
@@ -350,9 +354,7 @@ def kernel_attributes() -> dict:
             for stem, src in (("flash_fwd", "flash_attention"),
                               ("flash_bwd_dq", "flash_attention_bwd"),
                               ("flash_bwd_dkv", "flash_attention_bwd"))
-            for D in HEAD_DIMS for code in (1, 0)} | {
-        f"flash_fwd_dpad{'' if code else '_f32'}": _build.attributes(
-            "flash_attention", "flash_fwd_attributes", 100, code) for code in (1, 0)}
+            for D in HEAD_DIMS + (100,) for code in (1, 0)}
 
 
 class AttnSaved:

@@ -848,14 +848,22 @@ def test_flash_bwd_tensor_core_kernels(gen, D, G, causal, S, short):
 
 
 def test_flash_bwd_kernels_refuse_other_head_dims(gen):
-    q = torch.randn(1, 1, 64, 96, device="cuda", generator=gen)
-    k = torch.randn(1, 64, 96, device="cuda", generator=gen)
+    """Outside the built head dims and the padded rule (98: hd % 4 != 0;
+    132: above 128) K10 and K11 raise naming both; the padded rule's 96
+    launches."""
     lens = torch.full((1,), 64, dtype=torch.int32, device="cuda")
     lse = torch.zeros(1, 1, 1, 64, device="cuda")
-    for fn in (FA._flash_bwd_dq, FA._flash_bwd_dkv):
-        with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\) in f32 .* "
-                                                      r"is the next slice"):
-            fn(q, k, k, lens, lse, lse, q)
+    for D in (98, 132, 96):
+        q = torch.randn(1, 1, 64, D, device="cuda", generator=gen)
+        k = torch.randn(1, 64, D, device="cuda", generator=gen)
+        for fn in (FA._flash_bwd_dq, FA._flash_bwd_dkv):
+            if D == 96:
+                fn(q, k, k, lens, lse, lse, q)
+                continue
+            rule = r"head dims \(16, 32, 64, 128\) and every hd % 4 == 0 with 32 < hd <= 128"
+            with pytest.raises(NotImplementedError, match=rule):
+                fn(q, k, k, lens, lse, lse, q)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("S", [100, 1100])
@@ -895,13 +903,14 @@ def test_flash_kernels_at_the_new_head_dims(gen, D, dtype, G, causal, S):
 
 def test_flash_kernel_attributes(gen):
     """Every K4/K10/K11 kernel (bf16 tensor-core and f32 SIMT, head dims 16,
-    32, 64, 128, and K4's padded build) compiles to at most 255 registers a
+    32, 64, 128, and the padded builds) compiles to at most 255 registers a
     thread, spills nothing, and fits at least one block on an SM."""
     attrs = FA.kernel_attributes()
     assert set(attrs) == {FA._entry(stem, D) + suf for stem in
                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
                           for D in FA.HEAD_DIMS for suf in ("", "_f32")} | {
-        "flash_fwd_dpad", "flash_fwd_dpad_f32"}
+        f"{stem}_dpad{suf}" for stem in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        for suf in ("", "_f32")}
     for name, a in attrs.items():
         assert a["spill_bytes"] == 0 and a["registers"] <= 255, (name, a)
         assert a["threads"] == (256 if name.endswith("_f32") else 128), (name, a)
@@ -925,8 +934,8 @@ def test_flash_attention_gqa_gradient_runs_the_kernels(gen):
                                saved.lse, g)
     assert all(_close(a, b) for a, b in zip((dq, dk, dv), want))
     with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\)"):
-        FA._flash_bwd(q[..., :48].detach(), k[..., :48].detach(), v[..., :48].detach(), lens,
-                      o[..., :48].detach(), saved.lse, g[..., :48])
+        FA._flash_bwd(q[..., :50].detach(), k[..., :50].detach(), v[..., :50].detach(), lens,
+                      o[..., :50].detach(), saved.lse, g[..., :50])
 
 
 # row widths of the models' hidden and MLP rows (TinyLlama, LLaMA-7B/13B/30B)
@@ -1315,6 +1324,43 @@ def test_flash_fwd_kernel_padded_head_dims(gen, hd, dtype, S, causal):
     torch.cuda.synchronize()
     assert o.shape == (B, G, S, hd) and _close(o, o2) and torch.equal(o, o_again)
     assert float((lse - lse2).abs().max()) < (1e-3 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("hd", PAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [100, 1100])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 2])
+def test_flash_bwd_kernels_padded_head_dims(gen, hd, dtype, S, causal, G):
+    """K10 and K11's padded builds (flash_bwd_dq_dpad, flash_bwd_dkv_dpad:
+    rows of hd values, tiles 128 wide with zeros past hd) against their plain
+    versions within their gate, from the forward kernel's O and log-sum-exp;
+    lengths S, 1, one cut mid-tile and one a few short. Exact zeros past each
+    length in dK and dV, the same bits from a second launch of each kernel,
+    and the backward of ``flash_attention_gqa`` through both."""
+    B = 4
+    q, do = (torch.randn(B, G, S, hd, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, hd, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    lens_l = [S, 1, S // 2 + 3, S - 5]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    o, lse = FA._flash_fwd(q, k, v, lens, causal=causal)
+    args = (q, k, v, lens, lse, FA._delta(o, do), do, causal)
+    n = (FA._flash_bwd_dq.launches, FA._flash_bwd_dkv.launches)
+    dq, (dk, dv) = FA._flash_bwd_dq(*args), FA._flash_bwd_dkv(*args)
+    assert (FA._flash_bwd_dq.launches, FA._flash_bwd_dkv.launches) == (n[0] + 1, n[1] + 1)
+    dq_again, (dk_again, dv_again) = FA._flash_bwd_dq(*args), FA._flash_bwd_dkv(*args)
+    dq2, (dk2, dv2) = FA._flash_bwd_dq_plain(*args), FA._flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert dq.shape == (B, G, S, hd) and dk.shape == dv.shape == (B, S, hd)
+    assert _close(dq, dq2) and _close(dk, dk2) and _close(dv, dv2)
+    assert torch.equal(dq, dq_again) and torch.equal(dk, dk_again) and torch.equal(dv, dv_again)
+    for b, n_live in enumerate(lens_l):
+        assert not dk[b, max(n_live, 1):].any() and not dv[b, max(n_live, 1):].any()
+    if causal:
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = FA.flash_attention_gqa(ql, kl, vl, lens)
+        grads = torch.autograd.grad(out, (ql, kl, vl), do)
+        assert all(torch.equal(a, b) for a, b in zip(grads, (dq, dk, dv)))
 
 
 # (kv heads, G, intermediate) of each head dim's 2-layer K9 case: widths on

@@ -18,8 +18,10 @@ that rule. K3/K7/K8 and K4 at these head dims are cases of
   the prompts meets it in the prefill): teacher-forced on the same context,
   JAX's lead of its token over the port's is at most ``FLIP_LEAD`` and the
   two packages' logits there are within ``FLIP_DRIFT`` (relative L2).
-* OpenLLaMA-3B's widths: both packages' routing, and the card's K9, K3/K8
-  and K4 gates take it; outside the rule each gate raises naming it.
+* OpenLLaMA-3B's widths: both packages' routing, and the card's K9, K3/K8,
+  K4 and K10/K11 gates take it; outside the rule each gate raises naming it.
+  (Its training steps at head dims 100 and 80 are cases of
+  ``test_torch_trainer.py``'s whole-step test.)
 """
 
 import jax.numpy as jnp
@@ -218,13 +220,17 @@ def test_k9_takes_k_off_the_256_grid_in_the_padded_build_only():
 def test_gates_take_the_rule_and_name_it_outside():
     """Every hd % 4 == 0 with 32 < hd <= 128 passes K3/K8's, K4's and K9's
     gates (the power-of-two dims through their own builds, the rest through
-    the padded ones); outside it each raises and names the rule, and K10/K11
-    refuse the padded dims, saying the backward there is the next slice."""
+    the padded ones), and so does K10/K11's; outside it each raises and names
+    the rule."""
     q = torch.zeros(1, 1, dtype=torch.bfloat16)
     for hd in range(36, 129, 4):
         for G in (1, 8):
             TDA._check_kernel_shape("decode", q, G, hd, 8)
         TFA._check_built("flash_attention.cu", hd, (q, q, q))
+        TFA._check_built("flash_attention_bwd.cu", hd, (q, q, q, q))
+        assert TFA._entry("flash_bwd_dq", hd) == (
+            "flash_bwd_dq" if hd == 64 else f"flash_bwd_dq_d{hd}" if hd == 128
+            else "flash_bwd_dq_dpad")
         cfg = tcfg(MK_BASE.replace(hidden_size=4 * hd, intermediate_size=256,
                                    num_attention_heads=4, num_key_value_heads=4))
         if 4 * hd % 128 == 0:                  # the products' 128-column tiles
@@ -235,11 +241,10 @@ def test_gates_take_the_rule_and_name_it_outside():
             TDA._check_kernel_shape("decode", q, 1, hd, 8)
         with pytest.raises(NotImplementedError, match=r"and every hd % 4 == 0 with 32 < hd <= 128"):
             TFA._check_built("flash_attention.cu", hd, (q, q, q))
+        with pytest.raises(NotImplementedError, match=r"flash_attention_bwd.cu is built for .* "
+                                                      r"and every hd % 4 == 0 with 32 < hd <= 128"):
+            TFA._check_built("flash_attention_bwd.cu", hd, (q, q, q, q))
         cfg = tcfg(MK_BASE.replace(hidden_size=8 * hd, intermediate_size=256,
                                    num_attention_heads=8, num_key_value_heads=8))
         why = TMK._card_shape_error(cfg, 8, 2048, TMK.pick_bk(cfg, 8, 2048), torch.float32)
         assert "every hd % 4 == 0 with 32 < hd <= 128" in why, (hd, why)
-    for hd in (100, 80, 48):
-        with pytest.raises(NotImplementedError, match="the backward at those head dims, "
-                                                      "training such a model, is the next slice"):
-            TFA._check_built("flash_attention_bwd.cu", hd, (q, q, q, q))

@@ -10,7 +10,7 @@ tests hold each new kernel instantiation against, and the wrappers' gates.
   (``PAD_DECODE_SHAPES``), int8 and nibble-packed caches, at rtol / atol
   1e-5 (the tolerance of ``test_torch_decode_attention.py``).
 * K4, K10 and K11 at head dims 16 and 32 (f32 and bf16), 128 (f32), and 100
-  and 80 (f32 and bf16; on the card the forward's padded build): f32 at
+  and 80 (f32 and bf16, causal and not; on the card the padded builds): f32 at
   1e-5, bf16 with the JAX side compiled without excess precision, held at 2
   bf16 steps + 1e-2 x the median (``test_torch_flash_backward.py``'s limit).
 * The gates: what the kernels are built for passes, anything else raises and
@@ -412,12 +412,16 @@ def _assert_close(got, want, dt, what, rows):
         what, float((np.abs(g - w) / lim).max()))
 
 
-@pytest.mark.parametrize("D,dt", [(16, "f32"), (16, "bf16"), (32, "f32"), (32, "bf16"),
-                                  (128, "f32"), (100, "f32"), (100, "bf16"), (80, "f32"),
-                                  (80, "bf16")])
-def test_flash_plain_matches_jax_kernels_at_the_new_head_dims(D, dt):
-    """The forward (O, log-sum-exp) and the dQ / dK / dV pair, causal, two
-    query heads a kv head, lengths full, cut mid-block and 1."""
+@pytest.mark.parametrize("D,dt,causal", [
+    *(pytest.param(D, dt, True, id=f"{D}-{dt}")
+      for D, dt in ((16, "f32"), (16, "bf16"), (32, "f32"), (32, "bf16"), (128, "f32"),
+                    (100, "f32"), (100, "bf16"), (80, "f32"), (80, "bf16"))),
+    # the ring's backward (parallel/ring_attention.py) at the padded head dims
+    *(pytest.param(D, dt, False, id=f"{D}-{dt}-noncausal")
+      for D in (100, 80) for dt in ("f32", "bf16"))])
+def test_flash_plain_matches_jax_kernels_at_the_new_head_dims(D, dt, causal):
+    """The forward (O, log-sum-exp) and the dQ / dK / dV pair, causal or not,
+    two query heads a kv head, lengths full, cut mid-block and 1."""
     jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
     B, G, S = 3, 2, 64
     lens = [S, 37, 1]
@@ -426,27 +430,27 @@ def test_flash_plain_matches_jax_kernels_at_the_new_head_dims(D, dt):
                    for sh in ((B, G, S, D), (B, S, D), (B, S, D), (B, G, S, D)))
     lengths = np.asarray(lens, np.int32)
     jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
-    jo, jlse = _strict(lambda *a: JFA._flash_fwd(*a, 512, 1024, causal=True),
+    jo, jlse = _strict(lambda *a: JFA._flash_fwd(*a, 512, 1024, causal=causal),
                        jq, jk, jv, jnp.asarray(lengths))
-    want = _strict(lambda *a: JFA._flash_bwd(*a, 512, 1024, causal=True),
+    want = _strict(lambda *a: JFA._flash_bwd(*a, 512, 1024, causal=causal),
                    jq, jk, jv, jnp.asarray(lengths), jo, jlse, jdo)
     tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
-    to, tlse = TFA._flash_fwd(tq, tk, tv, torch.from_numpy(lengths))
+    to, tlse = TFA._flash_fwd(tq, tk, tv, torch.from_numpy(lengths), causal)
     rows = [i for i, n in enumerate(lens) if n > 1]
     _assert_close(to, jo, dt, "o", rows)
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=1e-5, atol=1e-5)
     got = TFA._flash_bwd(tq, tk, tv, torch.from_numpy(lengths),
                          torch.from_numpy(np.array(jnp.asarray(jo, jnp.float32))).to(tdt),
-                         torch.from_numpy(np.asarray(jlse)), tdo, True)
+                         torch.from_numpy(np.asarray(jlse)), tdo, causal)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == tdt and tuple(g.shape) == tuple(w.shape)
         _assert_close(g, w, dt, name, rows)
 
 
 def test_flash_gate_takes_every_built_head_dim_in_both_types_and_names_them():
-    """The forward and backward take head dims 16, 32, 64 and 128; the
-    forward also the padded build's (96 here); anything else raises naming
-    the built set, and the backward at 96 says it is the next slice."""
+    """The forward and backward take head dims 16, 32, 64 and 128 and the
+    padded builds' (96 here); anything else raises naming the built set,
+    the backward too."""
     assert TFA.HEAD_DIMS == (16, 32, 64, 128)
     for D in TFA.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
@@ -455,9 +459,11 @@ def test_flash_gate_takes_every_built_head_dim_in_both_types_and_names_them():
             TFA._check_built("flash_attention_bwd.cu", D, (t, t, t, t))
     f, b = torch.zeros(1), torch.zeros(1, dtype=torch.bfloat16)
     TFA._check_built("flash_attention.cu", 96, (b, b, b))
-    with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\) in f32 or "
-                                                  r"bf16 .* the next slice"):
-        TFA._check_built("flash_attention_bwd.cu", 96, (b, b, b, b))
+    TFA._check_built("flash_attention_bwd.cu", 96, (b, b, b, b))
+    TFA._check_built("flash_attention_bwd.cu", 96, (f, f, f, f))
+    with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\) and every hd "
+                                                  r"% 4 == 0 with 32 < hd <= 128 in f32 or bf16"):
+        TFA._check_built("flash_attention_bwd.cu", 98, (b, b, b, b))
     for D, ts in ((98, (b, b, b)), (8, (f, f, f)), (256, (b, b, b)), (64, (f, b, f)),
                   (32, (torch.zeros(1, dtype=torch.float16),) * 3)):
         with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\)"):

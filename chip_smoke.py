@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``llm_qat_torch/csrc`` (into
-``build/llm_qat_torch/``; ``megakernel.cu`` and ``megakernel_d128.cu``, the
-slowest, compile on through phases 2 and 2b), then:
+``build/llm_qat_torch/``; the megakernel sources, the slowest, compile on
+through phases 2 and 2b), then:
 
 1. prints the card's name and power limit and each source's build time;
 2. runs each kernel's wrapper at the TinyLlama-1.1B shapes of the serving
@@ -25,7 +25,7 @@ slowest, compile on through phases 2 and 2b), then:
    W8A8KV8 and at W4A8KV4 (nibble-packed KV cache): one decode step of the
    whole-model decode kernel against its plain version (22 layers and a
    2-layer cut; see ``megakernel_phase``); then ``InferenceEngine`` serves
-   8 requests, prompts of 16..1000 tokens, 64 greedy new tokens each,
+   8 requests, prompts of 16..1000 tokens, SERVE_NEW greedy new tokens each,
    twice: on the scan path (``use_megakernel=False``) and on the default
    configuration, whose decode steps are one launch of that kernel. Every
    launch count is set to 0 just before each run and read just after, and
@@ -46,7 +46,10 @@ slowest, compile on through phases 2 and 2b), then:
    LLaMA-3-8B's published widths ((4, 128) heads, vocabulary 128256) cut to
    4 layers: the megakernel against its plain version, and the default,
    scan and paged engines on 8 requests of 16 greedy tokens, held by their
-   launch counts and against the scan path (see ``llama3_phase``);
+   launch counts and against the scan path (see ``llama3_phase``); then
+   OpenLLaMA-3B (``openllama3b_phase``) and, past 8 query heads a kv head,
+   Mistral-Large-2's and Llama-3.1-405B's widths cut to 2 layers through the
+   default, scan and paged engines (``wide_groups_phase``);
 4. holds the four training kernels against their plain versions at the train
    steps' shapes (flash backward dQ and dK/dV and the flash forward at
    B = 16, G = 8, S = 2048, D = 64 and at LLaMA-7B's B = 32, G = 1, S = 2048,
@@ -96,7 +99,7 @@ slowest, compile on through phases 2 and 2b), then:
    full width). The two ranks' step times share one card and are no scaling
    figure;
 4e. serves tensor-parallel over two ranks on the one card (gloo, as 4d) at
-   TinyLlama-1.1B's full width, 8 of its 22 layers (``TP_LAYERS``):
+   TinyLlama-1.1B's full width, 6 of its 22 layers (``TP_LAYERS``):
    ``InferenceEngine(mesh=)`` and
    ``PagedInferenceEngine(mesh=)`` at W8A8KV8 and W4A8KV4, every decode
    step's and prefill call's K1/K2, K3/K8 and K4 launches counted (no K9),
@@ -147,7 +150,11 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12             # dense bf16 tensor-core peak
 INT8_OPS = 1979e12              # dense int8 tensor-core peak
 PROMPT_LENS = (16, 120, 250, 400, 550, 700, 850, 1000)
-NEW_TOKENS = 64
+NEW_TOKENS = 64                     # the decode attention phases' lengths: prompt + NEW_TOKENS / 2
+# greedy tokens a request in the TinyLlama-1.1B and LLaMA-7B serving runs (the
+# tight pool still preempts: its 120-token prompt crosses into a second page
+# at its ninth token)
+SERVE_NEW = 32
 ATTN_ULPS, ATTN_FLOOR = 2.0, 1e-2   # K3/K4 against their plain versions
 CUT_LAYERS, CUT_DRIFT = 2, 1e-3     # GPU vs CPU at the first layers
 CUT_FLIP_DRIFT = 0.05               # the cut's logits that see a one-level code flip (hold_flip)
@@ -729,25 +736,28 @@ def megakernel_step_check(cfg, qparams, lens, active, gen, dtype=torch.bfloat16,
     return res, (cache, lens_t, act, ids)
 
 
-def megakernel_phase(timer, label, cfg, qparams, gen):
+def megakernel_phase(timer, label, cfg, qparams, gen, lens=K9_LENS):
     """K9 at the full width and depth of ``cfg`` (TinyLlama-1.1B, 22 layers;
     LLaMA-7B, 32): b = 8, max_len 2048, lengths K9_LENS (an empty active
-    slot, one on a block edge, one inactive), at full depth and at a
+    slot, one on a block edge, one inactive; or ``lens``, b = len(lens),
+    slot K9_INACTIVE inactive where there is one), at full depth and at a
     CUT_LAYERS cut, kernel against plain version, and the kernel against its
     own second launch (the same bits); then the kernel's and the plain
     version's time at full depth, the time between the kernel's grid
     barriers by stage, and the cost of its barriers alone."""
     from llm_qat_torch.inference import megakernel as MK
 
-    b, S, L = len(K9_LENS), 2048, cfg.num_hidden_layers
+    b, S, L = len(lens), 2048, cfg.num_hidden_layers
     if not MK.supported(cfg, b, S):
         raise AssertionError(f"{label}: megakernel.supported() is false for b={b}, S={S}")
     active = [i != K9_INACTIVE for i in range(b)]
-    cut_cfg = cfg.replace(num_hidden_layers=CUT_LAYERS)
-    cut, _ = megakernel_step_check(cut_cfg, cut_layers(qparams, CUT_LAYERS), K9_LENS,
-                                   active, gen)
-    full, (cache, lens_t, act, ids) = megakernel_step_check(cfg, qparams, K9_LENS, active, gen)
-    for r in (cut, full):
+    cut = None                         # a model of CUT_LAYERS layers is its own cut
+    if L > CUT_LAYERS:
+        cut, _ = megakernel_step_check(cfg.replace(num_hidden_layers=CUT_LAYERS),
+                                       cut_layers(qparams, CUT_LAYERS), lens, active, gen)
+    full, (cache, lens_t, act, ids) = megakernel_step_check(cfg, qparams, lens, active, gen)
+    cut = cut or full
+    for r in ((cut, full) if cut is not full else (full,)):
         log(f"  decode_megakernel {label} {r['layers']} layers: K/V integers equal "
             f"{r['ints_equal']}, scales within 1e-6 {r['scales_close']}, hidden max_abs_err "
             f"{r['hidden']['max_abs_err']:.3g}, logits max_abs_err {r['logits']['max_abs_err']:.3g} "
@@ -788,9 +798,9 @@ def megakernel_phase(timer, label, cfg, qparams, gen):
     barriers(10)
     barrier_us = (barriers(2000) - barriers(0)) / 2000 * 1e3
 
-    b_ms, b_by, nbytes = megakernel_bound(cfg, qparams, K9_LENS, cache["k_q"].shape[3])
+    b_ms, b_by, nbytes = megakernel_bound(cfg, qparams, lens, cache["k_q"].shape[3])
     grid = torch.cuda.get_device_properties(0).multi_processor_count   # a block per SM
-    log(f"  decode_megakernel {label} b={b} S={S} BK={bk} lens={list(K9_LENS)} grid "
+    log(f"  decode_megakernel {label} b={b} S={S} BK={bk} lens={list(lens)} grid "
         f"{grid} blocks: {ms:.4f} ms (plain {plain_ms:.3f}, bound {b_ms:.4f} {b_by}, "
         f"{nbytes / 1e9:.4f} GB); {ns * L + 1} barriers x {barrier_us:.3f} us = "
         f"{(ns * L + 1) * barrier_us / 1e3:.4f} ms; ms between barriers by stage: "
@@ -799,7 +809,7 @@ def megakernel_phase(timer, label, cfg, qparams, gen):
         + ", ".join(f"{k} {v['median']:.3f} / {v['max']:.3f}" for k, v in busy.items()))
     if not same_twice:
         raise AssertionError(f"decode_megakernel {label}: two launches differ")
-    return dict(mode=label, b=b, S=S, BK=bk, lengths=list(K9_LENS), grid=grid, ms=ms,
+    return dict(mode=label, b=b, S=S, BK=bk, lengths=list(lens), grid=grid, ms=ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 bytes=nbytes, barrier_us=barrier_us, barriers=ns * L + 1, stage_ms=stages,
                 stage_busy_ms=busy,
@@ -1165,6 +1175,154 @@ def openllama3b_phase(timer, gen, base):
     return out
 
 
+# Mistral-Large-2's published config.json (mistralai/Mistral-Large-Instruct-2407):
+# 96 query heads over 8 kv heads of 128 (G = 12), H 12288, I 28672, vocabulary
+# 32768, rope_theta 1e6, rms_norm_eps 1e-5, 88 layers. Llama-3.1-405B's
+# (meta-llama/Llama-3.1-405B): 128 query heads over 8 kv heads of 128 (G = 16),
+# H 16384, I 53248, vocabulary 128256, rope_theta 5e5, rms_norm_eps 1e-5, 126
+# layers; its rope_scaling block is left out (LlamaConfig.from_hf_dict does not
+# read it). Both cut to WIDE_LAYERS layers (reduced: 88 or 126 layers do not
+# fit 80 GB, even at W4 with the K-contiguous copy K9 reads); random weights
+# from WIDE_SEED
+MISTRAL_LARGE_2 = dict(vocab_size=32768, hidden_size=12288, intermediate_size=28672,
+                       num_attention_heads=96, num_key_value_heads=8, rope_theta=1e6,
+                       rms_norm_eps=1e-5, max_position_embeddings=131072,
+                       tie_word_embeddings=False)
+LLAMA31_405B = dict(vocab_size=128256, hidden_size=16384, intermediate_size=53248,
+                    num_attention_heads=128, num_key_value_heads=8, rope_theta=5e5,
+                    rms_norm_eps=1e-5, max_position_embeddings=131072, tie_word_embeddings=False)
+WIDE_LAYERS, WIDE_SEED = 2, 26
+WIDE_FULL_LAYERS = {"Mistral-Large-2": 88, "Llama-3.1-405B": 126}
+WIDE_MODES = {"W8A8KV8": dict(w_bits=8, a_bits=8, kv_bits=8),
+              "W4A8KV4": dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)}
+# (model, published widths, mode, slots of the default run, paged run too):
+# the default path at a b JAX's supported() sends to its megakernel (b = 8 at
+# Mistral-Large-2 W4; b = 1 at its W8 and at Llama-3.1-405B W4, where JAX's
+# TPU scratch budget sends b = 8 to its scan path; the card's K9 has no such
+# budget); the scan and paged runs at b = 8
+WIDE_RUNS = (("Mistral-Large-2", MISTRAL_LARGE_2, "W4A8KV4", 8, True),
+             ("Mistral-Large-2", MISTRAL_LARGE_2, "W8A8KV8", 1, False),
+             ("Llama-3.1-405B", LLAMA31_405B, "W4A8KV4", 1, True))
+
+
+def wide_groups_phase(timer, gen, base):
+    """More than 8 query heads a kv head on every serving path: Mistral-Large-2
+    (G = 12) and Llama-3.1-405B (G = 16) at their published widths
+    (``MISTRAL_LARGE_2``, ``LLAMA31_405B``), cut to WIDE_LAYERS layers, each
+    run of ``WIDE_RUNS``: the K9 phase at the run's default b (kernel against
+    its plain version at the cut's depth, held bit-equal, timed beside its
+    byte bound; b = 1 at the longest of K9_LENS); then ``InferenceEngine``
+    with default flags at that b (every decode step one K9 launch through its
+    9..16 build), on the scan path at b = 8 (K3 every layer) and, where the
+    run says, ``PagedInferenceEngine`` at b = 8 (K8 every layer), 8 requests
+    of PROMPT_LENS tokens, LLAMA3_NEW greedy tokens each (the default run at
+    a b where JAX's ``supported()`` takes the config too). Held by LLaMA-3-8B's
+    gates (``llama3_phase``): the 1000-token prompt teacher-forced through
+    the default and paged paths against the scan path
+    within LLAMA3_DRIFT, and each served request's first difference a near
+    tie (LLAMA3_LEAD_STD). Prints the launches a step and each model's peak
+    memory. Weights, prompts and tokens from a generator of its own."""
+    from llm_qat_torch.inference import megakernel as MK
+    from llm_qat_torch.inference import quantized as Q
+    from llm_qat_torch.models import params as P
+
+    out = dict(kernel=[], runs=[], flips={}, teacher_forced={}, peak_gib={},
+               launches=dict.fromkeys(counters(), 0), reduced={})
+    L = WIDE_LAYERS
+    for model, widths, label, b_dflt, with_paged in WIDE_RUNS:
+        t_run = time.perf_counter()
+        # the earlier phases leave reference cycles that hold device memory
+        # (train_run clears them the same way)
+        before_gc = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  allocated at the run's entry {before_gc / 2 ** 30:.2f} GiB, after gc "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+        cfg = base.replace(num_hidden_layers=L, **widths, **WIDE_MODES[label])
+        name = f"{label} {model}"
+        G = cfg.num_attention_heads // cfg.kv_heads
+        out["reduced"][model] = f"layers: {L} of {WIDE_FULL_LAYERS[model]}"
+        if not (MK.card_takes(cfg, b_dflt, 2048, torch.bfloat16)
+                and MK._stem(cfg.head_dim, G).endswith("_g16")):
+            raise AssertionError(f"{name}: K9's 9..16 build does not take b = {b_dflt}")
+        rng = np.random.default_rng(WIDE_SEED)
+        prompts = [list(map(int, rng.integers(1, cfg.vocab_size, n))) for n in PROMPT_LENS]
+        params = P.init_params(cfg, seed=WIDE_SEED, dtype=torch.bfloat16)
+        qp = Q.quantize_params(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        lens = K9_LENS if b_dflt == len(K9_LENS) else K9_LENS[-b_dflt:]
+        out["kernel"].append(dict(megakernel_phase(timer, name, cfg, qp, gen, lens=lens),
+                                  model=model, G=G))
+        if not out["kernel"][-1]["bit_equal"]:
+            raise AssertionError(f"{name}: K9 is not bit-equal to its plain version")
+        dflt = serve(f"{name} megakernel b={b_dflt}", cfg, qp, prompts, new_tokens=LLAMA3_NEW,
+                     profile=False, max_batch=b_dflt)
+        scan = serve(f"{name} scan", cfg.replace(use_megakernel=False), qp, prompts,
+                     new_tokens=LLAMA3_NEW, profile=False)
+        paged = (serve_paged(f"{name} paged", cfg, qp, prompts, ROOMY_PAGES, profile=False,
+                             new_tokens=LLAMA3_NEW) if with_paged else None)
+        gemm_k = "int8_matmul" if label.startswith("W8") else "int4_matmul"
+        for m in (dflt[0], scan[0]) + ((paged[0],) if paged else ()):
+            dl, pl = m["decode_launches"], m["prefill_launches"]
+            if m is dflt[0]:
+                ok = (dl["decode_megakernel"] == m["decode_steps"] and dl["decode_attention"] == 0
+                      and dl["int8_matmul"] == dl["int4_matmul"] == 0)
+            elif m is scan[0]:
+                ok = (dl["decode_attention"] == L * m["decode_steps"] and dl[gemm_k] > 0
+                      and m["launches"]["decode_megakernel"] == 0)
+            else:
+                ok = (dl["paged_attention"] == L * m["decode_steps"] and dl[gemm_k] > 0
+                      and m["launches"]["decode_megakernel"] == 0
+                      and m["launches"]["decode_attention"] == 0)
+            if not (ok and pl[gemm_k] > 0 and pl["flash_fwd"] > 0):
+                raise AssertionError(f"{m['mode']}: launches off the path: prefill {pl}, "
+                                     f"decode {dl}")
+            for k in out["launches"]:
+                out["launches"][k] += m["launches"][k]
+            m.update(model=model, G=G)
+            log(f"  {m['mode']}: launches a decode step "
+                + ", ".join(f"{k} {v / m['decode_steps']:g}" for k, v in dl.items() if v))
+        out["runs"] += [dflt[0], scan[0]] + ([paged[0]] if paged else [])
+        # teacher-forced on the longest prompt (b = 1: the default path is K9)
+        toks, prompt, tf, bad = [], prompts[-1], {}, []
+        n9 = MK.decode_layers.launches
+        seqs = {"megakernel": _greedy_logits(cfg, qp, prompt, "cuda", toks)}
+        if MK.decode_layers.launches - n9 != 4:
+            raise AssertionError(f"{name}: the teacher-forced default run missed K9")
+        wit = _greedy_logits(cfg.replace(use_megakernel=False), qp, prompt, "cuda", toks)
+        if paged:
+            seqs["paged"] = _greedy_logits_paged(cfg, qp, prompt, "cuda", toks)
+        for other, seq in seqs.items():
+            same, drift, diff = _compare(seq, wit)
+            log(f"  {name}: {other} against scan path teacher-forced on a {len(prompt)}-token "
+                f"prompt: tokens equal {same}, drift {drift:.4g} (limit {LLAMA3_DRIFT}), "
+                f"largest logit difference {diff:.4g}")
+            if drift > LLAMA3_DRIFT:
+                bad.append(f"{other} drifts {drift:.4g} from the scan path")
+            tf[other] = dict(tokens_equal=same, drift=drift, max_abs=diff)
+            try:
+                out["flips"][f"{name} {other}"] = compare_tokens(
+                    name, scan, dflt if other == "megakernel" else paged, None, other=other,
+                    lead_std=LLAMA3_LEAD_STD)
+            except AssertionError as e:
+                bad.append(str(e))
+        if bad:
+            raise AssertionError(f"{name}: " + "; ".join(bad))
+        out["teacher_forced"][name] = tf
+        out["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  {name} ({L} of its layers, G = {G}): decode ms/step default (b={b_dflt}) "
+            f"{dflt[0]['decode_ms_per_step']:.3f}, scan {scan[0]['decode_ms_per_step']:.3f}"
+            + (f", paged {paged[0]['decode_ms_per_step']:.3f}" if paged else "")
+            + f"; K9 {out['kernel'][-1]['ms']:.4f} ms a step (bound "
+            f"{out['kernel'][-1]['bound_ms']:.4f} {out['kernel'][-1]['bound_by']}); peak "
+            f"{out['peak_gib'][name]:.2f} GiB; the run took {time.perf_counter() - t_run:.1f} s")
+        del qp, dflt, scan, paged
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
@@ -1197,22 +1355,23 @@ def read_counters():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def serve(label, cfg, qparams, prompts, new_tokens=NEW_TOKENS, profile=True):
+def serve(label, cfg, qparams, prompts, new_tokens=SERVE_NEW, profile=True, max_batch=8):
     """Serve 8 requests through the engine at ``cfg``'s width and depth
     (TinyLlama-1.1B's full ones unless a phase says otherwise) on ``cfg``'s
-    decode path, ``new_tokens`` greedy tokens each; returns the run's
-    metrics, with the launches of prefill and of decode apart, each
-    request's tokens and every decode step's logits. ``profile``: one
-    8-step chunk under the profiler after the run."""
+    decode path, ``new_tokens`` greedy tokens each, ``max_batch`` slots;
+    returns the run's metrics, with the launches of prefill and of decode
+    apart, each request's tokens and every decode step's logits.
+    ``profile``: one 8-step chunk under the profiler after the run."""
     from llm_qat_torch.inference import engine as E
 
+    t_call = time.perf_counter()
     # warm-up: one short request (cuBLAS handles, first launches)
-    warm = E.InferenceEngine(qparams, cfg, max_batch=8, max_len=2048)
+    warm = E.InferenceEngine(qparams, cfg, max_batch=max_batch, max_len=2048)
     warm.submit(prompts[0], max_new_tokens=8)
     warm.run()
     del warm
 
-    eng = E.InferenceEngine(qparams, cfg, max_batch=8, max_len=2048)
+    eng = E.InferenceEngine(qparams, cfg, max_batch=max_batch, max_len=2048)
     pre = {"s": 0.0, "tokens": sum(map(len, prompts)), "rows": 0,
            "launches": dict.fromkeys(counters(), 0)}
     real_prefill = eng._prefill
@@ -1273,13 +1432,14 @@ def serve(label, cfg, qparams, prompts, new_tokens=NEW_TOKENS, profile=True):
         m["profile"] = profile_decode_chunk(eng, prompts)
     log(f"  {label}: prefill {m['prefill_tok_per_s']:.0f} tok/s "
         f"({pre['tokens']} prompt tokens in {m['prefill_s']:.3f} s), decode "
-        f"{m['decode_ms_per_step']:.3f} ms/step over {steps} steps of 8 slots, "
+        f"{m['decode_ms_per_step']:.3f} ms/step over {steps} steps of {max_batch} slots, "
         f"{m['generated_tok_per_s']:.1f} generated tok/s; launches in prefill "
-        f"{m['prefill_launches']}, in decode {m['decode_launches']}")
+        f"{m['prefill_launches']}, in decode {m['decode_launches']}; the call took "
+        f"{time.perf_counter() - t_call:.1f} s")
     return m, [by_uid[u] for u in uids], tops
 
 
-def serve_paged(label, cfg, qparams, prompts, n_pages, profile, new_tokens=NEW_TOKENS):
+def serve_paged(label, cfg, qparams, prompts, n_pages, profile, new_tokens=SERVE_NEW):
     """Serve the 8 requests through ``PagedInferenceEngine`` at full
     TinyLlama width and depth: pages of PAGE tokens, SEQ_PAGES a sequence, a
     pool of ``n_pages`` (one of them scratch). At admission the prompts'
@@ -1298,6 +1458,7 @@ def serve_paged(label, cfg, qparams, prompts, n_pages, profile, new_tokens=NEW_T
     def engine():
         return PE.PagedInferenceEngine(qparams, cfg, pcfg=pcfg, max_batch=8, steps_per_sync=8)
 
+    t_call = time.perf_counter()
     warm = engine()
     warm.submit(prompts[0], max_new_tokens=8)
     warm.run()
@@ -1386,7 +1547,8 @@ def serve_paged(label, cfg, qparams, prompts, n_pages, profile, new_tokens=NEW_T
         f"decode {m['decode_ms_per_step']:.3f} ms/step over {m['decode_steps']} steps, "
         f"{m['generated_tok_per_s']:.1f} generated tok/s, {preempted['n']} preemptions, "
         f"{preempted['tokens']} recomputed tokens; launches in prefill "
-        f"{m['prefill_launches']}, in decode {m['decode_launches']}")
+        f"{m['prefill_launches']}, in decode {m['decode_launches']}; the call took "
+        f"{time.perf_counter() - t_call:.1f} s")
     return m, toks
 
 
@@ -3913,9 +4075,9 @@ def tp_pp_train_phase(cfg):
 TP, TP_SEED = 2, 21                      # tp ranks; the phase's weights, prompts and inputs
 # the depth it serves: every layer of TinyLlama-1.1B's 22 does the same work
 # over gloo through the host; the phase ran 161.8 s at all 22 and 138.0 s at
-# 11 on a host that ran the other phases 1.2-1.4x slower (PERF.md); at 8 it
-# leaves the time phase [4i] takes
-TP_LAYERS = 8
+# 11 on a host that ran the other phases 1.2-1.4x slower (PERF.md); 76.4 s at
+# 8 left the time phase [4i] takes, and 6 the time of the G > 8 phase [3b4]
+TP_LAYERS = 6
 TP_PROMPT_LENS, TP_NEW = (16, 300, 700, 1000), 8   # 4 requests x 8 greedy new tokens
 TP_PAGES = 64                            # the paged engine's pool (pages of PAGE)
 TP_BEAM_NEW, TP_BEAM_PROMPT = 16, 40     # beam over TP: BEAM_NUM beams, tokens, prompt
@@ -4637,6 +4799,16 @@ GQA_SHAPES = tuple((g, hd) for hd in (64, 128) for g in range(1, 9))
 GQA_DECODE = tuple((12 if (g, hd) == (1, 64) else 8, g, hd, GQA_MODELS.get((g, hd), "-"))
                    for g, hd in GQA_SHAPES if (g, hd) not in ((4, 128), (8, 128)))
 K9_SHAPE_KVH, K9_SHAPE_I = 8, 2048   # K9 at the 16 (G, hd): kv heads, intermediate size (2 layers)
+# past 8 query heads a kv head (the builds of G = 9..15 and 16): K3 (int8,
+# packed), K8 (int8) and K7 at (kv heads, G, hd, model), 8 kv heads but for
+# Llama-3.1-405B's tp = 8 shard (16 query heads over one kv head of 128); K9
+# at (G, hd) on the 2-layer cut of K9_SHAPE_KVH kv heads
+WIDE_MODELS = {(12, 128): "Mistral-Large-2", (16, 128): "Llama-3.1-405B"}
+WIDE_DECODE = tuple((8, g, hd, WIDE_MODELS.get((g, hd), "-")) for hd in (64, 128)
+                    for g in (9, 12, 16)) + ((1, 16, 128, "Llama-3.1-405B tp=8 shard"),
+                                             (8, 12, 100, "-"))
+WIDE_K9 = ((12, 128), (16, 128), (12, 64))
+WIDE_SHAPES_SEED = 27
 # head dim 100 through the padded builds: K3 (int8, packed), K8 (int8, packed)
 # and K7 at (kv heads, G, hd, model), K4 at OpenLLaMA-3B's prefill of 1024
 # tokens (B = its 32 MHA heads, G = 1) in bf16 and f32. At 32 kv heads of 100
@@ -4792,7 +4964,9 @@ def shapes_phase(timer, QM, DA, FA):
     packed caches; K7 int8) and at every G of 1..8 at head dims 64 and 128
     (``GQA_DECODE``: K3 int8 and packed, K8 int8, K7; bit-equal) and at
     head dim 100 through the padded builds (``PAD_DECODE``: K3 and K8 int8
-    and packed, K7; bit-equal), K4/K10/K11 at head dims 16 and 32 in f32
+    and packed, K7; bit-equal), and past 8 query heads a kv head
+    (``WIDE_DECODE``: K3 int8 and packed, K8 int8, K7 through the builds of
+    G = 9..15 and 16; bit-equal), K4/K10/K11 at head dims 16 and 32 in f32
     and bf16 and 128 in f32 (``NEW_FLASH``), K4 at head dim 100 in bf16 and
     f32 (``PAD_FLASH``), K4/K10/K11 at head dims 48, 80, 96 and 100 in bf16
     and f32, causal and not (``PAD_BWD``), and at a tp = 2 rank's shard of
@@ -4800,9 +4974,9 @@ def shapes_phase(timer, QM, DA, FA):
     the TinyLlama-1.1B decode layer's qkv shape through
     ``utils.benchmarking.measure`` (a CUDA graph of the runs, its
     floor subtracted) beside the ``Timer``'s median. Last (the megakernel
-    compiles through the phases before it), K9 at the 16 (G, hd) on a
-    2-layer cut (``megakernel_shape``, bit-equal). From a generator of its
-    own."""
+    compiles through the phases before it), K9 at the 16 (G, hd) and at
+    ``WIDE_K9`` on a 2-layer cut (``megakernel_shape``, bit-equal). From a
+    generator of its own (the shapes past 8 heads from another)."""
     from llm_qat_torch.models.config import TINYLLAMA_1B
     from llm_qat_torch.utils import benchmarking as B
 
@@ -4852,7 +5026,24 @@ def shapes_phase(timer, QM, DA, FA):
         r = stacked_attention_phase(timer, gen, DA, c, plain_reps=PAD_PLAIN_REPS)
         r.update(kvh=kvh, G=G, hd=hd, model=model, bit_equal=r["max_abs_err"] == 0.0)
         out["decode_attention_stacked"].append(r)
-    held = set(GQA_SHAPES) | {(G, hd) for _, G, hd, _ in PAD_DECODE}
+    # past 8 query heads a kv head, from a generator of their own (the later
+    # shapes keep their inputs)
+    gen_wide = torch.Generator(device="cuda")
+    gen_wide.manual_seed(WIDE_SHAPES_SEED)
+    for kvh, G, hd, model in WIDE_DECODE:
+        for key, fn, packs in (("decode_attention", decode_attention_phase, (False, True)),
+                               ("paged_attention", paged_attention_phase, (False,))):
+            for packed in packs:
+                r = fn(timer, gen_wide, DA, kvh, G, hd, packed)
+                r.update(model=model, bit_equal=r["max_abs_err"] == 0.0)
+                out[key].append(r)
+        c = TINYLLAMA_1B.replace(num_attention_heads=kvh * G, num_key_value_heads=kvh,
+                                 hidden_size=kvh * G * hd)
+        r = stacked_attention_phase(timer, gen_wide, DA, c)
+        r.update(kvh=kvh, G=G, hd=hd, model=model, bit_equal=r["max_abs_err"] == 0.0)
+        out["decode_attention_stacked"].append(r)
+    held = (set(GQA_SHAPES) | {(G, hd) for _, G, hd, _ in PAD_DECODE}
+            | {(G, hd) for _, G, hd, _ in WIDE_DECODE})
     gqa = [r for key in ("decode_attention", "paged_attention", "decode_attention_stacked")
            for r in out[key] if (r.get("G"), r.get("hd")) in held]
     if not all(r["bit_equal"] for r in gqa):
@@ -4895,7 +5086,8 @@ def shapes_phase(timer, QM, DA, FA):
         f"ms a run (a CUDA graph of 200 runs, its floor {floor_s * 1e3 / 200:.4f} ms a run "
         f"subtracted; warm L2) against the Timer's {timer_ms:.4f} ms (L2 flushed, one launch "
         "between events)")
-    out["decode_megakernel"] = [megakernel_shape(timer, gen, G, hd) for G, hd in GQA_SHAPES]
+    out["decode_megakernel"] = ([megakernel_shape(timer, gen, G, hd) for G, hd in GQA_SHAPES]
+                                + [megakernel_shape(timer, gen_wide, G, hd) for G, hd in WIDE_K9])
     return out
 
 
@@ -4941,11 +5133,12 @@ def megakernel_shape(timer, gen, G, hd, kvh=K9_SHAPE_KVH):
     ms = timer(lambda: MK.decode_layers(*args, card=card))
     plain_ms = timer(lambda: MK.decode_layers_plain(*args), reps=3)
     b_ms, b_by, nbytes = megakernel_bound(cfg, qp, K9_LENS, cache["k_q"].shape[3])
-    log(f"  decode_megakernel G={G} hd={hd} ({GQA_MODELS.get((G, hd), '-')}) kvh={kvh} "
+    model = {**GQA_MODELS, **WIDE_MODELS}.get((G, hd), "-")
+    log(f"  decode_megakernel G={G} hd={hd} ({model}) kvh={kvh} "
         f"{CUT_LAYERS} layers H={cfg.hidden_size} I={K9_SHAPE_I} W8A8KV8 b={b} S={S} BK={args[10]}: "
         f"{ms:.4f} ms (plain {plain_ms:.3f}, bound {b_ms:.5f} {b_by}); bit-equal: K/V integers, "
         "scales, hidden and logits")
-    return dict(G=G, hd=hd, kvh=kvh, model=GQA_MODELS.get((G, hd), "-"), layers=CUT_LAYERS,
+    return dict(G=G, hd=hd, kvh=kvh, model=model, layers=CUT_LAYERS,
                 H=cfg.hidden_size, I=K9_SHAPE_I, mode="W8A8KV8", b=b, S=S, BK=args[10],
                 lengths=list(K9_LENS), ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=res["max_abs_err"],
@@ -5096,9 +5289,12 @@ def main() -> int:
     log(smi)
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}")
     # every source starts compiling now; the megakernels, the slowest, and the
-    # padded decode attention build (first used in phase 2b) go on compiling
-    # through phase 2 and are waited for at their first use
-    late = ("megakernel", "megakernel_d128", "megakernel_dpad", "decode_attention_dpad")
+    # decode attention builds phase 2 first reads in its kernel attributes
+    # (head dims 16, 32 and the padded build) go on compiling at a lower
+    # priority through phase 2 and are waited for at their first use
+    late = ("megakernel", "megakernel_d128", "megakernel_dpad", "megakernel_g16",
+            "megakernel_d128_g16", "megakernel_dpad_g16", "decode_attention_d16",
+            "decode_attention_d32", "decode_attention_dpad")
     _build.build_all(wait_for=[p.stem for p in _build.CSRC.glob("*.cu") if p.stem not in late])
     log(f"    kernels built into {_build.BUILD_DIR} in "
         + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items()))
@@ -5163,13 +5359,15 @@ def main() -> int:
         "(8, 128) and at every G of 1..8 at head dims 64 and 128, K4/K10/K11 at head dims 16 "
         "and 32 (f32, bf16) and 128 (f32), K3/K8/K7 and K4 at head dim 100 and K4/K10/K11 at "
         "head dims 48, 80, 96, 100 (f32, bf16, causal and not) and a tp=2 rank's shard of "
-        "OpenLLaMA-3B through the padded builds; K1 through utils.benchmarking.measure; K9 at "
-        "every G of 1..8 at head dims 64 and 128 on a 2-layer cut")
+        "OpenLLaMA-3B through the padded builds; K3/K8/K7 at G = 9, 12, 16 at head dims 64 and "
+        "128 (8 kv heads; 1 kv head at (16, 128), Llama-3.1-405B's tp = 8 shard) and G = 12 at "
+        "100; K1 through utils.benchmarking.measure; K9 at every G of 1..8 at head dims 64 and "
+        "128, and at (12, 128), (16, 128), (12, 64), on a 2-layer cut")
     shp = shapes_phase(timer, QM, DA, FA)
     lap("[2b] new shapes")
 
     log("[3] TinyLlama-1.1B, 22 layers: the stacked GEMMs on the served weights, the "
-        "decode megakernel against its plain version, then serving 8 requests x 64 new "
+        f"decode megakernel against its plain version, then serving 8 requests x {SERVE_NEW} new "
         "tokens: max_len 2048 on the scan path (use_megakernel=False) and on the default "
         f"path, then paged (pages of {PAGE}, {SEQ_PAGES} a sequence) from a pool of "
         f"{ROOMY_PAGES} and of {TIGHT_PAGES} pages")
@@ -5237,8 +5435,20 @@ def main() -> int:
     o3 = openllama3b_phase(timer, gen, LLAMA_7B)
     mega += o3["kernel"]
     flips.update({f"{k} OpenLLaMA-3B": v for k, v in o3["flips"].items()})
-    del timer
     lap("[3b3] OpenLLaMA-3B serving")
+    log(f"[3b4] G > 8 serving: Mistral-Large-2's published widths (96 query and 8 kv heads of "
+        f"128, G = 12, H 12288, I 28672, vocabulary 32768, rope_theta 1e6) and Llama-3.1-405B's "
+        f"(128 and 8 heads of 128, G = 16, H 16384, I 53248, vocabulary 128256, rope_theta "
+        f"5e5; rope_scaling left out), each cut to {WIDE_LAYERS} layers, random weights: K9 "
+        f"against its plain version at the default path's b, then 8 requests x {LLAMA3_NEW} "
+        f"greedy tokens on the default path (K9's 9..16 build; b = 8 at Mistral-Large-2 W4A8KV4, "
+        f"b = 1 at its W8A8KV8 and at Llama-3.1-405B W4A8KV4, as JAX's supported() routes), the "
+        f"scan path (K3) and the paged engine (K8) at b = 8 ({smi})")
+    wg = wide_groups_phase(timer, gen, LLAMA_7B)
+    mega += wg["kernel"]
+    flips.update(wg["flips"])
+    del timer
+    lap("[3b4] G > 8 serving")
     for label, mcfg in modes.items():
         checks.append(cpu_check(label, mcfg, qps.pop(label), rng))
         scan, dflt, roomy = served.pop(label)
@@ -5363,7 +5573,7 @@ def main() -> int:
     launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) + pipe["launches"][k]
                 + ev["launches"][k] + md["launches"][k] + tp["launches"][k]
                 + tpp["launches"][k] + tinyp["launches"][k] + accp["launches"][k]
-                + l3["launches"][k] + o3["launches"][k] for k in counters()}
+                + l3["launches"][k] + o3["launches"][k] + wg["launches"][k] for k in counters()}
     # K5-K7 are on no serving path of either package: their counts are those
     # of their kernel phases
     launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
@@ -5401,7 +5611,10 @@ def main() -> int:
              shape="b=8 S=2048 int8 cache, TinyLlama-1.1B heads (packed KV4, LLaMA-7B "
                    "heads kvh=32 G=1 hd=128, S=8192, a tp=2 rank's kvh=2, every G of 1..8 "
                    "at hd 64 and 128, and (1, 4, 8) at hd 100 through the padded build, "
-                   "in shapes)",
+                   "G = 9, 12, 16 at hd 64 and 128 (Mistral-Large-2's (12, 128), "
+                   "Llama-3.1-405B's (16, 128) and its tp=8 shard's one kv head) and 12 at "
+                   "hd 100 through the builds of 9..15 and 16, in shapes; Mistral-Large-2 and "
+                   "Llama-3.1-405B on the scan path in wide_groups)",
              **{k: dec[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")},
              max_abs_err=max(d["max_abs_err"] for d in dec + tp["shapes"]["decode_attention"]
@@ -5427,8 +5640,11 @@ def main() -> int:
              shape="one decode step, 22 layers, b=8 S=2048 W8A8KV8 (W4A8KV4 packed, "
                    "LLaMA-7B's 32 layers of (1, 128) heads, LLaMA-3-8B's widths on 4 "
                    "layers ((4, 128) heads) and OpenLLaMA-3B's 26 layers of (1, 100) heads "
-                   "(the padded build) at both, and a 2-layer cut at every G of 1..8 at "
-                   "hd 64 and 128, in shapes)",
+                   "(the padded build) at both, Mistral-Large-2's (12, 128) heads at W4A8KV4 "
+                   "b=8 and W8A8KV8 b=1 and Llama-3.1-405B's (16, 128) at W4A8KV4 b=1 on "
+                   "2-layer cuts of their widths (the builds of G = 9..16), and a 2-layer cut "
+                   "at every G of 1..8 at hd 64 and 128 and at (12, 128), (16, 128), (12, 64), "
+                   "in shapes)",
              **{k: k9[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
              max_abs_err=max(m["max_abs_err"] for m in mega + shp["decode_megakernel"]),
              shapes=mega + shp["decode_megakernel"]),
@@ -5436,7 +5652,9 @@ def main() -> int:
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:646",
              shape=f"b=8, pool {ROOMY_PAGES} x {PAGE}, {SEQ_PAGES} pages a sequence, int8 pool, "
                    "TinyLlama-1.1B heads (packed KV4, LLaMA-7B heads, a tp=2 rank's kvh=2, "
-                   "every G of 1..8 at hd 64 and 128 and (1, 4, 8) at hd 100 in shapes)",
+                   "every G of 1..8 at hd 64 and 128, (1, 4, 8) at hd 100, and G = 9, 12, "
+                   "16 at hd 64 and 128 and 12 at hd 100 in shapes; Mistral-Large-2 and "
+                   "Llama-3.1-405B in wide_groups)",
              **{k: k8[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
              max_abs_err=max(d["max_abs_err"] for d in pag + tp["shapes"]["paged_attention"]
                              + shp["paged_attention"]),
@@ -5509,6 +5727,8 @@ def main() -> int:
                                                      "launches")},
                     "openllama_3b": {k: o3[k] for k in ("runs", "teacher_forced", "peak_gib",
                                                         "launches", "cut_vs_cpu")},
+                    "wide_groups": {k: wg[k] for k in ("runs", "teacher_forced", "peak_gib",
+                                                       "launches", "reduced")},
                     "openllama_3b_training_flash": o3t["flash"],
                     "accuracy_experiment": accp,
                     "phase_s": PHASE_S, "build_seconds": _build.build_seconds, "card": smi}))

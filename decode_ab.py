@@ -8,7 +8,10 @@ and K8 (int8 pool) through ``chip_smoke.decode_attention_phase`` /
 ``paged_attention_phase`` at the heads of ``SHAPES`` (kv heads, query heads
 a kv head G, head dim): TinyLlama-1.1B's (4, 8, 64), the LLaMA-7B family's
 (32, 1, 128), Meta-Llama-3-8B's (8, 4, 128), Llama-2-70B's (8, 8, 128), the
-tiny pipeline's (2, 2, 16) and the accuracy experiment's (4, 2, 32); and,
+tiny pipeline's (2, 2, 16), the accuracy experiment's (4, 2, 32),
+Mistral-Large-2's (8, 12, 128), Llama-3.1-405B's (8, 16, 128) and its tp = 8
+shard's (1, 16, 128) (a checkout whose kernels refuse a shape prints
+"refused" for it); and,
 without ``--k3-only``, the flash forward K4 (``chip_smoke.flash_phase``,
 bf16, causal, full lengths) and the flash backward pair K10 (dQ) and K11
 (dK/dV, ``flash_attention._flash_bwd_dq`` / ``_flash_bwd_dkv`` on the
@@ -37,7 +40,8 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SHAPES = ((4, 8, 64), (32, 1, 128), (8, 4, 128), (8, 8, 128), (2, 2, 16), (4, 2, 32))
+SHAPES = ((4, 8, 64), (32, 1, 128), (8, 4, 128), (8, 8, 128), (2, 2, 16), (4, 2, 32),
+          (8, 12, 128), (8, 16, 128), (1, 16, 128))
 FLASH = ((16, 8, 2048, 64), (32, 1, 2048, 128))
 
 # one checkout's build: every source, or (an argument "k3") the decode
@@ -90,6 +94,12 @@ gen = torch.Generator(device="cuda")
 gen.manual_seed(0)
 out = []
 for kvh, G, hd in shapes:
+    try:
+        DA._check_kernel_shape("decode", torch.zeros(1, dtype=torch.bfloat16), G, hd, 8)
+    except NotImplementedError:
+        out += [dict(run=f"{k} G={G} hd={hd} {p}", ms=None)
+                for k, p in (("K3", "int8"), ("K3", "packed"), ("K8", "int8"))]
+        continue
     for packed in (False, True):
         r = S.decode_attention_phase(timer, gen, DA, kvh, G, hd, packed)
         out.append(dict(run=f"K3 G={G} hd={hd} {'packed' if packed else 'int8'}", ms=r["ms"]))
@@ -170,7 +180,8 @@ def main() -> int:
                                json.dumps(SHAPES), json.dumps(FLASH)], cwd=t,
                               capture_output=True, text=True)
         for r in _result(proc, t, "RESULT"):
-            print(f"{name[t]:7s} {r['run']:28s} {r['ms']:.4f} ms", flush=True)
+            print(f"{name[t]:7s} {r['run']:28s} "
+                  + ("refused" if r["ms"] is None else f"{r['ms']:.4f} ms"), flush=True)
     return 0
 
 

@@ -27,7 +27,7 @@
 // P], block tables [b, max_pages] int32), lengths [b] int32 (pre-append with
 // a fold), RoPE tables [hd/2, S] f32 (pool: [hd/2, max_pages * P]); fold 1:
 // k_new/v_new [b, kvh, hd] int8, k_inv/v_inv [b] f32, active [b] int32,
-// q_cos/q_sin [b, hd/2] f32. Out [b, nh, hd] in q's type. G = 1..8 query
+// q_cos/q_sin [b, hd/2] f32. Out [b, nh, hd] in q's type. G = 1..16 query
 // heads a kv head (decode_attn.cuh kernel_of). The entry points are
 // decode_attn.cuh's; this source builds them at head dim 64, and
 // decode_attention_d16.cu, _d32.cu and _d128.cu at the other head dims, so

@@ -58,22 +58,26 @@
 // head, chunk) the chunk's partial sums, scores, maximum and its block's
 // rescale factor.
 //
-// Shapes: any G = 1..GMAX query heads a kv head at head dims hd = 16, 32,
-// 64 and 128, f32 or bf16 q, at most BMAX slots. The q.k and p.V loops hold
-// a register tile of GT = 1, 2, 4 or 8 heads (4 at most at hd <= 32, where a
-// tile of 8 spills: G > 4 then runs two passes); G is rounded up to the tile
-// (g_tile), the padding heads' query rows and p * vs columns are zeros, so
-// their sums are zeros that nothing reads. Each head dim has one build a
-// range of G [GL, GH] (build_lo): G = 1, 2, 3..4, 5..7 and 8, so that G
-// rounds to one tile in each. A build of one G has it as a constant; the
-// others read it from the launch. G = 8 has a build of its own beside 5..7:
-// with G from the launch it measured 5-7% slower at (8, 64) and (8, 128);
-// at hd 32 one build of G = 3..8 spilled (PERF.md, PR 18). The shared
-// memory is carved at run time by G (Smem
-// below), so a shape takes only what it uses: two blocks an SM at every G
-// for hd <= 64 and at G <= 2 for hd = 128, one block an SM past that (see
-// min_blocks). The finish stage is built for 1, 2 or 4 outputs a thread
-// (ceil(G hd / NT) rounded up). Nothing of the layout
+// Shapes: any G = 1..GMAX (16) query heads a kv head at head dims hd = 16,
+// 32, 64 and 128, f32 or bf16 q, at most BMAX slots. The q.k and p.V loops
+// hold a register tile of GT = 1, 2, 4 or 8 heads (4 at most at hd <= 32,
+// where a tile of 8 spills: G > 4 then runs two passes, and G > 8 two
+// passes of 8 at hd >= 64, up to four of 4 at hd <= 32); G is rounded up to
+// g_tile(G) (1, 2, 4, 8 or 16), the padding heads' query rows and p * vs
+// columns are zeros, so their sums are zeros that nothing reads. Each head
+// dim has one build a range of G [GL, GH] (build_lo): G = 1, 2, 3..4, 5..7,
+// 8, 9..15 and 16, so that G rounds to one tile in each. A build of one G
+// has it as a constant; the others read it from the launch. G = 8 has a
+// build of its own beside 5..7: with G from the launch it measured 5-7%
+// slower at (8, 64) and (8, 128); at hd 32 one build of G = 3..8 spilled;
+// G = 16 has one beside 9..15 for the same reason: 4-14% faster at (8, 16,
+// 128) and (1, 16, 128) (PERF.md). The shared memory is carved at run time
+// by G (Smem below), so a shape takes only what it uses: two blocks an SM at every G
+// for hd <= 32, at G <= 8 for hd 64 and at G <= 2 for hd = 128, one block
+// an SM past that (see min_blocks). The finish stage is built for 1, 2, 4
+// or 8 outputs a thread (ceil(G hd / NT) rounded up). Past 8 heads (NW
+// warps) a warp takes two heads (HPW) where the softmax.V and finish stages
+// give a warp a head. Nothing of the layout
 // depends on hd but the buffers' sizes: the cache rows run along S, so a
 // packed row of hd = 16 (8 bytes of head dim) is still S bytes, read in the
 // same 16-byte pieces. The finish stage loads each output's partial p.V sums
@@ -114,7 +118,8 @@ constexpr int CHMAX = 128;           // columns a chunk, at most
 constexpr int NQ = NT / CHMAX;       // threads a column in the scores stage
 constexpr int VSA = CHMAX + 16;      // V chunk row stride: 16-byte pieces, rows 4 banks apart
 constexpr int BMAX = 256;            // slots
-constexpr int GMAX = 8;              // query heads a kv head
+constexpr int GMAX = 16;             // query heads a kv head
+constexpr int GMID = 8;              // ... of the builds whose warps take a head each
 constexpr int FW = 256;              // chunk statistics the finish stage stages at a time
 constexpr int MINB = 2;              // blocks an SM: registers a thread at most 65536 / (2 NT)
                                      // (but see min_blocks)
@@ -130,14 +135,21 @@ constexpr int HD_MIN = DECODE_ATTN_HD;
 // G query heads a kv head rounded up to a register tile of heads, the
 // largest tile the q.k and p.V loops take at head dim HD, the tile of a
 // build whose most G is GH there, and the fewest G of the build that takes G
-__host__ __device__ constexpr int g_tile(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
+__host__ __device__ constexpr int g_tile(int G) {
+  return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : G <= 8 ? 8 : 16;
+}
 template <int HD>
 __host__ __device__ constexpr int tile_max() { return HD <= 32 ? 4 : 8; }
 template <int HD>
 __host__ __device__ constexpr int build_tile(int GH) {
   return g_tile(GH) < tile_max<HD>() ? g_tile(GH) : tile_max<HD>();
 }
-__host__ __device__ constexpr int build_lo(int G) { return G <= 2 ? G : G <= 4 ? 3 : G < GMAX ? 5 : GMAX; }
+__host__ __device__ constexpr int build_lo(int G) {
+  return G <= 2 ? G : G <= 4 ? 3 : G < GMID ? 5 : G == GMID ? GMID : G < GMAX ? GMID + 1 : GMAX;
+}
+// heads a warp takes in the softmax.V and finish stages of a build whose
+// most G is GH: one, or two past NW heads
+__host__ __device__ constexpr int heads_a_warp(int GH) { return GH > NW ? 2 : 1; }
 
 struct Args {
   const void* q;                     // [b, nh, hd] T
@@ -305,7 +317,15 @@ __host__ __device__ constexpr int tab_bufs() { return HD >= 128 ? 1 : 2; }
 extern __shared__ __align__(16) unsigned char attn_smem[];
 
 // The dynamic shared memory of a block for G query heads a kv head (the
-// build takes G = GL..GH), carved at run time: the
+// build takes G = GL..GH), carved at run time. The plan past 8 heads, bytes(G)
+// (blocks an SM of the 228 KB, each with its 1 KB reserve) at G = 9 / 12 /
+// 16: hd 16 65888 / 78176 / 94576 (3 / 2 / 2); hd 32 74848 / 87136 / 103536
+// (3 / 2 / 2); hd 64 117952 / 125680 / 135984 (1; G = 8: 111280, 2); hd 128
+// and the padded build 147136 / 156400 / 168752 (1, as from G = 3), all
+// under the 227 KB a block may take. The scores stage's per-G arrays (qb,
+// red, wmax) set the size at hd >= 64, the softmax.V stage's (sbuf, spv,
+// redd) at hd <= 32; the register tile stays at most 8 heads (two passes of
+// 8 past 8, up to four of 4 at hd <= 32). The layout: the
 // three stages' buffers, which share its start (128-byte aligned: off that,
 // the scores stage measured 14% slower at (1, 128)), then the scores stage's
 // query heads in float64 (GP = g_tile(G) rows, the padding rows zero) and
@@ -784,6 +804,7 @@ __device__ __forceinline__ void pv_col(const Args& a, Smem<HD, GL, GH> s, int bf
 template <typename T, int HD, int GL, int GH>
 __device__ void softmax_v_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
   constexpr int SPT = (g_tile(GH) * CHMAX + NT - 1) / NT, GT = build_tile<HD>(GH);
+  constexpr int HPW = heads_a_warp(GH);
   const int hd = head_dim<HD>(a), G = s.G(), GP = s.GP(), NO = G * hd;
   const int tid = threadIdx.x, lane = tid % 32;
   const int CH = a.CH, cpb = a.BK / CH;
@@ -793,13 +814,20 @@ __device__ void softmax_v_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
   float* sm = s.sm();
   float* spf = s.spf();
   double* spv = s.spv();
-  float cmr = NEG_INF;                // this warp's head's first 32 chunk maxima
+  float cmr[HPW];                     // this warp's heads' first 32 chunk maxima
+#pragma unroll
+  for (int e = 0; e < HPW; ++e) cmr[e] = NEG_INF;
   auto fetch_max = [&](int item) {
     if (item < hi && tid / 32 < G) {
       int i, h, c;
       find_item(a, first, item, i, h, c);
       const int ce = min((s.lens()[i] + CH - 1) / CH, (c / cpb + 1) * cpb);
-      cmr = lane < ce ? __ldcg(a.cmax + cell(a, G, i, h * G + tid / 32, 0) + lane) : NEG_INF;
+#pragma unroll
+      for (int e = 0; e < HPW; ++e) {   // heads tid / 32 (and tid / 32 + NW)
+        const int g = tid / 32 + e * NW;
+        if (e == 0 || g < G)
+          cmr[e] = lane < ce ? __ldcg(a.cmax + cell(a, G, i, h * G + g, 0) + lane) : NEG_INF;
+      }
     }
   };
   fetch_max(lo);
@@ -816,12 +844,16 @@ __device__ void softmax_v_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
     find_item(a, first, item, i, h, c);
     const int bf = k % 3, len = s.lens()[i], ncol = min(CH, len - c * CH);
     const int ce = min((len + CH - 1) / CH, (c / cpb + 1) * cpb);
-    if (tid / 32 < G) {             // m_j: a warp a head
-      const size_t c0 = cell(a, G, i, h * G + tid / 32, 0);
-      float m = cmr;
-      for (int cc = lane + 32; cc < ce; cc += 32) m = fmaxf(m, __ldcg(a.cmax + c0 + cc));
-      m = warp_max(m);
-      if (lane == 0) sm[tid / 32] = m;
+#pragma unroll
+    for (int e = 0; e < HPW; ++e) {   // m_j: a warp a head (two past NW heads)
+      const int g = tid / 32 + e * NW;
+      if (g < G) {
+        const size_t c0 = cell(a, G, i, h * G + g, 0);
+        float m = cmr[e];
+        for (int cc = lane + 32; cc < ce; cc += 32) m = fmaxf(m, __ldcg(a.cmax + c0 + cc));
+        m = warp_max(m);
+        if (lane == 0) sm[g] = m;
+      }
     }
     fetch_max(item + 1);
     cp_async_wait<2>();
@@ -872,7 +904,8 @@ __device__ void softmax_v_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
 // outputs a thread, at least ceil(G hd / NT).
 template <typename T, int OPT, int HD, int GL, int GH>
 __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
-  constexpr int NB = OPT > 2 ? 4 : 8;   // chunks of partial sums in flight an output
+  // chunks of partial sums in flight an output
+  constexpr int NB = OPT > 4 ? 2 : OPT > 2 ? 4 : 8, HPW = heads_a_warp(GH);
   const int hd = head_dim<HD>(a), H2 = hd / 2;
   const int G = s.G(), NO = G * hd;
   const int tid = threadIdx.x, lane = tid % 32, gw = tid / 32, nh = a.kvh * G, CH = a.CH;
@@ -908,15 +941,20 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
     f1 = to_f(static_cast<const T*>(a.knew)[pair + tid]);
     f3 = to_f(static_cast<const T*>(a.vnew)[pair + tid]);
   }
-  const size_t cg0 = cell(a, G, i, h * G + min(gw, G - 1), 0);
-  float cmr[2];
-  double cpr[2];
+  // this warp's heads gw (and gw + NW): their cells
+  size_t cg0[HPW];
+  float cmr[HPW][2];
+  double cpr[HPW][2];
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int cc = lane + 32 * e;
-    const bool ok = gw < G && cc < nch;
-    cmr[e] = ok ? __ldcg(a.cmax + cg0 + cc) : NEG_INF;
-    cpr[e] = ok ? __ldcg(a.ppart + cg0 + cc) : 0.0;
+  for (int w = 0; w < HPW; ++w) {
+    cg0[w] = cell(a, G, i, h * G + min(gw + w * NW, G - 1), 0);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cc = lane + 32 * e;
+      const bool ok = gw + w * NW < G && cc < nch;
+      cmr[w][e] = ok ? __ldcg(a.cmax + cg0[w] + cc) : NEG_INF;
+      cpr[w][e] = ok ? __ldcg(a.ppart + cg0[w] + cc) : 0.0;
+    }
   }
   double v0[OPT][NB];
 #pragma unroll
@@ -930,13 +968,17 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
 #pragma unroll
   for (int u = 0; u < OPT; ++u)
     if (tid + u * NT < NO) sq[tid + u * NT] = (double)qv[u];
-  if (gw < G) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-      if (lane + 32 * e < nch) {
-        chm[gw * FW + lane + 32 * e] = cmr[e];
-        chp[gw * FW + lane + 32 * e] = cpr[e];
-      }
+  for (int w = 0; w < HPW; ++w) {
+    const int g = gw + w * NW;
+    if (g < G) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (lane + 32 * e < nch) {
+          chm[g * FW + lane + 32 * e] = cmr[w][e];
+          chp[g * FW + lane + 32 * e] = cpr[w][e];
+        }
+    }
   }
   if (a.fold == 1 && tid < H2) {
     float kf1, kf2;
@@ -956,11 +998,15 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
     vf[tid] = f3;
   }
   __syncthreads();
-  // the denominator's recurrence, a warp a head: lane 0 walks the chunk
-  // statistics in order (FW at a time; past the first 64 the warp loads
-  // them here), the block factors -> bal (block FW on: a.alpha)
-  if (gw < G) {
-    const int g = gw;
+  // the denominator's recurrence, a warp a head (two past NW heads): lane 0
+  // walks the chunk statistics in order (FW at a time; past the first 64
+  // the warp loads them here), the block factors -> bal (block FW on:
+  // a.alpha)
+#pragma unroll
+  for (int w = 0; w < HPW; ++w) {
+    const int g = gw + w * NW;
+    if (g >= G) break;
+    const size_t cg0w = cg0[w];
     float m = NEG_INF, l = 0.f, mb = NEG_INF;
     double P = 0.0;
     int jb = 0, end = min(nch, cpb);  // block jb ends at chunk end
@@ -968,8 +1014,8 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
       const int wn = min(FW, nch - w0);
       __syncwarp();
       for (int e = w0 ? lane : lane + 64; e < wn; e += 32) {
-        chm[g * FW + e] = __ldcg(a.cmax + cg0 + w0 + e);
-        chp[g * FW + e] = __ldcg(a.ppart + cg0 + w0 + e);
+        chm[g * FW + e] = __ldcg(a.cmax + cg0w + w0 + e);
+        chp[g * FW + e] = __ldcg(a.ppart + cg0w + w0 + e);
       }
       __syncwarp();
       if (lane == 0) {
@@ -984,7 +1030,7 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
             if (jb < FW)
               bal[g * FW + jb] = al;
             else
-              a.alpha[cg0 + jb] = al;
+              a.alpha[cg0w + jb] = al;
             m = mb;
             P = 0.0;
             ++jb;
@@ -1062,8 +1108,10 @@ __device__ void finish_head(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
   }
 }
 
-// outputs a thread for NO = G hd outputs: 1, 2 or 4
-__host__ __device__ constexpr int outputs_a_thread(int no) { return no > 2 * NT ? 4 : no > NT ? 2 : 1; }
+// outputs a thread for NO = G hd outputs: 1, 2, 4 or 8
+__host__ __device__ constexpr int outputs_a_thread(int no) {
+  return no > 4 * NT ? 8 : no > 2 * NT ? 4 : no > NT ? 2 : 1;
+}
 
 // finish_head with the fewest outputs a thread that G hd needs (only those
 // the build's G can ask for are built)
@@ -1071,7 +1119,10 @@ template <typename T, int HD, int GL, int GH>
 __device__ __forceinline__ void finish(const Args& a, Smem<HD, GL, GH> s, int i, int h) {
   constexpr int LO = outputs_a_thread(GL * HD_MIN), HI = outputs_a_thread(GH * HD);
   const int opt = outputs_a_thread(s.G() * head_dim<HD>(a));
-  if constexpr (HI == 4) {
+  if constexpr (HI == 8) {
+    if (opt == 8) return finish_head<T, 8>(a, s, i, h);
+  }
+  if constexpr (LO <= 4 && HI >= 4) {
     if (opt == 4) return finish_head<T, 4>(a, s, i, h);
   }
   if constexpr (LO <= 2 && HI >= 2) {
@@ -1082,8 +1133,9 @@ __device__ __forceinline__ void finish(const Args& a, Smem<HD, GL, GH> s, int i,
 
 // blocks an SM a build asks its registers to allow: MINB, but one where the
 // shared memory of the build's fewest G already leaves room for one block an
-// SM only (head dim 128 from G = 3), so the registers have nothing to buy
-// (MINB there cost the run-time-G build at (8, 128) 13%, PERF.md, PR 18)
+// SM only (head dim 128 from G = 3, 64 from G = 9), so the registers have
+// nothing to buy (MINB there cost the run-time-G build at (8, 128) 13%,
+// PERF.md)
 constexpr int SM_SMEM = 228 * 1024, BLOCK_SMEM_RESERVED = 1024;   // Hopper, a block's reserve
 template <int HD, int GL, int GH>
 __host__ __device__ constexpr int min_blocks() {
@@ -1136,13 +1188,15 @@ const void* kernel_hd(int dtype_code, int G, int* smem, int* smem_max) {
     case 1: return kernel_t<HD, 1, 1>(dtype_code, G, smem, smem_max);
     case 2: return kernel_t<HD, 2, 2>(dtype_code, G, smem, smem_max);
     case 3: return kernel_t<HD, 3, 4>(dtype_code, G, smem, smem_max);
-    case 5: return kernel_t<HD, 5, GMAX - 1>(dtype_code, G, smem, smem_max);
+    case 5: return kernel_t<HD, 5, GMID - 1>(dtype_code, G, smem, smem_max);
+    case GMID: return kernel_t<HD, GMID, GMID>(dtype_code, G, smem, smem_max);
+    case GMID + 1: return kernel_t<HD, GMID + 1, GMAX - 1>(dtype_code, G, smem, smem_max);
     default: return kernel_t<HD, GMAX, GMAX>(dtype_code, G, smem, smem_max);
   }
 }
 
 // nullptr for a shape this source does not take (ops/decode_attention.py
-// _check_kernel_shape states the rule: G = 1..8 at every head dim, each head
+// _check_kernel_shape states the rule: G = 1..16 at every head dim, each head
 // dim in its own source)
 inline const void* kernel_of(int dtype_code, int G, int hd, int* smem, int* smem_max) {
   const bool hd_ok = PAD ? hd % 4 == 0 && hd >= HD_MIN && hd <= DECODE_ATTN_HD : hd == DECODE_ATTN_HD;

@@ -72,8 +72,22 @@
 // query heads a kv head taken at run time (p.G): the attention
 // stages' shared memory is sized for 8, the q.k loop runs with a register
 // tile of 1, 2, 4 or 8 heads (G rounded up; the padding heads' query rows
-// are zeros) and the finish stage with 1, 2 or 4 outputs a thread. The
+// are zeros) and the finish stage with 1, 2 or 4 outputs a thread. A wide
+// build of each (MEGAKERNEL_WIDE: megakernel_g16.cu, megakernel_d128_g16.cu,
+// megakernel_dpad_g16.cu) takes 9 to 16 at run time: its shared memory sized
+// for 16 (one buffer of RoPE columns at 128, see AttnSmem), the q.k loop in
+// two passes of 8 over 16 query rows (the padding rows zero), a warp two
+// heads where it takes a head, and the finish stage up to 8 outputs a
+// thread; the builds of 1 to 8 keep their code (WIDE is false there). The
 // wrapper refuses other shapes.
+//
+// Memory plan, bytes of a block's dynamic shared memory (the larger of the
+// attention stages' AttnSmem and the products' GemmSmem, 204800): 1 to 8
+// heads, hd 64 204800 (AttnSmem 118148), hd 128 and padded 212868 (AttnSmem);
+// 9 to 16 heads, hd 64 204800 (AttnSmem 150916), hd 128 and padded 204800
+// (AttnSmem 192388 with one RoPE buffer; 257924 with two, over the 232448 a
+// block may take). So the 12- and 16-head shapes leave room for GemmSmem at
+// every head dim, one block an SM.
 //
 // One source builds one head dim (MEGAKERNEL_HD: megakernel.cu 64,
 // megakernel_d128.cu 128), so the two compile side by side.
@@ -179,6 +193,11 @@ constexpr float NEG_INF = -1e30f;
 constexpr bool PAD = true;            // the head dim from the launch (p.hd)
 #else
 constexpr bool PAD = false;
+#endif
+#ifdef MEGAKERNEL_WIDE
+constexpr bool WIDE = true;           // 9..16 query heads a kv head (GMAX below)
+#else
+constexpr bool WIDE = false;
 #endif
 
 __device__ __forceinline__ float ld_f(const float* p) { return __ldcg(p); }
@@ -640,15 +659,28 @@ __device__ void gemm_stage(const Params& p, GemmSmem* s, const uint8_t* w, int N
 // ---------------------------------------------------------------------------
 
 constexpr int NCMAX = 256;            // cache chunks (and BK blocks) a slot may have
-constexpr int GMAX = 8;               // query heads a kv head (p.G, at run time)
+// query heads a kv head (p.G, at run time): the build of GMAX = 8 takes
+// 1..8, that of 16 (MEGAKERNEL_WIDE) 9..16
+constexpr int GMAX = WIDE ? 16 : 8, GMIN = WIDE ? 9 : 1;
+constexpr int HPW = GMAX > NW ? 2 : 1;   // heads a warp takes where a warp takes a head
 
-// the per-head register tile of the q.k loop for G query heads a kv head
-__device__ __forceinline__ int g_tile(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
+// the query heads' rows of the q.k loop for G query heads a kv head: its
+// register tile (1, 2, 4 or 8 heads), and 16 past 8, which runs two passes
+// of 8
+__device__ __forceinline__ int g_tile(int G) {
+  return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : G <= 8 || !WIDE ? 8 : 16;
+}
 
 // Sized for GMAX query heads a kv head, whatever p.G is: the kernel runs one
-// block an SM, and the GEMM stages' ring takes about as much.
+// block an SM, and the GEMM stages' ring takes about as much. The wide build
+// at head dim 128 (and the padded build, sized as 128) keeps one buffer of
+// RoPE columns (TB): two would make the scores stage 258 KB, over the 227 KB
+// a block may take, while one leaves 188 KB, under GemmSmem's 200 KB. Its
+// chunk's columns then load when a run of items reaches a new chunk, not
+// behind the previous item (as decode_attn.cuh does at 128).
 template <int HD>
 struct AttnSmem {
+  static constexpr int TB = WIDE && HD >= 128 ? 1 : 2;
   double sq[GMAX * HD];                               // rotated query, float64 [G][hd]
                                                       // (scores stage: g_tile(G) rows,
                                                       // the padding rows zero)
@@ -657,7 +689,7 @@ struct AttnSmem {
       double red[NQ * GMAX * CHMAX];                  // part sums of q.k [NQ][G][CHMAX]
       float scf[GMAX * CHMAX];                        // the chunk's scores
       uint8_t kbuf[2][HD * CHMAX];                    // K chunk [hd(/2)][CHMAX], two in flight
-      float tab[2][2][HD / 2 * CHMAX];                // its RoPE cos, sin [hd/2][CHMAX]
+      float tab[TB][2][HD / 2 * CHMAX];               // its RoPE cos, sin [hd/2][CHMAX]
       float ksb[2][CHMAX];                            // its K inverse scales
       int qacc[2][GMAX * HD];                         // the query heads' accumulators,
       float qsw[2][GMAX * HD];                        //   weight scales
@@ -850,14 +882,15 @@ __device__ __forceinline__ uint32_t bf2_add_rn(uint32_t a, uint32_t b) {
 }
 
 // q.k of cache column `col` of the item in buffer bf against GB query heads
-// (sq's rows G..GB-1 are zero; thread part q of NQ takes PQ of the hd/2
-// pairs) -> red (the G real heads' part sums). In bf16 the RoPE of the
+// from g0 (sq's rows G..g_tile(G)-1 are zero; thread part q of NQ takes PQ
+// of the hd/2 pairs) -> red (the G real heads' part sums). In bf16 the RoPE of the
 // cached integers runs on bf16 pairs (a product of two bf16 values is exact
 // in fp32, so one bf16 rounding of it is the fp32 product rounded to bf16,
 // and a bf16 sum of two bf16 values rounds as the fp32 sum does).
 template <typename T, int GB, int HD>
 __device__ __forceinline__ void qk_col(const Params& p, AttnSmem<HD>* s, int bf, int q, int col,
-                                       int ncol) {
+                                       int ncol, int g0) {
+  constexpr int TB = AttnSmem<HD>::TB;
   const int hd = head_dim<HD>(p), H2 = hd / 2, PQ = H2 / NQ;
   constexpr bool BF = sizeof(T) == 2;
   auto& A = s->u.a;
@@ -868,8 +901,8 @@ __device__ __forceinline__ void qk_col(const Params& p, AttnSmem<HD>* s, int bf,
     const float ksc = A.ksb[bf][col];
     const float sl_t = rt<T>(ksc);
     const uint8_t* kb = A.kbuf[bf];
-    const float* tc = A.tab[bf][0];
-    const float* ts = A.tab[bf][1];
+    const float* tc = A.tab[TB == 2 ? bf : 0][0];
+    const float* ts = A.tab[TB == 2 ? bf : 0][1];
     const uint32_t sl2 = bf2_bits(__floats2bfloat162_rn(sl_t, sl_t));
 #pragma unroll 4
     for (int u = 0; u < PQ; ++u) {
@@ -913,20 +946,20 @@ __device__ __forceinline__ void qk_col(const Params& p, AttnSmem<HD>* s, int bf,
       const double d1 = (double)r1, d2 = (double)r2;
 #pragma unroll
       for (int g = 0; g < GB; ++g)
-        a[g] = fma(s->sq[g * hd + j], d1, fma(s->sq[g * hd + j + H2], d2, a[g]));
+        a[g] = fma(s->sq[(g0 + g) * hd + j], d1, fma(s->sq[(g0 + g) * hd + j + H2], d2, a[g]));
     }
   }
 #pragma unroll
   for (int g = 0; g < GB; ++g)
-    if (g < p.G) A.red[(q * p.G + g) * CHMAX + col] = a[g];
+    if (g0 + g < p.G) A.red[(q * p.G + g0 + g) * CHMAX + col] = a[g];
 }
 
 // Items: (slot, chunk of CH columns, kv head), a contiguous run of them a
 // block: the G heads' scores of the chunk -> scores, and its maxima ->
 // cmax. The next item's K bytes, K scales, query inputs and (for a new
 // chunk) RoPE table columns arrive by cp.async while one is computed; the
-// q.k loop runs with the register tile of g_tile(G) heads (qk_col). Before
-// its run, a block takes its kv_absmax items.
+// q.k loop runs with the register tile of g_tile(G) heads (qk_col; two
+// passes of 8 past 8). Before its run, a block takes its kv_absmax items.
 template <typename T, int HD>
 __device__ void scores_stage(const Params& p, AttnSmem<HD>* s, int l) {
   const int hd = head_dim<HD>(p), H2 = hd / 2;
@@ -972,7 +1005,7 @@ __device__ void scores_stage(const Params& p, AttnSmem<HD>* s, int l) {
         const int t2 = tid % (H2 / 2), tb = tid / (H2 / 2);
         cp_async8(A.qcs[buf][tb] + t2 * 2, (tb ? p.qsin : p.qcos) + (size_t)i * H2 + t2 * 2);
       }
-      if (p.rope && (buf ? tab1 : tab0) != c) {
+      if (AttnSmem<HD>::TB == 2 && p.rope && (buf ? tab1 : tab0) != c) {
         const int per_t = CH / 4;
         for (int idx = tid; idx < 2 * H2 * per_t; idx += NT) {
           const int tb = idx / (H2 * per_t), r = idx % (H2 * per_t), row = r / per_t, ch = r % per_t;
@@ -991,6 +1024,20 @@ __device__ void scores_stage(const Params& p, AttnSmem<HD>* s, int l) {
   kv_absmax<T, HD>(p, l);
   for (int item = lo, k = 0; item < hi; ++item, ++k) {
     __syncthreads();                  // the previous item is done with the shared memory
+    if constexpr (AttnSmem<HD>::TB == 1) {   // a new chunk: its RoPE columns, not prefetched
+      int i1, h1, c1;
+      find_item(p, s->first, item, i1, h1, c1);
+      if (p.rope && tab0 != c1) {
+        const int per_t = CH / 4;
+        for (int idx = tid; idx < 2 * H2 * per_t; idx += NT) {
+          const int tb = idx / (H2 * per_t), r = idx % (H2 * per_t), row = r / per_t, ch = r % per_t;
+          cp_async16(A.tab[0][tb] + row * CHMAX + ch * 4,
+                     (tb ? p.ksin : p.kcos) + (size_t)row * S + c1 * CH + ch * 4);
+        }
+        cp_async_commit();
+        tab0 = c1;
+      }
+    }
     issue(item + 1, (k + 1) & 1);
     int i, hh, c;
     find_item(p, s->first, item, i, hh, c);
@@ -1001,11 +1048,16 @@ __device__ void scores_stage(const Params& p, AttnSmem<HD>* s, int l) {
                          s->sq);
     __syncthreads();
     const int ncol = min(CH, s->lens[i] - c * CH);
-    switch (GB) {
-      case 1: qk_col<T, 1, HD>(p, s, bf, q, col, ncol); break;
-      case 2: qk_col<T, 2, HD>(p, s, bf, q, col, ncol); break;
-      case 4: qk_col<T, 4, HD>(p, s, bf, q, col, ncol); break;
-      default: qk_col<T, 8, HD>(p, s, bf, q, col, ncol); break;
+    if constexpr (WIDE) {             // G = 9..16: two passes of 8, one after the other
+qk_col<T, 8, HD>(p, s, bf, q, col, ncol, 0);
+      qk_col<T, 8, HD>(p, s, bf, q, col, ncol, 8);
+    } else {
+      switch (GB) {
+        case 1: qk_col<T, 1, HD>(p, s, bf, q, col, ncol, 0); break;
+        case 2: qk_col<T, 2, HD>(p, s, bf, q, col, ncol, 0); break;
+        case 4: qk_col<T, 4, HD>(p, s, bf, q, col, ncol, 0); break;
+        default: qk_col<T, 8, HD>(p, s, bf, q, col, ncol, 0); break;
+      }
     }
     __syncthreads();
     for (int idx = tid; idx < G * CHMAX; idx += NT) {
@@ -1042,7 +1094,11 @@ __device__ void scores_stage(const Params& p, AttnSmem<HD>* s, int l) {
 // at a time.
 template <typename T, int HD, int OPT>
 __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int hh, int nch) {
-  constexpr int NB = OPT > 2 ? 4 : 8;
+  constexpr int NB = OPT > 4 ? 1 : OPT > 2 ? 4 : 8;
+  // past 4 outputs a thread the pointers are found and the first chunk's
+  // partial sums loaded where used (held, they cost the wide build
+  // registers it has not got)
+  constexpr bool HOLD_PV = OPT <= 4;
   const int hd = head_dim<HD>(p), H2 = hd / 2;
   const int G = stage_g(p), NO = G * hd;
   const int b = p.b, CH = p.CH, NC = p.S / CH, nh = p.kvh * G, tid = threadIdx.x, lane = tid % 32;
@@ -1063,37 +1119,55 @@ __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int 
     qcs[0] = __ldg(p.qcos + (size_t)i * H2 + tid);
     qcs[1] = __ldg(p.qsin + (size_t)i * H2 + tid);
   }
-  const int gw = tid / 32;            // the head whose chunk statistics this warp loads
-  const size_t cbase = (size_t)(i * nh + hh * G + min(gw, G - 1)) * NC;
+  // the heads whose chunk statistics this warp walks, gw (and gw + NW in the
+  // wide build), and gw's first 64, loaded here (the second head's where
+  // used: held here they cost the wide build registers it has not got)
+  const int gw = tid / 32;
+  size_t cbase[HPW];
+#pragma unroll
+  for (int w = 0; w < HPW; ++w) cbase[w] = (size_t)(i * nh + hh * G + min(gw + w * NW, G - 1)) * NC;
   float cm[2];
   double cp[2];
 #pragma unroll
   for (int m = 0; m < 2; ++m) {
     const int cc = lane + 32 * m;
     const bool ok = gw < G && cc < nch;
-    cm[m] = ok ? __ldcg(p.cmax + cbase + cc) : NEG_INF;
-    cp[m] = ok ? __ldcg(p.ppart + cbase + cc) : 0.0;
+    cm[m] = ok ? __ldcg(p.cmax + cbase[0] + cc) : NEG_INF;
+    cp[m] = ok ? __ldcg(p.ppart + cbase[0] + cc) : 0.0;
   }
-  const double* pv[OPT];
-  double v0[OPT][NB];                 // NB chunks' partial p.V, the first NB loaded here
-#pragma unroll
-  for (int u = 0; u < OPT; ++u) {
+  auto pv_of = [&](int u) {           // output u's partial sums, chunk 0
     const int o = min(tid + u * NT, NO - 1);
-    pv[u] = p.pvpart + (size_t)(i * nh + hh * G + o / hd) * NC * hd + o % hd;
+    return p.pvpart + (size_t)(i * nh + hh * G + o / hd) * NC * hd + o % hd;
+  };
+  const double* pv[HOLD_PV ? OPT : 1];
+  auto pvp = [&](int u) {
+    if constexpr (HOLD_PV) return pv[u]; else return pv_of(u);
+  };
+  double v0[HOLD_PV ? OPT : 1][NB];   // NB chunks' partial p.V, the first NB loaded here
+  if constexpr (HOLD_PV) {
 #pragma unroll
-    for (int e = 0; e < NB; ++e) v0[u][e] = e < nch ? __ldcg(pv[u] + (size_t)e * hd) : 0.0;
+    for (int u = 0; u < OPT; ++u) {
+      pv[u] = pv_of(u);
+#pragma unroll
+      for (int e = 0; e < NB; ++e) v0[u][e] = e < nch ? __ldcg(pvp(u) + (size_t)e * hd) : 0.0;
+    }
   }
   rotate_query<T, HD>(p, l, i, hh, s->sq);
-  if (gw < G) {
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
-      if (lane + 32 * m < nch) {
-        V.chm[gw][lane + 32 * m] = cm[m];
-        V.chp[gw][lane + 32 * m] = cp[m];
-      }
-    for (int cc = lane + 64; cc < nch; cc += 32) {
-      V.chm[gw][cc] = __ldcg(p.cmax + cbase + cc);
-      V.chp[gw][cc] = __ldcg(p.ppart + cbase + cc);
+  for (int w = 0; w < HPW; ++w) {
+    const int g = gw + w * NW;
+    if (g >= G) break;
+    if (w == 0) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        if (lane + 32 * m < nch) {
+          V.chm[g][lane + 32 * m] = cm[m];
+          V.chp[g][lane + 32 * m] = cp[m];
+        }
+    }
+    for (int cc = lane + (w == 0 ? 64 : 0); cc < nch; cc += 32) {
+      V.chm[g][cc] = __ldcg(p.cmax + cbase[w] + cc);
+      V.chp[g][cc] = __ldcg(p.ppart + cbase[w] + cc);
     }
     __syncwarp();
     if (lane == 0) {   // the denominator's recurrence, block by block
@@ -1102,16 +1176,16 @@ __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int 
         float mb = m;
         double P = 0.0;
         for (int cc = jb * cpb; cc < min(nch, (jb + 1) * cpb); ++cc) {
-          mb = fmaxf(mb, V.chm[gw][cc]);
-          P += V.chp[gw][cc];
+          mb = fmaxf(mb, V.chm[g][cc]);
+          P += V.chp[g][cc];
         }
         const float alpha = expf(m - mb);
         lsum = __fadd_rn(__fmul_rn(lsum, alpha), (float)P);
-        V.bal[gw][jb] = alpha;
+        V.bal[g][jb] = alpha;
         m = mb;
       }
-      V.fin_m[gw] = m;
-      V.fin_l[gw] = lsum;
+      V.fin_m[g] = m;
+      V.fin_l[g] = lsum;
     }
   }
   if (tid < H2) {   // the current token, folded
@@ -1154,7 +1228,8 @@ __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int 
       for (int u = 0; u < OPT; ++u)
 #pragma unroll
         for (int e = 0; e < NB; ++e)
-          v[u][e] = c0 == 0 ? v0[u][e] : c0 + e < nch ? __ldcg(pv[u] + (size_t)(c0 + e) * hd) : 0.0;
+          v[u][e] = c0 == 0 && HOLD_PV ? v0[HOLD_PV ? u : 0][e]
+                    : c0 + e < nch ? __ldcg(pvp(u) + (size_t)(c0 + e) * hd) : 0.0;
 #pragma unroll
       for (int e = 0; e < NB; ++e) {
         const int cc = c0 + e;
@@ -1241,6 +1316,10 @@ __device__ void softmax_v_stage(const Params& p, AttnSmem<HD>* s, int l) {
   const int hdc = p.packed ? H2 : hd, lane = tid % 32, cpb = p.BK / CH;
   const int items = s->first[b];    // first and lens as the scores stage left them
   ChunkRegs R;
+  // the next item's scores (sreg) and this warp's head's first 64 chunk
+  // maxima (cmr), loaded with its V bytes; the wide build reads its scores
+  // and its second head's maxima where used (held here they cost it
+  // registers it has not got)
   float sreg[SPT], vsr = 0.f, cmr[2];
   auto fetch = [&](int item) {        // what the item reads from device memory
     int i, hh, c;
@@ -1251,7 +1330,7 @@ __device__ void softmax_v_stage(const Params& p, AttnSmem<HD>* s, int l) {
 #pragma unroll
     for (int u = 0; u < SPT; ++u) {
       const int idx = tid + u * NT, g = idx / CHMAX, cl = idx % CHMAX;
-      if (idx < G * CHMAX && cl < ncol)
+      if (!WIDE && idx < G * CHMAX && cl < ncol)
         sreg[u] = __ldcg(p.scores + (size_t)(i * nh + hh * G + g) * S + c * CH + cl);
     }
     if (tid < ncol) vsr = __ldg(p.vs + ((size_t)l * b + i) * S + c * CH + tid);
@@ -1272,32 +1351,49 @@ __device__ void softmax_v_stage(const Params& p, AttnSmem<HD>* s, int l) {
     store_chunk(p, R, hdc, s->u.v.vbuf);
     float sc[SPT];
 #pragma unroll
-    for (int u = 0; u < SPT; ++u) sc[u] = sreg[u];
+    for (int u = 0; u < SPT; ++u) sc[u] = WIDE ? 0.f : sreg[u];
     const float vsc = vsr;
-    // the prefix maximum m_j of the chunk's block: a warp a head
-    if (tid / 32 < G) {
-      const float* cm = p.cmax + (size_t)(i * nh + hh * G + tid / 32) * NC;
-      float m = fmaxf(cmr[0], cmr[1]);
-      for (int cc = lane + 64; cc < ce; cc += 32) m = fmaxf(m, __ldcg(cm + cc));
-      m = warp_max(m);
-      if (lane == 0) s->u.v.sm[tid / 32] = m;
+    // the prefix maximum m_j of the chunk's block: a warp a head (two in
+    // the wide build)
+#pragma unroll
+    for (int w = 0; w < HPW; ++w) {
+      const int g = tid / 32 + w * NW;
+      if (g < G) {
+        const float* cm = p.cmax + (size_t)(i * nh + hh * G + g) * NC;
+        float m = w == 0 ? fmaxf(cmr[0], cmr[1])
+                         : fmaxf(lane < ce ? __ldcg(cm + lane) : NEG_INF,
+                                 lane + 32 < ce ? __ldcg(cm + lane + 32) : NEG_INF);
+        for (int cc = lane + 64; cc < ce; cc += 32) m = fmaxf(m, __ldcg(cm + cc));
+        m = warp_max(m);
+        if (lane == 0) s->u.v.sm[g] = m;
+      }
     }
     if (tid < CHMAX) s->u.v.vsc[tid] = vsc;
     if (item + (int)gridDim.x < items) fetch(item + gridDim.x);
     __syncthreads();
-#pragma unroll
-    for (int u = 0; u < SPT; ++u) {
+    // p and p * vs of output u of the thread (the wide build takes them one
+    // at a time: unrolled, its registers spilled)
+    auto p_of = [&](int u) {
       const int idx = tid + u * NT, g = idx / CHMAX, cl = idx % CHMAX;
       if (idx < G * CHMAX) {
         float pr = 0.f;
         double pv = 0.0;
         if (cl < ncol) {
-          pr = expf(sc[u] - s->u.v.sm[g]);
+          const float sv = WIDE ? __ldcg(p.scores + (size_t)(i * nh + hh * G + g) * S + c * CH + cl)
+                                : sc[u];
+          pr = expf(sv - s->u.v.sm[g]);
           pv = (double)rt<T>(pr * s->u.v.vsc[cl]);
         }
         s->u.v.spf[g * CHMAX + cl] = pr;
         s->u.v.spv[cl * G + g] = pv;
       }
+    };
+    if constexpr (WIDE) {
+#pragma unroll 1
+      for (int u = 0; u < SPT; ++u) p_of(u);
+    } else {
+#pragma unroll
+      for (int u = 0; u < SPT; ++u) p_of(u);
     }
     __syncthreads();
     for (int g = tid / 32; g < G; g += NW) {
@@ -1346,7 +1442,7 @@ __device__ void softmax_v_stage(const Params& p, AttnSmem<HD>* s, int l) {
 
 // One item per (slot, kv head), dealt round robin: finish_head with the
 // fewest outputs a thread that G hd / NT needs (only those G <= GMAX can ask
-// for at this head dim are built).
+// for at this head dim are built: 8 in the wide build at head dim 128).
 template <typename T, int HD>
 __device__ void finish_stage(const Params& p, AttnSmem<HD>* s, int l) {
   // first and lens as the scores stage left them (no GEMM tile has been
@@ -1355,6 +1451,12 @@ __device__ void finish_stage(const Params& p, AttnSmem<HD>* s, int l) {
   for (int item = blockIdx.x; item < p.b * p.kvh; item += gridDim.x) {
     __syncthreads();                  // the previous item is done with the shared memory
     const int i = item / p.kvh, hh = item % p.kvh, nch = (s->lens[i] + p.CH - 1) / p.CH;
+    if constexpr (GMAX * HD > 4 * NT) {
+      if (no > 4 * NT) {
+        finish_head<T, HD, 8>(p, s, l, i, hh, nch);
+        continue;
+      }
+    }
     if constexpr (GMAX * HD > 2 * NT) {
       if (no > 2 * NT) {
         finish_head<T, HD, 4>(p, s, l, i, hh, nch);
@@ -1488,7 +1590,8 @@ __global__ void __launch_bounds__(NT) barrier_kernel(int n) {
 // a product's first tiles are issued only once the block is done with the
 // stage before it. At head dim 128 the attention stages' (213 KB, sized for
 // 8 query heads a kv head) are the larger, within the 227 KB a block may
-// take.
+// take; in the wide build (16 heads, one RoPE buffer: 188 KB at 128, 147 KB
+// at 64) GemmSmem's 200 KB is.
 template <int HD>
 constexpr int smem_bytes() {
   return (int)(sizeof(AttnSmem<HD>) > sizeof(GemmSmem) ? sizeof(AttnSmem<HD>) : sizeof(GemmSmem));
@@ -1522,11 +1625,11 @@ int grid_blocks(const void* kern, size_t smem, int* grid) {
 }  // namespace
 
 // One decode step. dtype_code: 0 = f32, 1 = bf16; p.hd as kernel_of, p.G
-// query heads a kv head, 1 to GMAX.
+// query heads a kv head, GMIN to GMAX.
 extern "C" int megakernel_decode(const Params* hp, int dtype_code, void* stream) {
   Params p = *hp;
   const void* kern = nullptr;
-  if (p.G < 1 || p.G > GMAX) return (int)cudaErrorInvalidValue;
+  if (p.G < GMIN || p.G > GMAX) return (int)cudaErrorInvalidValue;
   int err = kernel_of(dtype_code, p.hd, &kern, &p.smem);
   int grid = 0;
   if (!err) err = grid_blocks(kern, (size_t)p.smem, &grid);

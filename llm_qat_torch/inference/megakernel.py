@@ -6,7 +6,9 @@ default configuration (``use_megakernel=True``) here when ``supported()``.
 
 ``decode_layers`` launches ``csrc/megakernel.cuh`` (built by ``megakernel.cu``
 at head dim 64, ``megakernel_d128.cu`` at 128 and ``megakernel_dpad.cu`` at
-every other head dim of its rule), which replaces
+every other head dim of its rule, for 1 to 8 query heads a kv head, and by
+``megakernel_g16.cu``, ``megakernel_d128_g16.cu`` and
+``megakernel_dpad_g16.cu`` for 9 to 16), which replaces
 ``llm_qat_tpu/inference/megakernel.py:_kernel`` (the body of its
 ``pl.pallas_call``): one persistent cooperative launch computes every layer.
 Beside it ``decode_layers_plain`` (and ``decode_step_plain`` around it)
@@ -42,12 +44,14 @@ re-quantizing layers have no last-bit difference to amplify.
 
 Shape rules. ``supported()`` (decided from the configuration, before any
 launch): ``w_bits`` in {4, 8}, ``2 < a_bits <= 8``, ``b <= 32``,
-``max_len % BK == 0``. The CUDA kernel takes 1 to 8 query heads per kv head
-(G, at run time) at head dims 64 and 128 (a build each) and at every head
-dim ``hd % 4 == 0`` with ``32 < hd <= 128`` (one build, hd at run time):
-MHA heads of 128 (the LLaMA-7B/13B family) and of 100 (OpenLLaMA-3B),
-TinyLlama-1.1B's (8, 64), Llama-3's and Mistral's (4, 128), Llama-2-70B's
-(8, 128), Llama-3.2's (4, 64) and (3, 128), Yi-34B's (7, 128). Also ``H``
+``max_len % BK == 0``. The CUDA kernel takes 1 to 16 query heads per kv
+head (G, at run time; one build for 1..8 and one for 9..16) at head dims 64
+and 128 (a build each) and at every head dim ``hd % 4 == 0`` with
+``32 < hd <= 128`` (one build, hd at run time): MHA heads of 128 (the
+LLaMA-7B/13B family) and of 100 (OpenLLaMA-3B), TinyLlama-1.1B's (8, 64),
+Llama-3's and Mistral's (4, 128), Llama-2-70B's (8, 128), Llama-3.2's
+(4, 64) and (3, 128), Yi-34B's (7, 128), Mistral-Large-2's (12, 128) and
+Llama-3.1-405B's (16, 128). Also ``H``
 and ``I`` multiples of 256 at head dims 64 and 128, of 16 in the padded
 build (the products' K: a last chunk of the 256-wide K item is
 zero-padded; OpenLLaMA-3B's 3200 and 8640), projection widths multiples of
@@ -390,9 +394,11 @@ class _Params(ctypes.Structure):
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims the kernel has builds of its own for, the padded build's rule
-# beside them, and the most query heads per kv head a launch takes
+# beside them, the most query heads per kv head a launch takes, and the most
+# the narrow builds take (the wide ones take the rest)
 HEAD_DIMS = (64, 128)
-MAX_GROUPS = 8
+MAX_GROUPS = 16
+_NARROW_GROUPS = 8
 _TILE = 128            # the products' column tile (and the sum-of-squares partials)
 _TK = 256              # the products' K tile
 _CHUNK = 128           # cache columns of an attention item (at most)
@@ -400,8 +406,10 @@ _MAX_CHUNKS = 256      # attention chunks a slot may have
 
 
 # the source of each head dim's build (csrc/megakernel.cuh, one source a
-# head dim so that they compile side by side; "dpad" the padded build's)
+# head dim and range of G so that they compile side by side; "dpad" the
+# padded build's), for 1..8 and for 9..16 query heads a kv head
 _STEMS = {64: "megakernel", 128: "megakernel_d128", "dpad": "megakernel_dpad"}
+_WIDE_STEMS = {k: v + "_g16" for k, v in _STEMS.items()}
 
 
 def padded(hd: int) -> bool:
@@ -410,8 +418,11 @@ def padded(hd: int) -> bool:
     return hd not in HEAD_DIMS and _build.in_padded_rule(hd)
 
 
-def _stem(hd: int) -> str:
-    return _STEMS["dpad" if padded(hd) else hd]
+def _stem(hd: int, groups: int = 1) -> str:
+    """The source whose build takes head dim ``hd`` at ``groups`` query
+    heads a kv head."""
+    stems = _WIDE_STEMS if groups > _NARROW_GROUPS else _STEMS
+    return stems["dpad" if padded(hd) else hd]
 
 
 def _k_pad(k: int) -> int:
@@ -419,8 +430,8 @@ def _k_pad(k: int) -> int:
     return -(-k // _TK) * _TK
 
 
-def _fn(name: str, argtypes, hd: int = 64):
-    f = getattr(_build.library(_stem(hd)), name)
+def _fn(name: str, argtypes, hd: int = 64, groups: int = 1):
+    f = getattr(_build.library(_stem(hd, groups)), name)
     if f.argtypes is None:
         f.argtypes, f.restype = argtypes, ctypes.c_int
     return f
@@ -630,7 +641,8 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
         a_qmax=float(2 ** (c.a_bits - 1) - 1),
         kv_qmax=float(2 ** (min(c.kv_bits, 8) - 1) - 1), scale=1.0 / (hd ** 0.5),
     )
-    f = _fn("megakernel_decode", [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p], hd)
+    f = _fn("megakernel_decode", [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p], hd,
+            nh // kvh)
     err = f(ctypes.byref(p), _DTYPE_CODES[dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "megakernel_decode")
     decode_layers.launches += 1
@@ -640,14 +652,16 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
 decode_layers.launches = 0
 
 def kernel_attributes() -> dict:
-    """What the compiler gave each variant of the kernel (one a head dim and
-    type; G is an argument), by name (``{dtype}_d{hd}``, the padded build
-    ``{dtype}_dpad``, queried at head dim 100): registers a thread, shared
-    bytes (static, dynamic), local (spill) bytes a thread, threads a block
-    and blocks an SM can hold. Launches nothing."""
-    return {f"{dn}_d{'pad' if padded(d) else d}": _build.attributes(
-                _stem(d), "megakernel_attributes", code, d)
-            for dn, code in (("f32", 0), ("bf16", 1)) for d in HEAD_DIMS + (100,)}
+    """What the compiler gave each variant of the kernel (one a head dim,
+    range of G and type; G is an argument), by name (``{dtype}_d{hd}``, the
+    padded build ``{dtype}_dpad``, queried at head dim 100; ``_g9-16`` after
+    it for the wide builds): registers a thread, shared bytes (static,
+    dynamic), local (spill) bytes a thread, threads a block and blocks an SM
+    can hold. Launches nothing."""
+    return {f"{dn}_d{'pad' if padded(d) else d}{'_g9-16' if g > 1 else ''}": _build.attributes(
+                _stem(d, g), "megakernel_attributes", code, d)
+            for g in (1, MAX_GROUPS) for dn, code in (("f32", 0), ("bf16", 1))
+            for d in HEAD_DIMS + (100,)}
 
 
 def grid_size(device=None) -> int:

@@ -57,7 +57,11 @@ def rope_cos_sin(
     inv_freq = 1.0 / (theta ** e.double()).float()
     freqs = positions.float()[..., None] * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
-    return torch.cos(emb), torch.sin(emb)
+    # the f32 angle as the JAX package takes it, its cos / sin in float64
+    # rounded once: the same bits on the CPU and the card (their f32 cos / sin
+    # part by a last bit in some values), and nearer XLA's than either
+    emb = emb.double()
+    return torch.cos(emb).float(), torch.sin(emb).float()
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

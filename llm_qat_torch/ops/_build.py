@@ -61,10 +61,12 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-def start_build() -> None:
+def start_build(background=()) -> None:
     """Start one ``nvcc`` for each source whose library is missing (and is not
     compiling already), and return at once. Each writes its messages to a
-    file beside its output, so none blocks on a full pipe."""
+    file beside its output, so none blocks on a full pipe. The stems in
+    ``background`` compile at a lower scheduling priority (10), so that the
+    others take the cores first."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for src in sorted(CSRC.glob("*.cu")):
         out = _target(src)
@@ -74,6 +76,11 @@ def start_build() -> None:
         log = open(tmp.with_suffix(".log"), "w+")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        if src.stem in background:
+            try:        # from here, the compiler stages nvcc starts inherit it
+                os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
+            except OSError:     # the compiler has exited already
+                pass
         _pending[src.stem] = (proc, tmp, log, time.perf_counter())
 
 
@@ -97,10 +104,11 @@ def wait_build(stem: str) -> Path:
 
 def build_all(wait_for=None) -> Dict[str, Path]:
     """Compile every source whose library is missing, in parallel, and wait
-    for those named in ``wait_for`` (default: all), each as it finishes;
-    return ``{stem: library path}``. Raises with the compiler's output on
-    failure."""
-    start_build()
+    for those named in ``wait_for`` (default: all), each as it finishes (the
+    others compile at a lower priority); return ``{stem: library path}``.
+    Raises with the compiler's output on failure."""
+    start_build(background=() if wait_for is None
+                else {src.stem for src in CSRC.glob("*.cu")} - set(wait_for))
     names = set(_pending) if wait_for is None else set(wait_for) & set(_pending)
     failed = []
     while names:

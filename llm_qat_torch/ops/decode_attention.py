@@ -6,7 +6,7 @@ cooperative launch over every SM, items of (slot, chunk of columns, kv
 head)), each beside its plain PyTorch version; a wrapper takes the plain
 version only for tensors on the CPU, and on a CUDA tensor it launches its
 kernel or raises. Each wrapper counts its launches in ``launches``. On the
-card all three take 1 to 8 query heads per kv head (G, at run time) at head
+card all three take 1 to 16 query heads per kv head (G, at run time) at head
 dims 16, 32, 64 and 128 and at every head dim ``hd % 4 == 0`` with
 ``32 < hd <= 128`` (``_SHAPES`` and ``padded``: OpenLLaMA-3B's 100), f32 or
 bf16 q, and at most 256 slots; another shape raises ``NotImplementedError``
@@ -14,7 +14,7 @@ naming that rule. Each of the four head dims has a source of its own
 (``_STEMS``: ``csrc/decode_attention.cu`` at 64, ``decode_attention_d16.cu``,
 ``_d32.cu``, ``_d128.cu``) and the others share ``decode_attention_dpad.cu``
 (hd from the launch, shared buffers sized for 128), each with one build for
-each range of G (``_build_range``: 1, 2, 3..4, 5..7, 8).
+each range of G (``_build_range``: 1, 2, 3..4, 5..7, 8, 9..15, 16).
 
 * ``quantized_decode_attention`` (``csrc/decode_attention.cu``, plain
   ``_decode_attention_plain``) replaces
@@ -309,7 +309,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # head a launch takes, every (G, head dim) pair that gives, its widest
 # chunk, its most slots, and the page size of the paged entry
 _HEAD_DIMS = (16, 32, 64, 128)
-_MAX_GROUPS = 8
+_MAX_GROUPS = 16
 _SHAPES = tuple((g, hd) for hd in _HEAD_DIMS for g in range(1, _MAX_GROUPS + 1))
 # the source that builds each head dim (csrc/decode_attn.cuh DECODE_ATTN_HD),
 # so the five compile side by side; "dpad" the padded build's
@@ -386,7 +386,7 @@ def _fold_operands(what, fold, b, kvh, hd, rope, dev):
 
 def _check_kernel_shape(what, q, groups, hd, b):
     """Raise unless the kernels take ``groups`` query heads per kv head at
-    head dim ``hd`` (1 <= G <= 8, hd in 16, 32, 64, 128 or ``_build.PADDED_RULE``),
+    head dim ``hd`` (1 <= G <= 16, hd in 16, 32, 64, 128 or ``_build.PADDED_RULE``),
     with an f32/bf16 q and at most 256 slots."""
     shape_ok = (groups, hd) in _SHAPES or (1 <= groups <= _MAX_GROUPS and padded(hd))
     if not shape_ok or q.dtype not in _DTYPE_CODES or b > _MAX_SLOTS:
@@ -416,13 +416,16 @@ def _launch(stem, fn, what, ptrs, ints, scale, dev):
 
 def _build_range(groups: int) -> tuple:
     """(fewest, most) G of the build that takes ``groups`` query heads per
-    kv head at any head dim (``decode_attn.cuh: build_lo``): 1, 2, 3..4, 5..7
-    and 8."""
+    kv head at any head dim (``decode_attn.cuh: build_lo``): 1, 2, 3..4, 5..7,
+    8, 9..15 and 16."""
     if groups <= 2:
         return groups, groups
     if groups <= 4:
         return 3, 4
-    return (5, _MAX_GROUPS - 1) if groups < _MAX_GROUPS else (_MAX_GROUPS, _MAX_GROUPS)
+    for lo, hi in ((5, 7), (8, 8), (9, _MAX_GROUPS - 1)):
+        if groups <= hi:
+            return lo, hi
+    return _MAX_GROUPS, _MAX_GROUPS
 
 
 def _build_name(groups: int, hd: int, dtype: str) -> str:

@@ -24,8 +24,10 @@ tests hold each new kernel instantiation against, and the wrappers' gates.
   the JAX serving loop (tokens equal), and the card routing: every public
   config that JAX's ``supported()`` sends to its megakernel is one the
   card's K9 and K3/K8 gates take (OpenLLaMA-3B's head dim 100 since the
-  padded builds), and the public shapes the card still refuses
-  (``STILL_REFUSED``) are named.
+  padded builds; Mistral-Large-2's 12 and Llama-3.1-405B's 16 query heads a
+  kv head since the builds of G = 9..16, ``WIDE_PUBLIC``), and G = 17 is
+  refused naming the rule. The G = 9..16 plain versions against JAX:
+  ``tests/test_torch_wide_groups.py``.
 """
 
 import jax
@@ -201,17 +203,17 @@ def test_stacked_decode_attention_plain_matches_jax_at_the_new_shapes(G, hd):
 
 
 def test_decode_gate_takes_the_built_shapes_and_names_them():
-    """Every G of 1..8 at head dims 16, 32, 64 and 128 passes, and at the
+    """Every G of 1..16 at head dims 16, 32, 64 and 128 passes, and at the
     padded build's head dims (hd % 4 == 0, 32 < hd <= 128: 96 and 100
     here); past that the gate raises and names the rule."""
     q = torch.zeros(1, 1, dtype=torch.bfloat16)
-    for G, hd in TDA._SHAPES + ((2, 96), (8, 100)):
+    for G, hd in TDA._SHAPES + ((2, 96), (8, 100), (16, 100)):
         TDA._check_kernel_shape("decode", q, G, hd, 8)
     assert set(NEW_DECODE_SHAPES) <= set(TDA._SHAPES)
-    assert set(TDA._SHAPES) == {(g, hd) for g in range(1, 9) for hd in (16, 32, 64, 128)}
-    for G, hd in ((9, 64), (16, 128), (2, 98), (1, 8), (4, 256), (0, 64), (9, 100)):
+    assert set(TDA._SHAPES) == {(g, hd) for g in range(1, 17) for hd in (16, 32, 64, 128)}
+    for G, hd in ((17, 64), (17, 128), (2, 98), (1, 8), (4, 256), (0, 64), (17, 100)):
         with pytest.raises(NotImplementedError,
-                           match=r"1 <= G <= 8 query heads per kv head at head dims "
+                           match=r"1 <= G <= 16 query heads per kv head at head dims "
                                  r"\(16, 32, 64, 128\)"):
             TDA._check_kernel_shape("decode", q, G, hd, 8)
 
@@ -321,16 +323,17 @@ def test_jax_kv_blocks_at_llama3_8b_and_llama2_70b():
         assert TMK.pick_bk(tcfg(jcfg), 8, 1024) == want[1]
 
 
-K9_RULE = ("1 <= G <= 8 query heads per kv head at head dims 64 and 128 and every "
+K9_RULE = ("1 <= G <= 16 query heads per kv head at head dims 64 and 128 and every "
            "hd % 4 == 0 with 32 < hd <= 128")
 
 
 @pytest.mark.parametrize("G,hd", [(9, 128), (16, 64), (4, 96), (2, 32), (4, 136), (2, 98)])
 def test_card_routing_refuses_shapes_outside_the_rule_and_names_it(G, hd):
-    """G = 9, G = 16, hd = 32, 98 and 136: K9 refuses and names its rule (the
-    step then takes the scan path); hd = 32 is K3/K8's but not K9's; K3/K8
-    refuse G past 8 and hd 98 and 136, naming theirs. hd = 96 is inside the
-    rule since the padded builds: K9 and K3/K8 take it."""
+    """hd = 32, 98 and 136: K9 refuses and names its rule (the step then
+    takes the scan path); hd = 32 is K3/K8's but not K9's; K3/K8 refuse hd
+    98 and 136, naming theirs. hd = 96 is inside the rule since the padded
+    builds, and G = 9 and 16 since the builds of G = 9..16: K9 and K3/K8
+    take them."""
     kvh = 8
     cfg = tcfg(JC.LlamaConfig(hidden_size=kvh * G * hd, intermediate_size=4096,
                               num_attention_heads=kvh * G, num_key_value_heads=kvh,
@@ -338,8 +341,9 @@ def test_card_routing_refuses_shapes_outside_the_rule_and_names_it(G, hd):
     assert cfg.head_dim == hd
     assert TMK.supported(cfg, 8, 2048)
     q = torch.zeros(1, 1, dtype=torch.bfloat16)
-    if (G, hd) == (4, 96):
-        assert TMK.card_takes(cfg, 8, 2048, torch.bfloat16) and TMK.padded(hd)
+    if (G, hd) in ((4, 96), (9, 128), (16, 64)):
+        assert TMK.card_takes(cfg, 8, 2048, torch.bfloat16)
+        assert TMK.padded(hd) == (hd == 96)
         TDA._check_kernel_shape("decode", q, G, hd, 8)
         return
     assert not TMK.card_takes(cfg, 8, 2048, torch.bfloat16)
@@ -348,48 +352,87 @@ def test_card_routing_refuses_shapes_outside_the_rule_and_names_it(G, hd):
     if (G, hd) in TDA._SHAPES:
         TDA._check_kernel_shape("decode", q, G, hd, 8)
     else:
-        with pytest.raises(NotImplementedError, match=r"1 <= G <= 8 .* \(16, 32, 64, 128\) "
+        with pytest.raises(NotImplementedError, match=r"1 <= G <= 16 .* \(16, 32, 64, 128\) "
                                                       r"and every hd % 4 == 0"):
             TDA._check_kernel_shape("decode", q, G, hd, 8)
 
 
-# public checkpoints whose shapes JAX's kernels take and the card's still
-# refuse (ROADMAP section 3 item 3): more than 8 query heads a kv head
-STILL_REFUSED = {"Mistral-Large-2": (12288, 28672, 96, 8),
-                 "Llama-3.1-405B": (16384, 53248, 128, 8)}
+# public checkpoints past 8 query heads a kv head, which the card took only
+# from the builds of G = 9..16 on (JAX's kernels take any G): (hidden,
+# intermediate, heads, kv heads)
+WIDE_PUBLIC = {"Mistral-Large-2": (12288, 28672, 96, 8),
+               "Llama-3.1-405B": (16384, 53248, 128, 8),
+               "Llama-3.1-405B tp=8 shard": (2048, 6656, 16, 1)}
 
 
 def test_card_names_the_public_shapes_it_still_refuses_where_jax_takes_them():
-    """Mistral-Large-2 (G = 12): JAX's supported() sends it to its megakernel
-    at W4, and the card's K9 refuses it naming the rule. Llama-3.1-405B and
-    its tp = 8 shard (16 query heads over one kv head of 128): JAX's decode
-    attention kernel takes G = 16, and the card's K3/K8 refuse it naming
-    theirs; so does K9."""
+    """Past 8 query heads a kv head the card takes what JAX takes:
+    Mistral-Large-2 (G = 12), Llama-3.1-405B (G = 16) and its tp = 8 shard
+    (16 query heads over one kv head of 128). At W4A8KV4 and W8A8KV8, b = 1
+    and 8, max_len 1024 and 2048, the card's K9 takes the config
+    (``card_takes``) wherever JAX's ``supported()`` sends it to its
+    megakernel, at JAX's KV block (Mistral-Large-2: W4 at b = 1 and 8, W8 at
+    b = 1; Llama-3.1-405B: W4 at b = 1), and K3/K8's gates take its G. Where
+    only JAX's TPU scratch budget refuses (Mistral-Large-2 W8 and
+    Llama-3.1-405B W4 at b = 8) the card takes it too: the port's
+    ``supported()`` has no such budget (as at LLaMA-7B's b = 32). JAX's
+    decode attention kernel at the shard's (16, 128) on a 32-column cache,
+    beside the port's plain version."""
     q = torch.zeros(1, 1, dtype=torch.bfloat16)
-    for name, (H, I, nh, kvh) in STILL_REFUSED.items():
-        jcfg = JC.LlamaConfig(hidden_size=H, intermediate_size=I, num_attention_heads=nh,
-                              num_key_value_heads=kvh, w_bits=4, a_bits=8, kv_bits=4,
-                              kv_cache_pack=True)
-        cfg = tcfg(jcfg)
+    taken = set()
+    for name, (H, I, nh, kvh) in WIDE_PUBLIC.items():
         G, hd = nh // kvh, H // nh
         assert hd == 128 and G > 8
-        assert JMK.supported(jcfg, 8, 1024) == (name == "Mistral-Large-2")
-        assert not TMK.card_takes(cfg, 8, 1024, torch.bfloat16)
-        assert K9_RULE in TMK._card_shape_error(cfg, 8, 1024, TMK.pick_bk(cfg, 8, 1024),
-                                                torch.bfloat16)
-        for g in {G, nh // 8}:                   # the model, and a tp = 8 rank's heads
-            with pytest.raises(NotImplementedError,
-                               match=r"1 <= G <= 8 query heads per kv head"):
-                TDA._check_kernel_shape("decode", q, g, hd, 8)
-    # JAX's kernel at the shard's (16, 128), a 32-column cache
+        TDA._check_kernel_shape("decode", q, G, hd, 8)
+        TDA._check_kernel_shape("paged", q, G, hd, 8)
+        for w in (4, 8):
+            jcfg = JC.LlamaConfig(hidden_size=H, intermediate_size=I, num_attention_heads=nh,
+                                  num_key_value_heads=kvh, w_bits=w, a_bits=8, kv_bits=w,
+                                  kv_cache_pack=w == 4)
+            cfg = tcfg(jcfg)
+            for b in (1, 8):
+                for S in (1024, 2048):
+                    jax_takes = JMK.supported(jcfg, b, S)
+                    card = TMK.card_takes(cfg, b, S, torch.bfloat16)
+                    assert card == TMK.supported(cfg, b, S) and card >= jax_takes, (name, w, b, S)
+                    if jax_takes:
+                        taken.add((name, w, b))
+                        assert TMK.pick_bk(cfg, b, S) == JMK._pick_nc_bk(jcfg, b, S)[1]
+    assert {("Mistral-Large-2", 4, 1), ("Mistral-Large-2", 4, 8), ("Mistral-Large-2", 8, 1),
+            ("Llama-3.1-405B", 4, 1)} <= taken
+    assert not {("Mistral-Large-2", 8, 8), ("Llama-3.1-405B", 4, 8)} & taken
+    # JAX's kernel at the shard's (16, 128), a 32-column cache, and the port's
     rng = np.random.default_rng(405)
     b, kvh, S = 2, 1, 32
     qj = rng.normal(size=(b, 16, 128)).astype(np.float32)
     cache = _cache(rng, (b,), kvh, 128, S, False)
     kc, ks = _rope(S, 128)
-    got = JDA.quantized_decode_attention(_j(qj), *(_j(a) for a in cache),
-                                         _j(np.asarray([S, 5], np.int32)), _j(kc), _j(ks))
+    lengths = np.asarray([S, 5], np.int32)
+    got = JDA.quantized_decode_attention(_j(qj), *(_j(a) for a in cache), _j(lengths), _j(kc),
+                                         _j(ks))
     assert np.isfinite(np.asarray(got)).all() and got.shape == (b, 16, 128)
+    mine = TDA.quantized_decode_attention(_t(qj), *(_t(a) for a in cache), _t(lengths), _t(kc),
+                                          _t(ks))
+    np.testing.assert_allclose(mine.numpy(), np.asarray(got), **TOL)
+
+
+@pytest.mark.parametrize("G,hd", [(17, 128), (17, 64), (24, 128)])
+def test_card_refuses_more_than_16_heads_a_kv_head_and_names_the_rule(G, hd):
+    """G = 17 and 24: K9 refuses naming its rule (the step then takes the
+    scan path) and K3/K8 refuse naming theirs; no repo or named public
+    config has G > 16 (ROADMAP section 2 A)."""
+    kvh = 2
+    cfg = tcfg(JC.LlamaConfig(hidden_size=kvh * G * hd, intermediate_size=4096,
+                              num_attention_heads=kvh * G, num_key_value_heads=kvh,
+                              w_bits=8, a_bits=8, kv_bits=8))
+    assert cfg.head_dim == hd and TMK.supported(cfg, 1, 2048)
+    assert not TMK.card_takes(cfg, 1, 2048, torch.bfloat16)
+    assert K9_RULE in TMK._card_shape_error(cfg, 1, 2048, TMK.pick_bk(cfg, 1, 2048),
+                                            torch.bfloat16)
+    q = torch.zeros(1, 1, dtype=torch.bfloat16)
+    for what in ("decode", "paged"):
+        with pytest.raises(NotImplementedError, match=r"1 <= G <= 16 query heads per kv head"):
+            TDA._check_kernel_shape(what, q, G, hd, 8)
 
 
 # ---------------------------------------------------------------- K4 / K10 / K11

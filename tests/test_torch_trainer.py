@@ -7,10 +7,8 @@ optimizer is held against BOTH of the JAX package's optimizers (its
 single-pass clip+AdamW and the optax chain) on random gradients over three
 steps at 1e-6.
 
-Whole train steps (2 layers, b*s = 32 rows, so that no int8 activation
-rounds differently between XLA and torch; cases with two heads of 128 and of
-100, and one with 8 query heads over 2 kv heads of 80 at H = 640, whose seed
-is chosen, ``SEED_GQA80``):
+Whole train steps (2 layers, b*s = 32 rows; cases with two heads of 128 and
+of 100, and one with 8 query heads over 2 kv heads of 80 at H = 640):
 loss and grad_norm at 1e-4 relative; the first moment after step 1 is 0.1 x the clipped gradient, so it
 is the gradient's witness and is held at a relative L2 of 1e-3 per leaf.
 Updated params: at step 1 Adam moves a weight by lr * g / (|g| + 1e-8), so
@@ -18,6 +16,20 @@ where a gradient is within ~1e-8 of zero its update is anywhere in +-lr
 whatever its exact value, and two correct implementations may differ by up to
 2 lr there. The params are therefore held at 2.1 lr everywhere and at
 1e-3 lr + 1e-6 |p| for all but 0.1% of a leaf's elements.
+
+Rounding flips (the named class, ROADMAP.md section 3): before every step
+both packages' student forward runs from the params each holds, every
+quantizer's codes recorded (``tests/test_torch_llama_train.py``
+``_record_quantizers`` / ``_first_flip``). Where they part, the first parting
+tensor must part in one element by one level, the two packages' forward from
+one set of params is held by ``_hold_outputs`` (the rows that cannot see a
+flip at 1e-4), and the step is the flip step: the steps before it are held
+at the limits above, it and the later ones are not (the two runs part there
+by design), as
+``tests/test_torch_trainer_parallel.py`` ``MESH_FLIPS`` does. Met on the
+suite's CPU host: ``flat_unfused_narrow_seed0`` and ``tied_weight_decay`` at
+step 2, ``gqa_head_dim_80_fused_seed15`` at step 3 (each first parting an
+int8 activation code); the other cases meet none.
 """
 
 import jax
@@ -32,6 +44,10 @@ from llm_qat_tpu.training import trainer as JT
 from llm_qat_torch.models import params as TP
 from llm_qat_torch.training import trainer as TT
 
+from llm_qat_tpu.models import llama as JL
+from llm_qat_torch.models import llama as TL
+
+from tests.test_torch_llama_train import _first_flip, _hold_outputs, _record_quantizers
 from tests.test_torch_serving import np_params, tcfg
 
 WIDE = JConfig(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
@@ -214,7 +230,7 @@ def _assert_rel_l2(ttree, jtree, limit, what):
 # meets a rounding flip: after the first update one 4-bit weight sits on a
 # rounding boundary and the two packages' params, 1e-9 apart, quantize it to
 # different integers (loss 2.9e-4 and grad_norm 1.7e-3 off at step 2). Seeds 1
-# and 2 meet none and agree to 2e-6 over the three steps; the case uses seed 1.
+# and 2 meet none and agree to 2e-6 over the three steps. Both are cases.
 SEED_NARROW = 1
 # At H = 640 the 32 rows put 20480 activations through every quantizer, and a
 # last-bit difference of the two packages' f32 sums moves an int8 code one
@@ -223,27 +239,67 @@ SEED_NARROW = 1
 # one in seeds 4, 5, 7, 8 and 10 of 3-10, so the width, not the head dim,
 # sets the rate; the port's fused and unfused routes give one loss to the
 # bit where JAX's two routes part. Seed 30, the first of 15-50 that meets
-# none, agrees to 4e-7 over the three steps.
+# none, agrees to 4e-7 over the three steps; seed 15, the first that meets
+# one, is a case of its own.
 SEED_GQA80 = 30
 
+# case -> (config, TrainConfig arguments, the weights' seed)
 STEP_CASES = {
-    "fused_flash_chunked_kl": (WIDE, dict(kl_chunk=8)),
-    "fused_flash_full_kl": (WIDE, dict()),
-    "flat_unfused_narrow": (NARROW, dict(kl_chunk=4, remat=False)),   # weights of SEED_NARROW
-    "mse": (WIDE, dict(kd_loss_type="mse")),
+    "fused_flash_chunked_kl": (WIDE, dict(kl_chunk=8), 0),
+    "fused_flash_full_kl": (WIDE, dict(), 0),
+    "flat_unfused_narrow": (NARROW, dict(kl_chunk=4, remat=False), SEED_NARROW),
+    "flat_unfused_narrow_seed0": (NARROW, dict(kl_chunk=4, remat=False), 0),
+    "mse": (WIDE, dict(kd_loss_type="mse"), 0),
     "tied_weight_decay": (WIDE.replace(tie_word_embeddings=True),
-                          dict(kl_chunk=8, weight_decay=0.05, lr_schedule="linear")),
-    "mha_head_dim_128": (MHA128, dict(kl_chunk=8)),
-    "mha_head_dim_100": (MHA100, dict(kl_chunk=8)),
-    "gqa_head_dim_80_fused": (GQA80, dict(kl_chunk=8)),
+                          dict(kl_chunk=8, weight_decay=0.05, lr_schedule="linear"), 0),
+    "mha_head_dim_128": (MHA128, dict(kl_chunk=8), 0),
+    "mha_head_dim_100": (MHA100, dict(kl_chunk=8), 0),
+    "gqa_head_dim_80_fused": (GQA80, dict(kl_chunk=8), SEED_GQA80),
+    "gqa_head_dim_80_fused_seed15": (GQA80, dict(kl_chunk=8), 15),
 }
+
+
+def _forward_codes(cfg, jparams, tparams, ids):
+    """Both packages' student forward (JAX's from ``jparams``, the port's
+    from ``tparams``), every quantizer's codes recorded: (record, JAX's
+    logits, the port's logits)."""
+    with pytest.MonkeyPatch.context() as mp:
+        rec = _record_quantizers(mp)
+        jl = JL.forward(jparams, cfg, jnp.asarray(ids))
+        jax.effects_barrier()
+        with torch.no_grad():
+            tl = TL.forward(tparams, tcfg(cfg), torch.from_numpy(ids))
+    return rec, np.asarray(jl), tl.numpy()
+
+
+def _step_flip(cfg, jparams, tparams, ids):
+    """Whether the step that starts from these params meets a rounding flip:
+    both packages' student forward from the params each holds, every
+    quantizer's codes recorded; None when they all agree, else the
+    (sequence, token) of the first parting tensor's one flipped element
+    (``_first_flip``: one element, one level; a 4-bit weight on a rounding
+    boundary, where the params part by 1e-9, or an int8 activation). At such
+    a step the forward of both packages from one set of params (JAX's) is
+    held by ``_hold_outputs``: the rows that cannot see a flip there at 1e-4,
+    the rest at FLIP_REL_L2. (From each package's own params, rows that see
+    no flip may part by more than 1e-4: the two Adams' updates of a weight
+    whose gradient is within ~1e-8 of zero part by up to 2 lr, the module
+    docstring, and a tied embedding carries that into the logits.)"""
+    b, s = ids.shape
+    flip = _first_flip(_forward_codes(cfg, jparams, tparams, ids)[0], b, s)
+    if flip is not None:
+        rec, jl, tl = _forward_codes(cfg, jparams, TP.from_numpy(_tree(np.asarray, jparams),
+                                                                 "cpu"), ids)
+        _hold_outputs(tl, jl, _first_flip(rec, b, s))
+    return flip
 
 
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_train_steps_match_jax(case):
     """One and three steps on the same batch: metrics, the gradient's
-    witness (the first moment), params and second moment."""
-    cfg, kw = STEP_CASES[case]
+    witness (the first moment), params and second moment, each step before
+    the one whose student forward meets a rounding flip (``_step_flip``)."""
+    cfg, kw, seed = STEP_CASES[case]
     jt, tt = _cfgs(learning_rate=LR, total_steps=20, **kw)
     if cfg.tie_word_embeddings:
         strip = lambda p: {k: v for k, v in p.items() if k != "lm_head"}  # noqa: E731
@@ -252,16 +308,20 @@ def test_train_steps_match_jax(case):
         ttr = TT.Trainer(tcfg(cfg), tt, TP.from_numpy(p, "cpu"), TP.from_numpy(tch, "cpu"),
                          device="cpu")
     else:
-        seed = {"flat_unfused_narrow": SEED_NARROW, "gqa_head_dim_80_fused": SEED_GQA80}
-        jtr, ttr = _trainers(cfg, jt, tt, seed=seed.get(case, 0))
+        jtr, ttr = _trainers(cfg, jt, tt, seed=seed)
     batch = _batch(cfg)
-    losses = []
+    losses, flip_step = [], None
     for step in (1, 2, 3):
+        if flip_step is None and _step_flip(cfg, jtr.state.params, ttr.state.params,
+                                            batch["input_ids"]) is not None:
+            flip_step = step
         jm = jtr.train_step({k: jnp.asarray(v) for k, v in batch.items()})
         tm = ttr.train_step(batch)
+        losses.append(float(tm["loss"]))
+        if flip_step is not None:          # the runs part from here by design
+            continue
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-4)
         np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
-        losses.append(float(tm["loss"]))
         if step in (1, 3):
             count, mu, nu = TP.opt_state_to_numpy(ttr.state.opt_state)
             jo = jtr.state.opt_state

@@ -34,7 +34,12 @@ and the later ones against JAX's one-device run, at the same limits, and the
 two JAX runs' codes of that step's student forward, recomputed on one device
 from each run's params, must be equal or part in one element by one level
 (``_mesh_flip``); where the two JAX runs part past the loss limit, they must
-part so.
+part so. The port's own flips against that reference are found the same
+way (``_port_flip``): before each step both packages' student forward runs
+from the params each holds, every quantizer's codes recorded; from the
+first step whose codes part (one element one level, the logits held by
+``_hold_outputs``) the port's run is no longer held, the steps before it
+are.
 
 The train CLI also runs at world 2 with ``--mesh_tp 2`` and with
 ``--mesh_pp 2`` against JAX's CLI under the same flags (the same limits),
@@ -74,9 +79,10 @@ def fake_tokenize(text):
     return [ord(c) % 251 for c in text]
 
 
-def _trainer_rank(rank, world, cfg, params, teacher, batch, axes, parallel, kw):
+def _trainer_rank(rank, world, cfg, params, teacher, batch, axes, parallel, kw, before=()):
     """Per step the metrics; after steps 1 and 3 the whole params and
-    moments; the shapes this rank holds."""
+    moments; before the steps ``before`` the whole params; the shapes this
+    rank holds."""
     from llm_qat_torch.models import params as TP
     from llm_qat_torch.parallel import mesh as pmesh
     from llm_qat_torch.training import trainer as TT
@@ -87,7 +93,7 @@ def _trainer_rank(rank, world, cfg, params, teacher, batch, axes, parallel, kw):
                     TP.from_numpy(teacher, "cpu") if teacher is not None else None,
                     mesh=mesh, parallel=parallel, device="cpu")
     st = tr.state
-    out = {"metrics": [], "whole": {},
+    out = {"metrics": [], "whole": {}, "before": {},
            "shapes": {t: {n: tuple(x.shape) for n, x in _leaves(tree)}
                       for t, tree in (("params", st.params), ("mu", st.opt_state["mu"]),
                                       ("nu", st.opt_state["nu"]))}}
@@ -95,6 +101,8 @@ def _trainer_rank(rank, world, cfg, params, teacher, batch, axes, parallel, kw):
     whole = lambda t: {n: np.array(a) for n, a in  # noqa: E731
                        _leaves(TP.to_numpy(pmesh.gather_params(t, mesh, tr.param_specs)))}
     for step in range(1, STEPS + 1):
+        if step in before:
+            out["before"][step] = whole(tr.state.params)
         m = tr.train_step(batch)
         out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
         if step in (1, STEPS):
@@ -163,6 +171,32 @@ def _mesh_flip(jcfg, mesh_params, one_params, ids):
     return None
 
 
+def _port_flip(jcfg, jax_before, port_before, ids):
+    """The first step whose student forward, run by each package from the
+    params it holds before the step (JAX's reference run's, the port's rank
+    0's, gathered), parts in a quantizer code (``tests/test_torch_trainer.py``
+    ``_step_flip``: one element one level, the logits held by
+    ``_hold_outputs``); STEPS + 1 when none does."""
+    import jax
+    import jax.numpy as jnp
+
+    from llm_qat_torch.models import params as TP
+    from tests.test_torch_trainer import _step_flip
+
+    for step in range(1, STEPS + 1):
+        tree = {}
+        for name, a in port_before[step].items():
+            *path, leaf = name.split("/")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = a
+        if _step_flip(jcfg, jax.tree.map(jnp.asarray, jax_before[step]),
+                      TP.from_numpy(tree, "cpu"), ids) is not None:
+            return step
+    return STEPS + 1
+
+
 def _pairs(got, want):
     got, want = dict(_leaves(got)), dict(_leaves(want))
     assert got.keys() == want.keys()
@@ -185,6 +219,7 @@ def _hold_rel_l2(got, want, limit, what):
 
 # case -> the step at which JAX's mesh run may part from its one-device run
 MESH_FLIPS = {"data2_fsdp2": 3}
+ALL_STEPS = tuple(range(1, STEPS + 1))
 
 STEP_CASES = {
     "fsdp2_chunked_kl": (dict(fsdp=2), "fsdp", dict(), (2, 16), dict(kl_chunk=8)),
@@ -209,22 +244,27 @@ def test_train_steps_match_jax_under_the_mesh(case):
     batch = {"input_ids": ids, "labels": ids}
     world = int(np.prod(list(axes.values())))
     ranks = launch.spawn(_trainer_rank, world, args=(tcfg(jcfg), params, teacher, batch, axes,
-                                                     parallel, kw), timeout=180)
+                                                     parallel, kw, ALL_STEPS), timeout=180)
     flip = MESH_FLIPS.get(case, STEPS + 1)
-    want = _jax_trainer(jcfg, params, teacher, batch, axes, parallel, kw, before=(flip,))
+    want = _jax_trainer(jcfg, params, teacher, batch, axes, parallel, kw, before=ALL_STEPS)
     if flip <= STEPS:
         # from the flip step on, the reference is JAX's one-device run
-        one = _jax_trainer(jcfg, params, teacher, batch, {}, parallel, kw, before=(flip,))
+        one = _jax_trainer(jcfg, params, teacher, batch, {}, parallel, kw, before=ALL_STEPS)
         parted = _mesh_flip(jcfg, want["before"][flip], one["before"][flip], ids)
         m, o = np.array(want["metrics"]), np.array(one["metrics"])
         np.testing.assert_allclose(m[:flip - 1], o[:flip - 1], rtol=1e-4)
         if not np.allclose(m[flip - 1:], o[flip - 1:], rtol=1e-4, atol=0):
             assert parted is not None, "JAX's mesh run parts with no flipped code"
         want = dict(want, metrics=[*want["metrics"][:flip - 1], *one["metrics"][flip - 1:]],
-                    whole={k: (one if k >= flip else want)["whole"][k] for k in want["whole"]})
+                    whole={k: (one if k >= flip else want)["whole"][k] for k in want["whole"]},
+                    before={k: (one if k >= flip else want)["before"][k] for k in ALL_STEPS})
+    # the port's own rounding flip against that reference: the steps before it
+    # are held, it and the later ones are not (the runs part there by design)
+    held = _port_flip(jcfg, want["before"], ranks[0]["before"], ids)
     fsdp = axes.get("fsdp", 1) if parallel == "fsdp" else 1
     for r in ranks:
-        np.testing.assert_allclose(r["metrics"], want["metrics"], rtol=1e-4)
+        np.testing.assert_allclose(r["metrics"][:held - 1], want["metrics"][:held - 1],
+                                   rtol=1e-4)
         # every split leaf and its moments: 1/fsdp of the leaf on each rank
         full = {n: a.shape for n, a in _leaves(params)}
         split = {"embed": 1, "lm_head": 0, "layers/q": 1, "layers/k": 1, "layers/v": 1,
@@ -236,7 +276,7 @@ def test_train_steps_match_jax_under_the_mesh(case):
                     exp[split[n]] //= fsdp
                 assert shape == tuple(exp), (tree, n, shape)
     got = ranks[0]["whole"]
-    for step in (1, STEPS):
+    for step in (s for s in (1, STEPS) if s < held):
         gp, gmu, gnu, count = got[step]
         jp, jmu, jnu, jcount = want["whole"][step]
         assert count == jcount == step

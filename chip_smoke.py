@@ -49,7 +49,9 @@ through phases 2 and 2b), then:
    launch counts and against the scan path (see ``llama3_phase``); then
    OpenLLaMA-3B (``openllama3b_phase``) and, past 8 query heads a kv head,
    Mistral-Large-2's and Llama-3.1-405B's widths cut to 2 layers through the
-   default, scan and paged engines (``wide_groups_phase``);
+   default, scan and paged engines (``wide_groups_phase``), and Falcon3-7B
+   at full width and depth, head dim 256, on the three paths
+   (``falcon3_phase``);
 4. holds the four training kernels against their plain versions at the train
    steps' shapes (flash backward dQ and dK/dV and the flash forward at
    B = 16, G = 8, S = 2048, D = 64 and at LLaMA-7B's B = 32, G = 1, S = 2048,
@@ -1065,56 +1067,69 @@ def openllama3b_phase(timer, gen, base):
     """OpenLLaMA-3B at its published widths and full depth (``OPENLLAMA_3B``),
     (G, hd) = (1, 100): head dim 100 through the padded builds of K4, K3/K8
     and K9, and the products' K tails (H, I off the 256 grid), at W8A8KV8 and
-    W4A8KV4 (packed cache). The K9 phase (kernel against its plain version
-    at full depth and at CUT_LAYERS, bit-equal, timed); then
-    ``InferenceEngine`` with default flags (every decode step one K9
-    launch), on the scan path (``use_megakernel=False``, K3 every layer) and
-    ``PagedInferenceEngine`` (K8 every layer) serving 8 requests of
-    PROMPT_LENS tokens, OPENLLAMA_NEW greedy tokens each, prefill through K4
-    and K1/K2, every launch count held. Default and paged against scan: at
-    LLaMA-3-8B's depth (a LLAMA3_LAYERS cut) by that phase's gate, the
-    1000-token prompt teacher-forced through the three paths within
-    LLAMA3_DRIFT; at full depth by the rule the repo holds its other
-    full-depth models to (TinyLlama-1.1B, LLaMA-7B): the same prompt within
-    MEGA_FULL_DRIFT, and each served request's first difference a near tie
-    of the scan path (``compare_tokens`` with the teacher-forced run's
-    largest logit difference). 26 random-weight layers that re-quantize
-    every projection's input amplify the paths' by-design differences past
-    the 4-layer limit: 0.209-0.221 in this phase's first run, leads to 0.59
-    row std (PERF.md, PR 19). Last, a CUT_LAYERS cut against the CPU path
-    (``cut_against_cpu``). Weights, prompts and tokens from a generator of
-    its own."""
+    W4A8KV4 (packed cache), by ``full_depth_phase``. 26 random-weight layers
+    that re-quantize every projection's input amplify the paths' by-design
+    differences past the 4-layer drift limit: 0.209-0.221 in this phase's
+    first run, leads to 0.59 row std (PERF.md §6)."""
+    return full_depth_phase(timer, gen, base.replace(**OPENLLAMA_3B), "OpenLLaMA-3B",
+                            OPENLLAMA_SEED, "megakernel_dpad", OPENLLAMA_NEW)
+
+
+SERVE_MODES = {"W8A8KV8": dict(w_bits=8, a_bits=8, kv_bits=8),
+               "W4A8KV4": dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)}
+
+
+def full_depth_phase(timer, gen, cfg0, model, seed, stem, new_tokens):
+    """A model at its published widths and full depth (``cfg0``) on every
+    serving path, at W8A8KV8 and W4A8KV4 (packed cache), K9 through the build
+    of ``stem``. The K9 phase (kernel against its plain version at full depth
+    and at CUT_LAYERS, bit-equal, timed); then ``InferenceEngine`` with
+    default flags (every decode step one K9 launch), on the scan path
+    (``use_megakernel=False``, K3 every layer) and ``PagedInferenceEngine``
+    (K8 every layer) serving 8 requests of PROMPT_LENS tokens,
+    ``new_tokens`` greedy tokens each, prefill through K4 and K1/K2, every
+    launch count held. Default and paged against scan: at LLaMA-3-8B's depth
+    (a LLAMA3_LAYERS cut) by that phase's gates, the 1000-token prompt
+    teacher-forced through the three paths within LLAMA3_DRIFT and, where a
+    step's greedy token parts, the scan path's lead of its token at most
+    LLAMA3_LEAD_STD of the logit row's standard deviation;
+    at full depth by the rule the repo holds its other full-depth models to
+    (TinyLlama-1.1B, LLaMA-7B): the same prompt within MEGA_FULL_DRIFT, and
+    each served request's first difference a near tie of the scan path
+    (``compare_tokens`` with the teacher-forced run's largest logit
+    difference). Last, a CUT_LAYERS cut against the CPU path
+    (``cut_against_cpu``). Weights, prompts and tokens from ``seed``."""
     from llm_qat_torch.inference import megakernel as MK
     from llm_qat_torch.inference import quantized as Q
     from llm_qat_torch.models import params as P
 
-    cfg0 = base.replace(**OPENLLAMA_3B)
-    rng = np.random.default_rng(OPENLLAMA_SEED)
+    rng = np.random.default_rng(seed)
     prompts = [list(map(int, rng.integers(1, cfg0.vocab_size, n))) for n in PROMPT_LENS]
     out = dict(kernel=[], runs=[], flips={}, teacher_forced={}, peak_gib={},
                launches=dict.fromkeys(counters(), 0))
-    modes = {"W8A8KV8": dict(w_bits=8, a_bits=8, kv_bits=8),
-             "W4A8KV4": dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)}
-    L = cfg0.num_hidden_layers
-    for label, mode in modes.items():
+    L, G = cfg0.num_hidden_layers, cfg0.num_attention_heads // cfg0.kv_heads
+    for label, mode in SERVE_MODES.items():
         t_mode = time.perf_counter()
+        gc.collect()                   # reference cycles of earlier runs hold device memory
+        torch.cuda.empty_cache()
         cfg = cfg0.replace(**mode)
-        name = f"{label} OpenLLaMA-3B"
-        if not (MK.card_takes(cfg, 8, 2048, torch.bfloat16) and MK.padded(cfg.head_dim)):
-            raise AssertionError(f"{name}: K9's padded build does not take it")
-        params = P.init_params(cfg, seed=OPENLLAMA_SEED, dtype=torch.bfloat16)
+        name = f"{label} {model}"
+        if not (MK.card_takes(cfg, 8, 2048, torch.bfloat16)
+                and MK._stem(cfg.head_dim, G) == stem):
+            raise AssertionError(f"{name}: K9's build {stem} does not take it")
+        params = P.init_params(cfg, seed=seed, dtype=torch.bfloat16)
         qp = Q.quantize_params(params, cfg)
         del params
         torch.cuda.empty_cache()
         out["kernel"].append(megakernel_phase(timer, name, cfg, qp, gen))
         torch.cuda.reset_peak_memory_stats()
-        dflt = serve(f"{name} megakernel", cfg, qp, prompts, new_tokens=OPENLLAMA_NEW,
+        dflt = serve(f"{name} megakernel", cfg, qp, prompts, new_tokens=new_tokens,
                      profile=False)
         out["peak_gib"][label] = torch.cuda.max_memory_allocated() / 2 ** 30
         scan = serve(f"{name} scan", cfg.replace(use_megakernel=False), qp, prompts,
-                     new_tokens=OPENLLAMA_NEW, profile=False)
+                     new_tokens=new_tokens, profile=False)
         paged = serve_paged(f"{name} paged", cfg, qp, prompts, ROOMY_PAGES, profile=False,
-                            new_tokens=OPENLLAMA_NEW)
+                            new_tokens=new_tokens)
         gemm_k = "int8_matmul" if label.startswith("W8") else "int4_matmul"
         for m in (dflt[0], scan[0], paged[0]):
             dl, pl = m["decode_launches"], m["prefill_launches"]
@@ -1145,12 +1160,21 @@ def openllama3b_phase(timer, gen, base):
             pgd = _greedy_logits_paged(c, q, prompt, "cuda", toks)
             for other, seq in (("megakernel", mega), ("paged", pgd)):
                 same, drift, diff = _compare(seq, wit)
+                leads = [float((r[r.argmax()] - r[m.argmax()]) / r.std())
+                         for r, m, eq in zip(wit, seq, same) if not eq]
                 log(f"  {name} at {depth} layers: {other} against scan path teacher-forced on "
                     f"a {len(prompt)}-token prompt: tokens equal {same}, drift {drift:.4g} "
-                    f"(limit {limit}), largest logit difference {diff:.4g}")
+                    f"(limit {limit}), largest logit difference {diff:.4g}; the scan path's "
+                    f"lead where they part, in row std: "
+                    f"{', '.join(f'{x:.3g}' for x in leads) or 'none'}"
+                    + (f" (limit {LLAMA3_LEAD_STD})" if depth != L else ""))
                 if drift > limit:
                     bad.append(f"{other} drifts {drift:.4g} from the scan path at {depth} layers")
-                tf[f"{other} {depth} layers"] = dict(tokens_equal=same, drift=drift, max_abs=diff)
+                if depth != L and any(x > LLAMA3_LEAD_STD for x in leads):
+                    bad.append(f"{other} parts from the scan path at {depth} layers with leads "
+                               f"{leads} row std")
+                tf[f"{other} {depth} layers"] = dict(tokens_equal=same, drift=drift, max_abs=diff,
+                                                     leads_std=leads)
                 if depth != L:
                     continue
                 try:
@@ -1167,12 +1191,34 @@ def openllama3b_phase(timer, gen, base):
             f"{time.perf_counter() - t_mode:.1f} s")
         del qp, dflt, scan, paged
         torch.cuda.empty_cache()
-    cut = cfg0.replace(num_hidden_layers=CUT_LAYERS, **modes["W8A8KV8"])
-    params = P.init_params(cut, seed=OPENLLAMA_SEED, dtype=torch.bfloat16)
-    out["cut_vs_cpu"] = cut_against_cpu("W8A8KV8 OpenLLaMA-3B", cut, params, prompts[0])
+    cut = cfg0.replace(num_hidden_layers=CUT_LAYERS, **SERVE_MODES["W8A8KV8"])
+    params = P.init_params(cut, seed=seed, dtype=torch.bfloat16)
+    out["cut_vs_cpu"] = cut_against_cpu(f"W8A8KV8 {model}", cut, params, prompts[0])
     del params
     torch.cuda.empty_cache()
     return out
+
+
+# Falcon3-7B-Base's published config.json (tiiuae/Falcon3-7B-Base, a
+# LlamaForCausalLM): 12 query heads over 4 kv heads of 256 (G = 3; head_dim
+# 256 = hidden / heads, as LlamaConfig derives it), H 3072, I 23040, 28
+# layers, vocabulary 131072, rope_theta 1000042, rms_norm_eps 1e-6, untied
+# embeddings; full depth, random weights from FALCON3_SEED
+FALCON3_7B = dict(vocab_size=131072, hidden_size=3072, intermediate_size=23040,
+                  num_hidden_layers=28, num_attention_heads=12, num_key_value_heads=4,
+                  rms_norm_eps=1e-6, rope_theta=1000042.0, max_position_embeddings=32768,
+                  tie_word_embeddings=False)
+FALCON3_NEW, FALCON3_SEED = 16, 28   # greedy tokens a request, the phase's seed
+
+
+def falcon3_phase(timer, gen, base):
+    """Falcon3-7B-Base at its published widths and full depth (``FALCON3_7B``),
+    (G, hd) = (3, 256): head dim 256 through K4's ``flash_fwd_d256``, K3/K8's
+    ``decode_attention_d256.cu`` and K9's ``megakernel_d256.cu`` on every
+    serving path, at W8A8KV8 and W4A8KV4 (packed cache), by
+    ``full_depth_phase``."""
+    return full_depth_phase(timer, gen, base.replace(**FALCON3_7B), "Falcon3-7B", FALCON3_SEED,
+                            "megakernel_d256", FALCON3_NEW)
 
 
 # Mistral-Large-2's published config.json (mistralai/Mistral-Large-Instruct-2407):
@@ -1193,8 +1239,6 @@ LLAMA31_405B = dict(vocab_size=128256, hidden_size=16384, intermediate_size=5324
                     rms_norm_eps=1e-5, max_position_embeddings=131072, tie_word_embeddings=False)
 WIDE_LAYERS, WIDE_SEED = 2, 26
 WIDE_FULL_LAYERS = {"Mistral-Large-2": 88, "Llama-3.1-405B": 126}
-WIDE_MODES = {"W8A8KV8": dict(w_bits=8, a_bits=8, kv_bits=8),
-              "W4A8KV4": dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)}
 # (model, published widths, mode, slots of the default run, paged run too):
 # the default path at a b JAX's supported() sends to its megakernel (b = 8 at
 # Mistral-Large-2 W4; b = 1 at its W8 and at Llama-3.1-405B W4, where JAX's
@@ -1239,7 +1283,7 @@ def wide_groups_phase(timer, gen, base):
         log(f"  allocated at the run's entry {before_gc / 2 ** 30:.2f} GiB, after gc "
             f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
         torch.cuda.reset_peak_memory_stats()
-        cfg = base.replace(num_hidden_layers=L, **widths, **WIDE_MODES[label])
+        cfg = base.replace(num_hidden_layers=L, **widths, **SERVE_MODES[label])
         name = f"{label} {model}"
         G = cfg.num_attention_heads // cfg.kv_heads
         out["reduced"][model] = f"layers: {L} of {WIDE_FULL_LAYERS[model]}"
@@ -4826,6 +4870,14 @@ PAD_DIMS = (48, 80, 96, 100)
 PAD_BWD = (4, 2, 1100)
 PAD_TP_SHARD = (32, 1, 2048, 100)
 PAD_BWD_SEED = 25
+# head dim 256 (Falcon3's) through the hd-256 builds: K3 (int8, packed), K8
+# (int8, packed) and K7 at (kv heads, G, hd, model), G = 1..4 over Falcon3's
+# 4 kv heads; K4 at Falcon3-7B's prefill of 8 x 1024 tokens (B = 8 x 4 kv
+# heads, G = 3) in bf16 and f32
+D256_MODELS = {(2, 256): "Falcon3-1B", (3, 256): "Falcon3-7B"}
+D256_DECODE = tuple((4, g, 256, D256_MODELS.get((g, 256), "-")) for g in range(1, 5))
+D256_FLASH = (32, 3, 1024, 256)
+D256_SHAPES_SEED = 29                # their generator (the other rows keep their inputs)
 # K4/K10/K11 at the new head dims: (D, dtype, B, G, S, what); B = batch x kv heads
 NEW_FLASH = ((16, torch.float32, 4, 2, 32, "tiny pipeline train"),
              (16, torch.float32, 16, 2, 2048, "long"),
@@ -4966,9 +5018,11 @@ def shapes_phase(timer, QM, DA, FA):
     head dim 100 through the padded builds (``PAD_DECODE``: K3 and K8 int8
     and packed, K7; bit-equal), and past 8 query heads a kv head
     (``WIDE_DECODE``: K3 int8 and packed, K8 int8, K7 through the builds of
-    G = 9..15 and 16; bit-equal), K4/K10/K11 at head dims 16 and 32 in f32
+    G = 9..15 and 16; bit-equal), and at head dim 256 (``D256_DECODE``: K3
+    and K8 int8 and packed, K7; bit-equal), K4/K10/K11 at head dims 16 and 32 in f32
     and bf16 and 128 in f32 (``NEW_FLASH``), K4 at head dim 100 in bf16 and
-    f32 (``PAD_FLASH``), K4/K10/K11 at head dims 48, 80, 96 and 100 in bf16
+    f32 (``PAD_FLASH``), K4 at head dim 256 in bf16 and f32 (``D256_FLASH``),
+    K4/K10/K11 at head dims 48, 80, 96 and 100 in bf16
     and f32, causal and not (``PAD_BWD``), and at a tp = 2 rank's shard of
     OpenLLaMA-3B's train step (``PAD_TP_SHARD``). Then K1 at
     the TinyLlama-1.1B decode layer's qkv shape through
@@ -5042,8 +5096,22 @@ def shapes_phase(timer, QM, DA, FA):
         r = stacked_attention_phase(timer, gen_wide, DA, c)
         r.update(kvh=kvh, G=G, hd=hd, model=model, bit_equal=r["max_abs_err"] == 0.0)
         out["decode_attention_stacked"].append(r)
+    gen_d256 = torch.Generator(device="cuda")
+    gen_d256.manual_seed(D256_SHAPES_SEED)
+    for kvh, G, hd, model in D256_DECODE:
+        for packed in (False, True):
+            for key, fn in (("decode_attention", decode_attention_phase),
+                            ("paged_attention", paged_attention_phase)):
+                r = fn(timer, gen_d256, DA, kvh, G, hd, packed)
+                r.update(model=model, bit_equal=r["max_abs_err"] == 0.0)
+                out[key].append(r)
+        c = TINYLLAMA_1B.replace(num_attention_heads=kvh * G, num_key_value_heads=kvh,
+                                 hidden_size=kvh * G * hd)
+        r = stacked_attention_phase(timer, gen_d256, DA, c)
+        r.update(kvh=kvh, G=G, hd=hd, model=model, bit_equal=r["max_abs_err"] == 0.0)
+        out["decode_attention_stacked"].append(r)
     held = (set(GQA_SHAPES) | {(G, hd) for _, G, hd, _ in PAD_DECODE}
-            | {(G, hd) for _, G, hd, _ in WIDE_DECODE})
+            | {(G, hd) for _, G, hd, _ in WIDE_DECODE} | {(G, hd) for _, G, hd, _ in D256_DECODE})
     gqa = [r for key in ("decode_attention", "paged_attention", "decode_attention_stacked")
            for r in out[key] if (r.get("G"), r.get("hd")) in held]
     if not all(r["bit_equal"] for r in gqa):
@@ -5059,6 +5127,10 @@ def shapes_phase(timer, QM, DA, FA):
     for dtype in (torch.bfloat16, torch.float32):
         out["flash"]["fwd"].append(dict(flash_phase(timer, gen, FA, Bq, G, S, D, dtype=dtype),
                                         what="OpenLLaMA-3B prefill"))
+    Bq, G, S, D = D256_FLASH
+    for dtype in (torch.bfloat16, torch.float32):
+        out["flash"]["fwd"].append(dict(flash_phase(timer, gen_d256, FA, Bq, G, S, D,
+                                                    dtype=dtype), what="Falcon3-7B prefill"))
     torch.cuda.empty_cache()
     gen_pad = torch.Generator(device="cuda")
     gen_pad.manual_seed(PAD_BWD_SEED)
@@ -5293,8 +5365,9 @@ def main() -> int:
     # (head dims 16, 32 and the padded build) go on compiling at a lower
     # priority through phase 2 and are waited for at their first use
     late = ("megakernel", "megakernel_d128", "megakernel_dpad", "megakernel_g16",
-            "megakernel_d128_g16", "megakernel_dpad_g16", "decode_attention_d16",
-            "decode_attention_d32", "decode_attention_dpad")
+            "megakernel_d128_g16", "megakernel_dpad_g16", "megakernel_d256",
+            "decode_attention_d16", "decode_attention_d32", "decode_attention_dpad",
+            "decode_attention_d256")
     _build.build_all(wait_for=[p.stem for p in _build.CSRC.glob("*.cu") if p.stem not in late])
     log(f"    kernels built into {_build.BUILD_DIR} in "
         + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items()))
@@ -5361,7 +5434,8 @@ def main() -> int:
         "head dims 48, 80, 96, 100 (f32, bf16, causal and not) and a tp=2 rank's shard of "
         "OpenLLaMA-3B through the padded builds; K3/K8/K7 at G = 9, 12, 16 at head dims 64 and "
         "128 (8 kv heads; 1 kv head at (16, 128), Llama-3.1-405B's tp = 8 shard) and G = 12 at "
-        "100; K1 through utils.benchmarking.measure; K9 at every G of 1..8 at head dims 64 and "
+        "100; K3/K8/K7 at G = 1..4 and K4 at head dim 256 (Falcon3's); K1 through "
+        "utils.benchmarking.measure; K9 at every G of 1..8 at head dims 64 and "
         "128, and at (12, 128), (16, 128), (12, 64), on a 2-layer cut")
     shp = shapes_phase(timer, QM, DA, FA)
     lap("[2b] new shapes")
@@ -5447,8 +5521,18 @@ def main() -> int:
     wg = wide_groups_phase(timer, gen, LLAMA_7B)
     mega += wg["kernel"]
     flips.update(wg["flips"])
-    del timer
     lap("[3b4] G > 8 serving")
+    log(f"[3b5] Falcon3-7B-Base's published widths at full depth (28 layers, 12 query and 4 kv "
+        f"heads of 256, H 3072, I 23040, vocabulary 131072, rope_theta 1000042), random weights: "
+        f"head dim 256 through K4's, K3/K8's and K9's hd-256 builds; K9 against its plain "
+        f"version at W8A8KV8 and W4A8KV4, then 8 requests x {FALCON3_NEW} greedy tokens on the "
+        f"default path (K9), the scan path (K3) and the paged engine (K8); a {CUT_LAYERS}-layer "
+        f"cut against the CPU path ({smi})")
+    fc = falcon3_phase(timer, gen, LLAMA_7B)
+    mega += fc["kernel"]
+    flips.update({f"{k} Falcon3-7B": v for k, v in fc["flips"].items()})
+    del timer
+    lap("[3b5] Falcon3-7B serving")
     for label, mcfg in modes.items():
         checks.append(cpu_check(label, mcfg, qps.pop(label), rng))
         scan, dflt, roomy = served.pop(label)
@@ -5573,7 +5657,8 @@ def main() -> int:
     launches = {k: sum(m["launches"][k] for m in runs + paged_runs + trains) + pipe["launches"][k]
                 + ev["launches"][k] + md["launches"][k] + tp["launches"][k]
                 + tpp["launches"][k] + tinyp["launches"][k] + accp["launches"][k]
-                + l3["launches"][k] + o3["launches"][k] + wg["launches"][k] for k in counters()}
+                + l3["launches"][k] + o3["launches"][k] + wg["launches"][k] + fc["launches"][k]
+                for k in counters()}
     # K5-K7 are on no serving path of either package: their counts are those
     # of their kernel phases
     launches["int8_matmul_stacked"] = stacked["W8A8KV8"]["launches"]
@@ -5613,8 +5698,9 @@ def main() -> int:
                    "at hd 64 and 128, and (1, 4, 8) at hd 100 through the padded build, "
                    "G = 9, 12, 16 at hd 64 and 128 (Mistral-Large-2's (12, 128), "
                    "Llama-3.1-405B's (16, 128) and its tp=8 shard's one kv head) and 12 at "
-                   "hd 100 through the builds of 9..15 and 16, in shapes; Mistral-Large-2 and "
-                   "Llama-3.1-405B on the scan path in wide_groups)",
+                   "hd 100 through the builds of 9..15 and 16, and G = 1..4 at hd 256, in "
+                   "shapes; Mistral-Large-2 and Llama-3.1-405B on the scan path in "
+                   "wide_groups, Falcon3-7B's (3, 256) in falcon3_7b)",
              **{k: dec[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")},
              max_abs_err=max(d["max_abs_err"] for d in dec + tp["shapes"]["decode_attention"]
@@ -5627,7 +5713,8 @@ def main() -> int:
                    "ragged lengths, LLaMA-7B's B=32 G=1 S=1024 and S=2048 D=128 at full and "
                    "ragged lengths, the ring's live step B=8 G=8 S=2048 D=64 non-causal, "
                    "and OpenLLaMA-3B's B=32 G=1 S=1024 D=100 in bf16 and f32 and its train "
-                   "shape B=128 G=1 S=2048 D=100 through the padded build, in shapes)",
+                   "shape B=128 G=1 S=2048 D=100 through the padded build, and Falcon3-7B's "
+                   "prefill B=32 G=3 S=1024 D=256 in bf16 and f32, in shapes)",
              **{k: fl[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by")},
              max_abs_err=max(f["max_abs_err"] for f in fwd_shapes + [md["ring_shape"]["fwd"],
@@ -5642,7 +5729,8 @@ def main() -> int:
                    "layers ((4, 128) heads) and OpenLLaMA-3B's 26 layers of (1, 100) heads "
                    "(the padded build) at both, Mistral-Large-2's (12, 128) heads at W4A8KV4 "
                    "b=8 and W8A8KV8 b=1 and Llama-3.1-405B's (16, 128) at W4A8KV4 b=1 on "
-                   "2-layer cuts of their widths (the builds of G = 9..16), and a 2-layer cut "
+                   "2-layer cuts of their widths (the builds of G = 9..16), Falcon3-7B's 28 "
+                   "layers of (3, 256) heads (the hd-256 build) at both, and a 2-layer cut "
                    "at every G of 1..8 at hd 64 and 128 and at (12, 128), (16, 128), (12, 64), "
                    "in shapes)",
              **{k: k9[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
@@ -5652,9 +5740,10 @@ def main() -> int:
              replaces="llm_qat_tpu/ops/pallas/decode_attention.py:646",
              shape=f"b=8, pool {ROOMY_PAGES} x {PAGE}, {SEQ_PAGES} pages a sequence, int8 pool, "
                    "TinyLlama-1.1B heads (packed KV4, LLaMA-7B heads, a tp=2 rank's kvh=2, "
-                   "every G of 1..8 at hd 64 and 128, (1, 4, 8) at hd 100, and G = 9, 12, "
-                   "16 at hd 64 and 128 and 12 at hd 100 in shapes; Mistral-Large-2 and "
-                   "Llama-3.1-405B in wide_groups)",
+                   "every G of 1..8 at hd 64 and 128, (1, 4, 8) at hd 100, G = 9, 12, "
+                   "16 at hd 64 and 128 and 12 at hd 100, and G = 1..4 at hd 256 in shapes; "
+                   "Mistral-Large-2 and Llama-3.1-405B in wide_groups, Falcon3-7B in "
+                   "falcon3_7b)",
              **{k: k8[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
              max_abs_err=max(d["max_abs_err"] for d in pag + tp["shapes"]["paged_attention"]
                              + shp["paged_attention"]),
@@ -5729,6 +5818,8 @@ def main() -> int:
                                                         "launches", "cut_vs_cpu")},
                     "wide_groups": {k: wg[k] for k in ("runs", "teacher_forced", "peak_gib",
                                                        "launches", "reduced")},
+                    "falcon3_7b": {k: fc[k] for k in ("runs", "teacher_forced", "peak_gib",
+                                                      "launches", "cut_vs_cpu")},
                     "openllama_3b_training_flash": o3t["flash"],
                     "accuracy_experiment": accp,
                     "phase_s": PHASE_S, "build_seconds": _build.build_seconds, "card": smi}))

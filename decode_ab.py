@@ -10,18 +10,20 @@ a kv head G, head dim): TinyLlama-1.1B's (4, 8, 64), the LLaMA-7B family's
 (32, 1, 128), Meta-Llama-3-8B's (8, 4, 128), Llama-2-70B's (8, 8, 128), the
 tiny pipeline's (2, 2, 16), the accuracy experiment's (4, 2, 32),
 Mistral-Large-2's (8, 12, 128), Llama-3.1-405B's (8, 16, 128) and its tp = 8
-shard's (1, 16, 128) (a checkout whose kernels refuse a shape prints
-"refused" for it); and,
+shard's (1, 16, 128), Falcon3-7B's (4, 3, 256) and Falcon3-1B's (4, 2, 256)
+(a checkout whose kernels refuse a shape prints "refused" for it); and,
 without ``--k3-only``, the flash forward K4 (``chip_smoke.flash_phase``,
 bf16, causal, full lengths) and the flash backward pair K10 (dQ) and K11
 (dK/dV, ``flash_attention._flash_bwd_dq`` / ``_flash_bwd_dkv`` on the
 forward kernel's O and log-sum-exp, the same Timer) at the train shapes of
 ``FLASH`` (B, G, S, D): TinyLlama-1.1B's (16, 8, 2048, 64) and LLaMA-7B's
-(32, 1, 2048, 128), and
+(32, 1, 2048, 128), K4 alone at ``FLASH_FWD``: Falcon3-7B's prefill (32, 3,
+1024, 256), and
 the decode megakernel K9 (``megakernel.decode_layers``, one step) at
-TinyLlama-1.1B's and LLaMA-7B's full width and depth, W8A8KV8 and W4A8KV4
-(packed cache), b = 8, max_len 2048, lengths ``chip_smoke.K9_LENS``, random
-weights and cache from seed 0.
+TinyLlama-1.1B's and LLaMA-7B's full width and depth and Falcon3-7B's width
+cut to 4 layers (``FALCON3_7B``), W8A8KV8 and W4A8KV4 (packed cache), b = 8,
+max_len 2048, lengths ``chip_smoke.K9_LENS``, random weights and cache from
+seed 0.
 
 Before the timed runs every checkout builds its sources into its own
 ``build/``, every ``nvcc`` of every checkout started together
@@ -41,8 +43,13 @@ import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((4, 8, 64), (32, 1, 128), (8, 4, 128), (8, 8, 128), (2, 2, 16), (4, 2, 32),
-          (8, 12, 128), (8, 16, 128), (1, 16, 128))
+          (8, 12, 128), (8, 16, 128), (1, 16, 128), (4, 3, 256), (4, 2, 256))
 FLASH = ((16, 8, 2048, 64), (32, 1, 2048, 128))
+FLASH_FWD = ((32, 3, 1024, 256),)
+# Falcon3-7B-Base's published widths (chip_smoke.FALCON3_7B), cut to 4 layers
+FALCON3_7B = dict(vocab_size=131072, hidden_size=3072, intermediate_size=23040,
+                  num_hidden_layers=4, num_attention_heads=12, num_key_value_heads=4,
+                  rms_norm_eps=1e-6, rope_theta=1000042.0, tie_word_embeddings=False)
 
 # one checkout's build: every source, or (an argument "k3") the decode
 # attention sources (one a head dim, or one for all; K8's own before they
@@ -88,7 +95,7 @@ from llm_qat_torch.models import params as P
 from llm_qat_torch.models.config import LLAMA_7B, TINYLLAMA_1B
 from llm_qat_torch.ops import decode_attention as DA
 from llm_qat_torch.ops import flash_attention as FA
-k3_only, shapes, flash = (json.loads(a) for a in sys.argv[1:4])
+k3_only, shapes, flash, flash_fwd, falcon3 = (json.loads(a) for a in sys.argv[1:6])
 timer = S.Timer()
 gen = torch.Generator(device="cuda")
 gen.manual_seed(0)
@@ -120,11 +127,23 @@ for B, G, n, D in () if k3_only else flash:
                     ms=timer(lambda: FA._flash_bwd_dkv(*bwd))))
     del q, do, k, v, o, lse, bwd
     torch.cuda.empty_cache()
+for B, G, n, D in () if k3_only else flash_fwd:
+    try:
+        FA._check_built("flash_attention.cu", D, (torch.zeros(1, dtype=torch.bfloat16),) * 3)
+    except NotImplementedError:
+        out.append(dict(run=f"K4 B={B} G={G} S={n} D={D}", ms=None))
+        continue
+    r = S.flash_phase(timer, gen, FA, B, G, n, D)
+    out.append(dict(run=f"K4 B={B} G={G} S={n} D={D}", ms=r["ms"]))
 modes = (("W8A8KV8", dict(w_bits=8, a_bits=8, kv_bits=8)),
          ("W4A8KV4", dict(w_bits=4, a_bits=8, kv_bits=4, kv_cache_pack=True)))
-for name, base in () if k3_only else (("TinyLlama-1.1B", TINYLLAMA_1B), ("LLaMA-7B", LLAMA_7B)):
+for name, base in () if k3_only else (("TinyLlama-1.1B", TINYLLAMA_1B), ("LLaMA-7B", LLAMA_7B),
+                                      ("Falcon3-7B 4 layers", LLAMA_7B.replace(**falcon3))):
     for label, mode in modes:
         cfg = base.replace(**mode)
+        if not MK.card_takes(cfg, len(S.K9_LENS), 2048, torch.bfloat16):
+            out.append(dict(run=f"K9 {name} {label}", ms=None))
+            continue
         qp = Q.quantize_params(P.init_params(cfg, seed=0, dtype=torch.bfloat16), cfg)
         torch.cuda.empty_cache()
         b, n, hd = len(S.K9_LENS), 2048, cfg.head_dim
@@ -177,10 +196,11 @@ def main() -> int:
               flush=True)
     for t in trees + trees[::-1]:
         proc = subprocess.run([sys.executable, "-c", RUN, json.dumps(k3_only),
-                               json.dumps(SHAPES), json.dumps(FLASH)], cwd=t,
+                               json.dumps(SHAPES), json.dumps(FLASH), json.dumps(FLASH_FWD),
+                               json.dumps(FALCON3_7B)], cwd=t,
                               capture_output=True, text=True)
         for r in _result(proc, t, "RESULT"):
-            print(f"{name[t]:7s} {r['run']:28s} "
+            print(f"{name[t]:7s} {r['run']:34s} "
                   + ("refused" if r["ms"] is None else f"{r['ms']:.4f} ms"), flush=True)
     return 0
 

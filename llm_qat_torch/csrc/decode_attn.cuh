@@ -59,7 +59,8 @@
 // rescale factor.
 //
 // Shapes: any G = 1..GMAX (16) query heads a kv head at head dims hd = 16,
-// 32, 64 and 128, f32 or bf16 q, at most BMAX slots. The q.k and p.V loops
+// 32, 64 and 128, and G = 1..GMAX_D256 (4) at head dim 256 (Falcon3's; see
+// Smem for why no more), f32 or bf16 q, at most BMAX slots. The q.k and p.V loops
 // hold a register tile of GT = 1, 2, 4 or 8 heads (4 at most at hd <= 32,
 // where a tile of 8 spills: G > 4 then runs two passes, and G > 8 two
 // passes of 8 at hd >= 64, up to four of 4 at hd <= 32); G is rounded up to
@@ -87,8 +88,8 @@
 #pragma once
 
 // One source builds one head dim (DECODE_ATTN_HD: decode_attention.cu 64,
-// decode_attention_d16.cu, _d32.cu and _d128.cu the others), so the four
-// compile side by side; each exports the same entry points (end of file).
+// decode_attention_d16.cu, _d32.cu, _d128.cu and _d256.cu the others), so
+// they compile side by side; each exports the same entry points (end of file).
 // decode_attention_dpad.cu defines DECODE_ATTN_PAD beside HD = 128: its
 // kernels take every head dim hd % 4 == 0 with 32 < hd <= 128 (OpenLLaMA-3B's
 // 100, and 48, 80, 96) from the launch (Args::hd). HD is then the most the
@@ -99,8 +100,11 @@
 // values that is no multiple of 16 bytes (hd 100: 200 bytes) arrives in
 // 8-byte cp.async pieces; the p.V stage's column parts round up to whole
 // words (pv_parts).
+// decode_attention_d256.cu builds head dim 256 with the same layout and
+// code; what changes there is behind `if constexpr (HD >= NT)` (a thread a
+// head-dim row of the V chunk) and the range of G (kernel_hd).
 #ifndef DECODE_ATTN_HD
-#error "define DECODE_ATTN_HD (16, 32, 64 or 128) before including decode_attn.cuh"
+#error "define DECODE_ATTN_HD (16, 32, 64, 128 or 256) before including decode_attn.cuh"
 #endif
 
 #include <cooperative_groups.h>
@@ -120,6 +124,7 @@ constexpr int VSA = CHMAX + 16;      // V chunk row stride: 16-byte pieces, rows
 constexpr int BMAX = 256;            // slots
 constexpr int GMAX = 16;             // query heads a kv head
 constexpr int GMID = 8;              // ... of the builds whose warps take a head each
+constexpr int GMAX_D256 = 4;         // ... at head dim 256 (Smem)
 constexpr int FW = 256;              // chunk statistics the finish stage stages at a time
 constexpr int MINB = 2;              // blocks an SM: registers a thread at most 65536 / (2 NT)
                                      // (but see min_blocks)
@@ -322,7 +327,10 @@ extern __shared__ __align__(16) unsigned char attn_smem[];
 // 16: hd 16 65888 / 78176 / 94576 (3 / 2 / 2); hd 32 74848 / 87136 / 103536
 // (3 / 2 / 2); hd 64 117952 / 125680 / 135984 (1; G = 8: 111280, 2); hd 128
 // and the padded build 147136 / 156400 / 168752 (1, as from G = 3), all
-// under the 227 KB a block may take. The scores stage's per-G arrays (qb,
+// under the 227 KB a block may take. At head dim 256 (one RoPE buffer, as
+// at 128): 213584 / 221792 / 225904 at G = 2 / 3 / 4, one block an SM; G = 5
+// rounds to a tile of 8 and needs 238208, over the 232448 a block may take
+// (the RoPE columns alone are 131072), so that build takes G <= GMAX_D256. The scores stage's per-G arrays (qb,
 // red, wmax) set the size at hd >= 64, the softmax.V stage's (sbuf, spv,
 // redd) at hd <= 32; the register tile stays at most 8 heads (two passes of
 // 8 past 8, up to four of 4 at hd <= 32). The layout: the
@@ -672,10 +680,16 @@ __device__ void scores_stage(const Args& a, Smem<HD, GL, GH> s, int items) {
     {
       size_t kv, so;
       chunk_src(a, i, h, c, hdc, kv, so);
-      if (tid < hdc)
-        prefetch_l2(a.vq + kv + (size_t)tid * a.S);
-      else if (tid < hdc + (CH * 4 + 127) / 128)
-        prefetch_l2(a.vs + so + (tid - hdc) * 32);
+      if constexpr (HD >= NT) {     // as many V rows as threads: the scales after them
+        for (int r = tid; r < hdc + (CH * 4 + 127) / 128; r += NT)
+          prefetch_l2(r < hdc ? a.vq + kv + (size_t)r * a.S
+                              : static_cast<const void*>(a.vs + so + (r - hdc) * 32));
+      } else {
+        if (tid < hdc)
+          prefetch_l2(a.vq + kv + (size_t)tid * a.S);
+        else if (tid < hdc + (CH * 4 + 127) / 128)
+          prefetch_l2(a.vs + so + (tid - hdc) * 32);
+      }
     }
     const int bf = k & 1;
     cp_async_wait<1>();
@@ -1181,26 +1195,35 @@ const void* kernel_t(int dtype_code, int G, int* smem, int* smem_max) {
                          : reinterpret_cast<const void*>(&attn_kernel<float, HD, GL, GH>);
 }
 
-// the build of head dim HD that takes G (build_lo)
+// the build of head dim HD that takes G (build_lo); at head dim 256 only
+// those of G <= GMAX_D256 are built
 template <int HD>
 const void* kernel_hd(int dtype_code, int G, int* smem, int* smem_max) {
-  switch (build_lo(G)) {
-    case 1: return kernel_t<HD, 1, 1>(dtype_code, G, smem, smem_max);
-    case 2: return kernel_t<HD, 2, 2>(dtype_code, G, smem, smem_max);
-    case 3: return kernel_t<HD, 3, 4>(dtype_code, G, smem, smem_max);
-    case 5: return kernel_t<HD, 5, GMID - 1>(dtype_code, G, smem, smem_max);
-    case GMID: return kernel_t<HD, GMID, GMID>(dtype_code, G, smem, smem_max);
-    case GMID + 1: return kernel_t<HD, GMID + 1, GMAX - 1>(dtype_code, G, smem, smem_max);
-    default: return kernel_t<HD, GMAX, GMAX>(dtype_code, G, smem, smem_max);
+  if constexpr (HD >= 256) {
+    switch (build_lo(G)) {
+      case 1: return kernel_t<HD, 1, 1>(dtype_code, G, smem, smem_max);
+      case 2: return kernel_t<HD, 2, 2>(dtype_code, G, smem, smem_max);
+      default: return kernel_t<HD, 3, GMAX_D256>(dtype_code, G, smem, smem_max);
+    }
+  } else {
+    switch (build_lo(G)) {
+      case 1: return kernel_t<HD, 1, 1>(dtype_code, G, smem, smem_max);
+      case 2: return kernel_t<HD, 2, 2>(dtype_code, G, smem, smem_max);
+      case 3: return kernel_t<HD, 3, 4>(dtype_code, G, smem, smem_max);
+      case 5: return kernel_t<HD, 5, GMID - 1>(dtype_code, G, smem, smem_max);
+      case GMID: return kernel_t<HD, GMID, GMID>(dtype_code, G, smem, smem_max);
+      case GMID + 1: return kernel_t<HD, GMID + 1, GMAX - 1>(dtype_code, G, smem, smem_max);
+      default: return kernel_t<HD, GMAX, GMAX>(dtype_code, G, smem, smem_max);
+    }
   }
 }
 
 // nullptr for a shape this source does not take (ops/decode_attention.py
-// _check_kernel_shape states the rule: G = 1..16 at every head dim, each head
-// dim in its own source)
+// _check_kernel_shape states the rule: G = 1..16 at every head dim but 256,
+// 1..4 there, each head dim in its own source)
 inline const void* kernel_of(int dtype_code, int G, int hd, int* smem, int* smem_max) {
   const bool hd_ok = PAD ? hd % 4 == 0 && hd >= HD_MIN && hd <= DECODE_ATTN_HD : hd == DECODE_ATTN_HD;
-  if (G < 1 || G > GMAX || !hd_ok) return nullptr;
+  if (G < 1 || G > (DECODE_ATTN_HD >= 256 ? GMAX_D256 : GMAX) || !hd_ok) return nullptr;
   return kernel_hd<DECODE_ATTN_HD>(dtype_code, G, smem, smem_max);
 }
 

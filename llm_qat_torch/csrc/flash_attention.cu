@@ -19,8 +19,9 @@
 // against ~4 * S * D bytes per (B, G): at the prefill and train shapes the
 // bf16 tensor-core rate (989 TFLOP/s) bounds it, by 10-50x over the bytes.
 //
-// Head dims 16, 32, 64 and 128, in bf16 and in f32 (one entry per head
-// dim: flash_fwd is 64, flash_fwd_d16 / _d32 / _d128 the others), and every
+// Head dims 16, 32, 64, 128 and 256 (Falcon3's), in bf16 and in f32 (one
+// entry per head dim: flash_fwd is 64, flash_fwd_d16 / _d32 / _d128 / _d256
+// the others), and every
 // other hd with hd % 4 == 0 and 32 < hd <= 128 (OpenLLaMA-3B's 100, 48, 80,
 // 96) through flash_fwd_dpad: the D = 128 kernels built with PAD, hd an
 // argument. Global memory keeps rows of hd values (2 hd bytes, 8-byte
@@ -37,7 +38,16 @@
 // swizzled shared layout (tc_bf16.cuh swz: 16-byte chunk index XOR row % 8,
 // or at D = 16 and 32, where a row holds 2 or 4 chunks, several rows to a
 // 128-byte line XOR the line % 8, so that ldmatrix is free of bank
-// conflicts) and stays in registers as A fragments. 64-key
+// conflicts) and stays in registers as A fragments. At D = 256 O's
+// accumulator alone is 128 registers a thread, and with the scores beside it
+// a warp spilled at 255 registers whatever else was cut (32-key tiles, Q's
+// fragments read from shared memory each time): there 8 warps take the 64
+// rows, two a 16-row group (fwd_dsplit). Each takes q.k over half of the
+// depth from its half of Q's fragments, the two partial scores are summed
+// through shared memory in both warps alike (so both hold the same p, l and
+// maxima), and each takes the P.V of half of O's columns (two warps that
+// each took the whole q.k would do it twice). Its plain version sums the
+// two halves alike (ops/flash_attention.py _scores). 64-key
 // K and V tiles stream through a 2-stage cp.async ring, so the next tile's
 // copy overlaps this tile's products; rows past S are zero-filled by the
 // copy's src-size operand. Two passes over the live tiles of each TPU key
@@ -54,15 +64,17 @@
 //
 // f32: a SIMT kernel (flash_fwd_kernel below): products on the fp32 units
 // through fp32 shared-memory tiles (dynamic shared memory: 74 KB at
-// D = 128), each of 16 threads of a row owning D / 16 output columns.
+// D = 128, 137 KB at 256), each of 16 threads of a row owning D / 16 output
+// columns.
 // Tensor cores would need TF32 operands (about three decimal digits), which
 // the f32 contract (1e-5) does not allow.
 
-// Launch bounds: the f32 kernels, and the bf16 kernels at head dims 16 and
-// 32 (the *_narrow_kernel instantiations of one body), name one block an SM
-// as their minimum. With the thread count alone, ptxas held them to 64 or
-// 128 registers a thread and spilled to local memory; with the minimum
-// stated it gives them what they use, without a spill (kernel_attributes()).
+// Launch bounds: the f32 kernels, and the bf16 kernels at head dims 16, 32
+// and 256 (the *_narrow_kernel instantiations of one body; 256 threads at
+// 256, 128 elsewhere), name one block an SM as their minimum. With the
+// thread count alone, ptxas held them to 64 or 128 registers a thread and
+// spilled to local memory; with the minimum stated it gives them what they
+// use, without a spill (kernel_attributes()).
 // The bf16 kernels at 64 and 128 keep the thread count alone, and so the
 // code they had.
 // Named on them too, the minimum lets ptxas give the D = 64 forward and dQ
@@ -242,9 +254,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 using namespace tc_bf16;
 constexpr int TC_BQ = 64, TC_BK = 64, TC_THREADS = 128;   // 4 warps x 16 rows
 
+// the parts D is split in: at D = 256 two warps take a 16-row group, each
+// half of q.k's depth and half of O's columns (see the header)
+template <int D>
+__host__ __device__ constexpr int fwd_dsplit() {
+  return D >= 256 ? 2 : 1;
+}
+template <int D>
+__host__ __device__ constexpr int fwd_threads() {
+  return TC_THREADS * fwd_dsplit<D>();
+}
+
+// Q, then 2 stages of K and V, then (split D) each warp's partial scores
 template <int D>
 constexpr int fwd_tc_smem() {
-  return TC_BQ * D * 2 + 2 * 2 * TC_BK * D * 2;   // Q, then 2 stages of K and V
+  return TC_BQ * D * 2 + 2 * 2 * TC_BK * D * 2 +
+         (fwd_dsplit<D>() > 1 ? fwd_threads<D>() * TC_BK * 2 : 0);
+}
+
+// bar.sync on named barrier `id` (1 + a row group) for the 64 threads of a
+// warp pair
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
 }
 
 #define FWD_TC_PARAMS                                                                        \
@@ -260,7 +291,8 @@ template <int D, bool PAD>
 __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
   constexpr int KC = D / 16;          // 16-deep chunks of the q.k product
   constexpr int NT = TC_BK / 8;       // 8-key column tiles of the scores
-  constexpr int DT = D / 8;           // 8-wide column tiles of O
+  constexpr int DS = fwd_dsplit<D>(), NTH = fwd_threads<D>();
+  constexpr int DT = D / 8 / DS;      // 8-wide column tiles of O a warp holds
   constexpr int TILE = TC_BK * D * 2;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sq = smem_u32(smem);
@@ -273,7 +305,9 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
   const int BG = gridDim.x / nq;
   const int iq = nq - 1 - (int)blockIdx.x / BG, bg = (int)blockIdx.x % BG, b = bg / G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = iq * TC_BQ, wr = q0 + warp * 16;   // the warp's first row
+  // the warp's 16 rows (rw), and which of the DS parts of O's columns it takes
+  const int rw = DS > 1 ? warp & 3 : warp, dh = DS > 1 ? warp >> 2 : 0;
+  const int q0 = iq * TC_BQ, wr = q0 + rw * 16;     // the warp's first row
   const int lenc = min(max(lengths[b], 1), S);
   const int HD = PAD ? hd : D;          // values a row in global memory
   const size_t qoff = (size_t)bg * S * HD;
@@ -282,18 +316,20 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
   int last = lenc - 1;
   if (causal) last = min(last, min(q0 + TC_BQ, S) - 1);
   auto tile = [&](uint32_t dst, const bf16* src, int r0) {
-    if constexpr (PAD) load_tile_hd<D, TC_BK, TC_THREADS>(dst, src, r0, S, HD);
-    else load_tile<D, TC_BK, TC_THREADS>(dst, src, r0, S);
+    if constexpr (PAD) load_tile_hd<D, TC_BK, NTH>(dst, src, r0, S, HD);
+    else load_tile<D, TC_BK, NTH>(dst, src, r0, S);
   };
 
-  if constexpr (PAD) load_tile_hd<D, TC_BQ, TC_THREADS>(sq, q + qoff, q0, S, HD);
-  else load_tile<D, TC_BQ, TC_THREADS>(sq, q + qoff, q0, S);
+  if constexpr (PAD) load_tile_hd<D, TC_BQ, NTH>(sq, q + qoff, q0, S, HD);
+  else load_tile<D, TC_BQ, NTH>(sq, q + qoff, q0, S);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[KC][4];
+  // Q's A fragments of the warp's share of the depth (chunks dh QF ..)
+  constexpr int QF = KC / DS;
+  uint32_t qa[QF][4];
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) ldsm_x4(a_addr<D>(sq, warp * 16, kc, lane), qa[kc]);
+  for (int i = 0; i < QF; ++i) ldsm_x4(a_addr<D>(sq, rw * 16, dh * QF + i, lane), qa[i]);
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[DT][4];
@@ -334,15 +370,34 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-        for (int kc = 0; kc < KC; ++kc)
+        for (int i = 0; i < QF; ++i) {
+          const int kc = dh * QF + i;
 #pragma unroll
           for (int np = 0; np < NT / 2; ++np) {
             if (PAD && kc * 16 >= HD) continue;   // zero columns only
             uint32_t kf[4];
             ldsm_x4(b_addr<D>(skt, np * 16, kc, lane), kf);
-            mma(s[2 * np], qa[kc], kf[0], kf[1]);
-            mma(s[2 * np + 1], qa[kc], kf[2], kf[3]);
+            mma(s[2 * np], qa[i], kf[0], kf[1]);
+            mma(s[2 * np + 1], qa[i], kf[2], kf[3]);
           }
+        }
+        if constexpr (DS > 1) {
+          // the pair's two halves of the depth summed through shared memory:
+          // each warp adds its partner's to its own, so both hold the same
+          // sums (a + b == b + a); the buffer is free again after the
+          // tile's closing __syncthreads
+          float* xs = reinterpret_cast<float*>(smem + TC_BQ * D * 2 + 4 * TILE);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) xs[(warp * NT * 4 + j * 4 + e) * 32 + lane] = s[j][e];
+          pair_sync(1 + rw);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[j][e] = __fadd_rn(s[j][e], xs[((warp ^ 4) * NT * 4 + j * 4 + e) * 32 + lane]);
+        }
         // element masks only on the length-edge tile, the diagonal tile and
         // a tile that straddles a key block's edge
         const bool edge = k0 + TC_BK > lenc || (causal && k0 + TC_BK - 1 > q0) ||
@@ -388,7 +443,7 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
             for (int np = 0; np < DT / 2; ++np) {
               if (PAD && np * 16 >= HD) continue;   // output columns past hd
               uint32_t vf[4];
-              ldsm_x4_t(t_addr<D>(svt, c, np, lane), vf);
+              ldsm_x4_t(t_addr<D>(svt, c, np + dh * DT / 2, lane), vf);
               mma(acc[2 * np], pa, vf[0], vf[1]);
               mma(acc[2 * np + 1], pa, vf[2], vf[3]);
             }
@@ -433,9 +488,9 @@ __device__ __forceinline__ void flash_fwd_tc_body(FWD_TC_PARAMS) {
 #pragma unroll
     for (int j = 0; j < DT; ++j)
       if (!PAD || j * 8 + 2 * t < HD)
-        *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
+        *reinterpret_cast<uint32_t*>(orow + (j + dh * DT) * 8 + 2 * t) =
             pack(acc[j][2 * h] / l[h], acc[j][2 * h + 1] / l[h]);
-    if (t == 0) lse[(size_t)bg * S + row] = __fadd_rn(__fmul_rn(m[h], LN2), logf(l[h]));
+    if (t == 0 && dh == 0) lse[(size_t)bg * S + row] = __fadd_rn(__fmul_rn(m[h], LN2), logf(l[h]));
   }
 }
 
@@ -444,16 +499,16 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc_kernel(FWD_TC_PARAMS)
   flash_fwd_tc_body<D, PAD>(FWD_TC_ARGS);
 }
 template <int D, bool PAD>
-__global__ void __launch_bounds__(TC_THREADS, 1)
+__global__ void __launch_bounds__(fwd_threads<D>(), 1)
 flash_fwd_tc_narrow_kernel(FWD_TC_PARAMS) {
   flash_fwd_tc_body<D, PAD>(FWD_TC_ARGS);
 }
-// head dims 16 and 32 take the kernel with one block an SM named as its
+// head dims 16, 32 and 256 take the kernel with one block an SM named as its
 // minimum (see the header); 64 and 128 keep the thread count alone, and so
 // does the padded build
 template <int D, bool PAD>
 auto flash_fwd_tc() {
-  if constexpr (D < 64) return &flash_fwd_tc_narrow_kernel<D, PAD>;
+  if constexpr (D < 64 || D > 128) return &flash_fwd_tc_narrow_kernel<D, PAD>;
   else return &flash_fwd_tc_kernel<D, PAD>;
 }
 
@@ -466,7 +521,7 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, const void* lengt
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return e;
   const int nq = (S + TC_BQ - 1) / TC_BQ;
-  flash_fwd_tc<D, PAD>()<<<nq * G * B, TC_THREADS, smem, st>>>(
+  flash_fwd_tc<D, PAD>()<<<nq * G * B, fwd_threads<D>(), smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lengths, (bf16*)o,
       (float*)lse, G, S, bk, scale_log2, causal, soft_bf16, hd);
   return (int)cudaGetLastError();
@@ -506,7 +561,7 @@ int fwd_entry(const void* q, const void* k, const void* v, const void* lengths, 
 template <int D, bool PAD = false>
 int fwd_attributes(int* out, int dtype_code) {
   if (dtype_code == 1)
-    return tc_bf16::attributes(flash_fwd_tc<D, PAD>(), TC_THREADS, fwd_tc_smem<D>(), out);
+    return tc_bf16::attributes(flash_fwd_tc<D, PAD>(), fwd_threads<D>(), fwd_tc_smem<D>(), out);
   return tc_bf16::attributes(flash_fwd_kernel<float, D, PAD>, THREADS, fwd_simt_smem<D>(), out);
 }
 
@@ -524,6 +579,7 @@ FLASH_FWD_ENTRY(flash_fwd, 64)
 FLASH_FWD_ENTRY(flash_fwd_d16, 16)
 FLASH_FWD_ENTRY(flash_fwd_d32, 32)
 FLASH_FWD_ENTRY(flash_fwd_d128, 128)
+FLASH_FWD_ENTRY(flash_fwd_d256, 256)
 
 // Any other head dim hd % 4 == 0, 32 < hd <= 128: the arguments of the
 // entries above with hd after dtype_code.
@@ -536,7 +592,7 @@ extern "C" int flash_fwd_dpad(const void* q, const void* k, const void* v, const
 }
 
 // A kernel's registers, shared memory, spills and occupancy at a head dim
-// (16, 32, 64, 128; another: the padded build) and dtype_code
+// (16, 32, 64, 128, 256; another: the padded build) and dtype_code
 // (tc_bf16::attributes; launches nothing).
 extern "C" int flash_fwd_attributes(int* out, int head_dim, int dtype_code) {
   switch (head_dim) {
@@ -544,6 +600,7 @@ extern "C" int flash_fwd_attributes(int* out, int head_dim, int dtype_code) {
     case 32: return fwd_attributes<32>(out, dtype_code);
     case 64: return fwd_attributes<64>(out, dtype_code);
     case 128: return fwd_attributes<128>(out, dtype_code);
+    case 256: return fwd_attributes<256>(out, dtype_code);
   }
   if (head_dim % 4 == 0 && head_dim > 32 && head_dim < 128)
     return fwd_attributes<128, true>(out, dtype_code);

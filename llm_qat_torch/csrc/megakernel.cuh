@@ -87,10 +87,12 @@
 // 9 to 16 heads, hd 64 204800 (AttnSmem 150916), hd 128 and padded 204800
 // (AttnSmem 192388 with one RoPE buffer; 257924 with two, over the 232448 a
 // block may take). So the 12- and 16-head shapes leave room for GemmSmem at
-// every head dim, one block an SM.
+// every head dim, one block an SM. Head dim 256, 1 to 8 heads: 204800
+// (AttnSmem about 170 KB with 64-column items and one RoPE buffer).
 //
 // One source builds one head dim (MEGAKERNEL_HD: megakernel.cu 64,
-// megakernel_d128.cu 128), so the two compile side by side.
+// megakernel_d128.cu 128, megakernel_d256.cu 256), so they compile side by
+// side.
 // megakernel_dpad.cu defines MEGAKERNEL_PAD beside HD = 128: its kernels
 // take every head dim p.hd % 4 == 0 with 32 < p.hd <= 128 (OpenLLaMA-3B's
 // 100) at run time. HD is then the most the attention stages' shared memory
@@ -100,6 +102,17 @@
 // straddle the products' 128-column tiles, which nothing assumes otherwise.
 // A RoPE row of hd/2 floats that is no multiple of 16 bytes (hd 100: 200)
 // arrives in 8-byte pieces.
+//
+// megakernel_d256.cu builds head dim 256 (Falcon3's), 1 to 8 query heads a
+// kv head: there an attention item is CHMAX = 64 cache columns (the host
+// passes CH = gcd(64, BK)) and the scores stage keeps one buffer of RoPE
+// columns, so AttnSmem<256> takes 170 KB, under GemmSmem's 200 KB (with
+// 128-column items the RoPE columns alone were 256 KB with two buffers, 128
+// KB with one, and the stage about 271 KB). Every float64 sum is as before
+// (its terms do not depend on the chunk width) and a chunk still never
+// straddles a BK block, so the plain version is unchanged. Only these
+// constants (CHMAX, and from it NQ, VS and ChunkRegs) and AttnSmem::TB differ
+// from the builds of 64 and 128, which keep their code.
 //
 // The padded build also takes products whose K is no multiple of TK
 // (OpenLLaMA-3B's H = 3200 and I = 8640): the wrapper's tiled weight copy is
@@ -112,7 +125,7 @@
 #pragma once
 
 #ifndef MEGAKERNEL_HD
-#error "define MEGAKERNEL_HD (64 or 128) before including megakernel.cuh"
+#error "define MEGAKERNEL_HD (64, 128 or 256) before including megakernel.cuh"
 #endif
 
 #include <cooperative_groups.h>
@@ -184,7 +197,8 @@ constexpr int NW = NT / 32;
 constexpr int TN = 128;               // GEMM item: output columns
 constexpr int TK = 256;               // GEMM item: K values
 constexpr int NSTAGE = 3;             // weight tiles a block has in flight (4 measured no faster)
-constexpr int CHMAX = 128;            // attention item: cache columns (at most)
+// attention item: cache columns (at most); 64 at head dim 256 (see the header)
+constexpr int CHMAX = MEGAKERNEL_HD >= 256 ? 64 : 128;
 constexpr int NQ = NT / CHMAX;        // threads a column in the scores stage
 constexpr int VS = CHMAX + 4;         // V chunk row stride: an odd count of words
 constexpr float QEPS = 1e-6f;
@@ -680,7 +694,7 @@ __device__ __forceinline__ int g_tile(int G) {
 // behind the previous item (as decode_attn.cuh does at 128).
 template <int HD>
 struct AttnSmem {
-  static constexpr int TB = WIDE && HD >= 128 ? 1 : 2;
+  static constexpr int TB = (WIDE && HD >= 128) || HD >= 256 ? 1 : 2;
   double sq[GMAX * HD];                               // rotated query, float64 [G][hd]
                                                       // (scores stage: g_tile(G) rows,
                                                       // the padding rows zero)
@@ -1269,9 +1283,11 @@ __device__ void finish_head(const Params& p, AttnSmem<HD>* s, int l, int i, int 
 }
 
 // A cache chunk (hd(/2) rows x CH bytes) of (layer l, slot i, kv head hh)
-// in registers, 16 bytes a thread and pass.
+// in registers, 16 bytes a thread and pass: CHMAX / 32 passes (the most a
+// chunk of hd <= 128 rows needs), at head dim 256 hd CHMAX / 16 / NT
+constexpr int CHUNK_PASSES = MEGAKERNEL_HD >= 256 ? MEGAKERNEL_HD * CHMAX / 16 / NT : CHMAX / 32;
 struct ChunkRegs {
-  uint4 v[CHMAX / 32];
+  uint4 v[CHUNK_PASSES];
 };
 
 __device__ __forceinline__ void load_chunk(const Params& p, const uint8_t* cache, int hdc, int l,
@@ -1279,7 +1295,7 @@ __device__ __forceinline__ void load_chunk(const Params& p, const uint8_t* cache
   const uint8_t* base = cache + (((size_t)l * p.b + i) * p.kvh + hh) * hdc * p.S + (size_t)c * p.CH;
   const int per_row = p.CH / 16;
 #pragma unroll
-  for (int q = 0; q < CHMAX / 32; ++q) {
+  for (int q = 0; q < CHUNK_PASSES; ++q) {
     const int idx = threadIdx.x + q * NT;
     if (idx < hdc * per_row)
       R.v[q] = __ldg(reinterpret_cast<const uint4*>(base + (size_t)(idx / per_row) * p.S +
@@ -1293,7 +1309,7 @@ __device__ __forceinline__ void store_chunk(const Params& p, const ChunkRegs& R,
                                             uint8_t* buf) {
   const int per_row = p.CH / 16;
 #pragma unroll
-  for (int q = 0; q < CHMAX / 32; ++q) {
+  for (int q = 0; q < CHUNK_PASSES; ++q) {
     const int idx = threadIdx.x + q * NT;
     if (idx < hdc * per_row) {
       uint32_t* d = reinterpret_cast<uint32_t*>(buf + (idx / per_row) * VS + (idx % per_row) * 16);
@@ -1591,14 +1607,15 @@ __global__ void __launch_bounds__(NT) barrier_kernel(int n) {
 // stage before it. At head dim 128 the attention stages' (213 KB, sized for
 // 8 query heads a kv head) are the larger, within the 227 KB a block may
 // take; in the wide build (16 heads, one RoPE buffer: 188 KB at 128, 147 KB
-// at 64) GemmSmem's 200 KB is.
+// at 64) and at head dim 256 (170 KB) GemmSmem's 200 KB is.
 template <int HD>
 constexpr int smem_bytes() {
   return (int)(sizeof(AttnSmem<HD>) > sizeof(GemmSmem) ? sizeof(AttnSmem<HD>) : sizeof(GemmSmem));
 }
 
 // the kernel for dtype_code at this source's head dim (hd must be it; the
-// padded build: hd % 4 == 0, 32 < hd <= HD)
+// padded build: hd % 4 == 0, 32 < hd <= HD); at head dim 256 a narrow build
+// only (AttnSmem<256> is sized for 8 query heads a kv head)
 int kernel_of(int dtype_code, int hd, const void** kern, int* smem) {
   constexpr int HD = MEGAKERNEL_HD;
   if (PAD ? hd % 4 || hd <= 32 || hd > HD : hd != HD) return (int)cudaErrorInvalidValue;
@@ -1629,7 +1646,9 @@ int grid_blocks(const void* kern, size_t smem, int* grid) {
 extern "C" int megakernel_decode(const Params* hp, int dtype_code, void* stream) {
   Params p = *hp;
   const void* kern = nullptr;
-  if (p.G < GMIN || p.G > GMAX) return (int)cudaErrorInvalidValue;
+  if (p.G < GMIN || p.G > GMAX || p.CH > CHMAX || p.CH < 16 || p.CH % 16 || p.S % p.CH ||
+      p.S / p.CH > NCMAX)
+    return (int)cudaErrorInvalidValue;
   int err = kernel_of(dtype_code, p.hd, &kern, &p.smem);
   int grid = 0;
   if (!err) err = grid_blocks(kern, (size_t)p.smem, &grid);

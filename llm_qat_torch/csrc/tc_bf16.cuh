@@ -3,7 +3,7 @@
 // layout, ldmatrix fragment loads and mma.sync m16n8k16 (bf16 x bf16 ->
 // fp32).
 //
-// Tiles are [rows][D] bf16, D in {16, 32, 64, 128}, one row 2 * D bytes.
+// Tiles are [rows][D] bf16, D in {16, 32, 64, 128, 256}, one row 2 * D bytes.
 // load_tile_hd fills a tile of width D from rows of hd < D values (hd % 4
 // == 0: rows 2 hd bytes apart, 8-byte aligned), in 8-byte pieces, the
 // columns past hd zero (the forward's build for head dims off that set).
@@ -101,7 +101,7 @@ __device__ __forceinline__ void acc_to_a(const float (&lo)[4], const float (&hi)
 
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int ch) {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dims of the kernels");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256, "head dims of the kernels");
   if constexpr (D >= 64) {
     return (uint32_t)(r * D * 2 + ((ch ^ (r & 7)) << 4));
   } else {

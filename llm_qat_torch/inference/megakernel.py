@@ -5,10 +5,10 @@ the contract of ``model._forward`` at s = 1; ``model._forward`` sends the
 default configuration (``use_megakernel=True``) here when ``supported()``.
 
 ``decode_layers`` launches ``csrc/megakernel.cuh`` (built by ``megakernel.cu``
-at head dim 64, ``megakernel_d128.cu`` at 128 and ``megakernel_dpad.cu`` at
-every other head dim of its rule, for 1 to 8 query heads a kv head, and by
-``megakernel_g16.cu``, ``megakernel_d128_g16.cu`` and
-``megakernel_dpad_g16.cu`` for 9 to 16), which replaces
+at head dim 64, ``megakernel_d128.cu`` at 128, ``megakernel_d256.cu`` at 256
+and ``megakernel_dpad.cu`` at every other head dim of its rule, for 1 to 8
+query heads a kv head, and by ``megakernel_g16.cu``, ``megakernel_d128_g16.cu``
+and ``megakernel_dpad_g16.cu`` for 9 to 16), which replaces
 ``llm_qat_tpu/inference/megakernel.py:_kernel`` (the body of its
 ``pl.pallas_call``): one persistent cooperative launch computes every layer.
 Beside it ``decode_layers_plain`` (and ``decode_step_plain`` around it)
@@ -51,8 +51,9 @@ and 128 (a build each) and at every head dim ``hd % 4 == 0`` with
 LLaMA-7B/13B family) and of 100 (OpenLLaMA-3B), TinyLlama-1.1B's (8, 64),
 Llama-3's and Mistral's (4, 128), Llama-2-70B's (8, 128), Llama-3.2's
 (4, 64) and (3, 128), Yi-34B's (7, 128), Mistral-Large-2's (12, 128) and
-Llama-3.1-405B's (16, 128). Also ``H``
-and ``I`` multiples of 256 at head dims 64 and 128, of 16 in the padded
+Llama-3.1-405B's (16, 128); and 1 to 8 at head dim 256 (Falcon3's (3, 256)
+and (2, 256); attention items of 64 cache columns there). Also ``H``
+and ``I`` multiples of 256 at head dims 64, 128 and 256, of 16 in the padded
 build (the products' K: a last chunk of the 256-wide K item is
 zero-padded; OpenLLaMA-3B's 3200 and 8640), projection widths multiples of
 128, ``BK`` and ``S`` multiples of 16, bf16 or f32 (``card_takes``); its
@@ -393,23 +394,27 @@ class _Params(ctypes.Structure):
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the head dims the kernel has builds of its own for, the padded build's rule
-# beside them, the most query heads per kv head a launch takes, and the most
-# the narrow builds take (the wide ones take the rest)
+# the head dims the kernel has builds of its own for at every G up to the
+# most query heads per kv head a launch takes, the padded build's rule beside
+# them, the most the narrow builds take (the wide ones take the rest), and
+# head dim 256, which has a narrow build only
 HEAD_DIMS = (64, 128)
 MAX_GROUPS = 16
 _NARROW_GROUPS = 8
+HD256 = 256
 _TILE = 128            # the products' column tile (and the sum-of-squares partials)
 _TK = 256              # the products' K tile
 _CHUNK = 128           # cache columns of an attention item (at most)
+_CHUNK_HD256 = 64      # ... at head dim 256 (megakernel.cuh CHMAX)
 _MAX_CHUNKS = 256      # attention chunks a slot may have
 
 
 # the source of each head dim's build (csrc/megakernel.cuh, one source a
 # head dim and range of G so that they compile side by side; "dpad" the
 # padded build's), for 1..8 and for 9..16 query heads a kv head
-_STEMS = {64: "megakernel", 128: "megakernel_d128", "dpad": "megakernel_dpad"}
-_WIDE_STEMS = {k: v + "_g16" for k, v in _STEMS.items()}
+_STEMS = {64: "megakernel", 128: "megakernel_d128", HD256: "megakernel_d256",
+          "dpad": "megakernel_dpad"}
+_WIDE_STEMS = {k: v + "_g16" for k, v in _STEMS.items() if k != HD256}
 
 
 def padded(hd: int) -> bool:
@@ -423,6 +428,12 @@ def _stem(hd: int, groups: int = 1) -> str:
     heads a kv head."""
     stems = _WIDE_STEMS if groups > _NARROW_GROUPS else _STEMS
     return stems["dpad" if padded(hd) else hd]
+
+
+def _chunk(hd: int) -> int:
+    """Cache columns of an attention item at head dim ``hd`` (at most: the
+    item is ``gcd(_chunk(hd), BK)`` columns)."""
+    return _CHUNK_HD256 if hd == HD256 else _CHUNK
 
 
 def _k_pad(k: int) -> int:
@@ -442,22 +453,25 @@ def _card_shape_error(c: LlamaConfig, b: int, S: int, bk: int, dtype):
     groups = c.num_attention_heads // c.kv_heads
     kv_dim = c.kv_heads * c.head_dim
     widths = (c.hidden_size + 2 * kv_dim, c.hidden_size, 2 * c.intermediate_size)
-    if (not 1 <= groups <= MAX_GROUPS
-            or not (c.head_dim in HEAD_DIMS or padded(c.head_dim))
-            or groups * c.kv_heads != c.num_attention_heads):
+    heads_ok = (1 <= groups <= MAX_GROUPS and (c.head_dim in HEAD_DIMS or padded(c.head_dim))
+                or 1 <= groups <= _NARROW_GROUPS and c.head_dim == HD256)
+    if not heads_ok or groups * c.kv_heads != c.num_attention_heads:
         return (f"{c.num_attention_heads} query heads over {c.kv_heads} kv heads at head dim "
                 f"{c.head_dim} (built for 1 <= G <= {MAX_GROUPS} query heads per kv head at "
-                f"head dims {' and '.join(map(str, HEAD_DIMS))} and every {_build.PADDED_RULE})")
+                f"head dims {' and '.join(map(str, HEAD_DIMS))} and every {_build.PADDED_RULE}, "
+                f"and 1 <= G <= {_NARROW_GROUPS} at head dim {HD256})")
     k_grid = 16 if padded(c.head_dim) else _TK       # the products' K
     if (c.hidden_size % k_grid or c.intermediate_size % k_grid
             or any(n % _TILE for n in widths)
             or c.num_attention_heads * c.head_dim != c.hidden_size):
         return (f"H={c.hidden_size}, I={c.intermediate_size} (multiples of {_TK} at head dims "
-                f"{' and '.join(map(str, HEAD_DIMS))}, of 16 at the padded build's, H = heads x "
-                f"head dim), projection widths {widths} (multiples of {_TILE})")
-    if bk % 16 or S % 16 or S // math.gcd(_CHUNK, bk) > _MAX_CHUNKS:
+                f"{' and '.join(map(str, HEAD_DIMS))}, of 16 at the padded build's (of {_TK} at "
+                f"head dim {HD256}), H = heads x head dim), projection widths {widths} (multiples of "
+                f"{_TILE})")
+    chunk = _chunk(c.head_dim)
+    if bk % 16 or S % 16 or S // math.gcd(chunk, bk) > _MAX_CHUNKS:
         return (f"KV block {bk} and cache length {S} (multiples of 16, at most "
-                f"{_MAX_CHUNKS} attention chunks of gcd({_CHUNK}, BK) columns)")
+                f"{_MAX_CHUNKS} attention chunks of gcd({chunk}, BK) columns)")
     if dtype not in _DTYPE_CODES:
         return f"{dtype} (bf16 or f32)"
     if not supported(c, b, S):
@@ -566,7 +580,7 @@ def decode_layers(x, qcos, qsin, kcos, ksin, lay, cache, lens, active,
     packed, w4 = M.cache_is_packed(c), c.w_bits == 4
     wdt = torch.uint8 if w4 else torch.int8
     f32, i32, f64 = torch.float32, torch.int32, torch.float64
-    ch = math.gcd(_CHUNK, bk)
+    ch = math.gcd(_chunk(hd), bk)
     nc = S // ch
 
     def want(name, t, dt, shape):
@@ -655,13 +669,13 @@ def kernel_attributes() -> dict:
     """What the compiler gave each variant of the kernel (one a head dim,
     range of G and type; G is an argument), by name (``{dtype}_d{hd}``, the
     padded build ``{dtype}_dpad``, queried at head dim 100; ``_g9-16`` after
-    it for the wide builds): registers a thread, shared bytes (static,
-    dynamic), local (spill) bytes a thread, threads a block and blocks an SM
-    can hold. Launches nothing."""
+    it for the wide builds; head dim 256 has a narrow build only): registers
+    a thread, shared bytes (static, dynamic), local (spill) bytes a thread,
+    threads a block and blocks an SM can hold. Launches nothing."""
     return {f"{dn}_d{'pad' if padded(d) else d}{'_g9-16' if g > 1 else ''}": _build.attributes(
                 _stem(d, g), "megakernel_attributes", code, d)
             for g in (1, MAX_GROUPS) for dn, code in (("f32", 0), ("bf16", 1))
-            for d in HEAD_DIMS + (100,)}
+            for d in HEAD_DIMS + (100,) + ((HD256,) if g == 1 else ())}
 
 
 def grid_size(device=None) -> int:

@@ -19,9 +19,9 @@ Per step: the prefill of fresh slots runs the flash kernel over this call's
 own fake-quant K/V. A decode step (s = 1) of the default configuration
 (``use_megakernel=True``) goes to ``megakernel.decode_step``, one kernel
 launch for all layers, where ``megakernel.supported`` (on the card, also
-where ``megakernel.card_takes``: the kernel takes 1 to 8 query heads per kv
-head at head dims 64 and 128, and widths on its tile grid; another shape
-decodes on the scan path there); otherwise, and with
+where ``megakernel.card_takes``: the kernel takes 1 to 16 query heads per
+kv head at head dims 64 and 128 and the padded build's, 1 to 8 at 256, and
+widths on its tile grid; another shape decodes on the scan path there); otherwise, and with
 ``use_megakernel=False``, the scan path here runs the fused decode kernel
 per layer over the read-only cache with the current token folded in, then
 commits one K/V column per layer and slot. The scan path's layer stack is a

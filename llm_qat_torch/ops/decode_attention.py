@@ -8,13 +8,15 @@ version only for tensors on the CPU, and on a CUDA tensor it launches its
 kernel or raises. Each wrapper counts its launches in ``launches``. On the
 card all three take 1 to 16 query heads per kv head (G, at run time) at head
 dims 16, 32, 64 and 128 and at every head dim ``hd % 4 == 0`` with
-``32 < hd <= 128`` (``_SHAPES`` and ``padded``: OpenLLaMA-3B's 100), f32 or
-bf16 q, and at most 256 slots; another shape raises ``NotImplementedError``
-naming that rule. Each of the four head dims has a source of its own
-(``_STEMS``: ``csrc/decode_attention.cu`` at 64, ``decode_attention_d16.cu``,
-``_d32.cu``, ``_d128.cu``) and the others share ``decode_attention_dpad.cu``
+``32 < hd <= 128`` (``_SHAPES`` and ``padded``: OpenLLaMA-3B's 100), and 1
+to 4 at head dim 256 (Falcon3's; ``_HD256_MAX_GROUPS``), f32 or bf16 q, and
+at most 256 slots; another shape raises ``NotImplementedError`` naming that
+rule. Each of the five head dims has a source of its own (``_STEMS``:
+``csrc/decode_attention.cu`` at 64, ``decode_attention_d16.cu``, ``_d32.cu``,
+``_d128.cu``, ``_d256.cu``) and the others share ``decode_attention_dpad.cu``
 (hd from the launch, shared buffers sized for 128), each with one build for
-each range of G (``_build_range``: 1, 2, 3..4, 5..7, 8, 9..15, 16).
+each range of G (``_build_range``: 1, 2, 3..4, 5..7, 8, 9..15, 16; at 256
+1, 2, 3..4).
 
 * ``quantized_decode_attention`` (``csrc/decode_attention.cu``, plain
   ``_decode_attention_plain``) replaces
@@ -304,17 +306,23 @@ def _paged_attention_plain(q, k_q, k_s, v_q, v_s, lengths, block_tables,
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/decode_attn.cuh: the head dims it is built for (a build for each
-# range of G there, _build_range), the most query heads per kv
-# head a launch takes, every (G, head dim) pair that gives, its widest
-# chunk, its most slots, and the page size of the paged entry
+# csrc/decode_attn.cuh: the head dims it is built for at every G up to the
+# most query heads per kv head a launch takes (a build for each range of G
+# there, _build_range), head dim 256 and the most G it takes (its shared
+# memory at G = 5, a register tile of 8 heads, is 238208 bytes, over the
+# 232448 a block may take: decode_attn.cuh Smem), every (G, head dim) pair
+# that gives, its widest chunk, its most slots, and the page size of the
+# paged entry
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUPS = 16
-_SHAPES = tuple((g, hd) for hd in _HEAD_DIMS for g in range(1, _MAX_GROUPS + 1))
+_HD256, _HD256_MAX_GROUPS = 256, 4
+_SHAPES = (tuple((g, hd) for hd in _HEAD_DIMS for g in range(1, _MAX_GROUPS + 1))
+           + tuple((g, _HD256) for g in range(1, _HD256_MAX_GROUPS + 1)))
 # the source that builds each head dim (csrc/decode_attn.cuh DECODE_ATTN_HD),
-# so the five compile side by side; "dpad" the padded build's
+# so the six compile side by side; "dpad" the padded build's
 _STEMS = {16: "decode_attention_d16", 32: "decode_attention_d32", 64: "decode_attention",
-          128: "decode_attention_d128", "dpad": "decode_attention_dpad"}
+          128: "decode_attention_d128", _HD256: "decode_attention_d256",
+          "dpad": "decode_attention_dpad"}
 
 
 def padded(hd: int) -> bool:
@@ -386,13 +394,15 @@ def _fold_operands(what, fold, b, kvh, hd, rope, dev):
 
 def _check_kernel_shape(what, q, groups, hd, b):
     """Raise unless the kernels take ``groups`` query heads per kv head at
-    head dim ``hd`` (1 <= G <= 16, hd in 16, 32, 64, 128 or ``_build.PADDED_RULE``),
-    with an f32/bf16 q and at most 256 slots."""
+    head dim ``hd`` (1 <= G <= 16, hd in 16, 32, 64, 128 or ``_build.PADDED_RULE``;
+    1 <= G <= 4 at hd 256), with an f32/bf16 q and at most 256 slots."""
     shape_ok = (groups, hd) in _SHAPES or (1 <= groups <= _MAX_GROUPS and padded(hd))
     if not shape_ok or q.dtype not in _DTYPE_CODES or b > _MAX_SLOTS:
         raise NotImplementedError(
             f"{what}: decode_attn.cuh takes 1 <= G <= {_MAX_GROUPS} query heads per kv head "
-            f"at head dims {_HEAD_DIMS} and every {_build.PADDED_RULE}, f32/bf16 q, at most "
+            f"at head dims {_HEAD_DIMS} and every {_build.PADDED_RULE}, and 1 <= G <= "
+            f"{_HD256_MAX_GROUPS} at head dim {_HD256} (G = 5 would need 238208 bytes of "
+            f"shared memory a block, over the 232448 a block may take), f32/bf16 q, at most "
             f"{_MAX_SLOTS} slots; got G={groups}, hd={hd}, {q.dtype}, b={b}")
 
 
@@ -447,13 +457,13 @@ def kernel_attributes() -> dict:
     The padded build is queried at OpenLLaMA-3B's head dim 100. Launches
     nothing."""
     out = {}
-    for hd in _HEAD_DIMS + (100,):
+    for hd in _HEAD_DIMS + (100, _HD256):
         for name, code in (("bf16", 1), ("f32", 0)):
             def attrs(g):
                 return _build.attributes(_stem(hd), "decode_attention_attributes",
                                          code, g, hd)
 
-            for g in range(1, _MAX_GROUPS + 1):
+            for g in range(1, (_HD256_MAX_GROUPS if hd == _HD256 else _MAX_GROUPS) + 1):
                 key = _build_name(g, hd, name)
                 if key not in out:
                     out[key] = attrs(g)

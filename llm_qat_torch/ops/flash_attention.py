@@ -22,7 +22,10 @@ and 128 (``HEAD_DIMS``), each in f32 and bf16, and every other head dim
 with ``hd % 4 == 0`` and ``32 < hd <= 128`` (``padded``: OpenLLaMA-3B's 100,
 and 48, 80, 96) through one build of each kernel's D = 128 code with hd an
 argument (``flash_fwd_dpad``, ``flash_bwd_dq_dpad``, ``flash_bwd_dkv_dpad``).
-Another head dim raises ``NotImplementedError`` naming the rule. In bf16
+The forward also takes head dim 256 (Falcon3's serving prefill:
+``flash_fwd_d256``, ``FWD_HEAD_DIMS``); the backward pair is not built
+there. Another head dim raises ``NotImplementedError`` naming the rule of
+the source it asked for. In bf16
 all three kernels run their products on the tensor cores, and their plain
 versions take q.k and dO.v the same way (``_scores``); in f32 they run on
 the fp32 units with fp32 products.
@@ -72,13 +75,20 @@ def _scores(a, b, tensor_cores: bool = True):
     (``flash_numerics.py`` measures it). At a head dim of the padded build
     the operands are zero-padded to its 128-wide tiles first: the library's
     product over a depth of 100 sums in another order than the kernel's
-    16-deep chunks (it moved a p a step past K4's limit at hd 100). Otherwise
-    fp32 products of the widened operands (the CPU and f32 operands)."""
+    16-deep chunks (it moved a p a step past K4's limit at hd 100). At
+    D = 256 the two 128-deep halves are taken apart and summed, as K4's two
+    warps of a row group take them. Otherwise fp32 products of the widened
+    operands (the CPU and f32 operands)."""
     if tensor_cores and a.is_cuda and a.dtype == torch.bfloat16:
         B, G, S, D = a.shape
         if padded(D):
             a, b = (torch.nn.functional.pad(t, (0, 128 - D)) for t in (a, b))
             D = 128
+        if D == 256:
+            lo, hi = (torch.bmm(a[..., h:h + 128].reshape(B, G * S, 128),
+                                b[..., h:h + 128].transpose(1, 2), out_dtype=torch.float32)
+                      for h in (0, 128))
+            return (lo + hi).reshape(B, G, S, -1)
         return torch.bmm(a.reshape(B, G * S, D), b.transpose(1, 2),
                          out_dtype=torch.float32).reshape(B, G, S, -1)
     return torch.einsum("bgqd,bkd->bgqk", a.float(), b.float())
@@ -139,8 +149,10 @@ def _flash_fwd_plain(q, k, v, lengths, causal: bool = True, soft_bf16: bool = Fa
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims the card's kernels (K4, K10, K11) are built for, each in f32
 # and bf16: the tiny test and pipeline models' 16, the accuracy experiment's
-# 32, TinyLlama-1.1B's 64 and the LLaMA-7B family's 128
+# 32, TinyLlama-1.1B's 64 and the LLaMA-7B family's 128; and the forward's
+# (K4) beside them, Falcon3's 256
 HEAD_DIMS = (16, 32, 64, 128)
+FWD_HEAD_DIMS = HEAD_DIMS + (256,)
 
 
 def padded(D: int) -> bool:
@@ -152,16 +164,22 @@ def padded(D: int) -> bool:
 
 def _check_built(source: str, D: int, tensors) -> None:
     """Raise ``NotImplementedError``, naming the built set, unless every
-    tensor has q's f32 / bf16 type and ``D`` is a head dim ``source``
-    (``flash_attention.cu`` or ``flash_attention_bwd.cu``) takes:
-    ``HEAD_DIMS`` and the padded build's."""
+    tensor has q's f32 / bf16 type and ``D`` is a head dim ``source`` takes:
+    ``HEAD_DIMS`` and the padded build's for the backward pair
+    (``flash_attention_bwd.cu``), and 256 beside them for the forward
+    (``flash_attention.cu``)."""
+    fwd = source == "flash_attention.cu"
     dts = [t.dtype for t in tensors]
     if (dts[0] in _DTYPE_CODES and all(d == dts[0] for d in dts)
-            and (D in HEAD_DIMS or padded(D))):
+            and (D in (FWD_HEAD_DIMS if fwd else HEAD_DIMS) or padded(D))):
         return
+    also = (", and for 256," if fwd else "")
+    note = ("" if fwd or D not in FWD_HEAD_DIMS else
+            f" (head dim {D} has the forward's build only, flash_attention.cu)")
     raise NotImplementedError(
-        f"{source} is built for head dims {HEAD_DIMS} and every {_build.PADDED_RULE} in f32 "
-        f"or bf16 (one type for every operand); got D={D}, {'/'.join(str(d) for d in dts)}")
+        f"{source} is built for head dims {HEAD_DIMS} and every {_build.PADDED_RULE}{also} in "
+        f"f32 or bf16 (one type for every operand); got D={D}, "
+        f"{'/'.join(str(d) for d in dts)}{note}")
 
 
 def _entry(stem: str, D: int) -> str:
@@ -177,7 +195,7 @@ def _flash_fwd(q, k, v, lengths, causal: bool = True, soft_bf16: bool = False,
     ([B, G, S, D], lse [B, G, 1, S]). p is rounded in the TPU kernel's key
     blocks (``_fit_block(bk, S)``: every caller of the JAX kernel passes
     1024); the CUDA kernel's own tiles are fixed and mask the ragged edge. On the card: head dims
-    ``HEAD_DIMS`` and the padded build's (``padded``) in f32 or bf16."""
+    ``FWD_HEAD_DIMS`` and the padded build's (``padded``) in f32 or bf16."""
     B, G, S, D = q.shape
     if k.shape != (B, S, D) or v.shape != (B, S, D):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}")
@@ -343,7 +361,8 @@ def _flash_bwd(q, k, v, lengths, o, lse, do, causal: bool = True):
 
 def kernel_attributes() -> dict:
     """What the compiler gave every kernel of K4, K10 and K11 at every head
-    dim (the padded builds as ``flash_fwd_dpad``, ``flash_bwd_dq_dpad`` and
+    dim it is built for (K4 at 256 too: ``flash_fwd_d256``; the padded
+    builds as ``flash_fwd_dpad``, ``flash_bwd_dq_dpad`` and
     ``flash_bwd_dkv_dpad``), by entry name, ``_f32``
     appended for the f32 (SIMT) kernels (the bf16 tensor-core kernels keep
     the bare name): registers a thread, shared
@@ -351,10 +370,10 @@ def kernel_attributes() -> dict:
     and blocks an SM can hold. Launches nothing."""
     return {_entry(stem, D) + ("" if code else "_f32"): _build.attributes(
                 src, f"{stem}_attributes", D, code)
-            for stem, src in (("flash_fwd", "flash_attention"),
-                              ("flash_bwd_dq", "flash_attention_bwd"),
-                              ("flash_bwd_dkv", "flash_attention_bwd"))
-            for D in HEAD_DIMS + (100,) for code in (1, 0)}
+            for stem, src, dims in (("flash_fwd", "flash_attention", FWD_HEAD_DIMS),
+                                    ("flash_bwd_dq", "flash_attention_bwd", HEAD_DIMS),
+                                    ("flash_bwd_dkv", "flash_attention_bwd", HEAD_DIMS))
+            for D in dims + (100,) for code in (1, 0)}
 
 
 class AttnSaved:

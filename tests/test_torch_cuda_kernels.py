@@ -283,11 +283,12 @@ def _quant_fold(gen, b, kvh, hd, packed, active, kc, ksn, pos):
 # for every other G of 1..8 and for 9, 12 and 16 (the builds of 9..15 and
 # 16: Mistral-Large-2's 12, Llama-3.1-405B's 16) at head dims 64 and 128, and
 # G = 12 and 16 at head dims 16 and 32 (two and four passes of their 4-head
-# register tile)
+# register tile), and G = 1..4 at head dim 256 over Falcon3's 4 kv heads
 DECODE_KVH = {(8, 64): 4, (1, 128): 32, (2, 16): 2, (2, 32): 4,
               **{(g, hd): 8 for hd in (64, 128) for g in (*range(1, 9), 9, 12, 16)
                  if (g, hd) not in ((8, 64), (1, 128))},
-              (12, 16): 2, (16, 16): 2, (12, 32): 4, (16, 32): 4}
+              (12, 16): 2, (16, 16): 2, (12, 32): 4, (16, 32): 4,
+              **{(g, 256): 4 for g in range(1, 5)}}
 
 
 @pytest.mark.parametrize("G,hd", list(DECODE_KVH))
@@ -366,17 +367,19 @@ def test_decode_attention_kernel_attributes(gen):
     range of G and q type): no spill, one block an SM at least at every G
     (the cooperative launch needs them resident), two or more where the
     carve of G heads leaves room (every G at head dims 16 and 32, G <= 8 at
-    64, G <= 2 at 128 and in the padded build, whose buffers are 128's); the
-    builds of a head dim take G = 1..16 between them, each G in the build
-    ``_build_name`` names."""
+    64, G <= 2 at 128 and in the padded build, whose buffers are 128's; none
+    at 256); the builds of a head dim take G = 1..16 between them (1..4 at
+    256), each G in the build ``_build_name`` names."""
     attrs = DA.kernel_attributes()
-    names = {DA._build_name(g, hd, dt) for g in range(1, 17) for hd in DA._HEAD_DIMS + (100,)
+    gmax = {hd: DA._HD256_MAX_GROUPS if hd == DA._HD256 else 16
+            for hd in DA._HEAD_DIMS + (100, DA._HD256)}
+    names = {DA._build_name(g, hd, dt) for hd in gmax for g in range(1, gmax[hd] + 1)
              for dt in ("bf16", "f32")}
     assert set(attrs) == names
-    room = {16: 16, 32: 16, 64: 8, 128: 2, 100: 2}     # the most G with two blocks an SM
-    for hd in DA._HEAD_DIMS + (100,):
+    room = {16: 16, 32: 16, 64: 8, 128: 2, 100: 2, 256: 0}   # the most G with two blocks an SM
+    for hd in gmax:
         for dt in ("bf16", "f32"):
-            for g in range(1, 17):
+            for g in range(1, gmax[hd] + 1):
                 by_g = attrs[DA._build_name(g, hd, dt)]["blocks_per_sm_by_g"]
                 assert by_g[g] >= (2 if g <= room[hd] else 1), (hd, dt, g, by_g)
     for name, a in attrs.items():
@@ -500,7 +503,8 @@ def test_stacked_gemm_kernels_bit_exact(gen, layer, out_dtype):
 @pytest.mark.parametrize("kvh,G,hd", [(4, 8, 64), (32, 1, 128), (2, 2, 16), (4, 2, 32),
                                       (8, 4, 128), (8, 8, 128), (12, 1, 64), (8, 3, 128),
                                       (8, 4, 64), (8, 7, 128), (8, 12, 128), (8, 16, 128),
-                                      (1, 16, 128), (8, 9, 64), (2, 12, 32)])
+                                      (1, 16, 128), (8, 9, 64), (2, 12, 32), (4, 3, 256),
+                                      (4, 4, 256)])
 def test_stacked_decode_attention_kernel(gen, layer, rope, dtype, kvh, G, hd):
     L, b, S = 3, 8, 512
     kq = torch.randint(-127, 128, (L, b, kvh, hd, S), device="cuda", generator=gen).to(torch.int8)
@@ -724,10 +728,11 @@ def test_decode_megakernel_mha_head_dim_128_against_plain(gen, mode, rope_mode, 
 
 def test_decode_megakernel_kernel_attributes(gen):
     """Every variant of the kernel (bf16 and f32 at head dims 64 and 128 and
-    in the padded build, G at run time) keeps its registers (no spill) and
-    fits one block an SM: the cooperative grid is one block per SM."""
+    in the padded build, for 1..8 and 9..16 query heads a kv head, and at
+    256 for 1..8; G at run time) keeps its registers (no spill) and fits one
+    block an SM: the cooperative grid is one block per SM."""
     attrs = MK.kernel_attributes()
-    assert len(attrs) == 12
+    assert len(attrs) == 14 and {"bf16_d256", "f32_d256"} <= set(attrs)
     for name, a in attrs.items():
         assert a["spill_bytes"] == 0, (name, a)
         assert a["blocks_per_sm"] >= 1 and a["threads"] == 256, (name, a)
@@ -763,6 +768,28 @@ def test_decode_megakernel_every_gqa_shape_against_plain(gen, G, hd, mode, rope_
     active = [True, True, False, True, True, True, True, True]
     lg = _megakernel_against_plain(cfg, lens, active, torch.bfloat16, gen, 2048)
     assert lg.shape == (8, 1, cfg.vocab_size)
+
+
+@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("mode", list(K9_MODES))
+@pytest.mark.parametrize("rope_mode", ["pre", "post"])
+@pytest.mark.parametrize("b", [1, 8])
+def test_decode_megakernel_head_dim_256_against_plain(gen, G, mode, rope_mode, b):
+    """The hd-256 build (Falcon3's (3, 256) and (2, 256); attention items of
+    64 cache columns) at every G of 1..8 over 4 kv heads, a 2-layer cut with
+    an intermediate size of 2048, max_len 2048 at the JAX picker's block;
+    bit-equal to its plain version."""
+    kvh = 4
+    cfg = LLAMA_7B.replace(num_hidden_layers=2, hidden_size=kvh * G * 256, intermediate_size=2048,
+                           num_attention_heads=kvh * G, num_key_value_heads=kvh,
+                           kv_cache_rope=rope_mode, **K9_MODES[mode])
+    assert MK.card_takes(cfg, b, 2048, torch.bfloat16) and MK._stem(256, G) == "megakernel_d256"
+    lens = [48, 0, 282, 511, 512, 513, 1024, 2000]
+    active = [True, True, False, True, True, True, True, True]
+    if b == 1:
+        lens, active = [1500], [True]
+    lg = _megakernel_against_plain(cfg, lens, active, torch.bfloat16, gen, 2048, exact=True)
+    assert lg.shape == (b, 1, cfg.vocab_size)
 
 
 @pytest.mark.parametrize("S", [16, 100, 256, 1100])
@@ -852,11 +879,11 @@ def test_flash_bwd_tensor_core_kernels(gen, D, G, causal, S, short):
 
 def test_flash_bwd_kernels_refuse_other_head_dims(gen):
     """Outside the built head dims and the padded rule (98: hd % 4 != 0;
-    132: above 128) K10 and K11 raise naming both; the padded rule's 96
-    launches."""
+    132 and 256: above 128, 256 being the forward's only) K10 and K11 raise
+    naming both; the padded rule's 96 launches."""
     lens = torch.full((1,), 64, dtype=torch.int32, device="cuda")
     lse = torch.zeros(1, 1, 1, 64, device="cuda")
-    for D in (98, 132, 96):
+    for D in (98, 132, 256, 96):
         q = torch.randn(1, 1, 64, D, device="cuda", generator=gen)
         k = torch.randn(1, 64, D, device="cuda", generator=gen)
         for fn in (FA._flash_bwd_dq, FA._flash_bwd_dkv):
@@ -906,17 +933,18 @@ def test_flash_kernels_at_the_new_head_dims(gen, D, dtype, G, causal, S):
 
 def test_flash_kernel_attributes(gen):
     """Every K4/K10/K11 kernel (bf16 tensor-core and f32 SIMT, head dims 16,
-    32, 64, 128, and the padded builds) compiles to at most 255 registers a
-    thread, spills nothing, and fits at least one block on an SM."""
+    32, 64, 128, and the padded builds; K4 at 256 too) compiles to at most
+    255 registers a thread, spills nothing, and fits at least one block on
+    an SM."""
     attrs = FA.kernel_attributes()
     assert set(attrs) == {FA._entry(stem, D) + suf for stem in
                           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
                           for D in FA.HEAD_DIMS for suf in ("", "_f32")} | {
         f"{stem}_dpad{suf}" for stem in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-        for suf in ("", "_f32")}
+        for suf in ("", "_f32")} | {"flash_fwd_d256", "flash_fwd_d256_f32"}
     for name, a in attrs.items():
         assert a["spill_bytes"] == 0 and a["registers"] <= 255, (name, a)
-        assert a["threads"] == (256 if name.endswith("_f32") else 128), (name, a)
+        assert a["threads"] == (256 if name.endswith(("_f32", "_d256")) else 128), (name, a)
         assert a["blocks_per_sm"] >= 1, (name, a)
 
 
@@ -1326,6 +1354,30 @@ def test_flash_fwd_kernel_padded_head_dims(gen, hd, dtype, S, causal):
     o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, causal)
     torch.cuda.synchronize()
     assert o.shape == (B, G, S, hd) and _close(o, o2) and torch.equal(o, o_again)
+    assert float((lse - lse2).abs().max()) < (1e-3 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [100, 1100, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("soft_bf16", [False, True])
+def test_flash_fwd_kernel_head_dim_256(gen, dtype, S, causal, G, soft_bf16):
+    """K4's D = 256 entry (bf16: 32-key tiles, Q's fragments read where used;
+    f32: the SIMT kernel) against its plain version within its gate,
+    lengths S, 1, one cut mid-tile and one a few short; the same bits
+    twice; K10/K11 refuse the head dim."""
+    B, D = 4, 256
+    q = torch.randn(B, G, S, D, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(B, S, D, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    lens = torch.tensor([S, 1, S // 2 + 3, S - 5], dtype=torch.int32, device="cuda")
+    n = FA._flash_fwd.launches
+    o, lse = FA._flash_fwd(q, k, v, lens, causal=causal, soft_bf16=soft_bf16)
+    o_again, _ = FA._flash_fwd(q, k, v, lens, causal=causal, soft_bf16=soft_bf16)
+    assert FA._flash_fwd.launches == n + 2
+    o2, lse2 = FA._flash_fwd_plain(q, k, v, lens, causal, soft_bf16)
+    torch.cuda.synchronize()
+    assert o.shape == (B, G, S, D) and _close(o, o2) and torch.equal(o, o_again)
     assert float((lse - lse2).abs().max()) < (1e-3 if dtype == torch.bfloat16 else 1e-5)
 
 

@@ -236,7 +236,7 @@ def test_gates_take_the_rule_and_name_it_outside():
         if 4 * hd % 128 == 0:                  # the products' 128-column tiles
             assert TMK.card_takes(cfg, 8, 2048, torch.float32), hd
         assert (TMK._stem(hd) == "megakernel_dpad") == (hd not in (64, 128))
-    for hd in (34, 30, 98, 132, 256):
+    for hd in (34, 30, 98, 132, 264):
         with pytest.raises(NotImplementedError, match=r"and every hd % 4 == 0 with 32 < hd <= 128"):
             TDA._check_kernel_shape("decode", q, 1, hd, 8)
         with pytest.raises(NotImplementedError, match=r"and every hd % 4 == 0 with 32 < hd <= 128"):

@@ -205,13 +205,15 @@ def test_stacked_decode_attention_plain_matches_jax_at_the_new_shapes(G, hd):
 def test_decode_gate_takes_the_built_shapes_and_names_them():
     """Every G of 1..16 at head dims 16, 32, 64 and 128 passes, and at the
     padded build's head dims (hd % 4 == 0, 32 < hd <= 128: 96 and 100
-    here); past that the gate raises and names the rule."""
+    here), and G = 1..4 at head dim 256; past that the gate raises and names
+    the rule."""
     q = torch.zeros(1, 1, dtype=torch.bfloat16)
     for G, hd in TDA._SHAPES + ((2, 96), (8, 100), (16, 100)):
         TDA._check_kernel_shape("decode", q, G, hd, 8)
     assert set(NEW_DECODE_SHAPES) <= set(TDA._SHAPES)
-    assert set(TDA._SHAPES) == {(g, hd) for g in range(1, 17) for hd in (16, 32, 64, 128)}
-    for G, hd in ((17, 64), (17, 128), (2, 98), (1, 8), (4, 256), (0, 64), (17, 100)):
+    assert set(TDA._SHAPES) == ({(g, hd) for g in range(1, 17) for hd in (16, 32, 64, 128)}
+                                | {(g, 256) for g in range(1, 5)})
+    for G, hd in ((17, 64), (17, 128), (2, 98), (1, 8), (5, 256), (0, 64), (17, 100)):
         with pytest.raises(NotImplementedError,
                            match=r"1 <= G <= 16 query heads per kv head at head dims "
                                  r"\(16, 32, 64, 128\)"):
@@ -279,13 +281,15 @@ PUBLIC_GQA = {
     "LLaMA-7B": (4096, 11008, 32, 32),
     "LLaMA-13B": (5120, 13824, 40, 40),
     "open_llama_3b": (3200, 8640, 32, 32),
+    "Falcon3-7B": (3072, 23040, 12, 4),
+    "Falcon3-1B": (2048, 8192, 8, 4),
 }
 
 
 # the GQA rows whose K9 routing the card must take at b = 8, S = 1024 and 2048
 CARD_MUST_TAKE = ("Meta-Llama-3-8B", "Llama-2-70B", "Llama-3.2-1B", "Llama-3.2-3B", "Yi-34B",
                   "Mistral-7B-v0.1", "SOLAR-10.7B", "Meta-Llama-3-70B", "Yi-6B", "llama-68m",
-                  "open_llama_3b")
+                  "open_llama_3b", "Falcon3-7B", "Falcon3-1B")
 
 
 @pytest.mark.parametrize("name", list(PUBLIC_GQA))
@@ -492,8 +496,8 @@ def test_flash_plain_matches_jax_kernels_at_the_new_head_dims(D, dt, causal):
 
 def test_flash_gate_takes_every_built_head_dim_in_both_types_and_names_them():
     """The forward and backward take head dims 16, 32, 64 and 128 and the
-    padded builds' (96 here); anything else raises naming the built set,
-    the backward too."""
+    padded builds' (96 here), the forward 256 too; anything else raises
+    naming the built set, the backward too."""
     assert TFA.HEAD_DIMS == (16, 32, 64, 128)
     for D in TFA.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
@@ -504,10 +508,12 @@ def test_flash_gate_takes_every_built_head_dim_in_both_types_and_names_them():
     TFA._check_built("flash_attention.cu", 96, (b, b, b))
     TFA._check_built("flash_attention_bwd.cu", 96, (b, b, b, b))
     TFA._check_built("flash_attention_bwd.cu", 96, (f, f, f, f))
+    TFA._check_built("flash_attention.cu", 256, (b, b, b))
+    TFA._check_built("flash_attention.cu", 256, (f, f, f))
     with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\) and every hd "
                                                   r"% 4 == 0 with 32 < hd <= 128 in f32 or bf16"):
         TFA._check_built("flash_attention_bwd.cu", 98, (b, b, b, b))
-    for D, ts in ((98, (b, b, b)), (8, (f, f, f)), (256, (b, b, b)), (64, (f, b, f)),
+    for D, ts in ((98, (b, b, b)), (8, (f, f, f)), (512, (b, b, b)), (64, (f, b, f)),
                   (32, (torch.zeros(1, dtype=torch.float16),) * 3)):
         with pytest.raises(NotImplementedError, match=r"head dims \(16, 32, 64, 128\)"):
             TFA._check_built("flash_attention.cu", D, ts)
